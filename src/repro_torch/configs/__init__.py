@@ -1,0 +1,10 @@
+"""Arch configs of the port (importing this package registers them)."""
+from repro_torch.configs import (  # noqa: F401
+    internlm2_1p8b,
+    qwen2_72b,
+)
+
+PORTED_ARCHS = (
+    "internlm2-1.8b",
+    "qwen2-72b",
+)

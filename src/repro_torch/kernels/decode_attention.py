@@ -1,0 +1,69 @@
+"""Decode attention: the CUDA kernel ``csrc/decode_attention.cu`` and its
+plain version.
+
+Replaces ``src/repro/kernels/decode_attention.py::decode_attention`` of the
+JAX package. A tensor on the CPU goes to the plain version
+(``ref.decode_attention_ref``); a CUDA tensor goes to the kernel, or the
+call raises. Any ``skv`` is taken; head_dim must be 16, 32, 64 or 128 and
+``hq / hkv`` 1, 2, 4 or 8.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels._build import (check_operand, dtype_code,
+                                        register_kernel, stream_handle)
+from repro_torch.kernels.ref import decode_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = register_kernel(
+    "decode_attention", "repro_decode_attention",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P])
+
+
+def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          length: torch.Tensor, *, scale: Optional[float] = None
+          ) -> torch.Tensor:
+    return decode_attention_ref(q, k, v, length, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: torch.Tensor, *, scale: Optional[float] = None
+                     ) -> torch.Tensor:
+    """q: (b, hq, d); k, v: (b, skv, hkv, d); length: (b,) int32 valid
+    cache rows -> (b, hq, d)."""
+    if q.device.type == "cpu":
+        return plain(q, k, v, length, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    check_operand("q", q, q.device, 3)
+    check_operand("k", k, q.device, 4, q.dtype)
+    check_operand("v", v, q.device, 4, q.dtype)
+    check_operand("length", length, q.device, 1, torch.int32)
+    b, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d \
+            or length.shape[0] != b:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, length {tuple(length.shape)} "
+                         "do not fit")
+    if hkv == 0 or hq % hkv or hq // hkv not in GROUPS:
+        raise ValueError(f"hq / hkv = {hq}/{hkv} not in {GROUPS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if skv == 0:
+        raise ValueError("decode_attention needs skv >= 1")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+           out.data_ptr(), b, skv, hq, hkv, d, float(scale), dtype_code(q),
+           stream_handle(q.device))
+    return out

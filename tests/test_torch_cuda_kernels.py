@@ -1,0 +1,128 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card. Every test here is marked ``gpu`` and skips where there is no CUDA
+device; the file imports no JAX, so it runs on a machine without it:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as trmsnorm
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# bf16: kernel and plain version both compute in fp32 and round once, so
+# they differ by about one bf16 ulp (2^-8 relative). fp32: the sums run in
+# another order than the plain version's einsum.
+GPU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("rows,d", [(1, 64), (333, 2048), (7, 100)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, lowp, rows, d):
+    x = _randn((rows, d), dtype, cuda, 0)
+    w = _randn((d,), torch.float32, cuda, 1)
+    out = trmsnorm.rmsnorm(x, w, 1e-5, lowp=lowp)
+    torch.cuda.synchronize()
+    want = trmsnorm.plain(x, w, 1e-5, lowp)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,hq,hkv,d", [
+    (1, 333, 16, 8, 128), (2, 64, 4, 4, 64), (1, 77, 4, 2, 16),
+    (2, 130, 4, 1, 32)])
+def test_flash_kernel_matches_plain(cuda, dtype, causal, b, sq, hq, hkv, d):
+    q = _randn((b, sq, hq, d), dtype, cuda, 0)
+    k = _randn((b, sq, hkv, d), dtype, cuda, 1)
+    v = _randn((b, sq, hkv, d), dtype, cuda, 2)
+    out = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tflash.plain(q, k, v, causal=causal)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,skv,hq,hkv,d", [
+    (4, 741, 16, 8, 128), (3, 256, 4, 4, 64), (2, 50, 4, 2, 16),
+    (2, 300, 8, 1, 32)])
+def test_decode_kernel_matches_plain(cuda, dtype, b, skv, hq, hkv, d):
+    q = _randn((b, hq, d), dtype, cuda, 0)
+    k = _randn((b, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((b, skv, hkv, d), dtype, cuda, 2)
+    length = torch.tensor([1, skv, skv // 3, 0][:b], dtype=torch.int32,
+                          device=cuda)
+    out = tdecode.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    want = tdecode.plain(q, k, v, length)
+    want = torch.where(length[:, None, None] == 0, 0.0, want.float())
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_reads_no_row_past_length(cuda):
+    q = _randn((2, 4, 64), torch.float32, cuda, 0)
+    k = _randn((2, 128, 2, 64), torch.float32, cuda, 1)
+    v = _randn((2, 128, 2, 64), torch.float32, cuda, 2)
+    length = torch.tensor([50, 100], dtype=torch.int32, device=cuda)
+    out1 = tdecode.decode_attention(q, k, v, length)
+    k[:, 100:] = float("nan")
+    v[:, 100:] = float("nan")
+    out2 = tdecode.decode_attention(q, k, v, length)
+    torch.testing.assert_close(out1, out2, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_with_kv_len_raises(cuda):
+    q = torch.zeros((1, 4, 2, 16), device=cuda)
+    with pytest.raises(NotImplementedError):
+        ops.attention(q, q, q, kv_len=torch.tensor([2], device=cuda))
+
+
+@pytest.mark.gpu
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """The smoke-size fp32 model through the kernels (d=16, hq/hkv=2)
+    against the same weights on the CPU (plain versions)."""
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(get_config("internlm2-1.8b")).replace(dtype="float32")
+    cpu = torch.device("cpu")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), cpu)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    want, caches = lm.prefill(params, cfg, {"tokens": toks}, max_len=48)
+    got, gcaches = lm.prefill(on_card, cfg, {"tokens": toks.to(cuda)},
+                              max_len=48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    pos = torch.tensor([37, 30], dtype=torch.int32)
+    nxt = toks[:, -1:]
+    want, _ = lm.decode_step(params, cfg, nxt, caches, pos)
+    got, _ = lm.decode_step(on_card, cfg, nxt.to(cuda), gcaches, pos.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert min(ops.launch_counts().values()) > 0

@@ -1,0 +1,210 @@
+"""The port's kernels against the JAX package's, on the same inputs.
+
+CPU tests hold each plain PyTorch version (what a kernel wrapper runs for
+a CPU tensor) against the JAX package's Pallas kernel in interpret mode and
+its jnp oracle, at the tolerances of ``tests/test_kernels_*.py``. The CUDA
+kernels themselves are held against their plain versions on the card by
+``tests/test_torch_cuda_kernels.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jdecode
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
+from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trmsnorm
+
+F32_ATTN_TOL = 2e-6     # tests/test_kernels_attention.py, fp32
+NORM_TOL = 1e-5         # tests/test_kernels_quant_norm.py
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(2, 37, 128), (5, 64), (1, 1, 64)])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_rmsnorm_plain_matches_jax(shape, lowp, rng):
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape[-1]).astype(np.float32)
+    out = trmsnorm.rmsnorm(_t(x), _t(w), 1e-5, lowp=lowp)
+    jfn = jref.rmsnorm_lowp if lowp else jref.rmsnorm_ref
+    oracle = jfn(jnp.asarray(x), jnp.asarray(w), 1e-5)
+    np.testing.assert_allclose(_np(out), _np(oracle), rtol=NORM_TOL,
+                               atol=NORM_TOL)
+    # the Pallas kernel computes fp32 statistics and drops lowp, which is
+    # the same function in fp32
+    pallas = jrmsnorm(jnp.asarray(x), jnp.asarray(w), eps=1e-5,
+                      block_rows=16, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=NORM_TOL,
+                               atol=NORM_TOL)
+
+
+def test_rmsnorm_lowp_bf16_matches_jax(rng):
+    """bf16 lowp rounds inv and both products to bf16 in both packages."""
+    x = rng.standard_normal((4, 64)).astype(np.float32)
+    w = rng.standard_normal(64).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    oracle = jref.rmsnorm_lowp(xb, jnp.asarray(w))
+    out = tref.rmsnorm_lowp(_t(np.asarray(xb.astype(jnp.float32))).to(
+        torch.bfloat16), _t(w))
+    np.testing.assert_allclose(_np(out), _np(oracle.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# Flash (prefill) attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+def test_flash_plain_matches_jax(causal, hq, hkv, rng):
+    b, s, d = 2, 128, 32
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    out = tflash.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    pallas = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, block_q=64, block_k=64, interpret=True)
+    oracle = jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(out), _np(want), rtol=F32_ATTN_TOL,
+                                   atol=F32_ATTN_TOL)
+
+
+def test_attention_ref_offset_and_kv_len_match_jax(rng):
+    b, sq, skv, hq, hkv, d = 2, 8, 24, 4, 2, 16
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    kv_len = np.array([20, 13], np.int32)
+    out = ops.attention(_t(q), _t(k), _t(v), causal=True, q_offset=12,
+                        kv_len=_t(kv_len))
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, q_offset=12,
+                              kv_len=jnp.asarray(kv_len))
+    np.testing.assert_allclose(_np(out), _np(want), rtol=F32_ATTN_TOL,
+                               atol=F32_ATTN_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_chunked_matches_jax(causal, dtype, rng):
+    b, s, hq, hkv, d = 1, 64, 4, 2, 16
+    q = jnp.asarray(rng.standard_normal((b, s, hq, d)), dtype)
+    k = jnp.asarray(rng.standard_normal((b, s, hkv, d)), dtype)
+    v = jnp.asarray(rng.standard_normal((b, s, hkv, d)), dtype)
+    want = jref.attention_chunked(q, k, v, causal=causal, chunk=16)
+    tt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    out = tref.attention_chunked(
+        *(_t(np.asarray(a.astype(jnp.float32))).to(tt) for a in (q, k, v)),
+        causal=causal, chunk=16)
+    tol = F32_ATTN_TOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(out), _np(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_ops_attention_chunked_impls_match_ref(rng):
+    b, s, hq, hkv, d = 1, 32, 4, 2, 16
+    q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)) for sh in
+               ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    base = ops.attention(q, k, v)
+    for impl in ("chunked", "chunked_kvrep"):
+        out = ops.attention(q, k, v, impl=impl, chunk=8)
+        np.testing.assert_allclose(out.numpy(), base.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("skv,hq,hkv,d", [(256, 4, 4, 64), (256, 4, 2, 32)])
+def test_decode_plain_matches_jax(skv, hq, hkv, d, rng):
+    b = 4
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    length = np.array([1, skv, 100, 37], np.int32)
+    out = tdecode.decode_attention(_t(q), _t(k), _t(v), _t(length))
+    pallas = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(length), block_k=128, interpret=True)
+    oracle = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(length))
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(out), _np(want), rtol=F32_ATTN_TOL,
+                                   atol=F32_ATTN_TOL)
+
+
+def test_decode_plain_ignores_rows_past_length(rng):
+    b, skv, hkv, hq, d = 2, 64, 2, 4, 16
+    q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)) for sh in
+               ((b, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    length = torch.tensor([20, 40], dtype=torch.int32)
+    out1 = tdecode.decode_attention(q, k, v, length)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 40:] = 999.0
+    v2[:, 40:] = -999.0
+    np.testing.assert_array_equal(
+        out1.numpy(), tdecode.decode_attention(q, k2, v2, length).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_lowcast_matches_jax(dtype, rng):
+    b, skv, hq, hkv, d = 3, 48, 4, 2, 16
+    q = jnp.asarray(rng.standard_normal((b, hq, d)), jnp.float32)
+    k = jnp.asarray(rng.standard_normal((b, skv, hkv, d)), dtype)
+    v = jnp.asarray(rng.standard_normal((b, skv, hkv, d)), dtype)
+    length = np.array([5, 48, 17], np.int32)
+    want = jref.decode_attention_lowcast(q, k, v, jnp.asarray(length))
+    tt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    out = ops.decode_attention(
+        _t(np.asarray(q)), _t(np.asarray(k.astype(jnp.float32))).to(tt),
+        _t(np.asarray(v.astype(jnp.float32))).to(tt), _t(length),
+        impl="chunked")
+    np.testing.assert_allclose(_np(out), _np(want), rtol=F32_ATTN_TOL,
+                               atol=F32_ATTN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# int8 quantization
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("axis", [-1, -2, 0])
+def test_quantize_int8_matches_jax(axis, rng):
+    x = rng.standard_normal((6, 5, 8)).astype(np.float32)
+    x[1] = 0.0   # an all-zero slab takes scale 1
+    q, s = ops.quantize_int8(_t(x), axis=axis)
+    jq, js = jref.quantize_int8(jnp.asarray(x), axis=axis)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: no quiet fallback.
+# ---------------------------------------------------------------------------
+def test_cpu_calls_launch_no_kernel(rng):
+    ops.reset_launches()
+    x = _t(rng.standard_normal((3, 64)).astype(np.float32))
+    ops.rmsnorm(x, torch.ones(64))
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
+                                   "decode_attention": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        trmsnorm.rmsnorm(x, torch.ones(16, device="meta"))
