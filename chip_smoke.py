@@ -10,22 +10,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. ``build``    nvcc builds ``src/repro_torch/csrc/*.cu`` for sm_90a; build
                 time and each kernel's registers/spills from ``-Xptxas -v``.
 3. ``kernels``  each hand-written kernel against its plain PyTorch version
-                on the card, at the serving path's full-width shapes, in
-                bf16 and fp32: max error, kernel time, plain-version time,
-                the time of the nearest PyTorch library call, and the bound
-                (the least time the card could take for the same work).
-4. ``serve``    full-width internlm2-1.8b in bf16 with random weights,
-                8 requests through ``repro_torch.launch.serve.serve``; every
-                kernel's launch count is reset just before and read just
-                after, and must be above 0.
-5. ``profile``  one prefill and a few decode ticks of the same model:
+                on the card, at the full-width shapes each serving path
+                gives it (rmsnorm at both models' widths), in bf16 and
+                fp32: max error, kernel time, plain-version time, the time
+                of the nearest PyTorch library call, and the bound (the
+                least time the card could take for the same work).
+                ``int8_matmul`` has no model call site; this phase is its
+                path, and its launches here are the ones reported.
+4. ``serve``    two paths, each full width in bf16 with random weights,
+                8 requests through ``repro_torch.launch.serve.serve``:
+                internlm2-1.8b (rmsnorm, flash and decode attention) and
+                mamba2-130m (rmsnorm, ssd_scan). Every kernel's launch count
+                is reset just before each and read just after; the path's
+                own kernels must have launched, the others not.
+5. ``profile``  one prefill and a few decode ticks of each model:
                 host time per step, then under torch.profiler the kernels'
                 device time per step and the device's idle share.
-6. ``parity``   the same model in fp32 at cut depth, on the card (kernels)
+6. ``parity``   each model in fp32 at cut depth, on the card (kernels)
                 and on the CPU (plain versions): prefill and per-slot decode
                 logits must agree.
 
-Then the summary line of kernels, the nvidia-smi line, and the result line
+Then the summary line of kernels (one row per kernel and path: a kernel
+two paths run, rmsnorm, has a row for each, with that path's launches and
+its case at that path's shape), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -48,7 +55,9 @@ from repro_torch.config import ServeConfig, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import int8_matmul as kint8  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.serving.batcher import ContinuousBatcher  # noqa: E402
@@ -65,16 +74,34 @@ MAX_LEN = max(PROMPT_LENS) + NEW_TOKENS + 8
 PARITY_LAYERS = 2
 PARITY_SIDES = {"card": "cuda", "cpu": "cpu"}   # side -> device
 
+MAMBA_ARCH = "mamba2-130m"
+# Each <= 256 (the SSD chunk: one ragged chunk) or a multiple of it (the
+# state carried across chunks), as the JAX contract asks.
+MAMBA_PROMPT_LENS = [512, 129, 1024, 256, 200, 768, 101, 255]
+MAMBA_PARITY_PROMPTS = (77, 200)
+# Kernels each model's path runs; every other kernel must stay at 0.
+PATH_KERNELS = {ARCH: ("rmsnorm", "flash_attention", "decode_attention"),
+                MAMBA_ARCH: ("rmsnorm", "ssd_scan")}
+# int8_matmul has no model call site: the kernels phase is its path.
+KERNELS_PHASE = "kernels phase"
+
 # H100 SXM data sheet (dense): HBM rate and peak arithmetic rates by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12,   # tensor cores
-            torch.float32: 67e12}     # fp32 outside the tensor cores
+            torch.float32: 67e12,     # fp32 outside the tensor cores
+            torch.int8: 1979e12}      # int8 tensor cores
 
 # Kernel vs plain version on the card. bf16: both compute in fp32 and round
 # the output once, so they differ by about one bf16 ulp (2^-8 relative).
 # fp32: the kernel sums in another order than the plain version's einsum
 # (and on the CPU the tests hold the plain version to 2e-6).
 KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# ssd_scan: the kernel's 64-step tiles against the plain version's chunk of
+# 256 (chunk-invariant math, fp32 sums in another order): fp32 y and the
+# fp32 state at tests/test_kernels_ssd.py's 2e-4; bf16 y at one ulp.
+SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# int8_matmul: exact int32 sums and the same fp32 epilogue: bit for bit.
+INT8_TOL = 0.0
 # Logits of the fp32 model, card (kernels, cuBLAS) vs CPU (plain versions):
 # 2048- and 8192-long fp32 sums in other orders, through two layers.
 PARITY_TOL = 1e-3
@@ -86,6 +113,10 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:78"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:69"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:73"),
+    "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
+                    "src/repro/kernels/int8_matmul.py:43"),
 }
 
 
@@ -153,11 +184,13 @@ def bound(nbytes: float, nops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(out: torch.Tensor, want: torch.Tensor, dtype) -> float:
-    """Max abs error; raises past atol = rtol = KERNEL_TOL[dtype]."""
+def max_err(out: torch.Tensor, want: torch.Tensor, dtype,
+            tol: float | None = None) -> float:
+    """Max abs error; raises past atol = rtol = ``tol`` (default
+    KERNEL_TOL[dtype])."""
     out, want = out.float(), want.float()
     err = (out - want).abs()
-    tol = KERNEL_TOL[dtype]
+    tol = KERNEL_TOL[dtype] if tol is None else tol
     if not torch.isfinite(out).all() or bool((err > tol + tol * want.abs())
                                              .any()):
         raise AssertionError(f"kernel disagrees with plain version: max abs "
@@ -204,7 +237,8 @@ def _ptxas_summary(lines):
         used = re.search(r"Used (\d+) registers", ln)
         if used and name:
             kern = re.search(r"(rmsnorm_kernel|flash_fwd_kernel|"
-                             r"decode_kernel)", name)
+                             r"decode_kernel|ssd_scan_kernel|"
+                             r"int8_matmul_kernel)", name)
             dt = "bf16" if "bfloat16" in name else "f32"
             args = ",".join([dt, *re.findall(r"Li(\d+)E", name)])
             out.append(f"{kern.group(1) if kern else name}<{args}>: "
@@ -221,11 +255,11 @@ def phase_build() -> None:
           "library": os.path.relpath(info.path), "entries": len(ptxas),
           "spills": spills,
           "main_path": [p for p in ptxas if "bf16,128" in p
-                        or ("rmsnorm" in p and "bf16" in p)]})
+                        or ("rmsnorm" in p and "bf16" in p)
+                        or "ssd_scan" in p or "int8_matmul" in p]})
 
 
-def _rmsnorm_case(rows, dtype, lowp, seed=0):
-    d = 2048
+def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
     x, w = randn((rows, d), dtype, seed), randn((d,), torch.float32, seed + 1)
     out = krms.rmsnorm(x, w, 1e-5, lowp=lowp)
     torch.cuda.synchronize()
@@ -233,7 +267,8 @@ def _rmsnorm_case(rows, dtype, lowp, seed=0):
     wl = w.to(dtype)
     e = x.element_size()
     b_ms, by = bound(2 * rows * d * e + 4 * d, 4 * rows * d, torch.float32)
-    return {"kernel": "rmsnorm", "shape": [rows, d], "dtype": str(dtype),
+    return {"kernel": "rmsnorm", "path": path, "shape": [rows, d],
+            "dtype": str(dtype),
             "lowp": lowp, "max_abs_err": err,
             "ms": time_ms(lambda: krms.rmsnorm(x, w, 1e-5, lowp=lowp)),
             "eager_ms": eager_ms(lambda: krms.rmsnorm(x, w, 1e-5, lowp=lowp)),
@@ -255,7 +290,8 @@ def _flash_case(sq, dtype, seed=0):
     pairs = sq * (sq + 1) // 2          # causal (query, key) pairs
     b_ms, by = bound(e * (2 * b * sq * hq * d + 2 * b * sq * hkv * d),
                      4 * b * hq * d * pairs, dtype)
-    return {"kernel": "flash_attention", "shape": [b, sq, hq, hkv, d],
+    return {"kernel": "flash_attention", "path": ARCH,
+            "shape": [b, sq, hq, hkv, d],
             "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: kflash.flash_attention(q, k, v)),
             "eager_ms": eager_ms(lambda: kflash.flash_attention(q, k, v)),
@@ -281,7 +317,8 @@ def _decode_case(dtype, seed=0):
     e = q.element_size()
     b_ms, by = bound(e * (2 * b * hq * d + 2 * sum(lengths) * hkv * d)
                      + 4 * b, 4 * sum(lengths) * hq * d, dtype)
-    return {"kernel": "decode_attention", "shape": [b, skv, hq, hkv, d],
+    return {"kernel": "decode_attention", "path": ARCH,
+            "shape": [b, skv, hq, hkv, d],
             "lengths": lengths, "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: kdec.decode_attention(q, k, v, length)),
             "eager_ms": eager_ms(
@@ -292,55 +329,163 @@ def _decode_case(dtype, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
+def _ssd_case(s, dtype, seed=0):
+    """One SSD layer of mamba2-130m at batch 1 and ``s`` steps."""
+    b, h, p, n, chunk = 1, 24, 64, 128, 256
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
+    dt = 0.01 + 0.29 * torch.rand((b, s, h), generator=g, device="cuda")
+    A = -(0.3 + 1.7 * torch.rand((h,), generator=g, device="cuda"))
+    B = torch.randn((b, s, n), generator=g, device="cuda").to(dtype)
+    C = torch.randn((b, s, n), generator=g, device="cuda").to(dtype)
+    D = torch.randn((h,), generator=g, device="cuda")
+    args = (x, dt, A, B, C, D)
+    y, st = kssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want_y, want_st = kssd.plain(*args, chunk=chunk)
+    err = max(max_err(y, want_y, dtype, SSD_TOL[dtype]),
+              max_err(st, want_st, torch.float32, SSD_TOL[torch.float32]))
+    e = x.element_size()
+    # Work of the chunked algorithm at the model's chunk, causal pairs only:
+    # C.B^T once per batch and chunk (shared by the heads), then per head
+    # M.(dt x), the read of the carried state and its update.
+    q = min(chunk, s)
+    nc, pairs = s // q, q * (q + 1) // 2
+    nops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * q * n * p))
+    nbytes = (e * (2 * b * s * h * p + 2 * b * s * n) + 4 * b * s * h
+              + 8 * h + 4 * b * h * p * n)
+    b_ms, by = bound(nbytes, nops, dtype)
+    return {"kernel": "ssd_scan", "path": MAMBA_ARCH,
+            "shape": [b, s, h, p, n], "chunk": chunk,
+            "dtype": str(dtype), "max_abs_err": err,
+            "ms": time_ms(lambda: kssd.ssd_scan(*args, chunk=chunk)),
+            "eager_ms": eager_ms(lambda: kssd.ssd_scan(*args, chunk=chunk)),
+            "plain_ms": time_ms(lambda: kssd.plain(*args, chunk=chunk), 5),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD scan",
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def _int8_case(m, k, n, out_dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((m,), generator=g, device="cuda") / 127
+    sw = torch.rand((n,), generator=g, device="cuda") / 127
+    before = kint8.KERNEL.launches
+    out = kint8.int8_matmul(xq, sx, wq, sw, out_dtype)
+    torch.cuda.synchronize()
+    launches = kint8.KERNEL.launches - before
+    err = max_err(out, kint8.plain(xq, sx, wq, sw, out_dtype), out_dtype,
+                  INT8_TOL)
+
+    def library():      # timed only: the port never calls torch._int_mm
+        acc = torch._int_mm(xq, wq)
+        return (acc.float() * sx[:, None] * sw[None, :]).to(out_dtype)
+    b_ms, by = bound(m * k + k * n + 4 * (m + n) + m * n * out.element_size(),
+                     2 * m * k * n, torch.int8)
+    return {"kernel": "int8_matmul", "path": KERNELS_PHASE,
+            "shape": [m, k, n],
+            "dtype": str(out_dtype), "max_abs_err": err,
+            "checked_launches": launches,
+            "ms": time_ms(lambda: kint8.int8_matmul(xq, sx, wq, sw,
+                                                    out_dtype)),
+            "eager_ms": eager_ms(lambda: kint8.int8_matmul(xq, sx, wq, sw,
+                                                           out_dtype)),
+            "plain_ms": time_ms(lambda: kint8.plain(xq, sx, wq, sw,
+                                                    out_dtype), 5),
+            "library_ms": time_ms(library),
+            "library_call": "torch._int_mm, then the scales",
+            "bound_ms": b_ms, "bound_by": by}
+
+
 def phase_kernels() -> dict:
-    """Returns the bf16 case at the main path's shape for each kernel."""
+    """Returns, for each (kernel, path), the first bf16 case: the shape
+    that path gives the kernel (int8_matmul: the JAX benchmark's shape, in
+    fp32 as the JAX kernel's default output). int8_matmul's ``launches``
+    are its checked calls here: no model path calls it."""
+    d_model = {a: get_config(a).d_model for a in PATH_KERNELS}
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for lowp in (False, True):
-            cases.append(_rmsnorm_case(PROMPT_LENS[0], dtype, lowp))
-        cases.append(_rmsnorm_case(SLOTS, dtype, False))
+        # rmsnorm at each path's width: one prefill (internlm2: 333 tokens,
+        # mamba2: 512) and one decode tick of SLOTS rows, lowp off first
+        # as both configs run it.
+        for arch, rows in ((ARCH, PROMPT_LENS[0]), (MAMBA_ARCH, 512)):
+            for r in (rows, SLOTS):
+                for lowp in (False, True):
+                    cases.append(_rmsnorm_case(arch, r, d_model[arch],
+                                               dtype, lowp))
         for sq in (PROMPT_LENS[0], 512):
             cases.append(_flash_case(sq, dtype))
         cases.append(_decode_case(dtype))
-    emit({"phase": "kernels", "tolerance": {"bfloat16": KERNEL_TOL[
-        torch.bfloat16], "float32": KERNEL_TOL[torch.float32]},
-        "cases": cases})
-    # bf16 is the serving dtype; the first case of each kernel in bf16 is
-    # the shape the main path gives it (one prompt of PROMPT_LENS[0] tokens,
-    # lowp off as in the config; decode at SLOTS slots and MAX_LEN).
+        for s in (512, 129):
+            cases.append(_ssd_case(s, dtype))
+    for m, k, n in ((512, 1024, 512), (333, 2048, 8192)):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            cases.append(_int8_case(m, k, n, out_dtype))
+    emit({"phase": "kernels", "tolerance": {
+        "bfloat16": KERNEL_TOL[torch.bfloat16],
+        "float32": KERNEL_TOL[torch.float32],
+        "ssd_scan": {"bfloat16": SSD_TOL[torch.bfloat16],
+                     "float32": SSD_TOL[torch.float32]},
+        "int8_matmul": INT8_TOL}, "cases": cases})
+    # bf16 is the serving dtype; the first bf16 case of each (kernel, path)
+    # is the shape that path gives it (one prompt of PROMPT_LENS[0] tokens
+    # or one 512-token mamba2 prefill, lowp off as in the configs; decode
+    # at SLOTS slots and MAX_LEN).
     head = {}
     for c in cases:
-        head.setdefault(c["kernel"], c)
+        head.setdefault((c["kernel"], c["path"]), c)
+    head["int8_matmul", KERNELS_PHASE]["launches"] = sum(
+        c["checked_launches"] for c in cases if c["kernel"] == "int8_matmul")
     return head
 
 
-def phase_serve(smi: str) -> dict:
-    cfg = get_config(ARCH)
+def phase_serve(smi: str, arch: str, prompt_lens) -> dict:
+    """Serve ``prompt_lens`` through the launcher; the path's own kernels
+    must launch and the other model kernels must not."""
+    cfg = get_config(arch)
     # Warm-up (cuBLAS handles, allocator), then the measured run.
-    serve(cfg, [PROMPT_LENS[0]], max_new_tokens=2, slots=SLOTS, seed=0)
+    serve(cfg, [prompt_lens[0]], max_new_tokens=2, slots=SLOTS, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    rep = serve(cfg, PROMPT_LENS, max_new_tokens=NEW_TOKENS, slots=SLOTS,
+    rep = serve(cfg, prompt_lens, max_new_tokens=NEW_TOKENS, slots=SLOTS,
                 seed=0)
     launches = ops.launch_counts()
-    if rep["served"] != len(PROMPT_LENS):
-        raise AssertionError(f"served {rep['served']} of {len(PROMPT_LENS)}")
-    if rep["tokens_generated"] != len(PROMPT_LENS) * NEW_TOKENS:
+    if rep["served"] != len(prompt_lens):
+        raise AssertionError(f"served {rep['served']} of {len(prompt_lens)}")
+    if rep["tokens_generated"] != len(prompt_lens) * NEW_TOKENS:
         raise AssertionError(f"generated {rep['tokens_generated']} tokens")
     if not all(0 <= t < cfg.vocab_size for t in rep["sample_output"]):
         raise AssertionError(f"token ids out of range: {rep['sample_output']}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the path: {missing}")
-    emit({"phase": "serve", "arch": ARCH, "dtype": cfg.dtype,
-          "prompt_lens": PROMPT_LENS, "new_tokens": NEW_TOKENS,
+    _check_path_launches(arch, launches)
+    n_mamba = sum(k == "mamba" for k in cfg.layer_kinds())
+    if launches["ssd_scan"] != len(prompt_lens) * n_mamba:
+        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} "
+                             f"times, not once per prefill and Mamba layer")
+    emit({"phase": "serve", "arch": arch, "dtype": cfg.dtype,
+          "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
           "slots": SLOTS, "served": rep["served"], "ticks": rep["ticks"],
           "tokens_generated": rep["tokens_generated"],
           "tokens_per_s": rep["tokens_per_s"], "wall_s": rep["wall_s"],
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "kernel_launches": launches, "nvidia_smi": smi})
     return launches
+
+
+def _check_path_launches(arch: str, launches: dict) -> None:
+    own = PATH_KERNELS[arch]
+    missing = [k for k in own if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{arch}: kernels never launched on the path: "
+                             f"{missing}")
+    stray = [k for k, n in launches.items() if k not in own and n]
+    if stray:
+        raise AssertionError(f"{arch}: kernels of another path launched: "
+                             f"{stray}")
 
 
 def _device_busy_us(events):
@@ -354,29 +499,31 @@ def _device_busy_us(events):
     return busy
 
 
-def phase_profile(ticks: int = 8) -> None:
-    """Where the time of the serving path goes: one prefill and ``ticks``
-    decode ticks of a full batch, timed without the profiler (host clock
-    around work that ends in a synchronize), then again under
-    torch.profiler for the kernels' device time and the device's idle
-    share."""
+def phase_profile(arch: str, prompt_lens, prefill_len: int,
+                  ticks: int = 8) -> None:
+    """Where the time of a serving path goes: one prefill of
+    ``prefill_len`` tokens and ``ticks`` decode ticks of a full batch,
+    timed without the profiler (host clock around work that ends in a
+    synchronize), then again under torch.profiler for the kernels' device
+    time and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config(ARCH)
-    eng = ServingEngine(cfg, ServeConfig(max_seq_len=MAX_LEN))
+    cfg = get_config(arch)
+    max_len = max(prompt_lens) + NEW_TOKENS + 8
+    eng = ServingEngine(cfg, ServeConfig(max_seq_len=max_len))
     eng.init_random(0)
     bat = ContinuousBatcher(eng, slots=SLOTS)
     rng = np.random.default_rng(0)
-    for n in PROMPT_LENS[:SLOTS + 1]:
+    for n in prompt_lens[:SLOTS]:
         bat.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                    max_new_tokens=4 * ticks)
     bat.step()                      # admits SLOTS requests, first decode
     for _ in range(2):
         bat.step()
     torch.cuda.synchronize()
-    prompt = torch.as_tensor(bat.queue[0].prompt[None], dtype=torch.long,
-                             device="cuda")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, prefill_len)
+                             [None], dtype=torch.long, device="cuda")
 
     def prefill():
         eng.prefill_fn(eng.params, {"tokens": prompt})
@@ -385,9 +532,10 @@ def phase_profile(ticks: int = 8) -> None:
         for _ in range(ticks):
             bat.step()
 
-    out = {"phase": "profile", "arch": ARCH, "dtype": cfg.dtype,
-           "prefill_tokens": int(prompt.shape[1]), "slots": SLOTS,
-           "ticks": ticks}
+    prefill()                       # warm this prompt length
+    torch.cuda.synchronize()
+    out = {"phase": "profile", "arch": arch, "dtype": cfg.dtype,
+           "prefill_tokens": prefill_len, "slots": SLOTS, "ticks": ticks}
     for name, run, n in (("prefill", prefill, 1), ("decode", decode, ticks)):
         t0 = time.perf_counter()
         run()
@@ -416,18 +564,18 @@ def phase_profile(ticks: int = 8) -> None:
     del eng, bat
 
 
-def phase_parity() -> None:
+def phase_parity(arch: str, prompt_lens) -> None:
     """fp32 logits on the card (kernels) vs the CPU (plain versions):
     prefill of two prompts at batch 1, their caches copied into a batch of
     two slots, then three per-slot decode steps, as the batcher runs them.
     Both sides are fed the CPU side's greedy tokens."""
-    cfg = get_config(ARCH).replace(dtype="float32",
+    cfg = get_config(arch).replace(dtype="float32",
                                    num_layers=PARITY_LAYERS)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.device("cpu"))
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (77, 45)]
-    max_len = 128
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens]
+    max_len = max(128, max(prompt_lens) + 8)
     engines, caches = {}, {}
     for side, dev in PARITY_SIDES.items():
         engines[side] = ServingEngine(cfg, ServeConfig(max_seq_len=max_len),
@@ -443,8 +591,8 @@ def phase_parity() -> None:
             toks = torch.as_tensor(p[None], device=eng.device)
             lg[side], c1 = eng.prefill_fn(eng.params, {"tokens": toks})
             for big, small in zip(caches[side], c1):
-                big["k"][slot].copy_(small["k"][0])
-                big["v"][slot].copy_(small["v"][0])
+                for name, leaf in big.items():
+                    leaf[slot].copy_(small[name][0])
         errs.append(_logit_err(lg))
         nxt.append(int(torch.argmax(lg["cpu"][0])))
     pos = np.array([len(p) for p in prompts])
@@ -459,10 +607,9 @@ def phase_parity() -> None:
         nxt = torch.argmax(lg["cpu"], dim=-1).tolist()
         pos = pos + 1
     launches = ops.launch_counts()
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"parity run missed a kernel: {launches}")
-    emit({"phase": "parity", "arch": ARCH, "dtype": "float32",
-          "layers": PARITY_LAYERS, "prompt_lens": [len(p) for p in prompts],
+    _check_path_launches(arch, launches)
+    emit({"phase": "parity", "arch": arch, "dtype": "float32",
+          "layers": PARITY_LAYERS, "prompt_lens": list(prompt_lens),
           "decode_steps": 3, "tolerance": PARITY_TOL,
           "max_abs_err_per_step": errs, "kernel_launches": launches})
 
@@ -483,18 +630,32 @@ def main() -> None:
     dev = phase_device()
     phase_build()
     head = phase_kernels()
-    launches = phase_serve(dev["nvidia_smi"])
-    phase_profile()
-    phase_parity()
+    served = {arch: phase_serve(dev["nvidia_smi"], arch, lens)
+              for arch, lens in ((ARCH, PROMPT_LENS),
+                                 (MAMBA_ARCH, MAMBA_PROMPT_LENS))}
+    phase_profile(ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
+    phase_profile(MAMBA_ARCH, MAMBA_PROMPT_LENS, 512)
+    phase_parity(ARCH, (77, 45))
+    phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
+    # One row per kernel and path: its launches from that path's own serve
+    # run (reset to 0 just before it), next to its case at that path's shape.
     kernels = []
-    for name, c in head.items():
+    for (name, path), c in head.items():
         source, replaces = SOURCES[name]
+        if path == KERNELS_PHASE:
+            launches = c["launches"]
+            origin = "kernels phase (no model path)"
+        else:
+            launches, origin = served[path][name], f"serve {path}"
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "path": path, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_from": origin, "shape": c["shape"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            **({"library_note": c["library_note"]}
+               if "library_note" in c else {})})
     emit({"kernels": kernels, "seconds": time.monotonic() - t0})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -1,8 +1,9 @@
 """PyTorch port of the ``repro`` serving stack for NVIDIA Hopper (sm_90a).
 
-Dense GQA LM serving (config, model, engine, continuous batcher, launcher)
-with hand-written CUDA kernels for RMSNorm, flash prefill attention and
-decode attention. The package imports torch, numpy and the standard
-library only; the JAX package ``repro`` is its reference and is never
-imported from here.
+LM serving of dense GQA, Mamba-2 (SSM) and hybrid stacks (config, model,
+engine, continuous batcher, launcher) with hand-written CUDA kernels for
+RMSNorm, flash prefill attention, decode attention and the SSD chunked
+scan, and a W8A8 int8 matmul kernel. The package imports torch, numpy and
+the standard library only; the JAX package ``repro`` is its reference and
+is never imported from here.
 """

@@ -21,10 +21,12 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._build import launch_counts, reset_launches
 from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.int8_matmul import int8_matmul as _int8
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
-__all__ = ["attention", "decode_attention", "launch_counts",
-           "quantize_int8", "reset_launches", "rmsnorm"]
+__all__ = ["attention", "decode_attention", "int8_matmul", "launch_counts",
+           "quantize_int8", "reset_launches", "rmsnorm", "ssd"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
@@ -58,6 +60,15 @@ def decode_attention(q, k, v, length, *, scale: Optional[float] = None,
     if not q.is_cuda and impl == "chunked":
         return _ref.decode_attention_lowcast(q, k, v, length, scale=scale)
     return _decode(q, k, v, length, scale=scale)
+
+
+def int8_matmul(x_q, sx, w_q, sw, out_dtype=torch.float32) -> torch.Tensor:
+    return _int8(x_q, sx, w_q, sw, out_dtype)
+
+
+def ssd(x, dt, A, B, C, D, *, chunk: int = 128):
+    """Returns (y, final_state (b, h, p, n) fp32)."""
+    return _ssd(x, dt, A, B, C, D, chunk=chunk)
 
 
 quantize_int8 = _ref.quantize_int8

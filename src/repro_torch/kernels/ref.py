@@ -83,6 +83,21 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, 0]
 
 
+# ---------------------------------------------------------------------------
+# Int8 W8A8 matmul with per-channel scales.
+# x_q: (m, k) int8, sx: (m,) f32;  w_q: (k, n) int8, sw: (n,) f32
+# ---------------------------------------------------------------------------
+def int8_matmul_ref(x_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
+                    sw: torch.Tensor) -> torch.Tensor:
+    """The JAX version accumulates in int32, which ``torch.matmul`` has no
+    CUDA path for. float64 holds every partial sum exactly (|acc| <=
+    127^2 * k, far below 2^53), so its product is the int32 one; the cast
+    to float32 then rounds as int32 -> float32 does, and the scales apply
+    in the reference's order."""
+    acc = torch.matmul(x_q.double(), w_q.double())
+    return acc.float() * sx.float()[:, None] * sw.float()[None, :]
+
+
 def quantize_int8(x: torch.Tensor, axis: int = -1
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row (along ``axis`` reduced) int8 quantization."""
@@ -140,3 +155,100 @@ def decode_attention_lowcast(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(b, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD.
+# x:  (b, s, h, p)    per-head inputs (p = headdim)
+# dt: (b, s, h)       positive step sizes (already softplus'ed + bias)
+# A:  (h,)            negative per-head decay rates
+# B:  (b, s, n)       shared across heads (ngroups=1), n = d_state
+# C:  (b, s, n)
+# D:  (h,)            skip
+# Returns y: (b, s, h, p) in x's dtype and the final state (b, h, p, n) fp32.
+# ---------------------------------------------------------------------------
+def ssd_ref(x, dt, A, B, C, D, init_state=None):
+    """Sequential-recurrence oracle: one step at a time."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    decay = torch.exp(dtf * A.float()[None, None, :])      # (b, s, h)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        dbx = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        state = state * decay[:, t, :, None, None] + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, h, p))
+    y = y + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_ref(x, dt, A, B, C, D, state):
+    """One-token SSD recurrence. x: (b, h, p), dt: (b, h), B/C: (b, n),
+    state: (b, h, p, n) fp32 -> (y (b, h, p) in x's dtype, new state)."""
+    xf, dtf = x.float(), dt.float()
+    a = torch.exp(dtf * A.float()[None, :])
+    dbx = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, B.float())
+    state = state * a[..., None, None] + dbx
+    y = torch.einsum("bhpn,bn->bhp", state, C.float())
+    y = y + xf * D.float()[None, :, None]
+    return y.to(x.dtype), state
+
+
+def check_ssd_chunk(s: int, chunk: int) -> int:
+    """The chunk ``ssd_chunked`` runs for ``s`` steps: ``min(chunk, s)``,
+    which must divide ``s`` (the JAX package asserts the same)."""
+    if s < 1 or chunk < 1:
+        raise ValueError(f"ssd needs s >= 1 and chunk >= 1, got s={s}, "
+                         f"chunk={chunk}")
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd: s={s} is neither <= chunk={chunk} nor a "
+                         "multiple of it")
+    return q
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256, init_state=None):
+    """Chunked SSD, the same math as the TPU kernel: within a chunk of Q
+    steps, the masked-decay product M[t, j] = (C_t . B_j) exp(L_t - L_j)
+    [j <= t] applied to dt * x; across chunks, a read of the carried fp32
+    state and its update. The D skip is added in fp32 before the one
+    rounding to x's dtype."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    chunk = check_ssd_chunk(s, chunk)
+    nc = s // chunk
+    f32 = torch.float32
+    xr = x.to(f32).reshape(b, nc, chunk, h, p)
+    dtr = dt.to(f32).reshape(b, nc, chunk, h)
+    Br = B.to(f32).reshape(b, nc, chunk, n)
+    Cr = C.to(f32).reshape(b, nc, chunk, n)
+    Af = A.to(f32)
+
+    L = torch.cumsum(dtr * Af[None, None, None, :], dim=2)  # (b,nc,Q,h)
+    cb = torch.einsum("bctn,bcjn->bctj", Cr, Br)             # (b,nc,Q,Q)
+    logdec = L[:, :, :, None, :] - L[:, :, None, :, :]      # (b,nc,Q,Q,h)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    M = cb[..., None] * torch.exp(
+        torch.where(tri[None, None, :, :, None], logdec, NEG_INF))
+    y_intra = torch.einsum("bctjh,bcjh,bcjhp->bcthp", M, dtr, xr)
+
+    # chunk summaries: G_c = sum_j exp(L_last - L_j) dt_j B_j (x) x_j
+    w = torch.exp(L[:, :, -1:, :] - L) * dtr                 # (b,nc,Q,h)
+    G = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Br, w, xr)    # (b,nc,h,n,p)
+    a_chunk = torch.exp(L[:, :, -1])                          # (b,nc,h)
+
+    h_in = (torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+            if init_state is None else init_state.to(f32).transpose(-1, -2))
+    h_ins = []
+    for c in range(nc):                     # state BEFORE each chunk
+        h_ins.append(h_in)
+        h_in = h_in * a_chunk[:, c, :, None, None] + G[:, c]
+    h_ins = torch.stack(h_ins, dim=1)                         # (b,nc,h,n,p)
+    y_inter = torch.einsum("bctn,bcth,bchnp->bcthp", Cr, torch.exp(L), h_ins)
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    y = y + x.to(f32) * D.to(f32)[None, None, :, None]
+    return y.to(x.dtype), h_in.transpose(-1, -2).contiguous()

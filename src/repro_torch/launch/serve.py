@@ -4,10 +4,15 @@ Submits ``--requests`` prompts drawn from ``np.random.default_rng(0)`` to a
 :class:`~repro_torch.serving.batcher.ContinuousBatcher` and steps it to
 completion, then prints a JSON report: the JAX launcher's keys except
 ``telemetry`` (that comes with the port of ``ClusterRuntime``), plus
-``kernel_launches``, the launches of each kernel during the run.
+``kernel_launches``, the launches of each of the five kernels during the
+run (``int8_matmul`` has no call site on this path and stays 0).
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b
-    python -m repro_torch.launch.serve --arch internlm2-1.8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-130m
+    python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
+
+Mamba prompts keep the SSD contract: ``--prompt-len`` at most the config's
+chunk (256; 32 at smoke size) or a multiple of it.
 """
 from __future__ import annotations
 

@@ -6,8 +6,10 @@
 
 Parameters are a dict ``{"embed": {...}, "layers": [per-layer dicts],
 "final_norm": {...}}``; ``repro_torch.convert.from_jax_params`` builds one
-from the JAX package's ``init_params`` pytree. Dense models only: there is
-no MoE aux loss, so ``forward`` returns (logits, caches).
+from the JAX package's ``init_params`` pytree. Dense, SSM (Mamba-2) and
+hybrid stacks run; MoE raises (``check_supported``), so there is no aux
+loss and ``forward`` returns (logits, caches). A layer's cache is
+``{"k", "v"}`` for attention and ``{"conv", "ssd"}`` for Mamba.
 """
 from __future__ import annotations
 

@@ -57,9 +57,11 @@ class ContinuousBatcher:
                 self.device)
 
     def _insert(self, cache1, slot: int) -> None:
+        """Copy every leaf of each layer's batch-1 cache (attention k/v,
+        Mamba conv/ssd) into the batched cache at ``slot``."""
         for big, small in zip(self.caches, cache1):
-            big["k"][slot].copy_(small["k"][0])
-            big["v"][slot].copy_(small["v"][0])
+            for name, leaf in big.items():
+                leaf[slot].copy_(small[name][0])
 
     def _admit(self, max_slots: Optional[int] = None) -> None:
         limit = self.slots if max_slots is None else min(max_slots,

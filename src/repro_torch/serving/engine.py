@@ -29,7 +29,13 @@ def _is_q(leaf: Any) -> bool:
 
 def quantize_params_int8(params: Params) -> Params:
     """Weight-only int8: store int8 payload + per-output-channel scales,
-    dequantized on use."""
+    dequantized on use. Every leaf of two or more dims is quantized (the
+    embedding, attention and MLP weights, Mamba's ``w_in``, ``conv_w`` and
+    ``w_out``); 1-D leaves (norm scales, ``conv_b``, the fp32 ``A_log``,
+    ``dt_bias`` and ``D``) stay as they are. The JAX engine applies the
+    same rule to its layer-stacked tree, where those 1-D leaves are 2-D
+    and so are quantized across the layer axis; the port's per-layer tree
+    keeps them exact."""
     def q(leaf):
         if isinstance(leaf, torch.Tensor) and leaf.dim() >= 2 and \
                 leaf.dtype in (torch.bfloat16, torch.float32):

@@ -9,8 +9,10 @@ import torch
 
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import int8_matmul as tint8
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as trmsnorm
+from repro_torch.kernels import ssd_scan as tssd
 
 
 @pytest.fixture
@@ -25,6 +27,10 @@ def cuda():
 # they differ by about one bf16 ulp (2^-8 relative). fp32: the sums run in
 # another order than the plain version's einsum.
 GPU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# ssd_scan: the kernel's 64-step tiles against the plain version's chunk
+# of 256 (the math is chunk-invariant up to fp32 rounding); fp32 state and
+# fp32 y held at tests/test_kernels_ssd.py's 2e-4, bf16 y at one ulp.
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
 def _randn(shape, dtype, device, seed):
@@ -35,7 +41,8 @@ def _randn(shape, dtype, device, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lowp", [False, True])
-@pytest.mark.parametrize("rows,d", [(1, 64), (333, 2048), (7, 100)])
+@pytest.mark.parametrize("rows,d", [(1, 64), (333, 2048), (7, 100),
+                                    (512, 768), (4, 768)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, lowp, rows, d):
     x = _randn((rows, d), dtype, cuda, 0)
     w = _randn((d,), torch.float32, cuda, 1)
@@ -102,6 +109,101 @@ def test_cuda_attention_with_kv_len_raises(cuda):
         ops.attention(q, q, q, kv_len=torch.tensor([2], device=cuda))
 
 
+def _ssd_inputs(b, s, h, p, n, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=device)
+    x = torch.randn((b, s, h, p), generator=g, device=device).to(dtype)
+    dt = u((b, s, h), 0.01, 0.3)
+    A = -u((h,), 0.3, 2.0)
+    B = torch.randn((b, s, n), generator=g, device=device).to(dtype)
+    C = torch.randn((b, s, n), generator=g, device=device).to(dtype)
+    D = torch.randn((h,), generator=g, device=device)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("p", [16, 64])
+@pytest.mark.parametrize("h", [1, 24])
+@pytest.mark.parametrize("s", [1, 3, 129, 256, 512])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, n, p, h, s):
+    args = _ssd_inputs(b, s, h, p, n, dtype, cuda)
+    y, st = tssd.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    want_y, want_st = tssd.plain(*args, chunk=256)
+    assert y.dtype == dtype and st.shape == (b, h, p, n)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, want_st, rtol=SSD_TOL[torch.float32],
+                               atol=SSD_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_jax_refuses(cuda):
+    args = _ssd_inputs(1, 40, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ops.ssd(*args, chunk=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(7, 13, 5), (65, 100, 130),
+                                   (333, 2048, 512), (512, 1024, 512)])
+def test_int8_matmul_kernel_matches_plain(cuda, out_dtype, m, k, n):
+    """int32 sums are exact in both, and the fp32 epilogue runs in the same
+    order: the kernel must equal the plain version bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                       dtype=torch.int8)
+    sx = torch.rand((m,), generator=g, device=cuda) / 127
+    sw = torch.rand((n,), generator=g, device=cuda) / 127
+    out = tint8.int8_matmul(xq, sx, wq, sw, out_dtype)
+    torch.cuda.synchronize()
+    want = tint8.plain(xq, sx, wq, sw, out_dtype)
+    assert out.dtype == out_dtype
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_smoke_mamba_on_card_matches_cpu(cuda):
+    """The smoke-size fp32 mamba2 through the ssd and rmsnorm kernels
+    against the same weights on the CPU: prefill at two chunks and a
+    ragged one, then per-slot decode ticks."""
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(get_config("mamba2-130m")).replace(dtype="float32")
+    cpu = torch.device("cpu")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), cpu)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    ops.reset_launches()
+    for s in (64, 19):
+        toks = torch.randint(0, cfg.vocab_size, (2, s),
+                             generator=torch.Generator().manual_seed(s))
+        want, caches = lm.prefill(params, cfg, {"tokens": toks})
+        got, gcaches = lm.prefill(on_card, cfg, {"tokens": toks.to(cuda)})
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        pos = torch.tensor([s, s], dtype=torch.int32)
+        nxt = toks[:, -1:]
+        for _ in range(3):
+            want, caches = lm.decode_step(params, cfg, nxt, caches, pos)
+            got, gcaches = lm.decode_step(on_card, cfg, nxt.to(cuda),
+                                          gcaches, pos.to(cuda))
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+            nxt = want.argmax(-1, keepdim=True)
+            pos = pos + 1
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 2 * cfg.num_layers
+    assert counts["rmsnorm"] > 0 and counts["flash_attention"] == 0
+
+
 @pytest.mark.gpu
 def test_smoke_model_on_card_matches_cpu(cuda):
     """The smoke-size fp32 model through the kernels (d=16, hq/hkv=2)
@@ -125,4 +227,6 @@ def test_smoke_model_on_card_matches_cpu(cuda):
     want, _ = lm.decode_step(params, cfg, nxt, caches, pos)
     got, _ = lm.decode_step(on_card, cfg, nxt.to(cuda), gcaches, pos.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
-    assert min(ops.launch_counts().values()) > 0
+    counts = ops.launch_counts()
+    assert min(counts[k] for k in ("rmsnorm", "flash_attention",
+                                   "decode_attention")) > 0

@@ -39,12 +39,19 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 
 def test_port_has_the_three_kernel_sources():
+    """One CUDA source for each of the JAX package's five Pallas kernels
+    (the name dates from the first slice, which had three)."""
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "rmsnorm.cu", "flash_attention.cu", "decode_attention.cu"}
+        "rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
+        "ssd_scan.cu", "int8_matmul.cu"}
+    pallas = {p.stem for p in (REPO / "src" / "repro" / "kernels").glob(
+        "*.py") if "pl.pallas_call" in p.read_text()}
+    assert {p.stem for p in csrc.glob("*.cu")} == pallas
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-130m",
+                                  "qwen2-72b"])
 def test_copied_configs_equal_reference(arch):
     ours, ref = get_config(arch), jconfig.get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)

@@ -14,15 +14,21 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jdecode
 from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.int8_matmul import int8_matmul as jint8
 from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
+from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import int8_matmul as tint8
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trmsnorm
+from repro_torch.kernels import ssd_scan as tssd
 
 F32_ATTN_TOL = 2e-6     # tests/test_kernels_attention.py, fp32
 NORM_TOL = 1e-5         # tests/test_kernels_quant_norm.py
+SSD_TOL = 2e-4          # tests/test_kernels_ssd.py, fp32
+INT8_RTOL, INT8_ATOL = 1e-6, 1e-4   # tests/test_kernels_quant_norm.py
 
 
 def _t(a):
@@ -181,6 +187,142 @@ def test_decode_lowcast_matches_jax(dtype, rng):
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
+def _ssd_inputs(rng, b, s, h, p, n):
+    """numpy inputs as tests/test_kernels_ssd.py draws them."""
+    return (rng.standard_normal((b, s, h, p)).astype(np.float32),
+            rng.uniform(0.01, 0.3, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.3, 2.0, (h,)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32),
+            rng.standard_normal((h,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 64, 2, 16, 16, 16),
+    (2, 128, 3, 32, 64, 32),
+    (1, 256, 4, 64, 128, 128),
+])
+def test_ssd_plain_matches_jax(b, s, h, p, n, chunk, rng):
+    """Port's ssd_chunked (the wrapper's CPU path) and ssd_ref against the
+    Pallas kernel in interpret mode and the JAX sequential oracle."""
+    args = _ssd_inputs(rng, b, s, h, p, n)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [_t(a) for a in args]
+    y, st = tssd.ssd_scan(*targs, chunk=chunk)
+    assert y.dtype == torch.float32 and st.shape == (b, h, p, n)
+    y_seq, st_seq = tref.ssd_ref(*targs)
+    pallas = jssd(*jargs, chunk=chunk, interpret=True)
+    oracle = jref.ssd_ref(*jargs)
+    for (wy, ws) in (pallas, oracle):
+        for got in ((y, st), (y_seq, st_seq)):
+            np.testing.assert_allclose(_np(got[0]), _np(wy), rtol=SSD_TOL,
+                                       atol=SSD_TOL)
+            np.testing.assert_allclose(_np(got[1]), _np(ws), rtol=SSD_TOL,
+                                       atol=SSD_TOL)
+
+
+def test_ssd_chunked_matches_jax_chunked_bf16(rng):
+    """bf16 x, B, C: the same fp32 math and one rounding of y in both
+    packages' ssd_chunked (D skip in fp32 before the rounding)."""
+    x, dt, A, B, C, D = _ssd_inputs(rng, 2, 96, 3, 16, 32)
+    xb, Bb, Cb = (jnp.asarray(a, jnp.bfloat16) for a in (x, B, C))
+    wy, ws = jref.ssd_chunked(xb, jnp.asarray(dt), jnp.asarray(A), Bb, Cb,
+                              jnp.asarray(D), chunk=32)
+    tb = [_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+          for a in (xb, Bb, Cb)]
+    y, st = ops.ssd(tb[0], _t(dt), _t(A), tb[1], tb[2], _t(D), chunk=32)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(y), _np(wy.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(st), _np(ws), rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_chunk_invariance(rng):
+    """tests/test_kernels_ssd.py::test_ssd_chunk_invariance on the port."""
+    args = [_t(a) for a in _ssd_inputs(rng, 1, 128, 2, 16, 32)]
+    y32, st32 = ops.ssd(*args, chunk=32)
+    y64, st64 = ops.ssd(*args, chunk=64)
+    y128, st128 = ops.ssd(*args, chunk=256)     # one chunk of s
+    for y, st in ((y64, st64), (y128, st128)):
+        np.testing.assert_allclose(y.numpy(), y32.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(st.numpy(), st32.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_ssd_decode_continues_prefill(rng):
+    """Prefill state + one ssd_decode_ref step == the full sequence at s,
+    in the port, and the step equals the JAX package's."""
+    b, s, h, p, n = 1, 64, 2, 16, 16
+    x, dt, A, B, C, D = _ssd_inputs(rng, b, s + 1, h, p, n)
+    y_full, _ = tref.ssd_ref(*(_t(a) for a in (x, dt, A, B, C, D)))
+    _, state = ops.ssd(_t(x[:, :s]), _t(dt[:, :s]), _t(A), _t(B[:, :s]),
+                       _t(C[:, :s]), _t(D), chunk=32)
+    step = (x[:, s], dt[:, s], A, B[:, s], C[:, s], D)
+    y1, st1 = tref.ssd_decode_ref(*(_t(a) for a in step), state)
+    np.testing.assert_allclose(y1.numpy(), y_full[:, s].numpy(),
+                               rtol=SSD_TOL, atol=SSD_TOL)
+    jy1, jst1 = jref.ssd_decode_ref(*(jnp.asarray(a) for a in step),
+                                    jnp.asarray(state.numpy()))
+    np.testing.assert_allclose(y1.numpy(), _np(jy1), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(st1.numpy(), _np(jst1), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("s,chunk", [(40, 32), (0, 32)])
+def test_ops_ssd_refuses_what_jax_refuses(s, chunk, rng):
+    """s = 40 at chunk 32 is neither <= chunk nor a multiple of it: the
+    JAX wrappers assert, the port raises ValueError."""
+    args = _ssd_inputs(rng, 1, s, 2, 16, 16)
+    with pytest.raises(ValueError):
+        ops.ssd(*(_t(a) for a in args), chunk=chunk)
+    if s:
+        with pytest.raises(AssertionError):
+            jref.ssd_chunked(*(jnp.asarray(a) for a in args), chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# int8 W8A8 matmul
+# ---------------------------------------------------------------------------
+def _int8_inputs(rng, m, k, n):
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    xq, sx = jref.quantize_int8(jnp.asarray(x), axis=1)
+    wq, sw = jref.quantize_int8(jnp.asarray(w), axis=0)
+    return xq, sx, wq, sw
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 64), (128, 512, 256),
+                                   (256, 256, 128)])
+def test_int8_matmul_plain_matches_jax(m, k, n, rng):
+    jargs = _int8_inputs(rng, m, k, n)
+    out = ops.int8_matmul(*(_t(a) for a in jargs))
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    pallas = jint8(*jargs, block_m=64, block_n=64, block_k=128,
+                   interpret=True)
+    oracle = jref.int8_matmul_ref(*jargs)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(out.numpy(), _np(want), rtol=INT8_RTOL,
+                                   atol=INT8_ATOL)
+    # float64 holds the int32 sums exactly: the same bits as int32 -> fp32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(oracle))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_ragged_shape_and_dtype(out_dtype, rng):
+    """Any (m, k, n), as the reference takes; bf16 is the fp32 result
+    rounded once."""
+    jargs = _int8_inputs(rng, 7, 13, 5)
+    out = tint8.int8_matmul(*(_t(a) for a in jargs), out_dtype=out_dtype)
+    want = np.asarray(jref.int8_matmul_ref(*jargs))
+    assert out.dtype == out_dtype
+    np.testing.assert_array_equal(
+        out.float().numpy(), _t(want).to(out_dtype).float()
+        .numpy())
+
+
+# ---------------------------------------------------------------------------
 # int8 quantization
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("axis", [-1, -2, 0])
@@ -200,11 +342,24 @@ def test_cpu_calls_launch_no_kernel(rng):
     ops.reset_launches()
     x = _t(rng.standard_normal((3, 64)).astype(np.float32))
     ops.rmsnorm(x, torch.ones(64))
+    ops.ssd(*(_t(a) for a in _ssd_inputs(rng, 1, 8, 2, 16, 16)), chunk=8)
+    ops.int8_matmul(*(_t(a) for a in _int8_inputs(rng, 4, 8, 4)))
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "ssd_scan": 0,
+                                   "int8_matmul": 0}
 
 
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         trmsnorm.rmsnorm(x, torch.ones(16, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tssd.ssd_scan(torch.zeros((1, 4, 2, 16), device="meta"), *(
+            torch.zeros(sh, device="meta") for sh in
+            ((1, 4, 2), (2,), (1, 4, 16), (1, 4, 16), (2,))))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tint8.int8_matmul(*(torch.zeros(sh, dtype=dt, device="meta") for
+                            sh, dt in (((2, 4), torch.int8),
+                                       ((2,), torch.float32),
+                                       ((4, 3), torch.int8),
+                                       ((3,), torch.float32))))
