@@ -11,10 +11,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 time and each kernel's registers/spills from ``-Xptxas -v``.
 3. ``kernels``  each hand-written kernel against its plain PyTorch version
                 on the card, at the full-width shapes each serving path
-                gives it (rmsnorm at both models' widths), in bf16 and
-                fp32: max error, kernel time, plain-version time, the time
-                of the nearest PyTorch library call, and the bound (the
-                least time the card could take for the same work).
+                gives it (rmsnorm at both models' widths; flash at prompts
+                of 101, 333, 512 and 700 tokens, bf16 on the wgmma kernel
+                and fp32 on the CUDA-core one; decode at the serve cache
+                and at a cache of 4096), in bf16 and fp32: max error,
+                kernel time, plain-version time, the time of the nearest
+                PyTorch library call, and the bound (the least time the
+                card could take for the same work).
                 ``int8_matmul`` has no model call site; this phase is its
                 path, and its launches here are the ones reported.
 4. ``serve``    two paths, each full width in bf16 with random weights,
@@ -71,6 +74,10 @@ PROMPT_LENS = [333, 129, 700, 517, 258, 450, 101, 611]
 NEW_TOKENS = 32
 SLOTS = 4
 MAX_LEN = max(PROMPT_LENS) + NEW_TOKENS + 8
+# decode_attention cases: (cache rows, per-slot lengths); the first is the
+# serve run's cache.
+DECODE_CASES = ((MAX_LEN, [129, 334, 517, 731]),
+                (4096, [4000, 2731, 1290, 65]))
 PARITY_LAYERS = 2
 PARITY_SIDES = {"card": "cuda", "cpu": "cpu"}   # side -> device
 
@@ -236,10 +243,11 @@ def _ptxas_summary(lines):
             continue
         used = re.search(r"Used (\d+) registers", ln)
         if used and name:
-            kern = re.search(r"(rmsnorm_kernel|flash_fwd_kernel|"
-                             r"decode_kernel|ssd_scan_kernel|"
-                             r"int8_matmul_kernel)", name)
-            dt = "bf16" if "bfloat16" in name else "f32"
+            kern = re.search(r"(rmsnorm_kernel|flash_fwd_wgmma_kernel|"
+                             r"flash_fwd_simt_kernel|decode_split_kernel|"
+                             r"ssd_scan_kernel|int8_matmul_kernel)", name)
+            # the wgmma kernel is bf16 only and has no dtype parameter
+            dt = "bf16" if "bfloat16" in name or "wgmma" in name else "f32"
             args = ",".join([dt, *re.findall(r"Li(\d+)E", name)])
             out.append(f"{kern.group(1) if kern else name}<{args}>: "
                        f"{used.group(1)} regs, {spill or '?'} B spill")
@@ -278,6 +286,7 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
 
 
 def _flash_case(sq, dtype, seed=0):
+    """One layer's prefill of ``sq`` tokens at internlm2-1.8b's heads."""
     b, hq, hkv, d = 1, 16, 8, 128
     q = randn((b, sq, hq, d), dtype, seed)
     k = randn((b, sq, hkv, d), dtype, seed + 1)
@@ -301,12 +310,12 @@ def _flash_case(sq, dtype, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _decode_case(dtype, seed=0):
-    b, hq, hkv, d, skv = SLOTS, 16, 8, 128, MAX_LEN
+def _decode_case(dtype, skv, lengths, seed=0):
+    """One layer's decode tick of SLOTS slots against a cache of ``skv``."""
+    b, hq, hkv, d = SLOTS, 16, 8, 128
     q = randn((b, hq, d), dtype, seed)
     k = randn((b, skv, hkv, d), dtype, seed + 1)
     v = randn((b, skv, hkv, d), dtype, seed + 2)
-    lengths = [129, 334, 517, 731]
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     out = kdec.decode_attention(q, k, v, length)
     torch.cuda.synchronize()
@@ -319,7 +328,8 @@ def _decode_case(dtype, seed=0):
                      + 4 * b, 4 * sum(lengths) * hq * d, dtype)
     return {"kernel": "decode_attention", "path": ARCH,
             "shape": [b, skv, hq, hkv, d],
-            "lengths": lengths, "dtype": str(dtype), "max_abs_err": err,
+            "splits": kdec.num_splits(skv), "lengths": lengths,
+            "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: kdec.decode_attention(q, k, v, length)),
             "eager_ms": eager_ms(
                 lambda: kdec.decode_attention(q, k, v, length)),
@@ -417,9 +427,13 @@ def phase_kernels() -> dict:
                 for lowp in (False, True):
                     cases.append(_rmsnorm_case(arch, r, d_model[arch],
                                                dtype, lowp))
-        for sq in (PROMPT_LENS[0], 512):
+        # flash at the first prompt, then 512 and the serve run's shortest
+        # and longest prompts; decode at the serve cache, then at a cache
+        # of 4096 with lengths spread to 4000.
+        for sq in (PROMPT_LENS[0], 512, min(PROMPT_LENS), max(PROMPT_LENS)):
             cases.append(_flash_case(sq, dtype))
-        cases.append(_decode_case(dtype))
+        for skv, lengths in DECODE_CASES:
+            cases.append(_decode_case(dtype, skv, lengths))
         for s in (512, 129):
             cases.append(_ssd_case(s, dtype))
     for m, k, n in ((512, 1024, 512), (333, 2048, 8192)):

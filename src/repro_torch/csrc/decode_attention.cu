@@ -8,195 +8,397 @@
 //
 // Bound on the H100: memory bytes. Every K and V element below length[b]
 // is read once for two multiply-adds per query head that shares it, so
-// the work is a fraction of a flop per byte.
+// the work is a fraction of a flop per byte; at 4 slots and a few hundred
+// rows each the cache of one layer is ~2 MB, so the card is short of
+// blocks in flight before it is short of bandwidth.
 //
-// Design: one block of 8 warps per (kv head, batch). The block serves the
-// G = hq / hkv query heads that share the kv head, so each K/V row is
-// loaded once for all of them. Each block reads its own length[b] (the
-// scalar prefetch of the TPU kernel), clamps it to skv and never reads a
-// cache row at or past it. Warp w takes rows w, w + 8, ...; it loads four
-// rows ahead before it uses them, so loads overlap. A lane holds d / 32
-// consecutive dims (one per lane, lanes >= d idle, when d < 32); a warp
-// reduces each dot product with shuffles and keeps its own fp32 running
-// max, sum and accumulator. The eight warps' partial softmaxes are then
-// combined through shared memory. length 0 gives l == 0, which maps to
-// an output of zeros, as in the JAX kernel. Any skv is taken (the JAX kernel
-// asserts skv % 256 == 0); split-KV across blocks is later work.
+// Design: split-KV flash-decode, one launch.
+// * Grid (splits, hkv, b): block (s, h, b) owns cache rows
+//   [s * split_rows, (s + 1) * split_rows) of kv head h for the G = hq / hkv
+//   q heads that share it, so each K/V row is read once for all of them.
+//   `splits` follows from skv, the cache's capacity, never from the values
+//   in `length`: the host reads nothing back and a CUDA graph can hold the
+//   launch. Each block reads its own length[b] (the TPU kernel's scalar
+//   prefetch), clamps it to [0, skv] and never reads a row at or past it; a
+//   block whose split starts there only counts itself for the combine.
+// * Within a split, tiles of 64 rows come in by cp.async, 16 bytes a
+//   thread, into padded shared-memory rows (conflict-free 16-byte reads),
+//   two tiles in flight when a split has more than one. The scores of a
+//   whole tile for all G heads are formed first (one thread per row and
+//   head group), then one max, one exp2 pass and one rescale per head and
+//   tile (a warp per head), then P.V with each thread owning 16 bytes of d.
+// * Combine in the same launch: each block writes its fp32 partial
+//   (m, l, acc[G][d], unnormalised) to scratch, fences, and counts itself
+//   on an int32 counter of its (b, kv head); the block that counts last
+//   combines the partials of the ceil(length / split_rows) splits that
+//   hold rows, writes o and sets the counter back to 0, so
+//   the next launch (or graph replay) finds it zeroed. l == 0 (length 0)
+//   gives zeros, as in the JAX kernel. Any skv is taken (the JAX kernel
+//   asserts skv % 256 == 0).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kAhead = 4;  // cache rows a warp loads before it uses them
+constexpr int kThreads = 128;
+constexpr int kTile = 64;  // cache rows per tile (one row per two threads)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&out)[16 / sizeof(T)]);
+template <>
+__device__ __forceinline__ void load16<float>(const float* p, float (&out)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+}
+template <>
+__device__ __forceinline__ void load16<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                      float (&out)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <typename T, int D, int G>
+struct Layout {
+  static constexpr int VE = 16 / static_cast<int>(sizeof(T));  // elems / 16 B
+  static constexpr int CH = D / VE;             // 16-byte chunks per row
+  static constexpr int LDS = D + VE;            // smem row, 16 B of padding
+  static constexpr int HG = kThreads / CH;      // thread groups in P.V
+  static constexpr int HPT = G > HG ? G / HG : 1;  // heads per thread
+  static constexpr int R = G < HG ? HG / G : 1;    // row slices per head
+  static constexpr int SPT = (G + 1) / 2;       // score heads per thread
+  static size_t smem(int stages) {
+    return sizeof(T) * static_cast<size_t>(stages) * 2 * kTile * LDS +
+           sizeof(float) * (G * D + G * kTile + kThreads * VE + 3 * G);
+  }
+};
+
+// Cache rows [r0, min(r0 + kTile, row_end)) of K and V into one stage
+// (K rows, then V rows, each kTile x LDS) as two cp.async commit groups, so
+// the scores can start while V is still on its way. Rows at or past
+// row_end are never read, and their shared-memory rows never used.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
+                                          int r0, int row_end,
+                                          size_t row_stride) {
+  constexpr int VE = 16 / static_cast<int>(sizeof(T)), CH = D / VE;
+  constexpr int LDS = D + VE;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    T* dst = stage + part * kTile * LDS;
+    const T* src = part ? vb : kb;
+    for (int c = threadIdx.x; c < kTile * CH; c += kThreads) {
+      const int r = c / CH, cc = c % CH;
+      if (r0 + r < row_end)
+        cp_async16(dst + r * LDS + cc * VE,
+                   src + (r0 + r) * row_stride + cc * VE);
+    }
+    cp_async_commit();
+  }
+}
 
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ length,
-              T* __restrict__ o, int skv, int hq, int hkv, float scale) {
-  constexpr int VEC = D >= 32 ? D / 32 : 1;   // dims per lane
-  constexpr int ACTIVE = D / VEC;             // lanes that hold dims
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ length,
+                    T* __restrict__ o, float* __restrict__ part_ml,
+                    float* __restrict__ part_acc, int* __restrict__ counter,
+                    int skv, int hq, int hkv, int splits, int split_rows,
+                    float scale_log2) {
+  using L = Layout<T, D, G>;
+  constexpr int VE = L::VE, CH = L::CH, LDS = L::LDS, HG = L::HG;
+  constexpr int HPT = L::HPT, R = L::R, SPT = L::SPT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stages = split_rows > kTile ? 2 : 1;  // as launch() sized it
+  T* tiles = reinterpret_cast<T*>(smem_raw);  // [stages][K, V][kTile][LDS]
+  float* q_sm = reinterpret_cast<float*>(tiles + stages * 2 * kTile * LDS);
+  float* s_sm = q_sm + G * D;         // [G][kTile] scores, then p
+  float* red = s_sm + G * kTile;      // [kThreads][VE] row-slice partials
+  float* st_m = red + kThreads * VE;  // [G] running max (log2 units)
+  float* st_l = st_m + G;             // [G] running sum
+  float* st_a = st_l + G;             // [G] this tile's rescale
+  __shared__ int is_last;
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const bool active = lane < ACTIVE;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = min(max(length[b], 0), skv);
+  const int row0 = split * split_rows;
+  const int pidx = (b * hkv + kvh) * splits + split;  // this partial
+  const size_t row_stride = static_cast<size_t>(hkv) * D;
+  const T* kb = k + static_cast<size_t>(b) * skv * row_stride +
+                static_cast<size_t>(kvh) * D;
+  const T* vb = v + static_cast<size_t>(b) * skv * row_stride +
+                static_cast<size_t>(kvh) * D;
 
-  float qv[G][VEC];
+  if (row0 < len) {
+    const int row_end = min(len, row0 + split_rows);
+    const int ntiles = (row_end - row0 + kTile - 1) / kTile;
+    load_tile<T, D>(tiles, kb, vb, row0, row_end, row_stride);
+    for (int i = tid; i < G * D; i += kThreads)
+      q_sm[i] = to_f32(q[(static_cast<size_t>(b) * hq + kvh * G) * D + i]) *
+                scale_log2;
+    if (tid < G) {
+      st_m[tid] = kNegInf;
+      st_l[tid] = 0.f;
+    }
+
+    // P.V ownership: 16 bytes of d (chunk pc) for heads pg .. (HPT of them,
+    // HG apart), over the rows of slice rs (R slices, when G < HG).
+    const int pc = tid % CH, grp = tid / CH;
+    const int pg = HPT > 1 ? grp : grp % G;
+    const int rs = HPT > 1 ? 0 : grp / G;
+    float acc[HPT][VE];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (active) {
-      load_vec<VEC>(q + (static_cast<size_t>(b) * hq + kvh * G + g) * D +
-                        lane * VEC, qv[g]);
+    for (int i = 0; i < HPT; ++i)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) acc[i][e] = 0.f;
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int stage = t & 1;  // stages == 2 whenever ntiles > 1
+      const bool ahead = t + 1 < ntiles;
+      if (ahead)
+        load_tile<T, D>(tiles + (stage ^ 1) * 2 * kTile * LDS, kb, vb,
+                        row0 + (t + 1) * kTile, row_end, row_stride);
+      // Pending groups, oldest first: K(t), V(t) [, K(t + 1), V(t + 1)].
+      if (ahead) cp_async_wait<3>(); else cp_async_wait<1>();
+      __syncthreads();  // K of tile t (and q, the stats) visible to all
+      const T* ks = tiles + (stage * 2) * kTile * LDS;
+      const T* vs = ks + kTile * LDS;
+      const int nr = min(kTile, row_end - (row0 + t * kTile));
+
+      // Scores: thread (r, gh) takes row r for heads gh, gh + 2, ...
+      {
+        const int r = tid % kTile, gh = tid / kTile;
+        float dot[SPT];
+#pragma unroll
+        for (int i = 0; i < SPT; ++i) dot[i] = 0.f;
+        if (r < nr) {
+#pragma unroll 4
+          for (int c = 0; c < CH; ++c) {
+            float kf[VE];
+            load16<T>(ks + r * LDS + c * VE, kf);
+#pragma unroll
+            for (int i = 0; i < SPT; ++i) {
+              const int g = gh + 2 * i;
+              if (g < G) {
+                const float* qg = q_sm + g * D + c * VE;
+#pragma unroll
+                for (int e = 0; e < VE; ++e) dot[i] += kf[e] * qg[e];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < SPT; ++i) {
+          const int g = gh + 2 * i;
+          if (g < G) s_sm[g * kTile + r] = r < nr ? dot[i] : kNegInf;
+        }
+      }
+      __syncthreads();
+
+      // One max, one exp2 pass and one rescale per head and tile.
+      for (int g = warp; g < G; g += kThreads / 32) {
+        const float x0 = s_sm[g * kTile + lane];
+        const float x1 = s_sm[g * kTile + lane + 32];
+        const float m_old = st_m[g];
+        const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+        const float p0 = exp2f(x0 - m_new), p1 = exp2f(x1 - m_new);
+        s_sm[g * kTile + lane] = p0;
+        s_sm[g * kTile + lane + 32] = p1;
+        const float sum = warp_sum(p0 + p1);
+        if (lane == 0) {
+          const float alpha = exp2f(m_old - m_new);
+          st_a[g] = alpha;
+          st_l[g] = st_l[g] * alpha + sum;
+          st_m[g] = m_new;
+        }
+      }
+      if (ahead) cp_async_wait<2>(); else cp_async_wait<0>();
+      __syncthreads();  // V of tile t and p visible to all
+
+#pragma unroll
+      for (int i = 0; i < HPT; ++i) {
+        const float alpha = st_a[pg + HG * i];
+#pragma unroll
+        for (int e = 0; e < VE; ++e) acc[i][e] *= alpha;
+      }
+      for (int r = rs; r < nr; r += R) {
+        float vf[VE];
+        load16<T>(vs + r * LDS + pc * VE, vf);
+#pragma unroll
+        for (int i = 0; i < HPT; ++i) {
+          const float p = s_sm[(pg + HG * i) * kTile + r];
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[i][e] += p * vf[e];
+        }
+      }
+      __syncthreads();  // this stage's tiles and s_sm are free again
+    }
+
+    float* pa = part_acc + static_cast<size_t>(pidx) * G * D;
+    if constexpr (R == 1) {
+#pragma unroll
+      for (int i = 0; i < HPT; ++i)
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          pa[(pg + HG * i) * D + pc * VE + e] = acc[i][e];
     } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][e] = 0.f;
-    }
-  }
-
-  float m[G], l[G], acc[G][VEC];
+      for (int e = 0; e < VE; ++e) red[tid * VE + e] = acc[0][e];
+      __syncthreads();
+      for (int i = tid; i < G * D; i += kThreads) {
+        const int g = i / D, dd = i % D;
+        float sum = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
-
-  const size_t row_stride = static_cast<size_t>(hkv) * D;
-  const T* kbase = k + static_cast<size_t>(b) * skv * row_stride +
-                   static_cast<size_t>(kvh) * D + lane * VEC;
-  const T* vbase = v + static_cast<size_t>(b) * skv * row_stride +
-                   static_cast<size_t>(kvh) * D + lane * VEC;
-
-  for (int t0 = warp; t0 < len; t0 += kWarps * kAhead) {
-    float kr[kAhead][VEC], vr[kAhead][VEC];
-#pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      const int t = t0 + a * kWarps;
-      if (active && t < len) {
-        load_vec<VEC>(kbase + t * row_stride, kr[a]);
-        load_vec<VEC>(vbase + t * row_stride, vr[a]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kr[a][e] = vr[a][e] = 0.f;
+        for (int s = 0; s < R; ++s)
+          sum += red[((s * G + g) * CH + dd / VE) * VE + dd % VE];
+        pa[i] = sum;
       }
     }
-#pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      if (t0 + a * kWarps >= len) break;  // uniform across the warp
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dot += qv[g][e] * kr[a][e];
-        const float s = warp_sum(dot) * scale;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
-        l[g] = alpha * l[g] + p;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          acc[g][e] = alpha * acc[g][e] + p * vr[a][e];
-        m[g] = m_new;
-      }
+    if (tid < G) {
+      part_ml[(pidx * G + tid) * 2] = st_m[tid];
+      part_ml[(pidx * G + tid) * 2 + 1] = st_l[tid];
     }
   }
 
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-    if (active) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][lane * VEC + e] = acc[g][e];
-    }
+  // The last block of this (b, kv head) to finish combines the partials.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counter + b * hkv + kvh;
+    const int prev = atomicAdd(cnt, 1);
+    is_last = prev == splits - 1;
+    if (is_last) *cnt = 0;  // every split has counted: reset for the next
   }
   __syncthreads();
+  if (!is_last) return;
+  __threadfence();
 
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D, dd = idx % D;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, osum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * f;
-      osum += sm_acc[w][g][dd] * f;
-    }
-    if (lsum == 0.f) lsum = 1.f;
-    o[(static_cast<size_t>(b) * hq + kvh * G + g) * D + dd] =
-        from_f32<T>(osum / lsum);
+  // Splits below ceil(len / split_rows) hold partials; the rest are empty.
+  const int base = (b * hkv + kvh) * splits;
+  const int nvalid = (len + split_rows - 1) / split_rows;
+  float* w_sm = reinterpret_cast<float*>(smem_raw);  // [nvalid][G] weights
+  for (int g = warp; g < G; g += kThreads / 32) {
+    // nvalid <= splits <= 32 (wrapper), so one split per lane.
+    const float* ml = part_ml + ((base + lane) * G + g) * 2;
+    const float ms = lane < nvalid ? __ldcg(ml) : kNegInf;
+    const float ls = lane < nvalid ? __ldcg(ml + 1) : 0.f;
+    const float mx = warp_max(ms);
+    const float w = lane < nvalid ? exp2f(ms - mx) : 0.f;
+    const float l = warp_sum(ls * w);
+    if (lane < nvalid) w_sm[lane * G + g] = w / (l == 0.f ? 1.f : l);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D;
+    const float* pa = part_acc + static_cast<size_t>(base) * G * D + i;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < nvalid; ++s)
+      sum += __ldcg(pa + static_cast<size_t>(s) * G * D) * w_sm[s * G + g];
+    o[(static_cast<size_t>(b) * hq + kvh * G) * D + i] = from_f32<T>(sum);
   }
 }
 
 template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const int* length,
-           void* o, int b, int skv, int hq, int hkv, float scale,
+           void* o, float* part_ml, float* part_acc, int* counter, int b,
+           int skv, int hq, int hkv, int split_rows, float scale,
            cudaStream_t stream) {
-  const dim3 grid(hkv, b);
-  decode_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
+  const int splits = (skv + split_rows - 1) / split_rows;
+  if (splits > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = split_rows > kTile ? 2 : 1;
+  const size_t smem = Layout<T, D, G>::smem(stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_split_kernel<T, D, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, hkv, b);
+  decode_split_kernel<T, D, G><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), length, static_cast<T*>(o), skv, hq, hkv,
-      scale);
+      static_cast<const T*>(v), length, static_cast<T*>(o), part_ml,
+      part_acc, counter, skv, hq, hkv, splits, split_rows, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
+#define REPRO_DECODE_ARGS \
+  q, k, v, length, o, part_ml, part_acc, counter, b, skv, hq, hkv, \
+      split_rows, scale, s
+
 template <typename T, int D>
 int dispatch_g(int g, const void* q, const void* k, const void* v,
-               const int* length, void* o, int b, int skv, int hq, int hkv,
+               const int* length, void* o, float* part_ml, float* part_acc,
+               int* counter, int b, int skv, int hq, int hkv, int split_rows,
                float scale, cudaStream_t s) {
   switch (g) {
-    case 1: return launch<T, D, 1>(q, k, v, length, o, b, skv, hq, hkv, scale, s);
-    case 2: return launch<T, D, 2>(q, k, v, length, o, b, skv, hq, hkv, scale, s);
-    case 4: return launch<T, D, 4>(q, k, v, length, o, b, skv, hq, hkv, scale, s);
-    case 8: return launch<T, D, 8>(q, k, v, length, o, b, skv, hq, hkv, scale, s);
+    case 1: return launch<T, D, 1>(REPRO_DECODE_ARGS);
+    case 2: return launch<T, D, 2>(REPRO_DECODE_ARGS);
+    case 4: return launch<T, D, 4>(REPRO_DECODE_ARGS);
+    case 8: return launch<T, D, 8>(REPRO_DECODE_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
 int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
-               const int* length, void* o, int b, int skv, int hq, int hkv,
+               const int* length, void* o, float* part_ml, float* part_acc,
+               int* counter, int b, int skv, int hq, int hkv, int split_rows,
                float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return dispatch_g<T, 16>(g, q, k, v, length, o, b, skv, hq, hkv, scale, s);
-    case 32: return dispatch_g<T, 32>(g, q, k, v, length, o, b, skv, hq, hkv, scale, s);
-    case 64: return dispatch_g<T, 64>(g, q, k, v, length, o, b, skv, hq, hkv, scale, s);
-    case 128: return dispatch_g<T, 128>(g, q, k, v, length, o, b, skv, hq, hkv, scale, s);
+    case 16: return dispatch_g<T, 16>(g, REPRO_DECODE_ARGS);
+    case 32: return dispatch_g<T, 32>(g, REPRO_DECODE_ARGS);
+    case 64: return dispatch_g<T, 64>(g, REPRO_DECODE_ARGS);
+    case 128: return dispatch_g<T, 128>(g, REPRO_DECODE_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+#undef REPRO_DECODE_ARGS
+
 }  // namespace
 }  // namespace repro
 
+// part_ml: (b, hkv, splits, G, 2) fp32 and part_acc: (b, hkv, splits, G, d)
+// fp32 scratch, splits = ceil(skv / split_rows), written only for the
+// splits below ceil(length / split_rows); counter: b * hkv int32,
+// zero on entry and left zero on exit. split_rows is a multiple of 64 and
+// gives at most 32 splits (the combine takes one split per lane).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* length,
-                                      void* o, int b, int skv, int hq,
-                                      int hkv, int d, float scale, int dtype,
-                                      void* stream) {
+                                      void* o, void* part_ml, void* part_acc,
+                                      void* counter, int b, int skv, int hq,
+                                      int hkv, int d, int split_rows,
+                                      float scale, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (b <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || split_rows <= 0 ||
+      split_rows % kTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* len = static_cast<const int*>(length);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  int* cnt = static_cast<int*>(counter);
   const int g = hq / hkv;
   if (dtype == kF32)
-    return dispatch_d<float>(d, g, q, k, v, len, o, b, skv, hq, hkv, scale, s);
+    return dispatch_d<float>(d, g, q, k, v, len, o, ml, acc, cnt, b, skv, hq,
+                             hkv, split_rows, scale, s);
   if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, g, q, k, v, len, o, b, skv, hq, hkv,
-                                     scale, s);
+    return dispatch_d<__nv_bfloat16>(d, g, q, k, v, len, o, ml, acc, cnt, b,
+                                     skv, hq, hkv, split_rows, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

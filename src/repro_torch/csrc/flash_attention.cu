@@ -5,25 +5,40 @@
 // (_fa_kernel), whose grid walks 128x128 q/kv tiles in order and carries the
 // running max, sum and accumulator in VMEM scratch across the kv axis.
 //
-// Bound on the H100: at the serving path's prompt lengths (a few hundred
-// tokens, 16 heads, d = 128) the bytes of q, k, v and o and the causal
-// matmul work take about the same least time; this simple kernel runs its
-// products on the CUDA cores in fp32, not on the tensor cores, so in
-// practice it is bound by its own shared-memory reads and fp32 FMAs
-// (wgmma, TMA and a warp-specialised pipeline are later work).
+// Two hand-written kernels serve it, chosen by dtype and head dim:
 //
-// Design: one block of 256 threads per (q tile of 64 rows, q head, batch).
-// Blocks run in parallel in no order, so the kv loop is a loop inside the
-// block: it stages one 64-row K tile and one V tile in shared memory (as
-// fp32, rows padded by one word against bank conflicts) and stops at the
-// diagonal when causal, so tiles above it are never read. Each thread owns
-// 4 query rows and a 16-lane group shares a row, so the row max and sum of
-// the online softmax reduce with four shuffles. The kv head of q head h is
-// h / (hq / hkv), as in the JAX kernel's index map. Unlike the JAX kernel
-// (which asserts sq % block_q == 0), this one masks the ragged edge itself:
-// q rows >= sq are computed on zeros and never written, kv positions
-// >= skv are masked, so any sq and skv are taken.
+// * flash_fwd_wgmma_kernel: bf16 at d 64 or 128 (the serving path). Bound on
+//   the H100: at a few hundred tokens and b 1 the work is a few GFLOP and
+//   K, V of a layer sit in L2, so the card is short of blocks and of
+//   latency hiding, not of bandwidth. Design: one warpgroup (128 threads)
+//   per 64 query rows of one q head; the grid is (q tiles x hq x b), q tiles
+//   issued longest first (the diagonal-heavy tiles of a causal prefill).
+//   Q and a 2-stage ring of K/V tiles (64 kv rows) come in by TMA with
+//   128-byte swizzle, completion on mbarriers, so the load of tile j + 1
+//   (and j + 2) overlaps the products of tile j. S = Q.K^T and O += P.V run
+//   on the tensor cores (wgmma, bf16 in, fp32 accumulators); the online
+//   softmax runs on the S accumulator in registers (row max and sum over
+//   the 4 threads of a quad, exp2 with the scale folded into log2 e), and P
+//   is rounded to bf16 and fed back as the register A operand of the P.V
+//   wgmma (its accumulator layout is the A fragment layout). V is read
+//   MN-major with the transpose bit. Tiles wholly above the diagonal are
+//   never loaded; rows past sq and columns past skv come in as zeros
+//   from TMA, are masked, and are never written.
+// * flash_fwd_simt_kernel: fp32 at any d, and bf16 at d 16 or 32. fp32
+//   products on the CUDA cores: full fp32 products are what the fp32 path
+//   is checked for (1e-4), which TF32 tensor cores would not hold. One
+//   block of 256 threads per (q tile of 64 rows, q head, batch); it stages
+//   one 64-row K tile and one V tile in shared memory as fp32 (rows padded
+//   by one word against bank conflicts) and stops at the diagonal when
+//   causal. Each thread owns 4 query rows and a 16-lane group shares a row,
+//   so the row max and sum reduce with four shuffles.
+//
+// Both: the kv head of q head h is h / (hq / hkv), as in the JAX kernel's
+// index map; l == 0 maps to 1. Unlike the JAX kernel (which asserts
+// sq % block_q == 0), these mask the ragged edge themselves, so any
+// sq, skv >= 1 is taken.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -57,7 +72,7 @@ __device__ __forceinline__ float group16_sum(float v) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
                  int hq, int hkv, float scale, int causal) {
   constexpr int LD = D + 1;
@@ -186,34 +201,339 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int hq, int hkv, float scale, int causal,
-           cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
+                int sq, int skv, int hq, int hkv, float scale, int causal,
+                cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_simt_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, skv, hq, hkv, scale,
       causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
-               int b, int sq, int skv, int hq, int hkv, float scale,
-               int causal, cudaStream_t s) {
+// fp32 at every head dim.
+int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
+                  int b, int sq, int skv, int hq, int hkv, float scale,
+                  int causal, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+    case 16: return launch_simt<float, 16>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+    case 32: return launch_simt<float, 32>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+    case 64: return launch_simt<float, 64>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+    case 128: return launch_simt<float, 128>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernel (wgmma + TMA), d = 64 or 128.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBQ = 64;        // query rows per block (one wgmma M)
+constexpr int kBK = 64;        // kv rows per tile (the S wgmma's N)
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kStages = 2;     // K/V ring depth
+constexpr int kBox = 64 * 64;  // one TMA box: 64 rows x 64 bf16 (128 B)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // 1024 for the alignment of the swizzled boxes, Q, the K/V ring, barriers
+  return 1024 + sizeof(bf16) * static_cast<size_t>(kBox) * (D / 64) *
+                    (1 + 2 * kStages) + 8 * (1 + kStages);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  wgmma_m64n64k16_rs_tb(o, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  wgmma_m64n128k16_rs_tb(o, a, desc);
+}
+
+// Accumulator layout of a wgmma m64nN (fp32), thread t of the warpgroup:
+// row 16 * (t / 32) + (t % 32) / 4 (+ 8 for the odd pair), column
+// 8 * j + 2 * (t % 4) (+ 1): register 4 j + {0, 1} holds the even row's
+// pair, 4 j + {2, 3} the odd row's. For k step kk of 16 columns, registers
+// 8 kk .. 8 kk + 7 are exactly the A fragment of a m64k16 wgmma.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, int b, int sq, int skv, int hq,
+                       int hkv, int n_qtiles, float scale_log2, int causal) {
+  constexpr int NB = D / 64;  // 64-column boxes per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
+  bf16* Ks = Qs + NB * kBox;                // [kStages][NB][kBox]
+  bf16* Vs = Ks + kStages * NB * kBox;      // [kStages][NB][kBox]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * NB * kBox);
+  uint64_t* qbar = bars;                    // Q arrived
+  uint64_t* kvbar = bars + 1;               // [kStages]: K/V tile arrived
+
+  // Longest q tiles first: block 0 takes the last q tile of every head.
+  const int heads = hq * b;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int h = static_cast<int>(blockIdx.x) % hq;
+  const int bb = (static_cast<int>(blockIdx.x) % heads) / hq;
+  const int kvh = h / (hq / hkv);
+  const int q0 = qt * kBQ;
+  const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
+  const int n_kv = (kv_end + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  auto issue_kv = [=](int stage, int j) {
+    mbar_expect_tx(&kvbar[stage], 2 * NB * kBox * sizeof(bf16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load_4d(Ks + (stage * NB + nb) * kBox, mk, &kvbar[stage], nb * 64,
+                  kvh, j * kBK, bb);
+      tma_load_4d(Vs + (stage * NB + nb) * kBox, mv, &kvbar[stage], nb * 64,
+                  kvh, j * kBK, bb);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&kvbar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, NB * kBox * sizeof(bf16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_load_4d(Qs + nb * kBox, &tq, qbar, nb * 64, h, q0, bb);
+    for (int j = 0; j < min(kStages, n_kv); ++j) issue_kv(j, j);
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // and row_a + 8
+  const int col_t = 2 * (lane & 3);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int stage = j % kStages;
+    mbar_wait(&kvbar[stage], (j / kStages) & 1);
+    const bf16* Kt = Ks + stage * NB * kBox;
+    const bf16* Vt = Vs + stage * NB * kBox;
+
+    // S = Q . K^T (64 x 64), K = d in steps of 16 (32 B inside a box row).
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = desc_sw128(Qs + (kk / 4) * kBox, 16, 1024) +
+                          2 * (kk % 4);
+      const uint64_t db = desc_sw128(Kt + (kk / 4) * kBox, 16, 1024) +
+                          2 * (kk % 4);
+      wgmma_m64n64k16_ss(s, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Online softmax on the accumulator: scale into log2 units, mask the
+    // causal upper triangle and the columns past skv, row max over a quad.
+    const int k0 = j * kBK;
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = k0 + 8 * jj + col_t + c;
+        float xa = s[4 * jj + c] * scale_log2;
+        float xb = s[4 * jj + 2 + c] * scale_log2;
+        if (col >= skv || (causal && col > row_a)) xa = kNegInf;
+        if (col >= skv || (causal && col > row_a + 8)) xb = kNegInf;
+        s[4 * jj + c] = xa;
+        s[4 * jj + 2 + c] = xb;
+        mx_a = fmaxf(mx_a, xa);
+        mx_b = fmaxf(mx_b, xb);
+      }
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[4 * jj + c] = exp2f(s[4 * jj + c] - mn_a);
+        s[4 * jj + 2 + c] = exp2f(s[4 * jj + 2 + c] - mn_b);
+        sum_a += s[4 * jj + c];
+        sum_b += s[4 * jj + 2 + c];
+      }
+    }
+    l_a = l_a * alpha_a + sum_a;  // this thread's columns; quad sum at the end
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      acc[4 * jj] *= alpha_a;
+      acc[4 * jj + 1] *= alpha_a;
+      acc[4 * jj + 2] *= alpha_b;
+      acc[4 * jj + 3] *= alpha_b;
+    }
+
+    // O += P . V: P in bf16 from registers, V (kv x d, d contiguous) read
+    // MN-major; k steps of 16 kv rows are 16 x 128 B = 2048 B apart.
+    uint32_t p[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(acc, p[kk],
+                  desc_sw128(Vt + kk * 16 * 64, kBox * sizeof(bf16), 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    __syncthreads();  // every wgmma of this stage has read its tiles
+    if (tid == 0 && j + kStages < n_kv) issue_kv(stage, j + kStages);
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
+  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+    if (row >= sq) continue;
+    const float inv = half ? inv_b : inv_a;
+    bf16* orow = o + ((static_cast<size_t>(bb) * sq + row) * hq + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
+          pack_bf16(acc[4 * jj + 2 * half] * inv,
+                    acc[4 * jj + 2 * half + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver call; it is fetched through the
+// runtime (cudaGetDriverEntryPoint), so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a (batch, rows, heads, d) bf16 tensor, boxes of 64 rows x
+// 64 columns of one head, 128-byte swizzle; rows past `rows` read as 0.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
+              int heads, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {e * d, e * d * heads, e * d * heads * rows};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int sq, int skv, int hq, int hkv, float scale, int causal,
+           cudaStream_t stream) {
+  // Encoded on every call: the maps hold the tensors' pointers, and as
+  // __grid_constant__ parameters a CUDA graph records them by value.
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, b, sq, hq, D) || !make_map(&tk, k, b, skv, hkv, D) ||
+      !make_map(&tv, v, b, skv, hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (sq + kBQ - 1) / kBQ;
+  const dim3 grid(n_qtiles * hq * b);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), b, sq, skv, hq, hkv, n_qtiles,
+      scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 }  // namespace repro
@@ -228,10 +548,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
-    return dispatch_d<float>(d, q, k, v, o, b, sq, skv, hq, hkv, scale,
-                             causal, s);
-  if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, b, sq, skv, hq, hkv,
-                                     scale, causal, s);
+    return dispatch_simt(d, q, k, v, o, b, sq, skv, hq, hkv, scale, causal,
+                         s);
+  if (dtype == kBF16) {
+    switch (d) {
+      case 16: return launch_simt<__nv_bfloat16, 16>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+      case 32: return launch_simt<__nv_bfloat16, 32>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+      case 64: return tc::launch<64>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+      case 128: return tc::launch<128>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,6 +11,12 @@ failed build raises: there is no fallback.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and
 counts the launches that succeeded.
+
+The library links the CUDA runtime only, no ``-lcuda``: the one driver
+call the kernels need, ``cuTensorMapEncodeTiled`` (TMA tensor maps of the
+flash kernel), is fetched at run time with ``cudaGetDriverEntryPoint``.
+Headers under ``csrc/`` (``*.cuh``) are part of the hash, so a change to
+one rebuilds.
 """
 from __future__ import annotations
 

@@ -5,13 +5,21 @@ Replaces ``src/repro/kernels/decode_attention.py::decode_attention`` of the
 JAX package. A tensor on the CPU goes to the plain version
 (``ref.decode_attention_ref``); a CUDA tensor goes to the kernel, or the
 call raises. Any ``skv`` is taken; head_dim must be 16, 32, 64 or 128 and
-``hq / hkv`` 1, 2, 4 or 8.
+``hq / hkv`` 1, 2, 4 or 8, in bf16 or fp32.
+
+The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
+each over ``split_rows(skv)`` cache rows, combined in the same launch by
+the block that finishes last. Both numbers follow from ``skv`` (the
+cache's capacity) alone, never from ``length``, so a call reads nothing
+back to the host and can be captured in a CUDA graph. The combine counts
+blocks on an int32 buffer per device that the kernel leaves zeroed; calls
+on one device are assumed to be ordered (one stream at a time).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -24,7 +32,32 @@ GROUPS = (1, 2, 4, 8)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "decode_attention", "repro_decode_attention",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+TILE = 64   # cache rows per tile inside a block; split_rows is a multiple
+MAX_SPLITS = 16
+# Combine counters, one list per device; every buffer stays alive, since a
+# captured CUDA graph keeps the pointer it was given.
+_COUNTERS: Dict[torch.device, List[torch.Tensor]] = {}
+
+
+def split_rows(skv: int) -> int:
+    """Cache rows per block: the least multiple of 64 that cuts the cache
+    into at most MAX_SPLITS splits (the kernel's combine takes at most 32,
+    one per lane of a warp). 4 slots at cache 740 give 12 x 8 x 4 = 384
+    blocks at 8 kv heads; a cache of 4096 gives 16 splits of 256 rows."""
+    return TILE * max(1, -(-skv // (TILE * MAX_SPLITS)))
+
+
+def num_splits(skv: int) -> int:
+    return -(-skv // split_rows(skv))
+
+
+def _counter(device: torch.device, n: int) -> torch.Tensor:
+    bufs = _COUNTERS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,7 +96,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    g, splits = hq // hkv, num_splits(skv)
+    # One fp32 scratch for the partials: (m, l) of each (b, kv head, split,
+    # q head), then their accumulators of d each.
+    n_part = b * hkv * splits * g
+    part = torch.empty(n_part * (2 + d), dtype=torch.float32,
+                       device=q.device)
+    counter = _counter(q.device, b * hkv)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-           out.data_ptr(), b, skv, hq, hkv, d, float(scale), dtype_code(q),
-           stream_handle(q.device))
+           out.data_ptr(), part.data_ptr(), part.data_ptr() + 8 * n_part,
+           counter.data_ptr(), b, skv, hq, hkv, d, split_rows(skv),
+           float(scale), dtype_code(q), stream_handle(q.device))
     return out

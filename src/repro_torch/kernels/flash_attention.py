@@ -6,6 +6,15 @@ JAX package. A tensor on the CPU goes to the plain version
 (``ref.attention_ref``); a CUDA tensor goes to the kernel, or the call
 raises. Any ``sq`` and ``skv`` are taken; head_dim must be 16, 32, 64 or
 128.
+
+Two hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
+tensor, both launched and counted as ``flash_attention``:
+
+* bf16 at head_dim 64 or 128 (the serving path): ``flash_fwd_wgmma_kernel``,
+  tensor cores (wgmma, fp32 accumulators, P rounded to bf16 for P.V) fed
+  by TMA;
+* fp32 at any head_dim, and bf16 at 16 or 32: ``flash_fwd_simt_kernel``,
+  full fp32 products on the CUDA cores.
 """
 from __future__ import annotations
 

@@ -102,6 +102,106 @@ def test_decode_kernel_reads_no_row_past_length(cuda):
     torch.testing.assert_close(out1, out2, rtol=0, atol=0)
 
 
+def _flash_check(cuda, dtype, b, sq, skv, hq, hkv, d, causal):
+    q = _randn((b, sq, hq, d), dtype, cuda, 0)
+    k = _randn((b, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((b, skv, hkv, d), dtype, cuda, 2)
+    out = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tflash.plain(q, k, v, causal=causal)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("sq", [1, 63, 64, 65, 101, 700])
+def test_flash_kernel_ragged_lengths_and_groups(cuda, dtype, causal, g, sq):
+    """Lengths around the 64-row tile, the serve run's shortest and longest
+    prompts, and GQA groups 1, 2, 8, at d 128 (bf16: the wgmma kernel)."""
+    _flash_check(cuda, dtype, 1, sq, sq, 2 * g, 2, 128, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(65, 200), (200, 65), (1, 700),
+                                    (333, 129)])
+def test_flash_kernel_full_attention_skv_differs(cuda, dtype, d, sq, skv):
+    _flash_check(cuda, dtype, 2, sq, skv, 4, 2, d, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 128), (torch.bfloat16, 64),    # flash_fwd_wgmma_kernel
+    (torch.bfloat16, 32), (torch.float32, 128)])    # flash_fwd_simt_kernel
+def test_flash_both_routes_launch(cuda, dtype, d):
+    """Each route is a kernel launch, counted under flash_attention."""
+    q = _randn((1, 70, 4, d), dtype, cuda, 0)
+    kv = _randn((1, 70, 2, d), dtype, cuda, 1)
+    before = tflash.KERNEL.launches
+    tflash.flash_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    assert tflash.KERNEL.launches == before + 1
+
+
+def _decode_lengths(skv):
+    """0, skv, and lengths on and one past split boundaries."""
+    sr = tdecode.split_rows(skv)
+    return [0, skv, min(skv, sr), min(skv, 2 * sr + 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("skv", [1, 740, 4096])
+def test_decode_kernel_split_boundaries(cuda, dtype, g, skv):
+    hkv, d = 2, 128
+    q = _randn((4, hkv * g, d), dtype, cuda, 0)
+    k = _randn((4, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((4, skv, hkv, d), dtype, cuda, 2)
+    length = torch.tensor(_decode_lengths(skv), dtype=torch.int32,
+                          device=cuda)
+    out = tdecode.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    want = tdecode.plain(q, k, v, length)
+    want = torch.where(length[:, None, None] == 0, 0.0, want.float())
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured once, replayed with `length` changed in place: each replay
+    matches the plain version, and two replays back to back agree, so the
+    combine counter is back at 0 after every launch."""
+    b, skv, hq, hkv, d = 4, 740, 16, 8, 128
+    q = _randn((b, hq, d), torch.bfloat16, cuda, 0)
+    k = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 1)
+    v = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 2)
+    length = torch.tensor([129, 334, 517, 731], dtype=torch.int32,
+                          device=cuda)
+    tdecode.decode_attention(q, k, v, length)      # warm-up: counter, build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdecode.decode_attention(q, k, v, length)
+    tol = GPU_TOL[torch.bfloat16]
+    for lens in ([1, 2, 3, 4], [740, 0, 64, 65], [700, 600, 500, 400]):
+        length.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, first, rtol=0, atol=0)
+        want = tdecode.plain(q, k, v, length)
+        want = torch.where(length[:, None, None] == 0, 0.0, want.float())
+        torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 def test_cuda_attention_with_kv_len_raises(cuda):
     q = torch.zeros((1, 4, 2, 16), device=cuda)

@@ -187,6 +187,148 @@ def test_decode_lowcast_matches_jax(dtype, rng):
 
 
 # ---------------------------------------------------------------------------
+# The CUDA kernels' algorithms, emulated in plain PyTorch on the CPU
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+BF16_TOL = 2e-2     # chip_smoke.py KERNEL_TOL[bf16]: a bf16 ulp, P in bf16
+
+
+def _split_kv_decode(q, k, v, length, split_rows, scale=None):
+    """csrc/decode_attention.cu's split-KV algorithm in fp32: per split of
+    ``split_rows`` cache rows (tiles of 64) that starts below ``length``,
+    an unnormalised partial (m, l, acc) in log2 units; splits at or past
+    ``length`` hold nothing; then the combine over the splits below
+    ceil(length / split_rows)."""
+    b, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    qs = q.float().reshape(b, hkv, g, d) * (scale * LOG2E)
+    out = torch.zeros((b, hkv, g, d))
+    for bi in range(b):
+        n = int(min(max(int(length[bi]), 0), skv))
+        nvalid = -(-n // split_rows)
+        if nvalid == 0:
+            continue                        # length 0: zeros
+        parts = []
+        for s in range(nvalid):
+            r0 = s * split_rows
+            m = torch.full((hkv, g), tref.NEG_INF)
+            l = torch.zeros((hkv, g))
+            acc = torch.zeros((hkv, g, d))
+            for t0 in range(r0, min(n, r0 + split_rows), 64):
+                t1 = min(n, t0 + 64)        # rows past length never read
+                kt = k[bi, t0:t1].float().permute(1, 0, 2)    # (hkv, r, d)
+                vt = v[bi, t0:t1].float().permute(1, 0, 2)
+                x = torch.einsum("hgd,hrd->hgr", qs[bi], kt)
+                m_new = torch.maximum(m, x.amax(-1))
+                p = torch.exp2(x - m_new[..., None])
+                alpha = torch.exp2(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "hgr,hrd->hgd", p, vt)
+                m = m_new
+            parts.append((m, l, acc))
+        ms, ls, accs = (torch.stack(x) for x in zip(*parts))
+        w = torch.exp2(ms - ms.amax(0))
+        lsum = (ls * w).sum(0)
+        out[bi] = (accs * w[..., None]).sum(0) / torch.where(
+            lsum == 0, 1.0, lsum)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("split_rows", [64, 128, 192])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (8, 2, 32)])
+def test_split_kv_decode_emulation_matches_ref_and_jax(split_rows, hq, hkv,
+                                                       d, rng):
+    """Lengths 37 and 130 cut a split mid-way, 0 leaves every split empty,
+    256 fills them; whole splits past length hold nothing."""
+    b, skv = 4, 256
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    length = np.array([37, 0, 130, 256], np.int32)
+    out = _split_kv_decode(_t(q), _t(k), _t(v), _t(length), split_rows)
+    ref = tref.decode_attention_ref(_t(q), _t(k), _t(v), _t(length))
+    # decode_attention_ref softmaxes an all-masked row (length 0) to the
+    # mean of V; the kernels (Pallas and CUDA) give zeros, l == 0 -> 1.
+    ref = torch.where(_t(length)[:, None, None] == 0, 0.0, ref)
+    pallas = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(length), block_k=128, interpret=True)
+    for want in (ref, pallas):
+        np.testing.assert_allclose(_np(out), _np(want), rtol=F32_ATTN_TOL,
+                                   atol=F32_ATTN_TOL)
+
+
+def test_decode_split_count_depends_on_capacity_alone():
+    """The grid is fixed by skv (a CUDA graph can hold the launch): the
+    split count takes skv and nothing else, cuts the cache into whole
+    64-row tiles with no split wholly past skv, and stays within the
+    combine's one split per lane."""
+    import inspect
+    for fn in (tdecode.split_rows, tdecode.num_splits):
+        assert list(inspect.signature(fn).parameters) == ["skv"]
+    for skv in list(range(1, 300)) + [740, 1024, 2048, 2049, 4096, 4097,
+                                      32768, 65536]:
+        rows, n = tdecode.split_rows(skv), tdecode.num_splits(skv)
+        assert rows % tdecode.TILE == 0
+        assert (n - 1) * rows < skv <= n * rows
+        assert 1 <= n <= tdecode.MAX_SPLITS
+    # 4 slots x 8 kv heads at the serve run's cache of 740 rows
+    assert tdecode.num_splits(740) * 8 * 4 == 384
+
+
+def _flash_wgmma_emulation(q, k, v, *, causal=True):
+    """csrc/flash_attention.cu's bf16 tensor-core algorithm: 64 x 64 tiles,
+    fp32 scores from bf16 operands, online softmax in log2 units, P rounded
+    to bf16 before P.V (fp32 sums), l from the unrounded P, output rounded
+    to bf16 once."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    c = LOG2E / np.sqrt(d)
+    qf = q.float().permute(0, 2, 1, 3)                       # (b, hq, sq, d)
+    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    out = torch.empty((b, hq, sq, d))
+    for q0 in range(0, sq, 64):
+        qt = qf[:, :, q0:q0 + 64]
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        m = torch.full(qt.shape[:3], tref.NEG_INF)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        kv_end = min(skv, q0 + 64) if causal else skv
+        for k0 in range(0, kv_end, 64):
+            cols = torch.arange(k0, min(k0 + 64, skv))[None, :]
+            x = qt @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * c
+            if causal:
+                x = torch.where(cols > rows, tref.NEG_INF, x)
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.exp2(x - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + \
+                p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 64]
+            m = m_new
+        out[:, :, q0:q0 + 64] = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def test_flash_bf16_p_emulation_at_serve_shape_within_tolerance(rng):
+    """Rounding P to bf16 (the wgmma kernel's P.V operand) at the serve
+    shape, sq 333, 16/8 heads, d 128, stays within the card's bf16
+    tolerance of attention_ref."""
+    b, sq, hq, hkv, d = 1, 333, 16, 8, 128
+    q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)).to(
+        torch.bfloat16) for sh in ((b, sq, hq, d), (b, sq, hkv, d),
+                                   (b, sq, hkv, d)))
+    out = _flash_wgmma_emulation(q, k, v)
+    want = tref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
 # Mamba-2 SSD
 # ---------------------------------------------------------------------------
 def _ssd_inputs(rng, b, s, h, p, n):
