@@ -8,7 +8,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. ``device``   card name and power limit (nvidia-smi), torch and CUDA
                 versions. No card: exit non-zero before any result.
 2. ``build``    nvcc builds ``src/repro_torch/csrc/*.cu`` for sm_90a; build
-                time and each kernel's registers/spills from ``-Xptxas -v``.
+                time and each kernel's registers/spills from ``-Xptxas -v``;
+                fails if an instantiation the main paths launch spills.
 3. ``kernels``  each hand-written kernel against its plain PyTorch version
                 on the card, at the full-width shapes each serving path
                 gives it (rmsnorm at both models' widths; flash at prompts
@@ -19,7 +20,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 PyTorch library call, and the bound (the least time the
                 card could take for the same work).
                 ``int8_matmul`` has no model call site; this phase is its
-                path, and its launches here are the ones reported.
+                path, and its launches here are the ones reported; beside
+                its library call (``torch._int_mm`` and the scales) it
+                times ``torch._int_mm`` alone (``int_mm_ms``).
 4. ``serve``    two paths, each full width in bf16 with random weights,
                 8 requests through ``repro_torch.launch.serve.serve``:
                 internlm2-1.8b (rmsnorm, flash and decode attention) and
@@ -89,8 +92,10 @@ MAMBA_PARITY_PROMPTS = (77, 200)
 # Kernels each model's path runs; every other kernel must stay at 0.
 PATH_KERNELS = {ARCH: ("rmsnorm", "flash_attention", "decode_attention"),
                 MAMBA_ARCH: ("rmsnorm", "ssd_scan")}
-# int8_matmul has no model call site: the kernels phase is its path.
+# int8_matmul has no model call site: the kernels phase is its path, at
+# the JAX benchmark's shape and an MLP up projection of a 333-token prefill.
 KERNELS_PHASE = "kernels phase"
+INT8_SHAPES = ((512, 1024, 512), (333, 2048, 8192))
 
 # H100 SXM data sheet (dense): HBM rate and peak arithmetic rates by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -245,26 +250,53 @@ def _ptxas_summary(lines):
         if used and name:
             kern = re.search(r"(rmsnorm_kernel|flash_fwd_wgmma_kernel|"
                              r"flash_fwd_simt_kernel|decode_split_kernel|"
-                             r"ssd_scan_kernel|int8_matmul_kernel)", name)
-            # the wgmma kernel is bf16 only and has no dtype parameter
-            dt = "bf16" if "bfloat16" in name or "wgmma" in name else "f32"
-            args = ",".join([dt, *re.findall(r"Li(\d+)E", name)])
+                             r"ssd_scan_kernel|int8_wgmma_kernel)", name)
+            # the flash wgmma kernel is bf16 only and has no dtype parameter
+            dt = "bf16" if "bfloat16" in name or "flash_fwd_wgmma" in name \
+                else "f32"
+            args = ",".join([dt, *re.findall(r"L[ib](\d+)E", name)])
             out.append(f"{kern.group(1) if kern else name}<{args}>: "
                        f"{used.group(1)} regs, {spill or '?'} B spill")
             name = None
     return out
 
 
+def _main_path_patterns() -> list:
+    """Patterns of the ptxas labels of the instantiations the main paths
+    launch: rmsnorm at each path's width in bf16, int8_matmul at the
+    kernels phase's shapes (16-byte loads), flash and decode at d 128 in
+    bf16, and ssd_scan."""
+    pats = [r"(flash_fwd_wgmma_kernel|decode_split_kernel)<bf16,128(,\d+)?>",
+            r"ssd_scan_kernel<\w+>"]
+    for arch in PATH_KERNELS:
+        vec, nv, wpr, _ = krms.plan(1, get_config(arch).d_model, 2, True)
+        pats.append(rf"rmsnorm_kernel<bf16,{8 if vec else 1},{nv},{wpr}>")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, k, n in INT8_SHAPES:
+        bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
+        pats.append(rf"int8_wgmma_kernel<\w+,{bm // 64},{bn},\d+,1>")
+    return pats
+
+
 def phase_build() -> None:
+    """Build, then report each kernel's registers and spills; a kernel the
+    main paths launch must have been reported, and must not spill."""
     info = _build.build()
     ptxas = _ptxas_summary(info.ptxas)
     spills = [p for p in ptxas if not p.endswith(", 0 B spill")]
+    pats = _main_path_patterns()
+    main = [p for p in ptxas
+            if any(re.fullmatch(pat, p.split(":")[0]) for pat in pats)]
+    missing = [pat for pat in pats
+               if not any(re.fullmatch(pat, p.split(":")[0]) for p in main)]
     emit({"phase": "build", "seconds": info.seconds, "cached": info.cached,
           "library": os.path.relpath(info.path), "entries": len(ptxas),
-          "spills": spills,
-          "main_path": [p for p in ptxas if "bf16,128" in p
-                        or ("rmsnorm" in p and "bf16" in p)
-                        or "ssd_scan" in p or "int8_matmul" in p]})
+          "spills": spills, "main_path": main})
+    if missing:
+        raise AssertionError(f"ptxas reported no instantiation of {missing}")
+    main_spills = [p for p in main if not p.endswith(", 0 B spill")]
+    if main_spills:
+        raise AssertionError(f"main-path kernels spill: {main_spills}")
 
 
 def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
@@ -394,10 +426,13 @@ def _int8_case(m, k, n, out_dtype, seed=0):
     def library():      # timed only: the port never calls torch._int_mm
         acc = torch._int_mm(xq, wq)
         return (acc.float() * sx[:, None] * sw[None, :]).to(out_dtype)
+    vec, tile = kint8.plan(m, k, n, xq.data_ptr(), wq.data_ptr(),
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
     b_ms, by = bound(m * k + k * n + 4 * (m + n) + m * n * out.element_size(),
                      2 * m * k * n, torch.int8)
     return {"kernel": "int8_matmul", "path": KERNELS_PHASE,
-            "shape": [m, k, n],
+            "shape": [m, k, n], "vec": vec, "tile": kint8.TILES[tile],
             "dtype": str(out_dtype), "max_abs_err": err,
             "checked_launches": launches,
             "ms": time_ms(lambda: kint8.int8_matmul(xq, sx, wq, sw,
@@ -408,6 +443,7 @@ def _int8_case(m, k, n, out_dtype, seed=0):
                                                     out_dtype), 5),
             "library_ms": time_ms(library),
             "library_call": "torch._int_mm, then the scales",
+            "int_mm_ms": time_ms(lambda: torch._int_mm(xq, wq)),
             "bound_ms": b_ms, "bound_by": by}
 
 
@@ -436,7 +472,7 @@ def phase_kernels() -> dict:
             cases.append(_decode_case(dtype, skv, lengths))
         for s in (512, 129):
             cases.append(_ssd_case(s, dtype))
-    for m, k, n in ((512, 1024, 512), (333, 2048, 8192)):
+    for m, k, n in INT8_SHAPES:
         for out_dtype in (torch.float32, torch.bfloat16):
             cases.append(_int8_case(m, k, n, out_dtype))
     emit({"phase": "kernels", "tolerance": {

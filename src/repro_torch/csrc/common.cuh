@@ -1,5 +1,5 @@
-// Shared helpers of the port's CUDA kernels: dtype conversion, vector
-// loads and warp reductions. Every kernel computes in fp32 and reads and
+// Shared helpers of the port's CUDA kernels: dtype conversion and warp
+// reductions. Every kernel computes in fp32 and reads and
 // writes float32 or bfloat16 (dtype code 0 or 1, as in _build.DTYPE_CODES).
 #pragma once
 
@@ -26,41 +26,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// Load N consecutive elements (N * sizeof(T) bytes, aligned to that) as fp32.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&out)[N]) {
-  if constexpr (N == 4) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&t.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&t.y));
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  } else if constexpr (N == 2) {
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = a.x; out[1] = a.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

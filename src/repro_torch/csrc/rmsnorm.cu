@@ -1,82 +1,323 @@
-// RMSNorm over the last dim: y = x * rsqrt(mean(x^2) + eps) * w.
+// RMSNorm over the last dim: y = x * rsqrt(mean(x^2) + eps) * w, with fp32
+// statistics and an fp32 w.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py::rmsnorm
 // (_rms_kernel), which tiles 256 rows into VMEM per grid step.
 //
-// Bound on the H100: memory bytes. Each element is read once for the sum of
-// squares and once more for the output (the second read hits L1/L2: a row
-// is at most a few KB), and written once; the arithmetic is a few flops a
-// byte. Design: one block of 256 threads per row, an fp32 sum of squares
-// reduced across warps through shared memory, then one pass that writes
-// the output. No padding of rows: the grid is exactly the row count.
+// Bound on the H100: bytes, 2 * rows * d * sizeof(T) + 4 * d over 3.35
+// TB/s: 0.82 us at 333 x 2048 bf16, 0.47 us at 512 x 768, a few ns at the
+// 4-row decode tick, where the kernel is one chain of latencies (load,
+// reduce, store) after its launch and the arithmetic costs nothing.
+// Design (the launch plan comes from kernels/rmsnorm.py::plan):
+// * Each row is read once, in 16-byte loads (8 bf16 or 4 float a load;
+//   w as float4s), all issued before the first use, and kept in
+//   registers: NV chunks of 16 bytes a lane, a template parameter, so the
+//   serve widths unroll fully (d 768 bf16: 3 a lane, d 2048: 8).
+// * One warp per row up to 32 * 8 chunks (d 2048 bf16, 1024 fp32), the
+//   sum of squares reduced by a 5-step xor butterfly with no shared memory
+//   and no barrier, the output written from the registers. Several rows a
+//   block, so 333-512 rows fill the card; one row a block at the 4-row
+//   tick, so each row has an SM to itself.
+// * Wider rows take WPR = 2, 4 or 8 warps a row and one exchange of the
+//   warps' sums through shared memory. Chunks past what the registers hold
+//   (d > 16384 bf16) are streamed: read for the sum, read again for the
+//   output.
+// * d not a multiple of the vector width, or a pointer not 16-byte
+//   aligned (a contiguous view at an offset), takes the same kernel with
+//   one element a chunk (scalar loads).
 //
 // lowp: the JAX package's Pallas path drops `lowp` (src/repro/kernels/ops.py:59)
 // and always computes in fp32. This kernel follows the reference-mode
 // semantics instead (ref.rmsnorm_lowp), which the port's tests hold it to:
 // inv = rsqrt(var + eps) is rounded to x's dtype, then x * inv and the
 // product with w (also rounded to x's dtype) are each rounded to x's dtype.
-// w is float32 in both modes.
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ out, int d, float eps, int lowp) {
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * d;
-  T* orow = out + static_cast<size_t>(blockIdx.x) * d;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
-  }
-  __shared__ float partial[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  ss = warp_sum(ss);
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    ss = lane < kThreads / 32 ? partial[lane] : 0.f;
-    ss = warp_sum(ss);
-    if (lane == 0) partial[0] = ss;
-  }
-  __syncthreads();
-  const float inv = rsqrtf(partial[0] / static_cast<float>(d) + eps);
-  if (lowp) {
-    const float inv_t = to_f32(from_f32<T>(inv));
-    for (int i = threadIdx.x; i < d; i += kThreads) {
-      const float xi = to_f32(from_f32<T>(to_f32(xr[i]) * inv_t));
-      orow[i] = from_f32<T>(xi * to_f32(from_f32<T>(w[i])));
-    }
+// V elements of T as loaded and stored at once: 16 bytes (float4, or 8
+// bf16 in a uint4), or one element.
+template <typename T, int V>
+using Raw = std::conditional_t<
+    V == 1, T, std::conditional_t<std::is_same_v<T, float>, float4, uint4>>;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  if constexpr (V == 1) {
+    return p[0];
   } else {
-    for (int i = threadIdx.x; i < d; i += kThreads)
-      orow[i] = from_f32<T>(to_f32(xr[i]) * inv * w[i]);
+    return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
   }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> zero_raw() {
+  if constexpr (V == 1) {
+    return from_f32<T>(0.f);
+  } else if constexpr (std::is_same_v<T, float>) {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const Raw<T, V>& r, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = to_f32(r);
+  } else if constexpr (std::is_same_v<T, float>) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  } else {
+    const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> pack(const float (&f)[V]) {
+  if constexpr (V == 1) {
+    return from_f32<T>(f[0]);
+  } else if constexpr (std::is_same_v<T, float>) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+    uint32_t words[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      words[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(words[0], words[1], words[2], words[3]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_raw(T* p, const Raw<T, V>& r) {
+  *reinterpret_cast<Raw<T, V>*>(p) = r;
+}
+
+// V floats of w: float4s for a 16-byte chunk of x, else one float.
+template <int V>
+__device__ __forceinline__ void load_w(const float* p, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + i);
+      f[4 * i] = t.x; f[4 * i + 1] = t.y; f[4 * i + 2] = t.z;
+      f[4 * i + 3] = t.w;
+    }
+  }
+}
+
+// One chunk of output. kLowp rounds as ref.rmsnorm_lowp: for 8 bf16 the
+// products run on bf16 pairs (__hmul2: the exact product of two bf16
+// values, rounded once, as torch's bf16 multiply); in float32 lowp
+// changes nothing.
+template <bool kLowp, typename T, int V>
+__device__ __forceinline__ Raw<T, V> norm_chunk(const Raw<T, V>& x,
+                                                const float (&w)[V],
+                                                float inv) {
+  if constexpr (kLowp && V == 8) {
+    const __nv_bfloat162 inv2 = __float2bfloat162_rn(inv);
+    const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 xi =
+          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&xw[i]), inv2);
+      const __nv_bfloat162 y =
+          __hmul2(xi, __floats2bfloat162_rn(w[2 * i], w[2 * i + 1]));
+      o[i] = *reinterpret_cast<const uint32_t*>(&y);
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  } else {
+    float f[V], y[V];
+    unpack<T, V>(x, f);
+    if constexpr (kLowp) {
+      const float inv_t = to_f32(from_f32<T>(inv));
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        y[e] = to_f32(from_f32<T>(f[e] * inv_t)) * to_f32(from_f32<T>(w[e]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) y[e] = f[e] * inv * w[e];
+    }
+    return pack<T, V>(y);
+  }
+}
+
+// Rows of d = nchunks * V elements; each row is held by WPR warps (a "row
+// group" of WPR * 32 threads), blockDim.x / (WPR * 32) rows a block. Lane t
+// of a row group holds chunks t + i * WPR * 32, i < NV.
+template <typename T, int V, int NV, int WPR>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               T* __restrict__ out, int rows, int d, float eps, int lowp) {
+  constexpr int kRowThreads = WPR * 32;
+  const int group = threadIdx.x / kRowThreads;
+  const int t = threadIdx.x % kRowThreads;
+  const int row = blockIdx.x * (blockDim.x / kRowThreads) + group;
+  const bool live = row < rows;
+  const int nchunks = d / V;
+  const T* xr = x + static_cast<size_t>(live ? row : 0) * d;
+  T* orow = out + static_cast<size_t>(live ? row : 0) * d;
+
+  Raw<T, V> xv[NV];
+  float wv[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = t + i * kRowThreads;
+    const bool ok = live && c < nchunks;
+    xv[i] = ok ? load_raw<T, V>(xr + c * V) : zero_raw<T, V>();
+    if (ok) load_w<V>(w + c * V, wv[i]);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float f[V];
+    unpack<T, V>(xv[i], f);
+#pragma unroll
+    for (int e = 0; e < V; ++e) ss = fmaf(f[e], f[e], ss);
+  }
+  // Chunks the registers do not hold (rows wider than NV * WPR * 32).
+#pragma unroll 1
+  for (int c = t + NV * kRowThreads; live && c < nchunks; c += kRowThreads) {
+    float f[V];
+    unpack<T, V>(load_raw<T, V>(xr + c * V), f);
+#pragma unroll
+    for (int e = 0; e < V; ++e) ss = fmaf(f[e], f[e], ss);
+  }
+  ss = warp_sum(ss);
+  if constexpr (WPR > 1) {
+    __shared__ float partial[kMaxThreads / 32];
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < WPR; ++j) ss += partial[group * WPR + j];
+  }
+  if (!live) return;
+  const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+
+  // The output, with lowp fixed for the whole row.
+  auto write = [&](auto lowp_tag) {
+    constexpr bool kLowp = decltype(lowp_tag)::value;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = t + i * kRowThreads;
+      if (c < nchunks)
+        store_raw<T, V>(orow + c * V,
+                        norm_chunk<kLowp, T, V>(xv[i], wv[i], inv));
+    }
+#pragma unroll 1
+    for (int c = t + NV * kRowThreads; c < nchunks; c += kRowThreads) {
+      float wf[V];
+      load_w<V>(w + c * V, wf);
+      store_raw<T, V>(orow + c * V, norm_chunk<kLowp, T, V>(
+                                        load_raw<T, V>(xr + c * V), wf, inv));
+    }
+  };
+  if (lowp)
+    write(std::true_type{});
+  else
+    write(std::false_type{});
+}
+
+template <typename T, int V, int NV, int WPR>
+cudaError_t launch(const void* x, const void* w, void* out, int rows, int d,
+                   float eps, int lowp, int rows_per_block,
+                   cudaStream_t s) {
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  rmsnorm_kernel<T, V, NV, WPR><<<blocks, rows_per_block * WPR * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<T*>(out), rows, d, eps, lowp);
+  return cudaGetLastError();
+}
+
+// The instantiated plans: 16-byte chunks with one warp a row and NV 1..8,
+// or NV 8 and WPR 2, 4, 8; single elements with NV 8 and WPR 1, 2, 4, 8.
+template <typename T>
+cudaError_t dispatch(const void* x, const void* w, void* out, int rows,
+                     int d, float eps, int lowp, int vec, int nv, int wpr,
+                     int rpb, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    if (wpr == 1) {
+      switch (nv) {
+        case 1: return launch<T, V, 1, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 2: return launch<T, V, 2, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 3: return launch<T, V, 3, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 4: return launch<T, V, 4, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 5: return launch<T, V, 5, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 6: return launch<T, V, 6, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 7: return launch<T, V, 7, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        case 8: return launch<T, V, 8, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    if (nv != 8) return cudaErrorInvalidValue;
+    switch (wpr) {
+      case 2: return launch<T, V, 8, 2>(x, w, out, rows, d, eps, lowp, rpb, s);
+      case 4: return launch<T, V, 8, 4>(x, w, out, rows, d, eps, lowp, rpb, s);
+      case 8: return launch<T, V, 8, 8>(x, w, out, rows, d, eps, lowp, rpb, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (nv != 8) return cudaErrorInvalidValue;
+  switch (wpr) {
+    case 1: return launch<T, 1, 8, 1>(x, w, out, rows, d, eps, lowp, rpb, s);
+    case 2: return launch<T, 1, 8, 2>(x, w, out, rows, d, eps, lowp, rpb, s);
+    case 4: return launch<T, 1, 8, 4>(x, w, out, rows, d, eps, lowp, rpb, s);
+    case 8: return launch<T, 1, 8, 8>(x, w, out, rows, d, eps, lowp, rpb, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 }  // namespace repro
 
+// x, out: (rows, d) float32 or bfloat16 (dtype), w: (d,) float32, all
+// contiguous. vec, nv, wpr, rows_per_block: the launch plan of
+// kernels/rmsnorm.py::plan; vec needs d a multiple of 16 bytes and every
+// pointer 16-byte aligned.
 extern "C" int repro_rmsnorm(const void* x, const void* w, void* out,
                              int rows, int d, float eps, int lowp, int dtype,
+                             int vec, int nv, int wpr, int rows_per_block,
                              void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == kF32) {
-    rmsnorm_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), d, eps, lowp);
-  } else if (dtype == kBF16) {
-    rmsnorm_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<__nv_bfloat16*>(out), d, eps, lowp);
-  } else {
+  const int esize = dtype == kF32 ? 4 : 2;
+  if (rows <= 0 || d <= 0 || rows_per_block <= 0 ||
+      rows_per_block * wpr * 32 > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (vec && ((d * esize) % 16 || !aligned16(x) || !aligned16(w) ||
+              !aligned16(out)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dtype == kF32)
+    err = dispatch<float>(x, w, out, rows, d, eps, lowp, vec, nv, wpr,
+                          rows_per_block, s);
+  else if (dtype == kBF16)
+    err = dispatch<__nv_bfloat16>(x, w, out, rows, d, eps, lowp, vec, nv, wpr,
+                                  rows_per_block, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

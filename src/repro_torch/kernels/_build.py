@@ -12,6 +12,9 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and
 counts the launches that succeeded.
 
+A cache hit reads back what ``ptxas`` reported when the library was
+built, so the registers and spills of each kernel are known either way.
+
 The library links the CUDA runtime only, no ``-lcuda``: the one driver
 call the kernels need, ``cuTensorMapEncodeTiled`` (TMA tensor maps of the
 flash kernel), is fetched at run time with ``cudaGetDriverEntryPoint``.
@@ -41,6 +44,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
+PTXAS_LOG = "ptxas.txt"     # beside the library: what the build reported
 
 
 @dataclass
@@ -120,7 +124,10 @@ def build() -> BuildInfo:
         out_dir = BUILD_ROOT / _digest()
         lib_path = out_dir / LIB_NAME
         if lib_path.exists():
-            _info = BuildInfo(lib_path, cached=True, seconds=0.0)
+            log = out_dir / PTXAS_LOG
+            _info = BuildInfo(lib_path, cached=True, seconds=0.0,
+                              ptxas=log.read_text().splitlines()
+                              if log.exists() else [])
             return _info
         nvcc = find_nvcc()
         BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -130,6 +137,7 @@ def build() -> BuildInfo:
         t0 = time.perf_counter()
         try:
             ptxas = _compile(nvcc, sources, tmp)
+            (tmp / PTXAS_LOG).write_text("\n".join(ptxas))
             # Another process may have finished the same build meanwhile;
             # either copy is the same library.
             try:
@@ -211,9 +219,11 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,
-                  ndim: int, dtype: Optional[torch.dtype] = None) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned tensor of
-    ``ndim`` dims on ``device`` (and of ``dtype`` when given)."""
+                  ndim: int, dtype: Optional[torch.dtype] = None,
+                  aligned: bool = True) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``ndim`` dims on
+    ``device`` (and of ``dtype`` when given), 16-byte aligned unless
+    ``aligned`` is False (a kernel with a routine for any alignment)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dim() != ndim:
@@ -222,7 +232,7 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 

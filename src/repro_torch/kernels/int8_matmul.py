@@ -4,8 +4,9 @@ version.
 Replaces ``src/repro/kernels/int8_matmul.py::int8_matmul`` of the JAX
 package. A tensor on the CPU goes to the plain version
 (``ref.int8_matmul_ref``); a CUDA tensor goes to the kernel, or the call
-raises. Any m, k, n are taken (the Pallas kernel needs them divisible by
-its blocks). No model path calls it, in either package.
+raises. Any m, k, n and any alignment are taken (the Pallas kernel needs
+them divisible by its blocks): :func:`plan` picks the kernel's load
+routine and output tile. No model path calls it, in either package.
 """
 from __future__ import annotations
 
@@ -19,9 +20,27 @@ from repro_torch.kernels.ref import int8_matmul_ref
 
 # |x_q w_q| <= 128^2 k must fit the kernel's int32 sums.
 MAX_K = (2 ** 31 - 1) // 128 ** 2
+# Output tiles (rows, columns) of the kernel, by its ``tile`` code: 64
+# rows for each warpgroup.
+TILES = ((192, 128), (128, 128), (64, 128), (64, 64))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = register_kernel("int8_matmul", "repro_int8_matmul",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
+
+def plan(m: int, k: int, n: int, x_ptr: int, w_ptr: int,
+         num_sms: int) -> tuple[bool, int]:
+    """(vec, tile) of a launch: 16-byte loads where k and n are multiples
+    of 16 and both operands are 16-byte aligned, else masked byte loads;
+    the largest tile of ``TILES`` that still keeps half the SMs busy (a
+    larger tile reads fewer bytes from L2 for each product, and one wave
+    of large tiles beats two of smaller ones), else the smallest."""
+    vec = k % 16 == 0 and n % 16 == 0 and x_ptr % 16 == 0 and \
+        w_ptr % 16 == 0
+    for tile, (bm, bn) in enumerate(TILES):
+        if 2 * -(-m // bm) * -(-n // bn) >= num_sms:
+            return vec, tile
+    return vec, len(TILES) - 1
 
 
 def plain(x_q, sx, w_q, sw, out_dtype=torch.float32) -> torch.Tensor:
@@ -36,8 +55,8 @@ def int8_matmul(x_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
         return plain(x_q, sx, w_q, sw, out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
-    check_operand("x_q", x_q, x_q.device, 2, torch.int8)
-    check_operand("w_q", w_q, x_q.device, 2, torch.int8)
+    check_operand("x_q", x_q, x_q.device, 2, torch.int8, aligned=False)
+    check_operand("w_q", w_q, x_q.device, 2, torch.int8, aligned=False)
     check_operand("sx", sx, x_q.device, 1, torch.float32)
     check_operand("sw", sw, x_q.device, 1, torch.float32)
     m, k = x_q.shape
@@ -56,7 +75,10 @@ def int8_matmul(x_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
+    vec, tile = plan(m, k, n, x_q.data_ptr(), w_q.data_ptr(),
+                     torch.cuda.get_device_properties(
+                         x_q.device).multi_processor_count)
     KERNEL(x_q.data_ptr(), sx.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
-           out.data_ptr(), m, k, n, DTYPE_CODES[out_dtype],
+           out.data_ptr(), m, k, n, DTYPE_CODES[out_dtype], int(vec), tile,
            stream_handle(x_q.device))
     return out

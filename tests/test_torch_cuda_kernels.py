@@ -38,19 +38,46 @@ def _randn(shape, dtype, device, seed):
     return torch.randn(shape, generator=g, device=device).to(dtype)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lowp", [False, True])
-@pytest.mark.parametrize("rows,d", [(1, 64), (333, 2048), (7, 100),
-                                    (512, 768), (4, 768)])
-def test_rmsnorm_kernel_matches_plain(cuda, dtype, lowp, rows, d):
-    x = _randn((rows, d), dtype, cuda, 0)
-    w = _randn((d,), torch.float32, cuda, 1)
+def _rmsnorm_check(x, w, lowp):
     out = trmsnorm.rmsnorm(x, w, 1e-5, lowp=lowp)
     torch.cuda.synchronize()
     want = trmsnorm.plain(x, w, 1e-5, lowp)
-    tol = GPU_TOL[dtype]
+    assert out.dtype == x.dtype and out.shape == x.shape
+    tol = GPU_TOL[x.dtype]
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("rows", [1, 4, 7, 333, 512])
+@pytest.mark.parametrize("d", [8, 64, 100, 768, 2048, 4096, 8192])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, lowp, rows, d):
+    """Every launch plan: one warp a row with 1..8 chunks a lane (d 8 to
+    2048), 2, 4 and 8 warps a row (d 4096, 8192), single elements (d 100),
+    one and several rows a block."""
+    _rmsnorm_check(_randn((rows, d), dtype, cuda, 0),
+                   _randn((d,), torch.float32, cuda, 1), lowp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("d", [768, 2048, 8192])
+@pytest.mark.parametrize("shifted", ["x", "w"])
+def test_rmsnorm_kernel_misaligned_row_view(cuda, dtype, lowp, d, shifted):
+    """A contiguous view one element past an aligned start takes the
+    single-element loads, and agrees all the same."""
+    rows = 333
+
+    def view(n, dt, seed, shift):
+        return _randn((n + 1,), dt, cuda, seed)[shift:shift + n]
+    x = view(rows * d, dtype, 0, int(shifted == "x")).view(rows, d)
+    w = view(d, torch.float32, 1, int(shifted == "w"))
+    assert not trmsnorm.plan(rows, d, x.element_size(),
+                             x.data_ptr() % 16 == 0 and
+                             w.data_ptr() % 16 == 0)[0]
+    _rmsnorm_check(x, w, lowp)
 
 
 @pytest.mark.gpu
@@ -249,25 +276,105 @@ def test_ssd_kernel_refuses_what_jax_refuses(cuda):
         ops.ssd(*args, chunk=32)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(7, 13, 5), (65, 100, 130),
-                                   (333, 2048, 512), (512, 1024, 512)])
-def test_int8_matmul_kernel_matches_plain(cuda, out_dtype, m, k, n):
+# int8_matmul shapes: 16-byte loads (k, n multiples of 16), then masked
+# byte loads; between them every output tile of int8_matmul.TILES
+# (tests/test_torch_kernels.py::test_int8_plan_covers_every_tile_and_route).
+INT8_VEC_SHAPES = [(512, 1024, 512), (333, 2048, 8192), (4, 2048, 8192),
+                   (1, 64, 16), (129, 48, 80), (333, 2048, 512),
+                   (150, 1024, 5120), (100, 1024, 5120)]
+INT8_BYTE_SHAPES = [(7, 13, 5), (65, 100, 130), (300, 1000, 300),
+                    (333, 1000, 8200), (150, 1000, 5128), (100, 1000, 5128)]
+
+
+def _int8_operands(m, k, n, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-128, 128, (m, k), generator=g, device=device,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (k, n), generator=g, device=device,
+                       dtype=torch.int8)
+    sx = torch.rand((m,), generator=g, device=device) / 127
+    sw = torch.rand((n,), generator=g, device=device) / 127
+    return xq, sx, wq, sw
+
+
+def _int8_check(xq, sx, wq, sw, out_dtype):
     """int32 sums are exact in both, and the fp32 epilogue runs in the same
     order: the kernel must equal the plain version bit for bit."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
-                       dtype=torch.int8)
-    wq = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
-                       dtype=torch.int8)
-    sx = torch.rand((m,), generator=g, device=cuda) / 127
-    sw = torch.rand((n,), generator=g, device=cuda) / 127
     out = tint8.int8_matmul(xq, sx, wq, sw, out_dtype)
     torch.cuda.synchronize()
     want = tint8.plain(xq, sx, wq, sw, out_dtype)
     assert out.dtype == out_dtype
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def _int8_route(xq, wq):
+    (m, k), n = xq.shape, wq.shape[1]
+    return tint8.plan(m, k, n, xq.data_ptr(), wq.data_ptr(),
+                      torch.cuda.get_device_properties(
+                          xq.device).multi_processor_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8_VEC_SHAPES + INT8_BYTE_SHAPES)
+def test_int8_matmul_kernel_matches_plain(cuda, out_dtype, m, k, n):
+    xq, sx, wq, sw = _int8_operands(m, k, n, cuda)
+    assert _int8_route(xq, wq)[0] == ((m, k, n) in INT8_VEC_SHAPES)
+    _int8_check(xq, sx, wq, sw, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", ["x", "w", "both"])
+def test_int8_matmul_kernel_misaligned_operands(cuda, out_dtype, shifted):
+    """Contiguous views at a 1-byte offset take the byte loads."""
+    m, k, n = 333, 2048, 512
+    xq, sx, wq, sw = _int8_operands(m, k, n, cuda)
+
+    def shift(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+    if shifted in ("x", "both"):
+        xq = shift(xq)
+    if shifted in ("w", "both"):
+        wq = shift(wq)
+    assert not _int8_route(xq, wq)[0]
+    _int8_check(xq, sx, wq, sw, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_value", [-128, 127])
+@pytest.mark.parametrize("m,n", [(64, 512), (333, 8192)])
+def test_int8_matmul_kernel_exact_at_extremes(cuda, out_dtype, w_value, m,
+                                              n):
+    """All-(-128) x at k 8192: |sums| up to 2^27, still exact in int32."""
+    k = 8192
+    _, sx, _, sw = _int8_operands(m, k, n, cuda)
+    xq = torch.full((m, k), -128, dtype=torch.int8, device=cuda)
+    wq = torch.full((k, n), w_value, dtype=torch.int8, device=cuda)
+    _int8_check(xq, sx, wq, sw, out_dtype)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured once (no allocation, no sync inside the call), replayed
+    with x_q changed in place: each replay equals the plain version."""
+    m, k, n = 512, 1024, 512
+    xq, sx, wq, sw = _int8_operands(m, k, n, cuda)
+    tint8.int8_matmul(xq, sx, wq, sw, torch.bfloat16)   # warm-up: build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tint8.int8_matmul(xq, sx, wq, sw, torch.bfloat16)
+    for seed in (1, 2):
+        xq.copy_(_int8_operands(m, k, n, cuda, seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tint8.plain(xq, sx, wq, sw, torch.bfloat16)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

@@ -6,6 +6,9 @@ its jnp oracle, at the tolerances of ``tests/test_kernels_*.py``. The CUDA
 kernels themselves are held against their plain versions on the card by
 ``tests/test_torch_cuda_kernels.py``.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,6 +74,99 @@ def test_rmsnorm_lowp_bf16_matches_jax(rng):
         torch.bfloat16), _t(w))
     np.testing.assert_allclose(_np(out), _np(oracle.astype(jnp.float32)),
                                rtol=1e-2, atol=1e-2)
+
+
+def _rmsnorm_warp_emulation(x, w, eps, lowp, aligned):
+    """csrc/rmsnorm.cu's order of the fp32 sum of squares, for the launch
+    plan ``trmsnorm.plan`` gives: lane t of a row's WPR * 32 lanes sums the
+    squares of its chunks (16 bytes, or one element where the row is not
+    aligned) in order, a 5-step xor butterfly sums each warp's lanes, the
+    warps' sums add in order; then y = (x * inv) * w, and with lowp each
+    product rounded to x's dtype."""
+    rows, d = x.shape
+    vec, nv, wpr, _ = trmsnorm.plan(rows, d, x.element_size(), aligned)
+    v = 16 // x.element_size() if vec else 1
+    lanes = wpr * 32
+    chunks = x.float().reshape(rows, d // v, v)
+    out = torch.empty_like(x)
+    for r in range(rows):
+        part = torch.zeros(lanes)
+        for t in range(lanes):
+            for c in range(t, d // v, lanes):   # registers, then the stream
+                for e in range(v):
+                    part[t] = part[t] + chunks[r, c, e] * chunks[r, c, e]
+        for off in (16, 8, 4, 2, 1):
+            part = part + part[torch.arange(lanes) ^ off]
+        ss = torch.zeros(())
+        for j in range(wpr):
+            ss = ss + part[32 * j]
+        inv = torch.rsqrt(ss / d + eps)
+        xr = x[r].float()
+        if lowp:
+            inv_t = inv.to(x.dtype).float()
+            y = (xr * inv_t).to(x.dtype).float() * w.to(x.dtype).float()
+        else:
+            y = xr * inv * w
+        out[r] = y.to(x.dtype)
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 100, 768])
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_rmsnorm_warp_reduction_emulation_matches_jax(d, lowp, aligned, rng):
+    """The kernel's reduction order in fp32, on both load routines (d 100
+    in fp32 fills 16-byte chunks; misaligned rows take single elements),
+    against ref.rmsnorm_ref / rmsnorm_lowp and the Pallas kernel."""
+    x = rng.standard_normal((5, d)).astype(np.float32)
+    w = rng.standard_normal(d).astype(np.float32)
+    out = _rmsnorm_warp_emulation(_t(x), _t(w), 1e-5, lowp, aligned)
+    jfn = jref.rmsnorm_lowp if lowp else jref.rmsnorm_ref
+    pallas = jrmsnorm(jnp.asarray(x), jnp.asarray(w), eps=1e-5,
+                      block_rows=8, interpret=True)
+    want = trmsnorm.plain(_t(x), _t(w), 1e-5, lowp)
+    for ref in (want, jfn(jnp.asarray(x), jnp.asarray(w), 1e-5), pallas):
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=NORM_TOL,
+                                   atol=NORM_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 100, 768])
+def test_rmsnorm_lowp_bf16_emulation_matches_ref(d, rng):
+    """bf16 lowp on bf16 pairs (each product of two bf16 values rounded
+    once) is rmsnorm_lowp's rounding: equal up to inv's last fp32 bits."""
+    x = _t(rng.standard_normal((4, d)).astype(np.float32)).to(torch.bfloat16)
+    w = _t(rng.standard_normal(d).astype(np.float32))
+    out = _rmsnorm_warp_emulation(x, w, 1e-5, True, d % 8 == 0)
+    np.testing.assert_allclose(_np(out), _np(tref.rmsnorm_lowp(x, w)),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_rmsnorm_plan_fits_the_kernel(element_size, aligned):
+    """Every plan is a (V, NV, WPR) that csrc/rmsnorm.cu's dispatch
+    instantiates (V for 16-byte chunks, 1 for single elements), holds its
+    row in registers unless the row is wider than 8 warps x 8 chunks, and
+    stays within 256 threads a block; the serve widths hold 3 and 8 chunks
+    a lane."""
+    src = (Path(trmsnorm.__file__).parents[1] / "csrc" /
+           "rmsnorm.cu").read_text()
+    instances = set(re.findall(r"launch<T, (V|1), (\d), (\d)>", src))
+    assert len(instances) == 15
+    for d in list(range(1, 300)) + [768, 1000, 2048, 4096, 8192, 16384,
+                                    20000, 65536]:
+        for rows in (1, 4, 127, 128, 333, 512, 4096):
+            vec, nv, wpr, rpb = trmsnorm.plan(rows, d, element_size,
+                                              aligned)
+            v = 16 // element_size if vec else 1
+            assert vec == (aligned and (d * element_size) % 16 == 0)
+            assert ("V" if vec else "1", str(nv), str(wpr)) in instances
+            assert nv * wpr * 32 * v >= d or wpr == trmsnorm.MAX_WPR
+            assert rpb * wpr * 32 <= 256 and rpb >= 1
+            if rows <= 4:
+                assert rpb == 1             # the decode tick: a row an SM
+    assert trmsnorm.plan(4, 768, 2, True) == (True, 3, 1, 1)
+    assert trmsnorm.plan(333, 2048, 2, True)[:3] == (True, 8, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +558,136 @@ def test_int8_matmul_ragged_shape_and_dtype(out_dtype, rng):
     np.testing.assert_array_equal(
         out.float().numpy(), _t(want).to(out_dtype).float()
         .numpy())
+
+
+def _byte_perm(x, y, sel):
+    """PTX prmt (CUDA __byte_perm) on uint32 arrays: byte i of the result
+    is byte (sel >> 4 i) & 7 of the 8 bytes y:x."""
+    pool = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(x, dtype=np.uint32)
+    for i in range(4):
+        b = (sel >> (4 * i)) & 7
+        byte = (pool >> np.uint64(8 * b)) & np.uint64(0xFF)
+        out |= (byte.astype(np.uint32) << np.uint32(8 * i))
+    return out
+
+
+def _transpose4x4(r0, r1, r2, r3):
+    """csrc/int8_matmul.cu::transpose4x4."""
+    t0, t1 = _byte_perm(r0, r1, 0x5140), _byte_perm(r0, r1, 0x7362)
+    t2, t3 = _byte_perm(r2, r3, 0x5140), _byte_perm(r2, r3, 0x7362)
+    return (_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632))
+
+
+@pytest.mark.parametrize("k,n", [(4, 4), (8, 16), (128, 128), (12, 36)])
+def test_int8_byte_perm_transpose_equals_w_t(k, n, rng):
+    """Words of 4 columns from 4 consecutive k rows, turned by the 8 byte
+    permutes, are the words of 4 k of each column: w.T, bit for bit."""
+    w = rng.integers(-128, 128, (k, n), dtype=np.int8)
+    words = w.view(np.uint32).reshape(k // 4, 4, n // 4)   # [kw, row, nq]
+    cols = _transpose4x4(*(words[:, q] for q in range(4)))  # [j][kw, nq]
+    wt = np.empty((n, k), np.int8)
+    for j in range(4):
+        wt[j::4] = cols[j].T.copy().view(np.int8).reshape(n // 4, k)
+    np.testing.assert_array_equal(wt, w.T)
+
+
+def _int8_tiled_emulation(x_q, sx, w_q, sw, bm, bn, out_dtype, order=1):
+    """csrc/int8_matmul.cu's sums: (bm x bn) tiles of x_q.w_q, zero-padded
+    to the tile and to k steps of 128, each step's products summed in int32
+    as the tensor cores do (k 32 at a time), the steps in ``order``; then
+    the fp32 epilogue (acc * sx) * sw, rounded once to out_dtype."""
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    kp = -(-k // 128) * 128
+    mp, np_ = -(-m // bm) * bm, -(-n // bn) * bn
+    xp = np.zeros((mp, kp), np.int32)
+    wp = np.zeros((kp, np_), np.int32)
+    xp[:m, :k], wp[:k, :n] = x_q, w_q
+    acc = np.zeros((mp, np_), np.int32)
+    for m0 in range(0, mp, bm):
+        for n0 in range(0, np_, bn):
+            tile = np.zeros((bm, bn), np.int32)
+            for k0 in list(range(0, kp, 128))[::order]:
+                for kk in range(k0, k0 + 128, 32):
+                    tile += xp[m0:m0 + bm, kk:kk + 32] @ \
+                        wp[kk:kk + 32, n0:n0 + bn]
+            acc[m0:m0 + bm, n0:n0 + bn] = tile
+    out = (acc[:m, :n].astype(np.float32) * sx[:, None]) * sw[None, :]
+    return torch.from_numpy(out).to(out_dtype)
+
+
+@pytest.mark.parametrize("tile", range(len(tint8.TILES)))
+@pytest.mark.parametrize("m,k,n", [(7, 13, 5), (65, 100, 130),
+                                   (33, 300, 17), (70, 256, 144)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_tiled_int32_sums_match_ref_bit_for_bit(tile, m, k, n,
+                                                     out_dtype, rng):
+    """Every tile, at ragged k and n, the k steps summed forwards or
+    backwards (as a split of k would): int32 sums are exact, so the result
+    is ref.int8_matmul_ref's bit for bit."""
+    x_q = rng.integers(-128, 128, (m, k), dtype=np.int8)
+    w_q = rng.integers(-128, 128, (k, n), dtype=np.int8)
+    sx = rng.uniform(0, 1 / 127, m).astype(np.float32)
+    sw = rng.uniform(0, 1 / 127, n).astype(np.float32)
+    want = tint8.plain(*(_t(a) for a in (x_q, sx, w_q, sw)), out_dtype)
+    bm, bn = tint8.TILES[tile]
+    for order in (1, -1):
+        out = _int8_tiled_emulation(x_q, sx, w_q, sw, bm, bn, out_dtype,
+                                    order)
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def test_int8_int32_sums_exact_at_extremes():
+    """All -128 operands at k 8192: sums of 2^27, exact in int32 and in
+    the float64 of the plain version alike."""
+    k = 8192
+    x_q = np.full((3, k), -128, np.int8)
+    w_q = np.full((k, 2), -128, np.int8)
+    w_q[:, 1] = 127
+    sx, sw = np.ones(3, np.float32), np.ones(2, np.float32)
+    out = _int8_tiled_emulation(x_q, sx, w_q, sw, 64, 64, torch.float32)
+    assert out[0, 0] == 2 ** 27 and out[0, 1] == -128 * 127 * k
+    torch.testing.assert_close(out, tint8.plain(
+        *(_t(a) for a in (x_q, sx, w_q, sw))), rtol=0, atol=0)
+
+
+def test_int8_tiles_match_the_kernel_dispatch():
+    """TILES, the wrapper's tile codes, are the kernel's: case i launches
+    64 * WGS rows x BN columns."""
+    src = (Path(tint8.__file__).parents[1] / "csrc" /
+           "int8_matmul.cu").read_text()
+    cases = re.findall(r"case (\d+): return launch<(\d+), (\d+), \d+, T>",
+                       src)
+    assert [(64 * int(wgs), int(bn)) for _, wgs, bn in cases] == \
+        list(tint8.TILES)
+    assert [int(c) for c, _, _ in cases] == list(range(len(tint8.TILES)))
+
+
+def test_int8_plan_covers_every_tile_and_route():
+    """On 132 SMs the card's test shapes reach every tile; 16-byte loads
+    need k and n multiples of 16 and both operands aligned."""
+    sms, seen = 132, set()
+    for (m, k, n), vec in [((512, 1024, 512), True), ((333, 2048, 8192), True),
+                           ((4, 2048, 8192), True), ((1, 64, 16), True),
+                           ((129, 48, 80), True), ((333, 2048, 512), True),
+                           ((150, 1024, 5120), True),
+                           ((100, 1024, 5120), True), ((7, 13, 5), False),
+                           ((65, 100, 130), False), ((300, 1000, 300), False),
+                           ((333, 1000, 8200), False),
+                           ((150, 1000, 5128), False),
+                           ((100, 1000, 5128), False)]:
+        got_vec, tile = tint8.plan(m, k, n, 0, 0, sms)
+        assert got_vec == vec
+        seen.add(tile)
+        assert not tint8.plan(m, k, n, 1, 0, sms)[0]     # x_q one byte off
+        assert not tint8.plan(m, k, n, 0, 17, sms)[0]    # w_q off
+    assert seen == set(range(len(tint8.TILES)))
+    # The serve-size shapes of chip_smoke.py: one wave of the largest tile,
+    # and the smallest tile where no tile fills half the card.
+    assert tint8.plan(333, 2048, 8192, 0, 0, sms)[1] == 0
+    assert tint8.plan(512, 1024, 512, 0, 0, sms)[1] == len(tint8.TILES) - 1
 
 
 # ---------------------------------------------------------------------------
