@@ -15,10 +15,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 gives it (rmsnorm at both models' widths; flash at prompts
                 of 101, 333, 512 and 700 tokens, bf16 on the wgmma kernel
                 and fp32 on the CUDA-core one; decode at the serve cache
-                and at a cache of 4096), in bf16 and fp32: max error,
-                kernel time, plain-version time, the time of the nearest
-                PyTorch library call, and the bound (the least time the
-                card could take for the same work).
+                and at a cache of 4096; ssd_scan at 512, 129, 101 and
+                1024 steps in bf16 on its tensor-core design, with each of
+                its kernels' device time from torch.profiler, and at 512
+                and 129 in fp32 on its CUDA-core one), in bf16 and fp32:
+                max error, kernel time, plain-version time, the time of
+                the nearest PyTorch library call, and the bound (the least
+                time the card could take for the same work).
                 ``int8_matmul`` has no model call site; this phase is its
                 path, and its launches here are the ones reported; beside
                 its library call (``torch._int_mm`` and the scales) it
@@ -89,6 +92,10 @@ MAMBA_ARCH = "mamba2-130m"
 # state carried across chunks), as the JAX contract asks.
 MAMBA_PROMPT_LENS = [512, 129, 1024, 256, 200, 768, 101, 255]
 MAMBA_PARITY_PROMPTS = (77, 200)
+# ssd_scan cases of the kernels phase, by dtype: the first is a 512-token
+# prefill (the row of the summary line), then the serve run's shortest and
+# longest prompts. bf16 runs the tensor-core design, fp32 the CUDA-core one.
+SSD_LENS = {torch.bfloat16: (512, 129, 101, 1024), torch.float32: (512, 129)}
 # Kernels each model's path runs; every other kernel must stay at 0.
 PATH_KERNELS = {ARCH: ("rmsnorm", "flash_attention", "decode_attention"),
                 MAMBA_ARCH: ("rmsnorm", "ssd_scan")}
@@ -108,9 +115,11 @@ PEAK_OPS = {torch.bfloat16: 989e12,   # tensor cores
 # fp32: the kernel sums in another order than the plain version's einsum
 # (and on the CPU the tests hold the plain version to 2e-6).
 KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# ssd_scan: the kernel's 64-step tiles against the plain version's chunk of
-# 256 (chunk-invariant math, fp32 sums in another order): fp32 y and the
-# fp32 state at tests/test_kernels_ssd.py's 2e-4; bf16 y at one ulp.
+# ssd_scan: the kernels' 64-step tiles against the plain version's chunk
+# of 256 (chunk-invariant math, fp32 sums in another order; the bf16
+# tensor-core design feeds operands with an fp32 factor as bf16 hi/lo
+# pairs): fp32 y and the fp32 state at tests/test_kernels_ssd.py's 2e-4;
+# bf16 y at one ulp.
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # int8_matmul: exact int32 sums and the same fp32 epilogue: bit for bit.
 INT8_TOL = 0.0
@@ -210,6 +219,26 @@ def max_err(out: torch.Tensor, want: torch.Tensor, dtype,
     return err.max().item()
 
 
+def device_us(fn, iters: int = 10) -> dict:
+    """Device time of each CUDA kernel ``fn`` launches, in microseconds a
+    call, from torch.profiler over ``iters`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^(void )?(repro::)?(\(anonymous namespace\)::)?",
+                          "", e.name).split("(")[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / iters
+    return out
+
+
 def randn(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -250,7 +279,9 @@ def _ptxas_summary(lines):
         if used and name:
             kern = re.search(r"(rmsnorm_kernel|flash_fwd_wgmma_kernel|"
                              r"flash_fwd_simt_kernel|decode_split_kernel|"
-                             r"ssd_scan_kernel|int8_wgmma_kernel)", name)
+                             r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
+                             r"ssd_tc_outputs_kernel|ssd_scan_simt_kernel|"
+                             r"int8_wgmma_kernel)", name)
             # the flash wgmma kernel is bf16 only and has no dtype parameter
             dt = "bf16" if "bfloat16" in name or "flash_fwd_wgmma" in name \
                 else "f32"
@@ -265,9 +296,11 @@ def _main_path_patterns() -> list:
     """Patterns of the ptxas labels of the instantiations the main paths
     launch: rmsnorm at each path's width in bf16, int8_matmul at the
     kernels phase's shapes (16-byte loads), flash and decode at d 128 in
-    bf16, and ssd_scan."""
+    bf16, each of ssd_scan's three tensor-core kernels (the bf16 path) and
+    its CUDA-core kernel (the fp32 parity path)."""
     pats = [r"(flash_fwd_wgmma_kernel|decode_split_kernel)<bf16,128(,\d+)?>",
-            r"ssd_scan_kernel<\w+>"]
+            r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
+            r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>"]
     for arch in PATH_KERNELS:
         vec, nv, wpr, _ = krms.plan(1, get_config(arch).d_model, 2, True)
         pats.append(rf"rmsnorm_kernel<bf16,{8 if vec else 1},{nv},{wpr}>")
@@ -399,7 +432,10 @@ def _ssd_case(s, dtype, seed=0):
     b_ms, by = bound(nbytes, nops, dtype)
     return {"kernel": "ssd_scan", "path": MAMBA_ARCH,
             "shape": [b, s, h, p, n], "chunk": chunk,
+            "design": kssd.DESIGNS[kssd.plan(dtype, n, p)],
             "dtype": str(dtype), "max_abs_err": err,
+            "kernel_us": device_us(lambda: kssd.ssd_scan(*args,
+                                                          chunk=chunk)),
             "ms": time_ms(lambda: kssd.ssd_scan(*args, chunk=chunk)),
             "eager_ms": eager_ms(lambda: kssd.ssd_scan(*args, chunk=chunk)),
             "plain_ms": time_ms(lambda: kssd.plain(*args, chunk=chunk), 5),
@@ -470,7 +506,7 @@ def phase_kernels() -> dict:
             cases.append(_flash_case(sq, dtype))
         for skv, lengths in DECODE_CASES:
             cases.append(_decode_case(dtype, skv, lengths))
-        for s in (512, 129):
+        for s in SSD_LENS[dtype]:
             cases.append(_ssd_case(s, dtype))
     for m, k, n in INT8_SHAPES:
         for out_dtype in (torch.float32, torch.bfloat16):

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
 // mbarriers, TMA tile loads, cp.async, wgmma descriptors and the wgmma
-// shapes flash_attention.cu uses. Only the wgmma and TMA parts need sm_90a.
+// shapes flash_attention.cu uses, ldmatrix and the warp-level bf16 mma
+// ssd_scan.cu uses. Only the wgmma and TMA parts need sm_90a.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -69,6 +70,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// `valid` is false (nothing is read then).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -76,6 +86,43 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// ldmatrix and mma.sync m16n8k16 (bf16 in, fp32 accumulators)
+// ---------------------------------------------------------------------------
+// Fragments of lane l, g = l / 4, q = l % 4 (pairs of 16-bit values, the
+// lower index in the low half):
+// * A (16 x 16, m x k): a[0] (m g, k 2q..2q+1), a[1] (m g + 8, k 2q..),
+//   a[2] (m g, k 2q + 8..), a[3] (m g + 8, k 2q + 8..);
+// * B (16 x 8, k x n): b0 (k 2q.., n g), b1 (k 2q + 8.., n g);
+// * D (16 x 8, fp32): d[0..1] (m g, n 2q..2q+1), d[2..3] (m g + 8, n 2q..).
+// ldmatrix .x4 loads four 8 x 8 matrices of 16-bit values; lane l gives the
+// address of row l % 8 of matrix l / 8 (16 contiguous bytes, 16-byte
+// aligned), and r[i] receives from matrix i the pair at (row g, columns
+// 2q..2q+1), or with .trans at (rows 2q..2q+1, column g): the transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16) * b (16 x 8, bf16).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

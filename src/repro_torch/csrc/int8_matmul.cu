@@ -57,15 +57,6 @@ __device__ __forceinline__ int sw128(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// 16 bytes from global to shared memory, asynchronously; zeros where
-// `valid` is false (nothing is read then).
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
-                                                 bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
 // Orders this thread's generic-proxy writes to shared memory (stores,
 // completed cp.async) before later reads by the async proxy (wgmma).
 __device__ __forceinline__ void fence_proxy_async() {

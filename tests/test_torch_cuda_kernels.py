@@ -27,9 +27,11 @@ def cuda():
 # they differ by about one bf16 ulp (2^-8 relative). fp32: the sums run in
 # another order than the plain version's einsum.
 GPU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# ssd_scan: the kernel's 64-step tiles against the plain version's chunk
-# of 256 (the math is chunk-invariant up to fp32 rounding); fp32 state and
-# fp32 y held at tests/test_kernels_ssd.py's 2e-4, bf16 y at one ulp.
+# ssd_scan: the kernels' 64-step tiles against the plain version's chunk
+# of 256 (the math is chunk-invariant up to fp32 rounding; the bf16
+# tensor-core design feeds operands with an fp32 factor as bf16 hi/lo
+# pairs, about 2^-17 of each term); fp32 state and fp32 y held at
+# tests/test_kernels_ssd.py's 2e-4, bf16 y at one ulp.
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
@@ -250,23 +252,95 @@ def _ssd_inputs(b, s, h, p, n, dtype, device, seed=0):
     return x, dt, A, B, C, D
 
 
+def _ssd_check(args):
+    """One call against the plain version: one launch counted, y at the
+    dtype's tolerance, the fp32 state at 2e-4."""
+    x = args[0]
+    b, _, h, p = x.shape
+    n = args[3].shape[-1]
+    before = tssd.KERNEL.launches
+    y, st = tssd.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert tssd.KERNEL.launches == before + 1
+    want_y, want_st = tssd.plain(*args, chunk=256)
+    assert y.dtype == x.dtype and st.shape == (b, h, p, n)
+    tol = SSD_TOL[x.dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, want_st, rtol=SSD_TOL[torch.float32],
+                               atol=SSD_TOL[torch.float32])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("n", [16, 128])
 @pytest.mark.parametrize("p", [16, 64])
 @pytest.mark.parametrize("h", [1, 24])
-@pytest.mark.parametrize("s", [1, 3, 129, 256, 512])
+@pytest.mark.parametrize("s", [1, 3, 101, 129, 200, 255, 256, 512, 768,
+                               1024])
 def test_ssd_kernel_matches_plain(cuda, dtype, b, n, p, h, s):
-    args = _ssd_inputs(b, s, h, p, n, dtype, cuda)
-    y, st = tssd.ssd_scan(*args, chunk=256)
+    """Both designs: bf16 takes the tensor-core kernels at these n and p,
+    fp32 the CUDA-core one; s covers the serve run's ragged prompts (101,
+    200, 255) and its multi-chunk ones (512, 768, 1024)."""
+    assert tssd.plan(dtype, n, p) == (
+        tssd.TENSOR_CORES if dtype == torch.bfloat16 else tssd.SIMT)
+    _ssd_check(_ssd_inputs(b, s, h, p, n, dtype, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(24, 64), (128, 24), (128, 128), (8, 8)])
+@pytest.mark.parametrize("s", [129, 512])
+def test_ssd_simt_kernel_takes_bf16_shapes_tc_does_not(cuda, n, p, s):
+    assert tssd.plan(torch.bfloat16, n, p) == tssd.SIMT
+    _ssd_check(_ssd_inputs(3, s, 4, p, n, torch.bfloat16, cuda))
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_raises_where_no_design_fits(cuda):
+    args = list(_ssd_inputs(1, 64, 2, 16, 16, torch.float32, cuda))
+    args[3] = args[4] = torch.zeros((1, 64, 300), device=cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        tssd.ssd_scan(*args, chunk=64)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan(*(a.half() if i in (0, 3, 4) else a for i, a in
+                        enumerate(_ssd_inputs(1, 64, 2, 16, 16,
+                                              torch.float32, cuda))),
+                      chunk=64)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_replays_in_a_cuda_graph(cuda):
+    """The bf16 tensor-core call captured once (no allocation outside the
+    caching allocator, no sync inside), replayed with x changed in place:
+    each replay equals the plain version, and a replay of the first inputs
+    again gives the first result bit for bit (nothing carried over)."""
+    b, s, h, p, n = 3, 512, 24, 64, 128
+    args = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda)
+    x = args[0]
+    assert tssd.plan(x.dtype, n, p) == tssd.TENSOR_CORES
+    tssd.ssd_scan(*args, chunk=256)                    # warm-up: build
     torch.cuda.synchronize()
-    want_y, want_st = tssd.plain(*args, chunk=256)
-    assert y.dtype == dtype and st.shape == (b, h, p, n)
-    tol = SSD_TOL[dtype]
-    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(st, want_st, rtol=SSD_TOL[torch.float32],
-                               atol=SSD_TOL[torch.float32])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, st = tssd.ssd_scan(*args, chunk=256)
+    xs = [torch.randn(x.shape, generator=torch.Generator(device=cuda)
+                      .manual_seed(seed), device=cuda).to(x.dtype)
+          for seed in (1, 2)]
+    first = None
+    for xi in xs + xs[:1]:
+        x.copy_(xi)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_y, want_st = tssd.plain(*args, chunk=256)
+        torch.testing.assert_close(y.float(), want_y.float(),
+                                   rtol=SSD_TOL[x.dtype],
+                                   atol=SSD_TOL[x.dtype])
+        torch.testing.assert_close(st, want_st, rtol=SSD_TOL[torch.float32],
+                                   atol=SSD_TOL[torch.float32])
+        if first is None:
+            first = (y.clone(), st.clone())
+    torch.testing.assert_close(y, first[0], rtol=0, atol=0)
+    torch.testing.assert_close(st, first[1], rtol=0, atol=0)
 
 
 @pytest.mark.gpu

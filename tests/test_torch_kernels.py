@@ -508,6 +508,160 @@ def test_ssd_decode_continues_prefill(rng):
     np.testing.assert_allclose(st1.numpy(), _np(jst1), rtol=1e-6, atol=1e-6)
 
 
+def _bf16_pair(v):
+    """csrc/ssd_scan.cu's split2: v as hi = bf16(v) and lo = bf16(v - hi),
+    both back in fp32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _bf16_single(v):
+    """One bf16 rounding of v, as a pair with a zero lo."""
+    return v.to(torch.bfloat16).float(), torch.zeros_like(v)
+
+
+def _ssd_tc_emulation(x, dt, A, B, C, D, tile=64, split=_bf16_pair):
+    """csrc/ssd_scan.cu's tensor-core design: tiles of ``tile`` steps (the
+    last padded with dt = 0 and x = B = C = 0), x, B and C in bf16, fp32
+    sums of exact products;
+    1. per tile, G_c^T = (w x)^T B with w_j = exp(L_last - L_j) dt_j and
+       w x as a bf16 hi/lo pair, and a_c = exp(L_last);
+    2. H_c = a_c H_{c-1} + G_c, keeping the state entering each tile;
+    3. CB = C B^T, M = CB exp(L_t - L_j) dt_j for j <= t as a hi/lo pair,
+       y = M x + exp(L_t) C H_{c-1} (H as a hi/lo pair) + D x, rounded
+       once to x's dtype.
+    ``split`` rounds the operands that carry an fp32 factor."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nt = -(-s // tile)
+
+    def steps(t):       # bf16 operands (dt stays fp32), padded to nt tiles
+        t = t.float() if t is dt else t.to(torch.bfloat16).float()
+        pad = t.new_zeros((b, nt * tile - s, *t.shape[2:]))
+        return torch.cat([t, pad], 1).reshape(b, nt, tile, *t.shape[2:])
+    xr, dtr, Br, Cr = steps(x), steps(dt), steps(B), steps(C)
+    L = torch.cumsum(dtr * A.float(), dim=2)                  # (b,nt,T,h)
+    w = torch.exp(L[:, :, -1:] - L) * dtr
+    wx = split(w[..., None] * xr)                        # (b,nt,T,h,p)
+    G = sum(torch.einsum("bcjhp,bcjn->bchpn", v, Br) for v in wx)
+    a = torch.exp(L[:, :, -1])                                # (b,nt,h)
+    H = torch.zeros((b, h, p, n))
+    h_in = []
+    for c in range(nt):
+        h_in.append(H)
+        H = H * a[:, c, :, None, None] + G[:, c]
+    h_in = torch.stack(h_in, 1)                               # (b,nt,h,p,n)
+    tri = torch.tril(torch.ones((tile, tile), dtype=torch.bool))
+    tri = tri[None, None, :, :, None]
+    cb = torch.einsum("bctn,bcjn->bctj", Cr, Br)
+    logdec = torch.where(tri, L[:, :, :, None] - L[:, :, None], 0.0)
+    M = torch.where(tri, cb[..., None] * torch.exp(logdec)
+                    * dtr[:, :, None], 0.0)                  # (b,nt,t,j,h)
+    y_intra = sum(torch.einsum("bctjh,bcjhp->bcthp", m, xr)
+                  for m in split(M))
+    y_inter = sum(torch.einsum("bctn,bchpn->bcthp", Cr, hh)
+                  for hh in split(h_in))
+    y = (y_intra + torch.exp(L)[..., None] * y_inter) + \
+        xr * D.float()[:, None]
+    return y.reshape(b, nt * tile, h, p)[:, :s].to(x.dtype), H
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 64, 2, 16, 16, 16),
+    (2, 128, 3, 32, 64, 32),
+    (1, 256, 4, 64, 128, 128),
+])
+def test_ssd_tc_emulation_matches_ref_and_jax(b, s, h, p, n, chunk, rng):
+    """The tensor-core decomposition with its operand roundings, on fp32
+    inputs whose x, B and C are bf16 values (the design's operands),
+    against both packages' ssd_ref, the port's ssd_chunked and the Pallas
+    kernel in interpret mode, at tests/test_kernels_ssd.py's 2e-4."""
+    x, dt, A, B, C, D = _ssd_inputs(rng, b, s, h, p, n)
+    x, B, C = (_np(_t(a).to(torch.bfloat16)) for a in (x, B, C))
+    args = (x, dt, A, B, C, D)
+    targs = [_t(a) for a in args]
+    jargs = [jnp.asarray(a) for a in args]
+    y, st = _ssd_tc_emulation(*targs)
+    assert y.dtype == torch.float32 and st.shape == (b, h, p, n)
+    for wy, ws in (tref.ssd_ref(*targs),
+                   tref.ssd_chunked(*targs, chunk=chunk),
+                   jssd(*jargs, chunk=chunk, interpret=True),
+                   jref.ssd_ref(*jargs)):
+        np.testing.assert_allclose(_np(y), _np(wy), rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+        np.testing.assert_allclose(_np(st), _np(ws), rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("s", [101, 512, 1024])
+def test_ssd_tc_emulation_bf16_at_serve_shape(s, rng):
+    """mamba2-130m's SSD layer (b 1, h 24, p 64, n 128) in bf16, at the
+    serve run's ragged and multi-chunk lengths: y within the card's bf16
+    tolerance of ssd_chunked (chunk 256), the fp32 state within 2e-4."""
+    args = [_t(a) for a in _ssd_inputs(rng, 1, s, 24, 64, 128)]
+    for i in (0, 3, 4):                                 # x, B, C
+        args[i] = args[i].to(torch.bfloat16)
+    y, st = _ssd_tc_emulation(*args)
+    wy, ws = tref.ssd_chunked(*args, chunk=256)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(y), _np(wy), rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(_np(st), _np(ws), rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_one_bf16_rounding_would_break_the_state_tolerance(rng):
+    """Why the design splits w x, M and H_{c-1} into hi/lo pairs: rounded
+    once to bf16 instead, the state at the serve shape leaves 2e-4."""
+    args = [_t(a) for a in _ssd_inputs(rng, 1, 512, 24, 64, 128)]
+    for i in (0, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    _, st = _ssd_tc_emulation(*args, split=_bf16_single)
+    _, ws = tref.ssd_chunked(*args, chunk=256)
+    assert ((st - ws).abs() > SSD_TOL + SSD_TOL * ws.abs()).any()
+
+
+@pytest.mark.parametrize("dtype,n,p,design", [
+    (torch.bfloat16, 128, 64, tssd.TENSOR_CORES),     # mamba2-130m
+    (torch.bfloat16, 16, 16, tssd.TENSOR_CORES),      # mamba2 smoke
+    (torch.bfloat16, 256, 64, tssd.TENSOR_CORES),     # the largest it takes
+    (torch.bfloat16, 64, 32, tssd.TENSOR_CORES),
+    (torch.bfloat16, 24, 64, tssd.SIMT),              # n not a multiple of 16
+    (torch.bfloat16, 128, 24, tssd.SIMT),             # p not a multiple of 16
+    (torch.bfloat16, 128, 128, tssd.SIMT),            # p past 64
+    (torch.bfloat16, 1, 8, tssd.SIMT),
+    (torch.float32, 128, 64, tssd.SIMT),
+    (torch.float32, 16, 16, tssd.SIMT),
+    (torch.float32, 256, 200, tssd.SIMT),
+])
+def test_ssd_plan_routes_by_dtype_and_shape(dtype, n, p, design):
+    assert tssd.plan(dtype, n, p) == design
+
+
+@pytest.mark.parametrize("dtype,n,p,exc", [
+    (torch.bfloat16, 257, 64, ValueError),
+    (torch.float32, 0, 64, ValueError),
+    (torch.float32, 512, 16, ValueError),
+    (torch.float16, 128, 64, TypeError),
+])
+def test_ssd_plan_raises_where_no_design_fits(dtype, n, p, exc):
+    """A call no design takes raises before any launch; there is no
+    fallback to the plain version for a CUDA tensor."""
+    with pytest.raises(exc):
+        tssd.plan(dtype, n, p)
+
+
+def test_ssd_tc_limits_match_the_kernel():
+    """The wrapper's limits and tile are the tensor-core kernels' own."""
+    src = (Path(tssd.__file__).parents[1] / "csrc" /
+           "ssd_scan.cu").read_text()
+    tc = src[src.index("namespace tc {"):]
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", tc)}
+    assert (consts["kT"], consts["kMaxN"], consts["kMaxP"]) == \
+        (tssd.TILE, tssd.MAX_STATE, tssd.TC_MAX_HEADDIM)
+    assert "design == 1 && dtype == kBF16" in src
+    assert tssd.TENSOR_CORES == 1 and tssd.SIMT == 0
+
+
 @pytest.mark.parametrize("s,chunk", [(40, 32), (0, 32)])
 def test_ops_ssd_refuses_what_jax_refuses(s, chunk, rng):
     """s = 40 at chunk 32 is neither <= chunk nor a multiple of it: the
