@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. ``device``   card name and power limit (nvidia-smi), torch and CUDA
+1. ``device``   card name and power limit (nvidia-smi), the card's power
+                draw before any work beside the idle floor that the
+                runtime's ``h100_sxm`` spec assumes, torch and CUDA
                 versions. No card: exit non-zero before any result.
 2. ``build``    nvcc builds ``src/repro_torch/csrc/*.cu`` for sm_90a; build
                 time and each kernel's registers/spills from ``-Xptxas -v``;
@@ -27,11 +29,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 its library call (``torch._int_mm`` and the scales) it
                 times ``torch._int_mm`` alone (``int_mm_ms``).
 4. ``serve``    two paths, each full width in bf16 with random weights,
-                8 requests through ``repro_torch.launch.serve.serve``:
+                8 requests through ``repro_torch.launch.serve.serve``,
+                which runs them through the port's ``ClusterRuntime``
+                (activation gating, modelled energy over ``h100_sxm()``):
                 internlm2-1.8b (rmsnorm, flash and decode attention) and
                 mamba2-130m (rmsnorm, ssd_scan). Every kernel's launch count
                 is reset just before each and read just after; the path's
-                own kernels must have launched, the others not.
+                own kernels must have launched, the others not. The
+                runtime's telemetry must equal, field for field, that of a
+                run of the same counts on the CPU at smoke size (it is
+                modelled per tick from counts alone).
 5. ``profile``  one prefill and a few decode ticks of each model:
                 host time per step, then under torch.profiler the kernels'
                 device time per step and the device's idle share.
@@ -60,7 +67,9 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.config import ServeConfig, get_config  # noqa: E402
+from repro_torch.config import (ServeConfig, get_config,  # noqa: E402
+                                smoke_config)
+from repro_torch.core.cluster import h100_sxm  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -80,6 +89,15 @@ PROMPT_LENS = [333, 129, 700, 517, 258, 450, 101, 611]
 NEW_TOKENS = 32
 SLOTS = 4
 MAX_LEN = max(PROMPT_LENS) + NEW_TOKENS + 8
+# The serve phase's CPU twin: the same counts at smoke size, one prompt
+# length that keeps the smoke SSD contract (<= its chunk of 32).
+CPU_PROMPT_LEN = 16
+# What the serve line's telemetry and tokens/s are: the runtime counts
+# each tick as one modelled second, and its unit_rate decides how many
+# slots it wakes.
+ENERGY_MODEL = ("h100_sxm (8 shares), assumed idle floor, "
+                "1 modelled s a tick")
+THROUGHPUT = "gated by unit_rate=0.25 req/s a share, not capacity"
 # decode_attention cases: (cache rows, per-slot lengths); the first is the
 # serve run's cache.
 DECODE_CASES = ((MAX_LEN, [129, 334, 517, 731]),
@@ -145,8 +163,8 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
@@ -253,7 +271,10 @@ def phase_device() -> dict:
                          "this script needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    spec = h100_sxm()
     info = {"phase": "device", "nvidia_smi": nvidia_smi(),
+            "power_draw": nvidia_smi("power.draw"),
+            "h100_sxm_assumed_idle_w": spec.unit.p_idle * spec.n_units,
             "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -530,8 +551,10 @@ def phase_kernels() -> dict:
 
 
 def phase_serve(smi: str, arch: str, prompt_lens) -> dict:
-    """Serve ``prompt_lens`` through the launcher; the path's own kernels
-    must launch and the other model kernels must not."""
+    """Serve ``prompt_lens`` through the launcher (and so the runtime); the
+    path's own kernels must launch and the other model kernels must not,
+    and the modelled telemetry must equal a CPU run's of the same
+    counts."""
     cfg = get_config(arch)
     # Warm-up (cuBLAS handles, allocator), then the measured run.
     serve(cfg, [prompt_lens[0]], max_new_tokens=2, slots=SLOTS, seed=0)
@@ -552,11 +575,25 @@ def phase_serve(smi: str, arch: str, prompt_lens) -> dict:
     if launches["ssd_scan"] != len(prompt_lens) * n_mamba:
         raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} "
                              f"times, not once per prefill and Mamba layer")
+    # The telemetry is modelled per tick from counts (no EOS, one decode a
+    # tick, utilisation from slot counts): the same counts on the CPU at
+    # smoke size through the plain versions must give the same numbers.
+    cpu = serve(smoke_config(cfg), [CPU_PROMPT_LEN] * len(prompt_lens),
+                max_new_tokens=NEW_TOKENS, slots=SLOTS, device="cpu")
+    for key in ("served", "ticks", "tokens_generated", "telemetry"):
+        if cpu[key] != rep[key]:
+            raise AssertionError(f"{arch}: {key} on the card {rep[key]} "
+                                 f"!= CPU run {cpu[key]}")
     emit({"phase": "serve", "arch": arch, "dtype": cfg.dtype,
           "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
           "slots": SLOTS, "served": rep["served"], "ticks": rep["ticks"],
           "tokens_generated": rep["tokens_generated"],
           "tokens_per_s": rep["tokens_per_s"], "wall_s": rep["wall_s"],
+          "throughput": THROUGHPUT,
+          "telemetry": rep["telemetry"], "energy_model": ENERGY_MODEL,
+          "telemetry_equals_cpu_run": True,
+          "cpu_run": {"prompt_lens": [CPU_PROMPT_LEN] * len(prompt_lens),
+                      "config": "smoke", "wall_s": cpu["wall_s"]},
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "kernel_launches": launches, "nvidia_smi": smi})
     return launches

@@ -1,11 +1,23 @@
-"""Serving launcher: continuous-batched generation on one device.
+"""Serving launcher: continuous-batched generation on one device, run
+through the port's :class:`~repro_torch.runtime.ClusterRuntime`
+request-lifecycle API (activation gating + modelled energy, paper §5.2),
+as the JAX launcher runs the JAX engine.
 
-Submits ``--requests`` prompts drawn from ``np.random.default_rng(0)`` to a
-:class:`~repro_torch.serving.batcher.ContinuousBatcher` and steps it to
-completion, then prints a JSON report: the JAX launcher's keys except
-``telemetry`` (that comes with the port of ``ClusterRuntime``), plus
-``kernel_launches``, the launches of each of the five kernels during the
-run (``int8_matmul`` has no call site on this path and stays 0).
+Submits ``--requests`` prompts drawn from ``np.random.default_rng(0)`` to
+the runtime over :func:`~repro_torch.core.cluster.h100_sxm` (one H100 as 8
+shares, each active share admitting one decode slot) and runs it to
+completion, then prints a JSON report: the JAX launcher's keys,
+``telemetry`` included, plus ``device`` and ``kernel_launches``, the
+launches of each of the five kernels during the run (``int8_matmul`` has
+no call site on this path and stays 0).
+
+The telemetry is modelled, not measured. Each tick counts as one modelled
+second (the runtime's ``dt_s=1.0``), so ``energy_j_modeled`` is the
+spec's assumed power integrated over ``ticks`` modelled seconds, and
+``p99_latency_ticks`` is in ticks; neither is the card's energy or time
+over ``wall_s``. ``tokens_per_s`` is gated throughput: ``unit_rate=0.25``
+req/s a share decides how many slots the runtime wakes, so it is not what
+the card could sustain.
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b
     python -m repro_torch.launch.serve --arch mamba2-130m
@@ -26,8 +38,9 @@ import torch
 
 from repro_torch.config.base import (ModelConfig, ServeConfig, get_config,
                                      smoke_config)
+from repro_torch.core.cluster import h100_sxm
 from repro_torch.kernels import ops
-from repro_torch.serving.batcher import ContinuousBatcher
+from repro_torch.runtime import ClusterRuntime, LMServingWorkload, ScalePolicy
 from repro_torch.serving.engine import ServingEngine
 
 
@@ -41,35 +54,45 @@ def serve(cfg: ModelConfig, prompt_lens: Sequence[int], *,
                        quantize_weights=int8_weights)
     engine = ServingEngine(cfg, scfg, device=device)
     engine.init_random(seed)
-    batcher = ContinuousBatcher(engine, slots=slots)
+    workload = LMServingWorkload(engine, slots=slots,
+                                 max_new_tokens=max_new_tokens)
+    # the JAX launcher's runtime arguments: a unit sustains ~0.25 req/s, so
+    # a burst of submissions scales slots up and the window decay scales
+    # them back down
+    runtime = ClusterRuntime(h100_sxm(), workload,
+                             policy=ScalePolicy(min_units=1),
+                             unit_rate=0.25)
 
     rng = np.random.default_rng(0)
     before = ops.launch_counts()
     t0 = time.monotonic()
     for n in prompt_lens:
-        prompt = rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-        batcher.submit(prompt, max_new_tokens=max_new_tokens)
-    ticks = 0
-    while batcher.queue or any(a is not None for a in batcher.active):
-        batcher.step()
-        ticks += 1
+        runtime.submit(rng.integers(0, cfg.vocab_size,
+                                    size=n).astype(np.int32))
+    tel = runtime.run(max_ticks=10000)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.monotonic() - t0
     after = ops.launch_counts()
-    done = sorted(batcher.finished, key=lambda r: r.rid)
-    tokens = sum(len(r.generated) for r in done)
+    tokens = sum(len(r.output) for r in tel.responses)
     return {
         "arch": cfg.name,
         "device": str(engine.device),
         "requests": len(prompt_lens),
-        "served": len(done),
-        "ticks": ticks,
+        "served": tel.served,
+        "ticks": tel.ticks,
         "wall_s": dt,
         "tokens_generated": tokens,
         "tokens_per_s": tokens / dt,
-        "sample_output": [int(t) for t in done[0].generated[:8]]
-        if done else [],
+        "telemetry": {
+            "mean_active_units": tel.mean_active,
+            "energy_j_modeled": tel.energy_j,
+            "tpe": tel.tpe,
+            "scale_events": tel.scale_events,
+            "p99_latency_ticks": tel.p99_latency_s,
+        },
+        "sample_output": [int(t) for t in tel.responses[0].output[:8]]
+        if tel.responses else [],
         "kernel_launches": {k: after[k] - before[k] for k in after},
     }
 

@@ -1,10 +1,12 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
 ``src/repro_torch/`` or ``chip_smoke.py``; its copied configs equal the
-JAX package's; its entry points refuse a missing card instead of running
-on the CPU."""
+JAX package's, and so does every definition of its copies of the numpy
+layer; its entry points refuse a missing card instead of running on the
+CPU."""
 import ast
 import dataclasses
 import pathlib
+import re
 
 import pytest
 import torch
@@ -72,3 +74,74 @@ def test_default_device_raises_without_a_card(monkeypatch):
         ServingEngine(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve(cfg, [4], max_new_tokens=2)
+
+
+# The numpy layer the port copies (paths under src/repro and
+# src/repro_torch): each copy is the original with ``repro.`` rewritten to
+# ``repro_torch.``.
+COPIED = ["core/cluster.py", "core/scheduler.py", "power/__init__.py",
+          "power/opp.py", "power/thermal.py", "power/governor.py",
+          "runtime/__init__.py", "runtime/result.py", "runtime/sanitize.py",
+          "runtime/pool.py", "runtime/policy.py", "runtime/workload.py",
+          "runtime/multi_tenant.py", "runtime/cluster_runtime.py",
+          "workloads/dlserving.py"]
+# Top-level statements a copy may add or change, by (module, key).
+EXEMPT = {
+    # pool.py types its obs ledger under TYPE_CHECKING with an import from
+    # repro.obs, which the port does not have; the annotation stays a
+    # string and the block and its typing name go.
+    ("runtime/pool.py", "if TYPE_CHECKING"),
+    ("runtime/pool.py", "import typing"),
+    # The port's H100 spec and its share count, which the original lacks.
+    ("core/cluster.py", "H100_SHARES"),
+    ("core/cluster.py", "h100_sxm"),
+}
+
+
+def _statements(path: pathlib.Path, rewrite: bool):
+    """(key, ast.dump) of each top-level statement of a module."""
+    text = path.read_text()
+    if rewrite:
+        text = re.sub(r"\brepro\.", "repro_torch.", text)
+    out = []
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            key = node.name
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            key = ",".join(ast.unparse(t) for t in targets)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            key = "import " + (getattr(node, "module", None) or ",".join(
+                a.name for a in node.names))
+        elif isinstance(node, ast.If):
+            key = "if " + ast.unparse(node.test)
+        elif isinstance(node, ast.Expr) and isinstance(node.value,
+                                                       ast.Constant):
+            key = "__doc__"
+        else:
+            key = ast.unparse(node)
+        out.append((key, ast.dump(node)))
+    return out
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_equals_reference(rel):
+    """Every function, class, import, assignment and docstring of the
+    original has its twin in the port's copy, identical once ``repro.``
+    reads ``repro_torch.``; only the exemptions above differ."""
+    keep = lambda stmts: [(k, d) for k, d in stmts
+                          if (rel, k) not in EXEMPT]
+    ref = keep(_statements(REPO / "src" / "repro" / rel, rewrite=True))
+    port = keep(_statements(REPO / "src" / "repro_torch" / rel,
+                            rewrite=False))
+    assert [k for k, _ in port] == [k for k, _ in ref]
+    for (key, want), (_, got) in zip(ref, port):
+        assert got == want, f"{rel}: {key} differs from the original"
+
+
+def test_h100_spec_says_what_is_assumed():
+    from repro_torch.core.cluster import h100_sxm
+    doc = " ".join(h100_sxm.__doc__.split())
+    assert "``p_idle`` and ``gamma`` are assumed, not measured" in doc
