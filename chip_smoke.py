@@ -14,10 +14,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 fails if an instantiation the main paths launch spills.
 3. ``kernels``  each hand-written kernel against its plain PyTorch version
                 on the card, at the full-width shapes each serving path
-                gives it (rmsnorm at both models' widths; flash at prompts
-                of 101, 333, 512 and 700 tokens, bf16 on the wgmma kernel
-                and fp32 on the CUDA-core one; decode at the serve cache
-                and at a cache of 4096; ssd_scan at 512, 129, 101 and
+                gives it (rmsnorm at the three models' widths; flash at
+                prompts of 101, 333, 512 and 700 tokens at internlm2's
+                heads and of 333 at granite-moe's, bf16 on the wgmma
+                kernel and fp32 on the CUDA-core one; decode at the serve
+                cache at both models' heads and at a cache of 4096;
+                ssd_scan at 512, 129, 101 and
                 1024 steps in bf16 on its tensor-core design, with each of
                 its kernels' device time from torch.profiler, and at 512
                 and 129 in fp32 on its CUDA-core one), in bf16 and fp32:
@@ -28,13 +30,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 path, and its launches here are the ones reported; beside
                 its library call (``torch._int_mm`` and the scales) it
                 times ``torch._int_mm`` alone (``int_mm_ms``).
-4. ``serve``    two paths, each full width in bf16 with random weights,
+4. ``serve``    three paths, each full width in bf16 with random weights,
                 8 requests through ``repro_torch.launch.serve.serve``,
                 which runs them through the port's ``ClusterRuntime``
                 (activation gating, modelled energy over ``h100_sxm()``):
-                internlm2-1.8b (rmsnorm, flash and decode attention) and
-                mamba2-130m (rmsnorm, ssd_scan). Every kernel's launch count
-                is reset just before each and read just after; the path's
+                internlm2-1.8b (rmsnorm, flash and decode attention),
+                mamba2-130m (rmsnorm, ssd_scan) and granite-moe-1b-a400m
+                (rmsnorm, flash and decode attention; MoE layers). Every
+                kernel's launch count is reset just before each and read
+                just after; the path's
                 own kernels must have launched, the others not. The
                 runtime's telemetry must equal, field for field, that of a
                 run of the same counts on the CPU at smoke size (it is
@@ -44,11 +48,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 device time per step and the device's idle share.
 6. ``parity``   each model in fp32 at cut depth, on the card (kernels)
                 and on the CPU (plain versions): prefill and per-slot decode
-                logits must agree.
+                logits must agree. For the MoE model each MoE layer's
+                top-k experts are recorded on both sides; a sequence whose
+                routing differed in any layer (a near-tie of the k-th and
+                next expert, flipped by fp32 rounding) has its later logits
+                left out of the comparison and counted on the line, and a
+                flip at a top-k gap above ``FLIP_GAP`` fails the run.
 
 Then the summary line of kernels (one row per kernel and path: a kernel
-two paths run, rmsnorm, has a row for each, with that path's launches and
-its case at that path's shape), the nvidia-smi line, and the result line
+several paths run, rmsnorm on all three and flash and decode on two, has
+a row for each, with that path's launches and its case at that path's
+shape), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -78,6 +88,7 @@ from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.serving.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
@@ -114,9 +125,11 @@ MAMBA_PARITY_PROMPTS = (77, 200)
 # prefill (the row of the summary line), then the serve run's shortest and
 # longest prompts. bf16 runs the tensor-core design, fp32 the CUDA-core one.
 SSD_LENS = {torch.bfloat16: (512, 129, 101, 1024), torch.float32: (512, 129)}
+MOE_ARCH = "granite-moe-1b-a400m"
 # Kernels each model's path runs; every other kernel must stay at 0.
 PATH_KERNELS = {ARCH: ("rmsnorm", "flash_attention", "decode_attention"),
-                MAMBA_ARCH: ("rmsnorm", "ssd_scan")}
+                MAMBA_ARCH: ("rmsnorm", "ssd_scan"),
+                MOE_ARCH: ("rmsnorm", "flash_attention", "decode_attention")}
 # int8_matmul has no model call site: the kernels phase is its path, at
 # the JAX benchmark's shape and an MLP up projection of a 333-token prefill.
 KERNELS_PHASE = "kernels phase"
@@ -144,6 +157,9 @@ INT8_TOL = 0.0
 # Logits of the fp32 model, card (kernels, cuBLAS) vs CPU (plain versions):
 # 2048- and 8192-long fp32 sums in other orders, through two layers.
 PARITY_TOL = 1e-3
+# A routing flip, card vs CPU, is noise only where the k-th and the next
+# expert's probabilities lie closer than fp32 rounding can move them.
+FLIP_GAP = 1e-4
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -316,15 +332,19 @@ def _ptxas_summary(lines):
 def _main_path_patterns() -> list:
     """Patterns of the ptxas labels of the instantiations the main paths
     launch: rmsnorm at each path's width in bf16, int8_matmul at the
-    kernels phase's shapes (16-byte loads), flash and decode at d 128 in
-    bf16, each of ssd_scan's three tensor-core kernels (the bf16 path) and
-    its CUDA-core kernel (the fp32 parity path)."""
-    pats = [r"(flash_fwd_wgmma_kernel|decode_split_kernel)<bf16,128(,\d+)?>",
-            r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
+    kernels phase's shapes (16-byte loads), flash and decode at each
+    attention path's head dim in bf16, each of ssd_scan's three
+    tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
+    parity path)."""
+    pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>"]
     for arch in PATH_KERNELS:
-        vec, nv, wpr, _ = krms.plan(1, get_config(arch).d_model, 2, True)
+        cfg = get_config(arch)
+        vec, nv, wpr, _ = krms.plan(1, cfg.d_model, 2, True)
         pats.append(rf"rmsnorm_kernel<bf16,{8 if vec else 1},{nv},{wpr}>")
+        if "flash_attention" in PATH_KERNELS[arch]:
+            pats.append(rf"(flash_fwd_wgmma_kernel|decode_split_kernel)"
+                        rf"<bf16,{cfg.resolved_head_dim}(,\d+)?>")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n in INT8_SHAPES:
         bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
@@ -371,9 +391,14 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _flash_case(sq, dtype, seed=0):
-    """One layer's prefill of ``sq`` tokens at internlm2-1.8b's heads."""
-    b, hq, hkv, d = 1, 16, 8, 128
+def _heads(arch):
+    cfg = get_config(arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
+def _flash_case(arch, sq, dtype, seed=0):
+    """One layer's prefill of ``sq`` tokens at ``arch``'s heads."""
+    b, (hq, hkv, d) = 1, _heads(arch)
     q = randn((b, sq, hq, d), dtype, seed)
     k = randn((b, sq, hkv, d), dtype, seed + 1)
     v = randn((b, sq, hkv, d), dtype, seed + 2)
@@ -385,7 +410,7 @@ def _flash_case(sq, dtype, seed=0):
     pairs = sq * (sq + 1) // 2          # causal (query, key) pairs
     b_ms, by = bound(e * (2 * b * sq * hq * d + 2 * b * sq * hkv * d),
                      4 * b * hq * d * pairs, dtype)
-    return {"kernel": "flash_attention", "path": ARCH,
+    return {"kernel": "flash_attention", "path": arch,
             "shape": [b, sq, hq, hkv, d],
             "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: kflash.flash_attention(q, k, v)),
@@ -396,9 +421,10 @@ def _flash_case(sq, dtype, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _decode_case(dtype, skv, lengths, seed=0):
-    """One layer's decode tick of SLOTS slots against a cache of ``skv``."""
-    b, hq, hkv, d = SLOTS, 16, 8, 128
+def _decode_case(arch, dtype, skv, lengths, seed=0):
+    """One layer's decode tick of SLOTS slots against a cache of ``skv`` at
+    ``arch``'s heads."""
+    b, (hq, hkv, d) = SLOTS, _heads(arch)
     q = randn((b, hq, d), dtype, seed)
     k = randn((b, skv, hkv, d), dtype, seed + 1)
     v = randn((b, skv, hkv, d), dtype, seed + 2)
@@ -412,7 +438,7 @@ def _decode_case(dtype, skv, lengths, seed=0):
     e = q.element_size()
     b_ms, by = bound(e * (2 * b * hq * d + 2 * sum(lengths) * hkv * d)
                      + 4 * b, 4 * sum(lengths) * hq * d, dtype)
-    return {"kernel": "decode_attention", "path": ARCH,
+    return {"kernel": "decode_attention", "path": arch,
             "shape": [b, skv, hq, hkv, d],
             "splits": kdec.num_splits(skv), "lengths": lengths,
             "dtype": str(dtype), "max_abs_err": err,
@@ -512,21 +538,25 @@ def phase_kernels() -> dict:
     d_model = {a: get_config(a).d_model for a in PATH_KERNELS}
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        # rmsnorm at each path's width: one prefill (internlm2: 333 tokens,
-        # mamba2: 512) and one decode tick of SLOTS rows, lowp off first
-        # as both configs run it.
-        for arch, rows in ((ARCH, PROMPT_LENS[0]), (MAMBA_ARCH, 512)):
+        # rmsnorm at each path's width: one prefill (internlm2 and
+        # granite-moe: 333 tokens, mamba2: 512) and one decode tick of
+        # SLOTS rows, lowp off first as the configs run it.
+        for arch, rows in ((ARCH, PROMPT_LENS[0]), (MAMBA_ARCH, 512),
+                           (MOE_ARCH, PROMPT_LENS[0])):
             for r in (rows, SLOTS):
                 for lowp in (False, True):
                     cases.append(_rmsnorm_case(arch, r, d_model[arch],
                                                dtype, lowp))
         # flash at the first prompt, then 512 and the serve run's shortest
         # and longest prompts; decode at the serve cache, then at a cache
-        # of 4096 with lengths spread to 4000.
+        # of 4096 with lengths spread to 4000. granite-moe's heads (d 64)
+        # at the first prompt and the serve cache.
         for sq in (PROMPT_LENS[0], 512, min(PROMPT_LENS), max(PROMPT_LENS)):
-            cases.append(_flash_case(sq, dtype))
+            cases.append(_flash_case(ARCH, sq, dtype))
         for skv, lengths in DECODE_CASES:
-            cases.append(_decode_case(dtype, skv, lengths))
+            cases.append(_decode_case(ARCH, dtype, skv, lengths))
+        cases.append(_flash_case(MOE_ARCH, PROMPT_LENS[0], dtype))
+        cases.append(_decode_case(MOE_ARCH, dtype, *DECODE_CASES[0]))
         for s in SSD_LENS[dtype]:
             cases.append(_ssd_case(s, dtype))
     for m, k, n in INT8_SHAPES:
@@ -687,11 +717,59 @@ def phase_profile(arch: str, prompt_lens, prefill_len: int,
     del eng, bat
 
 
+class RouterLog:
+    """While active, records each MoE layer call's routing on the side
+    ``side`` names: every token's top-k experts (as a sorted set) and the
+    gap between the k-th and the next expert's probability."""
+
+    def __init__(self):
+        self.side = None
+        self.calls = {side: [] for side in PARITY_SIDES}
+        self.token_layers = 0
+        self.min_gap = float("inf")
+        self._orig = moe.moe_apply
+
+    def __enter__(self):
+        def recorded(params, cfg, x, **kw):
+            k, e = cfg.moe.top_k, cfg.moe.num_experts
+            xt = x.reshape(-1, x.shape[-1])
+            probs = torch.softmax(xt.float() @ params["router"].float(), -1)
+            top_p, top_i = torch.topk(probs, min(k + 1, e), dim=-1)
+            gap = (top_p[:, k - 1] - top_p[:, k] if k < e
+                   else torch.full_like(top_p[:, 0], float("inf")))
+            self.calls[self.side].append(
+                (top_i[:, :k].sort(-1).values.cpu(), gap.cpu(), x.shape[0]))
+            return self._orig(params, cfg, x, **kw)
+        moe.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe.moe_apply = self._orig
+
+    def flips(self):
+        """Since the last call: (batch row, CPU-side top-k gap) of each
+        token-layer whose expert set differs between the sides."""
+        card, cpu = self.calls["card"], self.calls["cpu"]
+        if len(card) != len(cpu):
+            raise AssertionError("the sides ran different MoE layers")
+        out = []
+        for (ci, _, b), (pi, gap, _) in zip(card, cpu):
+            self.token_layers += len(gap)
+            self.min_gap = min(self.min_gap, gap.min().item())
+            for tok in (ci != pi).any(-1).nonzero()[:, 0].tolist():
+                out.append((tok // (len(gap) // b), gap[tok].item()))
+        for calls in self.calls.values():
+            calls.clear()
+        return out
+
+
 def phase_parity(arch: str, prompt_lens) -> None:
     """fp32 logits on the card (kernels) vs the CPU (plain versions):
     prefill of two prompts at batch 1, their caches copied into a batch of
     two slots, then three per-slot decode steps, as the batcher runs them.
-    Both sides are fed the CPU side's greedy tokens."""
+    Both sides are fed the CPU side's greedy tokens. With MoE layers, a
+    sequence whose routing differs between the sides in any layer is left
+    out of the logit comparison from then on (``RouterLog``)."""
     cfg = get_config(arch).replace(dtype="float32",
                                    num_layers=PARITY_LAYERS)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -706,41 +784,72 @@ def phase_parity(arch: str, prompt_lens) -> None:
         engines[side].load(tree_map(lambda t, d=dev: t.to(d), params))
         caches[side] = lm.init_caches(cfg, len(prompts), max_len,
                                       torch.device(dev))
-    errs, nxt = [], []
+    errs, nxt, flips, flipped = [], [], [], set()
+
+    def agreeing(step_flips, rows):
+        flips.extend(step_flips)
+        flipped.update(rows[r] for r, _ in step_flips)
+        return [r for r in range(len(rows)) if rows[r] not in flipped]
+
     ops.reset_launches()
-    for slot, p in enumerate(prompts):
-        lg = {}
-        for side, eng in engines.items():
-            toks = torch.as_tensor(p[None], device=eng.device)
-            lg[side], c1 = eng.prefill_fn(eng.params, {"tokens": toks})
-            for big, small in zip(caches[side], c1):
-                for name, leaf in big.items():
-                    leaf[slot].copy_(small[name][0])
-        errs.append(_logit_err(lg))
-        nxt.append(int(torch.argmax(lg["cpu"][0])))
-    pos = np.array([len(p) for p in prompts])
-    for _ in range(3):
-        lg = {}
-        for side, eng in engines.items():
-            lg[side], _ = eng.decode_fn(
-                eng.params, torch.as_tensor(nxt, device=eng.device)[:, None],
-                caches[side], torch.as_tensor(pos, dtype=torch.int32,
-                                              device=eng.device))
-        errs.append(_logit_err(lg))
-        nxt = torch.argmax(lg["cpu"], dim=-1).tolist()
-        pos = pos + 1
+    with RouterLog() as log:
+        for slot, p in enumerate(prompts):
+            lg = {}
+            for side, eng in engines.items():
+                log.side = side
+                toks = torch.as_tensor(p[None], device=eng.device)
+                lg[side], c1 = eng.prefill_fn(eng.params, {"tokens": toks})
+                for big, small in zip(caches[side], c1):
+                    for name, leaf in big.items():
+                        leaf[slot].copy_(small[name][0])
+            errs.append(_logit_err(lg, agreeing(log.flips(), [slot])))
+            nxt.append(int(torch.argmax(lg["cpu"][0])))
+        pos = np.array([len(p) for p in prompts])
+        for _ in range(3):
+            lg = {}
+            for side, eng in engines.items():
+                log.side = side
+                lg[side], _ = eng.decode_fn(
+                    eng.params,
+                    torch.as_tensor(nxt, device=eng.device)[:, None],
+                    caches[side], torch.as_tensor(pos, dtype=torch.int32,
+                                                  device=eng.device))
+            errs.append(_logit_err(lg, agreeing(log.flips(),
+                                                list(range(len(prompts))))))
+            nxt = torch.argmax(lg["cpu"], dim=-1).tolist()
+            pos = pos + 1
     launches = ops.launch_counts()
     _check_path_launches(arch, launches)
-    emit({"phase": "parity", "arch": arch, "dtype": "float32",
-          "layers": PARITY_LAYERS, "prompt_lens": list(prompt_lens),
-          "decode_steps": 3, "tolerance": PARITY_TOL,
-          "max_abs_err_per_step": errs, "kernel_launches": launches})
+    line = {"phase": "parity", "arch": arch, "dtype": "float32",
+            "layers": PARITY_LAYERS, "prompt_lens": list(prompt_lens),
+            "decode_steps": 3, "tolerance": PARITY_TOL,
+            "max_abs_err_per_step": errs, "kernel_launches": launches}
+    if cfg.moe is not None:
+        line["routing"] = {
+            "token_layers": log.token_layers, "flips": len(flips),
+            "flip_topk_gaps": [g for _, g in flips],
+            "min_topk_gap": log.min_gap, "flip_gap_limit": FLIP_GAP,
+            "sequences_left_out": sorted(flipped),
+            "held": ("every row" if not flipped else
+                     "rows of sequences whose routing agreed in every "
+                     "layer; a null step held none")}
+    emit(line)
+    bad = [g for _, g in flips if g > FLIP_GAP]
+    if bad:
+        raise AssertionError(f"{arch}: routing differs card vs CPU at top-k "
+                             f"gaps {bad} > {FLIP_GAP}")
 
 
-def _logit_err(lg) -> float:
+def _logit_err(lg, rows=None):
+    """Max abs error of the card's logits against the CPU's over ``rows``
+    (all by default); raises past PARITY_TOL. None if no row is held."""
     gpu, cpu = lg["card"].float().cpu(), lg["cpu"].float()
     if gpu.shape != cpu.shape or not torch.isfinite(gpu).all():
         raise AssertionError("card logits not finite or misshapen")
+    if rows is not None:
+        if not rows:
+            return None
+        gpu, cpu = gpu[rows], cpu[rows]
     err = (gpu - cpu).abs()
     if bool((err > PARITY_TOL + PARITY_TOL * cpu.abs()).any()):
         raise AssertionError(f"card and CPU logits differ: max abs err "
@@ -755,11 +864,14 @@ def main() -> None:
     head = phase_kernels()
     served = {arch: phase_serve(dev["nvidia_smi"], arch, lens)
               for arch, lens in ((ARCH, PROMPT_LENS),
-                                 (MAMBA_ARCH, MAMBA_PROMPT_LENS))}
+                                 (MAMBA_ARCH, MAMBA_PROMPT_LENS),
+                                 (MOE_ARCH, PROMPT_LENS))}
     phase_profile(ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
     phase_profile(MAMBA_ARCH, MAMBA_PROMPT_LENS, 512)
+    phase_profile(MOE_ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
+    phase_parity(MOE_ARCH, (77, 45))
     # One row per kernel and path: its launches from that path's own serve
     # run (reset to 0 just before it), next to its case at that path's shape.
     kernels = []

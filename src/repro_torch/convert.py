@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models.transformer import check_supported
 from repro_torch.tree import tree_map
 
 
@@ -33,7 +32,6 @@ def _tensor(a: Any, device: torch.device) -> torch.Tensor:
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                     device: torch.device | str) -> Dict[str, Any]:
-    check_supported(cfg)
     device = torch.device(device)
     blocks = tree["blocks"]
     period = len(blocks)

@@ -21,10 +21,17 @@ the card could sustain.
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b
     python -m repro_torch.launch.serve --arch mamba2-130m
-    python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --smoke --device cpu
 
-Mamba prompts keep the SSD contract: ``--prompt-len`` at most the config's
-chunk (256; 32 at smoke size) or a multiple of it.
+``--arch`` takes any arch of ``repro_torch.configs.PORTED_ARCHS``: the
+dense internlm2-1.8b and qwen2-72b, the SSM mamba2-130m, the MoE
+granite-moe-1b-a400m and llama4-maverick-400b-a17b, and the hybrid
+jamba-1.5-large-398b (Mamba, attention and MoE layers). On one card at
+full width: internlm2-1.8b, mamba2-130m and granite-moe-1b-a400m; the
+others at ``--smoke``. Mamba prompts keep the SSD contract:
+``--prompt-len`` at most the config's chunk (256; 32 at smoke size) or a
+multiple of it.
 """
 from __future__ import annotations
 

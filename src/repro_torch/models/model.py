@@ -6,10 +6,12 @@
 
 Parameters are a dict ``{"embed": {...}, "layers": [per-layer dicts],
 "final_norm": {...}}``; ``repro_torch.convert.from_jax_params`` builds one
-from the JAX package's ``init_params`` pytree. Dense, SSM (Mamba-2) and
-hybrid stacks run; MoE raises (``check_supported``), so there is no aux
-loss and ``forward`` returns (logits, caches). A layer's cache is
-``{"k", "v"}`` for attention and ``{"conv", "ssd"}`` for Mamba.
+from the JAX package's ``init_params`` pytree. Dense, SSM (Mamba-2), MoE
+and hybrid stacks run. ``forward`` returns (logits, caches, aux) as the
+JAX package's does; aux, the MoE load-balancing loss, is computed in train
+mode only (None otherwise), and ``prefill``/``decode_step`` drop it as
+JAX's do. A layer's cache is ``{"k", "v"}`` for attention and
+``{"conv", "ssd"}`` for Mamba.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ from repro_torch.models.layers import (embed_apply, embed_init,
                                        unembed_apply)
 
 Params = Dict[str, Any]
-check_supported = stack.check_supported
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -38,7 +39,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: torch.device) -> Params:
     """Random weights (normal, scale 0.02, as the JAX package's
     ``dense_init``) drawn from ``gen``, which must live on ``device``."""
-    check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     return {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
@@ -62,16 +62,16 @@ def _embed_inputs(params: Params, batch: Dict[str, Any]) -> torch.Tensor:
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             mode: str = "train", caches: Optional[List[Params]] = None,
             pos=None, max_len: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
-    """Returns (logits, caches)."""
-    check_supported(cfg)
+            ) -> Tuple[torch.Tensor, Optional[List[Params]],
+                       Optional[torch.Tensor]]:
+    """Returns (logits, caches, aux); aux is None outside train."""
     x = _embed_inputs(params, batch)
-    x, new_caches = stack.stack_apply(
+    x, new_caches, aux = stack.stack_apply(
         params["layers"], cfg, x, mode=mode, caches=caches, pos=pos,
         max_len=max_len)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                       lowp=cfg.mlp_lowp)
-    return unembed_apply(params["embed"], x), new_caches
+    return unembed_apply(params["embed"], x), new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -81,8 +81,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, List[Params]]:
     """Returns (last-position logits, caches padded to max_len)."""
-    logits, caches = forward(params, cfg, batch, mode="prefill",
-                             max_len=max_len)
+    logits, caches, _ = forward(params, cfg, batch, mode="prefill",
+                                max_len=max_len)
     return logits[:, -1], caches
 
 
@@ -91,8 +91,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[Params]]:
     """tokens: (b, 1). Returns (logits (b, vocab), caches), the caches
     updated in place."""
-    logits, new_caches = forward(params, cfg, {"tokens": tokens},
-                                 mode="decode", caches=caches, pos=pos)
+    logits, new_caches, _ = forward(params, cfg, {"tokens": tokens},
+                                    mode="decode", caches=caches, pos=pos)
     return logits[:, 0], new_caches
 
 

@@ -6,8 +6,10 @@ keep compile time flat in depth. PyTorch runs eagerly, so the port keeps
 one parameter dict and one cache dict per layer and loops.
 
 Each layer is dispatched on its signature ``(mixer kind, ffn kind)`` as
-``layer_signature`` does there: an attention or a Mamba mixer, then no FFN
-or a dense one. That covers dense, SSM and hybrid stacks; MoE FFNs raise.
+``layer_signature`` does there: an attention or a Mamba mixer, then no
+FFN, a dense one or a MoE one. That covers the dense, SSM, MoE and hybrid
+stacks. The MoE layers' load-balancing loss is summed over the stack in
+train mode only (see ``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -18,23 +20,23 @@ import torch
 from repro_torch.config.base import ATTN, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
 
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet, naming the ROADMAP item."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet "
-            "(ROADMAP.md, Queue 1: 'MoE')")
-
-
 def layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, str]:
-    """(mixer kind, ffn kind) of layer ``i``: ATTN or MAMBA, then "none"
-    or "dense" (MoE is refused by ``check_supported``)."""
-    return cfg.layer_kinds()[i], ("dense" if cfg.d_ff else "none")
+    """(mixer kind, ffn kind) of layer ``i``: ATTN or MAMBA, then "moe",
+    "dense" or "none"."""
+    kind = cfg.layer_kinds()[i]
+    if cfg.is_moe_layer(i):
+        ffn = "moe"
+    elif cfg.d_ff:
+        ffn = "dense"
+    else:
+        ffn = "none"
+    return kind, ffn
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
@@ -45,16 +47,20 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
         p["mixer"] = attn_mod.attn_init(gen, cfg, dtype, device)
     else:
         p["mixer"] = mamba_mod.mamba_init(gen, cfg, dtype, device)
-    if ffn == "dense":
+    if ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
-        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        p["ffn"] = (moe_mod.moe_init(gen, cfg, dtype, device) if ffn == "moe"
+                    else mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device))
     return p
 
 
 def layer_apply(params: Params, cfg: ModelConfig, sig: Tuple[str, str],
                 x: torch.Tensor, *, mode: str, cache: Optional[Params], pos,
                 max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
+                ) -> Tuple[torch.Tensor, Optional[Params],
+                           Optional[torch.Tensor]]:
+    """Returns (x, cache, aux): aux is the MoE layer's load-balancing loss
+    in train mode, else None."""
     kind, ffn = sig
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps, lowp=cfg.mlp_lowp)
     if kind == ATTN:
@@ -65,16 +71,21 @@ def layer_apply(params: Params, cfg: ModelConfig, sig: Tuple[str, str],
         mix, new_cache = mamba_mod.mamba_apply(
             params["mixer"], cfg, h, mode=mode, cache=cache)
     x = x + mix
-    if ffn == "dense":
+    aux = None
+    if ffn != "none":
         h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps,
                           lowp=cfg.mlp_lowp)
-        x = x + mlp_apply(params["ffn"], h, lowp=cfg.mlp_lowp)
-    return x, new_cache
+        if ffn == "moe":
+            f, aux = moe_mod.moe_apply(params["ffn"], cfg, h,
+                                       aux_loss=mode == "train")
+        else:
+            f = mlp_apply(params["ffn"], h, lowp=cfg.mlp_lowp)
+        x = x + f
+    return x, new_cache, aux
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
                device: torch.device) -> List[Params]:
-    check_supported(cfg)
     return [layer_init(gen, cfg, i, dtype, device)
             for i in range(cfg.num_layers)]
 
@@ -95,12 +106,20 @@ def stack_caches(cfg: ModelConfig, batch: int, max_len: int,
 def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, caches: Optional[List[Params]] = None, pos=None,
                 max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
-    """Run all layers. Returns (x, caches); caches are None in train."""
+                ) -> Tuple[torch.Tensor, Optional[List[Params]],
+                           Optional[torch.Tensor]]:
+    """Run all layers. Returns (x, caches, aux): caches are None in train;
+    aux, the MoE layers' load-balancing loss summed over the stack, is an
+    fp32 scalar in train (0 without MoE layers) and None otherwise."""
     new_caches = []
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if mode == "train" else None)
     for i, lp in enumerate(layers):
         cache = None if caches is None else caches[i]
-        x, nc = layer_apply(lp, cfg, layer_signature(cfg, i), x, mode=mode,
-                            cache=cache, pos=pos, max_len=max_len)
+        x, nc, a = layer_apply(lp, cfg, layer_signature(cfg, i), x,
+                               mode=mode, cache=cache, pos=pos,
+                               max_len=max_len)
         new_caches.append(nc)
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+        if a is not None:
+            aux = aux + a
+    return x, (new_caches if mode in ("prefill", "decode") else None), aux

@@ -30,9 +30,11 @@ def _is_q(leaf: Any) -> bool:
 def quantize_params_int8(params: Params) -> Params:
     """Weight-only int8: store int8 payload + per-output-channel scales,
     dequantized on use. Every leaf of two or more dims is quantized (the
-    embedding, attention and MLP weights, Mamba's ``w_in``, ``conv_w`` and
-    ``w_out``); 1-D leaves (norm scales, ``conv_b``, the fp32 ``A_log``,
-    ``dt_bias`` and ``D``) stay as they are. The JAX engine applies the
+    embedding, attention and MLP weights, the MoE router and the 3-D
+    expert weights, per (expert, column) as the JAX engine's stacked 4-D
+    leaves are, Mamba's ``w_in``, ``conv_w`` and ``w_out``); 1-D leaves
+    (norm scales, ``conv_b``, the fp32 ``A_log``, ``dt_bias`` and ``D``)
+    stay as they are. The JAX engine applies the
     same rule to its layer-stacked tree, where those 1-D leaves are 2-D
     and so are quantized across the layer axis; the port's per-layer tree
     keeps them exact."""
@@ -57,7 +59,6 @@ def dequantize_params(params: Params) -> Params:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, scfg: Optional[ServeConfig] = None,
                  device: str | torch.device = "cuda"):
-        lm.check_supported(cfg)
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
         self.device = resolve_device(device)

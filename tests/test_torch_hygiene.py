@@ -13,6 +13,7 @@ import torch
 
 import repro.config as jconfig
 from repro_torch.config import get_config, smoke_config
+from repro_torch.configs import PORTED_ARCHS
 from repro_torch.launch.serve import serve
 from repro_torch.serving.engine import ServingEngine
 
@@ -52,8 +53,7 @@ def test_port_has_the_three_kernel_sources():
     assert {p.stem for p in csrc.glob("*.cu")} == pallas
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-130m",
-                                  "qwen2-72b"])
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_copied_configs_equal_reference(arch):
     ours, ref = get_config(arch), jconfig.get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)

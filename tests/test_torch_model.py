@@ -88,7 +88,8 @@ def test_forward_matches_jax(pair):
     jcfg, cfg, jparams, params = pair
     toks = _tokens(cfg, 2, 12)
     want, _, _ = jlm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
-    got, caches = lm.forward(params, cfg, {"tokens": torch.as_tensor(toks)})
+    got, caches, _ = lm.forward(params, cfg,
+                                {"tokens": torch.as_tensor(toks)})
     assert caches is None
     _close(got.numpy(), want)
 
@@ -100,7 +101,7 @@ def test_vision_embeds_prepend_matches_jax(pair):
         (2, 3, cfg.d_model)).astype(np.float32)
     want, _, _ = jlm.forward(jparams, jcfg, {
         "tokens": jnp.asarray(toks), "vision_embeds": jnp.asarray(ve)})
-    got, _ = lm.forward(params, cfg, {
+    got, _, _ = lm.forward(params, cfg, {
         "tokens": torch.as_tensor(toks), "vision_embeds": torch.as_tensor(ve)})
     assert got.shape == (2, 9, cfg.vocab_size)
     _close(got.numpy(), want)
@@ -155,7 +156,7 @@ def test_decode_matches_forward():
     _, cfg = _cfgs("internlm2-1.8b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), CPU)
     toks = torch.as_tensor(_tokens(cfg, 2, 17))
-    full, _ = lm.forward(params, cfg, {"tokens": toks})
+    full, _, _ = lm.forward(params, cfg, {"tokens": toks})
     lg_pre, caches = lm.prefill(params, cfg, {"tokens": toks[:, :16]},
                                 max_len=24)
     lg_dec, _ = lm.decode_step(params, cfg, toks[:, 16:], caches, pos=16)
@@ -235,8 +236,8 @@ def test_int8_weight_serving_close_to_fp(engines):
     assert dq["layers"][0]["mixer"]["wq"].dtype == torch.bfloat16
     dq32 = tree_map(lambda t: t.float(), dq)
     toks = {"tokens": torch.ones((1, 8), dtype=torch.long)}
-    lg_fp, _ = lm.forward(eng.params, cfg, toks)
-    lg_q, _ = lm.forward(dq32, cfg, toks)
+    lg_fp, _, _ = lm.forward(eng.params, cfg, toks)
+    lg_q, _, _ = lm.forward(dq32, cfg, toks)
     corr = np.corrcoef(lg_fp.numpy().ravel(), lg_q.numpy().ravel())[0, 1]
     assert corr > 0.99
 
@@ -267,20 +268,6 @@ def _port_cfg(jcfg):
     d["moe"] = MoEConfig(**d["moe"]) if d["moe"] else None
     d["mamba"] = MambaConfig(**d["mamba"]) if d["mamba"] else None
     return ModelConfig(**d)
-
-
-@pytest.mark.parametrize("kind", ["SSM and hybrid", "MoE"])
-def test_unported_archs_raise(kind):
-    """SSM and hybrid stacks run now; the hybrid jamba still raises, for
-    its MoE layers, as does a dense config given MoE."""
-    if kind == "MoE":
-        cfg = smoke_config(get_config("internlm2-1.8b")).replace(
-            moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32))
-    else:
-        cfg = _port_cfg(jsmoke_config(jget_config("jamba-1.5-large-398b")))
-        assert cfg.uses_mamba and cfg.uses_attention
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServingEngine(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +313,7 @@ def test_ssm_forward_matches_jax(ssm_pair):
     jcfg, cfg, jparams, params = ssm_pair
     toks = _tokens(cfg, 2, 64)          # two chunks of 32: state carried
     want, _, _ = jlm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
-    got, _ = lm.forward(params, cfg, {"tokens": torch.as_tensor(toks)})
+    got, _, _ = lm.forward(params, cfg, {"tokens": torch.as_tensor(toks)})
     _close(got.numpy(), want)
 
 
@@ -364,7 +351,7 @@ def test_mamba_decode_matches_forward():
     _, cfg = _cfgs("mamba2-130m")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), CPU)
     toks = torch.as_tensor(_tokens(cfg, 2, 35))
-    full, _ = lm.forward(params, cfg, {"tokens": toks[:, :32]})
+    full, _, _ = lm.forward(params, cfg, {"tokens": toks[:, :32]})
     lg_pre, caches = lm.prefill(params, cfg, {"tokens": toks[:, :30]})
     _close(lg_pre.numpy(), full[:, 29].numpy())
     for t in (30, 31):
@@ -431,8 +418,8 @@ def test_mamba_int8_weight_serving_close_to_fp(mamba_engines):
         assert isinstance(mixer[name], torch.Tensor)
     dq32 = tree_map(lambda t: t.float(), dequantize_params(qp))
     toks = {"tokens": torch.as_tensor(_tokens(cfg, 1, 16))}
-    lg_fp, _ = lm.forward(eng.params, cfg, toks)
-    lg_q, _ = lm.forward(dq32, cfg, toks)
+    lg_fp, _, _ = lm.forward(eng.params, cfg, toks)
+    lg_q, _, _ = lm.forward(dq32, cfg, toks)
     corr = np.corrcoef(lg_fp.numpy().ravel(), lg_q.numpy().ravel())[0, 1]
     assert corr > 0.99
     qeng = ServingEngine(cfg, ServeConfig(max_seq_len=32,
