@@ -46,7 +46,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. ``profile``  one prefill and a few decode ticks of each model:
                 host time per step, then under torch.profiler the kernels'
                 device time per step and the device's idle share.
-6. ``parity``   each model in fp32 at cut depth, on the card (kernels)
+6. ``train``    internlm2-1.8b at full width in bf16 through the port's
+                ``Trainer`` (``repro_torch.launch.train``'s config:
+                ``default_train_config``, remat "full", seq 256, batch 8):
+                8 steps with fp32 moments, each loss finite; launches a
+                step checked (rmsnorm 97, rmsnorm_bwd 49, flash 48,
+                flash_bwd 24, nothing else); a run saved at step 4,
+                restored into a fresh ``Trainer`` and continued to step 8
+                must give the unbroken run's losses bit for bit; then 3
+                steps with int8 moments. Step ms, grad norm,
+                ``max_memory_allocated``; one more step timed, then traced
+                (device busy ms, idle share, top kernels).
+7. ``train_parity`` fp32 internlm2-1.8b at full width with 2 layers: one
+                ``loss_fn`` and its gradient on the card (kernels, their
+                backward kernels) and on the CPU (plain versions): the
+                loss and every gradient leaf, relative to its max-abs,
+                within ``PARITY_TOL``.
+8. ``parity``   each model in fp32 at cut depth, on the card (kernels)
                 and on the CPU (plain versions): prefill and per-slot decode
                 logits must agree. For the MoE model each MoE layer's
                 top-k experts are recorded on both sides; a sequence whose
@@ -55,11 +71,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 left out of the comparison and counted on the line, and a
                 flip at a top-k gap above ``FLIP_GAP`` fails the run.
 
+The ``kernels`` phase also holds the two backward kernels
+(``rmsnorm_bwd``, ``flash_attention_bwd``) to their closed-form plain
+backwards at the training shapes (2048 x 2048; b 8, s 256, 16/8 heads,
+d 128, bf16), beside their library call's backward timed through
+autograd (``F.rms_norm``, ``F.scaled_dot_product_attention``).
+
 Then the summary line of kernels (one row per kernel and path: a kernel
 several paths run, rmsnorm on all three and flash and decode on two, has
 a row for each, with that path's launches and its case at that path's
-shape), the nvidia-smi line, and the result line
-``{"ok": true, "device": {...}}``.
+shape; the training path has rows for rmsnorm, flash and both backward
+kernels, with the launches of its 8-step run), the nvidia-smi line, and
+the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -87,11 +110,17 @@ from repro_torch.kernels import int8_matmul as kint8  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.train import data_config, train_config  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.serving.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
+from repro_torch.training.data import (PrefetchingLoader,  # noqa: E402
+                                       _gen_batch)
+from repro_torch.training.optimizer import adamw_update  # noqa: E402
+from repro_torch.training.train_loop import Trainer  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 ARCH = "internlm2-1.8b"
 # Prompt lengths of the serve phase: 100..700 tokens, none a multiple of 64
@@ -130,6 +159,17 @@ MOE_ARCH = "granite-moe-1b-a400m"
 PATH_KERNELS = {ARCH: ("rmsnorm", "flash_attention", "decode_attention"),
                 MAMBA_ARCH: ("rmsnorm", "ssd_scan"),
                 MOE_ARCH: ("rmsnorm", "flash_attention", "decode_attention")}
+# The training path: internlm2-1.8b at the launcher's seq and batch, full
+# remat; per step every layer's forward runs twice (remat), the final norm
+# once, and each backward once.
+TRAIN_PATH = f"train {ARCH}"
+TRAIN_SEQ, TRAIN_BATCH = 256, 8
+TRAIN_STEPS, TRAIN_INT8_STEPS, TRAIN_SAVE_AT = 8, 3, 4
+TRAIN_CKPT_DIR = "chiprun_train_ckpt"       # in the checkout, gitignored
+_L = 24
+TRAIN_LAUNCHES = {"rmsnorm": 4 * _L + 1, "rmsnorm_bwd": 2 * _L + 1,
+                  "flash_attention": 2 * _L, "flash_attention_bwd": _L}
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
 # int8_matmul has no model call site: the kernels phase is its path, at
 # the JAX benchmark's shape and an MLP up projection of a 333-token prefill.
 KERNELS_PHASE = "kernels phase"
@@ -164,6 +204,10 @@ FLIP_GAP = 1e-4
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:22"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:22"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:78"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -314,8 +358,10 @@ def _ptxas_summary(lines):
             continue
         used = re.search(r"Used (\d+) registers", ln)
         if used and name:
-            kern = re.search(r"(rmsnorm_kernel|flash_fwd_wgmma_kernel|"
-                             r"flash_fwd_simt_kernel|decode_split_kernel|"
+            kern = re.search(r"(rmsnorm_kernel|rmsnorm_bwd_kernel|"
+                             r"rmsnorm_dw_kernel|flash_fwd_wgmma_kernel|"
+                             r"flash_fwd_simt_kernel|flash_bwd_\w+_kernel|"
+                             r"decode_split_kernel|"
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
                              r"ssd_tc_outputs_kernel|ssd_scan_simt_kernel|"
                              r"int8_wgmma_kernel)", name)
@@ -335,9 +381,16 @@ def _main_path_patterns() -> list:
     kernels phase's shapes (16-byte loads), flash and decode at each
     attention path's head dim in bf16, each of ssd_scan's three
     tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
-    parity path)."""
+    parity path), and the training path's backward kernels at internlm2's
+    width and head dim in bf16."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
-            r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>"]
+            r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
+            r"rmsnorm_dw_kernel<f32>"]
+    cfg = get_config(ARCH)
+    vec, nv, _ = krms.bwd_plan(1, cfg.d_model, 2, True, 1)
+    pats.append(rf"rmsnorm_bwd_kernel<bf16,{8 if vec else 1},{nv}>")
+    pats += [rf"flash_bwd_{k}_kernel<bf16,{cfg.resolved_head_dim}>"
+             for k in ("preprocess", "dkdv", "dq")]
     for arch in PATH_KERNELS:
         cfg = get_config(arch)
         vec, nv, wpr, _ = krms.plan(1, cfg.d_model, 2, True)
@@ -391,14 +444,90 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
+def _rmsnorm_bwd_case(rows, d, dtype, seed=0):
+    """The backward of one norm of a training step: ``rows`` = b x s."""
+    x, w = randn((rows, d), dtype, seed), randn((d,), torch.float32, seed + 1)
+    dy = randn((rows, d), dtype, seed + 2)
+    dx, dw = krms._kernel_backward(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    want_dx, want_dw = krms.plain_bwd(x, w, dy, 1e-5)
+    err = max(max_err(dx, want_dx, dtype),
+              max_err(dw, want_dw, torch.float32))
+    # F.rms_norm's backward through autograd (its weight in x's dtype):
+    # forward and backward replayed, less the forward alone.
+    xl = x.clone().requires_grad_(True)
+    wl = w.to(dtype, copy=True).requires_grad_(True)
+    lib_fwd = lambda: F.rms_norm(xl, (d,), wl, 1e-5)
+    lib_both = lambda: torch.autograd.grad(lib_fwd(), (xl, wl), dy)
+    e = x.element_size()
+    b_ms, by = bound(3 * rows * d * e + 8 * d, 8 * rows * d, torch.float32)
+    return {"kernel": "rmsnorm_bwd", "path": TRAIN_PATH, "shape": [rows, d],
+            "dtype": str(dtype), "max_abs_err": err,
+            "ms": time_ms(lambda: krms._kernel_backward(x, w, dy, 1e-5)),
+            "eager_ms": eager_ms(
+                lambda: krms._kernel_backward(x, w, dy, 1e-5)),
+            "plain_ms": time_ms(lambda: krms.plain_bwd(x, w, dy, 1e-5)),
+            "library_ms": time_ms(lib_both) - time_ms(lib_fwd),
+            "library_call": "F.rms_norm backward (autograd): forward and "
+                            "backward less the forward, each replayed",
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def _flash_bwd_case(arch, b, s, dtype, seed=0):
+    """The backward of one layer's causal self-attention in training."""
+    hq, hkv, d = _heads(arch)
+    q = randn((b, s, hq, d), dtype, seed)
+    k = randn((b, s, hkv, d), dtype, seed + 1)
+    v = randn((b, s, hkv, d), dtype, seed + 2)
+    dout = randn((b, s, hq, d), dtype, seed + 3)
+    scale = d ** -0.5
+    out, lse = kflash._kernel_forward(q, k, v, True, scale, with_lse=True)
+    got = kflash._kernel_backward(q, k, v, out, dout, lse, True, scale)
+    torch.cuda.synchronize()
+    want = kflash.plain_bwd(q, k, v, out, dout, lse, causal=True,
+                            scale=scale)
+    err = max(max_err(g, w_, dtype) for g, w_ in zip(got, want))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dt_ = dout.transpose(1, 2)
+    lib_fwd = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dt_)
+    e = q.element_size()
+    pairs = s * (s + 1) // 2
+    # Read q, k, v, out, dout (and lse) once, write dq, dk, dv; the five
+    # products of the backward (S recomputed, dP, dV, dK, dQ) over the
+    # causal pairs: 2.5x the forward's.
+    nbytes = e * (3 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s \
+        + e * (b * s * hq * d + 2 * b * s * hkv * d)
+    b_ms, by = bound(nbytes, 10 * b * hq * d * pairs, dtype)
+    return {"kernel": "flash_attention_bwd", "path": TRAIN_PATH,
+            "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+            "max_abs_err": err,
+            "kernel_us": device_us(lambda: kflash._kernel_backward(
+                q, k, v, out, dout, lse, True, scale)),
+            "ms": time_ms(lambda: kflash._kernel_backward(
+                q, k, v, out, dout, lse, True, scale), 5),
+            "eager_ms": eager_ms(lambda: kflash._kernel_backward(
+                q, k, v, out, dout, lse, True, scale), 10),
+            "plain_ms": time_ms(lambda: kflash.plain_bwd(
+                q, k, v, out, dout, lse, causal=True, scale=scale), 3),
+            "library_ms": time_ms(lib_both, 5) - time_ms(lib_fwd, 5),
+            "library_call": "F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa) backward (autograd): forward and "
+                            "backward less the forward, each replayed",
+            "bound_ms": b_ms, "bound_by": by}
+
+
 def _heads(arch):
     cfg = get_config(arch)
     return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
 
-def _flash_case(arch, sq, dtype, seed=0):
-    """One layer's prefill of ``sq`` tokens at ``arch``'s heads."""
-    b, (hq, hkv, d) = 1, _heads(arch)
+def _flash_case(arch, sq, dtype, seed=0, b=1, path=None):
+    """One layer's prefill of ``sq`` tokens at ``arch``'s heads (or, with
+    ``b``, one layer's training forward)."""
+    hq, hkv, d = _heads(arch)
     q = randn((b, sq, hq, d), dtype, seed)
     k = randn((b, sq, hkv, d), dtype, seed + 1)
     v = randn((b, sq, hkv, d), dtype, seed + 2)
@@ -410,7 +539,7 @@ def _flash_case(arch, sq, dtype, seed=0):
     pairs = sq * (sq + 1) // 2          # causal (query, key) pairs
     b_ms, by = bound(e * (2 * b * sq * hq * d + 2 * b * sq * hkv * d),
                      4 * b * hq * d * pairs, dtype)
-    return {"kernel": "flash_attention", "path": arch,
+    return {"kernel": "flash_attention", "path": path or arch,
             "shape": [b, sq, hq, hkv, d],
             "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: kflash.flash_attention(q, k, v)),
@@ -559,6 +688,15 @@ def phase_kernels() -> dict:
         cases.append(_decode_case(MOE_ARCH, dtype, *DECODE_CASES[0]))
         for s in SSD_LENS[dtype]:
             cases.append(_ssd_case(s, dtype))
+        # The training path: one norm and one attention of a step, forward
+        # and backward, at b 8 x s 256.
+        rows = TRAIN_BATCH * TRAIN_SEQ
+        cases.append(_rmsnorm_case(TRAIN_PATH, rows, d_model[ARCH], dtype,
+                                   False))
+        cases.append(_rmsnorm_bwd_case(rows, d_model[ARCH], dtype))
+        cases.append(_flash_case(ARCH, TRAIN_SEQ, dtype, b=TRAIN_BATCH,
+                                 path=TRAIN_PATH))
+        cases.append(_flash_bwd_case(ARCH, TRAIN_BATCH, TRAIN_SEQ, dtype))
     for m, k, n in INT8_SHAPES:
         for out_dtype in (torch.float32, torch.bfloat16):
             cases.append(_int8_case(m, k, n, out_dtype))
@@ -857,6 +995,186 @@ def _logit_err(lg, rows=None):
     return err.max().item()
 
 
+def _check_train_launches(launches: dict, steps: int) -> dict:
+    """Launches a step of the training path, each exactly as counted in
+    TRAIN_LAUNCHES; no other kernel launched."""
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = {k: TRAIN_LAUNCHES.get(k, 0) for k in launches}
+    if per_step != want:
+        raise AssertionError(f"train launches a step {per_step} != {want}")
+    return per_step
+
+
+def _train_run(trainer, loader, steps, **kw):
+    hist = trainer.run(loader, steps=steps, log_every=10 ** 9, **kw)
+    if not all(np.isfinite(hist["loss"])):
+        raise AssertionError(f"non-finite training loss: {hist['loss']}")
+    return hist
+
+
+def _profile_train_step(trainer, params, opt_state, batch) -> dict:
+    """Where a training step's time goes: one step timed on the host clock
+    (ending in a synchronize), then one under torch.profiler for the
+    kernels' device time and the device's idle share; then the AdamW
+    update alone (the step's last part) under the profiler, on gradients
+    of 1e-3, so its share of the step is measured, not inferred."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._place(batch)
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, m = trainer.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        return m
+
+    t0 = time.perf_counter()
+    step()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = _device_busy_us(kern) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+
+    grads = [torch.full_like(p, 1e-3) for p in tree_leaves(params)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as uprof:
+        t0 = time.perf_counter()
+        adamw_update(grads, opt_state, params, trainer.tcfg)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) * 1e3
+    ukern = [e for e in uprof.events() if e.device_type == DeviceType.CUDA]
+    return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / traced_ms,
+            "kernels_per_step": len(kern),
+            "top_device_ms": [[k[:60], v / 1e3] for k, v in top],
+            "adamw_update": {"traced_wall_ms": update_ms,
+                             "device_busy_ms": _device_busy_us(ukern) / 1e3,
+                             "kernels": len(ukern)}}
+
+
+def phase_train(smi: str) -> dict:
+    """internlm2-1.8b at full width through the port's Trainer: 8 steps
+    with fp32 moments (launches checked), the same 8 resumed from a
+    checkpoint at step 4 (losses bit for bit), then 3 with int8 moments.
+    Returns the 8-step run's launches."""
+    import shutil
+    cfg = get_config(ARCH)
+    loader = lambda: PrefetchingLoader(data_config(cfg, TRAIN_SEQ,
+                                                   TRAIN_BATCH))
+    tcfg = train_config(cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    trainer = Trainer(cfg, tcfg)
+    full = _train_run(trainer, loader(), TRAIN_STEPS)
+    launches = ops.launch_counts()
+    per_step = _check_train_launches(launches, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_train_step(trainer, full.pop("params"),
+                               full.pop("opt_state"),
+                               loader().get(TRAIN_STEPS))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Save at step 4, restore into a fresh Trainer, continue to step 8.
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    t_save = time.monotonic()
+    first = _train_run(Trainer(cfg, tcfg, ckpt_dir=TRAIN_CKPT_DIR,
+                               ckpt_every=TRAIN_SAVE_AT), loader(),
+                       TRAIN_SAVE_AT)
+    del first["params"], first["opt_state"]
+    save_s = time.monotonic() - t_save - sum(first["step_time_s"])
+    torch.cuda.empty_cache()
+    if ckpt.latest_step(TRAIN_CKPT_DIR) != TRAIN_SAVE_AT:
+        raise AssertionError("no checkpoint at the save step")
+    t_res = time.monotonic()
+    resumed = _train_run(Trainer(cfg, tcfg, ckpt_dir=TRAIN_CKPT_DIR,
+                                 ckpt_every=10 ** 9), loader(), TRAIN_STEPS)
+    restore_s = time.monotonic() - t_res - sum(resumed["step_time_s"])
+    del resumed["params"], resumed["opt_state"]
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if resumed["step"] != list(range(TRAIN_SAVE_AT, TRAIN_STEPS)) or \
+            first["loss"] + resumed["loss"] != full["loss"]:
+        raise AssertionError(f"resume is not bitwise: {first['loss']} + "
+                             f"{resumed['loss']} != {full['loss']}")
+
+    int8 = _train_run(Trainer(cfg, train_config(
+        cfg, TRAIN_INT8_STEPS, opt_state_dtype="int8")), loader(),
+        TRAIN_INT8_STEPS)
+    del int8["params"], int8["opt_state"]
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "arch": ARCH, "dtype": cfg.dtype,
+          "params": cfg.num_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+          "train_config": {k: getattr(tcfg, k) for k in (
+              "remat", "opt_state_dtype", "microbatches", "learning_rate",
+              "warmup_steps", "total_steps", "loss_chunk")},
+          "fp32_moments": {"loss": full["loss"],
+                           "grad_norm": full["grad_norm"],
+                           "step_ms": [1e3 * t for t in full["step_time_s"]]},
+          "resume": {"saved_at": TRAIN_SAVE_AT, "bitwise": True,
+                     "losses_after": resumed["loss"],
+                     "save_s": save_s, "restore_s": restore_s},
+          "int8_moments": {"loss": int8["loss"],
+                           "grad_norm": int8["grad_norm"],
+                           "step_ms": [1e3 * t for t in int8["step_time_s"]]},
+          "max_memory_allocated": peak, "profile": prof,
+          "kernel_launches": launches, "launches_per_step": per_step,
+          "nvidia_smi": smi})
+    return launches
+
+
+def phase_train_parity() -> None:
+    """One loss and its gradient, fp32 internlm2-1.8b at full width with
+    PARITY_LAYERS layers, full remat: on the card (kernels and their
+    backward kernels) against the CPU (plain versions)."""
+    cfg = get_config(ARCH).replace(dtype="float32", num_layers=PARITY_LAYERS)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.device("cpu"))
+    batch = _gen_batch(data_config(cfg, TRAIN_PARITY_SEQ,
+                                   TRAIN_PARITY_BATCH), 0)
+    out = {}
+    for side, dev in PARITY_SIDES.items():
+        p = tree_map(lambda t, d=dev: t.to(d, copy=True).requires_grad_(True),
+                     params)
+        leaves = tree_leaves(p)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        ops.reset_launches()
+        loss, metrics = lm.loss_fn(p, cfg, b, remat="full")
+        grads = torch.autograd.grad(loss, leaves)
+        out[side] = (loss.item(), [g.cpu() for g in grads],
+                     ops.launch_counts())
+    (l_card, g_card, launches), (l_cpu, g_cpu, _) = out["card"], out["cpu"]
+    n = PARITY_LAYERS
+    want = {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
+            "flash_attention": 2 * n, "flash_attention_bwd": n}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"train parity launches {launches} != {want}")
+    rel = [((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+           for a, c in zip(g_card, g_cpu)]
+    finite = all(torch.isfinite(g).all() for g in g_card)
+    emit({"phase": "train_parity", "arch": ARCH, "dtype": "float32",
+          "layers": n, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+          "remat": "full", "tolerance": PARITY_TOL, "loss_card": l_card,
+          "loss_cpu": l_cpu, "loss_abs_err": abs(l_card - l_cpu),
+          "grad_leaves": len(rel), "max_grad_err_over_maxabs": max(rel),
+          "kernel_launches": launches})
+    if not finite or abs(l_card - l_cpu) > PARITY_TOL * max(1, abs(l_cpu)) \
+            or max(rel) > PARITY_TOL:
+        raise AssertionError(f"train parity: loss {l_card} vs {l_cpu}, "
+                             f"grad err {max(rel)} (tol {PARITY_TOL})")
+
+
 def main() -> None:
     t0 = time.monotonic()
     dev = phase_device()
@@ -872,6 +1190,8 @@ def main() -> None:
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))
+    served[TRAIN_PATH] = phase_train(dev["nvidia_smi"])
+    phase_train_parity()
     # One row per kernel and path: its launches from that path's own serve
     # run (reset to 0 just before it), next to its case at that path's shape.
     kernels = []
@@ -882,10 +1202,14 @@ def main() -> None:
             origin = "kernels phase (no model path)"
         else:
             launches, origin = served[path][name], f"serve {path}"
+        per_step = {}
+        if path == TRAIN_PATH:
+            origin = f"train {ARCH}, {TRAIN_STEPS} steps"
+            per_step = {"launches_per_step": launches / TRAIN_STEPS}
         kernels.append({
             "name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "launches_from": origin, "shape": c["shape"],
+            "launches_from": origin, **per_step, "shape": c["shape"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

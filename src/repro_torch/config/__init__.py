@@ -1,12 +1,12 @@
 from repro_torch.config.base import (
     ATTN, MAMBA,
-    MambaConfig, ModelConfig, MoEConfig, ServeConfig,
-    get_config, list_configs, register, smoke_config,
+    MambaConfig, ModelConfig, MoEConfig, ServeConfig, ShapeSpec,
+    TrainConfig, get_config, list_configs, register, smoke_config,
 )
 from repro_torch.config.torch_env import resolve_device
 
 __all__ = [
     "ATTN", "MAMBA", "MambaConfig", "ModelConfig", "MoEConfig",
-    "ServeConfig", "get_config", "list_configs", "register",
-    "resolve_device", "smoke_config",
+    "ServeConfig", "ShapeSpec", "TrainConfig", "get_config", "list_configs",
+    "register", "resolve_device", "smoke_config",
 ]

@@ -1,7 +1,8 @@
 """Config system of the PyTorch port.
 
 An own copy of ``ModelConfig``, ``MoEConfig``, ``MambaConfig``,
-``ServeConfig``, the arch registry and ``smoke_config`` from the JAX
+``ShapeSpec``, ``TrainConfig``, ``ServeConfig``, the arch registry and
+``smoke_config`` from the JAX
 package's ``config/base.py``: plain dataclasses, no external deps. Field
 names, defaults and the smoke reduction are kept identical so that a
 config of either package describes the same model
@@ -192,6 +193,47 @@ class ModelConfig:
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned input-shape set).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# ---------------------------------------------------------------------------
+# Training config.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    # remat: "none" | "full" | "dots" (checkpoint_dots policy)
+    remat: str = "full"
+    scan_layers: bool = True
+    # optimizer state compression: "fp32" | "int8"
+    opt_state_dtype: str = "fp32"
+    # gradient compression on the DP all-reduce: "none" | "int8"
+    grad_compression: str = "none"
+    microbatches: int = 1               # grad accumulation
+    # chunked cross-entropy: sequence-chunk size (0 = full logits)
+    loss_chunk: int = 0
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------

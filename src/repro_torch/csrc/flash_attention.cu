@@ -36,7 +36,32 @@
 // Both: the kv head of q head h is h / (hq / hkv), as in the JAX kernel's
 // index map; l == 0 maps to 1. Unlike the JAX kernel (which asserts
 // sq % block_q == 0), these mask the ragged edge themselves, so any
-// sq, skv >= 1 is taken.
+// sq, skv >= 1 is taken. Given a non-null `lse`, both also write each
+// row's log-sum-exp of its scaled scores, (b, hq, sq) fp32, which the
+// backward reads; serving passes null and writes nothing more.
+//
+// Backward (the JAX package has no backward kernel; its gradient is
+// jax.grad of the forward): FlashAttention-2's, split so that no block
+// adds into another block's output, hence no atomics and a bitwise
+// repeatable step. With P = exp(S * scale - lse) recomputed tile by tile
+// and delta = rowsum(dO * O):
+//   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = dS^T Q * scale,
+//   dQ = dS K * scale.
+// * flash_bwd_preprocess_kernel: delta, one warp a (b, row, head).
+// * flash_bwd_dkdv_kernel: one block a (kv tile of 64, kv head, batch); it
+//   walks the hq / hkv q heads of its group and, when causal, only the q
+//   tiles on or below the diagonal, so GQA's sum over the group stays in
+//   the block's registers.
+// * flash_bwd_dq_kernel: one block a (q tile of 64, q head, batch), over
+//   the kv tiles up to the diagonal.
+// Bound: operations. Causal, the five products over the (query, key) pairs
+// on or below the diagonal (S and dO V^T recomputed in both kernels, plus
+// dV, dK, dQ): 7 x 2 x d flops a pair and head, 7.5 GFLOP at b 8, s 256,
+// 16 heads, d 128. Design: fp32 products on the CUDA cores (a simple
+// kernel first; tensor cores are for a later PR). Tiles are staged in
+// shared memory as fp32, rows padded by one word against bank conflicts;
+// each of 256 threads owns a 4 x 4 patch of the score tile and a 4-row,
+// d / 16-column patch of its accumulators, as the forward's SIMT kernel.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -73,8 +98,9 @@ __device__ __forceinline__ float group16_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-                 int hq, int hkv, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int skv, int hq, int hkv,
+                 float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -193,6 +219,8 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rg * kRows + i;
     if (row >= sq) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
+    if (lse != nullptr && lc == 0)
+      lse[(static_cast<size_t>(b) * hq + h) * sq + row] = m[i] + logf(denom);
     T* orow = o + ((static_cast<size_t>(b) * sq + row) * hq + h) * D;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
@@ -201,9 +229,9 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int skv, int hq, int hkv, float scale, int causal,
-                cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int sq, int skv, int hq, int hkv,
+                float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_simt_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -212,20 +240,20 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, hq, hkv, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, hq, hkv,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // fp32 at every head dim.
 int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
-                  int b, int sq, int skv, int hq, int hkv, float scale,
-                  int causal, cudaStream_t s) {
+                  float* lse, int b, int sq, int skv, int hq, int hkv,
+                  float scale, int causal, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_simt<float, 16>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    case 32: return launch_simt<float, 32>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    case 64: return launch_simt<float, 64>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    case 128: return launch_simt<float, 128>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
+    case 16: return launch_simt<float, 16>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
+    case 32: return launch_simt<float, 32>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
+    case 64: return launch_simt<float, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
+    case 128: return launch_simt<float, 128>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -242,6 +270,7 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kBox = 64 * 64;  // one TMA box: 64 rows x 64 bf16 (128 B)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -292,8 +321,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       bf16* __restrict__ o, int b, int sq, int skv, int hq,
-                       int hkv, int n_qtiles, float scale_log2, int causal) {
+                       bf16* __restrict__ o, float* __restrict__ lse, int b,
+                       int sq, int skv, int hq, int hkv, int n_qtiles,
+                       float scale_log2, int causal) {
   constexpr int NB = D / 64;  // 64-column boxes per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -448,6 +478,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   l_b = quad_sum(l_b);
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2.
+    float* lrow = lse + (static_cast<size_t>(bb) * hq + h) * sq;
+    if (row_a < sq)
+      lrow[row_a] = (m_a + (l_a == 0.f ? 0.f : log2f(l_a))) * kLn2;
+    if (row_a + 8 < sq)
+      lrow[row_a + 8] = (m_b + (l_b == 0.f ? 0.f : log2f(l_b))) * kLn2;
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row_a + 8 * half;
@@ -511,8 +549,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int hq, int hkv, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int skv, int hq, int hkv, float scale, int causal,
            cudaStream_t stream) {
   // Encoded on every call: the maps hold the tensors' pointers, and as
   // __grid_constant__ parameters a CUDA graph records them by value.
@@ -528,35 +566,434 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const int n_qtiles = (sq + kBQ - 1) / kBQ;
   const dim3 grid(n_qtiles * hq * b);
   flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), b, sq, skv, hq, hkv, n_qtiles,
+      tq, tk, tv, static_cast<bf16*>(o), lse, b, sq, skv, hq, hkv, n_qtiles,
       scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Backward: CUDA-core kernels, fp32 products, any dtype and head dim.
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int kB = 64;          // q rows, and kv rows, a tile
+constexpr int kThreads = 256;   // 16 row groups x 16 lanes
+constexpr int kR = 4;           // tile rows a thread (kB / 16)
+constexpr int kC = 4;           // tile columns a thread (kB / 16)
+constexpr int kLS = kB + 1;     // row stride of a score tile in smem
+
+template <int D>
+constexpr size_t dkdv_smem() {  // K, V, Q, dO tiles; P, dS; lse, delta
+  return sizeof(float) * (4 * static_cast<size_t>(kB) * (D + 1) +
+                          2 * static_cast<size_t>(kB) * kLS + 2 * kB);
+}
+
+template <int D>
+constexpr size_t dq_smem() {    // Q, dO, K, V tiles; dS
+  return sizeof(float) * (4 * static_cast<size_t>(kB) * (D + 1) +
+                          static_cast<size_t>(kB) * kLS);
+}
+
+// Rows r < kB of a (batch, rows, heads, D) tensor from row0, head h, as
+// fp32 into smem (row stride D + 1); rows past n read as 0.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      int bb, int row0, int n, int heads,
+                                      int h) {
+  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    const int row = row0 + r;
+    dst[r * (D + 1) + c] =
+        row < n ? to_f32(src[((static_cast<size_t>(bb) * n + row) * heads +
+                              h) * D + c])
+                : 0.f;
+  }
+}
+
+// delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]; one warp a row of
+// the (b, sq, hq) rows in memory order.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_preprocess_kernel(const T* __restrict__ o,
+                            const T* __restrict__ dout,
+                            float* __restrict__ delta, int b, int sq,
+                            int hq) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t row = static_cast<size_t>(blockIdx.x) * (kThreads / 32) + warp;
+  if (row >= static_cast<size_t>(b) * sq * hq) return;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32)
+    s = fmaf(to_f32(o[row * D + c]), to_f32(dout[row * D + c]), s);
+  s = warp_sum(s);
+  if (lane == 0) {
+    const int h = static_cast<int>(row % hq);
+    const size_t bi = row / hq;
+    const int i = static_cast<int>(bi % sq);
+    const int bb = static_cast<int>(bi / sq);
+    delta[(static_cast<size_t>(bb) * hq + h) * sq + i] = s;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int sq, int skv, int hq, int hkv,
+                      float scale, int causal) {
+  constexpr int LD = D + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kB * LD;
+  float* Qs = Vs + kB * LD;
+  float* dOs = Qs + kB * LD;
+  float* Ps = dOs + kB * LD;    // [kv row][q row]
+  float* dSs = Ps + kB * kLS;   // [kv row][q row]
+  float* Ls = dSs + kB * kLS;   // lse of the q tile's rows
+  float* Dl = Ls + kB;          // delta of the q tile's rows
+
+  const int k0 = blockIdx.x * kB;
+  const int kvh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int g = hq / hkv;
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4;   // kv rows rg * 4 .. rg * 4 + 3
+  const int lc = tid & 15;   // q columns lc + 16 j; d columns lc + 16 j
+
+  stage<T, D>(Ks, k, bb, k0, skv, hkv, kvh);
+  stage<T, D>(Vs, v, bb, k0, skv, hkv, kvh);
+
+  float dk_acc[kR][DC], dv_acc[kR][DC];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int n_qt = (sq + kB - 1) / kB;
+  const int qt0 = causal ? k0 / kB : 0;  // q tiles above the diagonal: none
+  for (int gi = 0; gi < g; ++gi) {
+    const int h = kvh * g + gi;
+    const float* lse_h = lse + (static_cast<size_t>(bb) * hq + h) * sq;
+    const float* del_h = delta + (static_cast<size_t>(bb) * hq + h) * sq;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kB;
+      __syncthreads();  // the previous tile's Q, dO, P, dS are no longer read
+      stage<T, D>(Qs, q, bb, q0, sq, hq, h);
+      stage<T, D>(dOs, dout, bb, q0, sq, hq, h);
+      if (tid < kB) {
+        const int qi = q0 + tid;
+        Ls[tid] = qi < sq ? lse_h[qi] : 0.f;
+        Dl[tid] = qi < sq ? del_h[qi] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T and (dO V^T)^T of the tile: kv rows x q columns.
+      float s[kR][kC], dp[kR][kC];
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < D; ++c) {
+        float kr[kR], vr[kR], qc[kC], oc[kC];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          kr[i] = Ks[(rg * kR + i) * LD + c];
+          vr[i] = Vs[(rg * kR + i) * LD + c];
+        }
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          qc[j] = Qs[(lc + 16 * j) * LD + c];
+          oc[j] = dOs[(lc + 16 * j) * LD + c];
+        }
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+#pragma unroll
+          for (int j = 0; j < kC; ++j) {
+            s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
+            dp[i][j] = fmaf(vr[i], oc[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int kr_ = rg * kR + i;
+        const int kvi = k0 + kr_;
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          const int qc_ = lc + 16 * j;
+          const int qi = q0 + qc_;
+          const bool ok = kvi < skv && qi < sq && (!causal || kvi <= qi);
+          const float p = ok ? expf(s[i][j] * scale - Ls[qc_]) : 0.f;
+          Ps[kr_ * kLS + qc_] = p;
+          dSs[kr_ * kLS + qc_] = p * (dp[i][j] - Dl[qc_]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q over the tile's valid q rows.
+      const int qn = min(kB, sq - q0);
+#pragma unroll 4
+      for (int r = 0; r < qn; ++r) {
+        float pr[kR], dsr[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          pr[i] = Ps[(rg * kR + i) * kLS + r];
+          dsr[i] = dSs[(rg * kR + i) * kLS + r];
+        }
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          const float ov = dOs[r * LD + lc + 16 * j];
+          const float qv = Qs[r * LD + lc + 16 * j];
+#pragma unroll
+          for (int i = 0; i < kR; ++i) {
+            dv_acc[i][j] = fmaf(pr[i], ov, dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(dsr[i], qv, dk_acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int kvi = k0 + rg * kR + i;
+    if (kvi >= skv) continue;
+    const size_t off = ((static_cast<size_t>(bb) * skv + kvi) * hkv + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      dk[off + lc + 16 * j] = from_f32<T>(dk_acc[i][j] * scale);
+      dv[off + lc + 16 * j] = from_f32<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int sq, int skv, int hq, int hkv, float scale,
+                    int causal) {
+  constexpr int LD = D + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kB * LD;
+  float* Ks = dOs + kB * LD;
+  float* Vs = Ks + kB * LD;
+  float* dSs = Vs + kB * LD;    // [q row][kv row]
+
+  const int q0 = blockIdx.x * kB;
+  const int h = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4;   // q rows rg * 4 .. rg * 4 + 3
+  const int lc = tid & 15;   // kv columns lc + 16 j; d columns lc + 16 j
+
+  stage<T, D>(Qs, q, bb, q0, sq, hq, h);
+  stage<T, D>(dOs, dout, bb, q0, sq, hq, h);
+  float lr[kR], dl[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int qi = q0 + rg * kR + i;
+    const size_t off = (static_cast<size_t>(bb) * hq + h) * sq + qi;
+    lr[i] = qi < sq ? lse[off] : 0.f;
+    dl[i] = qi < sq ? delta[off] : 0.f;
+  }
+  float dq_acc[kR][DC];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dq_acc[i][j] = 0.f;
+
+  const int kv_end = causal ? min(skv, q0 + kB) : skv;
+  for (int k0 = 0; k0 < kv_end; k0 += kB) {
+    __syncthreads();  // the previous tile's K, V, dS are no longer read
+    stage<T, D>(Ks, k, bb, k0, skv, hkv, kvh);
+    stage<T, D>(Vs, v, bb, k0, skv, hkv, kvh);
+    __syncthreads();
+
+    float s[kR][kC], dp[kR][kC];
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+#pragma unroll
+      for (int j = 0; j < kC; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float qr[kR], orr[kR], kc[kC], vc[kC];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        qr[i] = Qs[(rg * kR + i) * LD + c];
+        orr[i] = dOs[(rg * kR + i) * LD + c];
+      }
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        kc[j] = Ks[(lc + 16 * j) * LD + c];
+        vc[j] = Vs[(lc + 16 * j) * LD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+          dp[i][j] = fmaf(orr[i], vc[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int qr_ = rg * kR + i;
+      const int qi = q0 + qr_;
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        const int kc_ = lc + 16 * j;
+        const int ki = k0 + kc_;
+        const bool ok = qi < sq && ki < skv && (!causal || ki <= qi);
+        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
+        dSs[qr_ * kLS + kc_] = p * (dp[i][j] - dl[i]);
+      }
+    }
+    __syncthreads();
+
+    const int kn = min(kB, kv_end - k0);
+#pragma unroll 4
+    for (int r = 0; r < kn; ++r) {
+      float dsr[kR];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) dsr[i] = dSs[(rg * kR + i) * kLS + r];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const float kv = Ks[r * LD + lc + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+          dq_acc[i][j] = fmaf(dsr[i], kv, dq_acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int qi = q0 + rg * kR + i;
+    if (qi >= sq) continue;
+    const size_t off = ((static_cast<size_t>(bb) * sq + qi) * hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      dq[off + lc + 16 * j] = from_f32<T>(dq_acc[i][j] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+           float scale, int causal, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const size_t rows = static_cast<size_t>(b) * sq * hq;
+  flash_bwd_preprocess_kernel<T, D>
+      <<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
+         kThreads, 0, stream>>>(static_cast<const T*>(o), dot, delta, b, sq,
+                                hq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t s_kv = dkdv_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(s_kv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<T, D>
+      <<<dim3((skv + kB - 1) / kB, hkv, b), kThreads, s_kv, stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), sq, skv, hq, hkv, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t s_q = dq_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(s_q));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T, D>
+      <<<dim3((sq + kB - 1) / kB, hq, b), kThreads, s_q, stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), sq, skv, hq, hkv,
+          scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(int d, const void* q, const void* k, const void* v,
+             const void* o, const void* dout, const float* lse, float* delta,
+             void* dq, void* dk, void* dv, int b, int sq, int skv, int hq,
+             int hkv, float scale, int causal, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace bwd
+
 }  // namespace
 }  // namespace repro
 
+// lse: null, or (b, hq, sq) float32 that takes each row's log-sum-exp.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int b, int sq,
-                                     int skv, int hq, int hkv, int d,
-                                     float scale, int causal, int dtype,
-                                     void* stream) {
+                                     const void* v, void* o, void* lse,
+                                     int b, int sq, int skv, int hq, int hkv,
+                                     int d, float scale, int causal,
+                                     int dtype, void* stream) {
+  using namespace repro;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kF32)
+    return dispatch_simt(d, q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal,
+                         s);
+  if (dtype == kBF16) {
+    switch (d) {
+      case 16: return launch_simt<__nv_bfloat16, 16>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
+      case 32: return launch_simt<__nv_bfloat16, 32>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
+      case 64: return tc::launch<64>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
+      case 128: return tc::launch<128>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Backward of repro_flash_attention: q, o, dout, dq (b, sq, hq, d); k, v,
+// dk, dv (b, skv, hkv, d), all contiguous in dtype; lse (b, hq, sq) float32
+// from the forward; delta (b, hq, sq) float32 scratch. Launches
+// flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel and
+// flash_bwd_dq_kernel on the stream.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int b, int sq, int skv, int hq, int hkv, int d, float scale,
+    int causal, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
   if (dtype == kF32)
-    return dispatch_simt(d, q, k, v, o, b, sq, skv, hq, hkv, scale, causal,
-                         s);
-  if (dtype == kBF16) {
-    switch (d) {
-      case 16: return launch_simt<__nv_bfloat16, 16>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-      case 32: return launch_simt<__nv_bfloat16, 32>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-      case 64: return tc::launch<64>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-      case 128: return tc::launch<128>(q, k, v, o, b, sq, skv, hq, hkv, scale, causal, s);
-    }
-  }
+    return bwd::dispatch<float>(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,
+                                skv, hq, hkv, scale, causal, s);
+  if (dtype == kBF16)
+    return bwd::dispatch<__nv_bfloat16>(d, q, k, v, o, dout, l, dl, dq, dk,
+                                        dv, b, sq, skv, hq, hkv, scale,
+                                        causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,6 +26,26 @@
 //   aligned (a contiguous view at an offset), takes the same kernel with
 //   one element a chunk (scalar loads).
 //
+// Backward (rmsnorm_bwd_kernel, rmsnorm_dw_kernel): the JAX package has no
+// backward kernel; its gradient is jax.grad of the forward. With
+// r = rsqrt(mean(x^2) + eps), in fp32:
+//   dx = r * (w * dy) - x * r^3 * mean(x * w * dy), rounded once to x's dtype;
+//   dw = sum over rows of dy * x * r.
+// Bound: bytes, x and dy read and dx written once (3 * rows * d *
+// sizeof(T)) plus w and dw: 7.5 us at 2048 x 2048 bf16. Design:
+// * One block of kBwdThreads a row at a time, the block's rows in a fixed
+//   grid stride. A thread owns the same NV chunks of every row (chunk
+//   t + i * kBwdThreads), so its share of dw sums in registers across the
+//   block's rows; w stays in registers too. r is recomputed from the row
+//   (the forward saves nothing). The row's two sums (x^2, x * w * dy) reduce
+//   by a warp butterfly, then across the 8 warps through shared memory,
+//   double-buffered by row parity so one barrier a row suffices.
+// * dw without atomics, so a step is bitwise repeatable (checkpoint resume
+//   is checked bit for bit): each block writes its fp32 partial row, and
+//   rmsnorm_dw_kernel sums the partials of each column in block order, a
+//   warp's lanes over 32 columns and its 8 warps over the blocks, combined
+//   in warp order.
+//
 // lowp: the JAX package's Pallas path drops `lowp` (src/repro/kernels/ops.py:59)
 // and always computes in fp32. This kernel follows the reference-mode
 // semantics instead (ref.rmsnorm_lowp), which the port's tests hold it to:
@@ -290,6 +310,161 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// Backward.
+// ---------------------------------------------------------------------------
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// Rows of d = nchunks * V elements, one block a row at a time (rows
+// blockIdx.x, + gridDim.x, ...); thread t holds chunks t + i * kBwdThreads,
+// i < NV. dw_part: (gridDim.x, d) fp32, this block's sum of dy * x * r.
+template <typename T, int V, int NV>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ dw_part, int rows, int d, float eps) {
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int nchunks = d / V;
+  __shared__ float red[2][2][kBwdWarps];
+
+  float wv[NV][V], acc[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = t + i * kBwdThreads;
+    if (c < nchunks) {
+      load_w<V>(w + c * V, wv[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) wv[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
+  }
+
+  int parity = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float xf[NV][V], gf[NV][V];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = t + i * kBwdThreads;
+      const bool ok = c < nchunks;
+      unpack<T, V>(ok ? load_raw<T, V>(x + base + c * V) : zero_raw<T, V>(),
+                   xf[i]);
+      unpack<T, V>(ok ? load_raw<T, V>(dy + base + c * V) : zero_raw<T, V>(),
+                   gf[i]);
+    }
+    float ss = 0.f, sd = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ss = fmaf(xf[i][e], xf[i][e], ss);
+        sd = fmaf(xf[i][e], wv[i][e] * gf[i][e], sd);
+      }
+    ss = warp_sum(ss);
+    sd = warp_sum(sd);
+    if (lane == 0) {
+      red[parity][0][warp] = ss;
+      red[parity][1][warp] = sd;
+    }
+    __syncthreads();
+    ss = 0.f;
+    sd = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdWarps; ++j) {
+      ss += red[parity][0][j];
+      sd += red[parity][1][j];
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float k = r * r * r * (sd / static_cast<float>(d));
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = t + i * kBwdThreads;
+      if (c >= nchunks) continue;
+      float o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        o[e] = r * (wv[i][e] * gf[i][e]) - xf[i][e] * k;
+        acc[i][e] = fmaf(gf[i][e], xf[i][e] * r, acc[i][e]);
+      }
+      store_raw<T, V>(dx + base + c * V, pack<T, V>(o));
+    }
+  }
+  float* part = dw_part + static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = t + i * kBwdThreads;
+    if (c >= nchunks) continue;
+#pragma unroll
+    for (int e = 0; e < V; ++e) part[c * V + e] = acc[i][e];
+  }
+}
+
+// dw[c] = sum over b < nparts of part[b, c], in the same order every call:
+// a block takes 32 columns (one a lane, coalesced), warp j sums the
+// partials j, j + 8, ..., and the warps' sums are added in warp order.
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                  int nparts, int d) {
+  __shared__ float red[kBwdWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < d)
+    for (int b = warp; b < nparts; b += kBwdWarps)
+      s += part[static_cast<size_t>(b) * d + c];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float tot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdWarps; ++j) tot += red[j][lane];
+    dw[c] = tot;
+  }
+}
+
+template <typename T, int V, int NV>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                       float* dw, float* part, int rows, int d, float eps,
+                       int blocks, cudaStream_t s) {
+  rmsnorm_bwd_kernel<T, V, NV><<<blocks, kBwdThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_kernel<<<(d + 31) / 32, kBwdThreads, 0, s>>>(part, dw, blocks,
+                                                           d);
+  return cudaGetLastError();
+}
+
+// NV 1, 2, 4 or 8 chunks a thread, of 16 bytes (vec) or one element.
+template <typename T>
+cudaError_t dispatch_bwd(const void* x, const void* w, const void* dy,
+                         void* dx, float* dw, float* part, int rows, int d,
+                         float eps, int vec, int nv, int blocks,
+                         cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    switch (nv) {
+      case 1: return launch_bwd<T, V, 1>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+      case 2: return launch_bwd<T, V, 2>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+      case 4: return launch_bwd<T, V, 4>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+      case 8: return launch_bwd<T, V, 8>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (nv) {
+    case 1: return launch_bwd<T, 1, 1>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+    case 2: return launch_bwd<T, 1, 2>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+    case 4: return launch_bwd<T, 1, 4>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+    case 8: return launch_bwd<T, 1, 8>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -317,6 +492,40 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out,
   else if (dtype == kBF16)
     err = dispatch<__nv_bfloat16>(x, w, out, rows, d, eps, lowp, vec, nv, wpr,
                                   rows_per_block, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// Backward of repro_rmsnorm (lowp off): x, dy, dx (rows, d) in dtype, w and
+// dw (d,) float32, part (blocks, d) float32 scratch; vec, nv, blocks: the
+// plan of kernels/rmsnorm.py::bwd_plan (d / (16 bytes or 1 element) chunks,
+// at most nv * 256 of them). Launches rmsnorm_bwd_kernel, then
+// rmsnorm_dw_kernel, on the stream.
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* w,
+                                 const void* dy, void* dx, void* dw,
+                                 void* part, int rows, int d, float eps,
+                                 int dtype, int vec, int nv, int blocks,
+                                 void* stream) {
+  using namespace repro;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int esize = dtype == kF32 ? 4 : 2;
+  const int nchunks = vec ? d * esize / 16 : d;
+  if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows ||
+      nchunks > nv * kBwdThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && ((d * esize) % 16 || !aligned16(x) || !aligned16(w) ||
+              !aligned16(dy) || !aligned16(dx)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dwf = static_cast<float*>(dw);
+  float* pf = static_cast<float*>(part);
+  cudaError_t err;
+  if (dtype == kF32)
+    err = dispatch_bwd<float>(x, w, dy, dx, dwf, pf, rows, d, eps, vec, nv,
+                              blocks, s);
+  else if (dtype == kBF16)
+    err = dispatch_bwd<__nv_bfloat16>(x, w, dy, dx, dwf, pf, rows, d, eps,
+                                      vec, nv, blocks, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

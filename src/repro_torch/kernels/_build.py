@@ -24,6 +24,7 @@ one rebuilds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -238,3 +239,33 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (the plain version serves it), True for a
+    CUDA tensor (the kernel serves it, or the call raises)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward: its
+    output, written through a raw pointer, would carry no gradient."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel: call it under torch.no_grad() "
+            "or on inputs that do not require grad")

@@ -4,7 +4,8 @@ plain version.
 Replaces ``src/repro/kernels/decode_attention.py::decode_attention`` of the
 JAX package. A tensor on the CPU goes to the plain version
 (``ref.decode_attention_ref``); a CUDA tensor goes to the kernel, or the
-call raises. Any ``skv`` is taken; head_dim must be 16, 32, 64 or 128 and
+call raises. The kernel has no backward: on the card, a call that autograd
+would record raises ``NotImplementedError``. Any ``skv`` is taken; head_dim must be 16, 32, 64 or 128 and
 ``hq / hkv`` 1, 2, 4 or 8, in bf16 or fp32.
 
 The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
@@ -24,6 +25,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.kernels._build import (check_operand, dtype_code,
+                                        on_card, refuse_grad,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import decode_attention_ref
 
@@ -71,10 +73,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ) -> torch.Tensor:
     """q: (b, hq, d); k, v: (b, skv, hkv, d); length: (b,) int32 valid
     cache rows -> (b, hq, d)."""
-    if q.device.type == "cpu":
+    if not on_card(q, "decode_attention"):
         return plain(q, k, v, length, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k, v)
     check_operand("q", q, q.device, 3)
     check_operand("k", k, q.device, 4, q.dtype)
     check_operand("v", v, q.device, 4, q.dtype)

@@ -6,7 +6,9 @@ package. A tensor on the CPU goes to the plain version
 (``ref.int8_matmul_ref``); a CUDA tensor goes to the kernel, or the call
 raises. Any m, k, n and any alignment are taken (the Pallas kernel needs
 them divisible by its blocks): :func:`plan` picks the kernel's load
-routine and output tile. No model path calls it, in either package.
+routine and output tile. No model path calls it, in either package. It
+has no backward: on the card, a call that autograd would record (a scale
+that requires grad) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (DTYPE_CODES, check_operand,
+                                        num_sms, on_card, refuse_grad,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import int8_matmul_ref
 
@@ -51,10 +54,9 @@ def int8_matmul(x_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
                 sw: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """x_q: (m, k) int8; sx: (m,) fp32; w_q: (k, n) int8; sw: (n,) fp32
     -> (m, n) in ``out_dtype`` (float32 or bfloat16)."""
-    if x_q.device.type == "cpu":
+    if not on_card(x_q, "int8_matmul"):
         return plain(x_q, sx, w_q, sw, out_dtype)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
+    refuse_grad("int8_matmul", sx, sw)
     check_operand("x_q", x_q, x_q.device, 2, torch.int8, aligned=False)
     check_operand("w_q", w_q, x_q.device, 2, torch.int8, aligned=False)
     check_operand("sx", sx, x_q.device, 1, torch.float32)
@@ -76,8 +78,7 @@ def int8_matmul(x_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
     if k == 0:
         return out.zero_()
     vec, tile = plan(m, k, n, x_q.data_ptr(), w_q.data_ptr(),
-                     torch.cuda.get_device_properties(
-                         x_q.device).multi_processor_count)
+                     num_sms(x_q.device))
     KERNEL(x_q.data_ptr(), sx.data_ptr(), w_q.data_ptr(), sw.data_ptr(),
            out.data_ptr(), m, k, n, DTYPE_CODES[out_dtype], int(vec), tile,
            stream_handle(x_q.device))

@@ -19,15 +19,36 @@ import torch
 NEG_INF = -1e30
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The dtype the plain versions compute in: float32, or float64 for
+    float64 inputs (``torch.autograd.gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
                 ) -> torch.Tensor:
-    xf = x.float()
+    xf = x.to(_acc(x))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * w.float()).to(x.dtype)
+    return (y * w.to(xf.dtype)).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``rmsnorm_ref`` in closed form: with r = rsqrt(mean(x^2)
+    + eps), dx = r (w dy) - x r^3 mean(x w dy), rounded once to x's dtype,
+    and dw = sum over rows of dy x r, in w's dtype."""
+    acc = _acc(x)
+    xf, wf, gf = x.to(acc), w.to(acc), dy.to(acc)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    wg = wf * gf
+    k = r * r * r * torch.mean(xf * wg, dim=-1, keepdim=True)
+    dx = r * wg - xf * k
+    dw = (gf * (xf * r)).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def rmsnorm_lowp(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -54,8 +75,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qf = q.reshape(b, sq, hkv, g, d).float()
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    qf = q.reshape(b, sq, hkv, g, d).to(_acc(q))
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(qf.dtype)) * scale
     if kv_len is not None:
         kpos = torch.arange(skv, device=q.device)
         lmask = kpos[None, :] < torch.as_tensor(
@@ -67,8 +88,64 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ki = torch.arange(skv, device=q.device)[None, :]
         scores = torch.where((qi >= ki)[None, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(qf.dtype))
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _causal_mask(sq: int, skv: int, device) -> torch.Tensor:
+    """(sq, skv): True where key j is visible from query i (j <= i)."""
+    return torch.arange(sq, device=device)[:, None] >= \
+        torch.arange(skv, device=device)[None, :]
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, scale: Optional[float] = None
+                      ) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, masked scores, as the
+    flash kernel writes it: (b, hq, sq), float32 (float64 for float64)."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.reshape(b, sq, hkv, g, d).to(_acc(q))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(qf.dtype)) * scale
+    if causal:
+        s = torch.where(_causal_mask(sq, skv, q.device), s, NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, dout: torch.Tensor,
+                      lse: torch.Tensor, *, causal: bool = True,
+                      scale: Optional[float] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``attention_ref`` (no kv_len, no q_offset) in closed
+    form, FlashAttention's: P = exp(S scale - lse), delta = rowsum(dO O),
+    dS = P (dO V^T - delta); dQ = dS K scale, dK = dS^T Q scale and
+    dV = P^T dO, each summed over the q heads of its kv head. ``lse`` is
+    the forward's (b, hq, sq). Returns (dq, dk, dv) in q's, k's, v's
+    dtypes."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    acc = _acc(q)
+    qf = q.reshape(b, sq, hkv, g, d).to(acc)
+    of = out.reshape(b, sq, hkv, g, d).to(acc)
+    gf = dout.reshape(b, sq, hkv, g, d).to(acc)
+    kf, vf = k.to(acc), v.to(acc)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    p = torch.exp(s - lse.to(acc).reshape(b, hkv, g, sq, 1))
+    if causal:
+        p = torch.where(_causal_mask(sq, skv, q.device), p, 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", gf, vf)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", gf, of)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, gf)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,18 @@
-"""RMSNorm: the CUDA kernel ``csrc/rmsnorm.cu`` and its plain version.
+"""RMSNorm: the CUDA kernels ``csrc/rmsnorm.cu`` and their plain versions.
 
 Replaces ``src/repro/kernels/rmsnorm.py::rmsnorm`` of the JAX package. A
 tensor on the CPU goes to the plain version (``ref.rmsnorm_ref``, or
 ``ref.rmsnorm_lowp`` with ``lowp``); a CUDA tensor goes to the kernel, or
 the call raises. :func:`plan` sets the kernel's launch: its load width,
 the 16-byte chunks a lane holds, the warps a row and the rows a block.
+
+Where autograd records the call (grad mode on, an input that requires
+grad), it runs through :class:`RMSNormFunction`: the same forward, and a
+backward that is the kernel pair ``rmsnorm_bwd_kernel`` +
+``rmsnorm_dw_kernel`` on the card (counted as ``rmsnorm_bwd``,
+:func:`bwd_plan` sets its launch) and ``ref.rmsnorm_bwd_ref`` on the CPU.
+``lowp`` has no backward kernel: under grad it raises on the card, and on
+the CPU autograd runs through ``ref.rmsnorm_lowp``.
 """
 from __future__ import annotations
 
@@ -13,13 +21,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (check_operand, dtype_code,
+                                        needs_grad, num_sms, on_card,
                                         register_kernel, stream_handle)
-from repro_torch.kernels.ref import rmsnorm_lowp, rmsnorm_ref
+from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_lowp, rmsnorm_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel("rmsnorm", "repro_rmsnorm",
                          [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                           _P])
+KERNEL_BWD = register_kernel("rmsnorm_bwd", "repro_rmsnorm_bwd",
+                             [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _P])
 MAX_NV = 8      # chunks a lane holds in registers
 MAX_WPR = 8     # warps a row
 MAX_ROWS_PER_BLOCK = 8
@@ -51,18 +62,84 @@ def plan(rows: int, d: int, element_size: int, aligned: bool
     return vec, nv, wpr, rows_per_block
 
 
+BWD_THREADS = 256       # threads a block of the backward: one row at a time
+BWD_MAX_NV = 8          # chunks a thread of the backward holds
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_plan(rows: int, d: int, element_size: int, aligned: bool,
+             num_sms: int) -> tuple[bool, int, int]:
+    """(vec, nv, blocks) of a backward launch (``csrc/rmsnorm.cu``): the
+    forward's chunks (16 bytes where d fills them and every pointer is
+    aligned, else one element), ``nv`` of them a thread, the least power
+    of two with ``nv * BWD_THREADS`` chunks >= the row's; ``blocks`` blocks
+    of one row at a time, each writing one fp32 partial row of dw, so no
+    more than ``BWD_BLOCKS_PER_SM`` an SM (the partials are re-read by the
+    second kernel). A row of more than ``BWD_MAX_NV * BWD_THREADS`` chunks
+    raises."""
+    vec = aligned and (d * element_size) % 16 == 0
+    chunks = d * element_size // 16 if vec else d
+    nv = 1
+    while nv * BWD_THREADS < chunks:
+        nv *= 2
+    if nv > BWD_MAX_NV:
+        raise ValueError(f"rmsnorm backward takes rows of at most "
+                         f"{BWD_MAX_NV * BWD_THREADS} chunks, got {chunks}")
+    return vec, nv, max(1, min(rows, BWD_BLOCKS_PER_SM * num_sms))
+
+
 def plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
           lowp: bool = False) -> torch.Tensor:
     return rmsnorm_lowp(x, w, eps) if lowp else rmsnorm_ref(x, w, eps)
 
 
+def plain_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+              eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    return rmsnorm_bwd_ref(x, w, dy, eps)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """rmsnorm (lowp off) with its backward: kernels on the card, the
+    closed form ``plain_bwd`` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps, False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        if on_card(x, "rmsnorm"):
+            dx, dw = _kernel_backward(x, w, dy, ctx.eps)
+        else:
+            dx, dw = plain_bwd(x, w, dy, ctx.eps)
+        return dx, dw, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
             lowp: bool = False) -> torch.Tensor:
     """x: (..., d) float32/bfloat16, w: (d,) float32 -> x's shape/dtype."""
-    if x.device.type == "cpu":
+    if needs_grad(x, w):
+        if not lowp:
+            return RMSNormFunction.apply(x, w, eps)
+        if on_card(x, "rmsnorm"):
+            raise NotImplementedError(
+                "rmsnorm with lowp has no backward kernel")
+    return _forward(x, w, eps, lowp)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float,
+             lowp: bool) -> torch.Tensor:
+    if not on_card(x, "rmsnorm"):
         return plain(x, w, eps, lowp)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    return _kernel_forward(x, w, eps, lowp)
+
+
+def _kernel_forward(x: torch.Tensor, w: torch.Tensor, eps: float,
+                    lowp: bool) -> torch.Tensor:
     d = x.shape[-1]
     check_operand("x", x, x.device, x.dim(), aligned=False)
     check_operand("w", w, x.device, 1, torch.float32, aligned=False)
@@ -79,3 +156,28 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
            int(lowp), dtype_code(x), int(vec), nv, wpr, rpb,
            stream_handle(x.device))
     return out
+
+
+def _kernel_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    d = x.shape[-1]
+    check_operand("x", x, x.device, x.dim(), aligned=False)
+    check_operand("w", w, x.device, 1, torch.float32, aligned=False)
+    check_operand("dy", dy, x.device, x.dim(), x.dtype, aligned=False)
+    if dy.shape != x.shape or w.shape[0] != d:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"dy {tuple(dy.shape)} do not fit")
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    vec, nv, blocks = bwd_plan(
+        rows, d, x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx)),
+        num_sms(x.device))
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    KERNEL_BWD(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+               dw.data_ptr(), part.data_ptr(), rows, d, float(eps),
+               dtype_code(x), int(vec), nv, blocks, stream_handle(x.device))
+    return dx, dw

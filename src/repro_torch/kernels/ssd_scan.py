@@ -10,6 +10,8 @@ sequence; the result does not depend on the chunk beyond rounding.
 :func:`plan` picks one of two designs: the tensor-core one (bf16, three
 launches parallel over the tiles, scratch from the caching allocator) or
 the CUDA-core one (float32, and bf16 shapes the first does not take).
+Neither has a backward: on the card, a call that autograd would record
+raises ``NotImplementedError`` (mamba2 training waits for one).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (check_operand, dtype_code,
+                                        on_card, refuse_grad,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import check_ssd_chunk, ssd_chunked
 
@@ -57,10 +60,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (b, s, h, p); dt: (b, s, h) fp32; A, D: (h,) fp32; B, C:
     (b, s, n) in x's dtype -> (y (b, s, h, p) in x's dtype, final state
     (b, h, p, n) fp32)."""
-    if x.device.type == "cpu":
+    if not on_card(x, "ssd_scan"):
         return plain(x, dt, A, B, C, D, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    refuse_grad("ssd_scan", x, dt, A, B, C, D)
     check_operand("x", x, x.device, 4)
     check_operand("dt", dt, x.device, 3, torch.float32)
     check_operand("A", A, x.device, 1, torch.float32)

@@ -4,6 +4,12 @@
   tokens : (b, s) integer tensor
   vision_embeds : (b, ft, d)  (optional; VLM/audio frontend stubs)
 
+``loss_fn`` (with ``_ce_terms``) is the JAX package's training loss
+(``src/repro/models/model.py:83-153``): masked next-token cross-entropy
+plus a z-loss and the MoE aux loss, optionally over sequence chunks whose
+logits are recomputed in the backward, so the ``(b, s, vocab)`` fp32
+logits never exist at once.
+
 Parameters are a dict ``{"embed": {...}, "layers": [per-layer dicts],
 "final_norm": {...}}``; ``repro_torch.convert.from_jax_params`` builds one
 from the JAX package's ``init_params`` pytree. Dense, SSM (Mamba-2), MoE
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import transformer as stack
@@ -61,17 +68,79 @@ def _embed_inputs(params: Params, batch: Dict[str, Any]) -> torch.Tensor:
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             mode: str = "train", caches: Optional[List[Params]] = None,
-            pos=None, max_len: Optional[int] = None
+            pos=None, max_len: Optional[int] = None, remat: str = "none"
             ) -> Tuple[torch.Tensor, Optional[List[Params]],
                        Optional[torch.Tensor]]:
     """Returns (logits, caches, aux); aux is None outside train."""
     x = _embed_inputs(params, batch)
     x, new_caches, aux = stack.stack_apply(
         params["layers"], cfg, x, mode=mode, caches=caches, pos=pos,
-        max_len=max_len)
+        max_len=max_len, remat=remat)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                       lowp=cfg.mlp_lowp)
     return unembed_apply(params["embed"], x), new_caches, aux
+
+
+def _ce_terms(logits_f32: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of masked NLL, sum of masked lse^2)."""
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    picked = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    return torch.sum(nll), torch.sum((lse * mask) ** 2)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            remat: str = "none", z_loss: float = 1e-4, loss_chunk: int = 0
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (total, {"ce", "aux", "z_loss", "tokens"}), as the JAX
+    package's ``loss_fn``: total = ce + aux + z_loss, each a mean over the
+    masked tokens (and aux the MoE layers' sum)."""
+    labels = batch["labels"]
+    mask = batch["mask"].to(torch.float32)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+
+    if loss_chunk:
+        x = _embed_inputs(params, batch)
+        x, _, aux = stack.stack_apply(params["layers"], cfg, x, mode="train",
+                                      remat=remat)
+        x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
+                          lowp=cfg.mlp_lowp)
+        ft = x.shape[1] - labels.shape[1]
+        if ft:
+            x = x[:, ft:]
+        s = labels.shape[1]
+        chunk = min(loss_chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad))
+            mask = F.pad(mask, (0, pad))
+
+        def chunk_ce(xc, lc, mc):
+            logits = unembed_apply(params["embed"], xc).to(torch.float32)
+            return _ce_terms(logits, lc, mc)
+
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, x.shape[1], chunk):
+            nll_c, z_c = stack.remat_call(
+                "full", chunk_ce, x[:, c0:c0 + chunk],
+                labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
+            nll_sum = nll_sum + nll_c
+            z_sum = z_sum + z_c
+    else:
+        logits, _, aux = forward(params, cfg, batch, mode="train",
+                                 remat=remat)
+        if logits.shape[1] != labels.shape[1]:
+            # Frontend stub prepends embeddings; score text positions only.
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        nll_sum, z_sum = _ce_terms(logits.to(torch.float32), labels, mask)
+    ce = nll_sum / denom
+    zl = z_loss * z_sum / denom
+    total = ce + aux + zl
+    return total, {"ce": ce, "aux": aux, "z_loss": zl,
+                   "tokens": torch.sum(mask)}
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,25 @@ Each layer is dispatched on its signature ``(mixer kind, ffn kind)`` as
 FFN, a dense one or a MoE one. That covers the dense, SSM, MoE and hybrid
 stacks. The MoE layers' load-balancing loss is summed over the stack in
 train mode only (see ``models/moe.py``).
+
+Remat (``src/repro/models/transformer.py:201-207``), in train mode where
+autograd records: ``"full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), so its forward runs again in
+the backward; ``"dots"`` checkpoints each layer selectively, saving the
+outputs of its 2-D matrix products (``aten.mm``, JAX's
+``checkpoint_dots_with_no_batch_dims``: a batched product, ``aten.bmm``,
+is recomputed) and recomputing the rest; ``"none"`` keeps everything.
+JAX checkpoints a block of ``block_period`` layers; here each layer is its
+own block, which gives the same gradients.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import ATTN, ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -37,6 +50,19 @@ def layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, str]:
     else:
         ffn = "none"
     return kind, ffn
+
+
+def block_period(cfg: ModelConfig) -> int:
+    """The JAX package's layer-stacking period: the least p dividing
+    num_layers with layer i's signature that of layer i % p. Its params
+    stack layer i as repeat i // p of position i % p (``convert.py``)."""
+    sigs = [layer_signature(cfg, i) for i in range(cfg.num_layers)]
+    for p in range(1, cfg.num_layers + 1):
+        if cfg.num_layers % p:
+            continue
+        if all(sigs[i] == sigs[i % p] for i in range(cfg.num_layers)):
+            return p
+    return cfg.num_layers
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
@@ -103,22 +129,52 @@ def stack_caches(cfg: ModelConfig, batch: int, max_len: int,
             for i in range(cfg.num_layers)]
 
 
+REMATS = ("none", "full", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the remat policy ``remat`` (see the module
+    docstring); a plain call where autograd records nothing."""
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r} not in {REMATS}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, _save_dots))
+
+
 def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, caches: Optional[List[Params]] = None, pos=None,
-                max_len: Optional[int] = None
+                max_len: Optional[int] = None, remat: str = "none"
                 ) -> Tuple[torch.Tensor, Optional[List[Params]],
                            Optional[torch.Tensor]]:
     """Run all layers. Returns (x, caches, aux): caches are None in train;
     aux, the MoE layers' load-balancing loss summed over the stack, is an
-    fp32 scalar in train (0 without MoE layers) and None otherwise."""
+    fp32 scalar in train (0 without MoE layers) and None otherwise.
+    ``remat`` applies in train mode only."""
     new_caches = []
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if mode == "train" else None)
     for i, lp in enumerate(layers):
-        cache = None if caches is None else caches[i]
-        x, nc, a = layer_apply(lp, cfg, layer_signature(cfg, i), x,
-                               mode=mode, cache=cache, pos=pos,
-                               max_len=max_len)
+        sig = layer_signature(cfg, i)
+        if mode == "train":
+            x, a = remat_call(
+                remat, lambda x, lp=lp, sig=sig: layer_apply(
+                    lp, cfg, sig, x, mode="train", cache=None,
+                    pos=None)[::2], x)
+            nc = None
+        else:
+            cache = None if caches is None else caches[i]
+            x, nc, a = layer_apply(lp, cfg, sig, x, mode=mode, cache=cache,
+                                   pos=pos, max_len=max_len)
         new_caches.append(nc)
         if a is not None:
             aux = aux + a

@@ -13,6 +13,7 @@ from repro_torch.kernels import int8_matmul as tint8
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as trmsnorm
 from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels.ref import attention_lse_ref
 
 
 @pytest.fixture
@@ -511,3 +512,216 @@ def test_smoke_model_on_card_matches_cpu(cuda):
     counts = ops.launch_counts()
     assert min(counts[k] for k in ("rmsnorm", "flash_attention",
                                    "decode_attention")) > 0
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels (training): each against its closed-form plain backward
+# on the same inputs, and through autograd.
+# ---------------------------------------------------------------------------
+def _rel_close(got, want, tol):
+    """|got - want| <= tol * (1 + max |want|): fp32 sums over rows or keys
+    in another order than the plain version's."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= tol * (1 + want.abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 333, 2048])
+@pytest.mark.parametrize("d", [8, 100, 768, 2048, 8192])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d):
+    """dx rounded once from fp32 (one ulp in bf16), dw an fp32 sum over the
+    rows in another order; every plan (16-byte chunks, single elements,
+    1 to 8 chunks a thread) and more rows than blocks."""
+    x = _randn((rows, d), dtype, cuda, 0)
+    w = _randn((d,), torch.float32, cuda, 1)
+    dy = _randn((rows, d), dtype, cuda, 2)
+    dx, dw = trmsnorm._kernel_backward(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    want_dx, want_dw = trmsnorm.plain_bwd(x, w, dy, 1e-5)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
+                               atol=tol)
+    _rel_close(dw, want_dw, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_autograd_runs_the_backward_kernel(cuda, dtype):
+    x = _randn((4, 33, 2048), dtype, cuda, 0).requires_grad_(True)
+    w = _randn((2048,), torch.float32, cuda, 1).requires_grad_(True)
+    dy = _randn((4, 33, 2048), dtype, cuda, 2)
+    ops.reset_launches()
+    y = ops.rmsnorm(x, w)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["rmsnorm"] == 1 and counts["rmsnorm_bwd"] == 1
+    want_dx, want_dw = trmsnorm.plain_bwd(x.detach(), w.detach(), dy)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(x.grad.float(), want_dx.float(), rtol=tol,
+                               atol=tol)
+    _rel_close(w.grad, want_dw, 1e-5)
+    # Bitwise repeatable: no atomics in either kernel.
+    dx2, dw2 = trmsnorm._kernel_backward(x.detach(), w.detach(), dy, 1e-5)
+    assert torch.equal(dx2, x.grad) and torch.equal(dw2, w.grad)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_lowp_under_grad_raises_on_card(cuda):
+    x = _randn((4, 64), torch.bfloat16, cuda, 0).requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        ops.rmsnorm(x, torch.ones(64, device=cuda), lowp=True)
+
+
+def _attn_inputs(cuda, dtype, b, sq, skv, hq, hkv, d):
+    q = _randn((b, sq, hq, d), dtype, cuda, 0)
+    k = _randn((b, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((b, skv, hkv, d), dtype, cuda, 2)
+    dout = _randn((b, sq, hq, d), dtype, cuda, 3)
+    return q, k, v, dout
+
+
+# lse: fp32 log-sum-exp of scores that are exact products of the inputs;
+# the bf16 wgmma kernel sums exp2 of the scaled scores in another order.
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 16),
+    (torch.float32, 128), (torch.float32, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq", [1, 65, 256, 333])
+def test_flash_forward_lse_matches_plain(cuda, dtype, d, causal, sq):
+    q, k, v, _ = _attn_inputs(cuda, dtype, 2, sq, sq, 4, 2, d)
+    scale = 1.0 / d ** 0.5
+    out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
+    torch.cuda.synchronize()
+    _rel_close(lse, attention_lse_ref(q, k, causal=causal, scale=scale),
+               LSE_TOL[dtype])
+    # The forward's output does not depend on whether lse is written.
+    want, none = tflash._kernel_forward(q, k, v, causal, scale)
+    assert none is None and torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (8, 256, 16, 8, 128), (1, 333, 16, 8, 128), (2, 65, 4, 4, 64),
+    (1, 77, 8, 1, 16), (2, 130, 4, 2, 32), (1, 1, 2, 1, 64)])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, b, s, hq, hkv,
+                                        d):
+    """Groups 1, 2, 4 and 8, ragged lengths, every head dim; the plain
+    backward gets the kernel forward's output and log-sum-exp."""
+    q, k, v, dout = _attn_inputs(cuda, dtype, b, s, s, hq, hkv, d)
+    scale = 1.0 / d ** 0.5
+    out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
+    got = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    torch.cuda.synchronize()
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal,
+                            scale=scale)
+    for g, w_, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv", [(65, 200), (200, 65)])
+def test_flash_bwd_kernel_full_attention_skv_differs(cuda, sq, skv):
+    q, k, v, dout = _attn_inputs(cuda, torch.float32, 2, sq, skv, 4, 2, 64)
+    out, lse = tflash._kernel_forward(q, k, v, False, 0.125, with_lse=True)
+    got = tflash._kernel_backward(q, k, v, out, dout, lse, False, 0.125)
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=False,
+                            scale=0.125)
+    for g, w_ in zip(got, want):
+        _rel_close(g, w_, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_runs_the_backward_kernel(cuda, dtype):
+    """Through ops.attention under grad: one forward and one backward
+    launch, gradients equal to the plain backward's and bitwise
+    repeatable."""
+    q, k, v, dout = _attn_inputs(cuda, dtype, 2, 100, 100, 8, 4, 128)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    out = ops.attention(*leaves, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    out2, lse = tflash._kernel_forward(q, k, v, True, 128 ** -0.5,
+                                       with_lse=True)
+    want = tflash.plain_bwd(q, k, v, out2, dout, lse, causal=True)
+    again = tflash._kernel_backward(q, k, v, out2, dout, lse, True,
+                                    128 ** -0.5)
+    for t, w_, a in zip(leaves, want, again):
+        _rel_close(t.grad, w_, 1e-5 if dtype == torch.float32 else 1e-2)
+        assert torch.equal(t.grad, a)
+
+
+@pytest.mark.gpu
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """decode_attention, ssd_scan and int8_matmul refuse to run where
+    autograd would record them; under no_grad they run."""
+    q = _randn((2, 4, 64), torch.float32, cuda, 0).requires_grad_(True)
+    kv = _randn((2, 16, 2, 64), torch.float32, cuda, 1)
+    length = torch.tensor([3, 16], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        ops.decode_attention(q, kv, kv, length)
+    x, dt, A, B, C, D = _ssd_inputs(1, 8, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(NotImplementedError):
+        ops.ssd(x.requires_grad_(True), dt, A, B, C, D, chunk=8)
+    xq, sx, wq, sw = _int8_operands(4, 32, 16, cuda)
+    with pytest.raises(NotImplementedError):
+        ops.int8_matmul(xq, sx.requires_grad_(True), wq, sw)
+    with torch.no_grad():
+        ops.decode_attention(q, kv, kv, length)
+        ops.ssd(x, dt, A, B, C, D, chunk=8)
+        ops.int8_matmul(xq, sx, wq, sw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_smoke_training_grads_on_card_match_cpu(cuda, remat):
+    """loss_fn and its gradient for the smoke-size fp32 model through the
+    forward and backward kernels (d 16, hq/hkv 2) against the same weights
+    on the CPU; remat "dots" checkpoints selectively around the kernels'
+    autograd Functions."""
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_config(get_config("internlm2-1.8b")).replace(dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.device("cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 71),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones((2, 70))}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t, d=dev: t.to(d, copy=True).requires_grad_(True),
+                     params)
+        ops.reset_launches()
+        loss, _ = lm.loss_fn(p, cfg, {k: v.to(dev) for k, v in batch.items()},
+                             remat=remat)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[str(dev)] = (loss.item(), [g.cpu() for g in grads],
+                         ops.launch_counts())
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, counts) = out["cpu"], out["cuda"]
+    n = cfg.num_layers
+    fwd = 2 if remat == "none" else 4        # rmsnorms a layer
+    assert counts["rmsnorm_bwd"] == 2 * n + 1
+    assert counts["flash_attention_bwd"] == n
+    assert counts["rmsnorm"] == fwd * n + 1
+    assert counts["flash_attention"] == (1 if remat == "none" else 2) * n
+    assert abs(l_gpu - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu))
+    for a, c in zip(g_gpu, g_cpu):
+        assert (a - c).abs().max() <= 1e-4 * c.abs().max()

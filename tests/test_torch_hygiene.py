@@ -67,6 +67,24 @@ def test_serve_config_equals_reference():
         dataclasses.asdict(jconfig.ServeConfig())
 
 
+@pytest.mark.parametrize("name", ["TrainConfig", "ShapeSpec"])
+def test_train_config_and_shape_spec_equal_reference(name):
+    """Field by field: names, annotations and defaults, in order."""
+    import repro_torch.config as tconfig
+    ours, ref = getattr(tconfig, name), getattr(jconfig, name)
+    fields = lambda c: [(f.name, str(f.type), f.default)
+                        for f in dataclasses.fields(c)]
+    assert fields(ours) == fields(ref)
+    assert ours.__dataclass_params__.frozen == ref.__dataclass_params__.frozen
+    if name == "TrainConfig":
+        assert dataclasses.asdict(ours()) == dataclasses.asdict(ref())
+    else:
+        args = ("train_4k", 4096, 256, "train")
+        assert dataclasses.asdict(ours(*args)) == \
+            dataclasses.asdict(ref(*args))
+        assert ours(*args).is_decode == ref(*args).is_decode
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = smoke_config(get_config("internlm2-1.8b"))
@@ -84,7 +102,7 @@ COPIED = ["core/cluster.py", "core/scheduler.py", "power/__init__.py",
           "runtime/__init__.py", "runtime/result.py", "runtime/sanitize.py",
           "runtime/pool.py", "runtime/policy.py", "runtime/workload.py",
           "runtime/multi_tenant.py", "runtime/cluster_runtime.py",
-          "workloads/dlserving.py"]
+          "workloads/dlserving.py", "training/data.py"]
 # Top-level statements a copy may add or change, by (module, key).
 EXEMPT = {
     # pool.py types its obs ledger under TYPE_CHECKING with an import from
@@ -95,6 +113,13 @@ EXEMPT = {
     # The port's H100 spec and its share count, which the original lacks.
     ("core/cluster.py", "H100_SHARES"),
     ("core/cluster.py", "h100_sxm"),
+    # The data pipeline places batches on one device as tensors: torch in
+    # place of jax, and place_on_device in place of place_on_mesh (the
+    # mesh waits for the distributed slice).
+    ("training/data.py", "import jax"),
+    ("training/data.py", "import torch"),
+    ("training/data.py", "place_on_mesh"),
+    ("training/data.py", "place_on_device"),
 }
 
 

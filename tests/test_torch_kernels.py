@@ -866,7 +866,9 @@ def test_cpu_calls_launch_no_kernel(rng):
     ops.rmsnorm(x, torch.ones(64))
     ops.ssd(*(_t(a) for a in _ssd_inputs(rng, 1, 8, 2, 16, 16)), chunk=8)
     ops.int8_matmul(*(_t(a) for a in _int8_inputs(rng, 4, 8, 4)))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_bwd": 0,
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "decode_attention": 0, "ssd_scan": 0,
                                    "int8_matmul": 0}
 

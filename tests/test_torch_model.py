@@ -257,7 +257,9 @@ def test_launcher_serves_every_request():
     _, cfg = _cfgs("internlm2-1.8b")
     rep = serve(cfg, [5, 11, 7], max_new_tokens=4, slots=2, device="cpu")
     assert rep["served"] == 3 and rep["tokens_generated"] == 12
-    assert rep["kernel_launches"] == {"rmsnorm": 0, "flash_attention": 0,
+    assert rep["kernel_launches"] == {"rmsnorm": 0, "rmsnorm_bwd": 0,
+                                      "flash_attention": 0,
+                                      "flash_attention_bwd": 0,
                                       "decode_attention": 0, "ssd_scan": 0,
                                       "int8_matmul": 0}
 
