@@ -74,8 +74,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 The ``kernels`` phase also holds the two backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``) to their closed-form plain
 backwards at the training shapes (2048 x 2048; b 8, s 256, 16/8 heads,
-d 128, bf16), beside their library call's backward timed through
-autograd (``F.rms_norm``, ``F.scaled_dot_product_attention``).
+d 128, bf16 and fp32; the flash backward in bf16 at granite-moe's d 64
+too), beside their library call's backward timed through autograd
+(``F.rms_norm``, ``F.scaled_dot_product_attention``). Each flash backward
+case names its route (``design``: the wgmma kernels for bf16 at d 64 and
+128, the CUDA-core ones otherwise), and the ``train`` profile reads the
+step's flash backward device time (``flash_bwd_device_ms``).
 
 Then the summary line of kernels (one row per kernel and path: a kernel
 several paths run, rmsnorm on all three and flash and decode on two, has
@@ -381,15 +385,20 @@ def _main_path_patterns() -> list:
     kernels phase's shapes (16-byte loads), flash and decode at each
     attention path's head dim in bf16, each of ssd_scan's three
     tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
-    parity path), and the training path's backward kernels at internlm2's
-    width and head dim in bf16."""
+    parity path), the training path's backward kernels at internlm2's
+    width and head dim in bf16 (flash: the wgmma design), and the flash
+    backward's CUDA-core kernels in fp32 at that head dim (the train_parity
+    path)."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
             r"rmsnorm_dw_kernel<f32>"]
     cfg = get_config(ARCH)
     vec, nv, _ = krms.bwd_plan(1, cfg.d_model, 2, True, 1)
     pats.append(rf"rmsnorm_bwd_kernel<bf16,{8 if vec else 1},{nv}>")
-    pats += [rf"flash_bwd_{k}_kernel<bf16,{cfg.resolved_head_dim}>"
+    hd = cfg.resolved_head_dim
+    pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
+             for k in ("preprocess", "dkdv_wgmma", "dq_wgmma")]
+    pats += [rf"flash_bwd_{k}_kernel<f32,{hd}>"
              for k in ("preprocess", "dkdv", "dq")]
     for arch in PATH_KERNELS:
         cfg = get_config(arch)
@@ -474,7 +483,8 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0):
 
 
 def _flash_bwd_case(arch, b, s, dtype, seed=0):
-    """The backward of one layer's causal self-attention in training."""
+    """The backward of one layer's causal self-attention in training, at
+    ``arch``'s heads; ``design`` names the route the call takes."""
     hq, hkv, d = _heads(arch)
     q = randn((b, s, hq, d), dtype, seed)
     k = randn((b, s, hkv, d), dtype, seed + 1)
@@ -502,7 +512,8 @@ def _flash_bwd_case(arch, b, s, dtype, seed=0):
         + e * (b * s * hq * d + 2 * b * s * hkv * d)
     b_ms, by = bound(nbytes, 10 * b * hq * d * pairs, dtype)
     return {"kernel": "flash_attention_bwd", "path": TRAIN_PATH,
-            "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+            "heads_of": arch, "shape": [b, s, hq, hkv, d],
+            "dtype": str(dtype), "design": kflash.bwd_design(dtype, d),
             "max_abs_err": err,
             "kernel_us": device_us(lambda: kflash._kernel_backward(
                 q, k, v, out, dout, lse, True, scale)),
@@ -697,6 +708,9 @@ def phase_kernels() -> dict:
         cases.append(_flash_case(ARCH, TRAIN_SEQ, dtype, b=TRAIN_BATCH,
                                  path=TRAIN_PATH))
         cases.append(_flash_bwd_case(ARCH, TRAIN_BATCH, TRAIN_SEQ, dtype))
+        if dtype == torch.bfloat16:     # the wgmma design at d 64 too
+            cases.append(_flash_bwd_case(MOE_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                                         dtype))
     for m, k, n in INT8_SHAPES:
         for out_dtype in (torch.float32, torch.bfloat16):
             cases.append(_int8_case(m, k, n, out_dtype))
@@ -1043,6 +1057,8 @@ def _profile_train_step(trainer, params, opt_state, batch) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = _device_busy_us(kern) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    flash_bwd_ms = sum(v for k, v in by_name.items()
+                       if "flash_bwd" in k) / 1e3
 
     grads = [torch.full_like(p, 1e-3) for p in tree_leaves(params)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -1057,6 +1073,7 @@ def _profile_train_step(trainer, params, opt_state, batch) -> dict:
             "device_idle_share": 1 - busy_ms / traced_ms,
             "kernels_per_step": len(kern),
             "top_device_ms": [[k[:60], v / 1e3] for k, v in top],
+            "flash_bwd_device_ms": flash_bwd_ms,
             "adamw_update": {"traced_wall_ms": update_ms,
                              "device_busy_ms": _device_busy_us(ukern) / 1e3,
                              "kernels": len(ukern)}}

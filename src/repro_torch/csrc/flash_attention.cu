@@ -47,21 +47,41 @@
 // and delta = rowsum(dO * O):
 //   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = dS^T Q * scale,
 //   dQ = dS K * scale.
-// * flash_bwd_preprocess_kernel: delta, one warp a (b, row, head).
-// * flash_bwd_dkdv_kernel: one block a (kv tile of 64, kv head, batch); it
-//   walks the hq / hkv q heads of its group and, when causal, only the q
-//   tiles on or below the diagonal, so GQA's sum over the group stays in
-//   the block's registers.
-// * flash_bwd_dq_kernel: one block a (q tile of 64, q head, batch), over
-//   the kv tiles up to the diagonal.
-// Bound: operations. Causal, the five products over the (query, key) pairs
-// on or below the diagonal (S and dO V^T recomputed in both kernels, plus
-// dV, dK, dQ): 7 x 2 x d flops a pair and head, 7.5 GFLOP at b 8, s 256,
-// 16 heads, d 128. Design: fp32 products on the CUDA cores (a simple
-// kernel first; tensor cores are for a later PR). Tiles are staged in
-// shared memory as fp32, rows padded by one word against bank conflicts;
-// each of 256 threads owns a 4 x 4 patch of the score tile and a 4-row,
-// d / 16-column patch of its accumulators, as the forward's SIMT kernel.
+// flash_bwd_preprocess_kernel writes delta (16-byte loads, D / 8 lanes a
+// bf16 row, D / 4 an fp32 one), then one of two routes, chosen by dtype
+// and head dim as the forward's:
+// * bf16 at d 64 or 128 (the training path): flash_bwd_dkdv_wgmma_kernel,
+//   one warpgroup a (kv tile of 64, kv head, batch), causal kv tile 0
+//   first; K and V come in once by TMA and Q, dO tiles of the group's q
+//   heads (on or below the diagonal when causal) through a 2-stage TMA
+//   ring on mbarriers. Per q tile, S^T = K Q^T and dP^T = V dO^T on the
+//   tensor cores (wgmma, fp32 accumulators), P^T and dS^T formed in those
+//   registers (lse and delta per column, from smem), rounded to bf16 and
+//   fed back as the register A operand of dV += P^T dO and dK += dS^T Q
+//   (dO, Q read MN-major); P^T is formed while dP^T is still on the
+//   tensor cores, dS^T while dV's product is. dK and dV stay in registers
+//   for the whole walk. flash_bwd_dq_wgmma_kernel, one warpgroup a (q
+//   tile, q head, batch), longest q tiles first, streams K/V tiles up to
+//   the diagonal: S = Q K^T, dP = dO V^T, dQ += dS K (P formed while dP
+//   is on the tensor cores). S and dP are recomputed there
+//   rather than passed between the kernels: summing dQ across kv-tile
+//   blocks would need atomics (no bitwise resume), and writing dS out
+//   would move about 2 x 16.8 MB more at the training shape, where the
+//   recomputation is 2 of 7 products on the tensor cores.
+// * fp32 at any d, and bf16 at d 16 or 32: flash_bwd_dkdv_kernel and
+//   flash_bwd_dq_kernel, fp32 products on the CUDA cores, the same split:
+//   one block of 256 threads a (kv tile, kv head, batch) and a (q tile, q
+//   head, batch). Tiles are staged in shared memory as fp32, rows padded
+//   by one word against bank conflicts; each thread owns a 4 x 4 patch of
+//   the score tile and a 4-row, d / 16-column patch of its accumulators,
+//   as the forward's SIMT kernel. Full fp32 products are what the fp32
+//   path is checked for (1e-5), which TF32 would not hold.
+// Bound: causal, the five products over the (query, key) pairs on or
+// below the diagonal: 5 x 2 x d flops a pair and head, 5.4 GFLOP at b 8,
+// s 256, 16 heads, d 128, against the bytes the call must move (q, k, v,
+// o, dO, lse read once, dq, dk, dv written once, 50.5 MB): bytes bound it
+// on the H100, at 0.0151 ms. The kernels run 7 products (S and dP twice)
+// over whole 64 x 64 tiles, 9.4 GFLOP.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -316,6 +336,43 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
 // 8 * j + 2 * (t % 4) (+ 1): register 4 j + {0, 1} holds the even row's
 // pair, 4 j + {2, 3} the odd row's. For k step kk of 16 columns, registers
 // 8 kk .. 8 kk + 7 are exactly the A fragment of a m64k16 wgmma.
+
+// acc (64 x 64) += A . B^T: A and B are 64-row tiles of d columns in
+// smem, K-major in D / 64 swizzled boxes (as TMA writes them).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[32], const bf16* a,
+                                        const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = (kk / 4) * kBox, step = 2 * (kk % 4);  // 32 B a k step
+    wgmma_m64n64k16_ss(acc, desc_sw128(a + box, 16, 1024) + step,
+                       desc_sw128(b + box, 16, 1024) + step);
+  }
+}
+
+// acc (64 x D) += A . B: A (64 x 64) in registers, the bf16 pairs of an
+// accumulator (registers 8 kk .. 8 kk + 7 are the A fragment of k step
+// kk); B a 64-row tile of d columns in smem, read MN-major.
+template <int D>
+__device__ __forceinline__ void mma_rb(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4][4],
+                                       const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<D>(acc, a[kk],
+                desc_sw128(b + kk * 16 * 64, kBox * sizeof(bf16), 1024));
+}
+
+// bf16 pairs of accumulator registers, in the A fragment order.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -395,14 +452,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t da = desc_sw128(Qs + (kk / 4) * kBox, 16, 1024) +
-                          2 * (kk % 4);
-      const uint64_t db = desc_sw128(Kt + (kk / 4) * kBox, 16, 1024) +
-                          2 * (kk % 4);
-      wgmma_m64n64k16_ss(s, da, db);
-    }
+    mma_abt<D>(s, Qs, Kt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -455,17 +505,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // O += P . V: P in bf16 from registers, V (kv x d, d contiguous) read
     // MN-major; k steps of 16 kv rows are 16 x 128 B = 2048 B apart.
     uint32_t p[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    pack_a(p, s);
     fence_regs(acc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(acc, p[kk],
-                  desc_sw128(Vt + kk * 16 * 64, kBox * sizeof(bf16), 1024));
+    mma_rb<D>(acc, p, Vt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -574,7 +617,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Backward: CUDA-core kernels, fp32 products, any dtype and head dim.
+// Backward: CUDA-core kernels, fp32 products: fp32 at any head dim, bf16
+// at 16 or 32.
 // ---------------------------------------------------------------------------
 namespace bwd {
 
@@ -612,22 +656,35 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
   }
 }
 
-// delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]; one warp a row of
-// the (b, sq, hq) rows in memory order.
+// delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]: each lane reads 16
+// bytes of a row of O and of dO, L = D / (16 / sizeof(T)) lanes a row (32 / L
+// rows a warp), the rows of (b, sq, hq) in memory order.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_preprocess_kernel(const T* __restrict__ o,
                             const T* __restrict__ dout,
                             float* __restrict__ delta, int b, int sq,
                             int hq) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row = static_cast<size_t>(blockIdx.x) * (kThreads / 32) + warp;
-  if (row >= static_cast<size_t>(b) * sq * hq) return;
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int L = D / V;           // lanes a row
+  static_assert(L >= 1 && L <= 32 && 32 % L == 0, "head dim");
+  const int lane = threadIdx.x & 31;
+  const size_t row = (static_cast<size_t>(blockIdx.x) * kThreads +
+                      threadIdx.x) / L;
+  const bool valid = row < static_cast<size_t>(b) * sq * hq;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32)
-    s = fmaf(to_f32(o[row * D + c]), to_f32(dout[row * D + c]), s);
-  s = warp_sum(s);
-  if (lane == 0) {
+  if (valid) {  // no return: the whole warp takes part in the shuffles
+    const uint4 ov = reinterpret_cast<const uint4*>(o + row * D)[lane % L];
+    const uint4 gv = reinterpret_cast<const uint4*>(dout + row * D)[lane % L];
+    const T* oe = reinterpret_cast<const T*>(&ov);
+    const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) s = fmaf(to_f32(oe[i]), to_f32(ge[i]), s);
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (valid && lane % L == 0) {
     const int h = static_cast<int>(row % hq);
     const size_t bi = row / hq;
     const int i = static_cast<int>(bi % sq);
@@ -887,6 +944,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// delta = rowsum(dO * O) into (b, hq, sq) float32.
+template <typename T, int D>
+cudaError_t preprocess(const void* o, const void* dout, float* delta, int b,
+                       int sq, int hq, cudaStream_t stream) {
+  const size_t rows_a_block = kThreads / (D * sizeof(T) / 16);
+  const size_t rows = static_cast<size_t>(b) * sq * hq;
+  flash_bwd_preprocess_kernel<T, D>
+      <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
+         kThreads, 0, stream>>>(static_cast<const T*>(o),
+                                static_cast<const T*>(dout), delta, b, sq,
+                                hq);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
@@ -896,12 +967,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const size_t rows = static_cast<size_t>(b) * sq * hq;
-  flash_bwd_preprocess_kernel<T, D>
-      <<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
-         kThreads, 0, stream>>>(static_cast<const T*>(o), dot, delta, b, sq,
-                                hq);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = preprocess<T, D>(o, dout, delta, b, sq, hq, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr size_t s_kv = dkdv_smem<D>();
@@ -928,21 +994,447 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v,
-             const void* o, const void* dout, const float* lse, float* delta,
-             void* dq, void* dk, void* dv, int b, int sq, int skv, int hq,
-             int hkv, float scale, int causal, cudaStream_t s) {
+// fp32 at every head dim.
+int dispatch_f32(int d, const void* q, const void* k, const void* v,
+                 const void* o, const void* dout, const float* lse,
+                 float* delta, void* dq, void* dk, void* dv, int b, int sq,
+                 int skv, int hq, int hkv, float scale, int causal,
+                 cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 16: return launch<float, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward in bf16 on the tensor cores (wgmma + TMA), d = 64 or 128.
+// ---------------------------------------------------------------------------
+namespace bwd_tc {
+
+using bf16 = __nv_bfloat16;
+using tc::kBox;
+using tc::mma_abt;
+using tc::mma_rb;
+using tc::pack_a;
+constexpr int kB = 64;          // rows a tile: one wgmma M, and the S tile's N
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kStages = 2;      // depth of the ring of streamed tiles
+
+// Both kernels: two fixed tiles, a ring of two tiles a stage, barriers;
+// the dK/dV kernel also the lse and delta of a q tile a stage.
+template <int D>
+constexpr size_t smem_bytes() {
+  return 1024 + sizeof(bf16) * static_cast<size_t>(kBox) * (D / 64) *
+                    (2 + 2 * kStages) +
+         sizeof(float) * 2 * kStages * kB + 8 * (1 + kStages);
+}
+
+// This thread's two rows of a 64 x D accumulator, times `mul`, as bf16
+// into rows `row_a` and `row_a` + 8 (those below `rows`) of a (b, rows,
+// heads, D) tensor at (bb, h).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out,
+                                           const float (&acc)[D / 2],
+                                           float mul, int bb, int row_a,
+                                           int rows, int heads, int h,
+                                           int col_t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+    if (row >= rows) continue;
+    bf16* orow =
+        out + ((static_cast<size_t>(bb) * rows + row) * heads + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
+          tc::pack_bf16(acc[4 * jj + 2 * half] * mul,
+                        acc[4 * jj + 2 * half + 1] * mul);
+  }
+}
+
+// One block a (kv tile of 64 rows, kv head, batch): K and V stay in smem,
+// Q and dO tiles of the group's q heads stream through a TMA ring, and the
+// dK, dV accumulators stay in registers for the whole walk. In the
+// transposed score tile S^T (kv rows x q columns) lse and delta are per
+// column, read from smem.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int b, int sq, int skv, int hq, int hkv,
+                            float scale, float scale_log2, int causal) {
+  constexpr int NB = D / 64;  // 64-column boxes a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
+  bf16* Vs = Ks + NB * kBox;
+  bf16* Qs = Vs + NB * kBox;                  // [kStages][NB][kBox]
+  bf16* dOs = Qs + kStages * NB * kBox;       // [kStages][NB][kBox]
+  float* Ls = reinterpret_cast<float*>(dOs + kStages * NB * kBox);
+  float* Dl = Ls + kStages * kB;              // [kStages][kB] each
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(Dl + kStages * kB);
+  uint64_t* qbar = kvbar + 1;                 // [kStages]
+
+  // Longest first: when causal, kv tile 0 of every (kv head, batch) walks
+  // every q tile, the last kv tile only the last.
+  const int heads = hkv * b;
+  const int kt = static_cast<int>(blockIdx.x) / heads;
+  const int kvh = static_cast<int>(blockIdx.x) % hkv;
+  const int bb = (static_cast<int>(blockIdx.x) % heads) / hkv;
+  const int k0 = kt * kB;
+  const int g = hq / hkv;
+  const int qt0 = causal ? kt : 0;  // q tiles above the diagonal: none
+  const int nq = max((sq + kB - 1) / kB - qt0, 0);
+  const int n_it = g * nq;          // (q head of the group, q tile) pairs
+  const int tid = threadIdx.x;
+
+  const CUtensorMap* mq = &tq;
+  const CUtensorMap* mdo = &tdo;
+  auto issue_q = [=](int stage, int it) {
+    const int h = kvh * g + it / nq, q0 = (qt0 + it % nq) * kB;
+    mbar_expect_tx(&qbar[stage], 2 * NB * kBox * sizeof(bf16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load_4d(Qs + (stage * NB + nb) * kBox, mq, &qbar[stage], nb * 64,
+                  h, q0, bb);
+      tma_load_4d(dOs + (stage * NB + nb) * kBox, mdo, &qbar[stage],
+                  nb * 64, h, q0, bb);
+    }
+  };
+  // Offset into lse/delta of row `tid` of step it's q tile (-1 past sq).
+  auto row_off = [=](int it) -> long long {
+    const int h = kvh * g + it / nq, qi = (qt0 + it % nq) * kB + tid;
+    return qi < sq ? (static_cast<long long>(bb) * hq + h) * sq + qi : -1;
+  };
+
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&qbar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kvbar, 2 * NB * kBox * sizeof(bf16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load_4d(Ks + nb * kBox, &tk, kvbar, nb * 64, kvh, k0, bb);
+      tma_load_4d(Vs + nb * kBox, &tv, kvbar, nb * 64, kvh, k0, bb);
+    }
+    for (int it = 0; it < min(kStages, n_it); ++it) issue_q(it, it);
+  }
+  if (tid < kB && n_it > 0) {
+    const long long off = row_off(0);
+    Ls[tid] = off < 0 ? 0.f : lse[off] * tc::kLog2e;
+    Dl[tid] = off < 0 ? 0.f : delta[off];
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r_a = warp * 16 + (lane >> 2);  // tile row (kv) of the even pair
+  const int kv_a = k0 + r_a, kv_b = kv_a + 8;
+  const int col_t = 2 * (lane & 3);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % kStages;
+    const int q0 = (qt0 + it % nq) * kB;
+    // lse and delta of the next step's rows: loaded now, stored to their
+    // slot while this step's first products run (the slot was last read
+    // in the step before this one, which ended in a barrier).
+    const bool pre = tid < kB && it + 1 < n_it;
+    float next_l = 0.f, next_d = 0.f;
+    if (pre) {
+      const long long off = row_off(it + 1);
+      if (off >= 0) {
+        next_l = lse[off] * tc::kLog2e;
+        next_d = delta[off];
+      }
+    }
+    mbar_wait(&qbar[stage], (it / kStages) & 1);
+    const bf16* Qt = Qs + stage * NB * kBox;
+    const bf16* dOt = dOs + stage * NB * kBox;
+
+    // S^T = K Q^T and dP^T = V dO^T (kv rows x q columns), two groups:
+    // P^T is formed while dP^T is still on the tensor cores.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt<D>(s, Ks, Qt);
+    wgmma_commit();
+    mma_abt<D>(dp, Vs, dOt);
+    wgmma_commit();
+    if (pre) {
+      Ls[(it + 1) % kStages * kB + tid] = next_l;
+      Dl[(it + 1) % kStages * kB + tid] = next_d;
+    }
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // P^T = exp(S^T scale - lse) in fp32 in place; zero where kv > q
+    // (causal), kv >= skv or q >= sq (those rows and columns came in as
+    // TMA zeros): row r's valid columns are lo_r <= col < hi.
+    const float* lrow = Ls + stage * kB;
+    const float* drow = Dl + stage * kB;
+    const int hi = sq - q0;
+    const int lo_a = kv_a >= skv ? kB : (causal ? kv_a - q0 : 0);
+    const int lo_b = kv_b >= skv ? kB : (causal ? kv_b - q0 : 0);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * jj + col_t + c;
+        const float l2 = lrow[col];
+        s[4 * jj + c] = col >= lo_a && col < hi
+            ? exp2f(s[4 * jj + c] * scale_log2 - l2) : 0.f;
+        s[4 * jj + 2 + c] = col >= lo_b && col < hi
+            ? exp2f(s[4 * jj + 2 + c] * scale_log2 - l2) : 0.f;
+      }
+    }
+    uint32_t p_frag[4][4], ds_frag[4][4];
+    pack_a(p_frag, s);
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dV += P^T dO (P^T rounded to bf16 as the register A operand, dO read
+    // MN-major) runs while dS^T = P^T (dP^T - delta) is formed; then
+    // dK += dS^T Q.
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+    mma_rb<D>(dv_acc, p_frag, dOt);
+    wgmma_commit();
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float dl = drow[8 * jj + col_t + c];
+        dp[4 * jj + c] = s[4 * jj + c] * (dp[4 * jj + c] - dl);
+        dp[4 * jj + 2 + c] = s[4 * jj + 2 + c] * (dp[4 * jj + 2 + c] - dl);
+      }
+    }
+    pack_a(ds_frag, dp);
+    wgmma_fence();
+    mma_rb<D>(dk_acc, ds_frag, Qt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+
+    __syncthreads();  // every wgmma and thread is done with this stage
+    if (tid == 0 && it + kStages < n_it) issue_q(stage, it + kStages);
+  }
+
+  store_rows<D>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t);
+  store_rows<D>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t);
+}
+
+// One block a (q tile of 64 rows, q head, batch): Q and dO stay in smem,
+// K and V tiles up to the diagonal stream through a TMA ring; S and dP are
+// recomputed here (not read from the dK/dV kernel), so no block adds into
+// another's output.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int b, int sq, int skv,
+                          int hq, int hkv, int n_qtiles, float scale,
+                          float scale_log2, int causal) {
+  constexpr int NB = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
+  bf16* dOs = Qs + NB * kBox;
+  bf16* Ks = dOs + NB * kBox;                 // [kStages][NB][kBox]
+  bf16* Vs = Ks + kStages * NB * kBox;        // [kStages][NB][kBox]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + kStages * NB * kBox);
+  uint64_t* kvbar = qbar + 1;                 // [kStages]
+
+  // Longest q tiles first, as the forward.
+  const int heads = hq * b;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int h = static_cast<int>(blockIdx.x) % hq;
+  const int bb = (static_cast<int>(blockIdx.x) % heads) / hq;
+  const int kvh = h / (hq / hkv);
+  const int q0 = qt * kB;
+  const int kv_end = causal ? min(skv, q0 + kB) : skv;
+  const int n_kv = (kv_end + kB - 1) / kB;
+  const int tid = threadIdx.x;
+
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  auto issue_kv = [=](int stage, int j) {
+    mbar_expect_tx(&kvbar[stage], 2 * NB * kBox * sizeof(bf16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load_4d(Ks + (stage * NB + nb) * kBox, mk, &kvbar[stage], nb * 64,
+                  kvh, j * kB, bb);
+      tma_load_4d(Vs + (stage * NB + nb) * kBox, mv, &kvbar[stage], nb * 64,
+                  kvh, j * kB, bb);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&kvbar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * NB * kBox * sizeof(bf16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load_4d(Qs + nb * kBox, &tq, qbar, nb * 64, h, q0, bb);
+      tma_load_4d(dOs + nb * kBox, &tdo, qbar, nb * 64, h, q0, bb);
+    }
+    for (int j = 0; j < min(kStages, n_kv); ++j) issue_kv(j, j);
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // and row_a + 8
+  const int row_b = row_a + 8;
+  const int col_t = 2 * (lane & 3);
+  const size_t lbase = (static_cast<size_t>(bb) * hq + h) * sq;
+  const float l_a = row_a < sq ? lse[lbase + row_a] * tc::kLog2e : 0.f;
+  const float l_b = row_b < sq ? lse[lbase + row_b] * tc::kLog2e : 0.f;
+  const float d_a = row_a < sq ? delta[lbase + row_a] : 0.f;
+  const float d_b = row_b < sq ? delta[lbase + row_b] : 0.f;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int stage = j % kStages;
+    mbar_wait(&kvbar[stage], (j / kStages) & 1);
+    const bf16* Kt = Ks + stage * NB * kBox;
+    const bf16* Vt = Vs + stage * NB * kBox;
+
+    // S = Q K^T and dP = dO V^T (q rows x kv columns), two groups: P is
+    // formed while dP is still on the tensor cores.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt<D>(s, Qs, Kt);
+    wgmma_commit();
+    mma_abt<D>(dp, dOs, Vt);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // P = exp(S scale - lse); zero where kv > q (causal), kv >= skv or
+    // q >= sq: row r's valid columns are col < hi_r.
+    const int k0 = j * kB;
+    const int cap = skv - k0;
+    const int hi_a =
+        row_a >= sq ? 0 : (causal ? min(row_a - k0 + 1, cap) : cap);
+    const int hi_b =
+        row_b >= sq ? 0 : (causal ? min(row_b - k0 + 1, cap) : cap);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * jj + col_t + c;
+        s[4 * jj + c] =
+            col < hi_a ? exp2f(s[4 * jj + c] * scale_log2 - l_a) : 0.f;
+        s[4 * jj + 2 + c] =
+            col < hi_b ? exp2f(s[4 * jj + 2 + c] * scale_log2 - l_b) : 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - delta).
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        dp[4 * jj + c] = s[4 * jj + c] * (dp[4 * jj + c] - d_a);
+        dp[4 * jj + 2 + c] = s[4 * jj + 2 + c] * (dp[4 * jj + 2 + c] - d_b);
+      }
+    }
+    // dQ += dS K: dS rounded to bf16 as the register A operand, K read
+    // MN-major.
+    uint32_t ds_frag[4][4];
+    pack_a(ds_frag, dp);
+    fence_regs(acc);
+    wgmma_fence();
+    mma_rb<D>(acc, ds_frag, Kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    __syncthreads();  // every wgmma of this stage has read its tiles
+    if (tid == 0 && j + kStages < n_kv) issue_kv(stage, j + kStages);
+  }
+
+  store_rows<D>(dq, acc, scale, bb, row_a, sq, hq, h, col_t);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+           float scale, int causal, cudaStream_t stream) {
+  // Encoded on every call, as the forward's (a CUDA graph records the maps
+  // by value). Any failure is returned: there is no other route.
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tc::make_map(&tq, q, b, sq, hq, D) ||
+      !tc::make_map(&tk, k, b, skv, hkv, D) ||
+      !tc::make_map(&tv, v, b, skv, hkv, D) ||
+      !tc::make_map(&tdo, dout, b, sq, hq, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = bwd::preprocess<bf16, D>(o, dout, delta, b, sq, hq,
+                                             stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t smem = smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = scale * tc::kLog2e;
+  const int n_kt = (skv + kB - 1) / kB, n_qt = (sq + kB - 1) / kB;
+  flash_bwd_dkdv_wgmma_kernel<D><<<n_kt * hkv * b, kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), b, sq, skv, hq, hkv, scale, scale_log2, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wgmma_kernel<D><<<n_qt * hq * b, kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), b, sq, skv, hq,
+      hkv, n_qt, scale, scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd_tc
 
 }  // namespace
 }  // namespace repro
@@ -975,8 +1467,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // Backward of repro_flash_attention: q, o, dout, dq (b, sq, hq, d); k, v,
 // dk, dv (b, skv, hkv, d), all contiguous in dtype; lse (b, hq, sq) float32
 // from the forward; delta (b, hq, sq) float32 scratch. Launches
-// flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel and
-// flash_bwd_dq_kernel on the stream.
+// flash_bwd_preprocess_kernel, then flash_bwd_dkdv_wgmma_kernel and
+// flash_bwd_dq_wgmma_kernel for bf16 at d 64 or 128 (a failed TMA encode,
+// attribute or launch is returned, never served by another route), else
+// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the stream.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -989,11 +1483,15 @@ extern "C" int repro_flash_attention_bwd(
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == kF32)
-    return bwd::dispatch<float>(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,
-                                skv, hq, hkv, scale, causal, s);
-  if (dtype == kBF16)
-    return bwd::dispatch<__nv_bfloat16>(d, q, k, v, o, dout, l, dl, dq, dk,
-                                        dv, b, sq, skv, hq, hkv, scale,
-                                        causal, s);
+    return bwd::dispatch_f32(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,
+                             skv, hq, hkv, scale, causal, s);
+  if (dtype == kBF16) {
+    switch (d) {
+      case 16: return bwd::launch<__nv_bfloat16, 16>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+      case 32: return bwd::launch<__nv_bfloat16, 32>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+      case 64: return bwd_tc::launch<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+      case 128: return bwd_tc::launch<128>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,11 +18,19 @@ tensor, both launched and counted as ``flash_attention``:
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
-also writes each row's log-sum-exp, and the backward is three CUDA-core
-kernels launched by one call and counted as ``flash_attention_bwd``
-(``flash_bwd_preprocess_kernel``, ``flash_bwd_dkdv_kernel``,
-``flash_bwd_dq_kernel``); on the CPU the backward is the closed form
-``ref.attention_bwd_ref``.
+also writes each row's log-sum-exp, and the backward is one call, counted
+as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta) and
+two kernels on the route :func:`bwd_design` names:
+
+* ``"wgmma"``, bf16 at head_dim 64 or 128 (the training path):
+  ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``,
+  tensor cores (wgmma, fp32 accumulators, P and dS rounded to bf16 as
+  operands) fed by TMA, deterministic (no atomics);
+* ``"simt"``, fp32 at any head_dim and bf16 at 16 or 32:
+  ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
+  products on the CUDA cores.
+
+On the CPU the backward is the closed form ``ref.attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -46,6 +54,18 @@ KERNEL = register_kernel(
 KERNEL_BWD = register_kernel(
     "flash_attention_bwd", "repro_flash_attention_bwd",
     [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P])
+
+
+def bwd_design(dtype: torch.dtype, d: int) -> str:
+    """The backward's route on the card, as ``repro_flash_attention_bwd``
+    dispatches it: ``"wgmma"`` for bfloat16 at head_dim 64 or 128, else
+    ``"simt"``; a dtype or head_dim no kernel takes raises."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,11 +8,15 @@ backward's per-block partials of dw and their fixed-order sum) and held,
 with the closed-form plain backwards of ``kernels/ref.py``, to
 ``torch.autograd`` of the plain forward and to ``jax.grad`` of the JAX
 package's reference at 1e-5 relative to the gradient's max-abs (fp32 sums
-in other orders). The autograd Functions are held in float64 by
+in other orders); the flash backward's bf16 tensor-core design, with its
+bf16 operands, at the card's bf16 tolerance. The autograd Functions are held in float64 by
 ``torch.autograd.gradcheck``, and the wiring of the card path (the
 Function, the grad guard of the kernels without a backward) is checked
 with the device test monkeypatched, as the kernels cannot run here.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +53,8 @@ def _np(t):
 # ---------------------------------------------------------------------------
 def fa2_bwd_emulated(q, k, v, out, dout, lse, causal, scale):
     """``flash_bwd_preprocess_kernel``, ``flash_bwd_dkdv_kernel`` and
-    ``flash_bwd_dq_kernel`` in fp32: returns (dq, dk, dv, visited), where
+    ``flash_bwd_dq_kernel`` (the CUDA-core route: fp32, and bf16 at d 16
+    or 32) in fp32: returns (dq, dk, dv, visited), where
     visited lists the (kv tile, q tile) pairs the dK/dV blocks walk."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -151,6 +156,170 @@ def test_fa2_backward_emulation_matches_autograd_and_jax(causal, b, s, hq,
     want = {(i, j) for i in range(n_t) for j in range(n_t)
             if j >= i or not causal}
     assert emu[3] == want     # no q tile wholly above the diagonal
+
+
+# The card's bf16 tolerance (chip_smoke.py KERNEL_TOL[bf16], atol = rtol):
+# each gradient is rounded to bf16 once (one ulp, 2^-8 relative), and the
+# wgmma design also rounds P and dS to bf16 as operands of its products.
+BF16_TOL = 2e-2
+LOG2E = 1.4426950408889634
+
+
+def fa2_bwd_wgmma_emulated(q, k, v, out, dout, lse, causal, scale):
+    """``flash_bwd_preprocess_kernel``, ``flash_bwd_dkdv_wgmma_kernel`` and
+    ``flash_bwd_dq_wgmma_kernel`` (bf16 at d 64 and 128), tile for tile:
+    bf16 operands and fp32 products; P = exp2(S scale log2 e - lse log2 e)
+    and dS = P (dP - delta) in fp32 (transposed, kv rows x q columns, in
+    the dK/dV kernel), each rounded to bf16 before dV += P^T dO,
+    dK += dS^T Q and dQ += dS K, whose sums are fp32; each gradient rounded
+    to bf16 once. Returns (dq, dk, dv, visited) as ``fa2_bwd_emulated``."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qf, kf, vf, of, gf = (t.detach().to(torch.float32)
+                          for t in (q, k, v, out, dout))
+    delta = (gf * of).sum(-1)                       # (b, sq, hq)
+    l2 = lse * LOG2E
+    c = scale * LOG2E
+    bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), \
+        torch.empty_like(vf)
+    visited = set()
+
+    def ok(kv_idx, q_idx):
+        return kv_idx <= q_idx if causal else \
+            torch.ones((), dtype=torch.bool)
+
+    for bb in range(b):
+        for kvh in range(hkv):
+            for k0 in range(0, skv, TILE):
+                K, V = kf[bb, k0:k0 + TILE, kvh], vf[bb, k0:k0 + TILE, kvh]
+                kv_idx = torch.arange(k0, k0 + K.shape[0])[:, None]
+                dK, dV = torch.zeros_like(K), torch.zeros_like(V)
+                for gi in range(g):
+                    h = kvh * g + gi
+                    for q0 in range(k0 if causal else 0, sq, TILE):
+                        visited.add((k0 // TILE, q0 // TILE))
+                        Q = qf[bb, q0:q0 + TILE, h]
+                        dO = gf[bb, q0:q0 + TILE, h]
+                        q_idx = torch.arange(q0, q0 + Q.shape[0])[None, :]
+                        pt = torch.where(ok(kv_idx, q_idx), torch.exp2(
+                            K @ Q.T * c - l2[bb, h, q0:q0 + TILE][None]), 0.0)
+                        dst = pt * (V @ dO.T - delta[bb, q0:q0 + TILE, h])
+                        dV += bf(pt) @ dO
+                        dK += bf(dst) @ Q
+                dk[bb, k0:k0 + TILE, kvh] = dK * scale
+                dv[bb, k0:k0 + TILE, kvh] = dV
+    for bb in range(b):
+        for h in range(hq):
+            for q0 in range(0, sq, TILE):
+                Q, dO = qf[bb, q0:q0 + TILE, h], gf[bb, q0:q0 + TILE, h]
+                q_idx = torch.arange(q0, q0 + Q.shape[0])[:, None]
+                dQ = torch.zeros_like(Q)
+                kv_end = min(skv, q0 + TILE) if causal else skv
+                for k0 in range(0, kv_end, TILE):
+                    K = kf[bb, k0:k0 + TILE, h // g]
+                    V = vf[bb, k0:k0 + TILE, h // g]
+                    kv_idx = torch.arange(k0, k0 + K.shape[0])[None, :]
+                    p = torch.where(ok(kv_idx, q_idx), torch.exp2(
+                        Q @ K.T * c - l2[bb, h, q0:q0 + TILE][:, None]), 0.0)
+                    ds = p * (dO @ V.T - delta[bb, q0:q0 + TILE, h][:, None])
+                    dQ += bf(ds) @ K
+                dq[bb, q0:q0 + TILE, h] = dQ * scale
+    return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16), visited)
+
+
+def _bf16_attn_case(rng, b, sq, skv, hq, hkv, d):
+    shapes = ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+              (b, sq, hq, d))
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(torch.bfloat16) for sh in shapes]
+
+
+def _check_wgmma_emulation(rng, b, sq, skv, hq, hkv, d, causal):
+    """The emulation and ``plain_bwd`` (on the same bf16 forward output and
+    log-sum-exp) against jax.grad of the JAX reference on the same bf16
+    values, at BF16_TOL; the dK/dV blocks skip every q tile wholly above
+    the diagonal."""
+    q, k, v, dout = _bf16_attn_case(rng, b, sq, skv, hq, hkv, d)
+    scale = d ** -0.5
+    out = tref.attention_ref(q, k, v, causal=causal)           # bf16
+    lse = tref.attention_lse_ref(q, k, causal=causal)
+    emu = fa2_bwd_wgmma_emulated(q, k, v, out, dout, lse, causal, scale)
+    closed = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal)
+    jgrads = _jax_attention_grads(*(t.to(torch.float32)
+                                    for t in (q, k, v, dout)), causal)
+    for i, t in enumerate((q, k, v)):
+        assert emu[i].dtype == torch.bfloat16 and emu[i].shape == t.shape
+        for got in (emu[i], closed[i]):
+            np.testing.assert_allclose(_np(got.to(torch.float32)),
+                                       np.asarray(jgrads[i]),
+                                       rtol=BF16_TOL, atol=BF16_TOL)
+    n_kt, n_qt = -(-skv // TILE), -(-sq // TILE)
+    assert emu[3] == {(i, j) for i in range(n_kt) for j in range(n_qt)
+                      if j >= i or not causal}
+
+
+# (b, sq, skv, hq, hkv, d): groups 8, 2, 4 and 1; lengths 1, 65, 130, 200.
+WGMMA_CASES = [(2, 130, 130, 8, 1, 64), (1, 65, 65, 4, 2, 128),
+               (1, 200, 200, 8, 2, 64), (1, 1, 1, 2, 2, 128),
+               (1, 200, 200, 4, 4, 128)]
+# Full attention only: skv differs from sq.
+WGMMA_FULL_CASES = [(1, 65, 200, 4, 2, 64), (1, 200, 65, 8, 1, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d", WGMMA_CASES)
+def test_fa2_wgmma_backward_emulation_matches_jax(causal, b, sq, skv, hq,
+                                                  hkv, d, rng):
+    _check_wgmma_emulation(rng, b, sq, skv, hq, hkv, d, causal)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d", WGMMA_FULL_CASES)
+def test_fa2_wgmma_backward_emulation_full_skv_differs(b, sq, skv, hq, hkv,
+                                                       d, rng):
+    _check_wgmma_emulation(rng, b, sq, skv, hq, hkv, d, False)
+
+
+@pytest.mark.parametrize("d", [128, 64], ids=["internlm2", "granite-moe"])
+def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
+    """One layer of the training step at b 1: s 256, 16/8 heads, causal, at
+    internlm2-1.8b's head dim and granite-moe-1b-a400m's; the bf16
+    rounding of P and dS stays within the card's tolerance."""
+    _check_wgmma_emulation(rng, 1, 256, 256, 16, 8, d, True)
+
+
+def test_flash_bwd_design_routes():
+    """bf16 at d 64 and 128 takes the wgmma kernels, everything else the
+    CUDA-core ones; what no kernel takes raises."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in tflash.HEAD_DIMS:
+            want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
+                else "simt"
+            assert tflash.bwd_design(dtype, d) == want
+    with pytest.raises(ValueError):
+        tflash.bwd_design(torch.bfloat16, 96)
+    with pytest.raises(TypeError):
+        tflash.bwd_design(torch.float16, 64)
+
+
+def test_flash_bwd_design_matches_the_kernel_dispatch():
+    """``bwd_design`` is ``repro_flash_attention_bwd``'s dispatch: the bf16
+    cases that launch ``bwd_tc::launch`` are the wgmma head dims, the
+    others ``bwd::launch``; fp32 goes to ``bwd::dispatch_f32``."""
+    src = (Path(tflash.__file__).parents[1] / "csrc" /
+           "flash_attention.cu").read_text()
+    entry = src[src.index('extern "C" int repro_flash_attention_bwd'):]
+    tc_dims = {int(x) for x in
+               re.findall(r"case (\d+): return bwd_tc::launch<", entry)}
+    simt_dims = {int(x) for x in re.findall(
+        r"case (\d+): return bwd::launch<__nv_bfloat16,", entry)}
+    assert tc_dims | simt_dims == set(tflash.HEAD_DIMS)
+    for d in tflash.HEAD_DIMS:
+        assert tflash.bwd_design(torch.bfloat16, d) == \
+            ("wgmma" if d in tc_dims else "simt")
+    assert "if (dtype == kF32)\n    return bwd::dispatch_f32(" in entry
 
 
 @pytest.mark.parametrize("causal", [True, False])

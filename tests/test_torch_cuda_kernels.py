@@ -612,12 +612,15 @@ def test_flash_forward_lse_matches_plain(cuda, dtype, d, causal, sq):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,hq,hkv,d", [
-    (8, 256, 16, 8, 128), (1, 333, 16, 8, 128), (2, 65, 4, 4, 64),
-    (1, 77, 8, 1, 16), (2, 130, 4, 2, 32), (1, 1, 2, 1, 64)])
+    (8, 256, 16, 8, 128), (8, 256, 16, 8, 64), (1, 333, 16, 8, 128),
+    (2, 65, 4, 4, 64), (1, 77, 8, 1, 16), (2, 130, 4, 2, 32),
+    (1, 1, 2, 1, 64)])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, b, s, hq, hkv,
                                         d):
-    """Groups 1, 2, 4 and 8, ragged lengths, every head dim; the plain
-    backward gets the kernel forward's output and log-sum-exp."""
+    """Groups 1, 2, 4 and 8, ragged lengths, every head dim, the training
+    shape at internlm2's and granite-moe's head dims; the plain backward
+    gets the kernel forward's output and log-sum-exp. bf16 at d 64 and 128
+    runs the wgmma kernels, the rest the CUDA-core ones."""
     q, k, v, dout = _attn_inputs(cuda, dtype, b, s, s, hq, hkv, d)
     scale = 1.0 / d ** 0.5
     out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
@@ -631,15 +634,58 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, b, s, hq, hkv,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv", [(65, 200), (200, 65)])
-def test_flash_bwd_kernel_full_attention_skv_differs(cuda, sq, skv):
-    q, k, v, dout = _attn_inputs(cuda, torch.float32, 2, sq, skv, 4, 2, 64)
+def test_flash_bwd_kernel_full_attention_skv_differs(cuda, dtype, sq, skv):
+    q, k, v, dout = _attn_inputs(cuda, dtype, 2, sq, skv, 4, 2, 64)
     out, lse = tflash._kernel_forward(q, k, v, False, 0.125, with_lse=True)
     got = tflash._kernel_backward(q, k, v, out, dout, lse, False, 0.125)
+    torch.cuda.synchronize()
     want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=False,
                             scale=0.125)
     for g, w_ in zip(got, want):
-        _rel_close(g, w_, 1e-5)
+        _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 64])
+def test_flash_bwd_wgmma_is_bitwise_repeatable(cuda, d):
+    """Two calls at the training shape give the same gradients bit for bit:
+    no block adds into another's output, so a resumed run repeats."""
+    q, k, v, dout = _attn_inputs(cuda, torch.bfloat16, 8, 256, 256, 16, 8, d)
+    scale = d ** -0.5
+    out, lse = tflash._kernel_forward(q, k, v, True, scale, with_lse=True)
+    first = tflash._kernel_backward(q, k, v, out, dout, lse, True, scale)
+    second = tflash._kernel_backward(q, k, v, out, dout, lse, True, scale)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 128)])
+def test_flash_bwd_launches_the_kernels_of_its_design(cuda, dtype, d):
+    """By the profiler's kernel names: bf16 at d 64/128 runs the wgmma
+    kernels and never the CUDA-core ones; the rest the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, dout = _attn_inputs(cuda, dtype, 2, 130, 130, 8, 4, d)
+    scale = d ** -0.5
+    out, lse = tflash._kernel_forward(q, k, v, True, scale, with_lse=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tflash._kernel_backward(q, k, v, out, dout, lse, True, scale)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    wgmma = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+    simt = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+    want, never = (wgmma, simt) if tflash.bwd_design(dtype, d) == "wgmma" \
+        else (simt, wgmma)
+    assert "flash_bwd_preprocess_kernel" in names
+    assert all(n in names for n in want), names
+    assert not any(n in names for n in never), names
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch/`` or ``chip_smoke.py``; its copied configs equal the
+``src/repro_torch/``, ``chip_smoke.py`` or the port's measurement tool
+``tools/train_step_ab.py``; its copied configs equal the
 JAX package's, and so does every definition of its copies of the numpy
 layer; its entry points refuse a missing card instead of running on the
 CPU."""
@@ -19,7 +20,7 @@ from repro_torch.serving.engine import ServingEngine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py"]
 
 
 def _forbidden(name: str) -> bool:
