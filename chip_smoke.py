@@ -26,6 +26,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 max error, kernel time, plain-version time, the time of
                 the nearest PyTorch library call, and the bound (the least
                 time the card could take for the same work).
+                phi3-medium-14b, stablelm-12b, internvl2-1b,
+                musicgen-large and bert-base add rmsnorm at d 5120,
+                896, 2048 and 768, flash at their heads (stablelm-12b's
+                32/8 at d 160 on the wgmma kernel's three boxes), decode at
+                their heads (internvl2-1b's group of 7; stablelm-12b's d
+                160 at the serve cache and at 4096) and at
+                llama4-maverick's 40/8 (group 5), which has no full-width
+                path: its launches, like int8_matmul's, are the ones
+                checked here.
                 ``int8_matmul`` has no model call site; this phase is its
                 path, and its launches here are the ones reported; beside
                 its library call (``torch._int_mm`` and the scales) it
@@ -35,8 +44,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 which runs them through the port's ``ClusterRuntime``
                 (activation gating, modelled energy over ``h100_sxm()``):
                 internlm2-1.8b (rmsnorm, flash and decode attention),
-                mamba2-130m (rmsnorm, ssd_scan) and granite-moe-1b-a400m
-                (rmsnorm, flash and decode attention; MoE layers). Every
+                mamba2-130m (rmsnorm, ssd_scan), granite-moe-1b-a400m
+                (rmsnorm, flash and decode attention; MoE layers), and
+                phi3-medium-14b, stablelm-12b, internvl2-1b (tokens only,
+                as the JAX launcher serves it), musicgen-large and
+                bert-base (rmsnorm, flash and decode attention), each
+                model freed before the next loads. Every
                 kernel's launch count is reset just before each and read
                 just after; the path's
                 own kernels must have launched, the others not. The
@@ -70,6 +83,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 next expert, flipped by fp32 rounding) has its later logits
                 left out of the comparison and counted on the line, and a
                 flip at a top-k gap above ``FLIP_GAP`` fails the run.
+                Without MoE layers the card's greedy tokens must equal the
+                CPU's. stablelm-12b (d 160) and internvl2-1b (group 7, its
+                256 frontend embeddings prefilled first) have this phase
+                too.
 
 The ``kernels`` phase also holds the two backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``) to their closed-form plain
@@ -159,10 +176,21 @@ MAMBA_PARITY_PROMPTS = (77, 200)
 # longest prompts. bf16 runs the tensor-core design, fp32 the CUDA-core one.
 SSD_LENS = {torch.bfloat16: (512, 129, 101, 1024), torch.float32: (512, 129)}
 MOE_ARCH = "granite-moe-1b-a400m"
+# The other dense, VLM and audio archs, each served at full width through
+# the launcher; stablelm-12b's head_dim 160 and internvl2-1b's group of 7
+# are new shapes for the flash and decode kernels, and get a parity phase.
+NEW_ARCHS = ("phi3-medium-14b", "stablelm-12b", "internvl2-1b",
+             "musicgen-large", "bert-base")
+NEW_PARITY_ARCHS = ("stablelm-12b", "internvl2-1b")
+# llama4-maverick-400b-a17b is not served at full width on one card; its
+# decode heads (40/8, group 5) are checked in the kernels phase alone.
+GROUP5_ARCH = "llama4-maverick-400b-a17b"
+ATTN_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # Kernels each model's path runs; every other kernel must stay at 0.
-PATH_KERNELS = {ARCH: ("rmsnorm", "flash_attention", "decode_attention"),
+PATH_KERNELS = {ARCH: ATTN_KERNELS,
                 MAMBA_ARCH: ("rmsnorm", "ssd_scan"),
-                MOE_ARCH: ("rmsnorm", "flash_attention", "decode_attention")}
+                MOE_ARCH: ATTN_KERNELS,
+                **{arch: ATTN_KERNELS for arch in NEW_ARCHS}}
 # The training path: internlm2-1.8b at the launcher's seq and batch, full
 # remat; per step every layer's forward runs twice (remat), the final norm
 # once, and each backward once.
@@ -383,7 +411,8 @@ def _main_path_patterns() -> list:
     """Patterns of the ptxas labels of the instantiations the main paths
     launch: rmsnorm at each path's width in bf16, int8_matmul at the
     kernels phase's shapes (16-byte loads), flash and decode at each
-    attention path's head dim in bf16, each of ssd_scan's three
+    attention path's head dim in bf16 (decode at the bucket of its group),
+    each of ssd_scan's three
     tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
     parity path), the training path's backward kernels at internlm2's
     width and head dim in bf16 (flash: the wgmma design), and the flash
@@ -405,8 +434,10 @@ def _main_path_patterns() -> list:
         vec, nv, wpr, _ = krms.plan(1, cfg.d_model, 2, True)
         pats.append(rf"rmsnorm_kernel<bf16,{8 if vec else 1},{nv},{wpr}>")
         if "flash_attention" in PATH_KERNELS[arch]:
-            pats.append(rf"(flash_fwd_wgmma_kernel|decode_split_kernel)"
-                        rf"<bf16,{cfg.resolved_head_dim}(,\d+)?>")
+            hd, g = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+            gm = kdec.group_bucket(g)
+            pats += [rf"flash_fwd_wgmma_kernel<bf16,{hd}>",
+                     rf"decode_split_kernel<bf16,{hd},{gm},{int(g == gm)}>"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n in INT8_SHAPES:
         bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
@@ -561,16 +592,19 @@ def _flash_case(arch, sq, dtype, seed=0, b=1, path=None):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _decode_case(arch, dtype, skv, lengths, seed=0):
+def _decode_case(arch, dtype, skv, lengths, seed=0, path=None):
     """One layer's decode tick of SLOTS slots against a cache of ``skv`` at
-    ``arch``'s heads."""
+    ``arch``'s heads (``path``, where no serve run of ``arch`` gives the
+    row its launches: the kernels phase, which counts its checked call)."""
     b, (hq, hkv, d) = SLOTS, _heads(arch)
     q = randn((b, hq, d), dtype, seed)
     k = randn((b, skv, hkv, d), dtype, seed + 1)
     v = randn((b, skv, hkv, d), dtype, seed + 2)
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = kdec.KERNEL.launches
     out = kdec.decode_attention(q, k, v, length)
     torch.cuda.synchronize()
+    launches = kdec.KERNEL.launches - before
     err = max_err(out, kdec.plain(q, k, v, length), dtype)
     mask = (torch.arange(skv, device="cuda")[None, :] < length[:, None])
     mask = mask[:, None, None, :]
@@ -578,8 +612,10 @@ def _decode_case(arch, dtype, skv, lengths, seed=0):
     e = q.element_size()
     b_ms, by = bound(e * (2 * b * hq * d + 2 * sum(lengths) * hkv * d)
                      + 4 * b, 4 * sum(lengths) * hq * d, dtype)
-    return {"kernel": "decode_attention", "path": arch,
-            "shape": [b, skv, hq, hkv, d],
+    return {"kernel": "decode_attention", "path": path or arch,
+            "heads_of": arch, "shape": [b, skv, hq, hkv, d],
+            "group_bucket": kdec.group_bucket(hq // hkv),
+            "checked_launches": launches,
             "splits": kdec.num_splits(skv), "lengths": lengths,
             "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: kdec.decode_attention(q, k, v, length)),
@@ -673,8 +709,10 @@ def _int8_case(m, k, n, out_dtype, seed=0):
 def phase_kernels() -> dict:
     """Returns, for each (kernel, path), the first bf16 case: the shape
     that path gives the kernel (int8_matmul: the JAX benchmark's shape, in
-    fp32 as the JAX kernel's default output). int8_matmul's ``launches``
-    are its checked calls here: no model path calls it."""
+    fp32 as the JAX kernel's default output). The ``launches`` of a case
+    whose path is the kernels phase (int8_matmul; decode at
+    llama4-maverick's heads) are its checked calls here: no model path
+    runs it at full width."""
     d_model = {a: get_config(a).d_model for a in PATH_KERNELS}
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -697,6 +735,19 @@ def phase_kernels() -> dict:
             cases.append(_decode_case(ARCH, dtype, skv, lengths))
         cases.append(_flash_case(MOE_ARCH, PROMPT_LENS[0], dtype))
         cases.append(_decode_case(MOE_ARCH, dtype, *DECODE_CASES[0]))
+        # NEW_ARCHS: rmsnorm at each width (5120, 896, 2048, 768), flash at
+        # the first prompt and decode at the serve cache at each arch's
+        # heads; stablelm-12b's d 160 also at a cache of 4096, and
+        # llama4-maverick's group of 5 (no full-width path).
+        for arch in NEW_ARCHS:
+            for r in (PROMPT_LENS[0], SLOTS):
+                cases.append(_rmsnorm_case(arch, r, d_model[arch], dtype,
+                                           False))
+            cases.append(_flash_case(arch, PROMPT_LENS[0], dtype))
+            cases.append(_decode_case(arch, dtype, *DECODE_CASES[0]))
+        cases.append(_decode_case("stablelm-12b", dtype, *DECODE_CASES[1]))
+        cases.append(_decode_case(GROUP5_ARCH, dtype, *DECODE_CASES[0],
+                                  path=KERNELS_PHASE))
         for s in SSD_LENS[dtype]:
             cases.append(_ssd_case(s, dtype))
         # The training path: one norm and one attention of a step, forward
@@ -727,8 +778,10 @@ def phase_kernels() -> dict:
     head = {}
     for c in cases:
         head.setdefault((c["kernel"], c["path"]), c)
-    head["int8_matmul", KERNELS_PHASE]["launches"] = sum(
-        c["checked_launches"] for c in cases if c["kernel"] == "int8_matmul")
+    for (name, path), c in head.items():
+        if path == KERNELS_PHASE:
+            c["launches"] = sum(x["checked_launches"] for x in cases
+                                if (x["kernel"], x["path"]) == (name, path))
     return head
 
 
@@ -738,8 +791,10 @@ def phase_serve(smi: str, arch: str, prompt_lens) -> dict:
     and the modelled telemetry must equal a CPU run's of the same
     counts."""
     cfg = get_config(arch)
+    _free_card()                    # the previous model's weights
     # Warm-up (cuBLAS handles, allocator), then the measured run.
     serve(cfg, [prompt_lens[0]], max_new_tokens=2, slots=SLOTS, seed=0)
+    _free_card()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -779,6 +834,14 @@ def phase_serve(smi: str, arch: str, prompt_lens) -> dict:
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "kernel_launches": launches, "nvidia_smi": smi})
     return launches
+
+
+def _free_card() -> None:
+    """Collect what the last model left (engine, weights, caches) and give
+    its memory back, so the next model loads into an empty card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _check_path_launches(arch: str, launches: dict) -> None:
@@ -919,16 +982,26 @@ def phase_parity(arch: str, prompt_lens) -> None:
     """fp32 logits on the card (kernels) vs the CPU (plain versions):
     prefill of two prompts at batch 1, their caches copied into a batch of
     two slots, then three per-slot decode steps, as the batcher runs them.
-    Both sides are fed the CPU side's greedy tokens. With MoE layers, a
-    sequence whose routing differs between the sides in any layer is left
-    out of the logit comparison from then on (``RouterLog``)."""
+    Both sides are fed the CPU side's greedy tokens, and without MoE layers
+    the card's greedy tokens must equal them. An arch with a frontend
+    (internvl2-1b) prefills its ``frontend_tokens`` embeddings of
+    ``frontend_dim``, drawn from a seeded generator, before each prompt.
+    With MoE layers, a sequence whose routing differs between the sides in
+    any layer is left out of the logit comparison from then on
+    (``RouterLog``)."""
     cfg = get_config(arch).replace(dtype="float32",
                                    num_layers=PARITY_LAYERS)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.device("cpu"))
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens]
-    max_len = max(128, max(prompt_lens) + 8)
+    ft = cfg.frontend_tokens
+    # (b, frontend_tokens, frontend_dim), as the JAX launcher's specs lay
+    # the patch embeddings out; one row a prompt.
+    frontend = torch.randn((len(prompts), ft, cfg.frontend_dim or
+                            cfg.d_model), generator=torch.Generator()
+                           .manual_seed(2)) if ft else None
+    max_len = max(128, ft + max(prompt_lens) + 8)
     engines, caches = {}, {}
     for side, dev in PARITY_SIDES.items():
         engines[side] = ServingEngine(cfg, ServeConfig(max_seq_len=max_len),
@@ -937,6 +1010,7 @@ def phase_parity(arch: str, prompt_lens) -> None:
         caches[side] = lm.init_caches(cfg, len(prompts), max_len,
                                       torch.device(dev))
     errs, nxt, flips, flipped = [], [], [], set()
+    greedy = {side: [] for side in PARITY_SIDES}
 
     def agreeing(step_flips, rows):
         flips.extend(step_flips)
@@ -949,14 +1023,20 @@ def phase_parity(arch: str, prompt_lens) -> None:
             lg = {}
             for side, eng in engines.items():
                 log.side = side
-                toks = torch.as_tensor(p[None], device=eng.device)
-                lg[side], c1 = eng.prefill_fn(eng.params, {"tokens": toks})
+                batch = {"tokens": torch.as_tensor(p[None],
+                                                   device=eng.device)}
+                if frontend is not None:
+                    batch["vision_embeds"] = frontend[slot:slot + 1].to(
+                        eng.device)
+                lg[side], c1 = eng.prefill_fn(eng.params, batch)
                 for big, small in zip(caches[side], c1):
                     for name, leaf in big.items():
                         leaf[slot].copy_(small[name][0])
             errs.append(_logit_err(lg, agreeing(log.flips(), [slot])))
-            nxt.append(int(torch.argmax(lg["cpu"][0])))
-        pos = np.array([len(p) for p in prompts])
+            for side in PARITY_SIDES:
+                greedy[side].append([int(torch.argmax(lg[side][0]))])
+            nxt.append(greedy["cpu"][-1][0])
+        pos = np.array([ft + len(p) for p in prompts])
         for _ in range(3):
             lg = {}
             for side, eng in engines.items():
@@ -968,14 +1048,19 @@ def phase_parity(arch: str, prompt_lens) -> None:
                                                   device=eng.device))
             errs.append(_logit_err(lg, agreeing(log.flips(),
                                                 list(range(len(prompts))))))
-            nxt = torch.argmax(lg["cpu"], dim=-1).tolist()
+            for side in PARITY_SIDES:
+                greedy[side].append(torch.argmax(lg[side], dim=-1).tolist())
+            nxt = greedy["cpu"][-1]
             pos = pos + 1
     launches = ops.launch_counts()
     _check_path_launches(arch, launches)
+    tokens_equal = greedy["card"] == greedy["cpu"]
     line = {"phase": "parity", "arch": arch, "dtype": "float32",
             "layers": PARITY_LAYERS, "prompt_lens": list(prompt_lens),
-            "decode_steps": 3, "tolerance": PARITY_TOL,
-            "max_abs_err_per_step": errs, "kernel_launches": launches}
+            "frontend_tokens": ft, "decode_steps": 3,
+            "tolerance": PARITY_TOL, "max_abs_err_per_step": errs,
+            "greedy_tokens_equal": tokens_equal,
+            "greedy_tokens_cpu": greedy["cpu"], "kernel_launches": launches}
     if cfg.moe is not None:
         line["routing"] = {
             "token_layers": log.token_layers, "flips": len(flips),
@@ -986,6 +1071,9 @@ def phase_parity(arch: str, prompt_lens) -> None:
                      "rows of sequences whose routing agreed in every "
                      "layer; a null step held none")}
     emit(line)
+    if cfg.moe is None and not tokens_equal:
+        raise AssertionError(f"{arch}: greedy tokens differ card vs CPU: "
+                             f"{greedy['card']} != {greedy['cpu']}")
     bad = [g for _, g in flips if g > FLIP_GAP]
     if bad:
         raise AssertionError(f"{arch}: routing differs card vs CPU at top-k "
@@ -1200,13 +1288,18 @@ def main() -> None:
     served = {arch: phase_serve(dev["nvidia_smi"], arch, lens)
               for arch, lens in ((ARCH, PROMPT_LENS),
                                  (MAMBA_ARCH, MAMBA_PROMPT_LENS),
-                                 (MOE_ARCH, PROMPT_LENS))}
+                                 (MOE_ARCH, PROMPT_LENS),
+                                 *((a, PROMPT_LENS) for a in NEW_ARCHS))}
+    _free_card()
     phase_profile(ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
     phase_profile(MAMBA_ARCH, MAMBA_PROMPT_LENS, 512)
     phase_profile(MOE_ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))
+    for arch in NEW_PARITY_ARCHS:
+        phase_parity(arch, (77, 45))
+        _free_card()
     served[TRAIN_PATH] = phase_train(dev["nvidia_smi"])
     phase_train_parity()
     # One row per kernel and path: its launches from that path's own serve
@@ -1226,7 +1319,9 @@ def main() -> None:
         kernels.append({
             "name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "launches_from": origin, **per_step, "shape": c["shape"],
+            "launches_from": origin, **per_step,
+            **({"heads_of": c["heads_of"]} if "heads_of" in c else {}),
+            "shape": c["shape"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -27,6 +27,17 @@
 //   whole tile for all G heads are formed first (one thread per row and
 //   head group), then one max, one exp2 pass and one rescale per head and
 //   tile (a warp per head), then P.V with each thread owning 16 bytes of d.
+// * Any head dim that is a whole number of 16-byte chunks (16, 32, 64, 128
+//   and 160 are instantiated; d 160 is 20 chunks in bf16, 40 in fp32) and
+//   any group G = hq / hkv from 1 to 16: one instantiation serves each
+//   bucket of groups (GM = 1, 2, 4, 8, 16, the least GM >= G), sizing
+//   shared memory and registers for GM; a group equal to its bucket runs
+//   an instantiation where G is that constant, the others (3, 5-7, 9-15)
+//   one that reads G at run time. The P.V ownership (Layout) puts every
+//   (q head, 16 bytes of d, cache row) under exactly one thread for every
+//   G <= GM, with guarded loops where the thread groups and G do not
+//   divide each other (G 5 or 7, d 160); the threads left over idle.
+//   tests/test_torch_kernels.py reads the same arithmetic.
 // * Combine in the same launch: each block writes its fp32 partial
 //   (m, l, acc[G][d], unnormalised) to scratch, fences, and counts itself
 //   on an int32 counter of its (b, kv head); the block that counts last
@@ -73,18 +84,27 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T, int D, int G>
+// Shapes of the kernel for head dim D and groups of at most GM q heads a kv
+// head (GM = 1, 2, 4, 8 or 16; the group g = hq / hkv <= GM, GM itself in the
+// exact instantiations). P.V: thread t takes 16 bytes of d (chunk t % CH) in
+// thread group t / CH; HG = kThreads / CH groups, the kThreads % CH threads
+// past them idle (CH = 20 at d 160 in bf16, 40 in fp32). Group grp takes head
+// grp % g over row slice grp / g of R = max(1, HG / g) slices, and heads grp +
+// HG, grp + 2 HG, ... below g when g > HG: so each (head, 16 bytes of d, cache
+// row) falls to exactly one thread for every g <= GM, and groups at or past
+// min(HG, R g) idle.
+template <typename T, int D, int GM>
 struct Layout {
   static constexpr int VE = 16 / static_cast<int>(sizeof(T));  // elems / 16 B
   static constexpr int CH = D / VE;             // 16-byte chunks per row
   static constexpr int LDS = D + VE;            // smem row, 16 B of padding
   static constexpr int HG = kThreads / CH;      // thread groups in P.V
-  static constexpr int HPT = G > HG ? G / HG : 1;  // heads per thread
-  static constexpr int R = G < HG ? HG / G : 1;    // row slices per head
-  static constexpr int SPT = (G + 1) / 2;       // score heads per thread
+  static constexpr int HPT = (GM + HG - 1) / HG;  // at most, heads a thread
+  static constexpr int SPT = (GM + 1) / 2;      // score heads per thread
+  static_assert(D % VE == 0 && HG >= 1, "head dim");
   static size_t smem(int stages) {
     return sizeof(T) * static_cast<size_t>(stages) * 2 * kTile * LDS +
-           sizeof(float) * (G * D + G * kTile + kThreads * VE + 3 * G);
+           sizeof(float) * (GM * D + GM * kTile + kThreads * VE + 3 * GM);
   }
 };
 
@@ -112,7 +132,7 @@ __device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int GM, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ length,
@@ -120,18 +140,21 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ part_acc, int* __restrict__ counter,
                     int skv, int hq, int hkv, int splits, int split_rows,
                     float scale_log2) {
-  using L = Layout<T, D, G>;
+  using L = Layout<T, D, GM>;
   constexpr int VE = L::VE, CH = L::CH, LDS = L::LDS, HG = L::HG;
-  constexpr int HPT = L::HPT, R = L::R, SPT = L::SPT;
+  constexpr int HPT = L::HPT, SPT = L::SPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // q heads of this kv head: GM itself where the group is exactly the
+  // bucket (a constant the compiler folds), else read at run time.
+  const int G = kExact ? GM : hq / hkv;
   const int stages = split_rows > kTile ? 2 : 1;  // as launch() sized it
   T* tiles = reinterpret_cast<T*>(smem_raw);  // [stages][K, V][kTile][LDS]
   float* q_sm = reinterpret_cast<float*>(tiles + stages * 2 * kTile * LDS);
-  float* s_sm = q_sm + G * D;         // [G][kTile] scores, then p
-  float* red = s_sm + G * kTile;      // [kThreads][VE] row-slice partials
+  float* s_sm = q_sm + GM * D;        // [G][kTile] scores, then p
+  float* red = s_sm + GM * kTile;     // [kThreads][VE] row-slice partials
   float* st_m = red + kThreads * VE;  // [G] running max (log2 units)
-  float* st_l = st_m + G;             // [G] running sum
-  float* st_a = st_l + G;             // [G] this tile's rescale
+  float* st_l = st_m + GM;            // [G] running sum
+  float* st_a = st_l + GM;            // [G] this tile's rescale
   __shared__ int is_last;
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -157,11 +180,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       st_l[tid] = 0.f;
     }
 
-    // P.V ownership: 16 bytes of d (chunk pc) for heads pg .. (HPT of them,
-    // HG apart), over the rows of slice rs (R slices, when G < HG).
+    // P.V ownership (Layout): 16 bytes of d (chunk pc) for heads pg,
+    // pg + HG, ... below G, over the rows of slice rs of R.
     const int pc = tid % CH, grp = tid / CH;
-    const int pg = HPT > 1 ? grp : grp % G;
-    const int rs = HPT > 1 ? 0 : grp / G;
+    const int R = G < HG ? HG / G : 1;
+    const bool pv_active = grp < min(HG, R * G);
+    const int pg = grp % G, rs = grp / G;
     float acc[HPT][VE];
 #pragma unroll
     for (int i = 0; i < HPT; ++i)
@@ -231,40 +255,50 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (ahead) cp_async_wait<2>(); else cp_async_wait<0>();
       __syncthreads();  // V of tile t and p visible to all
 
-#pragma unroll
-      for (int i = 0; i < HPT; ++i) {
-        const float alpha = st_a[pg + HG * i];
-#pragma unroll
-        for (int e = 0; e < VE; ++e) acc[i][e] *= alpha;
-      }
-      for (int r = rs; r < nr; r += R) {
-        float vf[VE];
-        load16<T>(vs + r * LDS + pc * VE, vf);
+      if (pv_active) {
 #pragma unroll
         for (int i = 0; i < HPT; ++i) {
-          const float p = s_sm[(pg + HG * i) * kTile + r];
+          if (pg + HG * i < G) {
+            const float alpha = st_a[pg + HG * i];
 #pragma unroll
-          for (int e = 0; e < VE; ++e) acc[i][e] += p * vf[e];
+            for (int e = 0; e < VE; ++e) acc[i][e] *= alpha;
+          }
+        }
+        for (int r = rs; r < nr; r += R) {
+          float vf[VE];
+          load16<T>(vs + r * LDS + pc * VE, vf);
+#pragma unroll
+          for (int i = 0; i < HPT; ++i) {
+            if (pg + HG * i < G) {
+              const float p = s_sm[(pg + HG * i) * kTile + r];
+#pragma unroll
+              for (int e = 0; e < VE; ++e) acc[i][e] += p * vf[e];
+            }
+          }
         }
       }
       __syncthreads();  // this stage's tiles and s_sm are free again
     }
 
     float* pa = part_acc + static_cast<size_t>(pidx) * G * D;
-    if constexpr (R == 1) {
+    if (R == 1) {
+      if (pv_active) {
 #pragma unroll
-      for (int i = 0; i < HPT; ++i)
+        for (int i = 0; i < HPT; ++i)
+          if (pg + HG * i < G)
 #pragma unroll
-        for (int e = 0; e < VE; ++e)
-          pa[(pg + HG * i) * D + pc * VE + e] = acc[i][e];
+            for (int e = 0; e < VE; ++e)
+              pa[(pg + HG * i) * D + pc * VE + e] = acc[i][e];
+      }
     } else {
+      // Thread grp * CH + pc holds slice grp / G of head grp % G; the
+      // slices of a (head, chunk) are summed in order.
 #pragma unroll
       for (int e = 0; e < VE; ++e) red[tid * VE + e] = acc[0][e];
       __syncthreads();
       for (int i = tid; i < G * D; i += kThreads) {
         const int g = i / D, dd = i % D;
         float sum = 0.f;
-#pragma unroll
         for (int s = 0; s < R; ++s)
           sum += red[((s * G + g) * CH + dd / VE) * VE + dd % VE];
         pa[i] = sum;
@@ -315,21 +349,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int GM, bool kExact>
 int launch(const void* q, const void* k, const void* v, const int* length,
            void* o, float* part_ml, float* part_acc, int* counter, int b,
            int skv, int hq, int hkv, int split_rows, float scale,
            cudaStream_t stream) {
   const int splits = (skv + split_rows - 1) / split_rows;
-  if (splits > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 32 || hq / hkv > GM || (kExact && hq / hkv != GM))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int stages = split_rows > kTile ? 2 : 1;
-  const size_t smem = Layout<T, D, G>::smem(stages);
+  const size_t smem = Layout<T, D, GM>::smem(stages);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T, D, G>,
+      decode_split_kernel<T, D, GM, kExact>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(splits, hkv, b);
-  decode_split_kernel<T, D, G><<<grid, kThreads, smem, stream>>>(
+  decode_split_kernel<T, D, GM, kExact><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), length, static_cast<T*>(o), part_ml,
       part_acc, counter, skv, hq, hkv, splits, split_rows, scale * kLog2e);
@@ -340,18 +375,26 @@ int launch(const void* q, const void* k, const void* v, const int* length,
   q, k, v, length, o, part_ml, part_acc, counter, b, skv, hq, hkv, \
       split_rows, scale, s
 
+// The group g = hq / hkv takes the instantiation of the least GM >= g: the
+// exact one (g a compile-time constant) where g == GM, else the one that
+// reads g at run time.
 template <typename T, int D>
 int dispatch_g(int g, const void* q, const void* k, const void* v,
                const int* length, void* o, float* part_ml, float* part_acc,
                int* counter, int b, int skv, int hq, int hkv, int split_rows,
                float scale, cudaStream_t s) {
   switch (g) {
-    case 1: return launch<T, D, 1>(REPRO_DECODE_ARGS);
-    case 2: return launch<T, D, 2>(REPRO_DECODE_ARGS);
-    case 4: return launch<T, D, 4>(REPRO_DECODE_ARGS);
-    case 8: return launch<T, D, 8>(REPRO_DECODE_ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch<T, D, 1, true>(REPRO_DECODE_ARGS);
+    case 2: return launch<T, D, 2, true>(REPRO_DECODE_ARGS);
+    case 4: return launch<T, D, 4, true>(REPRO_DECODE_ARGS);
+    case 8: return launch<T, D, 8, true>(REPRO_DECODE_ARGS);
+    case 16: return launch<T, D, 16, true>(REPRO_DECODE_ARGS);
   }
+  if (g < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (g <= 4) return launch<T, D, 4, false>(REPRO_DECODE_ARGS);
+  if (g <= 8) return launch<T, D, 8, false>(REPRO_DECODE_ARGS);
+  if (g <= 16) return launch<T, D, 16, false>(REPRO_DECODE_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -364,6 +407,7 @@ int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
     case 32: return dispatch_g<T, 32>(g, REPRO_DECODE_ARGS);
     case 64: return dispatch_g<T, 64>(g, REPRO_DECODE_ARGS);
     case 128: return dispatch_g<T, 128>(g, REPRO_DECODE_ARGS);
+    case 160: return dispatch_g<T, 160>(g, REPRO_DECODE_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -377,7 +421,9 @@ int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
 // fp32 scratch, splits = ceil(skv / split_rows), written only for the
 // splits below ceil(length / split_rows); counter: b * hkv int32,
 // zero on entry and left zero on exit. split_rows is a multiple of 64 and
-// gives at most 32 splits (the combine takes one split per lane).
+// gives at most 32 splits (the combine takes one split per lane). d is 16,
+// 32, 64, 128 or 160 and hq / hkv at most 16; anything else returns
+// cudaErrorInvalidValue.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* length,
                                       void* o, void* part_ml, void* part_acc,

@@ -7,10 +7,10 @@
 //
 // Two hand-written kernels serve it, chosen by dtype and head dim:
 //
-// * flash_fwd_wgmma_kernel: bf16 at d 64 or 128 (the serving path). Bound on
-//   the H100: at a few hundred tokens and b 1 the work is a few GFLOP and
-//   K, V of a layer sit in L2, so the card is short of blocks and of
-//   latency hiding, not of bandwidth. Design: one warpgroup (128 threads)
+// * flash_fwd_wgmma_kernel: bf16 at d 64, 128 or 160 (the serving path).
+//   Bound on the H100: at a few hundred tokens and b 1 the work is a few
+//   GFLOP and K, V of a layer sit in L2, so the card is short of blocks
+//   and of latency hiding, not of bandwidth. Design: one warpgroup (128 threads)
 //   per 64 query rows of one q head; the grid is (q tiles x hq x b), q tiles
 //   issued longest first (the diagonal-heavy tiles of a causal prefill).
 //   Q and a 2-stage ring of K/V tiles (64 kv rows) come in by TMA with
@@ -23,8 +23,14 @@
 //   wgmma (its accumulator layout is the A fragment layout). V is read
 //   MN-major with the transpose bit. Tiles wholly above the diagonal are
 //   never loaded; rows past sq and columns past skv come in as zeros
-//   from TMA, are masked, and are never written.
-// * flash_fwd_simt_kernel: fp32 at any d, and bf16 at d 16 or 32. fp32
+//   from TMA, are masked, and are never written. d 160 (stablelm-12b)
+//   comes in as three 64-column boxes, the third's columns 160-191 past
+//   the tensor map and so zeros from TMA: Q.K^T stops its k steps at 160,
+//   and P.V runs at N = 192 (one m64n192k16 wgmma a k step), whose last
+//   32 accumulator columns are zeros and never stored. 120 KB of shared
+//   memory (one block an SM) and 96 fp32 accumulators a thread.
+// * flash_fwd_simt_kernel: fp32 at every d (16, 32, 64, 128, 160; 137 KB
+//   of shared memory at 160), and bf16 at d 16 or 32. fp32
 //   products on the CUDA cores: full fp32 products are what the fp32 path
 //   is checked for (1e-4), which TF32 tensor cores would not hold. One
 //   block of 256 threads per (q tile of 64 rows, q head, batch); it stages
@@ -68,7 +74,7 @@
 //   blocks would need atomics (no bitwise resume), and writing dS out
 //   would move about 2 x 16.8 MB more at the training shape, where the
 //   recomputation is 2 of 7 products on the tensor cores.
-// * fp32 at any d, and bf16 at d 16 or 32: flash_bwd_dkdv_kernel and
+// * fp32 at d 16 to 128, and bf16 at d 16 or 32: flash_bwd_dkdv_kernel and
 //   flash_bwd_dq_kernel, fp32 products on the CUDA cores, the same split:
 //   one block of 256 threads a (kv tile, kv head, batch) and a (q tile, q
 //   head, batch). Tiles are staged in shared memory as fp32, rows padded
@@ -265,7 +271,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 at every head dim.
+// fp32 at every head dim the forward takes.
 int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
                   float* lse, int b, int sq, int skv, int hq, int hkv,
                   float scale, int causal, cudaStream_t s) {
@@ -274,12 +280,13 @@ int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
     case 32: return launch_simt<float, 32>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
     case 64: return launch_simt<float, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
     case 128: return launch_simt<float, 128>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
+    case 160: return launch_simt<float, 160>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel (wgmma + TMA), d = 64 or 128.
+// bf16 tensor-core kernel (wgmma + TMA), d = 64, 128 or 160.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -292,10 +299,15 @@ constexpr int kBox = 64 * 64;  // one TMA box: 64 rows x 64 bf16 (128 B)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// 64-column boxes a row of head dim D: d 160 takes three, the third's
+// columns 160-191 past the tensor map, which TMA fills with zeros.
+template <int D>
+__host__ __device__ constexpr int boxes() { return (D + 63) / 64; }
+
 template <int D>
 constexpr size_t smem_bytes() {
   // 1024 for the alignment of the swizzled boxes, Q, the K/V ring, barriers
-  return 1024 + sizeof(bf16) * static_cast<size_t>(kBox) * (D / 64) *
+  return 1024 + sizeof(bf16) * static_cast<size_t>(kBox) * boxes<D>() *
                     (1 + 2 * kStages) + 8 * (1 + kStages);
 }
 
@@ -330,6 +342,12 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               uint64_t desc) {
   wgmma_m64n128k16_rs_tb(o, a, desc);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  wgmma_m64n192k16_rs_tb(o, a, desc);
+}
 
 // Accumulator layout of a wgmma m64nN (fp32), thread t of the warpgroup:
 // row 16 * (t / 32) + (t % 32) / 4 (+ 8 for the odd pair), column
@@ -338,7 +356,8 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
 // 8 kk .. 8 kk + 7 are exactly the A fragment of a m64k16 wgmma.
 
 // acc (64 x 64) += A . B^T: A and B are 64-row tiles of d columns in
-// smem, K-major in D / 64 swizzled boxes (as TMA writes them).
+// smem, K-major in ceil(D / 64) swizzled boxes (as TMA writes them); the
+// k steps stop at D, so a third box's zero columns are never read.
 template <int D>
 __device__ __forceinline__ void mma_abt(float (&acc)[32], const bf16* a,
                                         const bf16* b) {
@@ -350,16 +369,16 @@ __device__ __forceinline__ void mma_abt(float (&acc)[32], const bf16* a,
   }
 }
 
-// acc (64 x D) += A . B: A (64 x 64) in registers, the bf16 pairs of an
+// acc (64 x N) += A . B: A (64 x 64) in registers, the bf16 pairs of an
 // accumulator (registers 8 kk .. 8 kk + 7 are the A fragment of k step
-// kk); B a 64-row tile of d columns in smem, read MN-major.
-template <int D>
-__device__ __forceinline__ void mma_rb(float (&acc)[D / 2],
+// kk); B a 64-row tile of N / 64 whole boxes in smem, read MN-major.
+template <int N>
+__device__ __forceinline__ void mma_rb(float (&acc)[N / 2],
                                        const uint32_t (&a)[4][4],
                                        const bf16* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_pv<D>(acc, a[kk],
+    wgmma_pv<N>(acc, a[kk],
                 desc_sw128(b + kk * 16 * 64, kBox * sizeof(bf16), 1024));
 }
 
@@ -381,7 +400,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        bf16* __restrict__ o, float* __restrict__ lse, int b,
                        int sq, int skv, int hq, int hkv, int n_qtiles,
                        float scale_log2, int causal) {
-  constexpr int NB = D / 64;  // 64-column boxes per row
+  constexpr int NB = boxes<D>();  // 64-column boxes per row
+  constexpr int NP = 64 * NB;     // P.V's N: d, or d 160 padded to 192
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
@@ -434,9 +454,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int row_a = q0 + warp * 16 + (lane >> 2);  // and row_a + 8
   const int col_t = 2 * (lane & 3);
 
-  float acc[D / 2];
+  float acc[NP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
   mbar_wait(qbar, 0);
@@ -495,7 +515,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l_a = l_a * alpha_a + sum_a;  // this thread's columns; quad sum at the end
     l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
+    for (int jj = 0; jj < NP / 8; ++jj) {
       acc[4 * jj] *= alpha_a;
       acc[4 * jj + 1] *= alpha_a;
       acc[4 * jj + 2] *= alpha_b;
@@ -503,12 +523,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // O += P . V: P in bf16 from registers, V (kv x d, d contiguous) read
-    // MN-major; k steps of 16 kv rows are 16 x 128 B = 2048 B apart.
+    // MN-major; k steps of 16 kv rows are 16 x 128 B = 2048 B apart. At d
+    // 160 the product runs over N = 192: V's columns past 160 are TMA's
+    // zeros, and the accumulator columns they give are never stored.
     uint32_t p[4][4];
     pack_a(p, s);
     fence_regs(acc);
     wgmma_fence();
-    mma_rb<D>(acc, p, Vt);
+    mma_rb<NP>(acc, p, Vt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -617,7 +639,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Backward: CUDA-core kernels, fp32 products: fp32 at any head dim, bf16
+// Backward: CUDA-core kernels, fp32 products: fp32 at d 16 to 128, bf16
 // at 16 or 32.
 // ---------------------------------------------------------------------------
 namespace bwd {
@@ -994,7 +1016,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 at every head dim.
+// fp32 at every head dim the backward takes (16, 32, 64, 128; not 160).
 int dispatch_f32(int d, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const float* lse,
                  float* delta, void* dq, void* dk, void* dv, int b, int sq,
@@ -1459,6 +1481,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       case 32: return launch_simt<__nv_bfloat16, 32>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
       case 64: return tc::launch<64>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
       case 128: return tc::launch<128>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
+      case 160: return tc::launch<160>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -5,8 +5,10 @@ Replaces ``src/repro/kernels/decode_attention.py::decode_attention`` of the
 JAX package. A tensor on the CPU goes to the plain version
 (``ref.decode_attention_ref``); a CUDA tensor goes to the kernel, or the
 call raises. The kernel has no backward: on the card, a call that autograd
-would record raises ``NotImplementedError``. Any ``skv`` is taken; head_dim must be 16, 32, 64 or 128 and
-``hq / hkv`` 1, 2, 4 or 8, in bf16 or fp32.
+would record raises ``NotImplementedError``. Any ``skv`` is taken; head_dim
+must be 16, 32, 64, 128 or 160 and ``hq / hkv`` any group from 1 to
+``MAX_GROUP`` (16), in bf16 or fp32. :func:`pv_layout` is the kernel's
+arithmetic for who owns which head, 16 bytes of d and cache row in P.V.
 
 The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
 each over ``split_rows(skv)`` cache rows, combined in the same launch by
@@ -29,8 +31,9 @@ from repro_torch.kernels._build import (check_operand, dtype_code,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 128, 160)
+MAX_GROUP = 16
+THREADS = 128   # a block (kThreads)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "decode_attention", "repro_decode_attention",
@@ -52,6 +55,31 @@ def split_rows(skv: int) -> int:
 
 def num_splits(skv: int) -> int:
     return -(-skv // split_rows(skv))
+
+
+def group_bucket(g: int) -> int:
+    """The bucket of the instantiation that serves group ``g``: the least
+    of 1, 2, 4, 8, 16 at or above it (``dispatch_g``; the group is a
+    constant there where it equals its bucket, else read at run time)."""
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"hq / hkv = {g} not in 1..{MAX_GROUP}")
+    return next(gm for gm in (1, 2, 4, 8, 16) if gm >= g)
+
+
+def pv_layout(element_size: int, d: int, g: int) -> Dict[str, int]:
+    """The P.V ownership of ``csrc/decode_attention.cu`` (``Layout`` and
+    the kernel's ``pc``, ``grp``, ``R``, ``pg``, ``rs``): thread t takes
+    16-byte chunk ``t % ch`` of d in thread group ``t // ch``; group grp,
+    if below ``active``, takes head ``grp % g`` over the rows r with
+    ``r % r_slices == grp // g``, and heads ``grp % g + hg * i`` below g
+    for i < ``hpt``."""
+    ve = 16 // element_size
+    ch = d // ve
+    hg = THREADS // ch
+    gm = group_bucket(g)
+    r_slices = hg // g if g < hg else 1
+    return {"ve": ve, "ch": ch, "hg": hg, "hpt": -(-gm // hg),
+            "r_slices": r_slices, "active": min(hg, r_slices * g)}
 
 
 def _counter(device: torch.device, n: int) -> torch.Tensor:
@@ -87,8 +115,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, length {tuple(length.shape)} "
                          "do not fit")
-    if hkv == 0 or hq % hkv or hq // hkv not in GROUPS:
-        raise ValueError(f"hq / hkv = {hq}/{hkv} not in {GROUPS}")
+    if hkv == 0 or hq % hkv or not 1 <= hq // hkv <= MAX_GROUP:
+        raise ValueError(f"hq / hkv = {hq}/{hkv} is not a group of 1 to "
+                         f"{MAX_GROUP} q heads a kv head")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if skv == 0:

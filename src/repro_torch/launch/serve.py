@@ -20,18 +20,22 @@ req/s a share decides how many slots the runtime wakes, so it is not what
 the card could sustain.
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b
-    python -m repro_torch.launch.serve --arch mamba2-130m
-    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+    python -m repro_torch.launch.serve --arch stablelm-12b
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --smoke --device cpu
 
-``--arch`` takes any arch of ``repro_torch.configs.PORTED_ARCHS``: the
-dense internlm2-1.8b and qwen2-72b, the SSM mamba2-130m, the MoE
+``--arch`` takes any arch of ``repro_torch.configs.PORTED_ARCHS``, all
+eleven of the JAX package's configs: the dense internlm2-1.8b,
+phi3-medium-14b, stablelm-12b, bert-base and qwen2-72b, the audio
+musicgen-large and the VLM internvl2-1b (backbones; the launcher sends
+tokens only, as the JAX launcher does), the SSM mamba2-130m, the MoE
 granite-moe-1b-a400m and llama4-maverick-400b-a17b, and the hybrid
-jamba-1.5-large-398b (Mamba, attention and MoE layers). On one card at
-full width: internlm2-1.8b, mamba2-130m and granite-moe-1b-a400m; the
-others at ``--smoke``. Mamba prompts keep the SSD contract:
-``--prompt-len`` at most the config's chunk (256; 32 at smoke size) or a
-multiple of it.
+jamba-1.5-large-398b (Mamba, attention and MoE layers). bert-base runs
+as the JAX package runs it, the same causal dense stack. On one card at
+full width: internlm2-1.8b, phi3-medium-14b, stablelm-12b,
+musicgen-large, internvl2-1b, bert-base, mamba2-130m and
+granite-moe-1b-a400m; the others at ``--smoke``. Mamba prompts keep the
+SSD contract: ``--prompt-len`` at most the config's chunk (256; 32 at
+smoke size) or a multiple of it.
 """
 from __future__ import annotations
 

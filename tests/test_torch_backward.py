@@ -292,9 +292,13 @@ def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
 
 def test_flash_bwd_design_routes():
     """bf16 at d 64 and 128 takes the wgmma kernels, everything else the
-    CUDA-core ones; what no kernel takes raises."""
+    CUDA-core ones; what no kernel takes raises, d 160 among them (the
+    forward takes it, the backward not yet)."""
+    assert set(tflash.BWD_HEAD_DIMS) == set(tflash.HEAD_DIMS) - {160}
     for dtype in (torch.float32, torch.bfloat16):
-        for d in tflash.HEAD_DIMS:
+        with pytest.raises(ValueError):
+            tflash.bwd_design(dtype, 160)
+        for d in tflash.BWD_HEAD_DIMS:
             want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
                 else "simt"
             assert tflash.bwd_design(dtype, d) == want
@@ -315,8 +319,8 @@ def test_flash_bwd_design_matches_the_kernel_dispatch():
                re.findall(r"case (\d+): return bwd_tc::launch<", entry)}
     simt_dims = {int(x) for x in re.findall(
         r"case (\d+): return bwd::launch<__nv_bfloat16,", entry)}
-    assert tc_dims | simt_dims == set(tflash.HEAD_DIMS)
-    for d in tflash.HEAD_DIMS:
+    assert tc_dims | simt_dims == set(tflash.BWD_HEAD_DIMS)
+    for d in tflash.BWD_HEAD_DIMS:
         assert tflash.bwd_design(torch.bfloat16, d) == \
             ("wgmma" if d in tc_dims else "simt")
     assert "if (dtype == kF32)\n    return bwd::dispatch_f32(" in entry
@@ -485,6 +489,23 @@ def test_card_grad_runs_the_backward_kernels(fake_card, rng):
         calls.clear()
         ops.attention(q, q[:, :, :2], q[:, :, 2:])
         assert calls == ["flash"]       # serving: no lse written
+
+
+def test_card_flash_at_head_dim_160_raises_under_grad(fake_card, rng):
+    """The forward kernels take d 160, the backward kernels not yet: on the
+    card a call autograd would record refuses before any launch, and the
+    same call under no_grad reaches the forward kernel."""
+    calls = []
+    fake_card.setattr(tflash, "_kernel_forward",
+                      lambda *a, **kw: calls.append("flash") or (None, None))
+    q = torch.randn(1, 8, 4, 160, requires_grad=True)
+    kv = torch.randn(1, 8, 2, 160)
+    with pytest.raises(NotImplementedError, match="head_dim 160"):
+        ops.attention(q, kv, kv)
+    assert calls == []
+    with torch.no_grad():
+        ops.attention(q, kv, kv)
+    assert calls == ["flash"]
 
 
 def test_card_kernels_without_backward_raise_under_grad(fake_card, rng):

@@ -166,7 +166,9 @@ def test_flash_kernel_full_attention_skv_differs(cuda, dtype, d, sq, skv):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 128), (torch.bfloat16, 64),    # flash_fwd_wgmma_kernel
-    (torch.bfloat16, 32), (torch.float32, 128)])    # flash_fwd_simt_kernel
+    (torch.bfloat16, 160),
+    (torch.bfloat16, 32), (torch.float32, 128),     # flash_fwd_simt_kernel
+    (torch.float32, 160)])
 def test_flash_both_routes_launch(cuda, dtype, d):
     """Each route is a kernel launch, counted under flash_attention."""
     q = _randn((1, 70, 4, d), dtype, cuda, 0)
@@ -175,6 +177,56 @@ def test_flash_both_routes_launch(cuda, dtype, d):
     tflash.flash_attention(q, kv, kv)
     torch.cuda.synchronize()
     assert tflash.KERNEL.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,hq,hkv", [
+    (1, 333, 32, 8), (1, 65, 32, 8), (2, 1, 4, 1), (1, 130, 14, 2),
+    (1, 700, 8, 8)])
+def test_flash_kernel_head_dim_160(cuda, dtype, causal, b, sq, hq, hkv):
+    """stablelm-12b's d 160 (bf16: the wgmma kernel's three boxes, the
+    third zero past 160, P.V at N 192; fp32: the CUDA-core kernel), at its
+    32/8 heads and at groups 4, 7 and 1, ragged lengths."""
+    _flash_check(cuda, dtype, b, sq, sq, hq, hkv, 160, causal)
+
+
+@pytest.mark.gpu
+def test_flash_d160_bf16_takes_the_wgmma_kernel(cuda):
+    """By the profiler's kernel names: bf16 at d 160 runs
+    flash_fwd_wgmma_kernel, never the CUDA-core kernel or a PyTorch
+    attention (the plain version's matmuls and softmax)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q = _randn((1, 333, 32, 160), torch.bfloat16, cuda, 0)
+    kv = _randn((1, 333, 8, 160), torch.bfloat16, cuda, 1)
+    tflash.flash_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tflash.flash_attention(q, kv, kv)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert any("flash_fwd_wgmma_kernel" in n for n in names), names
+    assert all("flash_fwd_wgmma_kernel" in n for n in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_at_head_dim_160_raises_under_grad(cuda, dtype):
+    """No backward kernel takes d 160: under grad the card refuses the
+    call (the forward alone runs under no_grad)."""
+    q = _randn((1, 64, 4, 160), dtype, cuda, 0).requires_grad_(True)
+    kv = _randn((1, 64, 2, 160), dtype, cuda, 1)
+    before = tflash.KERNEL.launches
+    with pytest.raises(NotImplementedError, match="160"):
+        ops.attention(q, kv, kv)
+    assert tflash.KERNEL.launches == before
+    with torch.no_grad():
+        ops.attention(q, kv, kv)
+    with pytest.raises(ValueError):
+        tflash.bwd_design(dtype, 160)
 
 
 def _decode_lengths(skv):
@@ -200,6 +252,58 @@ def test_decode_kernel_split_boundaries(cuda, dtype, g, skv):
     want = torch.where(length[:, None, None] == 0, 0.0, want.float())
     tol = GPU_TOL[dtype]
     torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [3, 5, 6, 7, 16])
+@pytest.mark.parametrize("d", [64, 128, 160])
+@pytest.mark.parametrize("skv", [1, 740, 4096])
+def test_decode_kernel_any_group_and_head_dim_160(cuda, dtype, g, d, skv):
+    """Groups that neither divide the P.V thread groups nor are divided by
+    them (3, 5, 6, 7; 16 at the largest bucket), at d 64, 128 and 160 (20
+    chunks a bf16 row, 40 an fp32 one), lengths on split boundaries."""
+    hkv = 2
+    q = _randn((4, hkv * g, d), dtype, cuda, 0)
+    k = _randn((4, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((4, skv, hkv, d), dtype, cuda, 2)
+    length = torch.tensor(_decode_lengths(skv), dtype=torch.int32,
+                          device=cuda)
+    out = tdecode.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    want = tdecode.plain(q, k, v, length)
+    want = torch.where(length[:, None, None] == 0, 0.0, want.float())
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 160), (14, 2, 64),
+                                      (40, 8, 128)])
+def test_decode_kernel_at_the_new_archs_heads(cuda, hq, hkv, d):
+    """stablelm-12b's, internvl2-1b's and llama4-maverick's heads at 4
+    slots of the serve cache, bf16."""
+    skv = 740
+    q = _randn((4, hq, d), torch.bfloat16, cuda, 0)
+    k = _randn((4, skv, hkv, d), torch.bfloat16, cuda, 1)
+    v = _randn((4, skv, hkv, d), torch.bfloat16, cuda, 2)
+    length = torch.tensor([129, 334, 517, 731], dtype=torch.int32,
+                          device=cuda)
+    out = tdecode.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    tol = GPU_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(),
+                               tdecode.plain(q, k, v, length).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_groups_above_16(cuda):
+    q = _randn((1, 17, 64), torch.bfloat16, cuda, 0)
+    kv = _randn((1, 64, 1, 64), torch.bfloat16, cuda, 1)
+    length = torch.tensor([10], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1 to 16"):
+        tdecode.decode_attention(q, kv, kv, length)
 
 
 @pytest.mark.gpu

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch/``, ``chip_smoke.py`` or the port's measurement tool
-``tools/train_step_ab.py``; its copied configs equal the
-JAX package's, and so does every definition of its copies of the numpy
-layer; its entry points refuse a missing card instead of running on the
-CPU."""
+``src/repro_torch/``, ``chip_smoke.py`` or the port's measurement tools
+``tools/train_step_ab.py`` and ``tools/attention_ab.py``; its copied
+configs equal the JAX package's, and so does every definition of its
+copies of the numpy layer; its entry points refuse a missing card instead
+of running on the CPU."""
 import ast
 import dataclasses
 import pathlib
@@ -20,7 +20,8 @@ from repro_torch.serving.engine import ServingEngine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py",
+    REPO / "tools" / "attention_ab.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -52,6 +53,12 @@ def test_port_has_the_three_kernel_sources():
     pallas = {p.stem for p in (REPO / "src" / "repro" / "kernels").glob(
         "*.py") if "pl.pallas_call" in p.read_text()}
     assert {p.stem for p in csrc.glob("*.cu")} == pallas
+
+
+def test_port_has_every_arch_of_the_reference():
+    """All eleven of the JAX package's configs, bert-base included."""
+    assert sorted(PORTED_ARCHS) == sorted(jconfig.list_configs())
+    assert len(PORTED_ARCHS) == 11
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)

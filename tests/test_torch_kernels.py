@@ -172,10 +172,17 @@ def test_rmsnorm_plan_fits_the_kernel(element_size, aligned):
 # ---------------------------------------------------------------------------
 # Flash (prefill) attention
 # ---------------------------------------------------------------------------
+# The new archs' heads: internvl2-1b (group 7), stablelm-12b (d 160) and
+# llama4-maverick-400b-a17b (group 5), each at its own head_dim.
+REAL_HEADS = [(14, 2, 64), (32, 8, 160), (40, 8, 128)]
+REAL_IDS = ["internvl2", "stablelm", "llama4"]
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
-def test_flash_plain_matches_jax(causal, hq, hkv, rng):
-    b, s, d = 2, 128, 32
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (4, 2, 32), *REAL_HEADS],
+                         ids=["4-4", "4-2", *REAL_IDS])
+def test_flash_plain_matches_jax(causal, hq, hkv, d, rng):
+    b, s = 2, 128
     q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
     k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
     v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
@@ -235,7 +242,8 @@ def test_ops_attention_chunked_impls_match_ref(rng):
 # ---------------------------------------------------------------------------
 # Decode attention
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("skv,hq,hkv,d", [(256, 4, 4, 64), (256, 4, 2, 32)])
+@pytest.mark.parametrize("skv,hq,hkv,d", [
+    (256, 4, 4, 64), (256, 4, 2, 32), *((256, *h) for h in REAL_HEADS)])
 def test_decode_plain_matches_jax(skv, hq, hkv, d, rng):
     b = 4
     q = rng.standard_normal((b, hq, d)).astype(np.float32)
@@ -334,7 +342,7 @@ def _split_kv_decode(q, k, v, length, split_rows, scale=None):
 
 
 @pytest.mark.parametrize("split_rows", [64, 128, 192])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (8, 2, 32)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 64), (8, 2, 32), *REAL_HEADS])
 def test_split_kv_decode_emulation_matches_ref_and_jax(split_rows, hq, hkv,
                                                        d, rng):
     """Lengths 37 and 130 cut a split mid-way, 0 leaves every split empty,
@@ -354,6 +362,66 @@ def test_split_kv_decode_emulation_matches_ref_and_jax(split_rows, hq, hkv,
     for want in (ref, pallas):
         np.testing.assert_allclose(_np(out), _np(want), rtol=F32_ATTN_TOL,
                                    atol=F32_ATTN_TOL)
+
+
+def _decode_c_layout():
+    """From csrc/decode_attention.cu: the block size, the groups
+    ``dispatch_g`` instantiates with the group a constant (``case N:
+    return launch<T, D, N, true>``), the buckets it instantiates with the
+    group read at run time (``if (g <= N) return launch<T, D, N,
+    false>``), and the head dims ``dispatch_d`` instantiates."""
+    src = (Path(tdecode.__file__).parents[1] / "csrc" /
+           "decode_attention.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    exact = [int(a) for a, b in re.findall(
+        r"case (\d+): return launch<T, D, (\d+), true>", src) if a == b]
+    run_time = [int(a) for a, b in re.findall(
+        r"if \(g <= (\d+)\) return launch<T, D, (\d+), false>", src)
+        if a == b]
+    dims = [int(x) for x in re.findall(
+        r"case (\d+): return dispatch_g<T, \d+>", src)]
+    return threads, exact, run_time, dims
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+def test_decode_layout_owns_every_head_and_row_once(element_size):
+    """For every head dim the kernel takes and every group 1..16, the P.V
+    ownership of ``pv_layout`` (the arithmetic of the C ``Layout`` and the
+    kernel's pc, grp, R, pg, rs) puts each (q head, 16 bytes of d, cache
+    row of a 64-row tile) under exactly one thread, within the heads a
+    thread has registers for (``hpt``, sized for the group's bucket), and
+    the bucket's shared memory fits the 227 KB a block may have. Groups
+    1, 2, 4, 8 and 16 run instantiations where the group is a constant,
+    the others one of the buckets 4, 8, 16 that read it at run time."""
+    threads, exact, run_time, dims = _decode_c_layout()
+    assert threads == tdecode.THREADS
+    assert exact == [1, 2, 4, 8, 16] and run_time == [4, 8, 16]
+    assert max(run_time) == tdecode.MAX_GROUP
+    assert tuple(dims) == tdecode.HEAD_DIMS
+    for g in range(1, tdecode.MAX_GROUP + 1):   # the bucket that serves g
+        assert tdecode.group_bucket(g) == (
+            g if g in exact else min(b for b in run_time if b >= g))
+    for d in dims:
+        for g in range(1, tdecode.MAX_GROUP + 1):
+            lay = tdecode.pv_layout(element_size, d, g)
+            ve, ch, hg, r = (lay[k] for k in ("ve", "ch", "hg", "r_slices"))
+            assert ch * ve == d and hg * ch <= threads
+            owners = np.zeros((g, ch, tdecode.TILE), np.int64)
+            for tid in range(threads):
+                pc, grp = tid % ch, tid // ch
+                if grp >= lay["active"]:
+                    continue
+                for i in range(lay["hpt"]):
+                    h = grp % g + hg * i
+                    if h < g:
+                        owners[h, pc, grp // g::r] += 1
+            assert (owners == 1).all(), (element_size, d, g)
+            gm = tdecode.group_bucket(g)
+            smem = element_size * 2 * 2 * tdecode.TILE * (d + ve) + 4 * (
+                gm * d + gm * tdecode.TILE + threads * ve + 3 * gm)
+            assert smem <= 232448
+    with pytest.raises(ValueError):
+        tdecode.group_bucket(17)
 
 
 def test_decode_split_count_depends_on_capacity_alone():
@@ -408,6 +476,98 @@ def _flash_wgmma_emulation(q, k, v, *, causal=True):
             m = m_new
         out[:, :, q0:q0 + 64] = acc / torch.where(l == 0, 1.0, l)[..., None]
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _flash_wgmma_boxes(q, k, v, *, causal=True, round_p=False):
+    """csrc/flash_attention.cu's wgmma tiling of a head_dim that is not a
+    multiple of 64 (stablelm-12b's 160): each 64-row tile of Q, K and V
+    comes in as ceil(d / 64) boxes of 64 columns, the last zero past d (as
+    TMA fills what lies past the tensor map); S = Q.K^T in k steps of 16
+    up to d; P.V at N = 64 x boxes, whose columns past d must stay zero
+    and are never stored. fp32 products; ``round_p`` rounds P to bf16 as
+    the P.V operand, as the kernel does."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    n = 64 * -(-d // 64)
+    c = LOG2E / np.sqrt(d)
+
+    def boxes(x, rows):                     # (b, h, rows, n), zero past d
+        out = torch.zeros((b, x.shape[2], rows, n))
+        out[..., :x.shape[1], :d] = x.float().permute(0, 2, 1, 3)
+        return out
+    qb = boxes(q, -(-sq // 64) * 64)
+    kb = boxes(k, -(-skv // 64) * 64).repeat_interleave(g, dim=1)
+    vb = boxes(v, -(-skv // 64) * 64).repeat_interleave(g, dim=1)
+    out = torch.empty((b, hq, sq, d))
+    for q0 in range(0, sq, 64):
+        qt = qb[:, :, q0:q0 + 64]
+        rows = torch.arange(q0, q0 + 64)[:, None]
+        m = torch.full(qt.shape[:3], tref.NEG_INF)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros((b, hq, 64, n))
+        kv_end = min(skv, q0 + 64) if causal else skv
+        for k0 in range(0, kv_end, 64):
+            kt, vt = kb[:, :, k0:k0 + 64], vb[:, :, k0:k0 + 64]
+            x = torch.zeros((b, hq, 64, 64))
+            for kk in range(d // 16):       # box kk // 4, 16 columns each
+                col = 64 * (kk // 4) + 16 * (kk % 4)
+                x += qt[..., col:col + 16] @ kt[..., col:col + 16].transpose(
+                    -1, -2)
+            x = x * c
+            cols = torch.arange(k0, k0 + 64)[None, :]
+            x = torch.where((cols >= skv) | (causal & (cols > rows)),
+                            tref.NEG_INF, x)
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.exp2(x - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1)
+            if round_p:
+                p = p.to(torch.bfloat16).float()
+            acc = acc * alpha[..., None] + p @ vt
+            m = m_new
+        assert (acc[..., d:] == 0).all()    # the padded columns, never stored
+        rows_here = min(64, sq - q0)
+        out[:, :, q0:q0 + rows_here] = (
+            acc / torch.where(l == 0, 1.0, l)[..., None])[:, :, :rows_here,
+                                                          :d]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq", [64, 100])
+def test_flash_d160_box_emulation_matches_ref_and_jax(causal, sq, rng):
+    """At stablelm-12b's heads (32/8, d 160), in fp32: three 64-column
+    boxes, zero past 160, give attention_ref's and the Pallas kernel's
+    result (interpret mode) at the file's fp32 tolerance."""
+    b, hq, hkv, d = 1, 32, 8, 160
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, sq, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sq, hkv, d)).astype(np.float32)
+    out = _flash_wgmma_boxes(_t(q), _t(k), _t(v), causal=causal)
+    ref = tref.attention_ref(_t(q), _t(k), _t(v), causal=causal)
+    want = [ref]
+    if sq % 64 == 0:        # the Pallas kernel asserts whole blocks
+        want.append(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, block_q=64, block_k=64,
+                           interpret=True))
+    for w in want:
+        np.testing.assert_allclose(_np(out), _np(w), rtol=F32_ATTN_TOL,
+                                   atol=F32_ATTN_TOL)
+
+
+def test_flash_d160_bf16_emulation_at_serve_shape_within_tolerance(rng):
+    """The d 160 tiling with P rounded to bf16, at stablelm-12b's serve
+    prefill (sq 333, 32/8 heads), stays within the card's bf16 tolerance
+    of attention_ref."""
+    b, sq, hq, hkv, d = 1, 333, 32, 8, 160
+    q, k, v = (_t(rng.standard_normal(sh).astype(np.float32)).to(
+        torch.bfloat16) for sh in ((b, sq, hq, d), (b, sq, hkv, d),
+                                   (b, sq, hkv, d)))
+    out = _flash_wgmma_boxes(q, k, v, round_p=True)
+    want = tref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=BF16_TOL,
+                               atol=BF16_TOL)
 
 
 def test_flash_bf16_p_emulation_at_serve_shape_within_tolerance(rng):

@@ -31,7 +31,8 @@ from repro_torch.tree import tree_map
 
 TOL = 1e-4   # tests/test_models_smoke.py::test_decode_matches_forward_fp32
 CPU = torch.device("cpu")
-ARCHS = ["internlm2-1.8b", "qwen2-72b"]
+ARCHS = ["internlm2-1.8b", "qwen2-72b", "phi3-medium-14b", "stablelm-12b",
+         "internvl2-1b", "musicgen-large", "bert-base"]
 
 
 def _cfgs(arch):
