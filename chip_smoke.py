@@ -87,6 +87,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 CPU's. stablelm-12b (d 160) and internvl2-1b (group 7, its
                 256 frontend embeddings prefilled first) have this phase
                 too.
+9. ``fleet_parity`` the port's fleet engine, ``Fleet(backend="torch")`` on
+                the card (one tick captured as a CUDA graph, replayed a
+                block of 128 ticks at a time), against the port's
+                ``Fleet(backend="vector")`` on the host, over fig16's
+                parity set: the mixed 8 SoC + 2 Xeon fleet under each
+                router on the short diurnal trace and under round-robin
+                on the flash crowd, the 6-rack schedutil + thermal fleet,
+                and an under-provisioned hedging fleet. Integer series
+                (ticks, drained, active units, queued, hedges, scale
+                events, throttled units) must be equal, the rest within
+                the JAX engine's ``RTOL``/``ATOL``; the largest relative
+                error of each series is printed.
+10. ``fleet_sweep`` fig16's batched sweep, ``sweep()`` of 64 configs x 100
+                racks (6000 SoCs) x 24 h at 300 s ticks on the card:
+                warm seconds graph-replayed (each sweep captures its
+                tick anew) and eager, scenarios/s beside
+                the vector loop's (8 configs run one by one, extrapolated
+                to 64 as fig16 does), ``max_memory_allocated``, a traced
+                sweep's device-busy share and kernels a tick. Those 8 rows
+                must be within 1e-9 of their dedicated vector runs, and a
+                repeated sweep and an eager one equal to it bit for bit.
+                Neither fleet phase runs a hand-written kernel: every
+                launch count must stay 0 across them.
 
 The ``kernels`` phase also holds the two backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``) to their closed-form plain
@@ -107,6 +130,7 @@ the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -123,7 +147,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.config import (ServeConfig, get_config,  # noqa: E402
                                 smoke_config)
-from repro_torch.core.cluster import h100_sxm  # noqa: E402
+from repro_torch.core.cluster import (edge_server_cpu,  # noqa: E402
+                                      h100_sxm, soc_cluster)
+from repro_torch.fleet import (ROUTERS, Fleet,  # noqa: E402
+                               JoinShortestQueueRouter, PowerAwareRouter,
+                               RoundRobinRouter, SweepConfig, diurnal_trace,
+                               flash_crowd_trace, homogeneous_fleet,
+                               scale_to_users, sweep)
+from repro_torch.fleet import torch_engine as tte  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -134,6 +165,9 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import data_config, train_config  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.power import (SchedutilGovernor,  # noqa: E402
+                               ThermalParams, sd865_opp_table)
+from repro_torch.runtime import ScalePolicy  # noqa: E402
 from repro_torch.serving.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.training import checkpoint as ckpt  # noqa: E402
@@ -1280,6 +1314,273 @@ def phase_train_parity() -> None:
                              f"grad err {max(rel)} (tol {PARITY_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# The fleet engine: Fleet(backend="torch") and sweep(), which run no
+# kernel of their own (their path launches none of the counted wrappers).
+# ---------------------------------------------------------------------------
+# fig16's fleet constants (benchmarks/fig16_fleet.py:87-90)
+SOC_UNIT_RATE, CPU_UNIT_RATE, FLEET_DT_S, RPS_PER_USER = 30.0, 9.0, 60.0, 0.02
+# the JAX engine's tolerance contract, tests/test_jax_parity.py:42-51
+FLEET_RTOL = {"served": 1e-12, "energy_j": 1e-12, "power_w": 1e-9,
+              "queued": 1e-9, "p50_latency_s": 1e-9, "p95_latency_s": 1e-9,
+              "p99_latency_s": 1e-9, "max_temp_c": 1e-9,
+              "fan_power_w": 1e-9}
+FLEET_ATOL = 1e-9
+FLEET_EXACT = ("ticks", "drained", "active_units", "queued", "hedged",
+               "scale_events", "throttled_units")
+# fig16's batched sweep (benchmarks/fig16_fleet.py:96-97, :211-259): 64
+# configs x 100 racks x 24 h at 300 s ticks, rows held to dedicated
+# vector runs at its JAX_RTOL; 8 of them, every 9th, so all three routers
+SWEEP_CONFIGS, SWEEP_RACKS, SWEEP_DT_S, SWEEP_RTOL = 64, 100, 300.0, 1e-9
+SWEEP_CHECKED = tuple(range(0, SWEEP_CONFIGS, 9))
+
+
+def _fleet_policy(**kw):
+    return ScalePolicy(cooldown_s=300.0, min_units=1, **kw)
+
+
+def _mixed_racks(n_soc: int, n_cpu: int, policy=None):
+    """fig16's mixed fleet: SD865 SoC racks and Xeon racks."""
+    policy = policy or _fleet_policy()
+    return (homogeneous_fleet(soc_cluster(), n_soc, SOC_UNIT_RATE,
+                              policy=policy)
+            + homogeneous_fleet(edge_server_cpu(), n_cpu, CPU_UNIT_RATE,
+                                policy=_fleet_policy()))
+
+
+def _dvfs_racks(n: int, dvfs: bool = True):
+    """fig16's SoC fleet, with schedutil over the SD865 table and the RC
+    thermal network on every rack (``dvfs``), or binary gating alone."""
+    policy = _fleet_policy(freq_governor=SchedutilGovernor() if dvfs
+                           else None)
+    return homogeneous_fleet(
+        soc_cluster(), n, SOC_UNIT_RATE, policy=policy,
+        opp_table=sd865_opp_table() if dvfs else None,
+        thermal=ThermalParams() if dvfs else None)
+
+
+def _capacity(racks) -> float:
+    return float(sum(rc.spec.n_units * rc.unit_rate for rc in racks))
+
+
+def _fleet_scenarios():
+    """fig16's parity set (benchmarks/fig16_fleet.py:180-193, traces as
+    its run() builds them): the mixed 8 + 2 fleet under each router on
+    the short diurnal trace and under round-robin on the flash crowd,
+    the 6-rack schedutil + thermal fleet, and an under-provisioned
+    hedging fleet at 95 % of capacity."""
+    users = 0.5 * _capacity(_mixed_racks(100, 20)) / RPS_PER_USER
+    short = scale_to_users(
+        diurnal_trace(peak_rps=1.0, hours=2, dt_s=FLEET_DT_S, seed=7),
+        users=users / 10, rps_per_user=RPS_PER_USER)
+    crowd = flash_crowd_trace(
+        base_rps=0.08 * _capacity(_mixed_racks(10, 10)), spike_mult=8.0,
+        hours=2.0, dt_s=FLEET_DT_S, seed=16)
+    dvfs_short = 0.5 * _capacity(_dvfs_racks(100, dvfs=False)) \
+        * diurnal_trace(peak_rps=1.0, hours=24, dt_s=FLEET_DT_S,
+                        seed=16)[:120] / 10.0
+    hedge = _fleet_policy(headroom=0.8, hedge_after_s=120.0)
+    hedge_racks = lambda: homogeneous_fleet(  # noqa: E731
+        soc_cluster(), 8, SOC_UNIT_RATE, policy=hedge)
+    hedge_trace = 0.95 * _capacity(hedge_racks()) * diurnal_trace(
+        peak_rps=1.0, hours=2, dt_s=FLEET_DT_S, seed=3)
+    out = [(f"mixed_{name}", lambda: _mixed_racks(8, 2), cls, short)
+           for name, cls in ROUTERS.items()]
+    out.append(("flash_round-robin", lambda: _mixed_racks(8, 2),
+                RoundRobinRouter, crowd))
+    out.append(("dvfs_join-shortest-queue", lambda: _dvfs_racks(6),
+                JoinShortestQueueRouter, dvfs_short))
+    out.append(("hedging_power-aware", hedge_racks, PowerAwareRouter,
+                hedge_trace))
+    return out
+
+
+def _fleet_series(tel) -> dict:
+    out = {k: np.asarray(getattr(tel, k), float) for k in (
+        "ticks", "drained", "active_units", "queued", "power_w", "served",
+        "energy_j", "p50_latency_s", "p95_latency_s", "p99_latency_s")}
+    out["hedged"] = np.array([r.hedged for r in tel.per_rack], float)
+    out["scale_events"] = np.array([r.scale_events for r in tel.per_rack],
+                                   float)
+    for k in ("max_temp_c", "throttled_units", "fan_power_w"):
+        out[k] = np.concatenate([np.asarray(getattr(r, k), float)
+                                 for r in tel.per_rack])
+    return out
+
+
+def _maxrel(a, b) -> float:
+    """fig16's relative error: max |a - b| / max(|a|, 1e-9)."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    if a.shape != b.shape:
+        return float("inf")
+    if a.size == 0:
+        return 0.0
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-9)))
+
+
+def _no_launches(what: str) -> dict:
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched hand-written kernels: "
+                             f"{launches}")
+    return launches
+
+
+def phase_fleet_parity(smi: str) -> None:
+    """Each fig16 scenario through ``Fleet(backend="torch")`` on the card
+    and ``Fleet(backend="vector")`` on the host, series by series: integer
+    series equal, the rest within the JAX engine's RTOL/ATOL."""
+    t_phase = time.monotonic()
+    ops.reset_launches()
+    worst = {k: 0.0 for k in FLEET_RTOL}
+    rows, bad = [], []
+    for label, make, router, trace in _fleet_scenarios():
+        tv = Fleet(make(), router=router(), dt_s=FLEET_DT_S,
+                   backend="vector").play_trace(trace)
+        tt = Fleet(make(), router=router(), dt_s=FLEET_DT_S,
+                   backend="torch").play_trace(trace)
+        sv, st = _fleet_series(tv), _fleet_series(tt)
+        errs = {}
+        for k in FLEET_EXACT:
+            if not np.array_equal(sv[k], st[k]):
+                bad.append(f"{label}/{k} differs")
+        for k, rtol in FLEET_RTOL.items():
+            if k in FLEET_EXACT:
+                continue
+            errs[k] = _maxrel(sv[k], st[k])
+            worst[k] = max(worst[k], errs[k])
+            if not (sv[k].shape == st[k].shape and np.allclose(
+                    st[k], sv[k], rtol=rtol, atol=FLEET_ATOL)):
+                bad.append(f"{label}/{k} max rel err {errs[k]:.3e}")
+        rows.append({"scenario": label, "racks": len(tt.rack_names),
+                     "ticks": tt.ticks, "drained": tt.drained,
+                     "hedged": int(sv["hedged"].sum()),
+                     "throttled_unit_ticks": int(
+                         sv["throttled_units"].sum()),
+                     "torch_wall_s": tt.wall_s, "vector_wall_s": tv.wall_s,
+                     "max_rel_err": errs})
+    launches = _no_launches("fleet_parity")
+    emit({"phase": "fleet_parity", "backend": "torch", "device": "cuda",
+          "oracle": "Fleet(backend='vector') on the host",
+          "rtol": FLEET_RTOL, "atol": FLEET_ATOL,
+          "exact": list(FLEET_EXACT), "max_rel_err": worst,
+          "scenarios": rows, "kernel_launches": launches,
+          "seconds": time.monotonic() - t_phase, "nvidia_smi": smi})
+    if bad:
+        raise AssertionError(f"fleet parity: {bad}")
+
+
+def _sweep_inputs():
+    racks = homogeneous_fleet(soc_cluster(), SWEEP_RACKS, SOC_UNIT_RATE,
+                              policy=_fleet_policy())
+    trace = 0.5 * _capacity(racks) * diurnal_trace(
+        peak_rps=1.0, hours=24, dt_s=SWEEP_DT_S, seed=16)
+    grid = itertools.product(tuple(ROUTERS), (0.85, 1.0, 1.15, 1.3),
+                             (0.7, 0.85, 1.0, 1.15, 1.3, 1.45))
+    cfgs = [SweepConfig(router=rt, headroom_scale=hr, trace_scale=ts,
+                        name=f"c{i}")
+            for i, (rt, hr, ts) in enumerate(
+                itertools.islice(grid, SWEEP_CONFIGS))]
+    return racks, trace, cfgs
+
+
+def _traced(fn) -> dict:
+    """Host wall and device busy (union of CUDA kernel intervals) of one
+    call under torch.profiler, tracing the device alone (a sweep runs
+    some 200k kernels; host op events would cost more to collect than
+    the sweep)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _device_busy_us(kern) / 1e6 if kern else None
+    return {"traced_wall_s": wall, "kernels": len(kern),
+            "device_busy_s": busy,
+            "device_busy_share": busy / wall if kern else None}
+
+
+def phase_fleet_sweep(smi: str) -> None:
+    """fig16's batched sweep on the card: 64 configs x 100 racks x 24 h
+    as one batched step, replayed as a CUDA graph and run eagerly; 8 rows
+    held to dedicated vector runs, a repeat held bit for bit, the times
+    of both beside the vector loop's (measured over those 8 configs and
+    extrapolated to 64, as fig16 does), peak memory, and a traced sweep's
+    device-busy share."""
+    t_phase = time.monotonic()
+    racks, trace, cfgs = _sweep_inputs()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(graph=True):
+        return sweep(racks, cfgs, trace, dt_s=SWEEP_DT_S, graph=graph)
+
+    def timed(graph=True):
+        t0 = time.perf_counter()
+        rows = run(graph)
+        return rows, time.perf_counter() - t0
+
+    _, first_s = timed()                       # first run (cold)
+    rows, graph_s = timed()
+    again, _ = timed()
+    mem = torch.cuda.max_memory_allocated()
+    run(graph=False)                           # eager warm-up
+    eager_rows, eager_s = timed(graph=False)
+    launches = _no_launches("fleet_sweep")
+    if rows != again or eager_rows != rows:
+        raise AssertionError("a repeated sweep, or the eager one, differs "
+                             "from the first graph-replayed sweep")
+    t0 = time.perf_counter()
+    traced = _traced(run)
+    trace_s = time.perf_counter() - t0
+    ticks_run = -(-(2 * len(trace) + 100) // tte._BLOCK) * tte._BLOCK
+    t0 = time.perf_counter()
+    checked, worst = [], 0.0
+    for ci in SWEEP_CHECKED:
+        cfg, row = cfgs[ci], rows[ci]
+        fleet = Fleet(
+            homogeneous_fleet(soc_cluster(), SWEEP_RACKS, SOC_UNIT_RATE,
+                              policy=_fleet_policy(
+                                  headroom=ScalePolicy().headroom
+                                  * cfg.headroom_scale)),
+            router=ROUTERS[cfg.router](), dt_s=SWEEP_DT_S, backend="vector")
+        summ = fleet.play_trace(cfg.trace_scale * trace).summary()
+        errs = {k: _maxrel(summ[k], row[k])
+                for k in ("served", "energy_kwh", "p95_latency_s")}
+        worst = max(worst, *errs.values())
+        checked.append({"config": cfg.name, "router": cfg.router,
+                        "drained": bool(summ["drained"]) and row["drained"],
+                        "max_rel_err": errs})
+    t_vec = (time.perf_counter() - t0) / len(SWEEP_CHECKED) * SWEEP_CONFIGS
+    emit({"phase": "fleet_sweep", "configs": SWEEP_CONFIGS,
+          "racks": SWEEP_RACKS, "socs": SWEEP_RACKS * soc_cluster().n_units,
+          "trace_ticks": len(trace), "dt_s": SWEEP_DT_S,
+          "ticks_stepped": ticks_run,
+          "first_sweep_s": first_s, "graph_sweep_s": graph_s,
+          "eager_sweep_s": eager_s,
+          "graph_scenarios_per_s": SWEEP_CONFIGS / graph_s,
+          "eager_scenarios_per_s": SWEEP_CONFIGS / eager_s,
+          "vector_loop_scenarios_per_s": SWEEP_CONFIGS / t_vec,
+          "vector_loop_est_s": t_vec,
+          "speedup_graph_over_vector_loop": t_vec / graph_s,
+          "repeat_bitwise_equal": True,
+          "eager_bitwise_equal_graph": True,
+          "max_memory_allocated": mem,
+          "kernels_per_tick": traced["kernels"] / ticks_run,
+          "traced_graph_sweep": traced, "trace_collect_s": trace_s,
+          "checked_against_vector": checked, "rtol": SWEEP_RTOL,
+          "max_rel_err": worst, "kernel_launches": launches,
+          "seconds": time.monotonic() - t_phase, "nvidia_smi": smi})
+    if worst > SWEEP_RTOL or not all(c["drained"] for c in checked):
+        raise AssertionError(f"fleet sweep rows off the vector runs: "
+                             f"{checked}")
+
+
 def main() -> None:
     t0 = time.monotonic()
     dev = phase_device()
@@ -1302,6 +1603,9 @@ def main() -> None:
         _free_card()
     served[TRAIN_PATH] = phase_train(dev["nvidia_smi"])
     phase_train_parity()
+    _free_card()
+    phase_fleet_parity(dev["nvidia_smi"])
+    phase_fleet_sweep(dev["nvidia_smi"])
     # One row per kernel and path: its launches from that path's own serve
     # run (reset to 0 just before it), next to its case at that path's shape.
     kernels = []

@@ -41,8 +41,8 @@ power/active histories, temperature and throttle histograms — is
 from __future__ import annotations
 
 from enum import Enum
-from typing import (Any, Dict, List, Optional, Sequence, Tuple,
-                    Union)
+from typing import (TYPE_CHECKING, Any, Dict, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -50,6 +50,9 @@ from repro_torch.core.cluster import ClusterSpec, UnitSpec
 from repro_torch.power.opp import OPPTable, unit_power
 from repro_torch.power.thermal import (ThermalModel, ThermalParams,
                                  VectorThermalModel)
+
+if TYPE_CHECKING:  # pragma: no cover - import cycle guard (obs is optional)
+    from repro_torch.obs.attribution import EnergyLedger
 
 
 class UnitState(str, Enum):
