@@ -108,8 +108,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 sweep's device-busy share and kernels a tick. Those 8 rows
                 must be within 1e-9 of their dedicated vector runs, and a
                 repeated sweep and an eager one equal to it bit for bit.
-                Neither fleet phase runs a hand-written kernel: every
-                launch count must stay 0 across them.
+11. ``fleet_chaos`` fig16's fault study (benchmarks/fig16_fleet.py:269-345)
+                through ``Fleet(backend="torch", chaos=...)`` on the card
+                and ``backend="vector"`` on the host: (a) a 2-rack kill on
+                a 1700 rps plateau under JSQ and round-robin, (b) the kill
+                at a flash crowd's peak with hedging, and
+                ``hedging_delta(..., backend="torch")``; every fault kind
+                (kill, partial kill, fan failure, power cap) on 4 schedutil
+                + thermal racks (tests/test_chaos.py::_full_schedule), a
+                fan failure on racks whose fans spin; and
+                fig16's 100 SoC + 20 Xeon fleet for 24 h under a random
+                schedule on 12 of its racks.
+12. ``fleet_degrade`` fig16's degradation study (:348-488), all three arms
+                (pre-fault, degraded, accept-everything), and the same
+                fig16-scale day with its ``DegradePolicy``.
+                Both: integer series and counts equal, served and energy
+                within 1e-12, power, queued and latency within 1e-9, every
+                degrade cost, the offered series, tier percentiles,
+                respilled and dropped cost and the p99 blow-up within
+                fig16's ``JAX_RTOL`` (1e-9); fig16's asserts on the torch
+                results; every block replayed from a captured graph;
+                kernels a tick of the overlay-free, chaos and chaos +
+                degrade tick; host walls beside the vector engine's.
+                No fleet phase runs a hand-written kernel: every launch
+                count must stay 0 across them.
 
 The ``kernels`` phase also holds the two backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``) to their closed-form plain
@@ -149,11 +171,15 @@ from repro_torch.config import (ServeConfig, get_config,  # noqa: E402
                                 smoke_config)
 from repro_torch.core.cluster import (edge_server_cpu,  # noqa: E402
                                       h100_sxm, soc_cluster)
-from repro_torch.fleet import (ROUTERS, Fleet,  # noqa: E402
+from repro_torch.distributed.fault import RetryPolicy  # noqa: E402
+from repro_torch.fleet import (ROUTERS, BreakerConfig,  # noqa: E402
+                               ChaosSchedule, DegradePolicy, Fleet,
                                JoinShortestQueueRouter, PowerAwareRouter,
-                               RoundRobinRouter, SweepConfig, diurnal_trace,
-                               flash_crowd_trace, homogeneous_fleet,
-                               scale_to_users, sweep)
+                               RoundRobinRouter, SweepConfig, TierSpec,
+                               diurnal_trace, flash_crowd_trace,
+                               hedging_delta, homogeneous_fleet,
+                               scale_to_users, sweep,
+                               tier_latency_percentiles)
 from repro_torch.fleet import torch_engine as tte  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
@@ -1581,6 +1607,379 @@ def phase_fleet_sweep(smi: str) -> None:
                              f"{checked}")
 
 
+# fig16's fault and degradation studies (benchmarks/fig16_fleet.py:269-488)
+FLEET_JAX_RTOL = 1e-9              # fig16_fleet.py:96, its JAX_RTOL
+# the fields of each overlay run that must agree, by tolerance: integer
+# series and counts exactly; served/energy and power/queued/latency at
+# FLEET_RTOL; the degrade costs and the rest at FLEET_JAX_RTOL
+OVERLAY_EXACT = ("ticks", "drained", "active_units", "respilled_requests",
+                 "dropped_requests", "breaker_opens", "breaker_state_t",
+                 "reconvergence_ticks", "responses")
+OVERLAY_RTOL = {k: FLEET_RTOL[k] for k in (
+    "served", "energy_j", "power_w", "queued", "p50_latency_s",
+    "p95_latency_s", "p99_latency_s")}
+OVERLAY_JAX = ("shed_cost", "shed_by_tier", "shed_cost_t", "expired_cost",
+               "retried_cost", "retry_dropped_cost", "offered_rps",
+               "tier_percentiles", "respilled_cost", "dropped_cost",
+               "p99_blowup")
+TIER_QS = (50.0, 95.0, 99.0)
+
+
+def _chaos_racks(hedge=None):
+    """fig16's chaos and degrade fleet: 16 SoC racks and 4 Xeon racks."""
+    pol = _fleet_policy(hedge_after_s=hedge)
+    return (homogeneous_fleet(soc_cluster(), 16, SOC_UNIT_RATE, policy=pol)
+            + homogeneous_fleet(edge_server_cpu(), 4, CPU_UNIT_RATE,
+                                policy=pol))
+
+
+def _kill_at(tick: int, end: int) -> ChaosSchedule:
+    """fig16's kill: racks 0 and 1 over ticks [tick, end), respilled."""
+    sched = ChaosSchedule(on_kill="respill")
+    for rack in (0, 1):
+        sched.kill_rack(rack, start_s=tick * FLEET_DT_S,
+                        end_s=end * FLEET_DT_S)
+    return sched
+
+
+def _crowd():
+    """fig16's flash crowd on the chaos fleet and the tick of its peak."""
+    crowd = flash_crowd_trace(base_rps=0.3 * _capacity(_chaos_racks()),
+                              spike_mult=4.0, hours=2.0, dt_s=FLEET_DT_S,
+                              seed=16)
+    return crowd, int(np.argmax(crowd))
+
+
+def _full_schedule() -> ChaosSchedule:
+    """Every fault kind (tests/test_chaos.py::_full_schedule)."""
+    sched = ChaosSchedule(on_kill="respill")
+    sched.kill_rack(1, start_s=4 * 3600.0, end_s=8 * 3600.0)
+    sched.kill_units(2, 20, start_s=5 * 3600.0, end_s=9 * 3600.0)
+    sched.fail_fan(0, start_s=3 * 3600.0, end_s=10 * 3600.0)
+    sched.power_cap(3, start_s=6 * 3600.0, end_s=11 * 3600.0)
+    return sched
+
+
+def _thermal_racks(**thermal):
+    """tests/test_chaos.py's parity fleet: 4 schedutil + SD865 + RC
+    thermal racks, hedging at 240 s."""
+    pol = _fleet_policy(headroom=1.25, hedge_after_s=240.0,
+                        freq_governor=SchedutilGovernor())
+    return homogeneous_fleet(soc_cluster(), 4, SOC_UNIT_RATE, policy=pol,
+                             opp_table=sd865_opp_table(),
+                             thermal=ThermalParams(**thermal))
+
+
+def _day():
+    """fig16's full fleet (100 SoC + 20 Xeon racks, 7200 units) and its
+    24 h diurnal at 60 s ticks scaled as its run() scales it."""
+    users = 0.5 * _capacity(_mixed_racks(100, 20)) / RPS_PER_USER
+    return scale_to_users(
+        diurnal_trace(peak_rps=1.0, hours=24, dt_s=FLEET_DT_S, seed=16),
+        users=users, rps_per_user=RPS_PER_USER)
+
+
+def _day_chaos() -> ChaosSchedule:
+    """A random schedule on 10 % of fig16's 120 racks over its day."""
+    return ChaosSchedule.random(120, 86400.0, seed=16, n_events=12)
+
+
+def _degrade_policy() -> DegradePolicy:
+    """fig16 §7's policy (benchmarks/fig16_fleet.py:384-395)."""
+    return DegradePolicy(
+        tiers=(TierSpec("gold", 0.2, 600.0), TierSpec("silver", 0.3, 300.0),
+               TierSpec("bulk", 0.5, 120.0)),
+        queue_deadline_s=600.0,
+        breaker=BreakerConfig(open_after_s=300.0, close_below_s=120.0,
+                              cooldown_s=600.0, probe_fraction=0.25,
+                              fail_timeout_s=120.0),
+        retry=RetryPolicy(max_attempts=3, backoff_s=120.0, jitter=0.5),
+        seed=16)
+
+
+class _GraphWatch:
+    """Counts the torch engine's blocks, its captures, and the blocks that
+    ran eagerly rather than as replays of a captured CUDA graph."""
+
+    def __init__(self):
+        self.blocks = self.eager = self.captures = 0
+
+    def __enter__(self):
+        self._run, self._cap = tte._Runner.run_block, tte._Runner._capture
+        watch, run, cap = self, self._run, self._cap
+
+        def run_block(runner, rows):
+            out = run(runner, rows)
+            watch.blocks += 1
+            watch.eager += runner._graph is None
+            return out
+
+        def capture(runner):
+            watch.captures += 1
+            return cap(runner)
+
+        tte._Runner.run_block, tte._Runner._capture = run_block, capture
+        return self
+
+    def __exit__(self, *exc):
+        tte._Runner.run_block, tte._Runner._capture = self._run, self._cap
+
+
+def _overlay_series(tel) -> dict:
+    out = {k: np.asarray(getattr(tel, k), float) for k in (
+        "ticks", "drained", "active_units", "respilled_requests",
+        "dropped_requests", "breaker_opens", "breaker_state_t", "served",
+        "energy_j", "power_w", "queued", "p50_latency_s", "p95_latency_s",
+        "p99_latency_s", "shed_cost", "shed_cost_t", "expired_cost",
+        "retried_cost", "retry_dropped_cost", "offered_rps",
+        "respilled_cost", "dropped_cost")}
+    rec = tel.recovery
+    out["reconvergence_ticks"] = np.asarray(
+        -1.0 if rec is None or rec.reconvergence_ticks is None
+        else rec.reconvergence_ticks)
+    out["p99_blowup"] = np.asarray(0.0 if rec is None else rec.p99_blowup)
+    out["responses"] = np.array([len(r.responses) for r in tel.per_rack],
+                                float)
+    tiers = sorted(tel.shed_by_tier)
+    out["shed_by_tier"] = np.array([tel.shed_by_tier[t] for t in tiers])
+    out["tier_percentiles"] = np.array(
+        [list(tier_latency_percentiles(tel, t, TIER_QS).values())
+         for t in tiers])
+    return out
+
+
+def _overlay_compare(label, tv, tt, bad) -> dict:
+    """Every OVERLAY_* field of the torch run against the vector run: the
+    relative errors, with each miss appended to ``bad``."""
+    sv, st = _overlay_series(tv), _overlay_series(tt)
+    errs = {}
+    for k in OVERLAY_EXACT:
+        if not (sv[k].shape == st[k].shape and np.array_equal(sv[k], st[k])):
+            bad.append(f"{label}/{k} differs")
+    tols = {**OVERLAY_RTOL, **{k: FLEET_JAX_RTOL for k in OVERLAY_JAX}}
+    for k, rtol in tols.items():
+        errs[k] = _maxrel(sv[k], st[k])
+        if not (sv[k].shape == st[k].shape and np.allclose(
+                st[k], sv[k], rtol=rtol, atol=FLEET_ATOL)):
+            bad.append(f"{label}/{k} max rel err {errs[k]:.3e}")
+    return errs
+
+
+def _overlay_runs(label, make, trace, bad, rows, router, dt_s=FLEET_DT_S,
+                  chaos=None, degrade=None, sanitize=False):
+    """One scenario through the vector engine on the host and the torch
+    engine on the card, compared; ``chaos`` and ``degrade`` make a fresh
+    schedule and policy for each. Appends the scenario's row and returns
+    the torch telemetry."""
+    tels = {b: Fleet(make(), router=router(), dt_s=dt_s, backend=b,
+                     chaos=chaos() if chaos else None,
+                     degrade=degrade() if degrade else None,
+                     sanitize=sanitize).play_trace(trace)
+            for b in ("vector", "torch")}
+    tv, tt = tels["vector"], tels["torch"]
+    errs = _overlay_compare(label, tv, tt, bad)
+    rec = tt.recovery
+    rows.append({"scenario": label, "racks": len(tt.rack_names),
+                 "ticks": tt.ticks, "drained": tt.drained,
+                 "respilled_requests": tt.respilled_requests,
+                 "breaker_opens": tt.breaker_opens,
+                 "reconvergence_ticks": None if rec is None
+                 else rec.reconvergence_ticks,
+                 "torch_wall_s": tt.wall_s, "vector_wall_s": tv.wall_s,
+                 "max_rel_err": errs})
+    return tt
+
+
+def _kernels_per_tick(make_fleet, trace) -> float:
+    """Device events of one traced block of 128 ticks (no drain) over the
+    ticks stepped, as fleet_sweep counts them."""
+    fleet = make_fleet()
+    with _GraphWatch() as watch:
+        traced = _traced(lambda: fleet.play_trace(trace[:tte._BLOCK],
+                                                  drain=False))
+    return traced["kernels"] / (watch.blocks * tte._BLOCK)
+
+
+def _fleet_phase_line(phase, t_phase, rows, checks, bad, watch, smi,
+                      **extra) -> None:
+    if watch.eager or not watch.blocks:
+        bad.append(f"{watch.eager} of {watch.blocks} blocks ran eagerly")
+    launches = _no_launches(phase)
+    emit({"phase": phase, "backend": "torch", "device": "cuda",
+          "oracle": "Fleet(backend='vector') on the host",
+          "exact": list(OVERLAY_EXACT), "rtol": OVERLAY_RTOL,
+          "jax_rtol": FLEET_JAX_RTOL, "jax_rtol_fields": list(OVERLAY_JAX),
+          "atol": FLEET_ATOL, "scenarios": rows, "fig16_asserts": checks,
+          "graph_blocks": watch.blocks, "eager_blocks": watch.eager,
+          "captures": watch.captures,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          **extra, "kernel_launches": launches,
+          "seconds": time.monotonic() - t_phase, "nvidia_smi": smi})
+    failed = [name for name, ok in checks.items() if not ok]
+    if bad or failed:
+        raise AssertionError(f"{phase}: {bad} fig16 asserts failed: "
+                             f"{failed}")
+
+
+def phase_fleet_chaos(smi: str) -> None:
+    """fig16's fault study and a fig16-scale day under chaos, on the card
+    against the vector engine, with fig16's asserts on the torch runs."""
+    t_phase = time.monotonic()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bad, rows, rec = [], [], {}
+    with _GraphWatch() as watch:
+        # (a) JSQ vs round-robin through a 2-rack kill on the plateau
+        plateau = np.full(360, 1700.0)
+        for cls in (JoinShortestQueueRouter, RoundRobinRouter):
+            tel = _overlay_runs(f"6a_{cls.name}", _chaos_racks,
+                                plateau, bad, rows, router=cls,
+                                chaos=lambda: _kill_at(120, 180),
+                                sanitize=True)
+            rec[cls.name] = tel.recovery
+            rec[cls.name + "_drained"] = tel.drained
+        # (b) the kill at the flash crowd's peak, with hedging
+        crowd, peak = _crowd()
+        hedged = lambda: _chaos_racks(hedge=180.0)  # noqa: E731
+        crowd_tel = _overlay_runs(
+            "6b_crowd_peak_kill", hedged, crowd, bad, rows,
+            router=JoinShortestQueueRouter,
+            chaos=lambda: _kill_at(peak, peak + 30), sanitize=True)
+        deltas, walls = {}, {}
+        for backend in ("vector", "torch"):
+            t0 = time.perf_counter()
+            deltas[backend] = hedging_delta(
+                hedged(), crowd, _kill_at(peak, peak + 30), dt_s=FLEET_DT_S,
+                router=JoinShortestQueueRouter(), backend=backend)
+            walls[backend] = time.perf_counter() - t0
+        hedge_err = {k: _maxrel(deltas["vector"][k], v)
+                     for k, v in deltas["torch"].items()}
+        if max(hedge_err.values()) > FLEET_JAX_RTOL:
+            bad.append(f"hedging_delta off the vector one: {hedge_err}")
+        # every fault kind, with thermal, over 24 h at 120 s ticks
+        full_trace = 0.7 * _capacity(_thermal_racks()) * diurnal_trace(
+            peak_rps=1.0, hours=24, dt_s=120.0)
+        _overlay_runs("full_schedule_thermal", _thermal_racks, full_trace,
+                      bad, rows, router=JoinShortestQueueRouter, dt_s=120.0,
+                      chaos=_full_schedule, sanitize=True)
+        # at ThermalParams()'s setpoints those fans never spin: a fan
+        # curve at 27-35 C runs them at full power, so a failure shows
+        fan = _overlay_runs(
+            "fan_failure_spinning", lambda: _thermal_racks(fan_t_low_c=27.0,
+                                                           fan_t_high_c=35.0),
+            np.full(80, 0.7 * _capacity(_thermal_racks())), bad, rows,
+            router=JoinShortestQueueRouter,
+            chaos=lambda: ChaosSchedule().fail_fan(0, 20 * FLEET_DT_S,
+                                                   60 * FLEET_DT_S),
+            sanitize=True)
+        # fig16's full fleet for a day, 12 of its racks faulted
+        day = _day()
+        _overlay_runs("fig16_day_chaos", lambda: _mixed_racks(100, 20), day,
+                      bad, rows, router=JoinShortestQueueRouter,
+                      chaos=_day_chaos)
+    jsq, rr = rec["join-shortest-queue"], rec["round-robin"]
+    checks = {
+        "6a_drained_with_recovery": bool(
+            rec["join-shortest-queue_drained"] and rec["round-robin_drained"]
+            and jsq is not None and rr is not None),
+        "6a_kill_degrades_round_robin": bool(
+            rr is not None and rr.reconvergence_ticks is not None
+            and rr.reconvergence_ticks > 0 and rr.p99_blowup > 1.0),
+        "6a_jsq_reconverges_faster": bool(
+            jsq is not None and rr is not None
+            and jsq.reconvergence_ticks is not None
+            and jsq.reconvergence_ticks < rr.reconvergence_ticks),
+        "6b_kill_evacuates_a_queue": crowd_tel.respilled_requests > 0,
+        "6b_hedging_benefit_positive":
+            deltas["torch"]["hedging_benefit_s"] > 0.0,
+        "failed_fan_stops": bool(
+            np.all(fan.per_rack[0].fan_power_w[20:60] == 0.0)
+            and fan.per_rack[0].fan_power_w[10:20].min() > 0.0),
+    }
+    kpt = {
+        "overlays_off": _kernels_per_tick(
+            lambda: Fleet(_mixed_racks(100, 20), backend="torch"), day),
+        "chaos": _kernels_per_tick(
+            lambda: Fleet(_mixed_racks(100, 20), backend="torch",
+                          chaos=_day_chaos()), day)}
+    _fleet_phase_line(
+        "fleet_chaos", t_phase, rows, checks, bad, watch, smi,
+        hedging_delta={"torch": deltas["torch"], "vector": deltas["vector"],
+                       "max_rel_err": hedge_err, "torch_wall_s":
+                       walls["torch"], "vector_wall_s": walls["vector"]},
+        kernels_per_tick=kpt)
+
+
+def phase_fleet_degrade(smi: str) -> None:
+    """fig16's degradation study (three arms) and a fig16-scale day with
+    its policy, on the card against the vector engine, with fig16's
+    asserts on the torch runs."""
+    t_phase = time.monotonic()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bad, rows = [], []
+    crowd, peak = _crowd()
+    with _GraphWatch() as watch:
+        arms = {}
+        for arm, degrade, chaos in (
+                ("pre_fault", _degrade_policy, None),
+                ("degraded", _degrade_policy, lambda: _kill_at(peak,
+                                                               peak + 30)),
+                ("accept_everything", None, lambda: _kill_at(peak,
+                                                             peak + 30))):
+            arms[arm] = _overlay_runs(
+                f"7_{arm}", _chaos_racks, crowd, bad, rows,
+                router=JoinShortestQueueRouter, degrade=degrade,
+                chaos=chaos, sanitize=True)
+        _overlay_runs("fig16_day_chaos_degrade", lambda: _mixed_racks(100, 20),
+                      _day(), bad, rows, router=JoinShortestQueueRouter,
+                      chaos=_day_chaos, degrade=_degrade_policy)
+    base, deg, raw = (arms[a] for a in ("pre_fault", "degraded",
+                                        "accept_everything"))
+    gold_base = tier_latency_percentiles(base, "gold")[99.0]
+    gold_deg = tier_latency_percentiles(deg, "gold")[99.0]
+    injected = float(np.sum(crowd)) * FLEET_DT_S
+    loss = deg.expired_cost + deg.retry_dropped_cost + deg.dropped_cost
+    dr, rr = deg.recovery, raw.recovery
+    checks = {
+        "all_arms_drained": base.drained and deg.drained and raw.drained,
+        "gold_completed": gold_base > 0.0 and gold_deg > 0.0,
+        "gold_p99_within_1.5x_pre_fault": gold_deg <= 1.5 * gold_base,
+        "gold_p99_below_accept_everything": gold_deg < raw.p99_latency_s,
+        "gold_sheds_nothing_bulk_sheds":
+            deg.shed_by_tier["gold"] == 0.0 and deg.shed_by_tier["bulk"] > 0,
+        "kill_degrades_both_arms": bool(
+            dr is not None and rr is not None and rr.p99_blowup > 1.0
+            and dr.p99_blowup > 1.0),
+        "degraded_reconverges_faster": bool(
+            dr is not None and rr is not None
+            and dr.reconvergence_ticks is not None
+            and rr.reconvergence_ticks is not None
+            and dr.reconvergence_ticks < rr.reconvergence_ticks),
+        "mechanisms_fired": deg.shed_cost > 0.0 and deg.breaker_opens > 0
+        and deg.retried_cost > 0.0,
+        "terminal_loss_at_most_10pct": loss / injected <= 0.10,
+        "conservation_closes_1e-6": all(
+            abs(t.served + t.dropped_cost + t.expired_cost
+                + t.retry_dropped_cost - injected) <= 1e-6 * injected
+            for t in (base, deg)),
+    }
+    kpt = {"chaos_degrade": _kernels_per_tick(
+        lambda: Fleet(_mixed_racks(100, 20), backend="torch",
+                      chaos=_day_chaos(), degrade=_degrade_policy()),
+        _day())}
+    _fleet_phase_line(
+        "fleet_degrade", t_phase, rows, checks, bad, watch, smi,
+        gold_p99_s={"pre_fault": gold_base, "degraded": gold_deg},
+        accept_everything_p99_s=raw.p99_latency_s,
+        reconvergence_ticks={"degraded": dr.reconvergence_ticks,
+                             "accept_everything": rr.reconvergence_ticks},
+        shed_frac=deg.shed_cost / injected, loss_frac=loss / injected,
+        kernels_per_tick=kpt)
+
+
 def main() -> None:
     t0 = time.monotonic()
     dev = phase_device()
@@ -1606,6 +2005,8 @@ def main() -> None:
     _free_card()
     phase_fleet_parity(dev["nvidia_smi"])
     phase_fleet_sweep(dev["nvidia_smi"])
+    phase_fleet_chaos(dev["nvidia_smi"])
+    phase_fleet_degrade(dev["nvidia_smi"])
     # One row per kernel and path: its launches from that path's own serve
     # run (reset to 0 just before it), next to its case at that path's shape.
     kernels = []

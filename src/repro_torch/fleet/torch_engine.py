@@ -31,7 +31,7 @@ Blocks. Traces run in fixed blocks of :data:`_BLOCK` ticks with a per-tick
 keeps the JAX engine's rewind: when the first fully idle drain tick lies
 mid-block, the block is re-run from its starting carry with the mask cut at
 that tick. On the card one tick is captured as a CUDA graph over static
-buffers (the block's ``rps``/``live``/``is_trace`` rows, a device tick
+buffers (the block's ``rps``/``live``/``record`` rows, a device tick
 counter, the carry updated in place, per-tick rows written at the counter)
 and replayed ``_BLOCK`` times a block: the tick holds no host sync (no
 ``.item()``, no ``nonzero``, no Python branch on a tensor), and every
@@ -41,8 +41,24 @@ count, and one tick of some 250 nodes is captured in milliseconds for each
 fleet shape, while the 128 replays of a block cost the host about a
 millisecond. On the CPU the same tick runs eagerly.
 
-Chaos and degrade overlays are not ported yet: ``set_chaos`` and
-``set_degrade`` raise ``NotImplementedError``.
+Overlays. A :class:`~repro_torch.fleet.chaos.ChaosSchedule` and a
+:class:`~repro_torch.fleet.degrade.DegradePolicy` run in the tick as in
+the JAX engine, each compiled out when absent (a static ``_Dims`` flag,
+so an overlay-free fleet launches the same kernels as before): kill-edge
+evacuation with respill, unit caps, the floor-OPP pin and fan failure;
+deadline expiry on a lag ring, per-rack circuit breakers, tiered
+admission and a seeded retry ring. Their per-tick inputs (the schedule's
+mask rows, the retry delays) are more static block rows indexed by the
+device tick counter, and every write or add at a data-dependent ring
+slot is a one-hot mask over the slot axis (adding 0.0 elsewhere leaves
+every other slot bit for bit), never an atomic ``index_put_``. In two
+places of the drain this engine follows the vector engine, the oracle,
+where the JAX engine departs from it: the drain ends on the tick that
+ends empty having served nothing (the JAX rule, "the previous tick ended
+empty", runs one idle tick more when the last queue is voided rather
+than served), and under an overlay drain ticks are recorded in the hedge
+ring too (respill and released retries routed then are aged like any
+request, as the host queue ages them).
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.torch_env import resolve_device
+from repro_torch.fleet.degrade import BRK_HALF, BRK_OPEN
 from repro_torch.fleet.engine_state import (
     GOV_FIXED,
     GOV_RACE,
@@ -104,12 +121,10 @@ _BLOCK = 128
 _F64 = torch.float64
 _I64 = torch.int64
 
-#: what the step raises for the overlays this engine does not run yet
-_OVERLAY_TODO = (
-    "backend='torch' does not run the {} overlay yet: porting the chaos "
-    "and degrade overlays is ROADMAP Queue 1 item 2, the next module to "
-    "port; use backend='vector' meanwhile"
-)
+#: the chaos schedule's block rows (``LoweredChaos.rows`` keys) as the
+#: step's input names
+_CHAOS_XS = {"dead": "chaos_dead", "fan_fail": "chaos_fan",
+             "power_cap": "chaos_cap", "kill_edge": "chaos_kill"}
 
 
 class _Dims(NamedTuple):
@@ -168,15 +183,26 @@ def _route(
     total: torch.Tensor,
     dt: float,
     cap: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """All three routers, computed branchlessly and selected by
     ``params["router_kind"]`` (N, 1), so every config of a sweep has its
     own router. Mirrors ``repro_torch.fleet.router``. ``queued`` and
-    ``cap`` are (N, racks), ``total`` the offered rps (N, 1)."""
+    ``cap`` are (N, racks), ``total`` the offered rps (N, 1).
+
+    ``cap`` is the (chaos- and breaker-degraded) capacity and ``alive``
+    the liveness mask, (1 or N, racks), or ``None`` when no overlay runs
+    (the overlay-free tick is unchanged). A dead or open-breaker rack has
+    ``cap`` 0.0 and gets exactly 0.0 from every router: round-robin
+    spreads over the live racks alone, the other two scale by ``cap``."""
     n = cap.shape[1]
     rk = params["router_kind"]
-    # round-robin: uniform spread
-    rr = total / n
+    # round-robin: uniform spread (over live racks only under an overlay)
+    if alive is None:
+        rr = total / n
+    else:
+        n_alive = alive.to(_I64).sum(1, keepdim=True)
+        rr = torch.where(alive, total / torch.clamp_min(n_alive, 1), 0.0)
     # join-shortest-queue: water-fill on expected queueing delay
     capm = torch.clamp_min(cap, 1e-12)
     work = total * dt
@@ -206,6 +232,7 @@ def _route(
     rem = total - take.sum(1, keepdim=True)
     take = take + torch.where(rem > 1e-12, greedy(rem, capo - take), 0.0)
     rem2 = total - take.sum(1, keepdim=True)
+    # a fully dead fleet has zero capacity: the guard keeps the spread 0
     spread = rem2 * capo / torch.clamp_min(capo.sum(1, keepdim=True), 1e-12)
     take = take + torch.where(rem2 > 1e-12, spread, 0.0)
     # back from power order to rack order (porder is a permutation, so
@@ -273,19 +300,26 @@ def _thermal_step(
     latched: torch.Tensor,
     pw: torch.Tensor,
     dt: float,
+    fan_fail: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Stacked RC Euler step (twin of ``_StackedThermal.step``). The
     per-rack sub-step counts are data-dependent, so the loop runs to the
     static worst case (``ThermalLayout.max_substeps``) with per-rack live
     masks — masked racks add exact zeros. Segment sums and maxima (group
     flows, the hottest PCB group, the hottest die, throttled units) are
-    padded gathers reduced along a fixed axis."""
+    padded gathers reduced along a fixed axis.
+
+    ``fan_fail`` (chaos, per thermal rack) pins the fan fraction to
+    exactly 0.0: no airflow, no fan power, and the PCB resistance back
+    at ``r_pcb0`` exactly."""
     rack_u = params["th_rack_u"]
     rack_g = params["th_rack_g"]
     group_of_u = params["th_group_of_u"]
     hottest = _seg(t_pcb, params["th_seg_g"], float("-inf")).amax(-1)
     raw_frac = (hottest - params["th_fan_low"]) / params["th_fan_span"]
     frac = torch.clamp(raw_frac, 0.0, 1.0)
+    if fan_fail is not None:
+        frac = torch.where(fan_fail, 0.0, frac)
     r_pcb = params["th_r_pcb0"] * (1.0 - (1.0 - params["th_fan_rmin"]) * frac)
     tau = torch.minimum(
         params["th_r_die"] * params["th_c_die"], r_pcb * params["th_c_pcb"]
@@ -316,6 +350,214 @@ def _thermal_step(
     return td, tp, new_latched, fan_w, max_temp, n_thr
 
 
+def _slot_mask(slot: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """One-hot ``(N, n_slots)`` of each config's ring slot ``slot``
+    (N, 1), taken modulo the ring's length."""
+    ar = torch.arange(n_slots, dtype=_I64, device=slot.device)
+    return ar == torch.remainder(slot, n_slots)
+
+
+def _slot_read(buf: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """``buf[c, slot[c]]`` for a ring ``buf`` (N, slots, ...) and slots
+    (N, 1) already in range (a gather: exact, no atomics)."""
+    shape = (slot.shape[0], 1) + (1,) * (buf.dim() - 2)
+    idx = slot.view(shape).expand((buf.shape[0], 1) + tuple(buf.shape[2:]))
+    return buf.gather(1, idx).squeeze(1)
+
+
+def _ring_add_(
+    ring: torch.Tensor, slot: torch.Tensor, k: int, a: int, m: torch.Tensor
+) -> None:
+    """``ring[c, slot[c] % slots, k, a] += m[c]``, in place on a ring the
+    tick owns (never the carry), as a one-hot add over the slot axis:
+    the other slots add 0.0 and keep their values bit for bit."""
+    oh = _slot_mask(slot, ring.shape[1])
+    ring[:, :, k, a] += torch.where(oh, m, 0.0)
+
+
+def _chaos_pre(
+    params: Dict[str, Any],
+    carry: Dict[str, torch.Tensor],
+    x: Dict[str, torch.Tensor],
+    B: torch.Tensor,
+    dt: float,
+) -> Tuple[torch.Tensor, ...]:
+    """The chaos overlay before routing. A full-rack kill edge evacuates
+    the rack's pending cost first (the host loops' ``_chaos_step``
+    order); under ``on_kill="respill"`` the evacuated mass re-enters this
+    tick's offered total through the router. Killed units shrink the
+    capacity the routers see, and a fully dead rack is not alive.
+
+    Returns the post-evacuation queue, the evacuated cost, the ``E``
+    carry, the respill rate (N, 1), the unit caps, the router capacity
+    and the liveness mask."""
+    kill_edge = x["chaos_kill"]
+    evac = torch.where(kill_edge, B, 0.0)
+    B = torch.where(kill_edge, 0.0, B)
+    E_new = carry["E"] + evac
+    respill = params["chaos_respill"] * evac.sum(1, keepdim=True) / dt
+    n_units = params["n_units"]
+    dead = x["chaos_dead"]
+    cap_units = torch.clamp_min(n_units - dead, 0)
+    cap_rt = params["capacity_rps"] * (
+        cap_units.to(_F64) / n_units.to(_F64))
+    return B, evac, E_new, respill, cap_units, cap_rt, dead < n_units
+
+
+def _degrade_pre(
+    params: Dict[str, Any],
+    dims: _Dims,
+    carry: Dict[str, torch.Tensor],
+    x: Dict[str, torch.Tensor],
+    B: torch.Tensor,
+    disp: torch.Tensor,
+    fresh: torch.Tensor,
+    respill: torch.Tensor,
+    cap_rt: torch.Tensor,
+    dt: float,
+) -> Tuple[Any, ...]:
+    """The degradation control plane before routing, in
+    ``Fleet._degrade_pre``'s order: deadline expiry on the
+    post-evacuation queue, the breaker state machine (on the
+    chaos-degraded capacity), then retry-ring release and tiered
+    admission on fleet totals. Respill bypasses admission, as on the
+    host. ``disp`` is the dispatched axis before expiry (``S``, plus
+    ``E`` under chaos); without admission the routers get ``fresh +
+    respill``.
+
+    Returns the post-expiry queue, the routed total (N, 1), the breaker
+    scale (N, racks) or ``None``, the lag ring's one-hot slot (or
+    ``None``), the new carry entries and the rows."""
+    tick = carry["dg_tick"]
+    D = carry["dg_D"]
+    new: Dict[str, torch.Tensor] = {}
+    # deadline expiry: the lag ring W holds per-tick routed work; the
+    # slot consumed at tick i was written at tick i - L, so A_lag is the
+    # total submitted through tick i - L. FIFO serving makes its
+    # undispatched part exactly the past-deadline mass that
+    # QueueWorkload.expire pops.
+    lag_oh = None
+    if dims.dg_lag > 0:
+        slot = torch.remainder(tick, dims.dg_lag)
+        lag_oh = _slot_mask(slot, dims.dg_lag)
+        A_lag = carry["dg_A_lag"] + _slot_read(carry["dg_W"], slot)
+        expired = torch.minimum(torch.clamp_min(A_lag - (disp + D), 0.0), B)
+        B = B - expired
+        D = D + expired
+        new["dg_A_lag"] = A_lag
+    else:
+        expired = torch.zeros_like(B)
+    # per-rack circuit breakers: the branchless twin of DegradeDriver's
+    # _update_breakers, on integer ticks
+    brk = carry["dg_brk"]
+    since = carry["dg_since"]
+    last_live = carry["dg_last_live"]
+    opens = carry["dg_opens"]
+    brk_scale = None
+    if dims.dg_breaker_on:
+        if dims.chaos_on and dims.dg_use_chaos:
+            full_dead = x["chaos_dead"] >= params["n_units"]
+        else:
+            full_dead = torch.zeros_like(brk, dtype=torch.bool)
+        last_live = torch.where(full_dead, last_live, tick)
+        failed = (tick - last_live) > params["dg_fail_timeout_ticks"]
+        delay = B / torch.clamp_min(cap_rt, 1e-12)
+        trip = (delay > params["dg_open_after"]) | failed
+        open_now = (brk == 0) & trip
+        to_half = (brk == BRK_OPEN) & (
+            tick - since >= params["dg_cooldown_ticks"])
+        half_trip = (brk == BRK_HALF) & trip
+        to_closed = ((brk == BRK_HALF) & (delay <= params["dg_close_below"])
+                     & ~failed)
+        opened = open_now | half_trip
+        brk = torch.where(opened, BRK_OPEN, torch.where(
+            to_half, BRK_HALF, torch.where(to_closed, 0, brk)))
+        since = torch.where(opened | to_half, tick, since)
+        opens = opens + opened.to(_I64).sum(1, keepdim=True)
+        brk_scale = torch.where(brk == BRK_OPEN, 0.0, torch.where(
+            brk == BRK_HALF, params["dg_probe"], 1.0))
+    # retry-ring release + SLO-tiered admission on fleet totals
+    ring = carry["dg_ring"]
+    shed_by_tier = carry["dg_shed_by_tier"]
+    retried = carry["dg_retried"]
+    dropped = carry["dg_retry_dropped"]
+    shed_row = torch.zeros_like(shed_by_tier)
+    retried_d = torch.zeros_like(retried)
+    dropped_d = torch.zeros_like(dropped)
+    rows: Dict[str, torch.Tensor] = {}
+    total = fresh + respill
+    if dims.dg_admission:
+        slot = torch.remainder(tick, dims.dg_ring_slots)
+        released = _slot_read(ring, slot)  # (N, tiers, attempts)
+        # a new tensor: the adds below write into it, not the carry
+        ring = torch.where(
+            _slot_mask(slot, dims.dg_ring_slots)[:, :, None, None], 0.0,
+            ring)
+        cap_b = cap_rt if brk_scale is None else cap_rt * brk_scale
+        cap_total = cap_b.sum(1, keepdim=True)
+        est_delay = B.sum(1, keepdim=True) / torch.clamp_min(cap_total, 1e-12)
+        dticks = x["dg_dticks"]  # (1, attempts) backoff delays in ticks
+        shares = params["dg_shares"]
+        budgets = params["dg_budgets"]
+        # tier split of the fresh trace load: the last tier takes the
+        # exact remainder (DegradePolicy share semantics)
+        fresh_k = []
+        acc = torch.zeros_like(fresh)
+        for k in range(dims.dg_tiers - 1):
+            f_k = shares[k] * fresh
+            fresh_k.append(f_k)
+            acc = acc + f_k
+        fresh_k.append(fresh - acc)
+        admit_total = torch.zeros_like(fresh)
+        adm: List[torch.Tensor] = []  # per-tier admitted rps: the host
+        # rebuilds _tier_requests' split fractions from them
+        shed: List[torch.Tensor] = []
+        for k in range(dims.dg_tiers):
+            rel_mass = released[:, k]  # (N, attempts)
+            rel_sum = rel_mass.sum(1, keepdim=True)
+            ok = (est_delay <= budgets[k]) & (cap_total > 1e-12)
+            adm_k = torch.where(ok, fresh_k[k] + rel_sum / dt, 0.0)
+            adm.append(adm_k)
+            admit_total = admit_total + adm_k
+            shed_fresh = torch.where(ok, 0.0, fresh_k[k] * dt)
+            shed.append(shed_fresh + torch.where(ok, 0.0, rel_sum))
+            # fresh shed enters the retry ring at attempt 1
+            if dims.dg_attempts > 1:
+                _ring_add_(ring, tick + dticks[:, 0:1], k, 1, shed_fresh)
+                retried_d = retried_d + shed_fresh
+            else:
+                dropped_d = dropped_d + shed_fresh
+            # re-shed released mass moves to the next attempt, or out of
+            # the retry budget
+            for a in range(1, dims.dg_attempts):
+                m = torch.where(ok, 0.0, rel_mass[:, a : a + 1])
+                if a + 1 >= dims.dg_attempts:
+                    dropped_d = dropped_d + m
+                else:
+                    _ring_add_(ring, tick + dticks[:, a : a + 1], k, a + 1,
+                               m)
+                    retried_d = retried_d + m
+        shed_row = torch.cat(shed, 1)
+        shed_by_tier = shed_by_tier + shed_row
+        retried = retried + retried_d
+        dropped = dropped + dropped_d
+        total = admit_total + respill
+        rows["dg_adm"] = torch.cat(adm, 1)
+        rows["dg_respill"] = respill[:, 0]
+    new.update(dg_tick=tick + 1, dg_brk=brk, dg_since=since,
+               dg_last_live=last_live, dg_opens=opens, dg_ring=ring,
+               dg_shed_by_tier=shed_by_tier, dg_retried=retried,
+               dg_retry_dropped=dropped, dg_D=D)
+    # the routed (admitted) fleet total: what the host loops append to
+    # their offered series
+    rows.update(dg_admitted=total[:, 0], dg_shed=shed_row,
+                dg_expired=expired, dg_brk=brk,
+                dg_ring_mass=ring.sum((1, 2, 3)),
+                dg_retried=retried_d[:, 0],
+                dg_retry_dropped=dropped_d[:, 0])
+    return B, total, brk_scale, lag_oh, new, rows
+
+
 def _step(
     params: Dict[str, Any],
     dims: _Dims,
@@ -323,23 +565,56 @@ def _step(
     x: Dict[str, torch.Tensor],
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One fleet tick. ``x["live"]`` masks the whole tick (dead ticks
-    pass the carry through unchanged); ``x["is_trace"]`` marks trace
-    ticks (only those append to the hedge submission ring). ``x``'s
-    values are shape (1,), shared by every config."""
+    pass the carry through unchanged); ``x["record"]`` marks the ticks
+    that append to the hedge submission ring (trace ticks; under an
+    overlay, whose drain ticks route respill and released retries, drain
+    ticks too). ``x``'s
+    values are shared by every config: (1,), or (1, racks) for the chaos
+    rows and (1, attempts) for the retry delays."""
     dt = params["dt"]
     live = x["live"]
     t = carry["t"]
     B = carry["B"]
     A = carry["A"]
     S = carry["S"]
-    total = x["rps"] * params["trace_scale"]
-    cap_units = params["n_units"]
-    assign = _route(params, B, total, dt, params["capacity_rps"])
+    fresh = x["rps"] * params["trace_scale"]
+    total = fresh
+    alive: Optional[torch.Tensor] = None
+    if dims.chaos_on:
+        B, evac, E_new, respill, cap_units, cap_rt, alive = _chaos_pre(
+            params, carry, x, B, dt)
+        total = total + respill
+        disp = S + E_new
+    else:
+        respill = None
+        cap_units = params["n_units"]
+        cap_rt = params["capacity_rps"]
+        disp = S
+    if dims.degrade_on:
+        if respill is None:
+            respill = torch.zeros_like(fresh)
+        B, total, brk_scale, lag_oh, dg_new, dg_rows = _degrade_pre(
+            params, dims, carry, x, B, disp, fresh, respill, cap_rt, dt)
+        if dims.dg_lag > 0:
+            # deadline-expired mass leaves the dispatched axis too (the
+            # host queue is popped by expire())
+            disp = disp + dg_new["dg_D"]
+        if brk_scale is not None:
+            cap_rt = cap_rt * brk_scale
+            brk_alive = dg_new["dg_brk"] != BRK_OPEN
+            alive = brk_alive if alive is None else alive & brk_alive
+    assign = _route(params, B, total, dt, cap_rt, alive)
     work = assign * dt
     rate = work / dt
     # frequency governors pick this tick's OPP (window_s == dt_s)
     opp = _select_opps(params, dims, carry["opp"], carry["backlog"], rate)
-    perf_req = _pick(params["perf_tab"], opp)
+    # a power-capped rack runs at the floor point this tick while the
+    # carried governor state stays untouched (force_floor_opp twin)
+    if dims.chaos_on:
+        opp_eff = torch.where(x["chaos_cap"] & params["has_table"], 0, opp)
+    else:
+        opp_eff = opp
+    perf_req = _pick(params["perf_tab"], opp_eff)
     perf_sz = torch.where(params["has_table"], perf_req, 1.0)
     # UnitGovernor.target_units / apply_target with group == 1
     need = rate * params["headroom"] / (
@@ -351,6 +626,12 @@ def _step(
     )
     tgt = torch.clamp_min(raw.to(_I64), 1)
     active = carry["active"]
+    if dims.chaos_on:
+        # killed units are force-released (no cooldown stamp, no scale
+        # event: a fault is not a scaling decision) and the target is
+        # capped, as apply_target's unit_cap path does
+        tgt = torch.minimum(tgt, cap_units)
+        active = torch.minimum(active, cap_units)
     up = tgt > active
     keep_n = torch.maximum(params["minq"], tgt)
     in_cooldown = t - carry["last_down"] > params["cooldown"]
@@ -361,8 +642,18 @@ def _step(
     last_down = torch.where(down, t, carry["last_down"])
     k_f = new_active.to(_F64)
     # mean perf-scale over active units; trip-latched dies dragged to
-    # the floor OPP (pool.perf_scale / _perf_from_opp_counts)
-    perf_used = torch.where(params["has_table"], (k_f * perf_req) / k_f, 1.0)
+    # the floor OPP (pool.perf_scale / _perf_from_opp_counts). A fully
+    # killed rack has k == 0: the pool returns the requested point's
+    # perf there (the guard rewrites only the k == 0 lanes)
+    if dims.chaos_on:
+        k_div = torch.clamp_min(k_f, 1.0)
+        perf_used = torch.where(
+            params["has_table"],
+            torch.where(new_active > 0, (k_f * perf_req) / k_div, perf_req),
+            1.0)
+    else:
+        perf_used = torch.where(params["has_table"], (k_f * perf_req) / k_f,
+                                1.0)
     if dims.has_thermal:
         ti = params["t_idx"]
         rack_u = params["th_rack_u"]
@@ -374,20 +665,27 @@ def _step(
         k_t = k_f[:, ti]
         p0 = params["perf_tab"][:, 0][ti]
         pr = perf_req[:, ti]
-        floor_all = (opp[:, ti] == 0) & (c_low_t > 0)
+        floor_all = (opp_eff[:, ti] == 0) & (c_low_t > 0)
         mixed = c_low_f * p0 + (k_t - c_low_f) * pr
-        perf_used[:, ti] = torch.where(floor_all, k_t * p0, mixed) / k_t
+        if dims.chaos_on:
+            perf_used[:, ti] = torch.where(
+                k_t > 0.0,
+                torch.where(floor_all, k_t * p0, mixed)
+                / torch.clamp_min(k_t, 1.0),
+                pr)
+        else:
+            perf_used[:, ti] = torch.where(floor_all, k_t * p0, mixed) / k_t
     # straggler hedging: the submission ring carries (cumulative cost,
-    # arrival) per trace tick; the head request is the first submission
-    # not yet fully served (searchsorted past S + forgiveness)
+    # arrival) per recorded tick; the head request is the first
+    # submission not yet fully served (searchsorted past S + forgiveness)
     arrival_t = t + 0.5 * dt
     A_new = A + work
     if dims.hedge_on:
-        wmask = x["is_trace"] & live
+        wmask = x["record"] & live
         ptr = carry["ptr"]
         A_buf = carry["A_buf"]
         arr_buf = carry["arr_buf"]
-        # ptr reaches the ring's length after the last trace tick; the
+        # ptr reaches the ring's length after the last recorded tick; the
         # write there is masked off, so clamp the index (JAX drops it)
         slot = torch.clamp_max(ptr, A_buf.shape[2] - 1).unsqueeze(2)
         slot = slot.expand(-1, A_buf.shape[1], 1)
@@ -397,7 +695,9 @@ def _step(
             wmask, arrival_t.expand_as(A).unsqueeze(2),
             arr_buf.gather(2, slot)))
         new_ptr = ptr + wmask.to(_I64)
-        disp = S
+        # under an overlay the head search skips voided mass: the
+        # dispatched axis is S plus the evacuated (E) and expired (D)
+        # cost, as the host queue is physically cleared
         head = torch.searchsorted(
             A_buf, (disp + _cum_tol(disp)).unsqueeze(2), right=True
         ).squeeze(2)
@@ -410,6 +710,11 @@ def _step(
             & (age > params["hedge_deadline"])
             & (new_active < cap_units)
         ).to(_I64)
+        if dims.chaos_on or dims.degrade_on:
+            # every submission is in the ring: with no entry past the
+            # dispatched axis, what is pending is a residue of voided
+            # mass within the forgiveness, not a request to age
+            h = h * (head < new_ptr).to(_I64)
     else:
         h = torch.zeros_like(new_active)
     hedged = carry["hedged"] + h
@@ -434,7 +739,7 @@ def _step(
     # rest at the gated floor
     u = torch.clamp(util, 0.0, 1.0)
     ug = u ** params["gamma"]
-    spk_req = _pick(params["spk_tab"], opp)
+    spk_req = _pick(params["spk_tab"], opp_eff)
     w_req = params["p_idle"] + spk_req * ug
     h_f = h.to(_F64)
     powered = new_active + h
@@ -452,9 +757,10 @@ def _step(
         pw = torch.where(am & latched, w_low_t[:, rack_u], pw)
         last_u = params["th_last_unit"]
         pw[:, last_u] = torch.where(h[:, ti] > 0, w_req_t, pw[:, last_u])
+        fan_fail = x["chaos_fan"][:, ti] if dims.chaos_on else None
         t_die, t_pcb, new_latched, fan_t, temp_t, thr_t = _thermal_step(
-            params, dims, carry["t_die"], carry["t_pcb"], latched, pw, dt
-        )
+            params, dims, carry["t_die"], carry["t_pcb"], latched, pw, dt,
+            fan_fail)
         fan_w[:, ti] = fan_t
     p_units = torch.where(
         params["has_table"], p_act + h_f * w_req, powered_f * w_req
@@ -469,14 +775,16 @@ def _step(
     def keep(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
         return torch.where(live, new, old)
 
+    # dead ticks keep the carry as it came in (the local B was rewritten
+    # by evacuation and expiry, the local active by the unit caps)
     new_carry: Dict[str, torch.Tensor] = {
         "t": keep(t + dt, t),
-        "B": keep(B_new, B),
+        "B": keep(B_new, carry["B"]),
         "A": keep(A_new, A),
         "S": keep(S_new, S),
         "opp": keep(opp, carry["opp"]),
         "backlog": keep(backlog, carry["backlog"]),
-        "active": keep(new_active, active),
+        "active": keep(new_active, carry["active"]),
         "last_down": keep(last_down, carry["last_down"]),
         "scale_events": keep(scale_events, carry["scale_events"]),
         "hedged": keep(hedged, carry["hedged"]),
@@ -492,6 +800,17 @@ def _step(
         new_carry["A_buf"] = keep(A_buf, carry["A_buf"])
         new_carry["arr_buf"] = keep(arr_buf, carry["arr_buf"])
         new_carry["ptr"] = keep(new_ptr, carry["ptr"])
+    if dims.chaos_on:
+        new_carry["E"] = keep(E_new, carry["E"])
+    if dims.degrade_on:
+        for k, v in dg_new.items():
+            new_carry[k] = keep(v, carry[k])
+        if dims.dg_lag > 0:
+            # the consumed slot takes this tick's routed work: it is the
+            # lagged prefix again in L ticks
+            W_new = torch.where(lag_oh[:, :, None], work[:, None, :],
+                                carry["dg_W"])
+            new_carry["dg_W"] = keep(W_new, carry["dg_W"])
     ys: Dict[str, torch.Tensor] = {
         "assign": assign,
         "rate": rate,
@@ -511,8 +830,12 @@ def _step(
         ys["fan"] = fan_t
         ys["temp"] = temp_t
         ys["thr"] = thr_t
+    if dims.chaos_on:
+        ys["evac"] = evac
+    if dims.degrade_on:
+        ys.update(dg_rows)
     if dims.emit_obs:
-        ys["opp"] = opp
+        ys["opp"] = opp_eff
         ys["w_req"] = w_req
         if dims.has_thermal:
             ys["c_low"] = c_low_f
@@ -526,6 +849,10 @@ class _Runner:
     The carry (updated in place), the block's input rows and a device
     tick counter are fixed tensors, so on the card the tick is captured
     once as a CUDA graph and replayed; on the CPU it runs eagerly.
+    The input rows are ``rps``, ``live`` and ``record`` (``_BLOCK``,);
+    under chaos the schedule's ``chaos_dead``, ``chaos_fan``,
+    ``chaos_cap`` and ``chaos_kill`` (``_BLOCK``, racks); under tiered
+    admission the retry delays ``dg_dticks`` (``_BLOCK``, attempts).
     After :meth:`run_block`, ``ys[k][i]`` holds tick ``i``'s row."""
 
     def __init__(
@@ -540,11 +867,21 @@ class _Runner:
         self.dims = dims
         self.carry = carry
         self.device = device
+        n = int(params["n_units"].shape[0])
         self.xs = {
             "rps": torch.zeros(_BLOCK, dtype=_F64, device=device),
             "live": torch.zeros(_BLOCK, dtype=torch.bool, device=device),
-            "is_trace": torch.zeros(_BLOCK, dtype=torch.bool, device=device),
+            "record": torch.zeros(_BLOCK, dtype=torch.bool, device=device),
         }
+        if dims.chaos_on:
+            self.xs["chaos_dead"] = torch.zeros((_BLOCK, n), dtype=_I64,
+                                                device=device)
+            for key in ("chaos_fan", "chaos_cap", "chaos_kill"):
+                self.xs[key] = torch.zeros((_BLOCK, n), dtype=torch.bool,
+                                           device=device)
+        if dims.dg_admission:
+            self.xs["dg_dticks"] = torch.zeros(
+                (_BLOCK, dims.dg_attempts), dtype=_I64, device=device)
         self.i = torch.zeros(1, dtype=_I64, device=device)
         # row shapes from one dead tick (its carry is discarded)
         _, ys = _step(params, dims, carry, self._x())
@@ -591,11 +928,11 @@ class _Runner:
         for k, v in snap.items():
             self.carry[k].copy_(v)
 
-    def run_block(
-        self, rps: np.ndarray, live: np.ndarray, is_trace: np.ndarray
-    ) -> Dict[str, torch.Tensor]:
-        for key, row in (("rps", rps), ("live", live),
-                         ("is_trace", is_trace)):
+    def run_block(self, rows: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One block of ticks over ``rows``, a ``(_BLOCK, ...)`` host row
+        for every input buffer."""
+        assert rows.keys() == self.xs.keys(), sorted(rows)
+        for key, row in rows.items():
             self.xs[key].copy_(torch.from_numpy(np.ascontiguousarray(row)))
         self.i.zero_()
         if self.use_graph:
@@ -1082,17 +1419,88 @@ class _TorchFleetEngine:
         self._A_buf = np.full((n, 0), np.inf)
         self._arr_buf = np.full((n, 0), np.inf)
         self._ptr = 0
+        # chaos surface (inert until Fleet calls set_chaos): the lowered
+        # schedule, the cumulative evacuated-cost carry, and the counters
+        # the scalar/vector engines expose to _build_telemetry
+        self._chaos: Optional[Any] = None
+        self.chaos_on_kill = "respill"
+        self._E = np.zeros(n)
+        self.chaos_dead = np.zeros(n, np.int64)
+        self.chaos_fan = np.zeros(n, bool)
+        self.chaos_cap = np.zeros(n, bool)
+        self.chaos_evac_cost = 0.0
+        self.chaos_evac_by_rack = np.zeros(n)
+        self.chaos_dropped = 0
+        self.chaos_dropped_cost = 0.0
+        self.chaos_respilled = 0
+        self.chaos_respilled_cost = 0.0
+        # degrade surface (inert until Fleet calls set_degrade)
+        self._degrade: Optional[Any] = None
         # cumulative per-tick emitted history (for telemetry rebuilds)
         self._t_hist: List[float] = []
         self._hist: Dict[str, List[np.ndarray]] = {}
 
     def set_chaos(self, lowered: Any) -> None:
-        """Refuses: the chaos overlay is not ported to this engine."""
-        raise NotImplementedError(_OVERLAY_TODO.format("chaos"))
+        """Wire a :class:`~repro_torch.fleet.chaos.LoweredChaos` schedule.
+
+        Called by ``Fleet.__init__``. ``play`` samples the schedule into
+        per-tick mask rows (``LoweredChaos.rows``) a block at a time and
+        copies them into the runner's static row buffers, so one
+        captured tick serves every schedule."""
+        self._chaos = lowered if lowered.any_events() else None
+        self.chaos_on_kill = lowered.on_kill
+        self._params["chaos_respill"] = _tensor(
+            np.float64(1.0 if lowered.on_kill == "respill" else 0.0),
+            self.device)
 
     def set_degrade(self, lowered: Any) -> None:
-        """Refuses: the degrade overlay is not ported to this engine."""
-        raise NotImplementedError(_OVERLAY_TODO.format("degrade"))
+        """Wire a :class:`~repro_torch.fleet.degrade.LoweredDegrade` plan.
+
+        Called by ``Fleet.__init__``. The control plane runs in the
+        tick; the host keeps carry mirrors plus the cumulative counters
+        :class:`~repro_torch.fleet.degrade.DegradeDriver` exposes, so
+        ``Fleet._build_telemetry`` reads either source unchanged. The
+        tick routes the admitted fleet total; the per-tier request shape
+        is rebuilt on the host from the ``dg_adm`` / ``dg_respill`` rows
+        (:meth:`_tier_split_rows`), so responses carry tier payloads and
+        sub-request counts match the host engines."""
+        self._degrade = lowered
+        n = self.n_racks
+        nt = max(lowered.n_tiers, 1)
+        self._dg_ring = np.zeros(
+            (lowered.ring_slots, nt, lowered.retry.max_attempts))
+        self._dg_brk = np.zeros(n, np.int64)
+        self._dg_since = np.zeros(n, np.int64)
+        self._dg_last_live = np.full(n, -1, np.int64)
+        self._dg_opens = np.int64(0)
+        self._dg_shed_by_tier = np.zeros(nt)
+        self._dg_retried = np.float64(0.0)
+        self._dg_retry_dropped = np.float64(0.0)
+        self._dg_W = np.zeros((max(lowered.deadline_lag, 1), n))
+        self._dg_A_lag = np.zeros(n)
+        self._dg_D = np.zeros(n)
+        # telemetry mirrors (recomputed from history after every play)
+        self.shed_by_tier = np.zeros(nt)
+        self.shed_cost = 0.0
+        self.shed_cost_t = np.zeros(0)
+        self.retried_cost = 0.0
+        self.retry_dropped_cost = 0.0
+        self.breaker_opens = 0
+        self.breaker_state_t = np.zeros((0, n), np.int64)
+        self.degrade_expired = 0
+        self.degrade_expired_cost = 0.0
+        self.degrade_expired_by_rack = np.zeros(n)
+        params = {"dg_shares": lowered.shares, "dg_budgets": lowered.budgets}
+        brk_cfg = lowered.policy.breaker
+        if brk_cfg is not None:
+            params.update(
+                dg_open_after=np.float64(brk_cfg.open_after_s),
+                dg_close_below=np.float64(brk_cfg.close_below_s),
+                dg_probe=np.float64(brk_cfg.probe_fraction),
+                dg_cooldown_ticks=np.int64(lowered.cooldown_ticks),
+                dg_fail_timeout_ticks=np.int64(lowered.fail_timeout_ticks))
+        for k, v in params.items():
+            self._params[k] = _tensor(v, self.device)
 
     # -- sanitizer / Fleet.view surface ---------------------------------
     def queued_cost(self) -> np.ndarray:
@@ -1126,6 +1534,22 @@ class _TorchFleetEngine:
             c["A_buf"] = self._A_buf
             c["arr_buf"] = self._arr_buf
             c["ptr"] = np.int64(self._ptr)
+        if self._chaos is not None:
+            c["E"] = self._E
+        if self._degrade is not None:
+            c["dg_tick"] = np.int64(len(self._t_hist))
+            c["dg_brk"] = self._dg_brk
+            c["dg_since"] = self._dg_since
+            c["dg_last_live"] = self._dg_last_live
+            c["dg_opens"] = self._dg_opens
+            c["dg_ring"] = self._dg_ring
+            c["dg_shed_by_tier"] = self._dg_shed_by_tier
+            c["dg_retried"] = self._dg_retried
+            c["dg_retry_dropped"] = self._dg_retry_dropped
+            c["dg_D"] = self._dg_D
+            if self._degrade.deadline_lag > 0:
+                c["dg_A_lag"] = self._dg_A_lag
+                c["dg_W"] = self._dg_W
         return c
 
     def _full(self, key: str) -> np.ndarray:
@@ -1148,18 +1572,63 @@ class _TorchFleetEngine:
         dt = self.dt_s
         t_len = len(trace)
         n = self.n_racks
+        chaos = self._chaos
+        degrade = self._degrade
+        # under an overlay a drain tick can route work (respill, released
+        # retries), so drain ticks are recorded in the hedge ring too, as
+        # the host queue ages every request it holds
+        drain_records = drain and (chaos is not None or degrade is not None)
         if self._hedge_any and t_len > 0:
-            pad = np.full((n, t_len), np.inf)
-            self._A_buf = np.concatenate([self._A_buf, pad], axis=1)
-            self._arr_buf = np.concatenate([self._arr_buf, pad.copy()], axis=1)
+            room = t_len + (10 * t_len + 100 if drain_records else 0)
+            pad = np.full((n, room), np.inf)
+            self._A_buf = np.concatenate([self._A_buf[:, : self._ptr], pad],
+                                         axis=1)
+            self._arr_buf = np.concatenate(
+                [self._arr_buf[:, : self._ptr], pad.copy()], axis=1)
         hedge_on = self._hedge_any and self._A_buf.shape[1] > 0
         dims = _make_dims(self.arrays, dt, hedge_on,
-                          emit_obs=self.obs is not None)
+                          emit_obs=self.obs is not None,
+                          chaos_on=chaos is not None, degrade=degrade)
         run = _Runner(self._params, dims,
                       _device_carry(self._carry(hedge_on), 1, self.device),
                       self.device)
+        tick_base = len(self._t_hist)
+
+        def rows_at(t0: float, tick0: int, rps: np.ndarray,
+                    live: np.ndarray, record: np.ndarray
+                    ) -> Dict[str, np.ndarray]:
+            """One block's input rows from tick ``tick0`` at time ``t0``.
+            The overlay rows depend only on the absolute tick, so the
+            drain rewind reuses a block's rows verbatim; rows past the
+            live prefix are masked off by the carry pass-through."""
+            rows = {"rps": rps, "live": live, "record": record}
+            if chaos is not None:
+                for key, row in chaos.rows(t0, _BLOCK, dt).items():
+                    rows[_CHAOS_XS[key]] = row
+            if dims.dg_admission:
+                rows["dg_dticks"] = degrade.retry_rows(tick0, _BLOCK)
+            return rows
+
+        def idle(rows: Dict[str, np.ndarray]) -> np.ndarray:
+            """Per tick, the host loop's drain break: every queue empty
+            at the tick's end, nothing served in it (no request touched),
+            and no shed mass waiting in the retry ring. A tick whose last
+            queued mass was voided (expired, or evacuated and dropped)
+            before serving ends the drain itself, as on the host; a rule
+            on the previous tick's end alone would run one idle tick
+            more. Served mass within the cumulative axis's forgiveness
+            is no request (the completion test forgives it too): expiry
+            on the fluid axis leaves such a residue where the host queue
+            pops whole requests."""
+            served = rows["used"] > _cum_tol(rows["S"])
+            out = rows["empty"].all(axis=1) & ~served.any(axis=1)
+            if degrade is not None:
+                out &= rows["dg_ring_mass"] <= 0.0
+            return out
+
         zeros = np.zeros(_BLOCK)
         falses = np.zeros(_BLOCK, bool)
+        cur_t = self.now
         kept: List[Dict[str, np.ndarray]] = []
         pos = 0
         while pos < t_len:
@@ -1168,18 +1637,16 @@ class _TorchFleetEngine:
             rps[:blk] = trace[pos : pos + blk]
             live = np.zeros(_BLOCK, bool)
             live[:blk] = True
-            kept.append(_host_rows(run.run_block(rps, live, live), blk))
+            ys = run.run_block(rows_at(cur_t, tick_base + pos, rps, live,
+                                       live))
+            kept.append(_host_rows(ys, blk))
             pos += blk
-        if kept:
-            all_empty = bool(kept[-1]["empty"][-1].all())
-        else:
-            all_empty = bool(np.all(self._B <= 0.0))
+            cur_t += blk * dt
         drained: Optional[bool]
         if drain:
-            # keep ticking until the first tick that starts fully idle
-            # (inclusive) — the same stop tick Fleet.play_trace's
-            # queued/concurrency break lands on — bounded by the same
-            # 10x-trace safety cap
+            # keep ticking until the first idle tick (inclusive), the
+            # stop tick of Fleet.play_trace's queued/concurrency/ring
+            # break, bounded by the same 10x-trace safety cap
             cap_ticks = 10 * t_len + 100
             done = 0
             found = False
@@ -1187,35 +1654,79 @@ class _TorchFleetEngine:
                 blk = min(_BLOCK, cap_ticks - done)
                 live = np.zeros(_BLOCK, bool)
                 live[:blk] = True
+                xs = rows_at(cur_t, tick_base + t_len + done, zeros, live,
+                             live if drain_records else falses)
                 carry0 = run.snapshot()
-                rows = _host_rows(run.run_block(zeros, live, falses), blk)
-                allm = rows["empty"].all(axis=1)
-                start_idle = np.concatenate(([all_empty], allm[:-1]))
-                idle = np.nonzero(start_idle)[0]
-                if len(idle):
+                rows = _host_rows(run.run_block(xs), blk)
+                stops = np.nonzero(idle(rows))[0]
+                if len(stops):
                     # rewind: re-run the block with the mask cut at the
                     # first idle tick, landing the carry on it
-                    stop = int(idle[0])
+                    stop = int(stops[0])
                     live2 = np.zeros(_BLOCK, bool)
                     live2[: stop + 1] = True
                     run.restore(carry0)
-                    run.run_block(zeros, live2, falses)
+                    run.run_block({**xs, "live": live2})
                     kept.append({k: v[: stop + 1] for k, v in rows.items()})
                     found = True
                 else:
                     kept.append(rows)
-                    all_empty = bool(allm[-1])
                     done += blk
+                    cur_t += blk * dt
             drained = found
         elif t_len == 0:
             drained = None
         else:
-            last = kept[-1]
-            drained = bool(
-                last["empty"][-1].all() and not (last["used"][-1] > 0.0).any()
-            )
-        # pull the final carry back into host state
-        fin = {k: _numpy(v[0]) for k, v in run.carry.items()}
+            drained = bool(idle(kept[-1])[-1])
+        self._write_back({k: _numpy(v[0]) for k, v in run.carry.items()},
+                         hedge_on)
+        # append this call's rows to the cumulative history
+        if kept:
+            rows_all = {k: np.concatenate([r[k] for r in kept]) for k in kept[0]}
+            n_rows = int(rows_all["empty"].shape[0])
+        else:
+            rows_all = {}
+            n_rows = 0
+        t0 = self.now - n_rows * dt
+        if n_rows:
+            self._t_hist.extend((t0 + np.arange(n_rows) * dt).tolist())
+            for k, v in rows_all.items():
+                self._hist.setdefault(k, []).append(v)
+        # queue depths come from the *full* history (cumulative S/A). The
+        # dispatched axis adds every kind of voided mass: chaos
+        # evacuations and deadline expiries both clear queued cost
+        # without serving it (a kill edge zeroes B before expiry runs, so
+        # the two never fall on the same (tick, rack))
+        work_all = self._full("work")
+        s_all = self._full("S")
+        evac_all = self._full("evac") if "evac" in self._hist else None
+        exp_all = (self._full("dg_expired") if "dg_expired" in self._hist
+                   else None)
+        void_all = self._void_rows()
+        if void_all is not None:
+            s_all = s_all + np.cumsum(void_all, axis=0)  # reprolint: ok[RPL001] jax tolerance-parity: prefix cumsum replays the device carry's sequential adds
+        split_rows = self._tier_split_rows()
+        if evac_all is not None:
+            self._update_chaos_counters(work_all, s_all, evac_all, split_rows)
+        if degrade is not None:
+            self._update_degrade_counters(work_all, s_all, exp_all,
+                                          split_rows)
+        queued_rows = np.zeros((n_rows, n), np.int64)
+        for r in range(n):
+            q = _queued_for_rack(work_all[:, r], s_all[:, r], split_rows)
+            if n_rows:
+                queued_rows[:, r] = q[-n_rows:]
+        assigned = rows_all["assign"] if n_rows else np.zeros((0, n))
+        if chaos is not None and n_rows:
+            # host mirrors of the masks (Fleet.view, telemetry): the last
+            # applied ones were sampled at the final tick's start, as on
+            # the scalar/vector loops
+            self.chaos_dead, self.chaos_fan, self.chaos_cap = (
+                chaos.masks_at(self.now - dt))
+        return assigned, queued_rows, n_rows - t_len, drained
+
+    def _write_back(self, fin: Dict[str, np.ndarray], hedge_on: bool) -> None:
+        """Pull a batch-1 final carry back into the host state."""
         self.now = float(fin["t"][0])
         self._B = fin["B"]
         self._A = fin["A"]
@@ -1237,28 +1748,154 @@ class _TorchFleetEngine:
             self._A_buf = fin["A_buf"]
             self._arr_buf = fin["arr_buf"]
             self._ptr = int(fin["ptr"][0])
-        # append this call's rows to the cumulative history
-        if kept:
-            rows_all = {k: np.concatenate([r[k] for r in kept]) for k in kept[0]}
-            n_rows = int(rows_all["empty"].shape[0])
+        if self._chaos is not None:
+            self._E = fin["E"]
+        if self._degrade is not None:
+            self._dg_brk = fin["dg_brk"]
+            self._dg_since = fin["dg_since"]
+            self._dg_last_live = fin["dg_last_live"]
+            self._dg_opens = np.int64(fin["dg_opens"][0])
+            self._dg_ring = fin["dg_ring"]
+            self._dg_shed_by_tier = fin["dg_shed_by_tier"]
+            self._dg_retried = np.float64(fin["dg_retried"][0])
+            self._dg_retry_dropped = np.float64(fin["dg_retry_dropped"][0])
+            self._dg_D = fin["dg_D"]
+            if self._degrade.deadline_lag > 0:
+                self._dg_A_lag = fin["dg_A_lag"]
+                self._dg_W = fin["dg_W"]
+
+    def _void_rows(self) -> Optional[np.ndarray]:
+        """Per-tick voided cost (T, racks): chaos evacuations plus
+        deadline expiries, or ``None`` when neither overlay emitted."""
+        void = None
+        for key in ("evac", "dg_expired"):
+            if key in self._hist:
+                rows = self._full(key)
+                void = rows if void is None else void + rows
+        return void
+
+    def _update_chaos_counters(
+        self,
+        work_all: np.ndarray,
+        s_eff_all: np.ndarray,
+        evac_all: np.ndarray,
+        split_rows: Optional[np.ndarray] = None,
+    ) -> None:
+        """Recompute the cumulative drop/respill accounting from the
+        full emitted history (idempotent across ``play`` calls).
+
+        Costs are the evacuated mass itself; request counts come from
+        the same host reconstruction that builds Response lists — a
+        submission whose crossing tick carries an evacuation was voided
+        by the kill, and ``on_kill`` decides which bucket it lands in.
+        ``s_eff_all`` must already include the evacuation cumsum.
+        ``split_rows`` (tiered admission) expands ticks into the hosts'
+        per-tier sub-requests so voided *counts* match."""
+        self.chaos_evac_by_rack = evac_all.sum(axis=0)  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+        self.chaos_evac_cost = float(self.chaos_evac_by_rack.sum())  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+        t_all = evac_all.shape[0]
+        n_voided = 0
+        for r in range(self.n_racks):
+            ecol = evac_all[:, r]
+            if not ecol.any():
+                continue
+            _, _, j, _ = _completions(work_all[:, r], s_eff_all[:, r],
+                                      split_rows)
+            jv = np.clip(j, 0, t_all - 1)
+            n_voided += int(np.count_nonzero((j < t_all) & (ecol[jv] > 0.0)))
+        if self.chaos_on_kill == "respill":
+            self.chaos_respilled = n_voided
+            self.chaos_respilled_cost = self.chaos_evac_cost
+            self.chaos_dropped = 0
+            self.chaos_dropped_cost = 0.0
         else:
-            rows_all = {}
-            n_rows = 0
-        t0 = self.now - n_rows * dt
-        if n_rows:
-            self._t_hist.extend((t0 + np.arange(n_rows) * dt).tolist())
-            for k, v in rows_all.items():
-                self._hist.setdefault(k, []).append(v)
-        # queue depths come from the *full* history (cumulative S/A)
-        work_all = self._full("work")
-        s_all = self._full("S")
-        queued_rows = np.zeros((n_rows, n), np.int64)
-        for r in range(n):
-            q = _queued_for_rack(work_all[:, r], s_all[:, r])
-            if n_rows:
-                queued_rows[:, r] = q[-n_rows:]
-        assigned = rows_all["assign"] if n_rows else np.zeros((0, n))
-        return assigned, queued_rows, n_rows - t_len, drained
+            self.chaos_dropped = n_voided
+            self.chaos_dropped_cost = self.chaos_evac_cost
+            self.chaos_respilled = 0
+            self.chaos_respilled_cost = 0.0
+
+    def _update_degrade_counters(
+        self,
+        work_all: np.ndarray,
+        s_eff_all: np.ndarray,
+        exp_all: Optional[np.ndarray],
+        split_rows: Optional[np.ndarray] = None,
+    ) -> None:
+        """Recompute the cumulative degradation accounting from the
+        full emitted history (idempotent across ``play`` calls), under
+        the same attribute names :class:`DegradeDriver` exposes.
+
+        Expired request *counts* come from the host reconstruction: a
+        submission whose crossing tick carries an expiry, with its
+        cumulative tail inside that tick's voided jump, was abandoned
+        past deadline rather than served. ``s_eff_all`` must already
+        include every void cumsum (evacuations + expiries)."""
+        if "dg_shed" in self._hist:
+            shed = np.concatenate(self._hist["dg_shed"], axis=0)
+            self.shed_by_tier = shed.sum(axis=0)  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+            self.shed_cost_t = shed.sum(axis=1)  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+            self.shed_cost = float(self.shed_by_tier.sum())  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+        if "dg_retried" in self._hist:
+            self.retried_cost = float(
+                np.sum(np.concatenate(self._hist["dg_retried"]))  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+            )
+            self.retry_dropped_cost = float(
+                np.sum(np.concatenate(self._hist["dg_retry_dropped"]))  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+            )
+        if "dg_brk" in self._hist:
+            brk = np.concatenate(self._hist["dg_brk"], axis=0)
+            self.breaker_state_t = brk.astype(np.int64)
+            prev = np.vstack(
+                [np.zeros((1, brk.shape[1]), np.int64), brk[:-1]]
+            )
+            self.breaker_opens = int(
+                ((brk == BRK_OPEN) & (prev != BRK_OPEN)).sum()  # reprolint: ok[RPL001] bool edge count, exact in any order
+            )
+        if exp_all is None:
+            return
+        self.degrade_expired_by_rack = exp_all.sum(axis=0)  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+        self.degrade_expired_cost = float(self.degrade_expired_by_rack.sum())  # reprolint: ok[RPL001] jax tolerance-parity: post-hoc roll-up of finished host rows
+        t_all = exp_all.shape[0]
+        n_expired = 0
+        for r in range(self.n_racks):
+            ecol = exp_all[:, r]
+            if not ecol.any():
+                continue
+            s_col = s_eff_all[:, r]
+            _, a_sub, j, _ = _completions(work_all[:, r], s_col, split_rows)
+            for k in range(len(a_sub)):
+                jj = int(j[k])
+                if jj >= t_all or ecol[jj] <= 0.0:
+                    continue
+                s_prev = float(s_col[jj - 1]) if jj > 0 else 0.0
+                a_k = float(a_sub[k])
+                if a_k - _cum_tol(a_k) <= s_prev + float(ecol[jj]):
+                    n_expired += 1
+        self.degrade_expired = n_expired
+
+    def _tier_split_rows(self) -> Optional[np.ndarray]:
+        """Per-tick tier fractions of the routed total, shape
+        ``(T, n_tiers + 1)`` (last column = untiered chaos respill) —
+        the host-side mirror of the ``frac`` vector
+        :meth:`DegradeDriver.pre_route` hands to ``_tier_requests``:
+        ``frac[k] = admitted_k / total``, ``frac[-1] = respill / total``.
+        ``None`` when tiered admission is off (reconstruction then
+        keeps its one-request-per-tick fluid shape)."""
+        if self._degrade is None or "dg_adm" not in self._hist:
+            return None
+        adm = self._full("dg_adm")  # (T, n_tiers)
+        respill = self._full("dg_respill")  # (T,)
+        total = self._full("dg_admitted")  # (T,)
+        rows = np.zeros((adm.shape[0], adm.shape[1] + 1))
+        flow = total > 0.0
+        rows[flow, :-1] = adm[flow] / total[flow, None]
+        rows[flow, -1] = respill[flow] / total[flow]
+        return rows
+
+    def _tier_payloads(self) -> List[Optional[str]]:
+        """Tier payload names + trailing ``None`` for the untiered
+        respill column — same list ``Fleet`` hands the host engines."""
+        return [t.name for t in self._degrade.tiers] + [None]
 
     # -------------------------------------------------------------------
     def per_rack_telemetry(self) -> List[Telemetry]:
@@ -1281,6 +1918,11 @@ class _TorchFleetEngine:
         else:
             fan = temp = thr = None
             col_of = {}
+        # evacuated and deadline-expired mass void requests alike (see
+        # _responses_for_rack's evac_col contract)
+        void = self._void_rows()
+        split_rows = self._tier_split_rows()
+        payloads = self._tier_payloads() if split_rows is not None else None
         arr = self.arrays
         out: List[Telemetry] = []
         for r in range(self.n_racks):
@@ -1292,6 +1934,9 @@ class _TorchFleetEngine:
                 cap[:, r],
                 perf[:, r],
                 float(arr.unit_rate[r]),
+                evac_col=None if void is None else void[:, r],
+                split_rows=split_rows,
+                payloads=payloads,
             )
             p50, p99 = latency_percentiles(responses)
             j = col_of.get(r)
@@ -1460,7 +2105,8 @@ def _sweep(
         rps = np.zeros(_BLOCK)
         in_trace = ticks < t_len
         rps[in_trace] = trace[ticks[in_trace]]
-        ys = run.run_block(rps, ticks < total_ticks, in_trace)
+        ys = run.run_block({"rps": rps, "live": ticks < total_ticks,
+                            "record": in_trace})
         for k, v in ys.items():
             hist[k][b0 : b0 + _BLOCK].copy_(v)
     summary = _device_summary(

@@ -1,10 +1,11 @@
 """The port's fleet engine (``Fleet(backend="torch")``, ``sweep``) on the
 CPU, held to the port's own vector engine (the bitwise oracle) under the
 JAX engine's tolerance contract, to itself run to run (bitwise), and a
-sweep's rows to dedicated runs; plus its rejections, its refusal of the
-chaos and degrade overlays, its refusal of a missing card, and its
-64-bit carry. ``tests/test_torch_fleet_jax.py`` holds it to the JAX
-engine itself.
+sweep's rows to dedicated runs; plus its rejections, its refusal of a
+missing card, and its 64-bit carry, rows and params (the chaos and degrade
+overlays' too). ``tests/test_torch_fleet_chaos.py`` and
+``tests/test_torch_fleet_degrade.py`` hold the overlays to the vector
+engine, ``tests/test_torch_fleet_jax.py`` the engine to the JAX engine.
 
 The tests marked ``gpu`` hold the card's run (a CUDA graph replayed a
 block at a time) to the CPU's and skip where there is no card; the file
@@ -19,10 +20,11 @@ import pytest
 import torch
 
 from repro_torch.core.cluster import edge_server_cpu, soc_cluster
-from repro_torch.fleet import (ChaosSchedule, DegradePolicy, Fleet,
-                               JoinShortestQueueRouter, PowerAwareRouter,
-                               RackConfig, RoundRobinRouter, SweepConfig,
-                               diurnal_trace, homogeneous_fleet, sweep)
+from repro_torch.fleet import (BreakerConfig, ChaosSchedule, DegradePolicy,
+                               Fleet, JoinShortestQueueRouter,
+                               PowerAwareRouter, RackConfig, RoundRobinRouter,
+                               SweepConfig, diurnal_trace, homogeneous_fleet,
+                               sweep)
 from repro_torch.fleet import torch_engine as te
 from repro_torch.obs import EnergyLedger, FleetObs, MemorySink, ProbeRegistry
 from repro_torch.power import (FixedFreqGovernor, RaceToIdleGovernor,
@@ -435,16 +437,6 @@ def test_unknown_sweep_router_rejected():
               device=CPU)
 
 
-@pytest.mark.parametrize("overlay", ["chaos", "degrade"])
-def test_overlays_are_refused(overlay):
-    racks = _racks(n=2)
-    kw = ({"chaos": ChaosSchedule().kill_rack(0, start_s=120.0)}
-          if overlay == "chaos" else {"degrade": DegradePolicy()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Fleet(racks, backend="torch", device=CPU, **kw)
-    Fleet(_racks(n=2), backend="vector", **kw)  # the escape hatch
-
-
 def test_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     racks = _racks(n=2)
@@ -457,19 +449,43 @@ def test_default_device_raises_without_a_card(monkeypatch):
 # ---------------------------------------------------------------------------
 # 64-bit everywhere, by explicit dtype
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("scenario", ["schedutil", "hedging"])
+def _overlays():
+    """Every chaos row and every degrade carry key: all four fault kinds,
+    tiers with retries, expiry and breakers."""
+    sched = ChaosSchedule()
+    sched.kill_rack(0, start_s=120.0).kill_units(1, 10, start_s=60.0)
+    sched.fail_fan(2, start_s=60.0).power_cap(3, start_s=60.0)
+    return {"chaos": sched,
+            "degrade": DegradePolicy(queue_deadline_s=600.0,
+                                     breaker=BreakerConfig())}
+
+
+@pytest.mark.parametrize("scenario", ["schedutil", "hedging", "overlays"])
 def test_carry_and_params_are_64_bit(scenario):
-    racks = SCENARIOS[scenario]()
-    eng = Fleet(racks, dt_s=DT_S, backend="torch", device=CPU).engine
+    overlays = scenario == "overlays"
+    racks = SCENARIOS["schedutil" if overlays else scenario]()
+    kw = _overlays() if overlays else {}
+    eng = Fleet(racks, dt_s=DT_S, backend="torch", device=CPU, **kw).engine
     arr = eng.arrays
     hedge = arr.any_hedge
-    carry = te._device_carry(te._fresh_carry(arr, hedge, 4), 1,
-                             torch.device(CPU))
-    dims = te._make_dims(arr, DT_S, hedge, emit_obs=True)
+    if overlays:
+        eng._A_buf = np.full((len(racks), 4), np.inf)
+        carry = eng._carry(hedge)
+        assert {"E", "dg_ring", "dg_W", "dg_brk"} <= carry.keys()
+    else:
+        carry = te._fresh_carry(arr, hedge, 4)
+    carry = te._device_carry(carry, 1, torch.device(CPU))
+    dims = te._make_dims(arr, DT_S, hedge, emit_obs=True,
+                         chaos_on=overlays,
+                         degrade=eng._degrade if overlays else None)
     run = te._Runner(eng._params, dims, carry, torch.device(CPU))
+    if overlays:
+        assert {"evac", "dg_adm", "dg_ring_mass", "dg_expired"} <= \
+            run.ys.keys()
+        assert {"chaos_dead", "chaos_kill", "dg_dticks"} <= run.xs.keys()
     allowed = (torch.float64, torch.int64, torch.bool)
     for name, group in (("carry", run.carry), ("rows", run.ys),
-                        ("params", eng._params)):
+                        ("inputs", run.xs), ("params", eng._params)):
         for key, v in group.items():
             if torch.is_tensor(v):
                 assert v.dtype in allowed, (name, key, v.dtype)
