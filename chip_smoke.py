@@ -59,22 +59,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. ``profile``  one prefill and a few decode ticks of each model:
                 host time per step, then under torch.profiler the kernels'
                 device time per step and the device's idle share.
-6. ``train``    internlm2-1.8b at full width in bf16 through the port's
-                ``Trainer`` (``repro_torch.launch.train``'s config:
-                ``default_train_config``, remat "full", seq 256, batch 8):
-                8 steps with fp32 moments, each loss finite; launches a
-                step checked (rmsnorm 97, rmsnorm_bwd 49, flash 48,
-                flash_bwd 24, nothing else); a run saved at step 4,
-                restored into a fresh ``Trainer`` and continued to step 8
-                must give the unbroken run's losses bit for bit; then 3
-                steps with int8 moments. Step ms, grad norm,
+6. ``train``    internlm2-1.8b, then mamba2-130m, at full width in bf16
+                through the port's ``Trainer`` (``repro_torch.launch.
+                train``'s config: ``default_train_config``, remat "full",
+                seq 256, batch 8): 8 steps with fp32 moments, each loss
+                finite; launches a step checked exactly against
+                ``TRAIN_LAUNCHES`` (internlm2: rmsnorm 97, rmsnorm_bwd 49,
+                flash 48, flash_bwd 24; mamba2: rmsnorm 49, rmsnorm_bwd 25,
+                ssd_scan 48, ssd_scan_bwd 24; nothing else); a run saved
+                at step 4, restored into a fresh ``Trainer`` and continued
+                to step 8 must give the unbroken run's losses bit for bit;
+                then 3 steps with int8 moments. Step ms, grad norm,
                 ``max_memory_allocated``; one more step timed, then traced
-                (device busy ms, idle share, top kernels).
-7. ``train_parity`` fp32 internlm2-1.8b at full width with 2 layers: one
-                ``loss_fn`` and its gradient on the card (kernels, their
-                backward kernels) and on the CPU (plain versions): the
-                loss and every gradient leaf, relative to its max-abs,
-                within ``PARITY_TOL``.
+                (device busy ms, idle share, top kernels, the flash and
+                SSD backward kernels' device ms).
+7. ``train_parity`` fp32 internlm2-1.8b and mamba2-130m at full width
+                with 2 layers: one ``loss_fn`` and its gradient on the card
+                (kernels, their backward kernels) and on the CPU (plain
+                versions): the loss and every gradient leaf, relative to
+                its max-abs, within ``PARITY_TOL``; launches exact.
 8. ``parity``   each model in fp32 at cut depth, on the card (kernels)
                 and on the CPU (plain versions): prefill and per-slot decode
                 logits must agree. For the MoE model each MoE layer's
@@ -133,20 +136,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 No fleet phase runs a hand-written kernel: every launch
                 count must stay 0 across them.
 
-The ``kernels`` phase also holds the two backward kernels
-(``rmsnorm_bwd``, ``flash_attention_bwd``) to their closed-form plain
-backwards at the training shapes (2048 x 2048; b 8, s 256, 16/8 heads,
-d 128, bf16 and fp32; the flash backward in bf16 at granite-moe's d 64
-too), beside their library call's backward timed through autograd
-(``F.rms_norm``, ``F.scaled_dot_product_attention``). Each flash backward
-case names its route (``design``: the wgmma kernels for bf16 at d 64 and
-128, the CUDA-core ones otherwise), and the ``train`` profile reads the
-step's flash backward device time (``flash_bwd_device_ms``).
+The ``kernels`` phase also holds the three backward kernels
+(``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
+closed-form plain backwards at the training shapes (2048 x 2048 and
+2048 x 768; b 8, s 256, 16/8 heads, d 128, bf16 and fp32; the flash
+backward in bf16 at granite-moe's d 64 too; the SSD backward at b 8, s
+256, 24 heads, p 64, n 128 in bf16 and fp32, the final state's gradient
+zero and not, and in fp32 at p 128, two calls bitwise equal), beside
+their library call's backward timed through autograd (``F.rms_norm``,
+``F.scaled_dot_product_attention``; none computes the SSD), and ssd_scan's
+forward at the training shape. Each flash backward case names its route
+(``design``: the wgmma kernels for bf16 at d 64 and 128, the CUDA-core
+ones otherwise), and the ``train`` profile reads the step's flash and SSD
+backward device time (``flash_bwd_device_ms``, ``ssd_bwd_device_ms``).
 
 Then the summary line of kernels (one row per kernel and path: a kernel
 several paths run, rmsnorm on all three and flash and decode on two, has
 a row for each, with that path's launches and its case at that path's
-shape; the training path has rows for rmsnorm, flash and both backward
+shape; each training path has rows for its kernels and their backward
 kernels, with the launches of its 8-step run), the nvidia-smi line, and
 the result line ``{"ok": true, "device": {...}}``.
 """
@@ -251,17 +258,31 @@ PATH_KERNELS = {ARCH: ATTN_KERNELS,
                 MAMBA_ARCH: ("rmsnorm", "ssd_scan"),
                 MOE_ARCH: ATTN_KERNELS,
                 **{arch: ATTN_KERNELS for arch in NEW_ARCHS}}
-# The training path: internlm2-1.8b at the launcher's seq and batch, full
-# remat; per step every layer's forward runs twice (remat), the final norm
-# once, and each backward once.
+# The training paths: internlm2-1.8b and mamba2-130m at the launcher's seq
+# and batch, full remat.
 TRAIN_PATH = f"train {ARCH}"
+MAMBA_TRAIN_PATH = f"train {MAMBA_ARCH}"
+TRAIN_PATHS = {ARCH: TRAIN_PATH, MAMBA_ARCH: MAMBA_TRAIN_PATH}
 TRAIN_SEQ, TRAIN_BATCH = 256, 8
 TRAIN_STEPS, TRAIN_INT8_STEPS, TRAIN_SAVE_AT = 8, 3, 4
 TRAIN_CKPT_DIR = "chiprun_train_ckpt"       # in the checkout, gitignored
-_L = 24
-TRAIN_LAUNCHES = {"rmsnorm": 4 * _L + 1, "rmsnorm_bwd": 2 * _L + 1,
-                  "flash_attention": 2 * _L, "flash_attention_bwd": _L}
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
+
+
+def train_launches(arch: str, layers: int) -> dict:
+    """Launches of one training step at full remat: every layer's forward
+    twice (once more in the backward's recompute), the final norm once,
+    each backward once. A dense layer has two norms and one attention, a
+    mamba2 layer one norm and one SSD scan."""
+    if arch == MAMBA_ARCH:
+        return {"rmsnorm": 2 * layers + 1, "rmsnorm_bwd": layers + 1,
+                "ssd_scan": 2 * layers, "ssd_scan_bwd": layers}
+    return {"rmsnorm": 4 * layers + 1, "rmsnorm_bwd": 2 * layers + 1,
+            "flash_attention": 2 * layers, "flash_attention_bwd": layers}
+
+
+TRAIN_LAUNCHES = {arch: train_launches(arch, get_config(arch).num_layers)
+                  for arch in TRAIN_PATHS}
 # int8_matmul has no model call site: the kernels phase is its path, at
 # the JAX benchmark's shape and an MLP up projection of a 333-token prefill.
 KERNELS_PHASE = "kernels phase"
@@ -284,6 +305,13 @@ KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # pairs): fp32 y and the fp32 state at tests/test_kernels_ssd.py's 2e-4;
 # bf16 y at one ulp.
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# ssd_scan_bwd against the closed-form plain backward: fp32 gradients, and
+# bf16's fp32 gradients (ddt, dA, dD), at 2e-4 of their max-abs (sums over
+# 64-step tiles against the plain version's chunk of 256, and over the
+# heads, batches and tiles in another order); bf16 dx, dB, dC at
+# KERNEL_TOL's one ulp (both sum in fp32 and round once).
+SSD_BWD_TOL = 2e-4
+SSD_BWD_LOWP = ("dx", "dB", "dC")    # gradients in the inputs' dtype
 # int8_matmul: exact int32 sums and the same fp32 epilogue: bit for bit.
 INT8_TOL = 0.0
 # Logits of the fp32 model, card (kernels, cuBLAS) vs CPU (plain versions):
@@ -306,6 +334,8 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:69"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:73"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:73"),
     "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul.py:43"),
 }
@@ -456,6 +486,7 @@ def _ptxas_summary(lines):
                              r"decode_split_kernel|"
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
                              r"ssd_tc_outputs_kernel|ssd_scan_simt_kernel|"
+                             r"ssd_bwd_(?:states|pass|local|reduce)_kernel|"
                              r"int8_wgmma_kernel)", name)
             # the flash wgmma kernel is bf16 only and has no dtype parameter
             dt = "bf16" if "bfloat16" in name or "flash_fwd_wgmma" in name \
@@ -475,12 +506,16 @@ def _main_path_patterns() -> list:
     each of ssd_scan's three
     tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
     parity path), the training path's backward kernels at internlm2's
-    width and head dim in bf16 (flash: the wgmma design), and the flash
+    width and head dim in bf16 (flash: the wgmma design), the flash
     backward's CUDA-core kernels in fp32 at that head dim (the train_parity
-    path)."""
+    path), and the four kernels of the SSD backward in bf16 (mamba2's
+    training path) and fp32 (its train_parity path)."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
-            r"rmsnorm_dw_kernel<f32>"]
+            r"rmsnorm_dw_kernel<f32>", r"ssd_bwd_pass_kernel<f32>"]
+    pats += [rf"ssd_bwd_{k}_kernel<{dt}>" for k in ("states", "local",
+                                                     "reduce")
+             for dt in ("bf16", "f32")]
     cfg = get_config(ARCH)
     vec, nv, _ = krms.bwd_plan(1, cfg.d_model, 2, True, 1)
     pats.append(rf"rmsnorm_bwd_kernel<bf16,{8 if vec else 1},{nv}>")
@@ -544,7 +579,7 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _rmsnorm_bwd_case(rows, d, dtype, seed=0):
+def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
     """The backward of one norm of a training step: ``rows`` = b x s."""
     x, w = randn((rows, d), dtype, seed), randn((d,), torch.float32, seed + 1)
     dy = randn((rows, d), dtype, seed + 2)
@@ -561,7 +596,7 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0):
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (xl, wl), dy)
     e = x.element_size()
     b_ms, by = bound(3 * rows * d * e + 8 * d, 8 * rows * d, torch.float32)
-    return {"kernel": "rmsnorm_bwd", "path": TRAIN_PATH, "shape": [rows, d],
+    return {"kernel": "rmsnorm_bwd", "path": path, "shape": [rows, d],
             "dtype": str(dtype), "max_abs_err": err,
             "ms": time_ms(lambda: krms._kernel_backward(x, w, dy, 1e-5)),
             "eager_ms": eager_ms(
@@ -687,9 +722,7 @@ def _decode_case(arch, dtype, skv, lengths, seed=0, path=None):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _ssd_case(s, dtype, seed=0):
-    """One SSD layer of mamba2-130m at batch 1 and ``s`` steps."""
-    b, h, p, n, chunk = 1, 24, 64, 128, 256
+def _ssd_inputs(b, s, h, p, n, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
     dt = 0.01 + 0.29 * torch.rand((b, s, h), generator=g, device="cuda")
@@ -697,7 +730,15 @@ def _ssd_case(s, dtype, seed=0):
     B = torch.randn((b, s, n), generator=g, device="cuda").to(dtype)
     C = torch.randn((b, s, n), generator=g, device="cuda").to(dtype)
     D = torch.randn((h,), generator=g, device="cuda")
-    args = (x, dt, A, B, C, D)
+    return x, dt, A, B, C, D
+
+
+def _ssd_case(s, dtype, seed=0, b=1, path=MAMBA_ARCH):
+    """One SSD layer of mamba2-130m at batch ``b`` (1 in serving) and
+    ``s`` steps."""
+    h, p, n, chunk = 24, 64, 128, 256
+    args = _ssd_inputs(b, s, h, p, n, dtype, seed)
+    x = args[0]
     y, st = kssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     want_y, want_st = kssd.plain(*args, chunk=chunk)
@@ -713,7 +754,7 @@ def _ssd_case(s, dtype, seed=0):
     nbytes = (e * (2 * b * s * h * p + 2 * b * s * n) + 4 * b * s * h
               + 8 * h + 4 * b * h * p * n)
     b_ms, by = bound(nbytes, nops, dtype)
-    return {"kernel": "ssd_scan", "path": MAMBA_ARCH,
+    return {"kernel": "ssd_scan", "path": path,
             "shape": [b, s, h, p, n], "chunk": chunk,
             "design": kssd.DESIGNS[kssd.plan(dtype, n, p)],
             "dtype": str(dtype), "max_abs_err": err,
@@ -724,6 +765,72 @@ def _ssd_case(s, dtype, seed=0):
             "plain_ms": time_ms(lambda: kssd.plain(*args, chunk=chunk), 5),
             "library_ms": None,
             "library_note": "no single PyTorch call computes the SSD scan",
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def _ssd_bwd_case(dtype, p=64, with_state=False, seed=0):
+    """The backward of one SSD layer of mamba2-130m's training step (b 8,
+    s 256, 24 heads, n 128, chunk 256; p 128 at jamba's head dim), the
+    final state's gradient zero (None, as training gives it) or not: each
+    gradient against the closed form, two calls bitwise equal."""
+    b, s, h, n, chunk = TRAIN_BATCH, TRAIN_SEQ, 24, 128, 256
+    args = _ssd_inputs(b, s, h, p, n, dtype, seed)
+    dy = randn((b, s, h, p), dtype, seed + 1)
+    ds = randn((b, h, p, n), torch.float32, seed + 2) if with_state else None
+    before = kssd.KERNEL_BWD.launches
+    got = kssd._kernel_backward(*args, dy, ds)
+    again = kssd._kernel_backward(*args, dy, ds)
+    torch.cuda.synchronize()
+    launches = kssd.KERNEL_BWD.launches - before
+    if launches != 2:
+        raise AssertionError(f"ssd_scan_bwd counted {launches} launches")
+    want = kssd.plain_bwd(*args, dy, ds, chunk=chunk)
+    errs, rel = {}, {}
+    for name, gk, w, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                              want, again):
+        if not torch.equal(gk, r):
+            raise AssertionError(f"ssd_scan_bwd {name}: two calls differ")
+        if dtype == torch.bfloat16 and name in SSD_BWD_LOWP:
+            errs[name] = max_err(gk, w, dtype)
+        else:
+            err = (gk.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            if not torch.isfinite(gk).all() or err > SSD_BWD_TOL * scale:
+                raise AssertionError(f"ssd_scan_bwd {name}: max abs err "
+                                     f"{err} > {SSD_BWD_TOL} x {scale}")
+            errs[name] = err
+            rel[name] = err / scale
+    e = args[0].element_size()
+    # Read x, dy, dt, B, C (and dstate) once, write dx, ddt, dB, dC. Work of
+    # the chunked backward at the model's chunk: C.B^T once per batch and
+    # chunk; per head and chunk P = dy u^T and the products of du, dB and dC
+    # over the causal pairs. The state terms are counted only where the
+    # function needs them: at each of the nc - 1 boundaries between chunks
+    # the state leaving one, H dy and the state's gradient dH in the next,
+    # and dS^T B and dS u in the one before (10 q n p a head); with dstate,
+    # dS^T B and dS u in the last chunk as well (4 q n p). With one chunk
+    # and no dstate the state entering it and dS are zero: none.
+    q = min(chunk, s)
+    nc, pairs = s // q, q * (q + 1) // 2
+    state = 10 * (nc - 1) * q * n * p + (4 * q * n * p if with_state else 0)
+    nops = b * (nc * 2 * n * pairs
+                + h * (nc * 4 * (p + n) * pairs + state))
+    nbytes = (e * (3 * b * s * h * p + 4 * b * s * n) + 8 * b * s * h
+              + 16 * h + (4 * b * h * p * n if with_state else 0))
+    b_ms, by = bound(nbytes, nops, dtype)
+    call = lambda: kssd._kernel_backward(*args, dy, ds)
+    return {"kernel": "ssd_scan_bwd", "path": MAMBA_TRAIN_PATH,
+            "shape": [b, s, h, p, n], "chunk": chunk, "dtype": str(dtype),
+            "dstate": "nonzero" if with_state else "zero (None)",
+            "max_abs_err": max(errs.values()), "abs_err": errs,
+            "err_over_maxabs": rel, "bitwise_repeat": True,
+            "kernel_us": device_us(call),
+            "ms": time_ms(call, 5), "eager_ms": eager_ms(call, 10),
+            "plain_ms": time_ms(lambda: kssd.plain_bwd(
+                *args, dy, ds, chunk=chunk), 2, 3),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD scan "
+                            "or its backward",
             "bound_ms": b_ms, "bound_by": by}
 
 
@@ -822,6 +929,19 @@ def phase_kernels() -> dict:
         if dtype == torch.bfloat16:     # the wgmma design at d 64 too
             cases.append(_flash_bwd_case(MOE_ARCH, TRAIN_BATCH, TRAIN_SEQ,
                                          dtype))
+        # mamba2's training path: its norm, one SSD layer forward and
+        # backward (the final state's gradient zero, as training gives it,
+        # and not), and in fp32 the backward at jamba's head dim of 128.
+        cases.append(_rmsnorm_case(MAMBA_TRAIN_PATH, rows,
+                                   d_model[MAMBA_ARCH], dtype, False))
+        cases.append(_rmsnorm_bwd_case(rows, d_model[MAMBA_ARCH], dtype,
+                                       path=MAMBA_TRAIN_PATH))
+        cases.append(_ssd_case(TRAIN_SEQ, dtype, b=TRAIN_BATCH,
+                               path=MAMBA_TRAIN_PATH))
+        for with_state in (False, True):
+            cases.append(_ssd_bwd_case(dtype, with_state=with_state))
+        if dtype == torch.float32:
+            cases.append(_ssd_bwd_case(dtype, p=128))
     for m, k, n in INT8_SHAPES:
         for out_dtype in (torch.float32, torch.bfloat16):
             cases.append(_int8_case(m, k, n, out_dtype))
@@ -830,6 +950,9 @@ def phase_kernels() -> dict:
         "float32": KERNEL_TOL[torch.float32],
         "ssd_scan": {"bfloat16": SSD_TOL[torch.bfloat16],
                      "float32": SSD_TOL[torch.float32]},
+        "ssd_scan_bwd": {"over_maxabs": SSD_BWD_TOL,
+                         "bfloat16 " + "/".join(SSD_BWD_LOWP):
+                         KERNEL_TOL[torch.bfloat16]},
         "int8_matmul": INT8_TOL}, "cases": cases})
     # bf16 is the serving dtype; the first bf16 case of each (kernel, path)
     # is the shape that path gives it (one prompt of PROMPT_LENS[0] tokens
@@ -1157,11 +1280,11 @@ def _logit_err(lg, rows=None):
     return err.max().item()
 
 
-def _check_train_launches(launches: dict, steps: int) -> dict:
-    """Launches a step of the training path, each exactly as counted in
-    TRAIN_LAUNCHES; no other kernel launched."""
+def _check_train_launches(arch: str, launches: dict, steps: int) -> dict:
+    """Launches a step of ``arch``'s training path, each exactly as
+    counted in TRAIN_LAUNCHES[arch]; no other kernel launched."""
     per_step = {k: n / steps for k, n in launches.items()}
-    want = {k: TRAIN_LAUNCHES.get(k, 0) for k in launches}
+    want = {k: TRAIN_LAUNCHES[arch].get(k, 0) for k in launches}
     if per_step != want:
         raise AssertionError(f"train launches a step {per_step} != {want}")
     return per_step
@@ -1207,6 +1330,7 @@ def _profile_train_step(trainer, params, opt_state, batch) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     flash_bwd_ms = sum(v for k, v in by_name.items()
                        if "flash_bwd" in k) / 1e3
+    ssd_bwd_ms = sum(v for k, v in by_name.items() if "ssd_bwd" in k) / 1e3
 
     grads = [torch.full_like(p, 1e-3) for p in tree_leaves(params)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -1222,18 +1346,19 @@ def _profile_train_step(trainer, params, opt_state, batch) -> dict:
             "kernels_per_step": len(kern),
             "top_device_ms": [[k[:60], v / 1e3] for k, v in top],
             "flash_bwd_device_ms": flash_bwd_ms,
+            "ssd_bwd_device_ms": ssd_bwd_ms,
             "adamw_update": {"traced_wall_ms": update_ms,
                              "device_busy_ms": _device_busy_us(ukern) / 1e3,
                              "kernels": len(ukern)}}
 
 
-def phase_train(smi: str) -> dict:
-    """internlm2-1.8b at full width through the port's Trainer: 8 steps
-    with fp32 moments (launches checked), the same 8 resumed from a
-    checkpoint at step 4 (losses bit for bit), then 3 with int8 moments.
-    Returns the 8-step run's launches."""
+def phase_train(smi: str, arch: str) -> dict:
+    """``arch`` at full width through the port's Trainer: 8 steps with fp32
+    moments (launches checked), the same 8 resumed from a checkpoint at
+    step 4 (losses bit for bit), then 3 with int8 moments. Returns the
+    8-step run's launches."""
     import shutil
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     loader = lambda: PrefetchingLoader(data_config(cfg, TRAIN_SEQ,
                                                    TRAIN_BATCH))
     tcfg = train_config(cfg, TRAIN_STEPS)
@@ -1243,7 +1368,7 @@ def phase_train(smi: str) -> dict:
     trainer = Trainer(cfg, tcfg)
     full = _train_run(trainer, loader(), TRAIN_STEPS)
     launches = ops.launch_counts()
-    per_step = _check_train_launches(launches, TRAIN_STEPS)
+    per_step = _check_train_launches(arch, launches, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     prof = _profile_train_step(trainer, full.pop("params"),
                                full.pop("opt_state"),
@@ -1279,7 +1404,7 @@ def phase_train(smi: str) -> dict:
         TRAIN_INT8_STEPS)
     del int8["params"], int8["opt_state"]
     torch.cuda.empty_cache()
-    emit({"phase": "train", "arch": ARCH, "dtype": cfg.dtype,
+    emit({"phase": "train", "arch": arch, "dtype": cfg.dtype,
           "params": cfg.num_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
           "train_config": {k: getattr(tcfg, k) for k in (
               "remat", "opt_state_dtype", "microbatches", "learning_rate",
@@ -1299,11 +1424,11 @@ def phase_train(smi: str) -> dict:
     return launches
 
 
-def phase_train_parity() -> None:
-    """One loss and its gradient, fp32 internlm2-1.8b at full width with
+def phase_train_parity(arch: str) -> None:
+    """One loss and its gradient, fp32 ``arch`` at full width with
     PARITY_LAYERS layers, full remat: on the card (kernels and their
     backward kernels) against the CPU (plain versions)."""
-    cfg = get_config(ARCH).replace(dtype="float32", num_layers=PARITY_LAYERS)
+    cfg = get_config(arch).replace(dtype="float32", num_layers=PARITY_LAYERS)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.device("cpu"))
     batch = _gen_batch(data_config(cfg, TRAIN_PARITY_SEQ,
@@ -1321,14 +1446,13 @@ def phase_train_parity() -> None:
                      ops.launch_counts())
     (l_card, g_card, launches), (l_cpu, g_cpu, _) = out["card"], out["cpu"]
     n = PARITY_LAYERS
-    want = {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
-            "flash_attention": 2 * n, "flash_attention_bwd": n}
+    want = train_launches(arch, n)
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"train parity launches {launches} != {want}")
     rel = [((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
            for a, c in zip(g_card, g_cpu)]
     finite = all(torch.isfinite(g).all() for g in g_card)
-    emit({"phase": "train_parity", "arch": ARCH, "dtype": "float32",
+    emit({"phase": "train_parity", "arch": arch, "dtype": "float32",
           "layers": n, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
           "remat": "full", "tolerance": PARITY_TOL, "loss_card": l_card,
           "loss_cpu": l_cpu, "loss_abs_err": abs(l_card - l_cpu),
@@ -1982,31 +2106,50 @@ def phase_fleet_degrade(smi: str) -> None:
 
 def main() -> None:
     t0 = time.monotonic()
+    laps, last = {}, [t0]
+
+    def lap(name: str) -> None:     # host seconds since the previous lap
+        now = time.monotonic()
+        laps[name] = now - last[0]
+        last[0] = now
     dev = phase_device()
     phase_build()
+    lap("build")
     head = phase_kernels()
+    lap("kernels")
     served = {arch: phase_serve(dev["nvidia_smi"], arch, lens)
               for arch, lens in ((ARCH, PROMPT_LENS),
                                  (MAMBA_ARCH, MAMBA_PROMPT_LENS),
                                  (MOE_ARCH, PROMPT_LENS),
                                  *((a, PROMPT_LENS) for a in NEW_ARCHS))}
     _free_card()
+    lap("serve")
     phase_profile(ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
     phase_profile(MAMBA_ARCH, MAMBA_PROMPT_LENS, 512)
     phase_profile(MOE_ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
+    lap("profile")
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))
     for arch in NEW_PARITY_ARCHS:
         phase_parity(arch, (77, 45))
         _free_card()
-    served[TRAIN_PATH] = phase_train(dev["nvidia_smi"])
-    phase_train_parity()
+    lap("parity")
+    for arch, path in TRAIN_PATHS.items():
+        served[path] = phase_train(dev["nvidia_smi"], arch)
+        lap(f"train {arch}")
+    for arch in TRAIN_PATHS:
+        phase_train_parity(arch)
+        lap(f"train_parity {arch}")
     _free_card()
     phase_fleet_parity(dev["nvidia_smi"])
+    lap("fleet_parity")
     phase_fleet_sweep(dev["nvidia_smi"])
+    lap("fleet_sweep")
     phase_fleet_chaos(dev["nvidia_smi"])
+    lap("fleet_chaos")
     phase_fleet_degrade(dev["nvidia_smi"])
+    lap("fleet_degrade")
     # One row per kernel and path: its launches from that path's own serve
     # run (reset to 0 just before it), next to its case at that path's shape.
     kernels = []
@@ -2018,8 +2161,8 @@ def main() -> None:
         else:
             launches, origin = served[path][name], f"serve {path}"
         per_step = {}
-        if path == TRAIN_PATH:
-            origin = f"train {ARCH}, {TRAIN_STEPS} steps"
+        if path in TRAIN_PATHS.values():
+            origin = f"{path}, {TRAIN_STEPS} steps"
             per_step = {"launches_per_step": launches / TRAIN_STEPS}
         kernels.append({
             "name": name, "path": path, "route": "cuda", "source": source,
@@ -2032,7 +2175,8 @@ def main() -> None:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             **({"library_note": c["library_note"]}
                if "library_note" in c else {})})
-    emit({"kernels": kernels, "seconds": time.monotonic() - t0})
+    emit({"kernels": kernels, "seconds": time.monotonic() - t0,
+          "phase_seconds": laps})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

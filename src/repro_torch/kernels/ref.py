@@ -292,12 +292,13 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256, init_state=None):
     steps, the masked-decay product M[t, j] = (C_t . B_j) exp(L_t - L_j)
     [j <= t] applied to dt * x; across chunks, a read of the carried fp32
     state and its update. The D skip is added in fp32 before the one
-    rounding to x's dtype."""
+    rounding to x's dtype. (float64 inputs compute in float64, for
+    ``torch.autograd.gradcheck``.)"""
     b, s, h, p = x.shape
     n = B.shape[-1]
     chunk = check_ssd_chunk(s, chunk)
     nc = s // chunk
-    f32 = torch.float32
+    f32 = _acc(x)
     xr = x.to(f32).reshape(b, nc, chunk, h, p)
     dtr = dt.to(f32).reshape(b, nc, chunk, h)
     Br = B.to(f32).reshape(b, nc, chunk, n)
@@ -329,3 +330,96 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256, init_state=None):
     y = (y_intra + y_inter).reshape(b, s, h, p)
     y = y + x.to(f32) * D.to(f32)[None, None, :, None]
     return y.to(x.dtype), h_in.transpose(-1, -2).contiguous()
+
+
+def ssd_chunked_bwd_ref(x, dt, A, B, C, D, dy, dstate=None, chunk: int = 256):
+    """Gradients of ``ssd_chunked`` (no init_state) in closed form, with
+    fp32 sums: ``dy`` the gradient of y (b, s, h, p), ``dstate`` that of the
+    final state (b, h, p, n), or None for zero. Per head and chunk, with
+    l_k = dt_k A, L its inclusive cumsum, T the chunk's last step, u_j =
+    dt_j x_j, H the (n, p) state entering the chunk and dS the gradient of
+    the state leaving it, K[t, j] = C_t . B_j, E[t, j] = exp(L_t - L_j)
+    (j <= t, else 0), P[t, j] = dy_t . u_j and Q = K E P:
+
+    * du_j = sum_t K E[t, j] dy_t + exp(L_T - L_j) dS^T B_j;
+      dx_j = dt_j du_j + D dy_j; ddt_j = x_j . du_j + A dl_j;
+    * dC_t = sum_j E P[t, j] B_j + exp(L_t) H dy_t,
+      dB_j = sum_t E P[t, j] C_t + exp(L_T - L_j) dS u_j, both summed over
+      the heads (B and C are shared across them); dD = sum dy . x;
+    * the state entering the chunk gets exp(L_T) dS + sum_t exp(L_t) C_t
+      dy_t^T: the previous chunk's dS, a reverse recurrence;
+    * dl_k, the gradient of l_k, takes every term whose decay spans step
+      k: sum_{t >= k} sum_{j < k} Q[t, j] (the pairs straddling k), sum_{t
+      >= k} exp(L_t) (C_t^T H) . dy_t, exp(L_T) <H, dS> and sum_{j < k}
+      exp(L_T - L_j) B_j^T dS u_j; dA = sum dt_k dl_k. Taken so, no two
+      large sums cancel (the cumsum's own backward would subtract column
+      sums of Q from row sums).
+
+    Returns (dx, ddt, dA, dB, dC, dD): dx, dB, dC in their inputs' dtypes,
+    rounded once; ddt, dA, dD in float32 (float64 for float64 inputs)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = check_ssd_chunk(s, chunk)
+    nc = s // q
+    acc = _acc(x)
+    xr = x.to(acc).reshape(b, nc, q, h, p)
+    gy = dy.to(acc).reshape(b, nc, q, h, p)
+    dtr = dt.to(acc).reshape(b, nc, q, h)
+    Br = B.to(acc).reshape(b, nc, q, n)
+    Cr = C.to(acc).reshape(b, nc, q, n)
+    Af, Df = A.to(acc), D.to(acc)
+
+    L = torch.cumsum(dtr * Af, dim=2)                        # (b,nc,Q,h)
+    eL = torch.exp(L)
+    a = eL[:, :, -1]                                         # (b,nc,h)
+    wl = torch.exp(L[:, :, -1:] - L)                         # exp(L_T - L_j)
+    u = dtr[..., None] * xr                                  # (b,nc,Q,h,p)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    E = torch.exp(torch.where(tri[None, None, :, :, None],
+                              L[:, :, :, None, :] - L[:, :, None, :, :],
+                              NEG_INF))                      # (b,nc,t,j,h)
+    K = torch.einsum("bctn,bcjn->bctj", Cr, Br)
+    P = torch.einsum("bcthp,bcjhp->bctjh", gy, u)
+    KE = K[..., None] * E
+    EP = E * P
+    Q = KE * P
+
+    # States entering each chunk (forward) and the gradient of the state
+    # leaving each chunk (reverse), (b, nc, h, n, p).
+    G = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Br, wl * dtr, xr)
+    Gd = torch.einsum("bctn,bcth,bcthp->bchnp", Cr, eL, gy)
+    hs = torch.zeros((b, h, n, p), dtype=acc, device=x.device)
+    ds = (torch.zeros_like(hs) if dstate is None
+          else dstate.to(acc).transpose(-1, -2))
+    H, dS = [None] * nc, [None] * nc
+    for c in range(nc):
+        H[c] = hs
+        hs = hs * a[:, c, :, None, None] + G[:, c]
+    for c in reversed(range(nc)):
+        dS[c] = ds
+        ds = ds * a[:, c, :, None, None] + Gd[:, c]
+    H, dS = torch.stack(H, dim=1), torch.stack(dS, dim=1)
+
+    du = torch.einsum("bctjh,bcthp->bcjhp", KE, gy) + wl[..., None] * \
+        torch.einsum("bcjn,bchnp->bcjhp", Br, dS)
+    dx = dtr[..., None] * du + Df[:, None] * gy
+    hdy = torch.einsum("bchnp,bcthp->bcthn", H, gy)           # H dy_t
+    dsu = torch.einsum("bchnp,bcjhp->bcjhn", dS, u)           # dS u_j
+    dC = torch.einsum("bctjh,bcjn->bctn", EP, Br) + \
+        torch.einsum("bcth,bcthn->bctn", eL, hdy)
+    dB = torch.einsum("bctjh,bctn->bcjn", EP, Cr) + \
+        torch.einsum("bcjh,bcjhn->bcjn", wl, dsu)
+
+    qpre = torch.cumsum(Q, dim=3) - Q             # sum_{j < k} Q[t, j]
+    dl = (qpre * tri[None, None, :, :, None]).sum(dim=2)     # sum_{t >= k}
+    iy = eL * torch.einsum("bctn,bcthn->bcth", Cr, hdy)
+    r = wl * torch.einsum("bcjn,bcjhn->bcjh", Br, dsu)
+    dl = dl + torch.flip(torch.cumsum(torch.flip(iy, (2,)), 2), (2,)) + \
+        (a * torch.einsum("bchnp,bchnp->bch", H, dS))[:, :, None] + \
+        torch.cumsum(r, dim=2) - r
+    ddt = torch.einsum("bcjhp,bcjhp->bcjh", xr, du) + Af * dl
+    dA = torch.einsum("bcjh,bcjh->h", dtr, dl)
+    dD = torch.einsum("bcthp,bcthp->h", gy, xr)
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.reshape(b, s, h),
+            dA, dB.reshape(b, s, n).to(B.dtype),
+            dC.reshape(b, s, n).to(C.dtype), dD)

@@ -1,5 +1,5 @@
-"""Mamba-2 SSD chunked scan: the CUDA kernels ``csrc/ssd_scan.cu`` and their
-plain version.
+"""Mamba-2 SSD chunked scan: the CUDA kernels ``csrc/ssd_scan.cu`` and
+``csrc/ssd_scan_bwd.cu`` and their plain versions.
 
 Replaces ``src/repro/kernels/ssd_scan.py::ssd_scan`` of the JAX package. A
 tensor on the CPU goes to the plain version (``ref.ssd_chunked``); a CUDA
@@ -7,11 +7,17 @@ tensor goes to a kernel, or the call raises. Both take the inputs the
 JAX wrapper takes: ``s <= chunk`` or ``s % chunk == 0``, else
 ``ValueError``. The kernels run their own tile of ``TILE`` steps over the
 sequence; the result does not depend on the chunk beyond rounding.
-:func:`plan` picks one of two designs: the tensor-core one (bf16, three
-launches parallel over the tiles, scratch from the caching allocator) or
-the CUDA-core one (float32, and bf16 shapes the first does not take).
-Neither has a backward: on the card, a call that autograd would record
-raises ``NotImplementedError`` (mamba2 training waits for one).
+:func:`plan` picks one of two forward designs: the tensor-core one (bf16,
+three launches parallel over the tiles, scratch from the caching
+allocator) or the CUDA-core one (float32, and bf16 shapes the first does
+not take).
+
+Where autograd records the call (grad mode on, an input that requires
+grad), it runs through :class:`SSDScanFunction`: the same forward, and a
+backward that is ``csrc/ssd_scan_bwd.cu`` on the card (CUDA cores, fp32
+sums, four launches counted as one ``ssd_scan_bwd``; :func:`bwd_plan`
+sizes its scratch) and the closed form ``ref.ssd_chunked_bwd_ref`` on the
+CPU. Under no_grad a call launches the forward alone, as before.
 """
 from __future__ import annotations
 
@@ -20,9 +26,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (check_operand, dtype_code,
-                                        on_card, refuse_grad,
+                                        needs_grad, on_card,
                                         register_kernel, stream_handle)
-from repro_torch.kernels.ref import check_ssd_chunk, ssd_chunked
+from repro_torch.kernels.ref import (check_ssd_chunk, ssd_chunked,
+                                     ssd_chunked_bwd_ref)
 
 MAX_STATE = 256          # d_state either design's shared memory holds
 TC_MAX_HEADDIM = 64      # head dim the tensor-core design's smem holds
@@ -33,6 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = register_kernel(
     "ssd_scan", "repro_ssd_scan",
     [_P] * 11 + [_I] * 7 + [_P])
+KERNEL_BWD = register_kernel(
+    "ssd_scan_bwd", "repro_ssd_scan_bwd",
+    [_P] * 15 + [_I] * 6 + [_P])
+BWD_TILE = 64            # steps a tile of the backward (csrc/ssd_scan_bwd.cu)
 
 
 def plan(dtype: torch.dtype, n: int, p: int) -> int:
@@ -50,8 +61,56 @@ def plan(dtype: torch.dtype, n: int, p: int) -> int:
     return SIMT
 
 
+def bwd_plan(dtype: torch.dtype, b: int, s: int, h: int, p: int, n: int
+             ) -> int:
+    """The fp32 scratch floats of a backward launch
+    (``csrc/ssd_scan_bwd.cu``), which takes float32 and bfloat16 at
+    1 <= n <= ``MAX_STATE`` and any p, as the forward does; anything else
+    raises. Scratch: the tile states and their gradients (b, h, tiles, p,
+    n) twice, decays and the dA and dD partials (b, h, tiles) three times,
+    and the per-head dB and dC partials (b, h, s, n) twice."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"d_state {n} not in 1..{MAX_STATE}")
+    tiles = -(-s // BWD_TILE)
+    return 2 * b * h * tiles * p * n + 3 * b * h * tiles + 2 * b * h * s * n
+
+
 def plain(x, dt, A, B, C, D, *, chunk: int = 256):
     return ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
+
+
+def plain_bwd(x, dt, A, B, C, D, dy, dstate=None, *, chunk: int = 256):
+    """(dx, ddt, dA, dB, dC, dD) in closed form; ``dstate`` may be None."""
+    return ssd_chunked_bwd_ref(x, dt, A, B, C, D, dy, dstate, chunk=chunk)
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """ssd_scan with its backward: the kernels on the card (the states
+    entering each tile recomputed there, so the forward saves only its
+    inputs), the closed form ``plain_bwd`` on the CPU. The final state's
+    gradient may be None (training reads y alone)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B, C, D, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, D = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        if on_card(x, "ssd_scan"):
+            grads = _kernel_backward(x, dt, A, B, C, D, dy, dstate)
+        else:
+            grads = plain_bwd(x, dt, A, B, C, D, dy, dstate,
+                              chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -60,9 +119,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (b, s, h, p); dt: (b, s, h) fp32; A, D: (h,) fp32; B, C:
     (b, s, n) in x's dtype -> (y (b, s, h, p) in x's dtype, final state
     (b, h, p, n) fp32)."""
+    if needs_grad(x, dt, A, B, C, D):
+        return SSDScanFunction.apply(x, dt, A, B, C, D, chunk)
+    return _forward(x, dt, A, B, C, D, chunk)
+
+
+def _forward(x, dt, A, B, C, D, chunk: int):
     if not on_card(x, "ssd_scan"):
         return plain(x, dt, A, B, C, D, chunk=chunk)
-    refuse_grad("ssd_scan", x, dt, A, B, C, D)
+    return _kernel_forward(x, dt, A, B, C, D, chunk)
+
+
+def _check(x, dt, A, B, C, D) -> tuple[int, int, int, int, int]:
+    """The operand checks of both kernels; returns (b, s, h, p, n)."""
     check_operand("x", x, x.device, 4)
     check_operand("dt", dt, x.device, 3, torch.float32)
     check_operand("A", A, x.device, 1, torch.float32)
@@ -76,6 +145,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(B.shape)}, "
                          f"C {tuple(C.shape)}, D {tuple(D.shape)} do not fit")
+    return b, s, h, p, n
+
+
+def _kernel_forward(x, dt, A, B, C, D, chunk: int):
+    b, s, h, p, n = _check(x, dt, A, B, C, D)
     check_ssd_chunk(s, chunk)
     design = plan(x.dtype, n, p)
     y = torch.empty_like(x)
@@ -98,3 +172,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            *scratch, b, s, h, p, n, dtype_code(x), design,
            stream_handle(x.device))
     return y, state
+
+
+def _kernel_backward(x, dt, A, B, C, D, dy, dstate):
+    """(dx, ddt, dA, dB, dC, dD) from one ``repro_ssd_scan_bwd`` call;
+    ``dstate`` (b, h, p, n) fp32 or None for zero."""
+    b, s, h, p, n = _check(x, dt, A, B, C, D)
+    check_operand("dy", dy, x.device, 4, x.dtype, aligned=False)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    if dstate is not None:
+        check_operand("dstate", dstate, x.device, 4, torch.float32,
+                      aligned=False)
+        if dstate.shape != (b, h, p, n):
+            raise ValueError(f"dstate {tuple(dstate.shape)} is not "
+                             f"{(b, h, p, n)}")
+    work_floats = bwd_plan(x.dtype, b, s, h, p, n)
+    grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C, D))
+    if x.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    work = torch.empty(work_floats, dtype=torch.float32, device=x.device)
+    KERNEL_BWD(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+               C.data_ptr(), D.data_ptr(), dy.data_ptr(),
+               None if dstate is None else dstate.data_ptr(),
+               *(g.data_ptr() for g in grads), work.data_ptr(),
+               b, s, h, p, n, dtype_code(x), stream_handle(x.device))
+    return grads

@@ -1,8 +1,9 @@
 """Mamba-2 (SSD) mixer layer with causal depthwise conv and gated RMSNorm.
 
 One for one with the JAX package's ``models/mamba2.py``: train and prefill
-run the chunked SSD (``kernels.ops.ssd``: the CUDA kernel on the card, the
-plain ``ref.ssd_chunked`` on the CPU); decode runs the O(1) one-token
+run the chunked SSD (``kernels.ops.ssd``: the CUDA kernels on the card,
+forward and, under grad, backward; the plain ``ref.ssd_chunked`` and its
+closed-form backward on the CPU); decode runs the O(1) one-token
 recurrence ``ref.ssd_decode_ref`` in plain PyTorch, as the JAX package
 runs it outside any kernel, carrying (conv_state, ssd_state).
 

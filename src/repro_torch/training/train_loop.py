@@ -4,7 +4,7 @@
 ``make_train_step`` closes over (model cfg, train cfg) and returns a
 (params, opt_state, batch) -> (params, opt_state, metrics) function. The
 gradient is ``torch.autograd.grad`` of ``models.model.loss_fn``, whose
-rmsnorm and attention run their backward kernels on the card; with
+rmsnorm, attention and SSD scan run their backward kernels on the card; with
 ``microbatches`` > 1 the per-microbatch gradients are summed in fp32 and
 divided by their count, as the JAX scan does. The update is in place (see
 ``training/optimizer.py``).

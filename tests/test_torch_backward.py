@@ -509,18 +509,14 @@ def test_card_flash_at_head_dim_160_raises_under_grad(fake_card, rng):
 
 
 def test_card_kernels_without_backward_raise_under_grad(fake_card, rng):
-    """decode_attention, ssd_scan and int8_matmul have no backward kernel:
-    on the card, a call autograd would record raises rather than return a
-    result that carries no gradient. So does rmsnorm with lowp."""
+    """decode_attention and int8_matmul have no backward kernel: on the
+    card, a call autograd would record raises rather than return a result
+    that carries no gradient. So does rmsnorm with lowp."""
     q = torch.randn(2, 4, 16, requires_grad=True)
     kv = torch.randn(2, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.decode_attention(q, kv, kv, torch.tensor([3, 8],
                                                      dtype=torch.int32))
-    x = torch.randn(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssd(x, torch.rand(1, 8, 2), -torch.rand(2), torch.randn(1, 8, 16),
-                torch.randn(1, 8, 16), torch.randn(2), chunk=8)
     xq = torch.zeros((4, 8), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.int8_matmul(xq, torch.ones(4, requires_grad=True),

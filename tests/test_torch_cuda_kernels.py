@@ -819,16 +819,15 @@ def test_flash_autograd_runs_the_backward_kernel(cuda, dtype):
 
 @pytest.mark.gpu
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """decode_attention, ssd_scan and int8_matmul refuse to run where
-    autograd would record them; under no_grad they run."""
+    """decode_attention and int8_matmul refuse to run where autograd would
+    record them; under no_grad they run, and so does ssd_scan, whose
+    backward is a kernel."""
     q = _randn((2, 4, 64), torch.float32, cuda, 0).requires_grad_(True)
     kv = _randn((2, 16, 2, 64), torch.float32, cuda, 1)
     length = torch.tensor([3, 16], dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError):
         ops.decode_attention(q, kv, kv, length)
     x, dt, A, B, C, D = _ssd_inputs(1, 8, 2, 16, 16, torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
-        ops.ssd(x.requires_grad_(True), dt, A, B, C, D, chunk=8)
     xq, sx, wq, sw = _int8_operands(4, 32, 16, cuda)
     with pytest.raises(NotImplementedError):
         ops.int8_matmul(xq, sx.requires_grad_(True), wq, sw)
@@ -874,4 +873,101 @@ def test_smoke_training_grads_on_card_match_cpu(cuda, remat):
     assert counts["flash_attention"] == (1 if remat == "none" else 2) * n
     assert abs(l_gpu - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu))
     for a, c in zip(g_gpu, g_cpu):
+        assert (a - c).abs().max() <= 1e-4 * c.abs().max()
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n", [(2, 256, 4, 64, 128),
+                                       (1, 101, 3, 128, 128),
+                                       (2, 129, 2, 20, 33),
+                                       (1, 64, 2, 16, 256)])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, with_state, b, s, h, p,
+                                      n):
+    """One call of the backward kernels against the closed form: dx, dB
+    and dC rounded once (one ulp in bf16), the fp32 gradients at 2e-4 of
+    their max-abs (64-step tiles against the plain version's chunk);
+    mamba2's and jamba's heads, a ragged s, n and p off every chunk, n at
+    its limit; a second call is bitwise the same."""
+    args = _ssd_inputs(b, s, h, p, n, dtype, cuda)
+    dy = _randn((b, s, h, p), dtype, cuda, 5)
+    ds = _randn((b, h, p, n), torch.float32, cuda, 6) if with_state else None
+    before = tssd.KERNEL_BWD.launches
+    got = tssd._kernel_backward(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert tssd.KERNEL_BWD.launches == before + 1
+    want = tssd.plain_bwd(*args, dy, ds, chunk=256)
+    again = tssd._kernel_backward(*args, dy, ds)
+    for name, a, w, r in zip(SSD_GRADS, got, want, again):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+            tol = SSD_TOL[dtype]
+            torch.testing.assert_close(a.float(), w.float(), rtol=tol,
+                                       atol=tol)
+        else:
+            _rel_close(a, w, SSD_TOL[torch.float32])
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_runs_the_backward_kernel(cuda, dtype):
+    args = [a.requires_grad_(True) for a in
+            _ssd_inputs(2, 256, 4, 64, 128, dtype, cuda)]
+    dy = _randn((2, 256, 4, 64), dtype, cuda, 5)
+    ops.reset_launches()
+    y, _ = ops.ssd(*args, chunk=256)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    want = tssd.plain_bwd(*(a.detach() for a in args), dy, None, chunk=256)
+    for name, a, w in zip(SSD_GRADS, args, want):
+        if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+            tol = SSD_TOL[dtype]
+            torch.testing.assert_close(a.grad.float(), w.float(), rtol=tol,
+                                       atol=tol)
+        else:
+            _rel_close(a.grad, w, SSD_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_smoke_mamba_training_grads_on_card_match_cpu(cuda, remat):
+    """loss_fn and its gradient for the smoke-size fp32 mamba2 through the
+    ssd and rmsnorm kernels and their backward kernels against the same
+    weights on the CPU (every leaf, A_log, dt_bias and D included)."""
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_config(get_config("mamba2-130m")).replace(dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.device("cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones((2, 64))}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t, d=dev: t.to(d, copy=True).requires_grad_(True),
+                     params)
+        ops.reset_launches()
+        loss, _ = lm.loss_fn(p, cfg, {k: v.to(dev) for k, v in batch.items()},
+                             remat=remat)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[str(dev)] = (loss.item(), [g.cpu() for g in grads],
+                         ops.launch_counts())
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, counts) = out["cpu"], out["cuda"]
+    n = cfg.num_layers
+    fwd = 1 if remat == "none" else 2
+    assert counts["ssd_scan"] == fwd * n and counts["ssd_scan_bwd"] == n
+    assert counts["rmsnorm"] == fwd * n + 1
+    assert counts["rmsnorm_bwd"] == n + 1
+    assert abs(l_gpu - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu))
+    for a, c in zip(g_gpu, g_cpu):
+        assert torch.isfinite(a).all() and c.abs().max() > 0
         assert (a - c).abs().max() <= 1e-4 * c.abs().max()

@@ -44,15 +44,16 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 
 def test_port_has_the_three_kernel_sources():
-    """One CUDA source for each of the JAX package's five Pallas kernels
-    (the name dates from the first slice, which had three)."""
+    """One CUDA source for each of the JAX package's five Pallas kernels,
+    and the SSD scan's backward in one of its own (the name dates from the
+    first slice, which had three)."""
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
-        "ssd_scan.cu", "int8_matmul.cu"}
+        "ssd_scan.cu", "ssd_scan_bwd.cu", "int8_matmul.cu"}
     pallas = {p.stem for p in (REPO / "src" / "repro" / "kernels").glob(
         "*.py") if "pl.pallas_call" in p.read_text()}
-    assert {p.stem for p in csrc.glob("*.cu")} == pallas
+    assert {p.stem.removesuffix("_bwd") for p in csrc.glob("*.cu")} == pallas
 
 
 def test_port_has_every_arch_of_the_reference():

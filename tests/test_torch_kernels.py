@@ -1030,7 +1030,7 @@ def test_cpu_calls_launch_no_kernel(rng):
                                    "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0, "ssd_scan": 0,
-                                   "int8_matmul": 0}
+                                   "ssd_scan_bwd": 0, "int8_matmul": 0}
 
 
 def test_wrappers_refuse_other_devices():

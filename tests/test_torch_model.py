@@ -262,7 +262,7 @@ def test_launcher_serves_every_request():
                                       "flash_attention": 0,
                                       "flash_attention_bwd": 0,
                                       "decode_attention": 0, "ssd_scan": 0,
-                                      "int8_matmul": 0}
+                                      "ssd_scan_bwd": 0, "int8_matmul": 0}
 
 
 def _port_cfg(jcfg):

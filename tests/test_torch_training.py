@@ -68,10 +68,17 @@ def moe_pair():
     return _pair("granite-moe-1b-a400m")
 
 
+@pytest.fixture(scope="module")
+def mamba_pair():
+    return _pair("mamba2-130m")
+
+
 @pytest.fixture(scope="module", params=["internlm2-1.8b",
-                                        "granite-moe-1b-a400m"])
-def model_pair(request, dense_pair, moe_pair):
-    return dense_pair if request.param == "internlm2-1.8b" else moe_pair
+                                        "granite-moe-1b-a400m",
+                                        "mamba2-130m"])
+def model_pair(request, dense_pair, moe_pair, mamba_pair):
+    return {"internlm2-1.8b": dense_pair, "granite-moe-1b-a400m": moe_pair,
+            "mamba2-130m": mamba_pair}[request.param]
 
 
 def _batch(cfg, b=2, s=24, seed=0):
@@ -130,6 +137,20 @@ def test_moe_loss_and_grads_match_jax(moe_pair, remat, loss_chunk):
     assert m["aux"].item() > 0
 
 
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_mamba2_loss_and_grads_match_jax(mamba_pair, remat):
+    """mamba2 at smoke size: every SSD layer's gradient through
+    ``SSDScanFunction`` (on the CPU its closed-form backward) reaches x, dt,
+    B, C and through them the projections, A_log through -exp, dt_bias
+    through softplus, and D."""
+    _check_loss_and_grads(mamba_pair, remat, 0)
+    _, cfg, _, params = mamba_pair
+    _, _, grads = _port_loss_and_grads(params, cfg, _batch(cfg), remat=remat)
+    for layer in grads["layers"]:
+        for name in ("A_log", "dt_bias", "D"):
+            assert layer["mixer"][name].abs().max() > 0, name
+
+
 def test_remat_modes_give_the_same_gradients(model_pair):
     _, cfg, _, params = model_pair
     batch = _batch(cfg, seed=3)
@@ -168,6 +189,25 @@ def test_trainer_losses_match_jax(mb):
     np.testing.assert_allclose(hist["ce"], jhist["ce"], rtol=TRAINER_TOL,
                                atol=TRAINER_TOL)
     assert hist["step"] == jhist["step"] == list(range(5))
+
+
+def test_mamba2_trainer_losses_match_jax():
+    jcfg, cfg = _cfgs("mamba2-130m")
+    kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=4,
+              remat="full", microbatches=1)
+    dkw = dict(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    jhist = JTrainer(jcfg, JTrainConfig(**kw)).run(JLoader(JDataConfig(**dkw)),
+                                                   steps=4, log_every=100)
+    p0 = from_jax_params(jax.tree.map(np.asarray, jlm.init_params(
+        jcfg, jax.random.key(0))), cfg, "cpu")
+    hist = Trainer(cfg, TrainConfig(**kw), device="cpu").run(
+        PrefetchingLoader(DataConfig(**dkw)), steps=4, log_every=100,
+        params=p0)
+    np.testing.assert_allclose(hist["loss"], jhist["loss"], rtol=TRAINER_TOL,
+                               atol=TRAINER_TOL)
+    np.testing.assert_allclose(hist["ce"], jhist["ce"], rtol=TRAINER_TOL,
+                               atol=TRAINER_TOL)
+    assert hist["loss"][-1] < hist["loss"][0]
 
 
 def test_microbatch_step_sums_grads_in_fp32():
@@ -223,3 +263,19 @@ def test_launcher_prints_the_jax_launchers_keys():
     assert rep["steps"] == 3 and rep["device"] == "cpu"
     assert np.isfinite([rep["first_loss"], rep["last_loss"]]).all()
     assert set(rep["kernel_launches"].values()) == {0}
+
+
+def test_launcher_trains_mamba2():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "mamba2-130m", "--smoke", "--device", "cpu", "--steps", "3",
+         "--seq-len", "32", "--batch", "4"],
+        capture_output=True, text=True, env=env, timeout=600, cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    rep = json.loads(r.stdout)
+    assert rep["arch"] == "mamba2-130m" and rep["steps"] == 3
+    assert rep["device"] == "cpu"
+    assert np.isfinite([rep["first_loss"], rep["last_loss"]]).all()
+    assert set(rep["kernel_launches"].values()) == {0}
+    assert "ssd_scan_bwd" in rep["kernel_launches"]
