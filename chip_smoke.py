@@ -145,10 +145,15 @@ backward in bf16 at granite-moe's d 64 too; the SSD backward at b 8, s
 zero and not, and in fp32 at p 128, two calls bitwise equal), beside
 their library call's backward timed through autograd (``F.rms_norm``,
 ``F.scaled_dot_product_attention``; none computes the SSD), and ssd_scan's
-forward at the training shape. Each flash backward case names its route
-(``design``: the wgmma kernels for bf16 at d 64 and 128, the CUDA-core
-ones otherwise), and the ``train`` profile reads the step's flash and SSD
-backward device time (``flash_bwd_device_ms``, ``ssd_bwd_device_ms``).
+forward at the training shape. Each flash and SSD backward case names its
+route (``design``: the wgmma kernels for bf16 at d 64 and 128, the
+CUDA-core ones otherwise; the SSD backward's tensor-core kernels for bf16
+at n <= 128, p <= 64, the CUDA-core ones otherwise); a bf16 SSD backward
+case also holds the CUDA-core design to the same checks on the same
+inputs and times it in the same call (``simt_max_abs_err``,
+``simt_abs_err``, ``simt_ms``, ``simt_kernel_us``). The ``train`` profile reads the step's
+flash and SSD backward device time (``flash_bwd_device_ms``,
+``ssd_bwd_device_ms``).
 
 Then the summary line of kernels (one row per kernel and path: a kernel
 several paths run, rmsnorm on all three and flash and decode on two, has
@@ -487,6 +492,7 @@ def _ptxas_summary(lines):
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
                              r"ssd_tc_outputs_kernel|ssd_scan_simt_kernel|"
                              r"ssd_bwd_(?:states|pass|local|reduce)_kernel|"
+                             r"ssd_bwd_tc_(?:states|local|reduce)_kernel|"
                              r"int8_wgmma_kernel)", name)
             # the flash wgmma kernel is bf16 only and has no dtype parameter
             dt = "bf16" if "bfloat16" in name or "flash_fwd_wgmma" in name \
@@ -508,11 +514,16 @@ def _main_path_patterns() -> list:
     parity path), the training path's backward kernels at internlm2's
     width and head dim in bf16 (flash: the wgmma design), the flash
     backward's CUDA-core kernels in fp32 at that head dim (the train_parity
-    path), and the four kernels of the SSD backward in bf16 (mamba2's
-    training path) and fp32 (its train_parity path)."""
+    path), the SSD backward's three tensor-core kernels in bf16 (mamba2's
+    training path) and its four CUDA-core kernels in fp32 (its
+    train_parity path) and in bf16 (the shapes the tensor-core design
+    does not take; the kernels phase holds them to the plain backward)."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
-            r"rmsnorm_dw_kernel<f32>", r"ssd_bwd_pass_kernel<f32>"]
+            r"rmsnorm_dw_kernel<f32>", r"ssd_bwd_pass_kernel<f32>",
+            r"ssd_bwd_tc_states_kernel<bf16>",
+            r"ssd_bwd_tc_local_kernel<bf16>",
+            r"ssd_bwd_tc_reduce_kernel<bf16>"]
     pats += [rf"ssd_bwd_{k}_kernel<{dt}>" for k in ("states", "local",
                                                      "reduce")
              for dt in ("bf16", "f32")]
@@ -768,38 +779,62 @@ def _ssd_case(s, dtype, seed=0, b=1, path=MAMBA_ARCH):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _ssd_bwd_case(dtype, p=64, with_state=False, seed=0):
-    """The backward of one SSD layer of mamba2-130m's training step (b 8,
-    s 256, 24 heads, n 128, chunk 256; p 128 at jamba's head dim), the
-    final state's gradient zero (None, as training gives it) or not: each
-    gradient against the closed form, two calls bitwise equal."""
-    b, s, h, n, chunk = TRAIN_BATCH, TRAIN_SEQ, 24, 128, 256
-    args = _ssd_inputs(b, s, h, p, n, dtype, seed)
-    dy = randn((b, s, h, p), dtype, seed + 1)
-    ds = randn((b, h, p, n), torch.float32, seed + 2) if with_state else None
+def _ssd_bwd_check(call, want, dtype, design) -> tuple:
+    """Two calls of one backward design, each one ``ssd_scan_bwd`` launch
+    and bitwise equal; each gradient against the closed form ``want``:
+    bf16 dx, dB, dC at one ulp, the rest at ``SSD_BWD_TOL`` of max-abs.
+    Returns (abs errors, errors over max-abs)."""
     before = kssd.KERNEL_BWD.launches
-    got = kssd._kernel_backward(*args, dy, ds)
-    again = kssd._kernel_backward(*args, dy, ds)
+    got, again = call(), call()
     torch.cuda.synchronize()
     launches = kssd.KERNEL_BWD.launches - before
     if launches != 2:
-        raise AssertionError(f"ssd_scan_bwd counted {launches} launches")
-    want = kssd.plain_bwd(*args, dy, ds, chunk=chunk)
+        raise AssertionError(f"ssd_scan_bwd {design} counted {launches} "
+                             f"launches")
     errs, rel = {}, {}
     for name, gk, w, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
                               want, again):
         if not torch.equal(gk, r):
-            raise AssertionError(f"ssd_scan_bwd {name}: two calls differ")
+            raise AssertionError(f"ssd_scan_bwd {design} {name}: two calls "
+                                 f"differ")
         if dtype == torch.bfloat16 and name in SSD_BWD_LOWP:
             errs[name] = max_err(gk, w, dtype)
         else:
             err = (gk.float() - w.float()).abs().max().item()
             scale = w.float().abs().max().item()
             if not torch.isfinite(gk).all() or err > SSD_BWD_TOL * scale:
-                raise AssertionError(f"ssd_scan_bwd {name}: max abs err "
-                                     f"{err} > {SSD_BWD_TOL} x {scale}")
+                raise AssertionError(f"ssd_scan_bwd {design} {name}: max abs "
+                                     f"err {err} > {SSD_BWD_TOL} x {scale}")
             errs[name] = err
             rel[name] = err / scale
+    return errs, rel
+
+
+def _ssd_bwd_case(dtype, p=64, with_state=False, seed=0):
+    """The backward of one SSD layer of mamba2-130m's training step (b 8,
+    s 256, 24 heads, n 128, chunk 256; p 128 at jamba's head dim), the
+    final state's gradient zero (None, as training gives it) or not, on
+    the design training takes (``kssd.bwd_design``): each gradient against
+    the closed form, two calls bitwise equal. Where that is the tensor-core
+    design, the CUDA-core one is held to the same checks on the same
+    inputs, and timed beside it."""
+    b, s, h, n, chunk = TRAIN_BATCH, TRAIN_SEQ, 24, 128, 256
+    args = _ssd_inputs(b, s, h, p, n, dtype, seed)
+    dy = randn((b, s, h, p), dtype, seed + 1)
+    ds = randn((b, h, p, n), torch.float32, seed + 2) if with_state else None
+    want = kssd.plain_bwd(*args, dy, ds, chunk=chunk)
+    design = kssd.bwd_design(dtype, n, p)
+    call = lambda: kssd._kernel_backward(*args, dy, ds)
+    errs, rel = _ssd_bwd_check(call, want, dtype, kssd.DESIGNS[design])
+    side = {}
+    if design == kssd.TENSOR_CORES:     # the CUDA-core design, same inputs
+        simt = lambda: kssd._kernel_backward(*args, dy, ds, kssd.SIMT)
+        s_errs, s_rel = _ssd_bwd_check(simt, want, dtype,
+                                       kssd.DESIGNS[kssd.SIMT])
+        side = {"simt_max_abs_err": max(s_errs.values()),
+                "simt_abs_err": s_errs, "simt_err_over_maxabs": s_rel,
+                "simt_ms": time_ms(simt, 5),
+                "simt_kernel_us": device_us(simt)}
     e = args[0].element_size()
     # Read x, dy, dt, B, C (and dstate) once, write dx, ddt, dB, dC. Work of
     # the chunked backward at the model's chunk: C.B^T once per batch and
@@ -818,14 +853,14 @@ def _ssd_bwd_case(dtype, p=64, with_state=False, seed=0):
     nbytes = (e * (3 * b * s * h * p + 4 * b * s * n) + 8 * b * s * h
               + 16 * h + (4 * b * h * p * n if with_state else 0))
     b_ms, by = bound(nbytes, nops, dtype)
-    call = lambda: kssd._kernel_backward(*args, dy, ds)
     return {"kernel": "ssd_scan_bwd", "path": MAMBA_TRAIN_PATH,
             "shape": [b, s, h, p, n], "chunk": chunk, "dtype": str(dtype),
+            "design": kssd.DESIGNS[design],
             "dstate": "nonzero" if with_state else "zero (None)",
             "max_abs_err": max(errs.values()), "abs_err": errs,
             "err_over_maxabs": rel, "bitwise_repeat": True,
             "kernel_us": device_us(call),
-            "ms": time_ms(call, 5), "eager_ms": eager_ms(call, 10),
+            "ms": time_ms(call, 5), **side, "eager_ms": eager_ms(call, 10),
             "plain_ms": time_ms(lambda: kssd.plain_bwd(
                 *args, dy, ds, chunk=chunk), 2, 3),
             "library_ms": None,
@@ -2169,6 +2204,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches,
             "launches_from": origin, **per_step,
             **({"heads_of": c["heads_of"]} if "heads_of" in c else {}),
+            **({"design": c["design"]} if "design" in c else {}),
             "shape": c["shape"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -74,6 +74,7 @@
 //   (2e-4 on y and the state).
 #include "common.cuh"
 #include "hopper.cuh"
+#include "ssd_common.cuh"
 
 namespace repro {
 namespace {
@@ -257,7 +258,7 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace ssd;
 constexpr int kT = 64;          // steps per tile: four groups of 16 rows
 constexpr int kParts = 4;       // warps a group of rows: parts of the columns
 constexpr int kThreads = 32 * 4 * kParts;
@@ -286,80 +287,6 @@ __host__ __device__ constexpr size_t outputs_smem(int n, int p) {
          sizeof(float) * 3 * kT;
 }
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
-}
-
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
-  return __halves2bfloat162(
-      __ushort_as_bfloat16(static_cast<unsigned short>(u & 0xffffu)),
-      __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16)));
-}
-
-// (v0, v1) -> bf16 pairs hi = bf16(v), lo = bf16(v - hi).
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
-}
-
-// Warp 0: dt of the tile's steps (0 at or past `valid`) into dts, and
-// L = inclusive cumsum of dt * a into Ls; returns L_last on every lane.
-__device__ __forceinline__ float tile_cumsum(const float* __restrict__ dt,
-                                             size_t base, int h, int valid,
-                                             float a, float* Ls, float* dts) {
-  const int lane = threadIdx.x & 31;
-  float l[2], dv[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int t = lane + 32 * k;
-    dv[k] = t < valid ? dt[base + static_cast<size_t>(t) * h] : 0.f;
-    l[k] = dv[k] * a;
-  }
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const float o = __shfl_up_sync(0xffffffffu, l[k], off);
-      if (lane >= off) l[k] += o;
-    }
-  }
-  l[1] += __shfl_sync(0xffffffffu, l[0], 31);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    Ls[lane + 32 * k] = l[k];
-    dts[lane + 32 * k] = dv[k];
-  }
-  return __shfl_sync(0xffffffffu, l[1], 31);
-}
-
-// `rows` rows of `cols` bf16 (a multiple of 8) from src (row stride
-// `stride`) into dst (row stride ld) by cp.async, 16 bytes a thread, the
-// chunks kThreads apart walked without a division; rows at or past
-// `valid` are 0. The caller commits and waits.
-__device__ __forceinline__ void load_rows(bf16* dst, int ld,
-                                          const bf16* __restrict__ src,
-                                          size_t stride, int rows, int cols,
-                                          int valid) {
-  const int chunks = cols / 8;
-  int r = threadIdx.x / chunks, ch = threadIdx.x - r * chunks;
-  const int dr = kThreads / chunks, dc = kThreads - dr * chunks;
-  while (r < rows) {
-    const bool ok = r < valid;
-    cp_async16_zfill(dst + r * ld + ch * 8,
-                     ok ? src + r * stride + ch * 8 : src, ok);
-    r += dr;
-    ch += dc;
-    if (ch >= chunks) {
-      ch -= chunks;
-      ++r;
-    }
-  }
-}
-
 // 1. G_c^T[pp, nn] = sum_j (w_j x_j[pp]) B_j[nn], w_j = exp(L_last - L_j)
 //    dt_j, as an mma with m = p, n = d_state, k = the tile's steps. Each
 //    warp takes units of 16 rows of p x 64 columns of n; the A fragments
@@ -382,9 +309,9 @@ ssd_tc_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const size_t row0 = static_cast<size_t>(bi) * s + t0;   // first step
   const size_t xrow = static_cast<size_t>(h) * p;          // x step stride
 
-  load_rows(Bs, ldn, B + row0 * n, n, kT, n, valid);
-  load_rows(Xs, ldp, x + row0 * xrow + static_cast<size_t>(hi) * p, xrow,
-            kT, p, valid);
+  load_rows<kThreads>(Bs, ldn, B + row0 * n, n, kT, n, valid);
+  load_rows<kThreads>(Xs, ldp, x + row0 * xrow + static_cast<size_t>(hi) * p,
+                      xrow, kT, p, valid);
   cp_async_commit();
   if (warp == 0) {
     const float last = tile_cumsum(dt, row0 * h + hi, h, valid, A[hi], Ls,
@@ -529,15 +456,16 @@ ssd_tc_outputs_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const size_t row0 = static_cast<size_t>(bi) * s + t0;
   const size_t xrow = static_cast<size_t>(h) * p;   // x, y step stride
 
-  load_rows(Cs, ldn, C + row0 * n, n, kT, n, valid);
-  load_rows(Bs, ldn, B + row0 * n, n, kT, n, valid);
-  load_rows(Xs, ldp, x + row0 * xrow + static_cast<size_t>(hi) * p, xrow,
-            kT, p, valid);
+  load_rows<kThreads>(Cs, ldn, C + row0 * n, n, kT, n, valid);
+  load_rows<kThreads>(Bs, ldn, B + row0 * n, n, kT, n, valid);
+  load_rows<kThreads>(Xs, ldp, x + row0 * xrow + static_cast<size_t>(hi) * p,
+                      xrow, kT, p, valid);
   if (c > 0) {    // H_{c-1}; 0 for the first tile, whose C . H is skipped
     const bf16* hp = Hp + ((static_cast<size_t>(bi) * h + hi) * nt + c) * 2 *
                               static_cast<size_t>(p) * n;
-    load_rows(Hh, ldn, hp, n, p, n, p);
-    load_rows(Hl, ldn, hp + static_cast<size_t>(p) * n, n, p, n, p);
+    load_rows<kThreads>(Hh, ldn, hp, n, p, n, p);
+    load_rows<kThreads>(Hl, ldn, hp + static_cast<size_t>(p) * n, n, p, n,
+                        p);
   }
   cp_async_commit();
   if (warp == 0) {

@@ -14,10 +14,13 @@ not take).
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`SSDScanFunction`: the same forward, and a
-backward that is ``csrc/ssd_scan_bwd.cu`` on the card (CUDA cores, fp32
-sums, four launches counted as one ``ssd_scan_bwd``; :func:`bwd_plan`
-sizes its scratch) and the closed form ``ref.ssd_chunked_bwd_ref`` on the
-CPU. Under no_grad a call launches the forward alone, as before.
+backward that is ``csrc/ssd_scan_bwd.cu`` on the card and the closed form
+``ref.ssd_chunked_bwd_ref`` on the CPU. :func:`bwd_design` picks one of
+two backward designs, as :func:`plan` does for the forward: the
+tensor-core one (bf16, three launches) or the CUDA-core one (float32, and
+bf16 shapes the first does not take; four launches); either call counts
+as one ``ssd_scan_bwd``, and :func:`bwd_plan` sizes its scratch. Under
+no_grad a call launches the forward alone, as before.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from repro_torch.kernels.ref import (check_ssd_chunk, ssd_chunked,
 
 MAX_STATE = 256          # d_state either design's shared memory holds
 TC_MAX_HEADDIM = 64      # head dim the tensor-core design's smem holds
+TC_BWD_MAX_STATE = 128   # d_state the tensor-core backward's registers hold
+TC_BWD_GROUPS = 4        # its blocks a (tile, batch), each a group of heads
 TILE = 64                # steps a tile of the tensor-core design
 SIMT, TENSOR_CORES = 0, 1             # design codes of the C entry point
 DESIGNS = {SIMT: "simt", TENSOR_CORES: "tensor_cores"}
@@ -42,7 +47,7 @@ KERNEL = register_kernel(
     [_P] * 11 + [_I] * 7 + [_P])
 KERNEL_BWD = register_kernel(
     "ssd_scan_bwd", "repro_ssd_scan_bwd",
-    [_P] * 15 + [_I] * 6 + [_P])
+    [_P] * 15 + [_I] * 7 + [_P])
 BWD_TILE = 64            # steps a tile of the backward (csrc/ssd_scan_bwd.cu)
 
 
@@ -61,19 +66,44 @@ def plan(dtype: torch.dtype, n: int, p: int) -> int:
     return SIMT
 
 
-def bwd_plan(dtype: torch.dtype, b: int, s: int, h: int, p: int, n: int
-             ) -> int:
-    """The fp32 scratch floats of a backward launch
-    (``csrc/ssd_scan_bwd.cu``), which takes float32 and bfloat16 at
-    1 <= n <= ``MAX_STATE`` and any p, as the forward does; anything else
-    raises. Scratch: the tile states and their gradients (b, h, tiles, p,
-    n) twice, decays and the dA and dD partials (b, h, tiles) three times,
-    and the per-head dB and dC partials (b, h, s, n) twice."""
+def bwd_design(dtype: torch.dtype, n: int, p: int) -> int:
+    """The design of a backward launch (``csrc/ssd_scan_bwd.cu``):
+    ``TENSOR_CORES`` for bfloat16 where d_state ``n`` and the head dim
+    ``p`` are multiples of 16, n <= ``TC_BWD_MAX_STATE`` and p <=
+    ``TC_MAX_HEADDIM``; else ``SIMT`` for float32 or bfloat16 with
+    1 <= n <= ``MAX_STATE`` and any p, the shapes the forward takes;
+    anything else raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"d_state {n} not in 1..{MAX_STATE}")
+    if dtype == torch.bfloat16 and n % 16 == 0 and p % 16 == 0 and \
+            n <= TC_BWD_MAX_STATE and 16 <= p <= TC_MAX_HEADDIM:
+        return TENSOR_CORES
+    return SIMT
+
+
+def bwd_plan(dtype: torch.dtype, b: int, s: int, h: int, p: int, n: int,
+             design: int | None = None) -> int:
+    """The fp32 scratch floats of a backward launch of ``design``
+    (:func:`bwd_design`'s by default; either raises where that one does).
+    ``SIMT``: the tile states and their gradients (b, h, tiles, p, n)
+    twice, decays and the dA and dD partials (b, h, tiles) three times, and
+    the per-head dB and dC partials (b, h, s, n) twice. ``TENSOR_CORES``:
+    the state entering each tile and the gradient of the state leaving it,
+    each (b, h, tiles, 2, p, n) as bf16 hi/lo pairs (half a float each),
+    the dB and dC sums of each group of heads (b, groups, s, n) twice,
+    sized for min(``TC_BWD_GROUPS``, h) groups (the kernel's own split
+    has no more), and the dA and dD partials (b, h, tiles) twice."""
+    chosen = bwd_design(dtype, n, p)
+    design = chosen if design is None else design
+    if design == TENSOR_CORES and chosen != TENSOR_CORES:
+        raise ValueError(f"the tensor-core backward does not take {dtype} "
+                         f"at d_state {n}, head dim {p}")
     tiles = -(-s // BWD_TILE)
+    if design == TENSOR_CORES:
+        return 2 * b * h * tiles * p * n + 2 * b * min(TC_BWD_GROUPS, h) * s * n + \
+            2 * b * h * tiles
     return 2 * b * h * tiles * p * n + 3 * b * h * tiles + 2 * b * h * s * n
 
 
@@ -174,8 +204,9 @@ def _kernel_forward(x, dt, A, B, C, D, chunk: int):
     return y, state
 
 
-def _kernel_backward(x, dt, A, B, C, D, dy, dstate):
-    """(dx, ddt, dA, dB, dC, dD) from one ``repro_ssd_scan_bwd`` call;
+def _kernel_backward(x, dt, A, B, C, D, dy, dstate, design=None):
+    """(dx, ddt, dA, dB, dC, dD) from one ``repro_ssd_scan_bwd`` call of
+    ``design`` (:func:`bwd_design`'s by default, as training calls it);
     ``dstate`` (b, h, p, n) fp32 or None for zero."""
     b, s, h, p, n = _check(x, dt, A, B, C, D)
     check_operand("dy", dy, x.device, 4, x.dtype, aligned=False)
@@ -188,14 +219,17 @@ def _kernel_backward(x, dt, A, B, C, D, dy, dstate):
         if dstate.shape != (b, h, p, n):
             raise ValueError(f"dstate {tuple(dstate.shape)} is not "
                              f"{(b, h, p, n)}")
-    work_floats = bwd_plan(x.dtype, b, s, h, p, n)
+    design = bwd_design(x.dtype, n, p) if design is None else design
+    work_floats = bwd_plan(x.dtype, b, s, h, p, n, design)
     grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C, D))
     if x.numel() == 0:
         return tuple(g.zero_() for g in grads)
+    if design == TENSOR_CORES and dy.data_ptr() % 16:
+        dy = dy.clone()         # its rows go to shared memory by cp.async
     work = torch.empty(work_floats, dtype=torch.float32, device=x.device)
     KERNEL_BWD(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                C.data_ptr(), D.data_ptr(), dy.data_ptr(),
                None if dstate is None else dstate.data_ptr(),
                *(g.data_ptr() for g in grads), work.data_ptr(),
-               b, s, h, p, n, dtype_code(x), stream_handle(x.device))
+               b, s, h, p, n, dtype_code(x), design, stream_handle(x.device))
     return grads

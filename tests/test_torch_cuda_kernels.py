@@ -971,3 +971,130 @@ def test_smoke_mamba_training_grads_on_card_match_cpu(cuda, remat):
     for a, c in zip(g_gpu, g_cpu):
         assert torch.isfinite(a).all() and c.abs().max() > 0
         assert (a - c).abs().max() <= 1e-4 * c.abs().max()
+
+
+# The SSD backward's tensor-core design against the closed form, at
+# chip_smoke.py's SSD_BWD_TOL and SSD_BWD_LOWP: the fp32 gradients (ddt,
+# dA, dD) within 2e-4 of their max-abs (64-step tiles against the plain
+# version's chunk, sums over heads, batches and tiles in another order,
+# operands with an fp32 factor as bf16 hi/lo pairs, about 2^-17 a term);
+# dx, dB and dC, rounded once to bf16 by both, at one bf16 ulp.
+SSD_BWD_TOL = 2e-4
+SSD_BWD_LOWP = ("dx", "dB", "dC")
+
+
+def _ssd_bwd_check(got, want):
+    for name, a, w in zip(SSD_GRADS, got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        if a.dtype == torch.bfloat16 and name in SSD_BWD_LOWP:
+            tol = SSD_TOL[torch.bfloat16]
+            torch.testing.assert_close(a.float(), w.float(), rtol=tol,
+                                       atol=tol)
+        else:
+            assert torch.isfinite(a).all(), name
+            err = (a.float() - w.float()).abs().max().item()
+            assert err <= SSD_BWD_TOL * w.float().abs().max().item(), \
+                (name, err)
+
+
+def _ssd_bwd_kernels(call) -> set:
+    """Names of the CUDA kernels ``call`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [40, 64, 200, 256])
+@pytest.mark.parametrize("n,p,h", [(16, 16, 1), (32, 64, 3), (48, 32, 5),
+                                   (128, 64, 24), (128, 16, 7),
+                                   (64, 48, 2)])
+def test_ssd_bwd_tc_kernel_matches_plain(cuda, with_state, s, n, p, h):
+    """The tensor-core backward (bf16, n and p multiples of 16, n <= 128,
+    p <= 64): one tile, a tile exactly, ragged tiles and mamba2's four;
+    n 16-128, p 16-64, 1-24 heads (groups of 1 to 4 blocks, the last
+    group short at h 5 and 7); one launch counted, a second call bitwise
+    the same."""
+    b = 2
+    assert tssd.bwd_design(torch.bfloat16, n, p) == tssd.TENSOR_CORES
+    args = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda)
+    dy = _randn((b, s, h, p), torch.bfloat16, cuda, 5)
+    ds = _randn((b, h, p, n), torch.float32, cuda, 6) if with_state else None
+    before = tssd.KERNEL_BWD.launches
+    got = tssd._kernel_backward(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert tssd.KERNEL_BWD.launches == before + 1
+    _ssd_bwd_check(got, tssd.plain_bwd(*args, dy, ds, chunk=256))
+    again = tssd._kernel_backward(*args, dy, ds)
+    for name, a, r in zip(SSD_GRADS, got, again):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_tc_kernel_replays_in_a_cuda_graph(cuda):
+    """The tensor-core backward captured once (scratch from the caching
+    allocator, no sync inside), replayed with dy changed in place: each
+    replay equals the closed form, and a replay of the first inputs gives
+    the first result bit for bit."""
+    b, s, h, p, n = 2, 256, 24, 64, 128
+    args = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda)
+    dy = _randn((b, s, h, p), torch.bfloat16, cuda, 5)
+    ds = _randn((b, h, p, n), torch.float32, cuda, 6)
+    tssd._kernel_backward(*args, dy, ds)                # warm-up: build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tssd._kernel_backward(*args, dy, ds)
+    first = None
+    for seed in (7, 8, 7):
+        dy.copy_(_randn(dy.shape, torch.bfloat16, cuda, seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        _ssd_bwd_check(got, tssd.plain_bwd(*args, dy, ds, chunk=256))
+        if first is None:
+            first = [g.clone() for g in got]
+    for name, a, r in zip(SSD_GRADS, got, first):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,p,design", [
+    (torch.bfloat16, 128, 64, "ssd_bwd_tc_local_kernel"),
+    (torch.float32, 128, 64, "ssd_bwd_local_kernel"),
+    (torch.bfloat16, 128, 128, "ssd_bwd_local_kernel"),     # jamba's p
+    (torch.bfloat16, 256, 64, "ssd_bwd_local_kernel"),      # n past 128
+    (torch.bfloat16, 40, 64, "ssd_bwd_local_kernel"),       # n off 16
+])
+def test_ssd_bwd_routes_by_dtype_and_shape(cuda, dtype, n, p, design):
+    """bf16 at the tensor-core design's shapes launches its kernels; fp32,
+    and bf16 where that design does not fit, the CUDA-core ones."""
+    args = _ssd_inputs(1, 100, 3, p, n, dtype, cuda)
+    dy = _randn((1, 100, 3, p), dtype, cuda, 5)
+    names = _ssd_bwd_kernels(lambda: tssd._kernel_backward(*args, dy, None))
+    assert any(design in nm for nm in names), names
+    other = "ssd_bwd_local_kernel" if "_tc_" in design else "ssd_bwd_tc_"
+    assert not any(other in nm for nm in names), names
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_raises_where_no_design_fits(cuda):
+    """d_state past 256 and float16 raise before any launch; the
+    tensor-core design asked for where it does not fit raises too."""
+    args = list(_ssd_inputs(1, 64, 2, 16, 16, torch.float32, cuda))
+    dy = _randn((1, 64, 2, 16), torch.float32, cuda, 5)
+    before = tssd.KERNEL_BWD.launches
+    with pytest.raises(ValueError):
+        tssd._kernel_backward(*args, dy, None, tssd.TENSOR_CORES)
+    big = list(args)
+    big[3] = big[4] = torch.zeros((1, 64, 300), device=cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        tssd._kernel_backward(*big, dy, None)
+    half = [a.half() if i in (0, 3, 4) else a for i, a in enumerate(args)]
+    with pytest.raises(TypeError):
+        tssd._kernel_backward(*half, dy.half(), None)
+    assert tssd.KERNEL_BWD.launches == before
