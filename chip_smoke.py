@@ -71,8 +71,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 to step 8 must give the unbroken run's losses bit for bit;
                 then 3 steps with int8 moments. Step ms, grad norm,
                 ``max_memory_allocated``; one more step timed, then traced
-                (device busy ms, idle share, top kernels, the flash and
-                SSD backward kernels' device ms).
+                (device busy ms, idle share, top kernels, the flash, SSD
+                and rmsnorm backward kernels' device ms).
 7. ``train_parity`` fp32 internlm2-1.8b and mamba2-130m at full width
                 with 2 layers: one ``loss_fn`` and its gradient on the card
                 (kernels, their backward kernels) and on the CPU (plain
@@ -151,9 +151,13 @@ CUDA-core ones otherwise; the SSD backward's tensor-core kernels for bf16
 at n <= 128, p <= 64, the CUDA-core ones otherwise); a bf16 SSD backward
 case also holds the CUDA-core design to the same checks on the same
 inputs and times it in the same call (``simt_max_abs_err``,
-``simt_abs_err``, ``simt_ms``, ``simt_kernel_us``). The ``train`` profile reads the step's
-flash and SSD backward device time (``flash_bwd_device_ms``,
-``ssd_bwd_device_ms``).
+``simt_abs_err``, ``simt_ms``, ``simt_kernel_us``). Each rmsnorm
+backward case names its design (``ring`` where rows are 16-byte chunks)
+and holds both designs (``ring``, ``block_rows``) to the same checks on
+the same inputs (two calls and the replays of a captured graph bitwise
+equal), timing them in turns (``ms_by_design``). The ``train`` profile reads the step's flash, SSD
+and rmsnorm backward device time (``flash_bwd_device_ms``,
+``ssd_bwd_device_ms``, ``rmsnorm_bwd_device_ms``).
 
 Then the summary line of kernels (one row per kernel and path: a kernel
 several paths run, rmsnorm on all three and flash and decode on two, has
@@ -317,6 +321,10 @@ SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # KERNEL_TOL's one ulp (both sum in fp32 and round once).
 SSD_BWD_TOL = 2e-4
 SSD_BWD_LOWP = ("dx", "dB", "dC")    # gradients in the inputs' dtype
+# rmsnorm_bwd's dw against the plain backward: fp32 sums over the rows in
+# another order, within this fraction of 1 + its max-abs (as the gpu
+# tests hold it).
+RMS_BWD_DW_TOL = 1e-5
 # int8_matmul: exact int32 sums and the same fp32 epilogue: bit for bit.
 INT8_TOL = 0.0
 # Logits of the fp32 model, card (kernels, cuBLAS) vs CPU (plain versions):
@@ -486,6 +494,7 @@ def _ptxas_summary(lines):
         used = re.search(r"Used (\d+) registers", ln)
         if used and name:
             kern = re.search(r"(rmsnorm_kernel|rmsnorm_bwd_kernel|"
+                             r"rmsnorm_bwd_ring_kernel|"
                              r"rmsnorm_dw_kernel|flash_fwd_wgmma_kernel|"
                              r"flash_fwd_simt_kernel|flash_bwd_\w+_kernel|"
                              r"decode_split_kernel|"
@@ -511,8 +520,12 @@ def _main_path_patterns() -> list:
     attention path's head dim in bf16 (decode at the bucket of its group),
     each of ssd_scan's three
     tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
-    parity path), the training path's backward kernels at internlm2's
-    width and head dim in bf16 (flash: the wgmma design), the flash
+    parity path), the rmsnorm backward's ring kernel at both training
+    widths in bf16 and fp32 (the train and train_parity paths; and every
+    other instantiation of it and of block_rows, the widest rows' among
+    them) and block_rows' dw kernel (the kernels phase times it), the
+    training path's flash backward kernels at internlm2's head dim in bf16
+    (the wgmma design), the flash
     backward's CUDA-core kernels in fp32 at that head dim (the train_parity
     path), the SSD backward's three tensor-core kernels in bf16 (mamba2's
     training path) and its four CUDA-core kernels in fp32 (its
@@ -520,16 +533,23 @@ def _main_path_patterns() -> list:
     does not take; the kernels phase holds them to the plain backward)."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
-            r"rmsnorm_dw_kernel<f32>", r"ssd_bwd_pass_kernel<f32>",
+            r"rmsnorm_dw_kernel<f32>",
+            r"rmsnorm_bwd_kernel<\w+,\d+,\d+>",
+            r"rmsnorm_bwd_ring_kernel<\w+,\d+,\d+>",
+            r"ssd_bwd_pass_kernel<f32>",
             r"ssd_bwd_tc_states_kernel<bf16>",
             r"ssd_bwd_tc_local_kernel<bf16>",
             r"ssd_bwd_tc_reduce_kernel<bf16>"]
     pats += [rf"ssd_bwd_{k}_kernel<{dt}>" for k in ("states", "local",
                                                      "reduce")
              for dt in ("bf16", "f32")]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for arch in TRAIN_PATHS:
+        for es, dt in ((2, "bf16"), (4, "f32")):
+            p = krms.bwd_plan(TRAIN_BATCH * TRAIN_SEQ,
+                              get_config(arch).d_model, es, True, sms)
+            pats.append(rf"rmsnorm_bwd_ring_kernel<{dt},{p.nv},{p.wpr}>")
     cfg = get_config(ARCH)
-    vec, nv, _ = krms.bwd_plan(1, cfg.d_model, 2, True, 1)
-    pats.append(rf"rmsnorm_bwd_kernel<bf16,{8 if vec else 1},{nv}>")
     hd = cfg.resolved_head_dim
     pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
              for k in ("preprocess", "dkdv_wgmma", "dq_wgmma")]
@@ -544,7 +564,6 @@ def _main_path_patterns() -> list:
             gm = kdec.group_bucket(g)
             pats += [rf"flash_fwd_wgmma_kernel<bf16,{hd}>",
                      rf"decode_split_kernel<bf16,{hd},{gm},{int(g == gm)}>"]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n in INT8_SHAPES:
         bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
         pats.append(rf"int8_wgmma_kernel<\w+,{bm // 64},{bn},\d+,1>")
@@ -590,28 +609,81 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
+def _rmsnorm_bwd_check(call, want, dtype, design) -> float:
+    """Two calls of one rmsnorm backward design, each one ``rmsnorm_bwd``
+    launch and bitwise equal; a CUDA graph of three calls, replayed twice,
+    bitwise equal to them; dx at ``KERNEL_TOL``, dw at fp32's
+    ``KERNEL_TOL`` and within ``RMS_BWD_DW_TOL`` x (1 + its max-abs) of
+    the plain backward. Returns the max abs error."""
+    before = krms.KERNEL_BWD.launches
+    (dx, dw), (dx2, dw2) = call(), call()
+    torch.cuda.synchronize()
+    launches = krms.KERNEL_BWD.launches - before
+    if launches != 2:
+        raise AssertionError(f"rmsnorm_bwd {design} counted {launches} "
+                             f"launches")
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"rmsnorm_bwd {design}: two calls differ")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(3)]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, dx) and torch.equal(b, dw) for a, b in outs):
+        raise AssertionError(f"rmsnorm_bwd {design}: graph replays differ "
+                             f"from an eager call")
+    want_dx, want_dw = want
+    dw_err = (dw - want_dw).abs().max().item()
+    scale = 1 + want_dw.abs().max().item()
+    if not torch.isfinite(dw).all() or dw_err > RMS_BWD_DW_TOL * scale:
+        raise AssertionError(f"rmsnorm_bwd {design} dw: max abs err "
+                             f"{dw_err} > {RMS_BWD_DW_TOL} x {scale}")
+    return max(max_err(dx, want_dx, dtype),
+               max_err(dw, want_dw, torch.float32))
+
+
 def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
-    """The backward of one norm of a training step: ``rows`` = b x s."""
+    """The backward of one norm of a training step: ``rows`` = b x s, on
+    the design training takes (``krms.bwd_design``), held to
+    ``_rmsnorm_bwd_check``. block_rows, where it takes the row, is held to
+    the same checks on the same inputs and timed in turns with it: each
+    design twice, in the order a, b, b, a; ``ms`` is the mean of the chosen
+    design's two."""
     x, w = randn((rows, d), dtype, seed), randn((d,), torch.float32, seed + 1)
     dy = randn((rows, d), dtype, seed + 2)
-    dx, dw = krms._kernel_backward(x, w, dy, 1e-5)
-    torch.cuda.synchronize()
-    want_dx, want_dw = krms.plain_bwd(x, w, dy, 1e-5)
-    err = max(max_err(dx, want_dx, dtype),
-              max_err(dw, want_dw, torch.float32))
+    want = krms.plain_bwd(x, w, dy, 1e-5)
+    e = x.element_size()
+    design = krms.bwd_design(d, e, True)
+    designs = [design] + [o for o in krms.BWD_DESIGNS if o != design]
+    calls = {o: (lambda o=o: krms._kernel_backward(x, w, dy, 1e-5, o))
+             for o in designs}
+    errs = {krms.BWD_DESIGNS[o]: _rmsnorm_bwd_check(calls[o], want, dtype,
+                                                    krms.BWD_DESIGNS[o])
+            for o in designs}
+    runs = {}
+    for o in designs + designs[::-1]:
+        runs.setdefault(krms.BWD_DESIGNS[o], []).append(time_ms(calls[o]))
+    by_design = {k: sum(v) / len(v) for k, v in runs.items()}
+    name = krms.BWD_DESIGNS[design]
     # F.rms_norm's backward through autograd (its weight in x's dtype):
     # forward and backward replayed, less the forward alone.
     xl = x.clone().requires_grad_(True)
     wl = w.to(dtype, copy=True).requires_grad_(True)
     lib_fwd = lambda: F.rms_norm(xl, (d,), wl, 1e-5)
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (xl, wl), dy)
-    e = x.element_size()
     b_ms, by = bound(3 * rows * d * e + 8 * d, 8 * rows * d, torch.float32)
     return {"kernel": "rmsnorm_bwd", "path": path, "shape": [rows, d],
-            "dtype": str(dtype), "max_abs_err": err,
-            "ms": time_ms(lambda: krms._kernel_backward(x, w, dy, 1e-5)),
-            "eager_ms": eager_ms(
-                lambda: krms._kernel_backward(x, w, dy, 1e-5)),
+            "dtype": str(dtype), "design": name,
+            "plan": krms.bwd_plan(rows, d, e, True, torch.cuda
+                                  .get_device_properties(0)
+                                  .multi_processor_count)._asdict(),
+            "max_abs_err": errs[name], "max_abs_err_by_design": errs,
+            "bitwise_repeat": True, "graph_replay_bitwise": True,
+            "ms": by_design[name], "ms_by_design": by_design,
+            "runs_ms_by_design": runs,
+            "kernel_us": device_us(calls[design]),
+            "eager_ms": eager_ms(calls[design]),
             "plain_ms": time_ms(lambda: krms.plain_bwd(x, w, dy, 1e-5)),
             "library_ms": time_ms(lib_both) - time_ms(lib_fwd),
             "library_call": "F.rms_norm backward (autograd): forward and "
@@ -1366,6 +1438,8 @@ def _profile_train_step(trainer, params, opt_state, batch) -> dict:
     flash_bwd_ms = sum(v for k, v in by_name.items()
                        if "flash_bwd" in k) / 1e3
     ssd_bwd_ms = sum(v for k, v in by_name.items() if "ssd_bwd" in k) / 1e3
+    rms_bwd_ms = sum(v for k, v in by_name.items()
+                     if "rmsnorm_bwd" in k or "rmsnorm_dw" in k) / 1e3
 
     grads = [torch.full_like(p, 1e-3) for p in tree_leaves(params)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -1382,6 +1456,7 @@ def _profile_train_step(trainer, params, opt_state, batch) -> dict:
             "top_device_ms": [[k[:60], v / 1e3] for k, v in top],
             "flash_bwd_device_ms": flash_bwd_ms,
             "ssd_bwd_device_ms": ssd_bwd_ms,
+            "rmsnorm_bwd_device_ms": rms_bwd_ms,
             "adamw_update": {"traced_wall_ms": update_ms,
                              "device_busy_ms": _device_busy_us(ukern) / 1e3,
                              "kernels": len(ukern)}}

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
-// mbarriers, TMA tile loads, cp.async, wgmma descriptors and the wgmma
+// mbarriers, TMA tile and bulk loads, cp.async, wgmma descriptors and the wgmma
 // shapes flash_attention.cu uses, ldmatrix and the warp-level bf16 mma
 // ssd_scan.cu uses. Only the wgmma and TMA parts need sm_90a.
 #pragma once
@@ -59,6 +59,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One contiguous span of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory by the TMA unit, its
+// completion reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -26,35 +26,60 @@
 //   aligned (a contiguous view at an offset), takes the same kernel with
 //   one element a chunk (scalar loads).
 //
-// Backward (rmsnorm_bwd_kernel, rmsnorm_dw_kernel): the JAX package has no
-// backward kernel; its gradient is jax.grad of the forward. With
-// r = rsqrt(mean(x^2) + eps), in fp32:
+// Backward: the JAX package has no backward kernel; its gradient is
+// jax.grad of the forward. With r = rsqrt(mean(x^2) + eps), in fp32:
 //   dx = r * (w * dy) - x * r^3 * mean(x * w * dy), rounded once to x's dtype;
 //   dw = sum over rows of dy * x * r.
 // Bound: bytes, x and dy read and dx written once (3 * rows * d *
-// sizeof(T)) plus w and dw: 7.5 us at 2048 x 2048 bf16. Design:
-// * One block of kBwdThreads a row at a time, the block's rows in a fixed
-//   grid stride. A thread owns the same NV chunks of every row (chunk
-//   t + i * kBwdThreads), so its share of dw sums in registers across the
-//   block's rows; w stays in registers too. r is recomputed from the row
-//   (the forward saves nothing). The row's two sums (x^2, x * w * dy) reduce
-//   by a warp butterfly, then across the 8 warps through shared memory,
-//   double-buffered by row parity so one barrier a row suffices.
-// * dw without atomics, so a step is bitwise repeatable (checkpoint resume
-//   is checked bit for bit): each block writes its fp32 partial row, and
-//   rmsnorm_dw_kernel sums the partials of each column in block order, a
-//   warp's lanes over 32 columns and its 8 warps over the blocks, combined
-//   in warp order.
+// sizeof(T)) plus w and dw: 2.8 us at 2048 x 768 bf16, 7.5 us at 2048 x
+// 2048. r is recomputed from the row (the forward saves nothing). No
+// floating-point atomics anywhere, so two calls are bitwise equal (a
+// checkpoint resume is checked bit for bit). Two designs, as
+// kernels/rmsnorm.py::bwd_design picks:
+// * ring (rmsnorm_bwd_ring_kernel; 16-byte chunks, rows of up to 2048 of
+//   them): one persistent block of 16 warps an SM, each block a contiguous
+//   range of rows. Its row groups of WPR = 1, 2, 4, 8 or 16 warps (the
+//   fewest that hold the row at NV <= 4 chunks a lane, so 128 registers a
+//   thread do) take the range's rows in turn. Their rows' x and dy stream into the groups'
+//   slots of a shared-memory ring, one 1-D bulk copy (TMA) of each a row
+//   and one mbarrier a slot: every slot is filled at the block's start, so
+//   up to 192 KB an SM are in flight at once (at 2048 x 768 bf16 a block's
+//   whole share, 16 rows, 48 KB). A lane takes NV chunks of the
+//   row; the row's two sums (x^2, x * w * dy) reduce by a warp butterfly,
+//   across a group's warps through one exchange in shared memory, with no
+//   block barrier a row; the group then refills the slot with its row spg
+//   on. Each lane sums the dw of
+//   its chunks over its group's rows in registers (w there too); the block
+//   adds its groups' sums in group order into one fp32 partial row.
+// * The partials' column sums, in block order, in the same launch after a
+//   grid barrier: column slice j of dw (sw columns, dw_slice_width) is
+//   summed by one block, thread t over the partials t / sw, t / sw +
+//   512 / sw, ... of its column, then the 512 / sw sums of each column in
+//   order. The launch is cooperative, so every block is resident, and the
+//   barrier is cooperative groups' grid sync, whose word CUDA keeps
+//   for each launch: launches on other streams, and graph replays, never
+//   share it.
+// * block_rows (rmsnorm_bwd_kernel + rmsnorm_dw_kernel, the first design):
+//   one block of kBwdThreads a row at a time, rows in a fixed grid stride;
+//   a thread owns chunks t + i * kBwdThreads of every row and sums its dw
+//   in registers, the row's sums go through shared memory across 8 warps,
+//   and rmsnorm_dw_kernel sums the blocks' partial rows in order. It takes
+//   single-element chunks (d not a multiple of 16 bytes, or a misaligned
+//   view), which bulk copies cannot, and 16-byte chunks up to 1024 a row so
+//   the ring design can be timed against it.
 //
 // lowp: the JAX package's Pallas path drops `lowp` (src/repro/kernels/ops.py:59)
 // and always computes in fp32. This kernel follows the reference-mode
 // semantics instead (ref.rmsnorm_lowp), which the port's tests hold it to:
 // inv = rsqrt(var + eps) is rounded to x's dtype, then x * inv and the
 // product with w (also rounded to x's dtype) are each rounded to x's dtype.
+#include <cooperative_groups.h>
+
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -440,7 +465,8 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
   return cudaGetLastError();
 }
 
-// NV 1, 2, 4 or 8 chunks a thread, of 16 bytes (vec) or one element.
+// block_rows: NV 1, 2 or 4 chunks a thread of 16 bytes (vec), or 1, 2, 4
+// or 8 of one element.
 template <typename T>
 cudaError_t dispatch_bwd(const void* x, const void* w, const void* dy,
                          void* dx, float* dw, float* part, int rows, int d,
@@ -452,7 +478,6 @@ cudaError_t dispatch_bwd(const void* x, const void* w, const void* dy,
       case 1: return launch_bwd<T, V, 1>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
       case 2: return launch_bwd<T, V, 2>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
       case 4: return launch_bwd<T, V, 4>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
-      case 8: return launch_bwd<T, V, 8>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -463,6 +488,306 @@ cudaError_t dispatch_bwd(const void* x, const void* w, const void* dy,
     case 8: return launch_bwd<T, 1, 8>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, ring design.
+// ---------------------------------------------------------------------------
+constexpr int kBlockRows = 0, kRing = 1;  // design codes
+constexpr int kRingWarps = 16;
+constexpr int kRingThreads = kRingWarps * 32;
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a block, sm_90
+
+// Block b of `blocks` takes rows [ring_row(b), ring_row(b + 1)).
+__device__ __forceinline__ int ring_row(int b, int rows, int blocks) {
+  return static_cast<int>(static_cast<long long>(b) * rows / blocks);
+}
+
+__host__ __device__ __forceinline__ size_t ring_bars_bytes(int slots) {
+  return (static_cast<size_t>(slots) * 8 + 127) / 128 * 128;
+}
+
+// Dynamic shared memory of a ring launch: one mbarrier a slot, padded to
+// 128 bytes, then the slots, each an x row and a dy row. After the rows the
+// same bytes hold the groups' dw sums (groups x d floats), then the column
+// sums' kRingThreads floats.
+__host__ __device__ __forceinline__ size_t ring_smem_bytes(int d, int esize,
+                                                           int groups,
+                                                           int spg) {
+  const int slots = groups * spg;
+  size_t ring = static_cast<size_t>(slots) * 2 * d * esize;
+  const size_t sums = static_cast<size_t>(groups) * d * 4;
+  if (ring < sums) ring = sums;
+  if (ring < kRingThreads * 4) ring = kRingThreads * 4;
+  return ring_bars_bytes(slots) + ring;
+}
+
+// Columns a block sums in the last phase: the least power of two from 32
+// (a 128-byte line of each partial row) to kRingThreads at or above
+// d / nparts, so the slices cover d in at most nparts blocks, and a thread
+// loads at most nparts * 32 / kRingThreads partials at d <= 32 * nparts
+// (9 at 132 partials: one batch of kSliceLoads).
+__host__ __device__ __forceinline__ int dw_slice_width(int d, int nparts) {
+  const int want = (d + nparts - 1) / nparts;
+  int sw = 32;
+  while (sw < want && sw < kRingThreads) sw *= 2;
+  return sw;
+}
+
+// dw[c0, c0 + sw) = the sum over p < nparts of part[p, c] in a fixed
+// order: thread t takes column c0 + t % sw and sums partials t / sw,
+// t / sw + tpc, ... (tpc = kRingThreads / sw) in that order, loading
+// kSliceLoads of them at once; then each column's tpc sums are added in
+// order. red: kRingThreads floats of shared memory.
+constexpr int kSliceLoads = 16;
+
+__device__ __forceinline__ void dw_slice(const float* part, float* dw,
+                                         int nparts, int d, int c0, int sw,
+                                         float* red) {
+  const int t = threadIdx.x, tpc = kRingThreads / sw;
+  const int c = c0 + t % sw;
+  float s = 0.f;
+  if (c < d) {
+    for (int p0 = t / sw; p0 < nparts; p0 += kSliceLoads * tpc) {
+      float v[kSliceLoads];
+#pragma unroll
+      for (int u = 0; u < kSliceLoads; ++u) {
+        const int p = p0 + u * tpc;
+        v[u] = p < nparts ? __ldcg(part + static_cast<size_t>(p) * d + c)
+                          : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSliceLoads; ++u)
+        if (p0 + u * tpc < nparts) s += v[u];
+    }
+  }
+  red[t] = s;
+  __syncthreads();
+  if (t < sw && c < d) {
+    float tot = 0.f;
+#pragma unroll 8
+    for (int q = 0; q < tpc; ++q) tot += red[q * sw + t];
+    dw[c] = tot;
+  }
+  __syncthreads();
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_shared(const T* p) {
+  return *reinterpret_cast<const Raw<T, V>*>(p);
+}
+
+// Rows of d = nchunks * V elements (16-byte chunks); a row group of WPR
+// warps, lane t of it holding chunks t + i * WPR * 32, i < NV. part:
+// (gridDim.x, d) fp32, this block's sum of dy * x * r; dw: (d,). spg:
+// ring slots a group. A cooperative launch (the grid sync).
+template <typename T, int NV, int WPR>
+__global__ void __launch_bounds__(kRingThreads, 1)
+rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ part, float* __restrict__ dw,
+                        int rows, int d, float eps, int spg) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kRowThreads = WPR * 32;
+  constexpr int kGroups = kRingWarps / WPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float xch[kRingWarps][2];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = tid / kRowThreads, t = tid % kRowThreads;
+  const int nchunks = d / V;
+  const int slots = kGroups * spg;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + ring_bars_bytes(slots));
+  const int r0 = ring_row(blockIdx.x, rows, gridDim.x);
+  const int nrows = ring_row(blockIdx.x + 1, rows, gridDim.x) - r0;
+  // This group's rows: r0 + g + k * kGroups, k < mine.
+  const int mine = nrows > g ? (nrows - g + kGroups - 1) / kGroups : 0;
+  const uint32_t row_bytes = static_cast<uint32_t>(d) * sizeof(T);
+
+  // Row k of group gr into slot gr + kGroups * (k % spg): x, then dy.
+  auto issue = [&](int gr, int k) {
+    const int slot = gr + kGroups * (k % spg);
+    const size_t row = static_cast<size_t>(r0 + gr + k * kGroups);
+    T* dst = ring + static_cast<size_t>(slot) * 2 * d;
+    mbar_expect_tx(&full[slot], 2 * row_bytes);
+    bulk_load(dst, x + row * d, row_bytes, &full[slot]);
+    bulk_load(dst + d, dy + row * d, row_bytes, &full[slot]);
+  };
+  // Thread s sets up slot s; after the barrier, lane k of each group fills
+  // the group's slot for its row k (k < spg), all at once: a bulk copy
+  // holds the thread that issues it, so one thread issuing every row's
+  // would serialise them. Each group refills its own slots after.
+  if (tid < slots) {
+    mbar_init(&full[tid], 1);
+    mbar_fence_init();
+  }
+  // w's loads go out before the rows' bulk copies, ahead of them in the
+  // memory system's queues.
+  float wv[NV][V], acc[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = t + i * kRowThreads;
+    if (c < nchunks) {
+      load_w<V>(w + c * V, wv[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) wv[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
+  }
+  __syncthreads();
+  if (t < spg && t < mine) issue(g, t);
+
+  for (int k = 0; k < mine; ++k) {
+    const int slot = g + kGroups * (k % spg);
+    mbar_wait(&full[slot], (k / spg) & 1);
+    const T* xs = ring + static_cast<size_t>(slot) * 2 * d;
+    const T* gs = xs + d;
+    float ss = 0.f, sd = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = t + i * kRowThreads;
+      if (c >= nchunks) continue;
+      float xf[V], gf[V];
+      unpack<T, V>(load_shared<T, V>(xs + c * V), xf);
+      unpack<T, V>(load_shared<T, V>(gs + c * V), gf);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ss = fmaf(xf[e], xf[e], ss);
+        sd = fmaf(xf[e], wv[i][e] * gf[e], sd);
+      }
+    }
+    ss = warp_sum(ss);
+    sd = warp_sum(sd);
+    if constexpr (WPR > 1) {
+      if ((tid & 31) == 0) {
+        xch[warp][0] = ss;
+        xch[warp][1] = sd;
+      }
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + g), "r"(kRowThreads)
+                   : "memory");
+      ss = 0.f;
+      sd = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPR; ++j) {
+        ss += xch[g * WPR + j][0];
+        sd += xch[g * WPR + j][1];
+      }
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float kk = r * r * r * (sd / static_cast<float>(d));
+    T* out = dx + static_cast<size_t>(r0 + g + k * kGroups) * d;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = t + i * kRowThreads;
+      if (c >= nchunks) continue;
+      float xf[V], gf[V], o[V];
+      unpack<T, V>(load_shared<T, V>(xs + c * V), xf);
+      unpack<T, V>(load_shared<T, V>(gs + c * V), gf);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        o[e] = r * (wv[i][e] * gf[e]) - xf[e] * kk;
+        acc[i][e] = fmaf(gf[e], xf[e] * r, acc[i][e]);
+      }
+      store_raw<T, V>(out + c * V, pack<T, V>(o));
+    }
+    // Every lane of the group has read the slot (and xch): refill it.
+    if constexpr (WPR > 1)
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + g), "r"(kRowThreads)
+                   : "memory");
+    else
+      __syncwarp();
+    if (t == 0 && k + spg < mine) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(g, k + spg);
+    }
+  }
+
+  // The groups' dw, added in group order into the block's partial row.
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = t + i * kRowThreads;
+    if (c >= nchunks) continue;
+#pragma unroll
+    for (int e = 0; e < V; e += 4)
+      *reinterpret_cast<float4*>(sums + static_cast<size_t>(g) * d + c * V +
+                                 e) =
+          make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2], acc[i][e + 3]);
+  }
+  __syncthreads();
+  float* mine_part = part + static_cast<size_t>(blockIdx.x) * d;
+  for (int c = tid; c < d; c += kRingThreads) {
+    float s = sums[c];
+#pragma unroll
+    for (int j = 1; j < kGroups; ++j) s += sums[static_cast<size_t>(j) * d + c];
+    mine_part[c] = s;
+  }
+  // The partial rows are written: sum their columns.
+  cooperative_groups::this_grid().sync();
+  const int sw = dw_slice_width(d, gridDim.x);
+  for (int j = blockIdx.x; j * sw < d; j += gridDim.x)
+    dw_slice(part, dw, gridDim.x, d, j * sw, sw, sums);
+}
+
+template <typename T, int NV, int WPR>
+cudaError_t launch_ring(const void* x, const void* w, const void* dy,
+                        void* dx, float* dw, float* part, int rows, int d,
+                        float eps, int spg, int blocks, cudaStream_t s) {
+  auto kernel = rmsnorm_bwd_ring_kernel<T, NV, WPR>;
+  const size_t smem = ring_smem_bytes(d, sizeof(T), kRingWarps / WPR, spg);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kRingThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                           static_cast<const float*>(w),
+                           static_cast<const T*>(dy), static_cast<T*>(dx),
+                           part, dw, rows, d, eps, spg);
+  return err == cudaSuccess ? cudaGetLastError() : err;
+}
+
+// ring: NV 1..4 chunks a lane with one warp a row, or NV 4 with 2, 4, 8
+// or 16 warps a row.
+template <typename T>
+cudaError_t dispatch_ring(const void* x, const void* w, const void* dy,
+                          void* dx, float* dw, float* part, int rows, int d,
+                          float eps, int nv, int wpr, int spg, int blocks,
+                          cudaStream_t s) {
+#define REPRO_RING(NV, WPR) \
+  launch_ring<T, NV, WPR>(x, w, dy, dx, dw, part, rows, d, eps, spg, blocks, s)
+  if (wpr == 1) {
+    switch (nv) {
+      case 1: return REPRO_RING(1, 1);
+      case 2: return REPRO_RING(2, 1);
+      case 3: return REPRO_RING(3, 1);
+      case 4: return REPRO_RING(4, 1);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (nv != 4) return cudaErrorInvalidValue;
+  switch (wpr) {
+    case 2: return REPRO_RING(4, 2);
+    case 4: return REPRO_RING(4, 4);
+    case 8: return REPRO_RING(4, 8);
+    case 16: return REPRO_RING(4, 16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_RING
 }
 
 }  // namespace
@@ -498,21 +823,27 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out,
 }
 
 // Backward of repro_rmsnorm (lowp off): x, dy, dx (rows, d) in dtype, w and
-// dw (d,) float32, part (blocks, d) float32 scratch; vec, nv, blocks: the
-// plan of kernels/rmsnorm.py::bwd_plan (d / (16 bytes or 1 element) chunks,
-// at most nv * 256 of them). Launches rmsnorm_bwd_kernel, then
-// rmsnorm_dw_kernel, on the stream.
+// dw (d,) float32, part (blocks, d) float32 scratch; design, vec, nv, wpr,
+// spg, blocks: the plan of kernels/rmsnorm.py::bwd_plan. block_rows: d /
+// (16 bytes or 1 element) chunks, at most nv * 256 of them, wpr and spg
+// unused; launches rmsnorm_bwd_kernel, then rmsnorm_dw_kernel. ring:
+// 16-byte chunks, at most nv * wpr * 32 of them, spg ring slots a row
+// group, blocks <= rows and co-resident; launches rmsnorm_bwd_ring_kernel,
+// cooperative. All on the stream.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* w,
                                  const void* dy, void* dx, void* dw,
                                  void* part, int rows, int d, float eps,
-                                 int dtype, int vec, int nv, int blocks,
+                                 int dtype, int design, int vec, int nv,
+                                 int wpr, int spg, int blocks,
                                  void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int esize = dtype == kF32 ? 4 : 2;
   const int nchunks = vec ? d * esize / 16 : d;
+  const bool ring = design == kRing;
   if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows ||
-      nchunks > nv * kBwdThreads)
+      (design != kBlockRows && !ring) || (ring && (!vec || spg <= 0)) ||
+      nchunks > nv * (ring ? wpr * 32 : kBwdThreads))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec && ((d * esize) % 16 || !aligned16(x) || !aligned16(w) ||
               !aligned16(dy) || !aligned16(dx)))
@@ -521,11 +852,15 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* w,
   float* pf = static_cast<float*>(part);
   cudaError_t err;
   if (dtype == kF32)
-    err = dispatch_bwd<float>(x, w, dy, dx, dwf, pf, rows, d, eps, vec, nv,
-                              blocks, s);
+    err = ring ? dispatch_ring<float>(x, w, dy, dx, dwf, pf, rows, d, eps,
+                                      nv, wpr, spg, blocks, s)
+               : dispatch_bwd<float>(x, w, dy, dx, dwf, pf, rows, d, eps, vec,
+                                     nv, blocks, s);
   else if (dtype == kBF16)
-    err = dispatch_bwd<__nv_bfloat16>(x, w, dy, dx, dwf, pf, rows, d, eps,
-                                      vec, nv, blocks, s);
+    err = ring ? dispatch_ring<__nv_bfloat16>(x, w, dy, dx, dwf, pf, rows, d,
+                                              eps, nv, wpr, spg, blocks, s)
+               : dispatch_bwd<__nv_bfloat16>(x, w, dy, dx, dwf, pf, rows, d,
+                                             eps, vec, nv, blocks, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -8,15 +8,16 @@ the 16-byte chunks a lane holds, the warps a row and the rows a block.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`RMSNormFunction`: the same forward, and a
-backward that is the kernel pair ``rmsnorm_bwd_kernel`` +
-``rmsnorm_dw_kernel`` on the card (counted as ``rmsnorm_bwd``,
-:func:`bwd_plan` sets its launch) and ``ref.rmsnorm_bwd_ref`` on the CPU.
+backward that is one C call on the card (counted as ``rmsnorm_bwd``;
+:func:`bwd_design` picks its design, :func:`bwd_plan` sets its launch) and
+``ref.rmsnorm_bwd_ref`` on the CPU.
 ``lowp`` has no backward kernel: under grad it raises on the card, and on
 the CPU autograd runs through ``ref.rmsnorm_lowp``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,7 +31,7 @@ KERNEL = register_kernel("rmsnorm", "repro_rmsnorm",
                          [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                           _P])
 KERNEL_BWD = register_kernel("rmsnorm_bwd", "repro_rmsnorm_bwd",
-                             [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _P])
+                             [_P] * 6 + [_I, _I, _F] + [_I] * 7 + [_P])
 MAX_NV = 8      # chunks a lane holds in registers
 MAX_WPR = 8     # warps a row
 MAX_ROWS_PER_BLOCK = 8
@@ -62,30 +63,97 @@ def plan(rows: int, d: int, element_size: int, aligned: bool
     return vec, nv, wpr, rows_per_block
 
 
-BWD_THREADS = 256       # threads a block of the backward: one row at a time
-BWD_MAX_NV = 8          # chunks a thread of the backward holds
-BWD_BLOCKS_PER_SM = 2
+# Designs of the backward (``csrc/rmsnorm.cu``), codes of its C entry point:
+# block_rows, a block a row at a time, then a second kernel for dw (the
+# first design); ring, one persistent block an SM streaming its rows
+# through a shared-memory ring, dw's column sums after a grid sync in the
+# same launch.
+BLOCK_ROWS, RING = 0, 1
+BWD_DESIGNS = {BLOCK_ROWS: "block_rows", RING: "ring"}
+BWD_THREADS = 256       # threads a block of block_rows
+BWD_MAX_CHUNKS = 2048   # chunks a row of the backward, at most
+BWD_BLOCKS_PER_SM = 2   # block_rows: blocks an SM
+# block_rows: chunks a thread at most, of 16 bytes and of one element
+BLOCK_ROWS_MAX_NV = {True: 4, False: 8}
+RING_WARPS = 16                 # warps a block of the ring design
+RING_MAX_NV = 4                 # chunks a lane of the ring design
+RING_BYTES = 192 * 1024         # ring slots a block, at most
+RING_MAX_SLOTS = 128            # ring slots (mbarriers) a block, at most
+
+
+class BwdPlan(NamedTuple):
+    """A backward launch: ``design``; ``vec`` (16-byte chunks, else one
+    element); ``nv`` chunks a lane (block_rows: a thread); ``wpr`` warps a
+    row and ``spg`` ring slots a row group (ring); ``blocks``."""
+    design: int
+    vec: bool
+    nv: int
+    wpr: int
+    spg: int
+    blocks: int
+
+
+def bwd_design(d: int, element_size: int, aligned: bool) -> int:
+    """``RING`` where the row is 16-byte chunks (d fills them and every
+    pointer is 16-byte aligned), which its bulk copies need; else
+    ``BLOCK_ROWS`` (single-element chunks)."""
+    return RING if aligned and (d * element_size) % 16 == 0 else BLOCK_ROWS
 
 
 def bwd_plan(rows: int, d: int, element_size: int, aligned: bool,
-             num_sms: int) -> tuple[bool, int, int]:
-    """(vec, nv, blocks) of a backward launch (``csrc/rmsnorm.cu``): the
-    forward's chunks (16 bytes where d fills them and every pointer is
-    aligned, else one element), ``nv`` of them a thread, the least power
-    of two with ``nv * BWD_THREADS`` chunks >= the row's; ``blocks`` blocks
-    of one row at a time, each writing one fp32 partial row of dw, so no
-    more than ``BWD_BLOCKS_PER_SM`` an SM (the partials are re-read by the
-    second kernel). A row of more than ``BWD_MAX_NV * BWD_THREADS`` chunks
-    raises."""
+             num_sms: int, design: Optional[int] = None) -> BwdPlan:
+    """The launch of ``design`` (:func:`bwd_design`'s by default). A row of
+    more than ``BWD_MAX_CHUNKS`` chunks raises, as does a design that does
+    not take the row.
+
+    block_rows: ``nv`` the least power of two with ``nv * BWD_THREADS``
+    chunks >= the row's (up to ``BLOCK_ROWS_MAX_NV``); ``blocks`` blocks of
+    one row at a time, each writing one fp32 partial row of dw, at most
+    ``BWD_BLOCKS_PER_SM`` an SM.
+
+    ring: 16-byte chunks only. One warp a row and just enough chunks a
+    lane where 32 x ``RING_MAX_NV`` chunks hold the row, else
+    ``RING_MAX_NV`` chunks and the fewest warps (2, 4, 8 or 16) that hold
+    it; one block an SM (at most one a row), each a contiguous range of
+    rows; ``spg`` slots for each of the ``RING_WARPS // wpr`` row groups:
+    enough for the group's rows, within ``RING_BYTES`` and
+    ``RING_MAX_SLOTS``. The C side sizes the launch's shared memory and
+    refuses a plan that does not fit a block."""
     vec = aligned and (d * element_size) % 16 == 0
     chunks = d * element_size // 16 if vec else d
-    nv = 1
-    while nv * BWD_THREADS < chunks:
-        nv *= 2
-    if nv > BWD_MAX_NV:
+    if chunks > BWD_MAX_CHUNKS:
         raise ValueError(f"rmsnorm backward takes rows of at most "
-                         f"{BWD_MAX_NV * BWD_THREADS} chunks, got {chunks}")
-    return vec, nv, max(1, min(rows, BWD_BLOCKS_PER_SM * num_sms))
+                         f"{BWD_MAX_CHUNKS} chunks, got {chunks}")
+    design = bwd_design(d, element_size, aligned) if design is None \
+        else design
+    if design == BLOCK_ROWS:
+        nv = 1
+        while nv * BWD_THREADS < chunks:
+            nv *= 2
+        if nv > BLOCK_ROWS_MAX_NV[vec]:
+            raise ValueError(f"block_rows takes rows of at most "
+                             f"{BLOCK_ROWS_MAX_NV[vec] * BWD_THREADS} "
+                             f"chunks of this size, got {chunks}")
+        return BwdPlan(BLOCK_ROWS, vec, nv, 1, 0,
+                       max(1, min(rows, BWD_BLOCKS_PER_SM * num_sms)))
+    if design != RING:
+        raise ValueError(f"unknown rmsnorm backward design {design}")
+    if not vec:
+        raise ValueError("the ring design takes 16-byte chunks: d a "
+                         "multiple of 16 bytes, every pointer aligned")
+    if chunks <= 32 * RING_MAX_NV:
+        nv, wpr = -(-chunks // 32), 1
+    else:
+        nv, wpr = RING_MAX_NV, 2
+        while wpr * 32 * nv < chunks:
+            wpr *= 2
+    groups = RING_WARPS // wpr
+    blocks = max(1, min(rows, num_sms))
+    per_block = -(-rows // blocks)
+    spg = max(1, min(-(-per_block // groups),
+                     RING_BYTES // (groups * 2 * d * element_size),
+                     RING_MAX_SLOTS // groups))
+    return BwdPlan(design, True, nv, wpr, spg, blocks)
 
 
 def plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
@@ -159,7 +227,11 @@ def _kernel_forward(x: torch.Tensor, w: torch.Tensor, eps: float,
 
 
 def _kernel_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-                     eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+                     eps: float, design: Optional[int] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dx, dw on the card, by ``design`` (:func:`bwd_design`'s by default,
+    as training calls it); raises where that design does not take the
+    row."""
     d = x.shape[-1]
     check_operand("x", x, x.device, x.dim(), aligned=False)
     check_operand("w", w, x.device, 1, torch.float32, aligned=False)
@@ -172,12 +244,12 @@ def _kernel_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if rows == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
-    vec, nv, blocks = bwd_plan(
-        rows, d, x.element_size(),
-        all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx)),
-        num_sms(x.device))
-    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    p = bwd_plan(rows, d, x.element_size(),
+                 all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx)),
+                 num_sms(x.device), design)
+    part = torch.empty((p.blocks, d), dtype=torch.float32, device=x.device)
     KERNEL_BWD(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                dw.data_ptr(), part.data_ptr(), rows, d, float(eps),
-               dtype_code(x), int(vec), nv, blocks, stream_handle(x.device))
+               dtype_code(x), p.design, int(p.vec), p.nv, p.wpr, p.spg,
+               p.blocks, stream_handle(x.device))
     return dx, dw

@@ -3,8 +3,9 @@
 The JAX package has no backward kernel: its gradient is ``jax.grad`` of
 ``repro.kernels.ref``. So each backward design of ``csrc/`` is emulated
 here tile for tile in fp32 (the same tiles, the log-sum-exp recomputation,
-the loop over a kv head's q heads, the causal tile skip; the rmsnorm
-backward's per-block partials of dw and their fixed-order sum) and held,
+the loop over a kv head's q heads, the causal tile skip; each rmsnorm
+backward design's rows a block and a row group, its partials of dw and
+their fixed-order sums) and held,
 with the closed-form plain backwards of ``kernels/ref.py``, to
 ``torch.autograd`` of the plain forward and to ``jax.grad`` of the JAX
 package's reference at 1e-5 relative to the gradient's max-abs (fp32 sums
@@ -341,11 +342,83 @@ def test_attention_lse_matches_jax_logsumexp(causal, rng):
 # ---------------------------------------------------------------------------
 # RMSNorm.
 # ---------------------------------------------------------------------------
-def rmsnorm_bwd_emulated(x, w, dy, eps, blocks, warps=8):
-    """``rmsnorm_bwd_kernel`` and ``rmsnorm_dw_kernel`` in fp32: block j
-    takes rows j, j + blocks, ... and keeps its own partial dw; the second
-    kernel's warp i sums partials i, i + warps, ..., then the warps' sums
-    are added in warp order."""
+# The ring design's launch layout, as ``csrc/rmsnorm.cu`` computes it (the
+# C side owns it; test_rmsnorm_bwd_plan_matches_the_kernel_source holds
+# these constants to its source).
+RING_THREADS = trmsnorm.RING_WARPS * 32
+MAX_SMEM = 232448               # dynamic shared memory a block (sm_90)
+
+
+def ring_rows(rows, blocks, b):
+    """The rows block ``b`` of a ring launch takes (``ring_row``)."""
+    return range(b * rows // blocks, (b + 1) * rows // blocks)
+
+
+def ring_smem(d, element_size, wpr, spg):
+    """Dynamic shared memory of a ring launch (``ring_smem_bytes``): the
+    slots' mbarriers padded to 128 bytes, then the larger of the slots (an
+    x and a dy row each), the groups' dw sums and the column sums."""
+    groups = trmsnorm.RING_WARPS // wpr
+    slots = groups * spg
+    ring = max(slots * 2 * d * element_size, groups * d * 4, RING_THREADS * 4)
+    return -(-slots * 8 // 128) * 128 + ring
+
+
+def dw_slice_width(d, nparts):
+    """Columns of dw one block sums (``dw_slice_width``): the least power
+    of two from 32 to ``RING_THREADS`` at or above d / nparts."""
+    sw = 32
+    while sw < -(-d // nparts) and sw < RING_THREADS:
+        sw *= 2
+    return sw
+
+
+def rmsnorm_bwd_emulated(x, w, dy, eps, plan):
+    """The ring design of ``csrc/rmsnorm.cu`` in fp32, launch for launch:
+    block b of ``plan.blocks`` takes the contiguous rows
+    ``ring_rows(rows, blocks, b)``; its row group g of ``RING_WARPS //
+    plan.wpr`` takes rows g, g + groups, ... of that range, summing dw over
+    them in row order; the block adds its groups' sums in group order into
+    its partial row. Then, after the grid sync, column slice j of
+    ``dw_slice_width(d, blocks)`` columns: for each column, thread q of
+    tpc = ``RING_THREADS // sw`` sums partials q, q + tpc, ... in order,
+    and the tpc sums are added in q order."""
+    xf, gf, wf = (t.detach().to(torch.float32) for t in (x, dy, w))
+    d = xf.shape[-1]
+    xf, gf = xf.reshape(-1, d), gf.reshape(-1, d)
+    n, blocks = xf.shape[0], plan.blocks
+    groups = trmsnorm.RING_WARPS // plan.wpr
+    dx = torch.empty_like(xf)
+    part = torch.zeros((blocks, d))
+    for b in range(blocks):
+        rows = ring_rows(n, blocks, b)
+        sums = torch.zeros((groups, d))
+        for g in range(groups):
+            for r in rows[g::groups]:
+                rr = torch.rsqrt((xf[r] * xf[r]).sum() / d + eps)
+                k = rr * rr * rr * ((xf[r] * (wf * gf[r])).sum() / d)
+                dx[r] = rr * (wf * gf[r]) - xf[r] * k
+                sums[g] = sums[g] + gf[r] * (xf[r] * rr)
+        for g in range(groups):
+            part[b] = part[b] + sums[g]
+    sw = dw_slice_width(d, blocks)
+    tpc = RING_THREADS // sw
+    dw = torch.zeros(d)
+    for c0 in range(0, d, sw):
+        cols = slice(c0, min(c0 + sw, d))
+        for q in range(tpc):
+            s_ = torch.zeros(cols.stop - c0)
+            for p_ in range(q, blocks, tpc):
+                s_ = s_ + part[p_, cols]
+            dw[cols] = dw[cols] + s_
+    return dx.reshape(x.shape), dw
+
+
+def rmsnorm_bwd_block_rows_emulated(x, w, dy, eps, blocks, warps=8):
+    """The block_rows design (``rmsnorm_bwd_kernel`` and
+    ``rmsnorm_dw_kernel``) in fp32: block j takes rows j, j + blocks, ...
+    and keeps its own partial dw; the second kernel's warp i sums partials
+    i, i + warps, ..., then the warps' sums are added in warp order."""
     xf, gf, wf = (t.detach().to(torch.float32) for t in (x, dy, w))
     d = xf.shape[-1]
     xf, gf = xf.reshape(-1, d), gf.reshape(-1, d)
@@ -364,17 +437,19 @@ def rmsnorm_bwd_emulated(x, w, dy, eps, blocks, warps=8):
     return dx.reshape(x.shape), dw
 
 
-@pytest.mark.parametrize("rows,d,blocks", [(7, 64, 3), (33, 100, 33),
-                                           (64, 2048, 5), (1, 16, 1)])
-def test_rmsnorm_backward_emulation_matches_autograd_and_jax(rows, d,
-                                                             blocks, rng):
+def _rmsnorm_bwd_inputs(rng, rows, d):
     x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
     w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d))
                          .astype(np.float32))
     dy = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    return x, w, dy
+
+
+def _check_rmsnorm_grads(x, w, dy, emu):
+    """``emu`` (dx, dw), the closed form and autograd against ``jax.vjp``
+    of the JAX package's reference."""
     xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     auto = torch.autograd.grad(tref.rmsnorm_ref(xl, wl), (xl, wl), dy)
-    emu = rmsnorm_bwd_emulated(x, w, dy, 1e-5, blocks)
     closed = trmsnorm.plain_bwd(x, w, dy)
     _, vjp = jax.vjp(lambda a, b_: jref.rmsnorm_ref(a, b_, 1e-5),
                      jnp.asarray(_np(x)), jnp.asarray(_np(w)))
@@ -384,23 +459,120 @@ def test_rmsnorm_backward_emulation_matches_autograd_and_jax(rows, d,
             _close(_np(g), np.asarray(jg))
 
 
+# (rows, d, SMs): one or several rows a block, rows not a multiple of the
+# blocks, one warp a row (d 16 to 100), two (fp32 d 768: 192 chunks) and
+# four (fp32 d 2048: 512 chunks).
+RMS_BWD_CASES = [(7, 64, 3), (33, 100, 33), (64, 2048, 5), (1, 16, 1),
+                 (50, 768, 7), (300, 768, 132)]
+
+
+@pytest.mark.parametrize("rows,d,blocks", RMS_BWD_CASES)
+def test_rmsnorm_backward_emulation_matches_autograd_and_jax(rows, d,
+                                                             blocks, rng):
+    x, w, dy = _rmsnorm_bwd_inputs(rng, rows, d)
+    plan = trmsnorm.bwd_plan(rows, d, 4, True, blocks)
+    assert plan.design == trmsnorm.RING
+    _check_rmsnorm_grads(x, w, dy,
+                         rmsnorm_bwd_emulated(x, w, dy, 1e-5, plan))
+
+
+@pytest.mark.parametrize("rows,d,blocks", RMS_BWD_CASES)
+def test_rmsnorm_block_rows_emulation_matches_autograd_and_jax(rows, d,
+                                                               blocks, rng):
+    x, w, dy = _rmsnorm_bwd_inputs(rng, rows, d)
+    _check_rmsnorm_grads(x, w, dy, rmsnorm_bwd_block_rows_emulated(
+        x, w, dy, 1e-5, min(rows, blocks)))
+
+
 @pytest.mark.parametrize("element_size", [2, 4])
 @pytest.mark.parametrize("d", [8, 100, 768, 2048, 8192, 16384])
 def test_rmsnorm_bwd_plan_fits_the_kernel(element_size, d):
-    """nv chunks a thread cover the row, are 1, 2, 4 or 8 (the C
-    dispatch), and blocks never exceed rows; wider rows raise."""
+    """16-byte chunks take the ring design, single elements block_rows;
+    each plan's chunks cover the row with the fewest lanes and warps of the
+    C dispatch, and rows wider than BWD_MAX_CHUNKS raise. At 2048 rows on
+    132 SMs the ring's grid fits the grid barrier (a block an SM at most),
+    its shared memory fits a block, and its blocks and row groups take
+    every row once, in slots that fit RING_BYTES."""
     for aligned in (True, False):
-        chunks = d * element_size // 16 if aligned and \
-            (d * element_size) % 16 == 0 else d
-        if chunks > trmsnorm.BWD_MAX_NV * trmsnorm.BWD_THREADS:
+        vec = aligned and (d * element_size) % 16 == 0
+        chunks = d * element_size // 16 if vec else d
+        if chunks > trmsnorm.BWD_MAX_CHUNKS:
             with pytest.raises(ValueError):
                 trmsnorm.bwd_plan(5, d, element_size, aligned, 132)
             continue
-        vec, nv, blocks = trmsnorm.bwd_plan(5, d, element_size, aligned, 132)
-        assert nv in (1, 2, 4, 8) and nv * trmsnorm.BWD_THREADS >= chunks
-        assert nv == 1 or (nv // 2) * trmsnorm.BWD_THREADS < chunks
-        assert blocks == 5
-    assert trmsnorm.bwd_plan(2048, 2048, 2, True, 132) == (True, 1, 264)
+        p = trmsnorm.bwd_plan(5, d, element_size, aligned, 132)
+        assert p.vec == vec and p.blocks == 5
+        if not vec:
+            assert p.design == trmsnorm.BLOCK_ROWS
+            assert p.nv in (1, 2, 4, 8) and p.nv * trmsnorm.BWD_THREADS >= \
+                chunks
+            assert p.nv == 1 or (p.nv // 2) * trmsnorm.BWD_THREADS < chunks
+            with pytest.raises(ValueError):
+                trmsnorm.bwd_plan(5, d, element_size, aligned, 132,
+                                  trmsnorm.RING)
+            continue
+        assert p.design == trmsnorm.RING
+        assert p.wpr in (1, 2, 4, 8, 16) and 1 <= p.nv <= trmsnorm.RING_MAX_NV
+        assert p.wpr == 1 or p.nv == trmsnorm.RING_MAX_NV
+        assert p.nv * p.wpr * 32 >= chunks
+        assert (p.nv - 1) * 32 < chunks if p.wpr == 1 \
+            else (p.wpr // 2) * 32 * p.nv < chunks
+        q = trmsnorm.bwd_plan(2048, d, element_size, True, 132,
+                              trmsnorm.RING)
+        assert q.design == trmsnorm.RING and q.blocks <= 132
+        groups = trmsnorm.RING_WARPS // q.wpr
+        assert ring_smem(d, element_size, q.wpr, q.spg) <= MAX_SMEM
+        assert 1 <= q.spg and groups * q.spg <= trmsnorm.RING_MAX_SLOTS
+        assert groups * q.spg * 2 * d * element_size <= trmsnorm.RING_BYTES
+        taken = [r for b in range(q.blocks)
+                 for g in range(groups)
+                 for r in ring_rows(2048, q.blocks, b)[g::groups]]
+        assert sorted(taken) == list(range(2048))
+    assert trmsnorm.bwd_plan(2048, 2048, 2, True, 132) == \
+        trmsnorm.BwdPlan(trmsnorm.RING, True, 4, 2, 2, 132)
+    assert trmsnorm.bwd_plan(2048, 768, 2, True, 132) == \
+        trmsnorm.BwdPlan(trmsnorm.RING, True, 3, 1, 1, 132)
+
+
+def test_rmsnorm_bwd_block_rows_takes_what_it_did():
+    """block_rows, asked for at a 16-byte shape (to be timed against the
+    ring), takes rows of up to 1024 chunks of 16 bytes; single elements up
+    to 2048, 264 blocks at 2048 rows as before."""
+    br = trmsnorm.BLOCK_ROWS
+    assert trmsnorm.bwd_plan(2048, 2048, 2, True, 132, br) == \
+        trmsnorm.BwdPlan(br, True, 1, 1, 0, 264)
+    assert trmsnorm.bwd_plan(9, 8192, 2, True, 132, br).nv == 4
+    with pytest.raises(ValueError):
+        trmsnorm.bwd_plan(9, 16384, 2, True, 132, br)
+    assert trmsnorm.bwd_plan(9, 2048, 2, False, 132).nv == 8
+    with pytest.raises(ValueError):
+        trmsnorm.bwd_plan(9, 2048, 2, True, 132, 2)
+
+
+def test_rmsnorm_bwd_plan_matches_the_kernel_source():
+    """The plan's constants and design codes are ``csrc/rmsnorm.cu``'s, and
+    its nv/wpr pairs are the ones the C dispatch instantiates."""
+    src = (Path(trmsnorm.__file__).parents[1] / "csrc" /
+           "rmsnorm.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kBwdThreads"]) == trmsnorm.BWD_THREADS
+    assert int(consts["kRingWarps"]) == trmsnorm.RING_WARPS
+    assert int(consts["kMaxSmem"]) == MAX_SMEM
+    assert "kBlockRows = 0, kRing = 1;" in src
+    assert (trmsnorm.BLOCK_ROWS, trmsnorm.RING) == (0, 1)
+    assert set(trmsnorm.BWD_DESIGNS) == {0, 1}
+    ring = {(int(a), int(b)) for a, b in
+            re.findall(r"return REPRO_RING\((\d+), (\d+)\)", src)}
+    assert ring == {(nv, 1) for nv in range(1, 5)} | {(4, 2), (4, 4), (4, 8),
+                                                       (4, 16)}
+    entry = src[src.index("cudaError_t dispatch_bwd("):]
+    vec_nv = {int(n) for n in re.findall(r"launch_bwd<T, V, (\d+)>", entry)}
+    one_nv = {int(n) for n in re.findall(r"launch_bwd<T, 1, (\d+)>", entry)}
+    assert max(vec_nv) == trmsnorm.BLOCK_ROWS_MAX_NV[True]
+    assert max(one_nv) == trmsnorm.BLOCK_ROWS_MAX_NV[False]
+    for d, es in ((768, 2), (2048, 2), (768, 4), (2048, 4), (16384, 2)):
+        p = trmsnorm.bwd_plan(2048, d, es, True, 132)
+        assert (p.nv, p.wpr) in ring
 
 
 # ---------------------------------------------------------------------------

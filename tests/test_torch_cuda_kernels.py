@@ -631,25 +631,140 @@ def _rel_close(got, want, tol):
     assert err <= tol * (1 + want.abs().max().item()), err
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 7, 333, 2048])
-@pytest.mark.parametrize("d", [8, 100, 768, 2048, 8192])
-def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d):
+def _rmsnorm_bwd_inputs(cuda, dtype, rows, d):
+    return (_randn((rows, d), dtype, cuda, 0),
+            _randn((d,), torch.float32, cuda, 1),
+            _randn((rows, d), dtype, cuda, 2))
+
+
+def _rmsnorm_bwd_check(x, w, dy, design=None):
     """dx rounded once from fp32 (one ulp in bf16), dw an fp32 sum over the
-    rows in another order; every plan (16-byte chunks, single elements,
-    1 to 8 chunks a thread) and more rows than blocks."""
-    x = _randn((rows, d), dtype, cuda, 0)
-    w = _randn((d,), torch.float32, cuda, 1)
-    dy = _randn((rows, d), dtype, cuda, 2)
-    dx, dw = trmsnorm._kernel_backward(x, w, dy, 1e-5)
+    rows in another order."""
+    dx, dw = trmsnorm._kernel_backward(x, w, dy, 1e-5, design)
     torch.cuda.synchronize()
     want_dx, want_dw = trmsnorm.plain_bwd(x, w, dy, 1e-5)
-    assert dx.dtype == dtype and dw.dtype == torch.float32
-    tol = GPU_TOL[dtype]
+    assert dx.dtype == x.dtype and dw.dtype == torch.float32
+    tol = GPU_TOL[x.dtype]
     torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
                                atol=tol)
     _rel_close(dw, want_dw, 1e-5)
+    return dx, dw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 333, 2048])
+@pytest.mark.parametrize("d", [8, 100, 768, 2048, 8192, 16384])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d):
+    """Every plan of the design training takes (the ring: 1 to 4 chunks a
+    lane, 1 to 16 warps a row; d 16384 in bf16 is 2048 chunks, the widest
+    row, whose block_rows instantiation spilled), more rows than blocks;
+    fp32 at d 16384 (4096 chunks) raises."""
+    x, w, dy = _rmsnorm_bwd_inputs(cuda, dtype, rows, d)
+    if d * x.element_size() // 16 > trmsnorm.BWD_MAX_CHUNKS:
+        with pytest.raises(ValueError):
+            trmsnorm._kernel_backward(x, w, dy, 1e-5)
+        return
+    _rmsnorm_bwd_check(x, w, dy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [768, 2048])
+@pytest.mark.parametrize("shifted", ["x", "dy"])
+def test_rmsnorm_bwd_kernel_misaligned_row_view(cuda, dtype, d, shifted):
+    """A contiguous view one element into its buffer is not 16-byte
+    aligned: the bulk copies cannot take it, so it runs block_rows on
+    single elements."""
+    rows = 333
+    x, w, dy = _rmsnorm_bwd_inputs(cuda, dtype, rows, d)
+    buf = _randn((rows * d + 1,), dtype, cuda, 3)
+    view = buf[1:].view(rows, d)
+    if shifted == "x":
+        x = view
+    else:
+        dy = view
+    assert trmsnorm.bwd_plan(rows, d, x.element_size(), False,
+                             132).design == trmsnorm.BLOCK_ROWS
+    before = trmsnorm.KERNEL_BWD.launches
+    _rmsnorm_bwd_check(x, w, dy)
+    assert trmsnorm.KERNEL_BWD.launches == before + 1
+    with pytest.raises(ValueError):
+        trmsnorm._kernel_backward(x, w, dy, 1e-5, trmsnorm.RING)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design,dtype,rows,d", [
+    (design, dtype, rows, d) for design in ("ring", "block_rows")
+    for dtype, rows, d in ((torch.bfloat16, 2048, 768),
+                           (torch.bfloat16, 2048, 2048),
+                           (torch.float32, 2048, 2048),
+                           (torch.float32, 7, 100))] + [
+    # 200-byte rows are not 16-byte chunks: block_rows on single elements,
+    # the path training sends such rows down.
+    ("block_rows", torch.bfloat16, 7, 100)])
+def test_rmsnorm_bwd_kernel_replays_in_a_cuda_graph(cuda, design, dtype,
+                                                    rows, d):
+    """A graph of three calls, replayed twice, gives an eager call's dx and
+    dw bit for bit: no atomics, and the ring's grid sync is ready again for
+    the next replay."""
+    code = {v: k for k, v in trmsnorm.BWD_DESIGNS.items()}[design]
+    x, w, dy = _rmsnorm_bwd_inputs(cuda, dtype, rows, d)
+    dx, dw = trmsnorm._kernel_backward(x, w, dy, 1e-5, code)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [trmsnorm._kernel_backward(x, w, dy, 1e-5, code)
+                for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for gx, gw in outs:
+            assert torch.equal(gx, dx) and torch.equal(gw, dw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [3, 16, 64])
+def test_rmsnorm_bwd_ring_on_two_streams_at_once(cuda, rows):
+    """Two graphs of 50 ring calls each, of small grids (a block a row),
+    replayed on two streams at once so that their launches sit on the card
+    together: each call gives the eager call's dx and dw bit for bit, so no
+    two launches share a grid-sync word."""
+    cases = [_rmsnorm_bwd_inputs(cuda, torch.bfloat16, rows, d)
+             for d in (768, 2048)]
+    want = [trmsnorm._kernel_backward(*c, 1e-5, trmsnorm.RING)
+            for c in cases]
+    graphs, outs = [], []
+    for c in cases:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append([trmsnorm._kernel_backward(*c, 1e-5, trmsnorm.RING)
+                         for _ in range(50)])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for st, graph in zip(streams, graphs):
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        for (wx, ww), got in zip(want, outs):
+            for gx, gw in got:
+                assert torch.equal(gx, wx) and torch.equal(gw, ww)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(2048, 768), (2048, 2048), (333, 64),
+                                    (4099, 768), (1, 4096)])
+def test_rmsnorm_bwd_designs_agree(cuda, dtype, rows, d):
+    """The block_rows design, at the 16-byte shapes it still takes, agrees
+    with the ring to one ulp of dx and fp32 rounding of dw."""
+    x, w, dy = _rmsnorm_bwd_inputs(cuda, dtype, rows, d)
+    ring = _rmsnorm_bwd_check(x, w, dy, trmsnorm.RING)
+    old = _rmsnorm_bwd_check(x, w, dy, trmsnorm.BLOCK_ROWS)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(old[0].float(), ring[0].float(), rtol=tol,
+                               atol=tol)
+    _rel_close(old[1], ring[1], 1e-5)
 
 
 @pytest.mark.gpu
