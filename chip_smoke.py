@@ -135,6 +135,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 degrade tick; host walls beside the vector engine's.
                 No fleet phase runs a hand-written kernel: every launch
                 count must stay 0 across them.
+13. ``dl``     (after ``profile``) fig11's DL-inference models,
+                ``repro_torch.models.{resnet,yolo}``, in fp32 at full input
+                size: resnet-50 and resnet-152 at 224 with batch 1 and 64,
+                yolov5x at 640 and 320 with batch 1. Each case: ms a batch
+                (CUDA events around back-to-back forwards) and images/s,
+                device ms (graph-replayed), ``max_memory_allocated``,
+                kernels a forward and the device-busy share of a traced
+                one, FLOPs (``FlopCounterMode``) and the share of the
+                fp32 peak; again on NCHW-contiguous storage (``nchw_*``)
+                and with TF32 allowed (``tf32_*``). ``dl_parity``: one
+                image at full input size, weights made on the CPU and
+                moved across, card vs CPU within ``DL_PARITY_TOL`` of the
+                CPU output's max-abs in fp32, a ResNet's top class equal;
+                TF32's error reported. No hand-written kernel launches.
+14. ``examples`` the example twins on the card:
+                ``examples/torch_quickstart.py`` at internlm2-1.8b's smoke
+                config for 5 steps and ``examples/torch_serve_lm.py`` with
+                its defaults, each line with the example's printed lines
+                and its kernel launches.
 
 The ``kernels`` phase also holds the three backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
@@ -168,6 +187,9 @@ the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import itertools
 import json
 import os
@@ -180,8 +202,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch.config import (ServeConfig, get_config,  # noqa: E402
                                 smoke_config)
@@ -207,6 +229,9 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import data_config, train_config  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.resnet import (resnet_apply,  # noqa: E402
+                                       resnet_flops, resnet_init)
+from repro_torch.models.yolo import yolo_apply, yolo_init  # noqa: E402
 from repro_torch.power import (SchedutilGovernor,  # noqa: E402
                                ThermalParams, sd865_opp_table)
 from repro_torch.runtime import ScalePolicy  # noqa: E402
@@ -2214,6 +2239,204 @@ def phase_fleet_degrade(smi: str) -> None:
         kernels_per_tick=kpt)
 
 
+# ---------------------------------------------------------------------------
+# The vision models (fig11's DL inference) and the example twins.
+# ---------------------------------------------------------------------------
+# (model, image, batch): batch 1 is the paper's SoC serving points, batch
+# 64 its A40/A100 ones (workloads/dlserving.py:48-51); yolov5x at its 640
+# and at fig11's 320.
+DL_CASES = (("resnet-50", 224, 1), ("resnet-50", 224, 64),
+            ("resnet-152", 224, 1), ("resnet-152", 224, 64),
+            ("yolov5x", 640, 1), ("yolov5x", 320, 1))
+DL_PARITY_IMAGE = {"resnet-50": 224, "resnet-152": 224, "yolov5x": 640}
+# Card (cuDNN, TF32 off) vs CPU, as a share of the CPU output's max-abs:
+# every convolution summed in another order (or by Winograd or FFT, where
+# cuDNN's autotuner takes them) through 50 to 150 layers, as PARITY_TOL.
+DL_PARITY_TOL = 1e-3
+TF32_PEAK_OPS = 495e12      # H100 SXM data sheet, dense TF32
+
+
+def _set_tf32(on: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _dl_model(model: str):
+    """(weights made on the CPU from seed 0, the forward)."""
+    gen = torch.Generator().manual_seed(0)
+    if model == "yolov5x":
+        return yolo_init(gen, device="cpu"), yolo_apply
+    return (resnet_init(gen, model, device="cpu"),
+            lambda p, x: resnet_apply(p, x, model))
+
+
+def _dl_parity(model: str, cpu_params, params, apply) -> dict:
+    """One image at full input size on the card, fp32 and then TF32,
+    against the CPU; fp32 must hold ``DL_PARITY_TOL`` (and a ResNet's top
+    class), TF32's error is reported."""
+    n = DL_PARITY_IMAGE[model]
+    x = torch.randn((1, n, n, 3), generator=torch.Generator().manual_seed(1))
+    want = apply(cpu_params, x)
+    scale = want.abs().max().item()
+    out = {"phase": "dl_parity", "model": model, "image": n, "batch": 1,
+           "cpu_max_abs": scale, "tol": DL_PARITY_TOL}
+    for key, tf32 in (("fp32", False), ("tf32", True)):
+        _set_tf32(tf32)
+        got = apply(params, x.cuda()).cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{model}: bad card output {got.shape}")
+        err = (got - want).abs().max().item()
+        out[f"{key}_max_abs_err"] = err
+        out[f"{key}_rel_err"] = err / scale
+        if model != "yolov5x":
+            out[f"{key}_argmax_equal"] = bool(
+                torch.equal(got.argmax(-1), want.argmax(-1)))
+    _set_tf32(False)
+    if out["fp32_rel_err"] > DL_PARITY_TOL or not out.get(
+            "fp32_argmax_equal", True):
+        raise AssertionError(f"{model}: card vs CPU {out}")
+    return out
+
+
+def _dl_case(model: str, params, apply, image: int, batch: int) -> dict:
+    from torch.utils.flop_counter import FlopCounterMode
+    x = randn((batch, image, image, 3), torch.float32, seed=2)
+    fwd = lambda: apply(params, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    y = fwd()                       # cuDNN autotunes this shape
+    want = (batch, 1000) if model != "yolov5x" else \
+        (batch, -(-image // 32), -(-image // 32), 255)
+    if tuple(y.shape) != want or not torch.isfinite(y).all():
+        raise AssertionError(f"{model} {image} x {batch}: output {y.shape}")
+    ms = eager_ms(fwd, iters=20)
+    mem = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        fwd()
+    flops = fc.get_total_flops()
+    out = {"phase": "dl", "model": model, "image": image, "batch": batch,
+           "dtype": "float32", "tf32": False,
+           "ms": ms, "images_per_s": batch / ms * 1e3,
+           "device_ms": time_ms(fwd, iters=5, reps=3),
+           "max_memory_allocated": mem,
+           "flops": flops, "flops_from": "FlopCounterMode",
+           "tflops_per_s": flops / ms / 1e9,
+           "fp32_peak_share": flops / ms * 1e3 / PEAK_OPS[torch.float32]}
+    if model != "yolov5x":
+        out["resnet_flops_reference"] = resnet_flops(model) * batch
+    traced = _traced(fwd)
+    out.update({"kernels_per_forward": traced["kernels"],
+                "traced_wall_ms": traced["traced_wall_s"] * 1e3,
+                "device_busy_ms": traced["device_busy_s"] * 1e3,
+                "device_busy_share": traced["device_busy_share"]})
+    # The same forward on NCHW-contiguous weights and input (the layout
+    # question of PERF.md §7); its output must agree with channels_last's.
+    p_nchw = tree_map(lambda t: t.contiguous(), params)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    f_nchw = lambda: apply(p_nchw, x_nchw)
+    err = (f_nchw() - y).abs().max().item() / y.abs().max().item()
+    if err > DL_PARITY_TOL:
+        raise AssertionError(f"{model}: NCHW vs channels_last {err}")
+    out.update({"nchw_ms": eager_ms(f_nchw, iters=20),
+                "nchw_device_ms": time_ms(f_nchw, iters=5, reps=3)})
+    _set_tf32(True)                 # cuDNN autotunes again in each layout
+    tf32_ms = eager_ms(fwd, iters=20)
+    out.update({"tf32_ms": tf32_ms,
+                "tf32_images_per_s": batch / tf32_ms * 1e3,
+                "tf32_device_ms": time_ms(fwd, iters=5, reps=3),
+                "tf32_peak_share": flops / tf32_ms * 1e3 / TF32_PEAK_OPS,
+                "nchw_tf32_device_ms": time_ms(f_nchw, iters=5, reps=3)})
+    _set_tf32(False)
+    return out
+
+
+def phase_dl(smi: str) -> None:
+    """ResNet-50, ResNet-152 and YOLOv5x (``repro_torch.models``) in fp32
+    at full input size: for each of ``DL_CASES`` ms a batch (CUDA events
+    around back-to-back forwards, after warm-up) and images/s, device ms
+    (graph-replayed), peak memory, kernels a forward and the device-busy
+    share of a traced forward, FLOPs (``FlopCounterMode``) and the share
+    of the fp32 peak; the same on NCHW-contiguous storage under
+    ``nchw_*`` keys, and with TF32 allowed under ``tf32_*`` keys (in
+    either layout).
+    One image at full input size per model is held card vs CPU
+    (``dl_parity``). cuDNN autotunes each shape (``cudnn.benchmark``)
+    inside the phase; the flags are put back after it. No hand-written
+    kernel lies on this path."""
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.benchmark = True
+    ops.reset_launches()
+    try:
+        with torch.no_grad():
+            for model in DL_PARITY_IMAGE:
+                _free_card()
+                cpu_params, apply = _dl_model(model)
+                params = tree_map(lambda t: t.to("cuda"), cpu_params)
+                emit({**_dl_parity(model, cpu_params, params, apply),
+                      "nvidia_smi": smi})
+                del cpu_params
+                for m, image, batch in DL_CASES:
+                    if m == model:
+                        emit({**_dl_case(model, params, apply, image, batch),
+                              "nvidia_smi": smi})
+                del params
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    _no_launches("dl")
+    _free_card()
+
+
+def _run_example(name: str, argv: list):
+    """``examples/torch_<name>.py``'s ``main(argv)`` on the card: its
+    result, its printed lines, host seconds and kernel launches."""
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}",
+        os.path.join(REPO, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(argv)
+    torch.cuda.synchronize()
+    return (result, buf.getvalue().splitlines(), time.monotonic() - t0,
+            ops.launch_counts())
+
+
+def phase_examples(smi: str) -> None:
+    """The example twins on the card: ``torch_quickstart`` at
+    internlm2-1.8b's smoke config for 5 steps (trains, then serves 8
+    tokens) and ``torch_serve_lm`` with its defaults."""
+    steps = 5
+    argv = ["--arch", ARCH, "--steps", str(steps)]
+    res, lines, wall, launches = _run_example("quickstart", argv)
+    vocab = smoke_config(get_config(ARCH)).vocab_size
+    if len(res["loss"]) != steps or not np.isfinite(res["loss"]).all() or \
+            len(res["tokens"]) != 8 or \
+            not all(0 <= t < vocab for t in res["tokens"]):
+        raise AssertionError(f"torch_quickstart: {res}")
+    missing = [k for k in (*ATTN_KERNELS, "rmsnorm_bwd",
+                           "flash_attention_bwd") if not launches[k]]
+    if missing:
+        raise AssertionError(f"torch_quickstart: {missing} never launched")
+    emit({"phase": "examples", "example": "examples/torch_quickstart.py",
+          "argv": argv, "lines": lines, "wall_s": wall,
+          "kernel_launches": launches, "nvidia_smi": smi})
+    tel, lines, wall, launches = _run_example("serve_lm", [])
+    if tel.served != 6 or any(len(r.output) != 12 for r in tel.responses):
+        raise AssertionError(f"torch_serve_lm: served {tel.served}")
+    _check_path_launches(ARCH, launches)
+    emit({"phase": "examples", "example": "examples/torch_serve_lm.py",
+          "argv": [], "lines": lines, "wall_s": wall, "ticks": tel.ticks,
+          "kernel_launches": launches, "nvidia_smi": smi})
+    _free_card()
+
+
 def main() -> None:
     t0 = time.monotonic()
     laps, last = {}, [t0]
@@ -2238,6 +2461,10 @@ def main() -> None:
     phase_profile(MAMBA_ARCH, MAMBA_PROMPT_LENS, 512)
     phase_profile(MOE_ARCH, PROMPT_LENS, PROMPT_LENS[SLOTS])
     lap("profile")
+    phase_dl(dev["nvidia_smi"])
+    lap("dl")
+    phase_examples(dev["nvidia_smi"])
+    lap("examples")
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))

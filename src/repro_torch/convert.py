@@ -20,6 +20,12 @@ int8 moments, whose children stack the same way.
   into ``blocks`` (tensors, detached, on their device): the inverse, and
   the layout a checkpoint is written in, so that its keys are the JAX
   keypaths and it restores in either package.
+* ``from_jax_resnet_params`` / ``from_jax_yolo_params`` and their
+  inverses ``to_jax_resnet_params`` / ``to_jax_yolo_params`` carry the
+  vision models' weights across: the same nested dicts and lists, each
+  4-D leaf (a conv kernel) turned from the JAX package's HWIO into the
+  port's OIHW (stored ``channels_last``) and back; the inverses give
+  numpy arrays.
 """
 from __future__ import annotations
 
@@ -133,3 +139,43 @@ def from_jax_opt_state(state: Any, cfg: ModelConfig,
 def to_jax_opt_state(state: OptState, cfg: ModelConfig) -> OptState:
     return OptState(state.step.detach(), _to_jax_layout(state.m, cfg),
                     _to_jax_layout(state.v, cfg))
+
+
+def _from_jax_conv_tree(tree: Any, device: torch.device | str) -> Any:
+    device = torch.device(device)
+
+    def take(a):
+        t = _tensor(a, device)
+        if t.dim() == 4:            # HWIO -> OIHW
+            t = t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        return t
+    return tree_map(take, tree)
+
+
+def _to_jax_conv_tree(tree: Any) -> Any:
+    def give(t):
+        if t.dim() == 4:            # OIHW -> HWIO
+            t = t.permute(2, 3, 1, 0)
+        return np.ascontiguousarray(t.detach().cpu().numpy())
+    return tree_map(give, tree)
+
+
+def from_jax_resnet_params(tree: Dict[str, Any], device: torch.device | str
+                           ) -> Dict[str, Any]:
+    """``jax.tree.map(np.asarray, resnet_init(...))`` -> the port's."""
+    return _from_jax_conv_tree(tree, device)
+
+
+def to_jax_resnet_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    return _to_jax_conv_tree(params)
+
+
+def from_jax_yolo_params(tree: Dict[str, Any], device: torch.device | str
+                         ) -> Dict[str, Any]:
+    """``jax.tree.map(np.asarray, yolo_init(...))`` -> the port's."""
+    return _from_jax_conv_tree(tree, device)
+
+
+def to_jax_yolo_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    return _to_jax_conv_tree(params)

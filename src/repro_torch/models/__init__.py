@@ -1,1 +1,2 @@
-"""Dense GQA decoder stack of the port (plain functions on param dicts)."""
+"""The port's models (plain functions on param dicts): the LM stacks
+(dense GQA, Mamba-2, MoE) and the vision models (ResNet, YOLO)."""

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch/``, ``chip_smoke.py`` or the port's measurement tools
-``tools/train_step_ab.py`` and ``tools/attention_ab.py``; its copied
-configs equal the JAX package's, and so does every definition of its
-copies of the numpy layer; its entry points refuse a missing card instead
-of running on the CPU."""
+``src/repro_torch/``, ``chip_smoke.py``, the port's measurement tools
+``tools/train_step_ab.py`` and ``tools/attention_ab.py`` or its examples
+``examples/torch_*.py``; its copied configs equal the JAX package's, and
+so does every definition of its copies of the numpy layer; its entry
+points refuse a missing card instead of running on the CPU."""
 import ast
 import dataclasses
 import pathlib
@@ -21,7 +21,8 @@ from repro_torch.serving.engine import ServingEngine
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py",
-    REPO / "tools" / "attention_ab.py"]
+    REPO / "tools" / "attention_ab.py"] + sorted(
+    (REPO / "examples").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
