@@ -154,6 +154,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 config for 5 steps and ``examples/torch_serve_lm.py`` with
                 its defaults, each line with the example's printed lines
                 and its kernel launches.
+15. ``distributed`` (after ``examples``) the port's distributed layer
+                over NCCL in a world of one (one card; a ``FileStore`` in a
+                temporary directory, no port), so nothing crosses a link:
+                the meshes of ``launch.mesh.make_mesh``, the ring and naive
+                collective-matmuls at 16 x 64 by 64 x 32, ``make_tp_block``
+                both ways at m 64, d 512, f 2048 (fp32, TF32 off; ms of
+                each by CUDA events after a warm-up, beside the plain
+                block's and its first product's ring and naive
+                collective-matmul on local tensors), ``compressed_psum_mean``
+                on 2^20 fp32 elements within its quantization bound and
+                ``quantize_blockwise``'s codes equal to the CPU's bit for
+                bit, a four-microbatch ``make_pipelined_fn`` on one stage,
+                and ``place_on_mesh`` of an internlm2-1.8b training batch
+                (8 x 256). Each result is held against its plain PyTorch
+                computation on the card (matmuls within 1e-5 of the
+                output's max-abs). If NCCL does not come up the phase
+                fails: there is no fallback. The group is destroyed after
+                the phase; no hand-written kernel may launch.
 
 The ``kernels`` phase also holds the three backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
@@ -210,6 +228,12 @@ from repro_torch.config import (ServeConfig, get_config,  # noqa: E402
 from repro_torch.core.cluster import (edge_server_cpu,  # noqa: E402
                                       h100_sxm, soc_cluster)
 from repro_torch.distributed.fault import RetryPolicy  # noqa: E402
+from repro_torch.core.collaborative import make_tp_block  # noqa: E402
+from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    compressed_psum_mean, quantize_blockwise)
+from repro_torch.distributed.pipeline import make_pipelined_fn  # noqa: E402
+from repro_torch.distributed.sharding import train_rules  # noqa: E402
 from repro_torch.fleet import (ROUTERS, BreakerConfig,  # noqa: E402
                                ChaosSchedule, DegradePolicy, Fleet,
                                JoinShortestQueueRouter, PowerAwareRouter,
@@ -225,6 +249,7 @@ from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import int8_matmul as kint8  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import data_config, train_config  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
@@ -239,7 +264,7 @@ from repro_torch.serving.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.training import checkpoint as ckpt  # noqa: E402
 from repro_torch.training.data import (PrefetchingLoader,  # noqa: E402
-                                       _gen_batch)
+                                       _gen_batch, place_on_mesh)
 from repro_torch.training.optimizer import adamw_update  # noqa: E402
 from repro_torch.training.train_loop import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -2437,6 +2462,157 @@ def phase_examples(smi: str) -> None:
     _free_card()
 
 
+# ---------------------------------------------------------------------------
+# The distributed layer: NCCL in a world of one.
+# ---------------------------------------------------------------------------
+DIST_MM = (16, 64, 32)          # tests/test_multidevice.py's ring shapes
+TP_BLOCK = (64, 512, 2048)      # examples/collaborative_inference.py:49
+PSUM_N = 1 << 20
+PIPE = (4, 8, 512)              # microbatches, rows a microbatch, width
+DIST_TOL = 1e-5                 # of the output's max-abs
+DIST_BATCH = (8, 256)           # internlm2-1.8b training batch, seq
+
+
+def _rel_err(out: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over the reference's max-abs; raises past
+    ``DIST_TOL``."""
+    err = ((out.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    if not err <= DIST_TOL:
+        raise AssertionError(f"distributed: error {err} of the max-abs "
+                             f"(tol {DIST_TOL})")
+    return err
+
+
+def _dist_matmuls(mesh) -> dict:
+    group = mesh.get_group("model")
+    m, k, n = DIST_MM
+    x, w = randn((m, k), torch.float32, 31), randn((k, n), torch.float32, 32)
+    want = x @ w
+    return {
+        "ring_ag_matmul": _rel_err(coll.ring_ag_matmul(x, w, group), want),
+        "ring_matmul_rs": _rel_err(coll.ring_matmul_rs(x, w, group), want),
+        "naive_ag_matmul": _rel_err(coll.naive_ag_matmul(x, w, group), want),
+        "naive_matmul_rs": _rel_err(coll.naive_matmul_rs(x, w, group), want),
+        "tp_matmul_overlapped": _rel_err(
+            coll.tp_matmul_overlapped(x, w, mesh).to_local(), want)}
+
+
+def _dist_tp_block(mesh) -> dict:
+    m, d, f = TP_BLOCK
+    x = randn((m, d), torch.float32, 33)
+    w1 = randn((d, f), torch.float32, 34) * 0.05
+    w2 = randn((f, d), torch.float32, 35) * 0.05
+    want = torch.relu(x @ w1) @ w2
+    group = mesh.get_group("model")
+    # the block's parts on local tensors, outside local_map and DTensor
+    out = {"shape": {"m": m, "d": d, "f": f}, "dtype": "float32",
+           "plain_ms": eager_ms(lambda: torch.relu(x @ w1) @ w2),
+           "ring_ag_matmul_ms": eager_ms(
+               lambda: coll.ring_ag_matmul(x, w1, group)),
+           "naive_ag_matmul_ms": eager_ms(
+               lambda: coll.naive_ag_matmul(x, w1, group))}
+    for name, overlap in (("blocking", False), ("ring", True)):
+        fn = make_tp_block(mesh, d, f, overlap=overlap)
+        args = (coll.as_dtensor(x, mesh, (None, "model")),
+                coll.as_dtensor(w1, mesh, (None, "model")),
+                coll.as_dtensor(w2, mesh, ("model",)))
+        out[name] = {"max_rel_err": _rel_err(fn(*args).to_local(), want),
+                     "ms": eager_ms(lambda: fn(*args))}
+    return out
+
+
+def _dist_psum(group) -> dict:
+    x = randn((PSUM_N,), torch.float32, 36)
+    out = compressed_psum_mean(x, group)
+    # A world of one: the mean is x, quantized twice; each rounding is at
+    # most half a step (amax / 127) of its block, and the second block's
+    # amax is at most the first's.
+    amax = x.reshape(-1, 256).abs().amax(dim=1, keepdim=True)
+    bound = (amax / 127.0 * (1 + 1e-6)).expand(-1, 256).reshape(-1)
+    err = (out - x).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"compressed_psum_mean: error {err.max()} past "
+                             "its quantization bound")
+    q, sc, pad = quantize_blockwise(x)
+    q_cpu, sc_cpu, pad_cpu = quantize_blockwise(x.cpu())
+    if not (torch.equal(q.cpu(), q_cpu) and torch.equal(sc.cpu(), sc_cpu)
+            and pad == pad_cpu):
+        raise AssertionError(
+            f"quantize_blockwise: card codes differ from the CPU's: "
+            f"{int((q.cpu() != q_cpu).sum())} codes, "
+            f"{int((sc.cpu() != sc_cpu).sum())} scales")
+    return {"elements": PSUM_N, "max_abs_err": err.max().item(),
+            "max_bound": bound.max().item(),
+            "codes_equal_cpu": True,
+            "ms": eager_ms(lambda: compressed_psum_mean(x, group), 20)}
+
+
+def _dist_pipeline(stages) -> float:
+    m, rows, width = PIPE
+    w = randn((1, width, width), torch.float32, 37) * 0.05
+    x_mb = randn((m, rows, width), torch.float32, 38)
+    fn = make_pipelined_fn(lambda p, v: torch.tanh(v @ p["w"]), stages, 1)
+    return _rel_err(fn({"w": w}, x_mb).to_local(), torch.tanh(x_mb @ w[0]))
+
+
+def _dist_place(mesh2) -> dict:
+    from torch.distributed.tensor import DTensor
+    b, seq = DIST_BATCH
+    batch = _gen_batch(data_config(get_config(ARCH), seq, b), 0)
+    placed = place_on_mesh(mesh2, train_rules())(batch)
+    for k, t in placed.items():
+        want = torch.as_tensor(batch[k])
+        if not (isinstance(t, DTensor) and t.device.type == "cuda"
+                and torch.equal(t.full_tensor().cpu(), want)
+                and t.to_local().shape == want.shape):
+            raise AssertionError(f"place_on_mesh: {k} is not the batch")
+    return {k: {"shape": list(t.shape), "placements":
+                [str(pl) for pl in t.placements]} for k, t in placed.items()}
+
+
+def phase_distributed(smi: str) -> None:
+    """The port's distributed layer over NCCL in a world of one: a
+    ``FileStore`` in a temporary directory opens the group (no port), the
+    meshes come from ``make_mesh``, every result is held against its plain
+    PyTorch computation on the card. One card exchanges nothing: each
+    collective runs over NCCL, but no byte crosses a link. No fallback to
+    gloo or the CPU: if NCCL does not come up, the phase fails."""
+    import tempfile
+
+    import torch.distributed as dist
+    t0 = time.monotonic()
+    ops.reset_launches()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            mesh = make_mesh((1,), ("model",))
+            line = {"phase": "distributed", "backend": dist.get_backend(),
+                    "world_size": dist.get_world_size(),
+                    "links": "none: a world of one on one card, so no "
+                             "byte crossed a link",
+                    "mesh_device": mesh.device_type,
+                    "matmul_max_rel_err": _dist_matmuls(mesh),
+                    "tp_block": _dist_tp_block(mesh),
+                    "compressed_psum_mean": _dist_psum(
+                        mesh.get_group("model")),
+                    "pipeline_max_rel_err": _dist_pipeline(
+                        make_mesh((1,), ("stage",))),
+                    "place_on_mesh": _dist_place(
+                        make_mesh((1, 1), ("data", "model")))}
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    _no_launches("distributed")
+    emit({**line, "seconds": time.monotonic() - t0, "nvidia_smi": smi})
+    _free_card()
+
+
 def main() -> None:
     t0 = time.monotonic()
     laps, last = {}, [t0]
@@ -2465,6 +2641,8 @@ def main() -> None:
     lap("dl")
     phase_examples(dev["nvidia_smi"])
     lap("examples")
+    phase_distributed(dev["nvidia_smi"])
+    lap("distributed")
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))

@@ -172,6 +172,30 @@ def shrink_mesh_shape(shape: Tuple[int, ...], axes: Tuple[str, ...],
     return tuple(new if a == shrink_axis else sizes[a] for a in axes)
 
 
+def remesh_arrays(tree, new_shardings):
+    """Re-shard a tree of DTensors onto a new mesh (e.g. the one
+    ``shrink_mesh_shape`` gives). DTensor redistributes only within one
+    mesh, so each tensor goes through its full value (a collective on its
+    old mesh: every rank of that mesh calls this) and is distributed onto
+    the new mesh by ``distribute_tensor``; a rank outside the new mesh
+    gets an empty local shard. ``new_shardings`` is a tree of
+    ``distributed.sharding.NamedSharding`` (mesh, placements) pairs with
+    the tree's structure; from a checkpoint this is a plain sharded
+    load."""
+    # deferred: failure detection (HealthTracker) must stay importable
+    # without torch.distributed — the scalar/vector chaos path composes
+    # with it
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    is_sharding = lambda s: hasattr(s, "placements")
+    leaves = tree_leaves(new_shardings, is_leaf=is_sharding)
+    moved = [distribute_tensor(x.full_tensor(), s.mesh, list(s.placements))
+             for x, s in zip(tree_leaves(tree), leaves, strict=True)]
+    return tree_unflatten(new_shardings, moved, is_leaf=is_sharding)
+
+
 def elastic_step_scale(global_batch: int, old_data: int, new_data: int
                        ) -> Tuple[int, float]:
     """Keep the *global* batch when the data axis shrinks by raising the

@@ -41,11 +41,32 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     return p
 
 
+def attn_specs(cfg: ModelConfig) -> Params:
+    p: Params = {
+        "wq": ("p_embed", "p_heads", "p_head_dim"),
+        "wk": ("p_embed", "p_kv_heads", "p_head_dim"),
+        "wv": ("p_embed", "p_kv_heads", "p_head_dim"),
+        "wo": ("p_heads", "p_head_dim", "p_embed"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("p_heads", "p_head_dim")
+        p["bk"] = ("p_kv_heads", "p_head_dim")
+        p["bv"] = ("p_kv_heads", "p_head_dim")
+    return p
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device: torch.device) -> Params:
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_specs() -> Params:
+    return {
+        "k": ("batch", "kv_seq", "kv_heads_act", "head_dim_act"),
+        "v": ("batch", "kv_seq", "kv_heads_act", "head_dim_act"),
+    }
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@ Plain functions on dicts of tensors, one for one with the JAX package's
 ``models/layers.py``: every module is an ``init(gen, ..., device) ->
 params`` plus an ``apply(params, x, ...)``. Parameter names and layouts are
 the JAX package's, so that ``repro_torch.convert`` maps one onto the other
-leaf by leaf. Sharding annotations are dropped: the port runs on one
-device.
+leaf by leaf. Each ``specs()`` gives the JAX package's logical sharding
+spec of every leaf (``distributed.sharding`` resolves it on a mesh); the
+activation-side ``shard()`` calls are not placed yet.
 """
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
 # ---------------------------------------------------------------------------
 def rmsnorm_init(d: int, device: torch.device) -> Params:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_specs() -> Params:
+    return {"scale": (None,)}
 
 
 def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float,
@@ -78,6 +83,14 @@ def mlp_init(gen: torch.Generator, d: int, f: int, dtype: torch.dtype,
     }
 
 
+def mlp_specs() -> Params:
+    return {
+        "w_gate": ("p_embed", "p_mlp"),
+        "w_up": ("p_embed", "p_mlp"),
+        "w_down": ("p_mlp", "p_embed"),
+    }
+
+
 def mlp_apply(params: Params, x: torch.Tensor, lowp: bool = False
               ) -> torch.Tensor:
     g = torch.matmul(x, params["w_gate"])
@@ -97,6 +110,13 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
     p = {"embedding": dense_init(gen, (vocab, d), dtype, device)}
     if not tie:
         p["unembed"] = dense_init(gen, (d, vocab), dtype, device)
+    return p
+
+
+def embed_specs(tie: bool) -> Params:
+    p = {"embedding": ("p_vocab", "p_embed")}
+    if not tie:
+        p["unembed"] = ("p_embed", "p_vocab")
     return p
 
 

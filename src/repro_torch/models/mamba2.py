@@ -52,6 +52,19 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> Params:
+    return {
+        "w_in": ("p_embed", "p_inner"),
+        "conv_w": (None, "p_inner"),
+        "conv_b": ("p_inner",),
+        "A_log": (None,),
+        "dt_bias": (None,),
+        "D": (None,),
+        "norm_scale": ("p_inner",),
+        "w_out": ("p_inner", "p_embed"),
+    }
+
+
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                      device: torch.device) -> Params:
     m, di, nh = _dims(cfg)
@@ -61,6 +74,13 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                             device=device),
         "ssd": torch.zeros((batch, nh, m.headdim, m.d_state),
                            dtype=torch.float32, device=device),
+    }
+
+
+def mamba_cache_specs() -> Params:
+    return {
+        "conv": ("batch", None, "mlp_act"),
+        "ssd": ("batch", "heads_act", None, None),
     }
 
 

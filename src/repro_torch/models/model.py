@@ -1,4 +1,4 @@
-"""The LM wrapper: init / forward / prefill / decode.
+"""The LM wrapper: init / specs / forward / prefill / decode.
 
 ``batch`` dict convention, as in the JAX package's ``models/model.py``:
   tokens : (b, s) integer tensor
@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import transformer as stack
 from repro_torch.models.layers import (embed_apply, embed_init,
-                                       rmsnorm_apply, rmsnorm_init,
+                                       embed_specs, rmsnorm_apply,
+                                       rmsnorm_init, rmsnorm_specs,
                                        unembed_apply)
 
 Params = Dict[str, Any]
@@ -53,6 +54,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         "layers": stack.stack_init(gen, cfg, dtype, device),
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """Each leaf's logical sharding spec, in ``init_params``' layout."""
+    return {
+        "embed": embed_specs(cfg.tie_embeddings),
+        "layers": stack.stack_specs(cfg),
+        "final_norm": rmsnorm_specs(),
+    }
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The params as meta tensors: shapes and dtypes, no allocation."""
+    return init_params(cfg, torch.Generator(), torch.device("meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -170,3 +185,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 ) -> List[Params]:
     dtype = dtype or torch_dtype(cfg.dtype)
     return stack.stack_caches(cfg, batch, max_len, dtype, device)
+
+
+def cache_specs(cfg: ModelConfig) -> List[Params]:
+    return stack.stack_cache_specs(cfg)

@@ -10,9 +10,9 @@ dropped; the experts run as one grouped SwiGLU over the
 Differences of form, not of numbers:
 
 * **One token group.** The JAX package groups tokens by data shard
-  (``_num_groups``) and gives each group its own capacity. The port has no
-  mesh, so there is one group, which is what ``_num_groups`` returns there
-  without one. Sharding is ROADMAP Queue 1 item 8.
+  (``_num_groups``) and gives each group its own capacity. The port's
+  model steps run on no mesh yet, so there is one group, which is what
+  ``_num_groups`` returns there without one.
 * **Positions in one cumsum.** JAX assigns positions in a Python loop over
   the ``k`` choices: a within-round exclusive cumsum plus the counts of the
   earlier rounds. Here the assignments are flattened k-major and one
@@ -53,6 +53,15 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
         "w_gate": dense_init(gen, (e, d, f), dtype, device),
         "w_up": dense_init(gen, (e, d, f), dtype, device),
         "w_down": dense_init(gen, (e, f, d), dtype, device),
+    }
+
+
+def moe_specs(cfg: ModelConfig) -> Params:
+    return {
+        "router": ("p_embed", None),
+        "w_gate": ("p_expert", "p_ff_fsdp", None),
+        "w_up": ("p_expert", "p_ff_fsdp", None),
+        "w_down": ("p_expert", None, "p_ff_fsdp"),
     }
 
 

@@ -20,6 +20,12 @@ outputs of its 2-D matrix products (``aten.mm``, JAX's
 is recomputed) and recomputing the rest; ``"none"`` keeps everything.
 JAX checkpoints a block of ``block_period`` layers; here each layer is its
 own block, which gives the same gradients.
+
+The logical sharding specs (``stack_specs``, ``stack_cache_specs``) follow
+the same layout, one spec tree a layer: layer ``i``'s spec of a leaf is
+the JAX package's spec of its stacked leaf at position ``i % period``
+without the leading ``None`` of the stacking dim
+(``src/repro/models/transformer.py:145-153``).
 """
 from __future__ import annotations
 
@@ -34,7 +40,9 @@ from repro_torch.config.base import ATTN, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
+from repro_torch.models.layers import (mlp_apply, mlp_init, mlp_specs,
+                                       rmsnorm_apply, rmsnorm_init,
+                                       rmsnorm_specs)
 
 Params = Dict[str, Any]
 
@@ -80,6 +88,17 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
     return p
 
 
+def layer_specs(cfg: ModelConfig, i: int) -> Params:
+    kind, ffn = layer_signature(cfg, i)
+    p: Params = {"norm1": rmsnorm_specs()}
+    p["mixer"] = (attn_mod.attn_specs(cfg) if kind == ATTN
+                  else mamba_mod.mamba_specs(cfg))
+    if ffn != "none":
+        p["norm2"] = rmsnorm_specs()
+        p["ffn"] = moe_mod.moe_specs(cfg) if ffn == "moe" else mlp_specs()
+    return p
+
+
 def layer_apply(params: Params, cfg: ModelConfig, sig: Tuple[str, str],
                 x: torch.Tensor, *, mode: str, cache: Optional[Params], pos,
                 max_len: Optional[int] = None
@@ -121,6 +140,20 @@ def init_layer_cache(cfg: ModelConfig, i: int, batch: int, max_len: int,
     if layer_signature(cfg, i)[0] == ATTN:
         return attn_mod.init_cache(cfg, batch, max_len, dtype, device)
     return mamba_mod.init_mamba_cache(cfg, batch, dtype, device)
+
+
+def layer_cache_specs(cfg: ModelConfig, i: int) -> Params:
+    if layer_signature(cfg, i)[0] == ATTN:
+        return attn_mod.cache_specs()
+    return mamba_mod.mamba_cache_specs()
+
+
+def stack_specs(cfg: ModelConfig) -> List[Params]:
+    return [layer_specs(cfg, i) for i in range(cfg.num_layers)]
+
+
+def stack_cache_specs(cfg: ModelConfig) -> List[Params]:
+    return [layer_cache_specs(cfg, i) for i in range(cfg.num_layers)]
 
 
 def stack_caches(cfg: ModelConfig, batch: int, max_len: int,

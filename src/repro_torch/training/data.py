@@ -130,12 +130,39 @@ class PrefetchingLoader:
 
 def place_on_device(device: torch.device | str):
     """Returns a place_fn moving each array of a batch to ``device`` as a
-    tensor (the one-device counterpart of the JAX package's
-    ``place_on_mesh``, which waits for the distributed slice)."""
+    tensor (the one-device counterpart of ``place_on_mesh``)."""
     device = torch.device(device)
 
     def place(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(arr).to(device)
                 for k, arr in batch.items()}
+
+    return place
+
+
+def place_on_mesh(mesh, rules):
+    """Returns a place_fn putting each array with its logical sharding: a
+    DTensor on ``mesh`` (every rank passes the same batch), or a plain
+    tensor without a mesh or rules."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import named_sharding
+
+    logical = {
+        "tokens": ("batch", "seq"),
+        "labels": ("batch", "seq"),
+        "mask": ("batch", "seq"),
+        "vision_embeds": ("batch", "seq", "embed_act"),
+    }
+
+    def place(batch: Dict[str, np.ndarray]):
+        out = {}
+        for k, arr in batch.items():
+            ns = named_sharding(arr.shape, logical[k], mesh, rules)
+            t = torch.as_tensor(arr)
+            out[k] = (distribute_tensor(t.to(ns.mesh.device_type), ns.mesh,
+                                        list(ns.placements))
+                      if ns is not None else t)
+        return out
 
     return place

@@ -120,6 +120,30 @@ def init_opt_state(params: Params, cfg: TrainConfig) -> OptState:
                                           log_space=True), params))
 
 
+def opt_state_specs(param_specs: Params, cfg: TrainConfig) -> OptState:
+    """Logical sharding specs matching init_opt_state's structure. Row-wise
+    payloads inherit the param's logical spec; scales drop the last axis."""
+    def leaf_m(spec):
+        t = tuple(spec)
+        if cfg.opt_state_dtype == "int8":
+            return QTensor(q=t, scale=(*t[:-1], None))
+        return t
+
+    def leaf_v(spec):
+        t = tuple(spec)
+        if cfg.opt_state_dtype == "int8":
+            return QTensorLog(q=t, log_min=(*t[:-1], None),
+                              log_scale=(*t[:-1], None))
+        return t
+
+    is_t = lambda t: isinstance(t, tuple)
+    return OptState(
+        step=(),
+        m=tree_map(leaf_m, param_specs, is_leaf=is_t),
+        v=tree_map(leaf_v, param_specs, is_leaf=is_t),
+    )
+
+
 def lr_schedule(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     """fp32 learning rate at ``step`` (an int32 tensor or an int)."""
     step = torch.as_tensor(step, dtype=torch.int32)

@@ -119,7 +119,9 @@ COPIED = ["core/cluster.py", "core/scheduler.py", "power/__init__.py",
           "fleet/telemetry.py", "fleet/chaos.py", "fleet/degrade.py",
           "fleet/fleet.py", "fleet/__init__.py", "obs/__init__.py",
           "obs/attribution.py", "obs/probe.py", "obs/slo.py", "obs/trace.py",
-          "obs/export.py", "obs/report.py"]
+          "obs/export.py", "obs/report.py",
+          # the analytic half of the paper's §5.3 collaborative inference
+          "core/collaborative.py"]
 # Statements a copy may add or change, by (module, key). A class named in
 # SPLIT is keyed method by method ("Class.method"), so an exemption names
 # one method and not the whole class.
@@ -127,17 +129,33 @@ EXEMPT = {
     # The port's H100 spec and its share count, which the original lacks.
     ("core/cluster.py", "H100_SHARES"),
     ("core/cluster.py", "h100_sxm"),
-    # The data pipeline places batches on one device as tensors: torch in
-    # place of jax, and place_on_device in place of place_on_mesh (the
-    # mesh waits for the distributed slice).
+    # The data pipeline places batches as tensors: torch in place of jax;
+    # place_on_mesh makes DTensors (distribute_tensor) where the original
+    # makes sharded jax arrays (device_put), and place_on_device, which
+    # the original lacks, moves a batch to one device.
     ("training/data.py", "import jax"),
     ("training/data.py", "import torch"),
     ("training/data.py", "place_on_mesh"),
     ("training/data.py", "place_on_device"),
-    # remesh_arrays re-shards a pytree with jax; the distributed slice
-    # ports it. The rest of fault.py (HealthTracker, RetryPolicy, which
+    # remesh_arrays re-shards a tree of DTensors through their full values
+    # (distribute_tensor onto the new mesh) where the original device_puts
+    # a jax pytree. The rest of fault.py (HealthTracker, RetryPolicy, which
     # the chaos and degrade layers use) is numpy.
     ("distributed/fault.py", "remesh_arrays"),
+    # The executable TP block runs over a DeviceMesh under local_map with
+    # the port's collectives, where the original runs shard_map under jit;
+    # these are its imports.
+    ("core/collaborative.py", "make_tp_block"),
+    ("core/collaborative.py", "import jax"),
+    ("core/collaborative.py", "import jax.numpy"),
+    ("core/collaborative.py", "import jax.sharding"),
+    ("core/collaborative.py", "import repro_torch.distributed.compat"),
+    ("core/collaborative.py", "import repro_torch.distributed.collectives"),
+    ("core/collaborative.py", "import torch"),
+    ("core/collaborative.py", "import torch.distributed"),
+    ("core/collaborative.py", "import torch.distributed.device_mesh"),
+    ("core/collaborative.py", "import torch.distributed.tensor.experimental"),
+    ("core/collaborative.py", "import repro_torch.distributed.sharding"),
     # The third fleet engine is the torch one: Fleet.__init__ builds
     # _TorchFleetEngine on backend="torch" (with a device keyword) where
     # the original builds the jax engine, the lazy sweep surface imports
