@@ -172,6 +172,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 output's max-abs). If NCCL does not come up the phase
                 fails: there is no fallback. The group is destroyed after
                 the phase; no hand-written kernel may launch.
+16. ``sharded`` (after ``distributed``) the model steps on a mesh over
+                NCCL in a world of one, ``make_mesh((1, 1), ("data",
+                "model"))``: internlm2-1.8b and mamba2-130m at full width
+                in bf16. Training: ``Trainer(mesh=...)`` for 3 steps of
+                ``default_train_config`` against ``Trainer(mesh=None)``
+                from the same seed, losses within ``SHARDED_TRAIN_TOL``
+                (and whether they are equal bit for bit), the launches a
+                step of each kernel and backward kernel equal to the
+                unsharded step's and to ``TRAIN_LAUNCHES``. Serving: 5
+                prompts through a ``ContinuousBatcher`` over
+                ``ServingEngine(mesh=...)`` and over the unsharded engine,
+                greedy tokens equal and launches (decode in partial mode
+                on the mesh) equal. Host ms a step and a tick of both.
+                Each kernel runs on local shards through ``local_map``;
+                one card moves no byte across a link, so the rank
+                arithmetic of larger meshes is held by the gloo tests
+                (``tests/test_torch_sharded_*.py``).
 
 The ``kernels`` phase also holds the three backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
@@ -326,6 +343,15 @@ TRAIN_SEQ, TRAIN_BATCH = 256, 8
 TRAIN_STEPS, TRAIN_INT8_STEPS, TRAIN_SAVE_AT = 8, 3, 4
 TRAIN_CKPT_DIR = "chiprun_train_ckpt"       # in the checkout, gitignored
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
+SHARDED_STEPS, SHARDED_NEW = 3, 8
+SHARDED_PROMPTS = {ARCH: PROMPT_LENS[:SLOTS + 1],
+                   MAMBA_ARCH: MAMBA_PROMPT_LENS[:SLOTS + 1]}
+SHARDED_SERVE_PATH = f"sharded serve {ARCH}"
+SHARDED_TRAIN_TOL = 1e-4    # tests/test_torch_training.py::TRAINER_TOL
+# One rank's slice of a sequence-sharded cache (half of the serve cache):
+# slots of length 0, inside it and filling it.
+PARTIAL_SLICE = MAX_LEN // 2
+PARTIAL_LENGTHS = [0, 129, PARTIAL_SLICE, 301]
 
 
 def train_launches(arch: str, layers: int) -> dict:
@@ -855,6 +881,59 @@ def _decode_case(arch, dtype, skv, lengths, seed=0, path=None):
             "bound_ms": b_ms, "bound_by": by}
 
 
+def _decode_partial_case(arch, dtype, skv, lengths, seed=0):
+    """Partial mode (``return_lse``) on one rank's slice of ``skv`` rows of
+    a sequence-sharded cache at ``arch``'s heads, with local lengths of 0,
+    inside the slice and the whole slice: out and lse against the plain
+    partial version (lse -inf exactly where the length is 0, finite lse
+    within the fp32 tolerance), out equal to the kernel's without the lse,
+    which is timed beside it (``lse_off_ms``)."""
+    b, (hq, hkv, d) = SLOTS, _heads(arch)
+    q = randn((b, hq, d), dtype, seed)
+    k = randn((b, skv, hkv, d), dtype, seed + 1)
+    v = randn((b, skv, hkv, d), dtype, seed + 2)
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    call = lambda: kdec.decode_attention(q, k, v, length, return_lse=True)
+    before = kdec.KERNEL.launches
+    out, lse = call()
+    torch.cuda.synchronize()
+    launches = kdec.KERNEL.launches - before
+    want, want_lse = kdec.plain(q, k, v, length, return_lse=True)
+    err = max_err(out, want, dtype)
+    empty = torch.isneginf(want_lse)
+    if not torch.equal(torch.isneginf(lse), empty) or \
+            not torch.equal(empty.any(1), length == 0):
+        raise AssertionError("decode partial: lse is -inf off the empty "
+                             "slots")
+    lse_err = max_err(lse[~empty], want_lse[~empty], torch.float32)
+    if not torch.equal(out, kdec.decode_attention(q, k, v, length)) or \
+            bool(out[length == 0].any()):
+        raise AssertionError("decode partial: out differs from the plain "
+                             "mode's or is nonzero at length 0")
+    mask = (torch.arange(skv, device="cuda")[None, :] < length[:, None])
+    mask = mask[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    e = q.element_size()
+    b_ms, by = bound(e * (2 * b * hq * d + 2 * sum(lengths) * hkv * d)
+                     + 4 * b + 4 * b * hq, 4 * sum(lengths) * hq * d, dtype)
+    return {"kernel": "decode_attention", "path": SHARDED_SERVE_PATH,
+            "mode": "partial (return_lse)", "heads_of": arch,
+            "shape": [b, skv, hq, hkv, d], "lengths": lengths,
+            "checked_launches": launches, "dtype": str(dtype),
+            "max_abs_err": max(err, lse_err), "out_max_abs_err": err,
+            "lse_max_abs_err": lse_err,
+            "ms": time_ms(call), "eager_ms": eager_ms(call),
+            "lse_off_ms": time_ms(lambda: kdec.decode_attention(
+                q, k, v, length)),
+            "plain_ms": time_ms(lambda: kdec.plain(
+                q, k, v, length, return_lse=True), 10),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            "library_note": "SDPA gives out, not the lse (a slot of "
+                            "length 0 is masked out whole there)",
+            "bound_ms": b_ms, "bound_by": by}
+
+
 def _ssd_inputs(b, s, h, p, n, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
@@ -1057,6 +1136,9 @@ def phase_kernels() -> dict:
             cases.append(_flash_case(ARCH, sq, dtype))
         for skv, lengths in DECODE_CASES:
             cases.append(_decode_case(ARCH, dtype, skv, lengths))
+        # partial mode on one rank's slice of a sequence-sharded cache
+        cases.append(_decode_partial_case(ARCH, dtype, PARTIAL_SLICE,
+                                          PARTIAL_LENGTHS))
         cases.append(_flash_case(MOE_ARCH, PROMPT_LENS[0], dtype))
         cases.append(_decode_case(MOE_ARCH, dtype, *DECODE_CASES[0]))
         # NEW_ARCHS: rmsnorm at each width (5120, 896, 2048, 768), flash at
@@ -2613,6 +2695,133 @@ def phase_distributed(smi: str) -> None:
     _free_card()
 
 
+def _sharded_train(arch: str, mesh) -> dict:
+    """``arch`` at full width: SHARDED_STEPS steps of ``Trainer(mesh=...)``
+    against ``Trainer(mesh=None)`` from the same seed on the same card;
+    losses within SHARDED_TRAIN_TOL, launches equal."""
+    cfg = get_config(arch)
+    tcfg = train_config(cfg, SHARDED_STEPS)
+    runs = {}
+    for side, m in (("unsharded", None), ("sharded", mesh)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        hist = _train_run(Trainer(cfg, tcfg, mesh=m), PrefetchingLoader(
+            data_config(cfg, TRAIN_SEQ, TRAIN_BATCH)), SHARDED_STEPS)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        del hist["params"], hist["opt_state"]
+        _free_card()
+        runs[side] = {"loss": hist["loss"],
+                      "host_ms_per_step": [1e3 * t for t in
+                                           hist["step_time_s"]],
+                      "launches_per_step": {
+                          k: v / SHARDED_STEPS for k, v in launches.items()
+                          if v}}
+    a, b = runs["unsharded"], runs["sharded"]
+    if not np.allclose(b["loss"], a["loss"], rtol=SHARDED_TRAIN_TOL,
+                       atol=SHARDED_TRAIN_TOL):
+        raise AssertionError(f"sharded {arch} losses {b['loss']} vs "
+                             f"{a['loss']}")
+    want = TRAIN_LAUNCHES[arch]
+    if b["launches_per_step"] != a["launches_per_step"] or \
+            a["launches_per_step"] != want:
+        raise AssertionError(f"sharded {arch} launches a step "
+                             f"{b['launches_per_step']}, unsharded "
+                             f"{a['launches_per_step']}, want {want}")
+    return {**runs, "losses_bitwise_equal": a["loss"] == b["loss"],
+            "max_loss_diff": max(abs(x - y) for x, y in
+                                 zip(a["loss"], b["loss"]))}
+
+
+def _sharded_serve(arch: str, mesh) -> tuple:
+    """SHARDED_PROMPTS through a ContinuousBatcher of SLOTS slots over
+    ``ServingEngine(mesh=...)`` and over the unsharded engine, the same
+    random weights: greedy tokens equal, launches a tick equal. Returns
+    (the line's part, the sharded run's launches)."""
+    cfg = get_config(arch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in SHARDED_PROMPTS[arch]]
+    runs, launched = {}, {}
+    for side, m in (("unsharded", None), ("sharded", mesh)):
+        eng = ServingEngine(cfg, ServeConfig(max_seq_len=MAX_LEN), mesh=m)
+        eng.init_random(0)
+        batcher = ContinuousBatcher(eng, SLOTS)
+        for p in prompts:
+            batcher.submit(p, SHARDED_NEW)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        tick_ms = []
+        while batcher.queue or any(a is not None for a in batcher.active):
+            t0 = time.perf_counter()
+            batcher.step()
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        launched[side] = ops.launch_counts()
+        tokens = {r.rid: r.generated for r in batcher.finished}
+        del eng, batcher
+        _free_card()
+        runs[side] = {"tokens": tokens, "ticks": len(tick_ms),
+                      "host_ms_per_tick": tick_ms,
+                      "launches": {k: v for k, v in launched[side].items()
+                                   if v}}
+    a, b = runs["unsharded"], runs["sharded"]
+    if b["tokens"] != a["tokens"] or len(a["tokens"]) != len(prompts):
+        raise AssertionError(f"sharded {arch} tokens {b['tokens']} vs "
+                             f"{a['tokens']}")
+    if b["launches"] != a["launches"] or b["ticks"] != a["ticks"] or \
+            set(a["launches"]) != set(PATH_KERNELS[arch]):
+        raise AssertionError(f"sharded {arch} launches {b['launches']} "
+                             f"in {b['ticks']} ticks, unsharded "
+                             f"{a['launches']} in {a['ticks']}")
+    return {"prompts": list(SHARDED_PROMPTS[arch]),
+            "new_tokens": SHARDED_NEW, "tokens_equal": True,
+            **{side: {k: v for k, v in r.items() if k != "tokens"}
+               for side, r in runs.items()}}, launched["sharded"]
+
+
+def phase_sharded(smi: str) -> dict:
+    """The model steps on a mesh over NCCL in a world of one (a
+    ``FileStore`` in a temporary directory): ``make_mesh((1, 1), ("data",
+    "model"))``, internlm2-1.8b and mamba2-130m at full width in bf16,
+    training (``Trainer(mesh=...)`` against ``Trainer(mesh=None)``) and
+    serving (``ServingEngine(mesh=...)`` and its batcher against the
+    unsharded engine's). Every kernel runs on local shards through
+    ``local_map``, decode attention in partial mode; the launches must
+    equal the unsharded path's, so no op fell back to a plain version.
+    One card moves no byte across a link. Returns the sharded internlm2
+    serve run's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+    t0 = time.monotonic()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            backend = dist.get_backend()
+            if backend != "nccl":
+                raise AssertionError(f"backend {backend}")
+            mesh = make_mesh((1, 1), ("data", "model"))
+            train = {arch: _sharded_train(arch, mesh) for arch in TRAIN_PATHS}
+            serve_lines, launched = {}, {}
+            for arch in (ARCH, MAMBA_ARCH):
+                serve_lines[arch], launched[arch] = _sharded_serve(arch,
+                                                                   mesh)
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "sharded", "mesh": {"shape": [1, 1],
+                                       "axes": ["data", "model"]},
+          "backend": backend, "world_size": 1,
+          "links": "none: a world of one on one card",
+          "train": train, "serve": serve_lines,
+          "train_tolerance": SHARDED_TRAIN_TOL,
+          "seconds": time.monotonic() - t0, "nvidia_smi": smi})
+    return launched[ARCH]
+
+
 def main() -> None:
     t0 = time.monotonic()
     laps, last = {}, [t0]
@@ -2643,6 +2852,8 @@ def main() -> None:
     lap("examples")
     phase_distributed(dev["nvidia_smi"])
     lap("distributed")
+    served[SHARDED_SERVE_PATH] = phase_sharded(dev["nvidia_smi"])
+    lap("sharded")
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))
@@ -2670,7 +2881,10 @@ def main() -> None:
     kernels = []
     for (name, path), c in head.items():
         source, replaces = SOURCES[name]
-        if path == KERNELS_PHASE:
+        if path == SHARDED_SERVE_PATH:
+            launches = served[path][name]
+            origin = f"{path}: {SLOTS} slots, every tick's decode"
+        elif path == KERNELS_PHASE:
             launches = c["launches"]
             origin = "kernels phase (no model path)"
         else:
@@ -2685,6 +2899,7 @@ def main() -> None:
             "launches_from": origin, **per_step,
             **({"heads_of": c["heads_of"]} if "heads_of" in c else {}),
             **({"design": c["design"]} if "design" in c else {}),
+            **({"mode": c["mode"]} if "mode" in c else {}),
             "shape": c["shape"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -19,7 +19,13 @@ int8 moments, whose children stack the same way.
 * ``to_jax_params`` / ``to_jax_opt_state`` re-stack the port's layers
   into ``blocks`` (tensors, detached, on their device): the inverse, and
   the layout a checkpoint is written in, so that its keys are the JAX
-  keypaths and it restores in either package.
+  keypaths and it restores in either package. DTensor leaves stack and
+  unstack as DTensors, each shard where it was.
+* ``to_jax_shardings`` gives a sharding tree of the port's layout
+  (``launch.specs.params_shardings``, ``opt_shardings``) in the JAX
+  layout: a stacked leaf takes its layer's sharding, whole along the
+  stacking dim. ``training.checkpoint.restore(..., shardings=)`` reads a
+  checkpoint with it straight into local shards.
 * ``from_jax_resnet_params`` / ``from_jax_yolo_params`` and their
   inverses ``to_jax_resnet_params`` / ``to_jax_yolo_params`` carry the
   vision models' weights across: the same nested dicts and lists, each
@@ -34,7 +40,10 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import Shard
+
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed.sharding import NamedSharding
 from repro_torch.models.transformer import block_period
 from repro_torch.training.optimizer import OptState, QTensor, QTensorLog
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -139,6 +148,28 @@ def from_jax_opt_state(state: Any, cfg: ModelConfig,
 def to_jax_opt_state(state: OptState, cfg: ModelConfig) -> OptState:
     return OptState(state.step.detach(), _to_jax_layout(state.m, cfg),
                     _to_jax_layout(state.v, cfg))
+
+
+def to_jax_shardings(shardings: Any, cfg: ModelConfig) -> Any:
+    """A params sharding tree (``{"embed", "layers", "final_norm"}``) or an
+    ``OptState`` of them, in the port's layout -> the JAX layout."""
+    if isinstance(shardings, OptState):
+        return OptState(shardings.step, to_jax_shardings(shardings.m, cfg),
+                        to_jax_shardings(shardings.v, cfg))
+
+    def stacked(ns):
+        if _is_q(ns):
+            return type(ns)(*(stacked(c) for c in ns.children()))
+        return NamedSharding(ns.mesh, tuple(
+            Shard(p.dim + 1) if isinstance(p, Shard) else p
+            for p in ns.placements))
+
+    leaf = lambda x: isinstance(x, NamedSharding) or _is_q(x)
+    keep = lambda t: tree_map(lambda x: x, t, is_leaf=leaf)
+    return {"embed": keep(shardings["embed"]),
+            "blocks": [tree_map(stacked, shardings["layers"][j], is_leaf=leaf)
+                       for j in range(block_period(cfg))],
+            "final_norm": keep(shardings["final_norm"])}
 
 
 def _from_jax_conv_tree(tree: Any, device: torch.device | str) -> Any:

@@ -46,6 +46,10 @@
 //   the next launch (or graph replay) finds it zeroed. l == 0 (length 0)
 //   gives zeros, as in the JAX kernel. Any skv is taken (the JAX kernel
 //   asserts skv % 256 == 0).
+// * Partial mode: given a non-null `lse` (b, hq) fp32, the combining block
+//   also writes each head's natural log-sum-exp of its scaled scores,
+//   (max + log2(sum)) * ln 2, and -inf where length is 0; o is the same
+//   as without it. Slices of a sequence-sharded cache combine by these.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -55,6 +59,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTile = 64;  // cache rows per tile (one row per two threads)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 __device__ __forceinline__ void load16(const T* p, float (&out)[16 / sizeof(T)]);
@@ -136,7 +141,8 @@ template <typename T, int D, int GM, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ length,
-                    T* __restrict__ o, float* __restrict__ part_ml,
+                    T* __restrict__ o, float* __restrict__ lse,
+                    float* __restrict__ part_ml,
                     float* __restrict__ part_acc, int* __restrict__ counter,
                     int skv, int hq, int hkv, int splits, int split_rows,
                     float scale_log2) {
@@ -336,6 +342,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float w = lane < nvalid ? exp2f(ms - mx) : 0.f;
     const float l = warp_sum(ls * w);
     if (lane < nvalid) w_sm[lane * G + g] = w / (l == 0.f ? 1.f : l);
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<size_t>(b) * hq + kvh * G + g] =
+          l == 0.f ? __int_as_float(0xff800000) : (mx + log2f(l)) * kLn2;
   }
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {
@@ -351,7 +360,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int GM, bool kExact>
 int launch(const void* q, const void* k, const void* v, const int* length,
-           void* o, float* part_ml, float* part_acc, int* counter, int b,
+           void* o, float* lse, float* part_ml, float* part_acc,
+           int* counter, int b,
            int skv, int hq, int hkv, int split_rows, float scale,
            cudaStream_t stream) {
   const int splits = (skv + split_rows - 1) / split_rows;
@@ -366,13 +376,13 @@ int launch(const void* q, const void* k, const void* v, const int* length,
   const dim3 grid(splits, hkv, b);
   decode_split_kernel<T, D, GM, kExact><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), length, static_cast<T*>(o), part_ml,
+      static_cast<const T*>(v), length, static_cast<T*>(o), lse, part_ml,
       part_acc, counter, skv, hq, hkv, splits, split_rows, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define REPRO_DECODE_ARGS \
-  q, k, v, length, o, part_ml, part_acc, counter, b, skv, hq, hkv, \
+  q, k, v, length, o, lse, part_ml, part_acc, counter, b, skv, hq, hkv, \
       split_rows, scale, s
 
 // The group g = hq / hkv takes the instantiation of the least GM >= g: the
@@ -380,7 +390,8 @@ int launch(const void* q, const void* k, const void* v, const int* length,
 // reads g at run time.
 template <typename T, int D>
 int dispatch_g(int g, const void* q, const void* k, const void* v,
-               const int* length, void* o, float* part_ml, float* part_acc,
+               const int* length, void* o, float* lse, float* part_ml,
+               float* part_acc,
                int* counter, int b, int skv, int hq, int hkv, int split_rows,
                float scale, cudaStream_t s) {
   switch (g) {
@@ -399,7 +410,8 @@ int dispatch_g(int g, const void* q, const void* k, const void* v,
 
 template <typename T>
 int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
-               const int* length, void* o, float* part_ml, float* part_acc,
+               const int* length, void* o, float* lse, float* part_ml,
+               float* part_acc,
                int* counter, int b, int skv, int hq, int hkv, int split_rows,
                float scale, cudaStream_t s) {
   switch (d) {
@@ -423,10 +435,11 @@ int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
 // zero on entry and left zero on exit. split_rows is a multiple of 64 and
 // gives at most 32 splits (the combine takes one split per lane). d is 16,
 // 32, 64, 128 or 160 and hq / hkv at most 16; anything else returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. lse: null, or (b, hq) fp32 (partial mode).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* length,
-                                      void* o, void* part_ml, void* part_acc,
+                                      void* o, void* lse, void* part_ml,
+                                      void* part_acc,
                                       void* counter, int b, int skv, int hq,
                                       int hkv, int d, int split_rows,
                                       float scale, int dtype, void* stream) {
@@ -439,12 +452,13 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
   int* cnt = static_cast<int*>(counter);
+  float* ls = static_cast<float*>(lse);
   const int g = hq / hkv;
   if (dtype == kF32)
-    return dispatch_d<float>(d, g, q, k, v, len, o, ml, acc, cnt, b, skv, hq,
-                             hkv, split_rows, scale, s);
+    return dispatch_d<float>(d, g, q, k, v, len, o, ls, ml, acc, cnt, b, skv,
+                             hq, hkv, split_rows, scale, s);
   if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, g, q, k, v, len, o, ml, acc, cnt, b,
-                                     skv, hq, hkv, split_rows, scale, s);
+    return dispatch_d<__nv_bfloat16>(d, g, q, k, v, len, o, ls, ml, acc, cnt,
+                                     b, skv, hq, hkv, split_rows, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,7 +27,21 @@ mesh order). A sharding is the ``(mesh, placements)`` pair
 (:class:`NamedSharding`).
 
 :func:`shard` redistributes a DTensor under an active mesh and is the
-identity otherwise; no model calls it yet.
+identity otherwise. The models call it at the JAX package's call sites,
+in the same logical names, so that under ``use_sharding(mesh, rules)``
+the parameters, activations and caches of a model step are DTensors laid
+out as GSPMD lays out JAX's, and PyTorch's own DTensor rules carry every
+operation between two ``shard()`` calls.
+
+A kernel op runs on local shards (:func:`on_local_shards`, over
+``local_map``): each rank calls the kernel on its own shard, and the
+results are its shards of the output. The op names the placements of its
+inputs. An input that stays whole (``Replicate``) on a mesh dim where the
+op's work is split (its primary input's ``Shard`` dims) gets a local
+gradient on each rank that covers only that rank's share of the work, so
+its gradient placement there is ``Partial()`` (:func:`grad_placements`);
+left at ``Replicate``, the step would still run, with each rank's share
+taken for the whole gradient.
 """
 from __future__ import annotations
 
@@ -40,7 +54,11 @@ from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 Logical = Tuple[Optional[str], ...]
 SpecEntry = Union[None, str, Tuple[str, ...]]
@@ -167,6 +185,10 @@ def active_mesh() -> Optional[Mesh]:
     return _CTX.mesh
 
 
+def active_rules() -> Optional[RuleSet]:
+    return _CTX.rules
+
+
 # ---------------------------------------------------------------------------
 # Resolution.
 # ---------------------------------------------------------------------------
@@ -219,9 +241,12 @@ def _axes(entry: SpecEntry) -> Tuple[str, ...]:
 
 def placements(spec: Spec, mesh: Mesh) -> Tuple[Placement, ...]:
     """One placement a mesh dim: ``Shard(d)`` where the spec's dim ``d``
-    names that mesh axis, else ``Replicate()``. A dim over several axes
+    names that mesh axis, else ``Replicate()``; an axis of size 1 splits
+    nothing and is ``Replicate()`` (DTensor will not reshape away a dim
+    sharded over it, a batch of 1 at prefill). A dim over several axes
     must name them in mesh order (see the module docstring)."""
-    names = list(axis_sizes(mesh))
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
     owner: Dict[str, int] = {}
     for d, entry in enumerate(spec):
         axes = _axes(entry)
@@ -231,8 +256,8 @@ def placements(spec: Spec, mesh: Mesh) -> Tuple[Placement, ...]:
                              f"the mesh's order {tuple(names)}")
         for a in axes:
             owner[a] = d
-    return tuple(Shard(owner[a]) if a in owner else Replicate()
-                 for a in names)
+    return tuple(Shard(owner[a]) if a in owner and sizes[a] > 1
+                 else Replicate() for a in names)
 
 
 def shard_shape(shape: Sequence[int], spec: Spec,
@@ -276,6 +301,24 @@ def is_spec(t: Any) -> bool:
         isinstance(e, (str, type(None))) for e in t)
 
 
+def _map_tree(fn, tree, other, at_leaf: Callable[[Any], bool]) -> Any:
+    if at_leaf(other):
+        return fn(tree, other)
+    if isinstance(other, dict):
+        return {k: _map_tree(fn, tree[k], s, at_leaf)
+                for k, s in other.items()}
+    if hasattr(other, "children"):
+        return type(other)(*(_map_tree(fn, t, s, at_leaf) for t, s in
+                             zip(tree.children(), other.children())))
+    if hasattr(other, "_fields"):
+        return type(other)(*(_map_tree(fn, t, s, at_leaf)
+                             for t, s in zip(tree, other)))
+    if isinstance(other, (list, tuple)):
+        assert len(tree) == len(other), (len(tree), len(other))
+        return [_map_tree(fn, t, s, at_leaf) for t, s in zip(tree, other)]
+    raise TypeError(f"not a spec or sharding tree node: {other!r}")
+
+
 def map_specs(fn: Callable[[Any, Logical], Any], tree: Any,
               specs: Any) -> Any:
     """``fn(leaf, spec)`` over a tree and its spec tree, which has the
@@ -283,20 +326,15 @@ def map_specs(fn: Callable[[Any, Logical], Any], tree: Any,
     and lists, ``NamedTuple`` s (``OptState``) and objects with
     ``children()`` (the optimizer's ``QTensor``/``QTensorLog``, rebuilt
     from their children). The result has the spec tree's structure."""
-    if is_spec(specs):
-        return fn(tree, specs)
-    if isinstance(specs, dict):
-        return {k: map_specs(fn, tree[k], s) for k, s in specs.items()}
-    if hasattr(specs, "children"):
-        return type(specs)(*(map_specs(fn, t, s) for t, s in
-                             zip(tree.children(), specs.children())))
-    if hasattr(specs, "_fields"):
-        return type(specs)(*(map_specs(fn, t, s)
-                             for t, s in zip(tree, specs)))
-    if isinstance(specs, (list, tuple)):
-        assert len(tree) == len(specs), (len(tree), len(specs))
-        return [map_specs(fn, t, s) for t, s in zip(tree, specs)]
-    raise TypeError(f"not a spec tree node: {specs!r}")
+    return _map_tree(fn, tree, specs, is_spec)
+
+
+def map_shardings(fn: Callable[[Any, NamedSharding], Any], tree: Any,
+                  shardings: Any) -> Any:
+    """``fn(leaf, sharding)`` over a tree and its sharding tree (what
+    :func:`tree_shardings` gives), as :func:`map_specs`."""
+    return _map_tree(fn, tree, shardings,
+                     lambda s: isinstance(s, NamedSharding))
 
 
 def tree_shardings(tree_of_shapes, tree_of_logical, mesh: Mesh,
@@ -308,3 +346,135 @@ def tree_shardings(tree_of_shapes, tree_of_logical, mesh: Mesh,
         return NamedSharding(mesh, placements(
             resolve_spec(shape, lg, rules, mesh), mesh))
     return map_specs(one, tree_of_shapes, tree_of_logical)
+
+
+# ---------------------------------------------------------------------------
+# Kernels on local shards.
+# ---------------------------------------------------------------------------
+def replicated(t: torch.Tensor, like: Any) -> torch.Tensor:
+    """``t`` (the same on every rank) as a DTensor replicated over the mesh
+    of ``like`` where ``like`` is a DTensor; ``t`` itself otherwise. For
+    the tensors a model step makes from scratch (RoPE tables, masks) that
+    meet its DTensors."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def kernel_placements(x: DTensor, logical: Logical
+                      ) -> Tuple[Placement, ...]:
+    """The placements a kernel takes ``x`` in: its logical spec resolved
+    under the active rules on ``x``'s mesh."""
+    rules = _CTX.rules
+    if rules is None:
+        raise ValueError("a kernel on DTensors runs under use_sharding()")
+    mesh = x.device_mesh
+    return placements(resolve_spec(x.shape, logical, rules, mesh), mesh)
+
+
+def row_placements(x: DTensor, whole_dims: Sequence[int]
+                   ) -> Tuple[Placement, ...]:
+    """``x``'s placements with every ``Partial`` and every shard of a dim
+    in ``whole_dims`` made ``Replicate``: the rows stay where they are."""
+    whole = {d % x.ndim for d in whole_dims}
+    return tuple(p if isinstance(p, Shard) and p.dim % x.ndim not in whole
+                 else Replicate() for p in x.placements)
+
+
+def grad_placements(own: Sequence[Placement], work: Sequence[Placement]
+                    ) -> Tuple[Placement, ...]:
+    """An input's gradient placements: ``Partial()`` where the input is
+    whole (``Replicate``) but the work is split (``work``, the placements
+    of the op's primary input, is ``Shard``), each rank holding the
+    gradient of its own share; the input's own placement elsewhere."""
+    return tuple(Partial() if isinstance(w, Shard) and isinstance(p, Replicate)
+                 else p for p, w in zip(own, work))
+
+
+def local_slice(x: DTensor, plc: Sequence[Placement], dim: int
+                ) -> Tuple[int, int]:
+    """(offset, length) along ``dim`` of this rank's shard of ``x`` laid
+    out in ``plc``."""
+    shape, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, list(plc))
+    return offset[dim], shape[dim]
+
+
+def on_local_shards(fn: Callable, mesh: DeviceMesh, in_placements,
+                    out_placements, in_grad_placements) -> Callable:
+    """``fn`` over local shards (``local_map``): each DTensor argument is
+    redistributed to its entry of ``in_placements`` (None for an argument
+    that is not a DTensor) and given to ``fn`` as its local tensor; ``fn``'s
+    outputs become DTensors in ``out_placements`` (one placement tuple for
+    a single output, a tuple of them for several); the backward gives each
+    input's gradient in its entry of ``in_grad_placements``."""
+    def one(plc):
+        return None if plc is None else list(plc)
+
+    def each(plcs):
+        return None if plcs is None else tuple(one(p) for p in plcs)
+
+    single = all(isinstance(p, Placement) for p in out_placements)
+    return local_map(fn, out_placements=(one(out_placements) if single
+                                         else each(out_placements)),
+                     in_placements=each(in_placements),
+                     in_grad_placements=each(in_grad_placements),
+                     device_mesh=mesh, redistribute_inputs=True)
+
+
+def distribute(t: torch.Tensor, ns: NamedSharding) -> DTensor:
+    """``t``, the whole tensor (the same on every rank, on any device), as
+    a DTensor laid out by ``ns``: each rank copies its own slice to the
+    mesh's device; nothing crosses ranks. A slice that is the whole tensor
+    on the mesh's device is taken without a copy."""
+    mesh, plc = ns.mesh, list(ns.placements)
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, plc)
+    local = t
+    if tuple(shape) != tuple(t.shape):
+        local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))
+                  ].clone(memory_format=torch.contiguous_format)
+    local = local.to(mesh.device_type)
+    return DTensor.from_local(local, mesh, plc, run_check=False,
+                              shape=t.shape,
+                              stride=torch.empty(t.shape,
+                                                 device="meta").stride())
+
+
+def place(t: torch.Tensor, ns: NamedSharding) -> DTensor:
+    """``t`` laid out by ``ns``: a DTensor redistributed where its
+    placements differ, a whole tensor distributed (:func:`distribute`)."""
+    if isinstance(t, DTensor):
+        if tuple(t.placements) == tuple(ns.placements):
+            return t
+        return t.redistribute(ns.mesh, ns.placements)
+    return distribute(t, ns)
+
+
+def distribute_tree(tree: Any, shardings: Any) -> Any:
+    """Lay out a tree of nested dicts and lists of whole tensors by its
+    sharding tree, in place and leaf by leaf: each whole tensor is dropped
+    from the tree as soon as its shard takes its place, so a whole copy
+    and the sharded one coexist one leaf at a time. Returns ``tree``."""
+    keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+    for k in keys:
+        if isinstance(shardings[k], NamedSharding):
+            tree[k] = place(tree[k], shardings[k])
+        else:
+            distribute_tree(tree[k], shardings[k])
+    return tree
+
+
+def zeros(shape: Sequence[int], dtype: torch.dtype,
+          ns: NamedSharding) -> DTensor:
+    """A DTensor of zeros laid out by ``ns``, each rank allocating only its
+    shard."""
+    mesh, plc = ns.mesh, list(ns.placements)
+    local_shape, _ = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, plc)
+    local = torch.zeros(local_shape, dtype=dtype, device=mesh.device_type)
+    return DTensor.from_local(local, mesh, plc, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())

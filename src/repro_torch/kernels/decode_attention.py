@@ -17,19 +17,28 @@ cache's capacity) alone, never from ``length``, so a call reads nothing
 back to the host and can be captured in a CUDA graph. The combine counts
 blocks on an int32 buffer per device that the kernel leaves zeroed; calls
 on one device are assumed to be ordered (one stream at a time).
+
+Partial mode (``return_lse=True``) also gives each (slot, q head)'s
+fp32 log-sum-exp of its scaled scores, written by the same combine
+(``ref.decode_attention_partial_ref`` is its plain version): a slot of
+length 0 gives out 0 and lse -inf. Slices of a sequence-sharded cache,
+each attended with its local lengths, then combine across ranks by
+``exp(lse - max)`` weights (``kernels/ops.py``). The out of a call is the
+same in both modes.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels._build import (check_operand, dtype_code,
                                         on_card, refuse_grad,
                                         register_kernel, stream_handle)
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import (decode_attention_partial_ref,
+                                     decode_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128, 160)
 MAX_GROUP = 16
@@ -37,7 +46,8 @@ THREADS = 128   # a block (kThreads)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "decode_attention", "repro_decode_attention",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+     _P])
 TILE = 64   # cache rows per tile inside a block; split_rows is a multiple
 MAX_SPLITS = 16
 # Combine counters, one list per device; every buffer stays alive, since a
@@ -90,19 +100,25 @@ def _counter(device: torch.device, n: int) -> torch.Tensor:
     return bufs[-1]
 
 
+Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          length: torch.Tensor, *, scale: Optional[float] = None
-          ) -> torch.Tensor:
+          length: torch.Tensor, *, scale: Optional[float] = None,
+          return_lse: bool = False) -> Out:
+    if return_lse:
+        return decode_attention_partial_ref(q, k, v, length, scale=scale)
     return decode_attention_ref(q, k, v, length, scale=scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: torch.Tensor, *, scale: Optional[float] = None
-                     ) -> torch.Tensor:
+                     length: torch.Tensor, *, scale: Optional[float] = None,
+                     return_lse: bool = False) -> Out:
     """q: (b, hq, d); k, v: (b, skv, hkv, d); length: (b,) int32 valid
-    cache rows -> (b, hq, d)."""
+    cache rows -> (b, hq, d), and with ``return_lse`` also the (b, hq)
+    fp32 log-sum-exp (partial mode, see the module docstring)."""
     if not on_card(q, "decode_attention"):
-        return plain(q, k, v, length, scale=scale)
+        return plain(q, k, v, length, scale=scale, return_lse=return_lse)
     refuse_grad("decode_attention", q, k, v)
     check_operand("q", q, q.device, 3)
     check_operand("k", k, q.device, 4, q.dtype)
@@ -124,8 +140,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention needs skv >= 1")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     g, splits = hq // hkv, num_splits(skv)
     # One fp32 scratch for the partials: (m, l) of each (b, kv head, split,
     # q head), then their accumulators of d each.
@@ -134,7 +152,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device)
     counter = _counter(q.device, b * hkv)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-           out.data_ptr(), part.data_ptr(), part.data_ptr() + 8 * n_part,
+           out.data_ptr(), None if lse is None else lse.data_ptr(),
+           part.data_ptr(), part.data_ptr() + 8 * n_part,
            counter.data_ptr(), b, skv, hq, hkv, d, split_rows(skv),
            float(scale), dtype_code(q), stream_handle(q.device))
-    return out
+    return (out, lse) if return_lse else out

@@ -12,7 +12,7 @@ the two agree.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -158,6 +158,33 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = attention_ref(q[:, None], k, v, causal=False, scale=scale,
                         kv_len=length)
     return out[:, 0]
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, length: torch.Tensor, *,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode attention over one slice of the cache, with each row's
+    log-sum-exp of its scaled scores: (out (b, hq, d) in q's dtype, lse
+    (b, hq) float32). A slot whose ``length`` is 0 gives out 0 and lse
+    -inf, so that slices combine by ``exp(lse - max)`` weights."""
+    b, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.reshape(b, hkv, g, d).to(_acc(q))
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.to(qf.dtype)) * scale
+    valid = (torch.arange(skv, device=q.device)[None, :]
+             < length.to(q.device).reshape(b, 1))[:, None, None, :]
+    s = torch.where(valid, s, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)                       # (b, hkv, g)
+    empty = torch.isneginf(lse)[..., None]
+    p = torch.where(valid, torch.exp(s - torch.where(
+        empty, 0.0, lse[..., None])), 0.0)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v.to(qf.dtype))
+    out = torch.where(empty, 0.0, out)
+    return (out.reshape(b, hq, d).to(q.dtype),
+            lse.reshape(b, hq).to(torch.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,24 @@ Modes, as in the JAX package's ``models/attention.py``:
 
 The JAX package returns a new cache (its engine donates the old one). Here
 decode writes the new K/V row into the given cache tensors **in place** and
-returns the same dict, which saves a copy of the whole cache per token.
+returns the same dict, which saves a copy of the whole cache per token. On
+a mesh the cache is a DTensor, sequence-sharded over ``kv_seq``; the row
+at ``pos`` is written by the rank whose shard holds it, into its local
+shard (:func:`_write_rows`), and the decode kernel reads each rank's
+slice (``kernels/ops.py``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed.sharding import local_slice, shard
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rope_apply, rope_table
+from repro_torch.models.layers import (dense_init, pad_seq, rope_apply,
+                                       rope_table)
 
 Params = Dict[str, Any]
 
@@ -83,7 +90,36 @@ def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    q = shard(q, ("batch", "seq", "heads_act", None))
+    k = shard(k, ("batch", "seq", "kv_heads_act", None))
+    v = shard(v, ("batch", "seq", "kv_heads_act", None))
     return q, k, v
+
+
+CACHE_LOGICAL = ("batch", "kv_seq", "kv_heads_act", None)
+
+
+def _write_rows(cache: DTensor, new: torch.Tensor, pos: torch.Tensor
+                ) -> None:
+    """Write ``new`` (b, 1, hkv, d) at row ``pos[i]`` of slot ``i`` of a
+    DTensor cache (b, max_len, hkv, d), in place: each rank writes the
+    slots and rows its local shard holds; a row held elsewhere leaves the
+    shard as it was."""
+    plc = cache.placements
+    if any(isinstance(p, Shard) and p.dim >= 2 for p in plc):
+        raise NotImplementedError("a cache sharded over kv heads or d")
+    local = cache.to_local()
+    b_off, b_len = local_slice(cache, plc, 0)
+    s_off, s_len = local_slice(cache, plc, 1)
+    rows = new.redistribute(placements=[
+        p if p == Shard(0) else Replicate() for p in plc]).to_local()
+    at = pos.to(local.device).long()[b_off:b_off + b_len] - s_off
+    own = (at >= 0) & (at < s_len)
+    at = torch.clamp(at, 0, s_len - 1)
+    bidx = torch.arange(b_len, device=local.device)
+    local[bidx, at] = torch.where(own[:, None, None],
+                                  rows[:, 0].to(local.dtype),
+                                  local[bidx, at])
 
 
 def attn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -105,7 +141,11 @@ def attn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         out = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl,
                             chunk=cfg.attn_chunk)
         new_cache = None
-        if mode == "prefill":
+        if mode == "prefill" and isinstance(k, DTensor):
+            pad = max(0, (max_len or s) - s)
+            new_cache = {"k": shard(pad_seq(k, 0, pad), CACHE_LOGICAL),
+                         "v": shard(pad_seq(v, 0, pad), CACHE_LOGICAL)}
+        elif mode == "prefill":
             if max_len is not None and max_len > s:
                 kc = k.new_zeros((b, max_len, *k.shape[2:]))
                 vc = v.new_zeros((b, max_len, *v.shape[2:]))
@@ -127,9 +167,13 @@ def attn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             sin, cos = sin[:, None], cos[:, None]           # (b, 1, d/2)
             q = rope_apply(q, sin, cos)
             k = rope_apply(k, sin, cos)
-            bidx = torch.arange(b, device=x.device)
-            k_cache[bidx, pos.long()] = k[:, 0].to(cdt)
-            v_cache[bidx, pos.long()] = v[:, 0].to(cdt)
+            if isinstance(k_cache, DTensor):
+                _write_rows(k_cache, k, pos)
+                _write_rows(v_cache, v, pos)
+            else:
+                bidx = torch.arange(b, device=x.device)
+                k_cache[bidx, pos.long()] = k[:, 0].to(cdt)
+                v_cache[bidx, pos.long()] = v[:, 0].to(cdt)
             length = (pos + 1).to(torch.int32)
         else:
             p = int(pos)
@@ -137,15 +181,20 @@ def attn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                                   cfg.rope_theta)
             q = rope_apply(q, sin, cos)
             k = rope_apply(k, sin, cos)
-            k_cache[:, p:p + 1] = k.to(cdt)
-            v_cache[:, p:p + 1] = v.to(cdt)
             length = torch.full((b,), p + 1, dtype=torch.int32,
                                 device=x.device)
+            if isinstance(k_cache, DTensor):
+                _write_rows(k_cache, k, length - 1)
+                _write_rows(v_cache, v, length - 1)
+            else:
+                k_cache[:, p:p + 1] = k.to(cdt)
+                v_cache[:, p:p + 1] = v.to(cdt)
         out = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                    length, impl=cfg.attn_impl)[:, None]
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
+    out = shard(out, ("batch", "seq", "heads_act", None))
     hq, _, d = params["wo"].shape
     y = torch.matmul(out.reshape(b, s, hq * hd),
                      params["wo"].reshape(hq * hd, d))

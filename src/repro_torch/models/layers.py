@@ -5,8 +5,10 @@ Plain functions on dicts of tensors, one for one with the JAX package's
 params`` plus an ``apply(params, x, ...)``. Parameter names and layouts are
 the JAX package's, so that ``repro_torch.convert`` maps one onto the other
 leaf by leaf. Each ``specs()`` gives the JAX package's logical sharding
-spec of every leaf (``distributed.sharding`` resolves it on a mesh); the
-activation-side ``shard()`` calls are not placed yet.
+spec of every leaf (``distributed.sharding`` resolves it on a mesh), and
+the activations are ``shard()``-ed at the JAX package's call sites, in
+its logical names: the identity without a mesh, a DTensor redistribute
+under ``use_sharding(mesh, rules)``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (on_local_shards, replicated,
+                                              row_placements, shard)
 from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
@@ -42,6 +48,19 @@ def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float,
     return ops.rmsnorm(x, params["scale"], eps, lowp=lowp)
 
 
+def pad_seq(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """Zero-pad dim 1, the sequence, of ``x`` (b, s, ...). A DTensor is
+    padded on its local shards with the sequence whole: PyTorch 2.11's
+    DTensor gives ``constant_pad_nd`` a wrong placement list on a mesh of
+    more than one dim."""
+    pad = (0, 0) * (x.dim() - 2) + (before, after)
+    if not isinstance(x, DTensor):
+        return F.pad(x, pad)
+    plc = row_placements(x, [1])
+    return on_local_shards(lambda t: F.pad(t, pad), x.device_mesh, (plc,),
+                           plc, (plc,))(x)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings.
 # ---------------------------------------------------------------------------
@@ -62,6 +81,7 @@ def rope_apply(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
                ) -> torch.Tensor:
     """x: (b, s, h, d); sin/cos: (s, d//2) or per-batch (b, s, d//2)."""
     half = x.shape[-1] // 2
+    sin, cos = replicated(sin, x), replicated(cos, x)
     if sin.dim() == 2:
         sin, cos = sin[None, :, None, :], cos[None, :, None, :]
     else:
@@ -99,6 +119,7 @@ def mlp_apply(params: Params, x: torch.Tensor, lowp: bool = False
         h = F.silu(g) * u
     else:
         h = F.silu(g.float()).to(x.dtype) * u
+    h = shard(h, ("batch", "seq", "mlp_act"))
     return torch.matmul(h, params["w_down"])
 
 
@@ -121,10 +142,12 @@ def embed_specs(tie: bool) -> Params:
 
 
 def embed_apply(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens]
+    return shard(params["embedding"][tokens], ("batch", "seq", "embed_act"))
 
 
 def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
-        return torch.matmul(x, params["unembed"])
-    return torch.matmul(x, params["embedding"].t())
+        logits = torch.matmul(x, params["unembed"])
+    else:
+        logits = torch.matmul(x, params["embedding"].t())
+    return shard(logits, ("batch", "seq", "vocab_act"))

@@ -18,9 +18,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_decode_ref
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, pad_seq
 
 Params = Dict[str, Any]
 
@@ -97,7 +98,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     ``k`` shifted multiply-adds in fp32, as the JAX package writes it (a
     cuDNN convolution would run fp32 in TF32)."""
     k, s = w.shape[0], xbc.shape[1]
-    xp = F.pad(xbc, (0, 0, k - 1, 0))
+    xp = pad_seq(xbc, k - 1, 0)
     wf = w.float()
     out = xp[:, 0:s].float() * wf[0]
     for i in range(1, k):
@@ -120,7 +121,7 @@ def mamba_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     m, di, nh = _dims(cfg)
     n, p = m.d_state, m.headdim
     b, s, _ = x.shape
-    proj = torch.matmul(x, params["w_in"])
+    proj = shard(torch.matmul(x, params["w_in"]), ("batch", "seq", "mlp_act"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
     A = -torch.exp(params["A_log"])
 
@@ -137,7 +138,7 @@ def mamba_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         if mode == "prefill":
             keep = m.d_conv - 1
             conv = (xbc[:, s - keep:] if s >= keep
-                    else F.pad(xbc, (0, 0, keep - s, 0)))
+                    else pad_seq(xbc, keep - s, 0))
             new_cache = {"conv": conv.to(x.dtype).contiguous(), "ssd": state}
     elif mode == "decode":
         if cache is None or s != 1:
@@ -159,4 +160,5 @@ def mamba_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
 
     y = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
+    y = shard(y, ("batch", "seq", "mlp_act"))
     return torch.matmul(y, params["w_out"]), new_cache

@@ -24,12 +24,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed.sharding import (RuleSet, map_shardings, shard,
+                                              tree_shardings, zeros)
 from repro_torch.models import transformer as stack
 from repro_torch.models.layers import (embed_apply, embed_init,
-                                       embed_specs, rmsnorm_apply,
+                                       embed_specs, pad_seq, rmsnorm_apply,
                                        rmsnorm_init, rmsnorm_specs,
                                        unembed_apply)
 
@@ -77,7 +78,8 @@ def _embed_inputs(params: Params, batch: Dict[str, Any]) -> torch.Tensor:
     x = embed_apply(params["embed"], batch["tokens"])
     ve = batch.get("vision_embeds")
     if ve is not None:
-        x = torch.cat([ve.to(x.dtype), x], dim=1)
+        x = shard(torch.cat([ve.to(x.dtype), x], dim=1),
+                  ("batch", "seq", "embed_act"))
     return x
 
 
@@ -98,10 +100,13 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 def _ce_terms(logits_f32: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of masked NLL, sum of masked lse^2)."""
+    """(sum of masked NLL, sum of masked lse^2). The picked logit keeps its
+    trailing dim until the subtraction: on vocab-sharded DTensor logits
+    the gather's masked partial sum is reduced there, and DTensor reduces
+    it only at the gather's own rank."""
     lse = torch.logsumexp(logits_f32, dim=-1)
-    picked = torch.gather(logits_f32, -1, labels.long()[..., None])[..., 0]
-    nll = (lse - picked) * mask
+    picked = torch.gather(logits_f32, -1, labels.long()[..., None])
+    nll = (lse[..., None] - picked)[..., 0] * mask
     return torch.sum(nll), torch.sum((lse * mask) ** 2)
 
 
@@ -128,9 +133,9 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
         chunk = min(loss_chunk, s)
         pad = (-s) % chunk
         if pad:
-            x = F.pad(x, (0, 0, 0, pad))
-            labels = F.pad(labels, (0, pad))
-            mask = F.pad(mask, (0, pad))
+            x = pad_seq(x, 0, pad)
+            labels = pad_seq(labels, 0, pad)
+            mask = pad_seq(mask, 0, pad)
 
         def chunk_ce(xc, lc, mc):
             logits = unembed_apply(params["embed"], xc).to(torch.float32)
@@ -181,10 +186,33 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device: torch.device, dtype: Optional[torch.dtype] = None
+                device: torch.device, dtype: Optional[torch.dtype] = None,
+                *, mesh=None, rules: Optional[RuleSet] = None
                 ) -> List[Params]:
+    """Zeroed decode caches; with a ``mesh`` (and ``rules``), DTensors laid
+    out by ``cache_specs``, each rank allocating only its shard."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    return stack.stack_caches(cfg, batch, max_len, dtype, device)
+    if mesh is None:
+        return stack.stack_caches(cfg, batch, max_len, dtype, device)
+    meta = stack.stack_caches(cfg, batch, max_len, dtype,
+                              torch.device("meta"))
+    return map_shardings(lambda t, ns: zeros(t.shape, t.dtype, ns), meta,
+                         tree_shardings(meta, cache_specs(cfg), mesh, rules))
+
+
+def check_mesh_support(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a stack that does not run on a
+    mesh yet: MoE layers (the JAX package groups their tokens by data
+    shard, ``src/repro/models/moe.py:51-58``; the port has one group) and
+    hybrid attention/Mamba stacks."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers on a mesh are not ported (ROADMAP "
+            "Queue 1: MoE token groups and hybrids on a mesh)")
+    if len(set(cfg.layer_kinds())) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: hybrid stacks on a mesh are not ported (ROADMAP "
+            "Queue 1: MoE token groups and hybrids on a mesh)")
 
 
 def cache_specs(cfg: ModelConfig) -> List[Params]:

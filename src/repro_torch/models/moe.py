@@ -10,9 +10,13 @@ dropped; the experts run as one grouped SwiGLU over the
 Differences of form, not of numbers:
 
 * **One token group.** The JAX package groups tokens by data shard
-  (``_num_groups``) and gives each group its own capacity. The port's
-  model steps run on no mesh yet, so there is one group, which is what
-  ``_num_groups`` returns there without one.
+  (``_num_groups``, ``src/repro/models/moe.py:51-58``) and gives each
+  group its own capacity; without a mesh that is one group, as here. The
+  port's model steps run on a mesh for the dense and Mamba-2 stacks only:
+  one group over a data-sharded batch would drop other tokens than JAX's
+  per-shard capacities do, so a MoE (or hybrid) config on a mesh raises
+  ``NotImplementedError`` (``models/model.py::check_mesh_support``;
+  ROADMAP Queue 1) rather than run a path that differs from JAX's.
 * **Positions in one cumsum.** JAX assigns positions in a Python loop over
   the ``k`` choices: a within-round exclusive cumsum plus the counts of the
   earlier rounds. Here the assignments are flattened k-major and one

@@ -37,6 +37,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import ATTN, ModelConfig
+from repro_torch.distributed.sharding import (active_mesh, active_rules,
+                                              shard, use_sharding)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -126,7 +128,7 @@ def layer_apply(params: Params, cfg: ModelConfig, sig: Tuple[str, str],
         else:
             f = mlp_apply(params["ffn"], h, lowp=cfg.mlp_lowp)
         x = x + f
-    return x, new_cache, aux
+    return shard(x, ("batch", "seq", "embed_act")), new_cache, aux
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -172,11 +174,20 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def remat_call(remat: str, fn, *args):
     """``fn(*args)`` under the remat policy ``remat`` (see the module
-    docstring); a plain call where autograd records nothing."""
+    docstring); a plain call where autograd records nothing. The forward
+    that the backward runs again runs under the sharding context of this
+    call: the backward may run on another thread (the autograd engine's
+    for a CUDA device) or after the context has closed."""
     if remat not in REMATS:
         raise ValueError(f"remat {remat!r} not in {REMATS}")
     if remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    mesh, rules = active_mesh(), active_rules()
+    body = fn
+
+    def fn(*a):
+        with use_sharding(mesh, rules):
+            return body(*a)
     if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False)
     return checkpoint(fn, *args, use_reentrant=False,

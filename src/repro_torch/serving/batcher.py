@@ -5,6 +5,8 @@ draining the batch (per-slot sequence positions: the attention layer takes
 a (b,) position tensor). Prefill runs per request at batch 1 and the fresh
 cache is copied into the batched cache at the slot index, in place (the
 JAX package does this with a vmapped, donated ``dynamic_update_index``).
+On an engine's mesh the caches are DTensors on it; the rank whose local
+shard holds the slot copies the prefill cache into it (``_insert``).
 """
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ from typing import Deque, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models import model as lm
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.distributed.sharding import local_slice
+from repro_torch.serving.engine import ServingEngine, whole
 
 
 @dataclass
@@ -52,16 +55,26 @@ class ContinuousBatcher:
 
     def _ensure_caches(self) -> None:
         if self.caches is None:
-            self.caches = lm.init_caches(
-                self.cfg, self.slots, self.engine.scfg.max_seq_len,
-                self.device)
+            self.caches = self.engine.init_caches(self.slots)
 
     def _insert(self, cache1, slot: int) -> None:
         """Copy every leaf of each layer's batch-1 cache (attention k/v,
-        Mamba conv/ssd) into the batched cache at ``slot``."""
+        Mamba conv/ssd) into the batched cache at ``slot``. A DTensor leaf
+        is written through the local shard of the data rank that holds the
+        slot, from the prefill cache laid out as that shard is (whole
+        along the batch)."""
         for big, small in zip(self.caches, cache1):
             for name, leaf in big.items():
-                leaf[slot].copy_(small[name][0])
+                one = small[name]
+                if not isinstance(leaf, DTensor):
+                    leaf[slot].copy_(one[0])
+                    continue
+                plc = leaf.placements
+                one = one.redistribute(leaf.device_mesh, [
+                    Replicate() if p == Shard(0) else p for p in plc])
+                off, n = local_slice(leaf, plc, 0)
+                if off <= slot < off + n:
+                    leaf.to_local()[slot - off].copy_(one.to_local()[0])
 
     def _admit(self, max_slots: Optional[int] = None) -> None:
         limit = self.slots if max_slots is None else min(max_slots,
@@ -80,7 +93,7 @@ class ContinuousBatcher:
                                                     {"tokens": tokens})
             self._ensure_caches()
             self._insert(cache1, slot)
-            nxt = int(torch.argmax(logits[0]))
+            nxt = int(whole(torch.argmax(logits[0])))
             req.generated.append(nxt)
             self.active[slot] = req
             self.positions[slot] = len(req.prompt)
@@ -102,7 +115,7 @@ class ContinuousBatcher:
                               device=self.device)
         logits, self.caches = self.engine.decode_fn(
             self.engine.params, toks, self.caches, pos)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = whole(torch.argmax(logits, dim=-1)).cpu().numpy()
         for s in live:
             req = self.active[s]
             req.generated.append(int(nxt[s]))

@@ -7,16 +7,30 @@ JAX package's ``serving/engine.py`` (no int8 matmul kernel on this path).
 
 Where the JAX engine donates the caches to its jitted decode, this engine
 updates them in place (see ``models/attention.py``).
+
+On a ``mesh`` (``ServingEngine(cfg, scfg, mesh, rules)``, rules default
+``serve_rules(scfg.serve_fsdp)``), ``load`` lays the params out by
+``launch/specs.py::params_shardings`` and ``prefill_fn``/``decode_fn`` run
+under ``use_sharding(mesh, rules)``, as the JAX engine's jitted functions
+trace under it. Token inputs (the same on every rank) enter as replicated
+DTensors; the logits come back as DTensors (vocab-sharded), and the
+caches are DTensors laid out by ``cache_specs``
+(``models/model.py::init_caches``). Weight-only int8 does not run on a
+mesh yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.config.torch_env import resolve_device
+from repro_torch.distributed.sharding import (RuleSet, distribute_tree,
+                                              serve_rules, use_sharding)
 from repro_torch.kernels.ref import quantize_int8
+from repro_torch.launch.specs import params_shardings
 from repro_torch.models import model as lm
 from repro_torch.tree import tree_map
 
@@ -56,31 +70,71 @@ def dequantize_params(params: Params) -> Params:
     return tree_map(dq, params, is_leaf=_is_q)
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A step's output as one tensor: a DTensor gathered (outside the
+    step, as the JAX engine's caller reads a sharded array)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, scfg: Optional[ServeConfig] = None,
+                 mesh=None, rules: Optional[RuleSet] = None,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules or serve_rules(self.scfg.serve_fsdp)
         self.params: Optional[Params] = None
+        if mesh is not None:
+            lm.check_mesh_support(cfg)
+            if self.scfg.quantize_weights:
+                raise NotImplementedError(
+                    "quantize_weights on a mesh is not ported (ROADMAP "
+                    "Queue 1)")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for an engine "
+                                 f"on {self.device}")
 
     def _weights(self, params: Params) -> Params:
         if self.scfg.quantize_weights:
             return dequantize_params(params)
         return params
 
+    def _input(self, t: Optional[torch.Tensor]):
+        """A token input as the step takes it: on a mesh, a DTensor
+        replicated over it (every rank passes the same)."""
+        if self.mesh is None or t is None or isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t.to(self.device), self.mesh,
+                                  [Replicate()] * self.mesh.ndim,
+                                  run_check=False)
+
     @torch.no_grad()
     def prefill_fn(self, params: Params, batch: Dict[str, Any]):
-        return lm.prefill(self._weights(params), self.cfg, batch,
-                          max_len=self.scfg.max_seq_len)
+        with use_sharding(self.mesh, self.rules):
+            return lm.prefill(self._weights(params), self.cfg,
+                              {k: self._input(v) for k, v in batch.items()},
+                              max_len=self.scfg.max_seq_len)
 
     @torch.no_grad()
     def decode_fn(self, params: Params, tokens: torch.Tensor, caches, pos):
-        return lm.decode_step(self._weights(params), self.cfg, tokens,
-                              caches, pos)
+        with use_sharding(self.mesh, self.rules):
+            return lm.decode_step(self._weights(params), self.cfg,
+                                  self._input(tokens), caches, pos)
+
+    def init_caches(self, batch: int):
+        """Zeroed caches of ``batch`` slots at ``max_seq_len``, laid out on
+        the engine's mesh where it has one."""
+        return lm.init_caches(self.cfg, batch, self.scfg.max_seq_len,
+                              self.device, mesh=self.mesh, rules=self.rules)
 
     # ------------------------------------------------------------------
     def load(self, params: Params) -> None:
+        if self.mesh is not None:
+            params = distribute_tree(tree_map(lambda t: t, params),
+                                     params_shardings(self.cfg, self.mesh,
+                                                      self.rules))
         if self.scfg.quantize_weights:
             params = quantize_params_int8(params)
         self.params = params
@@ -112,6 +166,7 @@ class ServingEngine:
         out = []
         pos = s
         for _ in range(max_new_tokens):
+            logits = whole(logits)
             if greedy:
                 nxt = torch.argmax(logits, dim=-1)
             else:

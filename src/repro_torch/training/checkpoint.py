@@ -17,6 +17,16 @@ Guarantees, as in the JAX package: atomic (written into
 of the last ``keep``, and ``save_async``, which copies every leaf to host
 memory before it returns (the trainer updates its tensors in place) and
 writes on a worker thread.
+
+On a mesh (DTensor leaves) every rank calls ``save``/``save_async``: the
+whole of each leaf is gathered (``full_tensor()``, a collective) on the
+calling thread, leaf by leaf in the same order on every rank, and only
+rank 0 writes; the worker thread does file I/O alone, since a collective
+issued there could deadlock against the next step. ``wait()`` ends in a
+barrier, so that no rank reads a checkpoint before it is written.
+``restore(..., shardings=)`` is the elastic path: each rank builds its
+local shard of each leaf from the host array, sliced as the leaf's
+placements give, on whatever mesh the shardings name.
 """
 from __future__ import annotations
 
@@ -28,7 +38,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import NamedSharding, distribute
 from repro_torch.training.optimizer import QTensor, QTensorLog
 
 Params = Any
@@ -36,6 +49,8 @@ Params = Any
 
 def _children(node: Any) -> Optional[List[Tuple[str, Any]]]:
     """(key, child) pairs of a container node, None for a leaf."""
+    if isinstance(node, NamedSharding):
+        return None
     if isinstance(node, (QTensor, QTensorLog)):
         return [(str(i), c) for i, c in enumerate(node.children())]
     if isinstance(node, dict):
@@ -75,7 +90,10 @@ def _rebuild(template: Params, leaf_fn, prefix: str = "") -> Params:
 
 
 def _host(leaf: Any) -> Tuple[np.ndarray, str]:
-    """A host copy of a leaf as numpy; bf16 as its uint16 bits."""
+    """A host copy of a leaf as numpy; bf16 as its uint16 bits. A DTensor
+    is gathered whole first (a collective)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.detach().full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -116,28 +134,49 @@ def _write(ckpt_dir: str, step: int, flat: List[Tuple[str, Any]],
     return final
 
 
+def _snapshot(tree: Params) -> Tuple[List[Tuple[str, Any]], bool, bool]:
+    """(host copies of the leaves, whether any was a DTensor, whether this
+    rank writes: every rank without a mesh, rank 0 with one)."""
+    flat = _flatten(tree)
+    sharded = any(isinstance(l, DTensor) for _, l in flat)
+    host = [(k, _host(l)) for k, l in flat]
+    return host, sharded, not sharded or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: Params, keep: int = 3) -> str:
     """Synchronous atomic save. Returns the checkpoint path."""
-    return _write(ckpt_dir, step, [(k, _host(l)) for k, l in _flatten(tree)],
-                  keep)
+    flat, sharded, writes = _snapshot(tree)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if writes:
+        path = _write(ckpt_dir, step, flat, keep)
+    if sharded:
+        dist.barrier()
+    return path
 
 
 class AsyncSave:
-    def __init__(self, thread: threading.Thread):
+    def __init__(self, thread: Optional[threading.Thread],
+                 sharded: bool = False):
         self._thread = thread
+        self._sharded = sharded
 
     def wait(self) -> None:
-        self._thread.join()
+        if self._thread is not None:
+            self._thread.join()
+        if self._sharded:
+            dist.barrier()
 
 
 def save_async(ckpt_dir: str, step: int, tree: Params,
                keep: int = 3) -> AsyncSave:
     """Snapshot to host memory now; write on a worker thread."""
-    flat = [(k, _host(l)) for k, l in _flatten(tree)]
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, flat, keep),
-                         daemon=True)
-    t.start()
-    return AsyncSave(t)
+    flat, sharded, writes = _snapshot(tree)
+    t = None
+    if writes:
+        t = threading.Thread(target=_write,
+                             args=(ckpt_dir, step, flat, keep), daemon=True)
+        t.start()
+    return AsyncSave(t, sharded)
 
 
 def _apply_retention(ckpt_dir: str, keep: int) -> None:
@@ -158,10 +197,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template: Params, step: Optional[int] = None,
-            device: Optional[torch.device | str] = None) -> Params:
+            device: Optional[torch.device | str] = None,
+            shardings: Optional[Params] = None) -> Params:
     """Restore into the structure of ``template``: each leaf a tensor of
     the template leaf's dtype, on ``device`` (default: the template
-    leaf's; the template may hold meta tensors, shapes alone)."""
+    leaf's; the template may hold meta tensors, shapes alone). With
+    ``shardings`` (a tree of ``NamedSharding`` s of the template's
+    structure) each leaf is a DTensor laid out by its sharding, built from
+    this rank's slice of the host array; ``device`` is then the mesh's."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -169,6 +212,8 @@ def restore(ckpt_dir: str, template: Params, step: Optional[int] = None,
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
+
+    layout = dict(_flatten(shardings)) if shardings is not None else {}
 
     def load(key: str, tmpl: Any) -> torch.Tensor:
         if key not in manifest:
@@ -179,6 +224,10 @@ def restore(ckpt_dir: str, template: Params, step: Optional[int] = None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if key in layout:
+            if isinstance(tmpl, torch.Tensor):
+                t = t.to(dtype=tmpl.dtype)
+            return distribute(t, layout[key])
         if isinstance(tmpl, torch.Tensor):
             t = t.to(device=device or tmpl.device, dtype=tmpl.dtype)
         elif device is not None:

@@ -12,6 +12,13 @@ Unlike JAX's pure function, :func:`adamw_update` writes the new parameters
 and fp32 moments into the given tensors (and replaces int8 moments in the
 given state's trees): at full width a second copy of 15 GB of fp32 moments
 would otherwise be alive during the update.
+
+On a mesh the parameters and moments are DTensors. Each gradient is first
+redistributed to its parameter's placements (the reduce-scatter, or
+all-reduce, that GSPMD inserts for FSDP and for the ``Partial`` gradients
+of whole inputs to sharded work); the global norm then sums every shard;
+each update keeps its leaf's placements, the int8 payloads and scales
+included.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import math
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import TrainConfig
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -102,6 +110,15 @@ def _maybe_dequant(x) -> torch.Tensor:
     return x
 
 
+def placed_like(t: Any, like: Any) -> Any:
+    """``t`` redistributed to ``like``'s placements where both are
+    DTensors; ``t`` otherwise."""
+    if isinstance(t, DTensor) and isinstance(like, DTensor) and \
+            tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
 class OptState(NamedTuple):
     step: torch.Tensor      # int32 scalar
     m: Params
@@ -110,7 +127,8 @@ class OptState(NamedTuple):
 
 def init_opt_state(params: Params, cfg: TrainConfig) -> OptState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     device = tree_leaves(params)[0].device
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=device),
@@ -166,9 +184,11 @@ def adamw_update(grads: Params, state: OptState, params: Params,
     """One AdamW step; ``grads`` is a tree (or the flat leaf list) of
     ``params``. Updates ``params`` and fp32 moments in place and returns
     them with the new state and {"lr", "grad_norm"}."""
+    flat_g = [placed_like(g, p) for g, p in zip(tree_leaves(grads),
+                                                 tree_leaves(params))]
     step = state.step + 1
     lr = lr_schedule(cfg, state.step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(flat_g)
     clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
 
     b1, b2, eps = cfg.beta1, cfg.beta2, cfg.eps
@@ -189,14 +209,15 @@ def adamw_update(grads: Params, state: OptState, params: Params,
             update = update + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
         if cfg.opt_state_dtype == "int8":
-            return _maybe_quant(m_n, "int8"), _maybe_quant(
-                v_n, "int8", log_space=True)
+            return tuple(type(old)(*(placed_like(c, o) for c, o in zip(
+                new.children(), old.children()))) for new, old in (
+                    (_maybe_quant(m_n, "int8"), m),
+                    (_maybe_quant(v_n, "int8", log_space=True), v)))
         m.copy_(m_n)
         v.copy_(v_n)
         return m, v
 
     flat_p = tree_leaves(params)
-    flat_g = tree_leaves(grads)
     flat_m = tree_leaves(state.m, is_leaf=is_q)
     flat_v = tree_leaves(state.v, is_leaf=is_q)
     new_m: List[Any] = []

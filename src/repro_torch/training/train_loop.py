@@ -1,5 +1,5 @@
 """Train-step builder and fault-tolerant training loop: the JAX package's
-``training/train_loop.py`` on one device, without a mesh.
+``training/train_loop.py``, on one device or on a mesh.
 
 ``make_train_step`` closes over (model cfg, train cfg) and returns a
 (params, opt_state, batch) -> (params, opt_state, metrics) function. The
@@ -8,6 +8,13 @@ rmsnorm, attention and SSD scan run their backward kernels on the card; with
 ``microbatches`` > 1 the per-microbatch gradients are summed in fp32 and
 divided by their count, as the JAX scan does. The update is in place (see
 ``training/optimizer.py``).
+
+On a mesh (``jit_train_step``, ``Trainer(mesh=...)``) the same step runs
+under ``use_sharding(mesh, rules)`` on DTensor params, optimizer state and
+batches, as the JAX package traces its step under the sharding context:
+the models' ``shard()`` calls lay out the activations, the kernels run on
+local shards, and the update redistributes each gradient to its
+parameter's placements (``training/optimizer.py``).
 
 ``Trainer`` runs it with async checkpoints and bitwise resume. Its
 checkpoints are written in the JAX package's layout and keypaths
@@ -25,11 +32,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch import convert
 from repro_torch.config import ModelConfig, TrainConfig, resolve_device
+from repro_torch.distributed.sharding import (RuleSet, distribute_tree,
+                                              map_shardings, place,
+                                              train_rules, use_sharding)
+from repro_torch.launch.specs import opt_shardings, params_shardings
 from repro_torch.models import model as lm
 from repro_torch.training import checkpoint as ckpt
-from repro_torch.training.data import place_on_device
+from repro_torch.training.data import place_on_device, place_on_mesh
 from repro_torch.training.optimizer import (OptState, adamw_update,
                                             init_opt_state)
 from repro_torch.tree import tree_leaves, tree_map
@@ -61,8 +74,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
                 n = x.shape[0] // mb
                 return x[i * n:(i + 1) * n]
 
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+            g_acc = [torch.zeros_like(p, dtype=torch.float32,
+                                      memory_format=torch.contiguous_format)
+                     for p in leaves]
             l_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             m_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             for i in range(mb):
@@ -82,23 +96,63 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
     return train_step
 
 
+def jit_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                   rules: Optional[RuleSet] = None
+                   ) -> Callable[[Params, OptState, Dict[str, Any]],
+                                 Tuple[Params, OptState, Dict[str, Any]]]:
+    """The JAX package's ``jit_train_step``: ``make_train_step`` run under
+    ``use_sharding(mesh, rules)`` (default ``train_rules()``). It traces
+    nothing; the shardings come with the inputs (DTensors laid out by
+    ``launch/specs.py``), and the update is in place, so there is nothing
+    to donate."""
+    rules = rules or train_rules()
+    step = make_train_step(cfg, tcfg)
+
+    def sharded(params, opt_state, batch):
+        with use_sharding(mesh, rules):
+            return step(params, opt_state, batch)
+
+    return sharded
+
+
+def scalar(t: Any) -> float:
+    """A metric as a Python float (a DTensor's whole value)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return float(t)
+
+
 # ---------------------------------------------------------------------------
 # The loop.
 # ---------------------------------------------------------------------------
 class Trainer:
     """Checkpointed, resumable training loop with async saves, on one
-    device (``"cuda"`` unless the caller asks for the CPU)."""
+    device (``"cuda"`` unless the caller asks for the CPU), or on a
+    ``mesh`` (a ``DeviceMesh`` of that device type) under ``rules``
+    (default ``train_rules()``): params laid out by
+    ``launch/specs.py::params_shardings``, the optimizer state by
+    ``opt_shardings``, each batch by ``place_on_mesh``."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
+                 mesh=None, rules: Optional[RuleSet] = None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  keep: int = 3, device: str | torch.device = "cuda"):
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
+        self.mesh, self.rules = mesh, rules or train_rules()
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.keep = keep
-        self.step_fn = make_train_step(cfg, tcfg)
-        self._place = place_on_device(self.device)
+        if mesh is None:
+            self.step_fn = make_train_step(cfg, tcfg)
+            self._place = place_on_device(self.device)
+        else:
+            lm.check_mesh_support(cfg)
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a trainer "
+                                 f"on {self.device}")
+            self.step_fn = jit_train_step(cfg, tcfg, mesh, self.rules)
+            self._place = place_on_mesh(mesh, self.rules)
         self._pending_save = None
         self._saved_step: Optional[int] = None
 
@@ -116,8 +170,16 @@ class Trainer:
             like = (lm.init_params(self.cfg, torch.Generator(), meta)
                     if params is None
                     else tree_map(lambda t: t.to(meta), params))
+            shardings = None
+            if self.mesh is not None:
+                shardings = {
+                    "params": convert.to_jax_shardings(self._shardings(),
+                                                       self.cfg),
+                    "opt": convert.to_jax_shardings(self._opt_shardings(),
+                                                    self.cfg)}
             tree = ckpt.restore(self.ckpt_dir, self._jax_tree(
-                like, init_opt_state(like, self.tcfg)), device="cpu")
+                like, init_opt_state(like, self.tcfg)), device="cpu",
+                shardings=shardings)
             log.info("resumed from step %d", start)
             return (convert.from_jax_params(tree["params"], self.cfg,
                                             self.device),
@@ -130,7 +192,20 @@ class Trainer:
         else:
             params = tree_map(lambda t: t.detach().to(self.device,
                                                       copy=True), params)
-        return params, init_opt_state(params, self.tcfg), 0
+        if self.mesh is None:
+            return params, init_opt_state(params, self.tcfg), 0
+        # Drawn whole from the same seed as on one device, then each leaf
+        # replaced by its shard: at most one whole leaf beside the shards.
+        params = distribute_tree(params, self._shardings())
+        opt = map_shardings(place, init_opt_state(params, self.tcfg),
+                            self._opt_shardings())
+        return params, opt, 0
+
+    def _shardings(self):
+        return params_shardings(self.cfg, self.mesh, self.rules)
+
+    def _opt_shardings(self):
+        return opt_shardings(self.cfg, self.tcfg, self.mesh, self.rules)[0]
 
     def _jax_tree(self, params: Params, opt_state: OptState) -> Dict:
         return {"params": convert.to_jax_params(params, self.cfg),
@@ -162,12 +237,12 @@ class Trainer:
             t0 = time.monotonic()
             params, opt_state, metrics = self.step_fn(
                 params, opt_state, batch)
-            loss = float(metrics["loss"])
+            loss = scalar(metrics["loss"])
             dt = time.monotonic() - t0
             history["step"].append(step)
             history["loss"].append(loss)
-            history["ce"].append(float(metrics["ce"]))
-            history["grad_norm"].append(float(metrics["grad_norm"]))
+            history["ce"].append(scalar(metrics["ce"]))
+            history["grad_norm"].append(scalar(metrics["grad_norm"]))
             history["step_time_s"].append(dt)
             if step % log_every == 0:
                 log.info("step %d loss %.4f (%.2fs)", step, loss, dt)

@@ -102,6 +102,35 @@ def test_default_device_raises_without_a_card(monkeypatch):
         ServingEngine(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve(cfg, [4], max_new_tokens=2)
+    # and so do the sharded entry points, before they look at the mesh
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.training.train_loop import Trainer
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(cfg, mesh=mesh)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, TrainConfig(), mesh=mesh)
+
+
+# Inside a model step nothing is gathered: the models, the kernel ops, the
+# optimizer and the sharding layer call no ``full_tensor()`` (the JAX
+# package's ``shard()`` replicates nothing there that the rules do not).
+# Only what reads a step's result from outside gathers: checkpoints, the
+# trainer's metrics, the engine's logits (``whole``).
+STEP_FILES = sorted((REPO / "src" / "repro_torch" / "models").glob("*.py")) \
+    + sorted((REPO / "src" / "repro_torch" / "kernels").glob("*.py")) + [
+        REPO / "src" / "repro_torch" / "training" / "optimizer.py",
+        REPO / "src" / "repro_torch" / "distributed" / "sharding.py"]
+
+
+@pytest.mark.parametrize("path", STEP_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in STEP_FILES])
+def test_model_steps_gather_no_tensor(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    calls = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+             and n.attr == "full_tensor"]
+    assert not calls, f"{path}: full_tensor() at lines {calls}"
 
 
 # The numpy layer the port copies (paths under src/repro and
