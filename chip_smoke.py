@@ -174,20 +174,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the phase; no hand-written kernel may launch.
 16. ``sharded`` (after ``distributed``) the model steps on a mesh over
                 NCCL in a world of one, ``make_mesh((1, 1), ("data",
-                "model"))``: internlm2-1.8b and mamba2-130m at full width
-                in bf16. Training: ``Trainer(mesh=...)`` for 3 steps of
+                "model"))``, at full width in bf16. Training:
+                internlm2-1.8b, mamba2-130m and granite-moe-1b-a400m,
+                ``Trainer(mesh=...)`` for 3 steps of
                 ``default_train_config`` against ``Trainer(mesh=None)``
                 from the same seed, losses within ``SHARDED_TRAIN_TOL``
                 (and whether they are equal bit for bit), the launches a
                 step of each kernel and backward kernel equal to the
-                unsharded step's and to ``TRAIN_LAUNCHES``. Serving: 5
-                prompts through a ``ContinuousBatcher`` over
+                unsharded step's and to ``TRAIN_LAUNCHES``. Serving: the
+                same three, jamba-1.5-large-398b cut to its first
+                ``HYBRID_LAYERS`` layers (Mamba and attention mixers,
+                dense and MoE FFNs) and internlm2-1.8b with weight-only
+                int8; 5 prompts through a ``ContinuousBatcher`` over
                 ``ServingEngine(mesh=...)`` and over the unsharded engine,
-                greedy tokens equal and launches (decode in partial mode
-                on the mesh) equal. Host ms a step and a tick of both.
-                Each kernel runs on local shards through ``local_map``;
-                one card moves no byte across a link, so the rank
-                arithmetic of larger meshes is held by the gloo tests
+                one draw of weights loaded into each, greedy tokens equal
+                and launches (decode in partial mode on the mesh) equal.
+                Host ms a step and a tick and ``max_memory_allocated`` of
+                every run. Then one granite-moe MoE layer at full width in
+                fp32 with its tokens in 1, 2 and 4 groups
+                (``moe._num_groups`` patched, since one card is one data
+                shard), card against CPU: destinations and keep masks
+                equal, output within ``MOE_LAYER_TOL`` of its max-abs,
+                routing flips only at top-k gaps up to ``FLIP_GAP``.
+                Each kernel runs on local shards through ``local_map``,
+                and the MoE stages on local groups; one card moves no
+                byte across a link, so the rank arithmetic of larger
+                meshes is held by the gloo tests
                 (``tests/test_torch_sharded_*.py``).
 
 The ``kernels`` phase also holds the three backward kernels
@@ -344,10 +356,28 @@ TRAIN_STEPS, TRAIN_INT8_STEPS, TRAIN_SAVE_AT = 8, 3, 4
 TRAIN_CKPT_DIR = "chiprun_train_ckpt"       # in the checkout, gitignored
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
 SHARDED_STEPS, SHARDED_NEW = 3, 8
+# The MoE, hybrid and int8 paths on the mesh: granite-moe trains
+# and serves; jamba serves at full width, cut to its first five layers
+# (Mamba, Mamba+MoE, Mamba, Mamba+MoE, attention: both mixers and both FFN
+# kinds); internlm2 serves with weight-only int8.
+SHARDED_TRAIN_ARCHS = (ARCH, MAMBA_ARCH, MOE_ARCH)
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 5
+PATH_KERNELS[HYBRID_ARCH] = ATTN_KERNELS + ("ssd_scan",)
 SHARDED_PROMPTS = {ARCH: PROMPT_LENS[:SLOTS + 1],
-                   MAMBA_ARCH: MAMBA_PROMPT_LENS[:SLOTS + 1]}
+                   MAMBA_ARCH: MAMBA_PROMPT_LENS[:SLOTS + 1],
+                   MOE_ARCH: PROMPT_LENS[:SLOTS + 1],
+                   # each <= the SSD chunk of 256 or a multiple of it, and
+                   # within MAX_LEN for the attention layer's cache
+                   HYBRID_ARCH: (512, 129, 256, 200, 101)}
 SHARDED_SERVE_PATH = f"sharded serve {ARCH}"
 SHARDED_TRAIN_TOL = 1e-4    # tests/test_torch_training.py::TRAINER_TOL
+# The grouped MoE layer, card vs CPU: one granite-moe layer at full width
+# in fp32, its tokens cut into 1, 2 and 4 groups (``moe._num_groups``
+# patched: a mesh in a world of one has one data shard, so one group).
+MOE_GROUPS = (1, 2, 4)
+MOE_LAYER_TOKENS = (4, 256)     # (b, s): 1024 tokens
+MOE_LAYER_TOL = 1e-4            # of the CPU output's max-abs
 # One rank's slice of a sequence-sharded cache (half of the serve cache):
 # slots of length 0, inside it and filling it.
 PARTIAL_SLICE = MAX_LEN // 2
@@ -367,7 +397,7 @@ def train_launches(arch: str, layers: int) -> dict:
 
 
 TRAIN_LAUNCHES = {arch: train_launches(arch, get_config(arch).num_layers)
-                  for arch in TRAIN_PATHS}
+                  for arch in SHARDED_TRAIN_ARCHS}
 # int8_matmul has no model call site: the kernels phase is its path, at
 # the JAX benchmark's shape and an MLP up projection of a 333-token prefill.
 KERNELS_PHASE = "kernels phase"
@@ -2704,6 +2734,7 @@ def _sharded_train(arch: str, mesh) -> dict:
     runs = {}
     for side, m in (("unsharded", None), ("sharded", mesh)):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         hist = _train_run(Trainer(cfg, tcfg, mesh=m), PrefetchingLoader(
             data_config(cfg, TRAIN_SEQ, TRAIN_BATCH)), SHARDED_STEPS)
@@ -2714,6 +2745,8 @@ def _sharded_train(arch: str, mesh) -> dict:
         runs[side] = {"loss": hist["loss"],
                       "host_ms_per_step": [1e3 * t for t in
                                            hist["step_time_s"]],
+                      "max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9,
                       "launches_per_step": {
                           k: v / SHARDED_STEPS for k, v in launches.items()
                           if v}}
@@ -2733,19 +2766,33 @@ def _sharded_train(arch: str, mesh) -> dict:
                                  zip(a["loss"], b["loss"]))}
 
 
-def _sharded_serve(arch: str, mesh) -> tuple:
+def _hybrid_config():
+    """jamba-1.5-large-398b at full width, its first HYBRID_LAYERS layers."""
+    cfg = get_config(HYBRID_ARCH)
+    return cfg.replace(num_layers=HYBRID_LAYERS,
+                       layer_pattern=cfg.layer_kinds()[:HYBRID_LAYERS])
+
+
+def _sharded_serve(arch: str, mesh, cfg=None, int8: bool = False) -> tuple:
     """SHARDED_PROMPTS through a ContinuousBatcher of SLOTS slots over
-    ``ServingEngine(mesh=...)`` and over the unsharded engine, the same
-    random weights: greedy tokens equal, launches a tick equal. Returns
-    (the line's part, the sharded run's launches)."""
-    cfg = get_config(arch)
+    ``ServingEngine(mesh=...)`` and over the unsharded engine, one draw of
+    random weights (seed 0) loaded into each in turn, with weight-only int8
+    if ``int8`` (each engine quantizes on the card): greedy tokens equal,
+    launches equal. Returns (the line's part, the sharded run's
+    launches)."""
+    cfg = cfg or get_config(arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n)
                for n in SHARDED_PROMPTS[arch]]
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            torch.device("cuda"))
     runs, launched = {}, {}
     for side, m in (("unsharded", None), ("sharded", mesh)):
-        eng = ServingEngine(cfg, ServeConfig(max_seq_len=MAX_LEN), mesh=m)
-        eng.init_random(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, ServeConfig(max_seq_len=MAX_LEN,
+                                             quantize_weights=int8), mesh=m)
+        eng.load(params)
         batcher = ContinuousBatcher(eng, SLOTS)
         for p in prompts:
             batcher.submit(p, SHARDED_NEW)
@@ -2763,8 +2810,12 @@ def _sharded_serve(arch: str, mesh) -> tuple:
         _free_card()
         runs[side] = {"tokens": tokens, "ticks": len(tick_ms),
                       "host_ms_per_tick": tick_ms,
+                      "max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9,
                       "launches": {k: v for k, v in launched[side].items()
                                    if v}}
+    del params
+    _free_card()
     a, b = runs["unsharded"], runs["sharded"]
     if b["tokens"] != a["tokens"] or len(a["tokens"]) != len(prompts):
         raise AssertionError(f"sharded {arch} tokens {b['tokens']} vs "
@@ -2774,23 +2825,103 @@ def _sharded_serve(arch: str, mesh) -> tuple:
         raise AssertionError(f"sharded {arch} launches {b['launches']} "
                              f"in {b['ticks']} ticks, unsharded "
                              f"{a['launches']} in {a['ticks']}")
-    return {"prompts": list(SHARDED_PROMPTS[arch]),
+    return {"layers": cfg.num_layers, "int8_weights": int8,
+            "prompts": list(SHARDED_PROMPTS[arch]),
             "new_tokens": SHARDED_NEW, "tokens_equal": True,
             **{side: {k: v for k, v in r.items() if k != "tokens"}
                for side, r in runs.items()}}, launched["sharded"]
 
 
+def _moe_groups_layer() -> dict:
+    """One granite-moe MoE layer at full width in fp32, its tokens cut into
+    g = 1, 2, 4 groups (``moe._num_groups`` patched to g), on the card and
+    on the CPU from the same inputs. Where the routing agrees, each
+    assignment's destination (and so its keep mask) must be equal and the
+    output within MOE_LAYER_TOL of the CPU's max-abs; a token whose expert
+    set differs must sit at a top-k gap of at most FLIP_GAP (the ``parity``
+    phase's rule), and its group is left out of the comparison (a flip
+    moves the positions after it)."""
+    cfg = get_config(MOE_ARCH).replace(dtype="float32")
+    m = cfg.moe
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_init(gen, cfg, torch.float32, torch.device("cpu"))
+    b, s = MOE_LAYER_TOKENS
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    sides = {"cpu": (params, x),
+             "card": (tree_map(lambda t: t.cuda(), params), x.cuda())}
+    orig, out = moe._num_groups, {}
+    try:
+        for g in MOE_GROUPS:
+            moe._num_groups = lambda g=g: g
+            tpg = b * s // g
+            cap = moe.expert_capacity(tpg, m)
+            got = {}
+            for side, (p, xs) in sides.items():
+                xg = xs.reshape(g, tpg, -1)
+                _, _, dest = moe.route(xg, p["router"], None, m, cap, False)
+                y, aux = moe.moe_apply(p, cfg, xs, aux_loss=True)
+                top_p, top_i = torch.topk(torch.softmax(
+                    xg @ p["router"], -1), m.top_k + 1, dim=-1)
+                # the k choices in order (the positions count them k-major)
+                # and the least gap between neighbours of the top k + 1
+                got[side] = {"dest": dest.cpu(), "aux": float(aux),
+                             "y": y.cpu().reshape(g, tpg, -1),
+                             "experts": top_i[..., :m.top_k].cpu(),
+                             "gap": (top_p[..., :-1] - top_p[..., 1:]
+                                     ).min(-1).values.cpu()}
+            card, cpu = got["card"], got["cpu"]
+            flipped = (card["experts"] != cpu["experts"]).any(-1)   # (g, t)
+            gaps = cpu["gap"][flipped].tolist()
+            if any(gap > FLIP_GAP for gap in gaps):
+                raise AssertionError(f"MoE layer at {g} groups: routing "
+                                     f"differs card vs CPU at gaps {gaps}")
+            held = [i for i in range(g) if not flipped[i].any()]
+            if not held:
+                raise AssertionError(f"MoE layer at {g} groups: every group "
+                                     "flipped")
+            rows = m.num_experts * cap
+            dest_eq = torch.equal(card["dest"][held], cpu["dest"][held])
+            keep_eq = torch.equal(card["dest"][held] < rows,
+                                  cpu["dest"][held] < rows)
+            keep = cpu["dest"] < rows
+            scale = cpu["y"].abs().max().item()
+            err = (card["y"][held] - cpu["y"][held]).abs().max().item()
+            if not (dest_eq and keep_eq) or err > MOE_LAYER_TOL * scale or \
+                    abs(card["aux"] - cpu["aux"]) > 1e-6:
+                raise AssertionError(f"MoE layer at {g} groups: dest equal "
+                                     f"{dest_eq}, err {err} of {scale}, aux "
+                                     f"{card['aux']} vs {cpu['aux']}")
+            out[g] = {"tokens_a_group": tpg, "capacity": cap,
+                      "destinations_equal": dest_eq,
+                      "keep_masks_equal": keep_eq,
+                      "kept_assignments": int(keep.sum()),
+                      "dropped_assignments": int((~keep).sum()),
+                      "max_abs_err": err, "max_abs": scale,
+                      "aux_card": card["aux"], "aux_cpu": cpu["aux"],
+                      "flips": len(gaps), "flip_topk_gaps": gaps,
+                      "min_topk_gap": cpu["gap"].min().item(),
+                      "groups_held": len(held)}
+    finally:
+        moe._num_groups = orig
+    return {"arch": MOE_ARCH, "dtype": "float32", "tokens": [b, s],
+            "tolerance": MOE_LAYER_TOL, "flip_gap_limit": FLIP_GAP,
+            "groups": out}
+
+
 def phase_sharded(smi: str) -> dict:
     """The model steps on a mesh over NCCL in a world of one (a
     ``FileStore`` in a temporary directory): ``make_mesh((1, 1), ("data",
-    "model"))``, internlm2-1.8b and mamba2-130m at full width in bf16,
-    training (``Trainer(mesh=...)`` against ``Trainer(mesh=None)``) and
-    serving (``ServingEngine(mesh=...)`` and its batcher against the
-    unsharded engine's). Every kernel runs on local shards through
-    ``local_map``, decode attention in partial mode; the launches must
+    "model"))``, at full width in bf16, training (``Trainer(mesh=...)``
+    against ``Trainer(mesh=None)``: internlm2-1.8b, mamba2-130m,
+    granite-moe-1b-a400m) and serving (``ServingEngine(mesh=...)`` and its
+    batcher against the unsharded engine's: the same three, jamba at
+    HYBRID_LAYERS layers, and internlm2 with weight-only int8). Every
+    kernel runs on local shards through ``local_map``, decode attention
+    in partial mode, and the MoE stages on local groups; the launches must
     equal the unsharded path's, so no op fell back to a plain version.
-    One card moves no byte across a link. Returns the sharded internlm2
-    serve run's launches."""
+    Then the grouped MoE layer card vs CPU (``_moe_groups_layer``). One
+    card moves no byte across a link. Returns the sharded internlm2 serve
+    run's launches."""
     import tempfile
 
     import torch.distributed as dist
@@ -2805,18 +2936,24 @@ def phase_sharded(smi: str) -> dict:
             if backend != "nccl":
                 raise AssertionError(f"backend {backend}")
             mesh = make_mesh((1, 1), ("data", "model"))
-            train = {arch: _sharded_train(arch, mesh) for arch in TRAIN_PATHS}
+            train = {arch: _sharded_train(arch, mesh)
+                     for arch in SHARDED_TRAIN_ARCHS}
             serve_lines, launched = {}, {}
-            for arch in (ARCH, MAMBA_ARCH):
+            for arch in (ARCH, MAMBA_ARCH, MOE_ARCH):
                 serve_lines[arch], launched[arch] = _sharded_serve(arch,
                                                                    mesh)
+            serve_lines[f"{ARCH} int8"], _ = _sharded_serve(ARCH, mesh,
+                                                            int8=True)
+            serve_lines[HYBRID_ARCH], _ = _sharded_serve(
+                HYBRID_ARCH, mesh, cfg=_hybrid_config())
         finally:
             dist.destroy_process_group()
+    groups = _moe_groups_layer()
     emit({"phase": "sharded", "mesh": {"shape": [1, 1],
                                        "axes": ["data", "model"]},
           "backend": backend, "world_size": 1,
           "links": "none: a world of one on one card",
-          "train": train, "serve": serve_lines,
+          "train": train, "serve": serve_lines, "moe_groups": groups,
           "train_tolerance": SHARDED_TRAIN_TOL,
           "seconds": time.monotonic() - t0, "nvidia_smi": smi})
     return launched[ARCH]

@@ -192,6 +192,14 @@ def active_rules() -> Optional[RuleSet]:
 # ---------------------------------------------------------------------------
 # Resolution.
 # ---------------------------------------------------------------------------
+def check_mesh_device(mesh: Mesh, device: torch.device, what: str) -> None:
+    """Refuse a mesh of another device type than ``device``'s for ``what``
+    (an :class:`AbstractMesh` has no device and builds anywhere)."""
+    kind = getattr(mesh, "device_type", None)
+    if kind is not None and kind != device.type:
+        raise ValueError(f"a {kind} mesh for {what} on {device}")
+
+
 def axis_sizes(mesh: Mesh) -> Dict[str, int]:
     """Mesh axis name -> size, in mesh order."""
     if isinstance(mesh, AbstractMesh):

@@ -200,20 +200,5 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                          tree_shardings(meta, cache_specs(cfg), mesh, rules))
 
 
-def check_mesh_support(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a stack that does not run on a
-    mesh yet: MoE layers (the JAX package groups their tokens by data
-    shard, ``src/repro/models/moe.py:51-58``; the port has one group) and
-    hybrid attention/Mamba stacks."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers on a mesh are not ported (ROADMAP "
-            "Queue 1: MoE token groups and hybrids on a mesh)")
-    if len(set(cfg.layer_kinds())) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid stacks on a mesh are not ported (ROADMAP "
-            "Queue 1: MoE token groups and hybrids on a mesh)")
-
-
 def cache_specs(cfg: ModelConfig) -> List[Params]:
     return stack.stack_cache_specs(cfg)

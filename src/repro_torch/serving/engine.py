@@ -15,20 +15,26 @@ under ``use_sharding(mesh, rules)``, as the JAX engine's jitted functions
 trace under it. Token inputs (the same on every rank) enter as replicated
 DTensors; the logits come back as DTensors (vocab-sharded), and the
 caches are DTensors laid out by ``cache_specs``
-(``models/model.py::init_caches``). Weight-only int8 does not run on a
-mesh yet (ROADMAP Queue 1).
+(``models/model.py::init_caches``). Weight-only int8 quantizes the laid
+out params, each leaf on local shards whole along its columns, so that a
+scale is the max over its whole column (``quantize_params_int8``); the
+payload keeps the leaf's placements, and it is dequantized on the same
+shards.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
 from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.config.torch_env import resolve_device
-from repro_torch.distributed.sharding import (RuleSet, distribute_tree,
-                                              serve_rules, use_sharding)
+from repro_torch.distributed.sharding import (RuleSet, check_mesh_device,
+                                              distribute_tree,
+                                              on_local_shards,
+                                              row_placements, serve_rules,
+                                              use_sharding)
 from repro_torch.kernels.ref import quantize_int8
 from repro_torch.launch.specs import params_shardings
 from repro_torch.models import model as lm
@@ -39,6 +45,37 @@ Params = Any
 
 def _is_q(leaf: Any) -> bool:
     return isinstance(leaf, dict) and "__int8__" in leaf
+
+
+def _scale_placements(plc: Sequence[Placement], ndim: int
+                      ) -> Tuple[Placement, ...]:
+    """The placements of the per-column scale (dim -2 reduced away) of a
+    payload laid out in ``plc`` with that dim whole."""
+    def one(p):
+        if not isinstance(p, Shard):
+            return Replicate()
+        d = p.dim % ndim
+        assert d != ndim - 2, plc
+        return Shard(ndim - 2) if d == ndim - 1 else p
+    return tuple(one(p) for p in plc)
+
+
+def _quantize(leaf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One leaf's int8 payload and per-column scale. A DTensor leaf is
+    quantized on local shards with its columns (dim -2) whole, then its
+    payload laid out as the leaf is."""
+    if not isinstance(leaf, DTensor):
+        qv, s = quantize_int8(leaf, axis=-2)  # per-column of last dim
+        return {"__int8__": qv, "scale": s}
+    mesh, wp = leaf.device_mesh, row_placements(leaf, [-2])
+    qv, s = on_local_shards(lambda t: quantize_int8(t, axis=-2), mesh,
+                            (wp,), (wp, _scale_placements(wp, leaf.ndim)),
+                            None)(leaf)
+    return {"__int8__": qv.redistribute(mesh, leaf.placements), "scale": s}
+
+
+def _dequantize(qv: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (qv.float() * scale[..., None, :]).to(torch.bfloat16)
 
 
 def quantize_params_int8(params: Params) -> Params:
@@ -55,18 +92,21 @@ def quantize_params_int8(params: Params) -> Params:
     def q(leaf):
         if isinstance(leaf, torch.Tensor) and leaf.dim() >= 2 and \
                 leaf.dtype in (torch.bfloat16, torch.float32):
-            qv, s = quantize_int8(leaf, axis=-2)  # per-column of last dim
-            return {"__int8__": qv, "scale": s}
+            return _quantize(leaf)
         return leaf
     return tree_map(q, params)
 
 
 def dequantize_params(params: Params) -> Params:
     def dq(leaf):
-        if _is_q(leaf):
-            return (leaf["__int8__"].float()
-                    * leaf["scale"][..., None, :]).to(torch.bfloat16)
-        return leaf
+        if not _is_q(leaf):
+            return leaf
+        qv, s = leaf["__int8__"], leaf["scale"]
+        if isinstance(qv, DTensor):
+            return on_local_shards(_dequantize, qv.device_mesh,
+                                   (qv.placements, s.placements),
+                                   qv.placements, None)(qv, s)
+        return _dequantize(qv, s)
     return tree_map(dq, params, is_leaf=_is_q)
 
 
@@ -87,14 +127,7 @@ class ServingEngine:
         self.rules = rules or serve_rules(self.scfg.serve_fsdp)
         self.params: Optional[Params] = None
         if mesh is not None:
-            lm.check_mesh_support(cfg)
-            if self.scfg.quantize_weights:
-                raise NotImplementedError(
-                    "quantize_weights on a mesh is not ported (ROADMAP "
-                    "Queue 1)")
-            if mesh.device_type != self.device.type:
-                raise ValueError(f"a {mesh.device_type} mesh for an engine "
-                                 f"on {self.device}")
+            check_mesh_device(mesh, self.device, "an engine")
 
     def _weights(self, params: Params) -> Params:
         if self.scfg.quantize_weights:

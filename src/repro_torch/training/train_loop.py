@@ -36,9 +36,10 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch import convert
 from repro_torch.config import ModelConfig, TrainConfig, resolve_device
-from repro_torch.distributed.sharding import (RuleSet, distribute_tree,
-                                              map_shardings, place,
-                                              train_rules, use_sharding)
+from repro_torch.distributed.sharding import (RuleSet, check_mesh_device,
+                                              distribute_tree, map_shardings,
+                                              place, train_rules,
+                                              use_sharding)
 from repro_torch.launch.specs import opt_shardings, params_shardings
 from repro_torch.models import model as lm
 from repro_torch.training import checkpoint as ckpt
@@ -147,10 +148,7 @@ class Trainer:
             self.step_fn = make_train_step(cfg, tcfg)
             self._place = place_on_device(self.device)
         else:
-            lm.check_mesh_support(cfg)
-            if mesh.device_type != self.device.type:
-                raise ValueError(f"a {mesh.device_type} mesh for a trainer "
-                                 f"on {self.device}")
+            check_mesh_device(mesh, self.device, "a trainer")
             self.step_fn = jit_train_step(cfg, tcfg, mesh, self.rules)
             self._place = place_on_mesh(mesh, self.rules)
         self._pending_save = None

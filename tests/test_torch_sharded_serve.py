@@ -27,8 +27,11 @@ The kernel ops on local shards, on the same ranks:
 
 And in this process: ``local_kv_heads`` against the head map q -> q // g
 for every rank of each (hq, hkv, tp) case, the plain partial decode
-against ``decode_attention_ref``, and the refusals (MoE, hybrid,
-``quantize_weights``, a mesh of another device type).
+against ``decode_attention_ref``, and the one refusal left (a mesh of
+another device type): an engine builds on an ``AbstractMesh`` for every
+ported config, with and without ``quantize_weights``. The MoE and hybrid
+stacks and int8 weights on a mesh are held to JAX in
+``tests/test_torch_sharded_moe_serve.py``.
 """
 import os
 import subprocess
@@ -46,6 +49,7 @@ from repro.config import get_config as jget_config
 from repro.config import smoke_config as jsmoke_config
 from repro.models import model as jlm
 from repro_torch.config import ServeConfig, get_config, smoke_config
+from repro_torch.configs import PORTED_ARCHS
 from repro_torch.convert import from_jax_params
 from repro_torch.distributed.sharding import AbstractMesh
 from repro_torch.kernels import ops, ref
@@ -356,15 +360,18 @@ def test_plain_partial_decode(length):
 
 
 def test_serving_refusals_on_a_mesh():
+    """Only a mesh of another device type is refused: an engine builds on
+    an ``AbstractMesh`` for every ported config, the MoE and hybrid ones
+    included, with and without ``quantize_weights``
+    (``tests/test_torch_sharded_moe_serve.py`` runs them)."""
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    for arch in ("granite-moe-1b-a400m", "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            ServingEngine(smoke_config(get_config(arch)), mesh=mesh,
-                          device="cpu")
+    for arch in PORTED_ARCHS:
+        for int8 in (False, True):
+            eng = ServingEngine(smoke_config(get_config(arch)),
+                                ServeConfig(quantize_weights=int8),
+                                mesh=mesh, device="cpu")
+            assert eng.mesh is mesh
     cfg = smoke_config(get_config(ARCHS[0]))
-    with pytest.raises(NotImplementedError, match="quantize_weights"):
-        ServingEngine(cfg, ServeConfig(quantize_weights=True), mesh=mesh,
-                      device="cpu")
 
     class CudaMesh:
         device_type = "cuda"

@@ -33,7 +33,9 @@ module:
 * a ``Trainer`` checkpoint written on (2, 2) restores into (1, 2)
   shardings on 2 ranks with every whole tensor unchanged, bit for bit; a
   JAX checkpoint restores into the port's shardings the same way;
-* MoE and hybrid configs and a mesh of another device type are refused.
+* a ``Trainer`` builds on an ``AbstractMesh`` for every ported config and
+  refuses a mesh of another device type. The MoE and hybrid stacks on a
+  mesh are held to JAX in ``tests/test_torch_sharded_moe_train.py``.
 """
 import os
 import subprocess
@@ -52,6 +54,7 @@ from repro.config import smoke_config as jsmoke_config
 from repro.models import model as jlm
 from repro.training import checkpoint as jckpt
 from repro_torch.config import TrainConfig, get_config, smoke_config
+from repro_torch.configs import PORTED_ARCHS
 from repro_torch.convert import (from_jax_opt_state, from_jax_params,
                                  to_jax_opt_state, to_jax_params)
 from repro_torch.distributed.sharding import AbstractMesh
@@ -498,14 +501,15 @@ def test_a_jax_checkpoint_restores_into_the_port_shardings(runs):
 
 
 def test_moe_hybrid_and_a_foreign_mesh_are_refused():
+    """Only a mesh of another device type is refused: a Trainer builds on
+    an ``AbstractMesh`` for every ported config, the MoE and hybrid ones
+    included (``tests/test_torch_sharded_moe_train.py`` runs them)."""
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    for arch in ("granite-moe-1b-a400m", "jamba-1.5-large-398b"):
+    for arch in PORTED_ARCHS:
         cfg = smoke_config(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            Trainer(cfg, TrainConfig(), mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        lm.check_mesh_support(smoke_config(get_config(
-            "jamba-1.5-large-398b")).replace(moe=None))
+        trainer = Trainer(cfg, TrainConfig(), mesh=mesh, device="cpu")
+        assert trainer.mesh is mesh
+    assert not hasattr(lm, "check_mesh_support")
 
     class CudaMesh:
         device_type = "cuda"
