@@ -201,6 +201,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 byte across a link, so the rank arithmetic of larger
                 meshes is held by the gloo tests
                 (``tests/test_torch_sharded_*.py``).
+17. ``dryrun`` (after ``sharded``) ``python -m repro_torch.launch.dryrun
+                --device cuda`` for each of ``DRYRUN_CELLS`` (internlm2-1.8b
+                at train_4k, prefill_32k and decode_32k, granite-moe at
+                train_4k, mamba2-130m at long_500k on pod16x16, and
+                internlm2 decode_32k on pod2x16x16), each in a process of
+                its own (a fake world of 256 or 512 ranks cannot share one
+                with an NCCL group), all at once: one line a cell with its
+                three roofline terms on the H100 spec, bound, roofline
+                fraction, GiB a device, collective wire bytes by kind and
+                kernel calls. Then ``dryrun_grounding``: on a (1, 1) mesh
+                over NCCL internlm2-1.8b at full width is traced at the
+                ``train`` phase's shape and config and one real step of
+                the same ``Trainer`` runs; the traced kernel calls must
+                equal the step's launches, the traced aten FLOPs
+                ``FlopCounterMode``'s over the step, and the traced peak
+                (arguments + temp) ``max_memory_allocated`` within 10 %;
+                ``compute_s`` and ``memory_s`` are printed beside the
+                step's device-busy ms. The trace launches nothing.
 
 The ``kernels`` phase also holds the three backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
@@ -252,8 +270,8 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-from repro_torch.config import (ServeConfig, get_config,  # noqa: E402
-                                smoke_config)
+from repro_torch.config import (ServeConfig, ShapeSpec,  # noqa: E402
+                                get_config, smoke_config)
 from repro_torch.core.cluster import (edge_server_cpu,  # noqa: E402
                                       h100_sxm, soc_cluster)
 from repro_torch.distributed.fault import RetryPolicy  # noqa: E402
@@ -278,6 +296,7 @@ from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import int8_matmul as kint8  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import data_config, train_config  # noqa: E402
@@ -288,6 +307,9 @@ from repro_torch.models.resnet import (resnet_apply,  # noqa: E402
 from repro_torch.models.yolo import yolo_apply, yolo_init  # noqa: E402
 from repro_torch.power import (SchedutilGovernor,  # noqa: E402
                                ThermalParams, sd865_opp_table)
+from repro_torch.roofline import kernel_cost  # noqa: E402
+from repro_torch.roofline.analysis import roofline_from_artifacts  # noqa: E402
+from repro_torch.roofline.hw import H100_SXM  # noqa: E402
 from repro_torch.runtime import ScalePolicy  # noqa: E402
 from repro_torch.serving.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -578,6 +600,7 @@ def phase_device() -> dict:
             "h100_sxm_assumed_idle_w": spec.unit.p_idle * spec.n_units,
             "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
+            "total_memory": torch.cuda.get_device_properties(0).total_memory,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0]}
     emit(info)
@@ -703,8 +726,7 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
     torch.cuda.synchronize()
     err = max_err(out, krms.plain(x, w, 1e-5, lowp), dtype)
     wl = w.to(dtype)
-    e = x.element_size()
-    b_ms, by = bound(2 * rows * d * e + 4 * d, 4 * rows * d, torch.float32)
+    b_ms, by = bound(*kernel_cost.rmsnorm(rows, d, x.element_size()))
     return {"kernel": "rmsnorm", "path": path, "shape": [rows, d],
             "dtype": str(dtype),
             "lowp": lowp, "max_abs_err": err,
@@ -778,7 +800,7 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
     wl = w.to(dtype, copy=True).requires_grad_(True)
     lib_fwd = lambda: F.rms_norm(xl, (d,), wl, 1e-5)
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (xl, wl), dy)
-    b_ms, by = bound(3 * rows * d * e + 8 * d, 8 * rows * d, torch.float32)
+    b_ms, by = bound(*kernel_cost.rmsnorm_bwd(rows, d, e))
     return {"kernel": "rmsnorm_bwd", "path": path, "shape": [rows, d],
             "dtype": str(dtype), "design": name,
             "plan": krms.bwd_plan(rows, d, e, True, torch.cuda
@@ -818,14 +840,7 @@ def _flash_bwd_case(arch, b, s, dtype, seed=0):
     lib_fwd = lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dt_)
-    e = q.element_size()
-    pairs = s * (s + 1) // 2
-    # Read q, k, v, out, dout (and lse) once, write dq, dk, dv; the five
-    # products of the backward (S recomputed, dP, dV, dK, dQ) over the
-    # causal pairs: 2.5x the forward's.
-    nbytes = e * (3 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s \
-        + e * (b * s * hq * d + 2 * b * s * hkv * d)
-    b_ms, by = bound(nbytes, 10 * b * hq * d * pairs, dtype)
+    b_ms, by = bound(*kernel_cost.flash_bwd(b, s, s, hq, hkv, d, dtype))
     return {"kernel": "flash_attention_bwd", "path": TRAIN_PATH,
             "heads_of": arch, "shape": [b, s, hq, hkv, d],
             "dtype": str(dtype), "design": kflash.bwd_design(dtype, d),
@@ -861,10 +876,7 @@ def _flash_case(arch, sq, dtype, seed=0, b=1, path=None):
     torch.cuda.synchronize()
     err = max_err(out, kflash.plain(q, k, v, causal=True), dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    e = q.element_size()
-    pairs = sq * (sq + 1) // 2          # causal (query, key) pairs
-    b_ms, by = bound(e * (2 * b * sq * hq * d + 2 * b * sq * hkv * d),
-                     4 * b * hq * d * pairs, dtype)
+    b_ms, by = bound(*kernel_cost.flash(b, sq, sq, hq, hkv, d, dtype))
     return {"kernel": "flash_attention", "path": path or arch,
             "shape": [b, sq, hq, hkv, d],
             "dtype": str(dtype), "max_abs_err": err,
@@ -893,9 +905,7 @@ def _decode_case(arch, dtype, skv, lengths, seed=0, path=None):
     mask = (torch.arange(skv, device="cuda")[None, :] < length[:, None])
     mask = mask[:, None, None, :]
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    e = q.element_size()
-    b_ms, by = bound(e * (2 * b * hq * d + 2 * sum(lengths) * hkv * d)
-                     + 4 * b, 4 * sum(lengths) * hq * d, dtype)
+    b_ms, by = bound(*kernel_cost.decode(b, hq, hkv, d, sum(lengths), dtype))
     return {"kernel": "decode_attention", "path": path or arch,
             "heads_of": arch, "shape": [b, skv, hq, hkv, d],
             "group_bucket": kdec.group_bucket(hq // hkv),
@@ -943,9 +953,8 @@ def _decode_partial_case(arch, dtype, skv, lengths, seed=0):
     mask = (torch.arange(skv, device="cuda")[None, :] < length[:, None])
     mask = mask[:, None, None, :]
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    e = q.element_size()
-    b_ms, by = bound(e * (2 * b * hq * d + 2 * sum(lengths) * hkv * d)
-                     + 4 * b + 4 * b * hq, 4 * sum(lengths) * hq * d, dtype)
+    b_ms, by = bound(*kernel_cost.decode(b, hq, hkv, d, sum(lengths), dtype,
+                                         lse=True))
     return {"kernel": "decode_attention", "path": SHARDED_SERVE_PATH,
             "mode": "partial (return_lse)", "heads_of": arch,
             "shape": [b, skv, hq, hkv, d], "lengths": lengths,
@@ -986,16 +995,7 @@ def _ssd_case(s, dtype, seed=0, b=1, path=MAMBA_ARCH):
     want_y, want_st = kssd.plain(*args, chunk=chunk)
     err = max(max_err(y, want_y, dtype, SSD_TOL[dtype]),
               max_err(st, want_st, torch.float32, SSD_TOL[torch.float32]))
-    e = x.element_size()
-    # Work of the chunked algorithm at the model's chunk, causal pairs only:
-    # C.B^T once per batch and chunk (shared by the heads), then per head
-    # M.(dt x), the read of the carried state and its update.
-    q = min(chunk, s)
-    nc, pairs = s // q, q * (q + 1) // 2
-    nops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * q * n * p))
-    nbytes = (e * (2 * b * s * h * p + 2 * b * s * n) + 4 * b * s * h
-              + 8 * h + 4 * b * h * p * n)
-    b_ms, by = bound(nbytes, nops, dtype)
+    b_ms, by = bound(*kernel_cost.ssd(b, s, h, p, n, dtype, chunk))
     return {"kernel": "ssd_scan", "path": path,
             "shape": [b, s, h, p, n], "chunk": chunk,
             "design": kssd.DESIGNS[kssd.plan(dtype, n, p)],
@@ -1066,24 +1066,8 @@ def _ssd_bwd_case(dtype, p=64, with_state=False, seed=0):
                 "simt_abs_err": s_errs, "simt_err_over_maxabs": s_rel,
                 "simt_ms": time_ms(simt, 5),
                 "simt_kernel_us": device_us(simt)}
-    e = args[0].element_size()
-    # Read x, dy, dt, B, C (and dstate) once, write dx, ddt, dB, dC. Work of
-    # the chunked backward at the model's chunk: C.B^T once per batch and
-    # chunk; per head and chunk P = dy u^T and the products of du, dB and dC
-    # over the causal pairs. The state terms are counted only where the
-    # function needs them: at each of the nc - 1 boundaries between chunks
-    # the state leaving one, H dy and the state's gradient dH in the next,
-    # and dS^T B and dS u in the one before (10 q n p a head); with dstate,
-    # dS^T B and dS u in the last chunk as well (4 q n p). With one chunk
-    # and no dstate the state entering it and dS are zero: none.
-    q = min(chunk, s)
-    nc, pairs = s // q, q * (q + 1) // 2
-    state = 10 * (nc - 1) * q * n * p + (4 * q * n * p if with_state else 0)
-    nops = b * (nc * 2 * n * pairs
-                + h * (nc * 4 * (p + n) * pairs + state))
-    nbytes = (e * (3 * b * s * h * p + 4 * b * s * n) + 8 * b * s * h
-              + 16 * h + (4 * b * h * p * n if with_state else 0))
-    b_ms, by = bound(nbytes, nops, dtype)
+    b_ms, by = bound(*kernel_cost.ssd_bwd(b, s, h, p, n, dtype, chunk,
+                                         with_state))
     return {"kernel": "ssd_scan_bwd", "path": MAMBA_TRAIN_PATH,
             "shape": [b, s, h, p, n], "chunk": chunk, "dtype": str(dtype),
             "design": kssd.DESIGNS[design],
@@ -1121,8 +1105,7 @@ def _int8_case(m, k, n, out_dtype, seed=0):
     vec, tile = kint8.plan(m, k, n, xq.data_ptr(), wq.data_ptr(),
                            torch.cuda.get_device_properties(0)
                            .multi_processor_count)
-    b_ms, by = bound(m * k + k * n + 4 * (m + n) + m * n * out.element_size(),
-                     2 * m * k * n, torch.int8)
+    b_ms, by = bound(*kernel_cost.int8_matmul(m, k, n, out_dtype))
     return {"kernel": "int8_matmul", "path": KERNELS_PHASE,
             "shape": [m, k, n], "vec": vec, "tile": kint8.TILES[tile],
             "dtype": str(out_dtype), "max_abs_err": err,
@@ -2959,6 +2942,193 @@ def phase_sharded(smi: str) -> dict:
     return launched[ARCH]
 
 
+# The dry run's production cells (arch, shape, multi-pod), each traced in
+# a process of its own on a fake world of 256 (512) ranks over a CUDA
+# mesh, all at once; qwen2-72b at train_4k (80 layers x 8 microbatches)
+# takes longer than the phase may and runs from the CLI.
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
+                ("internlm2-1.8b", "prefill_32k", False),
+                ("internlm2-1.8b", "decode_32k", False),
+                ("granite-moe-1b-a400m", "train_4k", False),
+                ("mamba2-130m", "long_500k", False),
+                ("internlm2-1.8b", "decode_32k", True))
+DRYRUN_TAG = "chip_smoke"
+DRYRUN_TIMEOUT_S = 300
+# The traced peak (arguments + temp) against max_memory_allocated of the
+# real step: the caching allocator rounds each block up, and cuBLAS keeps
+# a workspace; 10 % is the most either should take.
+DRYRUN_MEMORY_TOL = 0.10
+
+
+def _dryrun_cells(smi: str) -> dict:
+    """Each production cell through ``python -m repro_torch.launch.dryrun
+    --device cuda`` (its own process: a fake world cannot share one with
+    an NCCL group), all started together; one line a cell from its
+    result file."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--device", "cuda", "--no-probes",
+               "--tag", DRYRUN_TAG] + (["--multi-pod"] if multi else [])
+        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines, failed = {}, []
+    for (arch, shape, multi), p, (out, err) in zip(DRYRUN_CELLS, procs, outs):
+        if p.returncode != 0:
+            print(out[-2000:], err[-4000:], file=sys.stderr, flush=True)
+            failed.append((arch, shape, multi, p.returncode))
+            continue
+        with open(dryrun.result_path(arch, shape, multi, DRYRUN_TAG)) as f:
+            res = json.load(f)
+        r, mem = res["roofline"], res["memory_analysis"]
+        line = {"phase": "dryrun", "arch": arch, "shape": shape,
+                "mesh": res["mesh"], "chips": res["chips"],
+                "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                "collective_s": r["collective_s"], "bound": r["bound"],
+                "roofline_fraction": r["roofline_fraction"],
+                "flops_per_chip": r["flops_per_chip"],
+                "hbm_bytes_per_chip": r["hbm_bytes_per_chip"],
+                "gib_per_device": mem["total_nonalias_bytes"] / 2 ** 30,
+                "argument_gib": mem["argument_size_in_bytes"] / 2 ** 30,
+                "temp_gib": mem["temp_size_in_bytes"] / 2 ** 30,
+                "wire_bytes": res["collectives"]["wire_bytes"],
+                "collective_counts": res["collectives"]["counts"],
+                "kernel_calls": res["cost_analysis"]["kernel_calls"],
+                "trace_s": res["lower_s"], "nvidia_smi": smi}
+        emit(line)
+        lines[f"{arch} {shape} {res['mesh']}"] = line
+    if failed:
+        raise AssertionError(f"dryrun cells failed: {failed}")
+    return lines
+
+
+def _dryrun_grounding(smi: str) -> dict:
+    """The dry run's counts against one real step. On a (1, 1) mesh over
+    NCCL in a world of one, internlm2-1.8b at full width is traced at the
+    ``train`` phase's shape and config, then one step of the same
+    ``Trainer`` runs: the traced kernel calls must equal the step's
+    launches, the traced aten FLOPs ``FlopCounterMode``'s over the step
+    (which cannot see a ctypes launch either), and the traced peak
+    (arguments + temp) ``max_memory_allocated`` within
+    ``DRYRUN_MEMORY_TOL``. The terms are printed beside the step's device
+    busy ms, ungated."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = get_config(ARCH)
+    tcfg = train_config(cfg, TRAIN_STEPS)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opts = {k: getattr(tcfg, k) for k in ("remat", "opt_state_dtype",
+                                          "microbatches", "loss_chunk")}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            ops.reset_launches()
+            t0 = time.monotonic()
+            traced, _, tokens = dryrun._lower_cell(cfg, shape, mesh,
+                                                   opts=opts, scan=True)
+            trace_s = time.monotonic() - t0
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"the trace launched kernels: "
+                                     f"{ops.launch_counts()}")
+            mem = dryrun._memory_analysis_dict(traced)
+            cost, coll = dryrun._cost_and_collectives(traced)
+            rec = traced.recorder
+            terms = roofline_from_artifacts(
+                arch=ARCH, shape=shape.name, mesh_name="1x1",
+                step_kind="train", chips=1, cost=cost, collectives=coll,
+                model_flops_total=dryrun.model_flops(
+                    cfg.num_active_params, tokens, "train"),
+                memory_analysis=mem, chip=H100_SXM)
+            calls, aten_flops = rec.kernel_calls(), rec.flops
+            del traced, rec
+            _free_card()
+
+            trainer = Trainer(cfg, tcfg, mesh=mesh)
+            params, opt_state, _ = trainer.init_state(0)
+            batch = trainer._place(_gen_batch(data_config(
+                cfg, TRAIN_SEQ, TRAIN_BATCH), 0))
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with FlopCounterMode(display=False) as fc:
+                params, opt_state, _ = trainer.step_fn(params, opt_state,
+                                                       batch)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            step_flops = fc.get_total_flops()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, _ = trainer.step_fn(params, opt_state,
+                                                       batch)
+                torch.cuda.synchronize()
+            busy_ms = _device_busy_us([e for e in prof.events()
+                                       if e.device_type == DeviceType.CUDA
+                                       ]) / 1e3
+            del trainer, params, opt_state, batch
+        finally:
+            dist.destroy_process_group()
+    _free_card()
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    line = {"phase": "dryrun_grounding", "arch": ARCH,
+            "shape": [TRAIN_BATCH, TRAIN_SEQ], "mesh": [1, 1],
+            "trace_s": trace_s, "kernel_calls": calls,
+            "step_launches": launches, "aten_flops": aten_flops,
+            "step_flop_counter": step_flops,
+            "kernel_flops": cost["kernel_flops"],
+            "predicted_peak_bytes": predicted,
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "temp_bytes": mem["temp_size_in_bytes"],
+            "allocated_before_step": before,
+            "max_memory_allocated": peak,
+            "peak_error": predicted / peak - 1,
+            "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+            "device_busy_ms": busy_ms, "nvidia_smi": smi}
+    emit(line)
+    if calls != launches:
+        raise AssertionError(f"traced kernel calls {calls} != the step's "
+                             f"launches {launches}")
+    if aten_flops != step_flops:
+        raise AssertionError(f"traced aten FLOPs {aten_flops} != "
+                             f"FlopCounterMode's {step_flops}")
+    if abs(predicted - peak) > DRYRUN_MEMORY_TOL * peak:
+        raise AssertionError(f"traced peak {predicted} vs "
+                             f"max_memory_allocated {peak}: more than "
+                             f"{DRYRUN_MEMORY_TOL:.0%} apart")
+    return line
+
+
+def phase_dryrun(smi: str) -> None:
+    """The production cells of ``repro_torch.launch.dryrun``, then its
+    grounding against a real step."""
+    t0 = time.monotonic()
+    _dryrun_cells(smi)
+    cells_s = time.monotonic() - t0
+    _dryrun_grounding(smi)
+    emit({"phase": "dryrun", "cells_s": cells_s,
+          "seconds": time.monotonic() - t0, "nvidia_smi": smi})
+
+
 def main() -> None:
     t0 = time.monotonic()
     laps, last = {}, [t0]
@@ -2991,6 +3161,9 @@ def main() -> None:
     lap("distributed")
     served[SHARDED_SERVE_PATH] = phase_sharded(dev["nvidia_smi"])
     lap("sharded")
+    _free_card()
+    phase_dryrun(dev["nvidia_smi"])
+    lap("dryrun")
     phase_parity(ARCH, (77, 45))
     phase_parity(MAMBA_ARCH, MAMBA_PARITY_PROMPTS)
     phase_parity(MOE_ARCH, (77, 45))

@@ -1,7 +1,8 @@
 """Config system of the PyTorch port.
 
 An own copy of ``ModelConfig``, ``MoEConfig``, ``MambaConfig``,
-``ShapeSpec``, ``TrainConfig``, ``ServeConfig``, the arch registry and
+``ShapeSpec`` with the assigned shapes and ``shape_applicable``,
+``TrainConfig``, ``ServeConfig``, the arch registry and
 ``smoke_config`` from the JAX
 package's ``config/base.py``: plain dataclasses, no external deps. Field
 names, defaults and the smoke reduction are kept identical so that a
@@ -208,6 +209,27 @@ class ShapeSpec:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES: Dict[str, ShapeSpec] = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Per-spec applicability: (sanctioned, note).
+
+    long_500k is sanctioned only for sub-quadratic archs; for pure
+    full-attention archs we may still compile it as a *bonus* cell.
+    """
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("spec-sanctioned skip: pure full-attention arch; "
+                       "compiled as bonus cell (decode attention is O(S))")
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

@@ -28,3 +28,17 @@ PORTED_ARCHS = (
     "qwen2-72b",
     "stablelm-12b",
 )
+
+# The JAX package's assigned archs, in its order (bert-base is not one).
+ASSIGNED_ARCHS = (
+    "granite-moe-1b-a400m",
+    "llama4-maverick-400b-a17b",
+    "stablelm-12b",
+    "phi3-medium-14b",
+    "qwen2-72b",
+    "internlm2-1.8b",
+    "musicgen-large",
+    "mamba2-130m",
+    "internvl2-1b",
+    "jamba-1.5-large-398b",
+)

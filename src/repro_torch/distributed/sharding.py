@@ -53,11 +53,12 @@ from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Partial, Placement,
                                       Replicate, Shard)
 from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
+    compute_local_shape_and_global_offset as _local_shape_and_offset
 from torch.distributed.tensor.experimental import local_map
 
 Logical = Tuple[Optional[str], ...]
@@ -359,6 +360,14 @@ def tree_shardings(tree_of_shapes, tree_of_logical, mesh: Mesh,
 # ---------------------------------------------------------------------------
 # Kernels on local shards.
 # ---------------------------------------------------------------------------
+def compute_local_shape_and_global_offset(shape, mesh, plc):
+    """DTensor's ``compute_local_shape_and_global_offset``, out of any
+    fake-tensor mode: it computes with tensors and reads them back, which a
+    fake tensor cannot (the dry run traces under one)."""
+    with unset_fake_temporarily():
+        return _local_shape_and_offset(shape, mesh, plc)
+
+
 def replicated(t: torch.Tensor, like: Any) -> torch.Tensor:
     """``t`` (the same on every rank) as a DTensor replicated over the mesh
     of ``like`` where ``like`` is a DTensor; ``t`` itself otherwise. For
@@ -369,6 +378,58 @@ def replicated(t: torch.Tensor, like: Any) -> torch.Tensor:
     mesh = like.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+class _Gather(torch.autograd.Function):
+    """``x`` redistributed to ``plc``; the gradient passes back in the
+    placements it comes in (value for value the same tensor), not
+    redistributed to ``x``'s own, which may be the very split that the
+    gather undid."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor, plc: Tuple[Placement, ...]) -> DTensor:
+        return x.redistribute(x.device_mesh, plc)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor):
+        return grad, None
+
+
+class _OwnGrad(torch.autograd.Function):
+    """``x`` itself; its gradient redistributed to ``x``'s own placements
+    on the way back."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor) -> DTensor:
+        ctx.plc = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor) -> DTensor:
+        return grad.redistribute(grad.device_mesh, ctx.plc)
+
+
+def own_grad(x: DTensor) -> DTensor:
+    """``x``, for one of several uses of a leaf (a tied embedding's lookup
+    and its unembedding): each use hands its gradient back in the leaf's
+    own placements, so autograd sums like with like (torch 2.11's DTensor
+    cannot add a ``Partial`` gradient to a ``Shard`` one: it would turn
+    the shard into a partial)."""
+    return _OwnGrad.apply(x)
+
+
+def whole_heads(y: DTensor, h: int) -> DTensor:
+    """``y`` (..., h * k) with every mesh dim that splits its last dim
+    into pieces other than whole groups of ``k`` (its size does not divide
+    ``h``) gathered (``Replicate``), so the last dim splits into (h, k);
+    ``y`` itself where none does."""
+    mesh = y.device_mesh
+    plc = tuple(Replicate() if isinstance(p, Shard) and
+                p.dim % y.ndim == y.ndim - 1 and h % mesh.size(i) else p
+                for i, p in enumerate(y.placements))
+    if plc == tuple(y.placements):
+        return y
+    return _Gather.apply(y, plc)
 
 
 def kernel_placements(x: DTensor, logical: Logical

@@ -20,6 +20,12 @@ call the kernels need, ``cuTensorMapEncodeTiled`` (TMA tensor maps of the
 flash kernel), is fetched at run time with ``cudaGetDriverEntryPoint``.
 Headers under ``csrc/`` (``*.cuh``) are part of the hash, so a change to
 one rebuilds.
+
+A fake CUDA tensor on the card's side of a wrapper (:func:`is_fake`, as
+the dry run traces a step) runs the wrapper's checks and allocates its
+outputs, then :meth:`Kernel.fake_call` counts the call, with its
+``roofline/kernel_cost.py`` cost, on the dry run's recorder: no build, no
+pointer, no launch, and ``launches`` does not move.
 """
 from __future__ import annotations
 
@@ -37,6 +43,10 @@ from pathlib import Path
 from typing import List, Optional, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+from repro_torch.roofline.counter import record_kernel
+from repro_torch.roofline.kernel_cost import Cost
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -188,6 +198,11 @@ class Kernel:
                                f"error {err}")
         self.launches += 1
 
+    def fake_call(self, cost: Cost) -> None:
+        """A call on fake tensors: counted with ``cost`` by the active dry
+        run's recorder, never launched, never in ``launches``."""
+        record_kernel(self.name, cost)
+
 
 KERNELS: List[Kernel] = []
 
@@ -233,7 +248,7 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if aligned and t.data_ptr() % 16:
+    if aligned and not is_fake(t) and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -247,13 +262,19 @@ def num_sms(device: torch.device) -> int:
 
 
 def on_card(t: torch.Tensor, name: str) -> bool:
-    """False for a CPU tensor (the plain version serves it), True for a
-    CUDA tensor (the kernel serves it, or the call raises)."""
+    """False for a CPU tensor (the plain version serves it, a fake one
+    too), True for a CUDA tensor (the kernel serves it, or the call
+    raises; a fake one takes the kernel's fake path)."""
     if t.device.type == "cpu":
         return False
     if t.device.type == "cuda":
         return True
     raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A tensor without data (the dry run traces on them)."""
+    return isinstance(t, FakeTensor)
 
 
 def needs_grad(*tensors) -> bool:

@@ -4,10 +4,13 @@ plain version.
 Replaces ``src/repro/kernels/decode_attention.py::decode_attention`` of the
 JAX package. A tensor on the CPU goes to the plain version
 (``ref.decode_attention_ref``); a CUDA tensor goes to the kernel, or the
-call raises. The kernel has no backward: on the card, a call that autograd
-would record raises ``NotImplementedError``. Any ``skv`` is taken; head_dim
-must be 16, 32, 64, 128 or 160 and ``hq / hkv`` any group from 1 to
-``MAX_GROUP`` (16), in bf16 or fp32. :func:`pv_layout` is the kernel's
+call raises; a fake CUDA tensor to its fake path (checked, outputs
+allocated, counted by the dry run as a read of the whole cache, since a
+fake length has no value; not launched). The kernel has no backward: on
+the card, a call that autograd would record raises
+``NotImplementedError``. Any ``skv`` is taken; head_dim must be 16, 32,
+64, 128 or 160 and ``hq / hkv`` any group from 1 to ``MAX_GROUP`` (16),
+in bf16 or fp32. :func:`pv_layout` is the kernel's
 arithmetic for who owns which head, 16 bytes of d and cache row in P.V.
 
 The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
@@ -34,11 +37,12 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels._build import (check_operand, dtype_code,
+from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
                                         on_card, refuse_grad,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import (decode_attention_partial_ref,
                                      decode_attention_ref)
+from repro_torch.roofline import kernel_cost
 
 HEAD_DIMS = (16, 32, 64, 128, 160)
 MAX_GROUP = 16
@@ -143,6 +147,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if b == 0:
+        return (out, lse) if return_lse else out
+    if is_fake(q):      # the lengths are not known: every row is counted
+        KERNEL.fake_call(kernel_cost.decode(b, hq, hkv, d, b * skv, q.dtype,
+                                            return_lse))
         return (out, lse) if return_lse else out
     g, splits = hq // hkv, num_splits(skv)
     # One fp32 scratch for the partials: (m, l) of each (b, kv head, split,

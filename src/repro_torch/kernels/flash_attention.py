@@ -4,10 +4,12 @@ their plain versions.
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` of the
 JAX package. A tensor on the CPU goes to the plain version
 (``ref.attention_ref``); a CUDA tensor goes to the kernel, or the call
-raises. Any ``sq`` and ``skv`` are taken, and any ``hq / hkv``; head_dim
-must be 16, 32, 64, 128 or 160 (``HEAD_DIMS``) for the forward and 16, 32,
-64 or 128 (``BWD_HEAD_DIMS``) for the backward: on the card, a call at
-head_dim 160 that autograd would record raises ``NotImplementedError``.
+raises; a fake CUDA tensor to its fake path (checked, outputs
+allocated, counted by the dry run, not launched). Any ``sq`` and ``skv``
+are taken, and any ``hq / hkv``; head_dim must be 16, 32, 64, 128 or
+160 (``HEAD_DIMS``) for the forward and 16, 32, 64 or 128
+(``BWD_HEAD_DIMS``) for the backward: on the card, a call at head_dim 160
+that autograd would record raises ``NotImplementedError``.
 
 Two hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
 tensor, both launched and counted as ``flash_attention``:
@@ -43,11 +45,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import (check_operand, dtype_code,
+from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
                                         needs_grad, on_card, refuse_grad,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import (attention_bwd_ref, attention_lse_ref,
                                      attention_ref)
+from repro_torch.roofline import kernel_cost
 
 HEAD_DIMS = (16, 32, 64, 128, 160)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
@@ -161,6 +164,10 @@ def _kernel_forward(q, k, v, causal: bool, scale: float,
         return out, lse
     if skv == 0:
         raise ValueError("flash_attention needs skv >= 1")
+    if is_fake(q):
+        KERNEL.fake_call(kernel_cost.flash(b, sq, skv, hq, hkv, d, q.dtype,
+                                           causal, with_lse))
+        return out, lse
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr() if with_lse else None, b, sq, skv, hq, hkv, d,
            float(scale), int(causal), dtype_code(q), stream_handle(q.device))
@@ -182,6 +189,10 @@ def _kernel_backward(q, k, v, out, dout, lse, causal: bool, scale: float):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if is_fake(q):
+        KERNEL_BWD.fake_call(kernel_cost.flash_bwd(b, sq, skv, hq, hkv, d,
+                                                   q.dtype, causal))
+        return dq, dk, dv
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     KERNEL_BWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),

@@ -4,11 +4,13 @@ version.
 Replaces ``src/repro/kernels/int8_matmul.py::int8_matmul`` of the JAX
 package. A tensor on the CPU goes to the plain version
 (``ref.int8_matmul_ref``); a CUDA tensor goes to the kernel, or the call
-raises. Any m, k, n and any alignment are taken (the Pallas kernel needs
-them divisible by its blocks): :func:`plan` picks the kernel's load
-routine and output tile. No model path calls it, in either package. It
-has no backward: on the card, a call that autograd would record (a scale
-that requires grad) raises ``NotImplementedError``.
+raises; a fake CUDA tensor to its fake path (checked, output allocated,
+counted by the dry run, not launched). Any m, k, n and any alignment are
+taken (the Pallas kernel needs them divisible by its blocks): :func:`plan`
+picks the kernel's load routine and output tile. No model path calls
+it, in either package. It has no backward: on the card, a call that
+autograd would record (a scale that requires grad) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (DTYPE_CODES, check_operand,
-                                        num_sms, on_card, refuse_grad,
-                                        register_kernel, stream_handle)
+                                        is_fake, num_sms, on_card,
+                                        refuse_grad, register_kernel,
+                                        stream_handle)
 from repro_torch.kernels.ref import int8_matmul_ref
+from repro_torch.roofline import kernel_cost
 
 # |x_q w_q| <= 128^2 k must fit the kernel's int32 sums.
 MAX_K = (2 ** 31 - 1) // 128 ** 2
@@ -77,6 +81,9 @@ def int8_matmul(x_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
+    if is_fake(x_q):
+        KERNEL.fake_call(kernel_cost.int8_matmul(m, k, n, out_dtype))
+        return out
     vec, tile = plan(m, k, n, x_q.data_ptr(), w_q.data_ptr(),
                      num_sms(x_q.device))
     KERNEL(x_q.data_ptr(), sx.data_ptr(), w_q.data_ptr(), sw.data_ptr(),

@@ -3,7 +3,9 @@
 Replaces ``src/repro/kernels/rmsnorm.py::rmsnorm`` of the JAX package. A
 tensor on the CPU goes to the plain version (``ref.rmsnorm_ref``, or
 ``ref.rmsnorm_lowp`` with ``lowp``); a CUDA tensor goes to the kernel, or
-the call raises. :func:`plan` sets the kernel's launch: its load width,
+the call raises; a fake CUDA tensor to the kernel's fake path
+(``_build.is_fake``: checked, outputs allocated, counted by the dry run,
+not launched). :func:`plan` sets the kernel's launch: its load width,
 the 16-byte chunks a lane holds, the warps a row and the rows a block.
 
 Where autograd records the call (grad mode on, an input that requires
@@ -21,10 +23,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels._build import (check_operand, dtype_code,
+from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
                                         needs_grad, num_sms, on_card,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_lowp, rmsnorm_ref
+from repro_torch.roofline import kernel_cost
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel("rmsnorm", "repro_rmsnorm",
@@ -217,6 +220,9 @@ def _kernel_forward(x: torch.Tensor, w: torch.Tensor, eps: float,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return out
+    if is_fake(x):
+        KERNEL.fake_call(kernel_cost.rmsnorm(rows, d, x.element_size()))
+        return out
     vec, nv, wpr, rpb = plan(rows, d, x.element_size(),
                              x.data_ptr() % 16 == 0 and
                              w.data_ptr() % 16 == 0)
@@ -244,6 +250,10 @@ def _kernel_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if rows == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
+    if is_fake(x):
+        KERNEL_BWD.fake_call(kernel_cost.rmsnorm_bwd(rows, d,
+                                                     x.element_size()))
+        return dx, dw
     p = bwd_plan(rows, d, x.element_size(),
                  all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx)),
                  num_sms(x.device), design)

@@ -3,10 +3,12 @@
 
 Replaces ``src/repro/kernels/ssd_scan.py::ssd_scan`` of the JAX package. A
 tensor on the CPU goes to the plain version (``ref.ssd_chunked``); a CUDA
-tensor goes to a kernel, or the call raises. Both take the inputs the
-JAX wrapper takes: ``s <= chunk`` or ``s % chunk == 0``, else
-``ValueError``. The kernels run their own tile of ``TILE`` steps over the
-sequence; the result does not depend on the chunk beyond rounding.
+tensor goes to a kernel, or the call raises; a fake CUDA tensor to the
+kernel's fake path (checked, outputs allocated, counted by the dry run,
+not launched). Both take the inputs the JAX wrapper takes:
+``s <= chunk`` or ``s % chunk == 0``, else ``ValueError``. The kernels
+run their own tile of ``TILE`` steps over the sequence; the result does
+not depend on the chunk beyond rounding.
 :func:`plan` picks one of two forward designs: the tensor-core one (bf16,
 three launches parallel over the tiles, scratch from the caching
 allocator) or the CUDA-core one (float32, and bf16 shapes the first does
@@ -28,11 +30,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import (check_operand, dtype_code,
+from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
                                         needs_grad, on_card,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import (check_ssd_chunk, ssd_chunked,
                                      ssd_chunked_bwd_ref)
+from repro_torch.roofline import kernel_cost
 
 MAX_STATE = 256          # d_state either design's shared memory holds
 TC_MAX_HEADDIM = 64      # head dim the tensor-core design's smem holds
@@ -136,7 +139,8 @@ class SSDScanFunction(torch.autograd.Function):
         if dstate is not None:
             dstate = dstate.contiguous()
         if on_card(x, "ssd_scan"):
-            grads = _kernel_backward(x, dt, A, B, C, D, dy, dstate)
+            grads = _kernel_backward(x, dt, A, B, C, D, dy, dstate,
+                                     chunk=ctx.chunk)
         else:
             grads = plain_bwd(x, dt, A, B, C, D, dy, dstate,
                               chunk=ctx.chunk)
@@ -187,6 +191,9 @@ def _kernel_forward(x, dt, A, B, C, D, chunk: int):
     if y.numel() == 0:
         state.zero_()
         return y, state
+    if is_fake(x):
+        KERNEL.fake_call(kernel_cost.ssd(b, s, h, p, n, x.dtype, chunk))
+        return y, state
     scratch = (0, 0, 0)
     if design == TENSOR_CORES:      # tile states, decays, entering states
         tiles = -(-s // TILE)
@@ -204,10 +211,12 @@ def _kernel_forward(x, dt, A, B, C, D, chunk: int):
     return y, state
 
 
-def _kernel_backward(x, dt, A, B, C, D, dy, dstate, design=None):
+def _kernel_backward(x, dt, A, B, C, D, dy, dstate, design=None,
+                     chunk: int = 256):
     """(dx, ddt, dA, dB, dC, dD) from one ``repro_ssd_scan_bwd`` call of
     ``design`` (:func:`bwd_design`'s by default, as training calls it);
-    ``dstate`` (b, h, p, n) fp32 or None for zero."""
+    ``dstate`` (b, h, p, n) fp32 or None for zero. ``chunk``, the
+    forward's, sizes only a fake call's count of work."""
     b, s, h, p, n = _check(x, dt, A, B, C, D)
     check_operand("dy", dy, x.device, 4, x.dtype, aligned=False)
     if dy.shape != x.shape:
@@ -224,6 +233,10 @@ def _kernel_backward(x, dt, A, B, C, D, dy, dstate, design=None):
     grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C, D))
     if x.numel() == 0:
         return tuple(g.zero_() for g in grads)
+    if is_fake(x):
+        KERNEL_BWD.fake_call(kernel_cost.ssd_bwd(b, s, h, p, n, x.dtype,
+                                                 chunk, dstate is not None))
+        return grads
     if design == TENSOR_CORES and dy.data_ptr() % 16:
         dy = dy.clone()         # its rows go to shared memory by cp.async
     work = torch.empty(work_floats, dtype=torch.float32, device=x.device)

@@ -7,12 +7,19 @@ A mesh is a ``DeviceMesh`` with named dims, the counterpart of a JAX
 from the default process group; when none is open, ``init_device_mesh``
 opens one from the environment that ``torch.distributed.run`` sets. A CUDA
 mesh runs over NCCL, a CPU one (``device="cpu"``) over gloo.
+
+:func:`fake_world` is the dry run's world: 256 or 512 ranks in one
+process, as rank 0, over torch's ``"fake"`` process group, whose
+collectives move nothing. The JAX package gets its production mesh's
+devices from ``XLA_FLAGS`` set before jax starts
+(``src/repro/launch/dryrun.py:2``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -48,3 +55,30 @@ def make_production_mesh(*, multi_pod: bool = False,
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device)
+
+
+@contextlib.contextmanager
+def fake_world(size: int) -> Iterator[None]:
+    """A world of ``size`` ranks in this process, this one rank 0, over a
+    ``"fake"`` process group: its collectives return at once and move
+    nothing, which is all a trace on fake tensors needs. Opened only where
+    no default group is open, and destroyed on exit; an open fake world of
+    the same size is used as it is. A real group raises, as does a fake
+    one of another size."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is "
+                               "open; a fake world would replace it")
+        if dist.get_world_size() != size:
+            raise RuntimeError(f"a fake world of {dist.get_world_size()} "
+                               f"ranks is open, {size} were asked for")
+        yield
+        return
+    # Importing the module registers the "fake" backend.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

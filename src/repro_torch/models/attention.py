@@ -23,10 +23,11 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.distributed.sharding import local_slice, shard
+from repro_torch.distributed.sharding import (local_slice, shard,
+                                              whole_heads)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (dense_init, pad_seq, rope_apply,
-                                       rope_table)
+from repro_torch.models.layers import (dense_init, linear, pad_seq,
+                                       rope_apply, rope_table)
 
 Params = Dict[str, Any]
 
@@ -77,9 +78,15 @@ def cache_specs() -> Params:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (b, s, d) @ w (d, h, k) -> (b, s, h, k)."""
+    """x (b, s, d) @ w (d, h, k) -> (b, s, h, k). On a mesh, DTensor may
+    split the product's h * k columns over a mesh dim whose size does not
+    divide h (8 kv heads over a model axis of 16), which no split into
+    (h, k) keeps: there the columns are gathered first."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:2], h, k)
+    y = linear(x, w.reshape(d, h * k))
+    if isinstance(y, DTensor):
+        y = whole_heads(y, h)
+    return y.reshape(*x.shape[:2], h, k)
 
 
 def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -196,6 +203,5 @@ def attn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
     out = shard(out, ("batch", "seq", "heads_act", None))
     hq, _, d = params["wo"].shape
-    y = torch.matmul(out.reshape(b, s, hq * hd),
-                     params["wo"].reshape(hq * hd, d))
+    y = linear(out.reshape(b, s, hq * hd), params["wo"].reshape(hq * hd, d))
     return y, new_cache

@@ -17,10 +17,12 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import (on_local_shards, replicated,
-                                              row_placements, shard)
+from repro_torch.distributed.sharding import (grad_placements, local_slice,
+                                              on_local_shards, own_grad,
+                                              replicated, row_placements,
+                                              shard)
 from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
@@ -111,16 +113,28 @@ def mlp_specs() -> Params:
     }
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``. A 2-D ``w`` multiplies ``x``'s rows as one matrix: on a
+    DTensor whose batch is split over two mesh dims (pod and data) the
+    stride DTensor gives a ``local_map`` output defeats ``matmul``'s own
+    folding, and it would broadcast ``w`` to the whole batch for a
+    batched product."""
+    if w.dim() != 2 or x.dim() <= 2:
+        return torch.matmul(x, w)
+    return torch.matmul(x.reshape(-1, x.shape[-1]), w).reshape(
+        *x.shape[:-1], w.shape[-1])
+
+
 def mlp_apply(params: Params, x: torch.Tensor, lowp: bool = False
               ) -> torch.Tensor:
-    g = torch.matmul(x, params["w_gate"])
-    u = torch.matmul(x, params["w_up"])
+    g = linear(x, params["w_gate"])
+    u = linear(x, params["w_up"])
     if lowp:
         h = F.silu(g) * u
     else:
         h = F.silu(g.float()).to(x.dtype) * u
     h = shard(h, ("batch", "seq", "mlp_act"))
-    return torch.matmul(h, params["w_down"])
+    return linear(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -142,12 +156,44 @@ def embed_specs(tie: bool) -> Params:
 
 
 def embed_apply(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return shard(params["embedding"][tokens], ("batch", "seq", "embed_act"))
+    return shard(_lookup(params["embedding"], tokens),
+                 ("batch", "seq", "embed_act"))
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a DTensor table each rank looks up its tokens
+    in its own shard of the table (the embedding dim gathered first, as
+    FSDP gathers it): where the vocab is sharded, 0 for the tokens another
+    rank's shard holds, a partial sum over the vocab's mesh dims. Through
+    DTensor's index the whole table would be gathered on every rank, and
+    torch 2.11's rule for its backward fails on batch-sharded tokens."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    table, tokens = own_grad(table), replicated(tokens, table)
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    tp = tuple(Shard(0) if i in vocab else Replicate()
+               for i in range(table.device_mesh.ndim))
+    rows = tuple(Replicate() if i in vocab else p
+                 for i, p in enumerate(tokens.placements))
+    out = tuple(Partial() if i in vocab else p for i, p in enumerate(rows))
+    off, n = local_slice(table, tp, 0)
+
+    def local(tl, ix):
+        j = ix.long() - off
+        got = tl[torch.clamp(j, 0, n - 1)]
+        return torch.where(((j >= 0) & (j < n))[..., None], got, 0.0)
+
+    return on_local_shards(local, table.device_mesh, (tp, rows), out,
+                           (grad_placements(tp, rows), rows))(table, tokens)
 
 
 def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
-        logits = torch.matmul(x, params["unembed"])
+        logits = linear(x, params["unembed"])
     else:
-        logits = torch.matmul(x, params["embedding"].t())
+        table = params["embedding"]
+        if isinstance(table, DTensor):
+            table = own_grad(table)
+        logits = linear(x, table.t())
     return shard(logits, ("batch", "seq", "vocab_act"))

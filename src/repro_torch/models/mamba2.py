@@ -21,7 +21,7 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_decode_ref
-from repro_torch.models.layers import dense_init, pad_seq
+from repro_torch.models.layers import dense_init, linear, pad_seq
 
 Params = Dict[str, Any]
 
@@ -121,7 +121,7 @@ def mamba_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     m, di, nh = _dims(cfg)
     n, p = m.d_state, m.headdim
     b, s, _ = x.shape
-    proj = shard(torch.matmul(x, params["w_in"]), ("batch", "seq", "mlp_act"))
+    proj = shard(linear(x, params["w_in"]), ("batch", "seq", "mlp_act"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
     A = -torch.exp(params["A_log"])
 
@@ -161,4 +161,4 @@ def mamba_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
     y = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
     y = shard(y, ("batch", "seq", "mlp_act"))
-    return torch.matmul(y, params["w_out"]), new_cache
+    return linear(y, params["w_out"]), new_cache

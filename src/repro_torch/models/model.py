@@ -24,9 +24,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.distributed.sharding import (RuleSet, map_shardings, shard,
+from repro_torch.distributed.sharding import (RuleSet, local_slice,
+                                              map_shardings,
+                                              on_local_shards, shard,
                                               tree_shardings, zeros)
 from repro_torch.models import transformer as stack
 from repro_torch.models.layers import (embed_apply, embed_init,
@@ -98,14 +101,44 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return unembed_apply(params["embed"], x), new_caches, aux
 
 
+def _pick(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``gather(logits, -1, idx)``. On vocab-sharded DTensor logits each
+    rank picks from its own vocab shard, 0 where the label lies in
+    another's, a partial sum over the vocab's mesh dims; through DTensor's
+    gather the backward would make a zero gradient of the logits' global
+    shape on every rank."""
+    last = logits.ndim - 1
+    vocab = [i for i, p in enumerate(getattr(logits, "placements", ()))
+             if isinstance(p, Shard) and p.dim % logits.ndim == last]
+    if not vocab:
+        return torch.gather(logits, -1, idx)
+    lp = tuple(logits.placements)
+    rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(lp))
+    out = tuple(Partial() if i in vocab else p for i, p in enumerate(lp))
+    off, n = local_slice(logits, lp, last)
+
+    def local(lg, ix):
+        j = ix - off
+        got = torch.gather(lg, -1, torch.clamp(j, 0, n - 1))
+        return torch.where((j >= 0) & (j < n), got, 0.0)
+
+    return on_local_shards(local, logits.device_mesh, (lp, rows), out,
+                           (lp, rows))(logits, idx)
+
+
 def _ce_terms(logits_f32: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of masked NLL, sum of masked lse^2). The picked logit keeps its
-    trailing dim until the subtraction: on vocab-sharded DTensor logits
-    the gather's masked partial sum is reduced there, and DTensor reduces
-    it only at the gather's own rank."""
-    lse = torch.logsumexp(logits_f32, dim=-1)
-    picked = torch.gather(logits_f32, -1, labels.long()[..., None])
+    trailing dim until the subtraction: on vocab-sharded DTensor logits it
+    is a partial sum over the shards (:func:`_pick`), reduced there. The
+    log-sum-exp is written out as max, exp and sum
+    (``jax.nn.logsumexp``'s form, the max held constant), each of which
+    DTensor reduces across vocab shards; it has no rule for
+    ``torch.logsumexp`` over a sharded dim and would gather the whole
+    logits on every rank first."""
+    m = torch.amax(logits_f32, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits_f32 - m), dim=-1)) + m[..., 0]
+    picked = _pick(logits_f32, labels.long()[..., None])
     nll = (lse[..., None] - picked)[..., 0] * mask
     return torch.sum(nll), torch.sum((lse * mask) ** 2)
 

@@ -150,7 +150,9 @@ COPIED = ["core/cluster.py", "core/scheduler.py", "power/__init__.py",
           "obs/attribution.py", "obs/probe.py", "obs/slo.py", "obs/trace.py",
           "obs/export.py", "obs/report.py",
           # the analytic half of the paper's §5.3 collaborative inference
-          "core/collaborative.py"]
+          "core/collaborative.py",
+          # the dry run's chip specs
+          "roofline/hw.py"]
 # Statements a copy may add or change, by (module, key). A class named in
 # SPLIT is keyed method by method ("Class.method"), so an exemption names
 # one method and not the whole class.
@@ -198,6 +200,8 @@ EXEMPT = {
     # chaos layer by its number in the JAX package's history; the copy
     # names the module instead. The rest of the docstring is the same.
     ("fleet/degrade.py", "__doc__"),
+    # The port's card, which the original's specs lack.
+    ("roofline/hw.py", "H100_SXM"),
 }
 SPLIT = {("fleet/fleet.py", "Fleet")}
 
@@ -298,3 +302,78 @@ def test_degrade_docstring_differs_only_in_its_citation():
     port = (REPO / "src" / "repro_torch" / "fleet" / "degrade.py").read_text()
     doc = lambda text: ast.get_docstring(ast.parse(text))
     assert doc(port) == re.sub(r"\(PR \d+\)", "(``chaos.py``)", doc(ref))
+
+
+# The dry run's shapes and archs, its roofline and the wire-byte rule,
+# held to the JAX package's (``config/base.py``, ``configs/__init__.py``,
+# ``roofline/analysis.py``).
+@pytest.mark.parametrize("name", ["TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+                                  "LONG_500K"])
+def test_copied_shapes_equal_reference(name):
+    import repro_torch.config as tconfig
+    assert dataclasses.asdict(getattr(tconfig, name)) == \
+        dataclasses.asdict(getattr(jconfig, name))
+
+
+def test_shape_tables_and_applicability_equal_reference():
+    import repro.configs as jconfigs
+    import repro_torch.config as tconfig
+    import repro_torch.configs as tconfigs
+    assert [dataclasses.asdict(x) for x in tconfig.ALL_SHAPES] == \
+        [dataclasses.asdict(x) for x in jconfig.ALL_SHAPES]
+    assert list(tconfig.SHAPES) == list(jconfig.SHAPES)
+    assert tconfigs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
+    for arch in PORTED_ARCHS:
+        for shape in tconfig.ALL_SHAPES:
+            assert tconfig.shape_applicable(get_config(arch), shape) == \
+                jconfig.shape_applicable(jconfig.get_config(arch),
+                                         jconfig.SHAPES[shape.name])
+
+
+@pytest.mark.parametrize("kind", ["all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute"])
+def test_wire_bytes_rule_equals_parse_collectives(kind):
+    """The rule the port keeps, against the original's parse of an HLO
+    line of each kind over a group of 4 (a permute has no groups: 2)."""
+    from repro.roofline.analysis import parse_collectives
+    from repro_torch.roofline.analysis import wire_bytes
+    groups = "" if kind == "collective-permute" else \
+        ", replica_groups={{0,1,2,3}}"
+    line = f"  %x = bf16[8,128] {kind}(bf16[8,128] %y){groups}"
+    stats = parse_collectives(line)
+    group = 2 if kind == "collective-permute" else 4
+    assert stats.wire_bytes == {kind: wire_bytes(kind, 8 * 128 * 2, group)}
+
+
+def test_roofline_with_tpu_v5e_equals_reference():
+    """The same counts through both packages' ``roofline_from_artifacts``
+    with the TPU spec give the same terms, field for field; ``model_flops``
+    too."""
+    from repro.roofline import analysis as ja
+    from repro.roofline.hw import TPU_V5E as JTPU
+    from repro_torch.roofline import analysis as ta
+    from repro_torch.roofline.hw import H100_SXM, TPU_V5E
+    wire = {"all-gather": 3.0e8, "all-reduce": 1.5e9}
+    mem = {"argument_size_in_bytes": 5.0e9, "temp_size_in_bytes": 2.0e9}
+    kw = dict(arch="qwen2-72b", shape="train_4k", mesh_name="pod16x16",
+              step_kind="train", chips=256,
+              cost={"flops": 4.2e14, "bytes accessed": 7.5e12},
+              model_flops_total=6 * 72e9 * 4096 * 256, memory_analysis=mem,
+              note="n")
+    want = ja.roofline_from_artifacts(
+        collectives=ja.CollectiveStats(wire_bytes=dict(wire)), chip=JTPU,
+        **kw)
+    got = ta.roofline_from_artifacts(
+        collectives=ta.CollectiveStats(wire_bytes=dict(wire)), chip=TPU_V5E,
+        **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert ta.model_flops(1.8e9, 2048, "train") == \
+        ja.model_flops(1.8e9, 2048, "train")
+    assert ta.model_flops(1.8e9, 128, "decode") == \
+        ja.model_flops(1.8e9, 128, "decode")
+    h100 = ta.roofline_from_artifacts(
+        collectives=ta.CollectiveStats(wire_bytes=dict(wire)), chip=H100_SXM,
+        **kw)
+    assert h100.compute_s == 4.2e14 / 989.4e12
+    assert h100.collective_s == 1.8e9 / 450e9

@@ -315,7 +315,8 @@ def test_card_ssd_under_grad_runs_the_forward_then_the_backward_kernel(
         calls.append("ssd_scan")
         return tref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
 
-    def bwd(x, dt, A, B, C, D, dy, dstate):
+    def bwd(x, dt, A, B, C, D, dy, dstate, chunk):
+        assert chunk == 8           # the forward's, for a fake call's count
         calls.append(("ssd_scan_bwd", dstate is not None))
         return tref.ssd_chunked_bwd_ref(x, dt, A, B, C, D, dy, dstate,
                                         chunk=8)
