@@ -59,22 +59,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. ``profile``  one prefill and a few decode ticks of each model:
                 host time per step, then under torch.profiler the kernels'
                 device time per step and the device's idle share.
-6. ``train``    internlm2-1.8b, then mamba2-130m, at full width in bf16
+6. ``train``    internlm2-1.8b, then mamba2-130m, then stablelm-12b cut to
+                4 of its 40 layers (``TRAIN_LAYERS``; the flash backward
+                at d 160), at full width in bf16
                 through the port's ``Trainer`` (``repro_torch.launch.
                 train``'s config: ``default_train_config``, remat "full",
                 seq 256, batch 8): 8 steps with fp32 moments, each loss
                 finite; launches a step checked exactly against
                 ``TRAIN_LAUNCHES`` (internlm2: rmsnorm 97, rmsnorm_bwd 49,
                 flash 48, flash_bwd 24; mamba2: rmsnorm 49, rmsnorm_bwd 25,
-                ssd_scan 48, ssd_scan_bwd 24; nothing else); a run saved
+                ssd_scan 48, ssd_scan_bwd 24; stablelm: rmsnorm 17,
+                rmsnorm_bwd 9, flash 8, flash_bwd 4; nothing else); a run saved
                 at step 4, restored into a fresh ``Trainer`` and continued
                 to step 8 must give the unbroken run's losses bit for bit;
                 then 3 steps with int8 moments. Step ms, grad norm,
                 ``max_memory_allocated``; one more step timed, then traced
                 (device busy ms, idle share, top kernels, the flash, SSD
                 and rmsnorm backward kernels' device ms).
-7. ``train_parity`` fp32 internlm2-1.8b and mamba2-130m at full width
-                with 2 layers: one ``loss_fn`` and its gradient on the card
+7. ``train_parity`` fp32 internlm2-1.8b, mamba2-130m and stablelm-12b
+                at full width with 2 layers: one ``loss_fn`` and its
+                gradient on the card
                 (kernels, their backward kernels) and on the CPU (plain
                 versions): the loss and every gradient leaf, relative to
                 its max-abs, within ``PARITY_TOL``; launches exact.
@@ -205,12 +209,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 --device cuda`` for each of ``DRYRUN_CELLS`` (internlm2-1.8b
                 at train_4k, prefill_32k and decode_32k, granite-moe at
                 train_4k, mamba2-130m at long_500k on pod16x16, and
-                internlm2 decode_32k on pod2x16x16), each in a process of
+                internlm2 decode_32k on pod2x16x16; then the train_4k
+                cells of mamba2-130m and internvl2-1b, whose heads the
+                model axis does not divide, and of stablelm-12b, d 160),
+                each in a process of
                 its own (a fake world of 256 or 512 ranks cannot share one
                 with an NCCL group), all at once: one line a cell with its
                 three roofline terms on the H100 spec, bound, roofline
                 fraction, GiB a device, collective wire bytes by kind and
-                kernel calls. Then ``dryrun_grounding``: on a (1, 1) mesh
+                kernel calls; each cell's GiB a device but internvl2-1b
+                train_4k's must be below the card's ``total_memory``
+                (``DRYRUN_FIT``). Then
+                ``dryrun_grounding``: on a (1, 1) mesh
                 over NCCL internlm2-1.8b at full width is traced at the
                 ``train`` phase's shape and config and one real step of
                 the same ``Trainer`` runs; the traced kernel calls must
@@ -222,15 +232,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 The ``kernels`` phase also holds the three backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
-closed-form plain backwards at the training shapes (2048 x 2048 and
-2048 x 768; b 8, s 256, 16/8 heads, d 128, bf16 and fp32; the flash
+closed-form plain backwards at the training shapes (2048 x 2048, 2048 x
+768 and 2048 x 5120; b 8, s 256, 16/8 heads, d 128, and stablelm-12b's
+32/8 heads at d 160, bf16 and fp32; the flash
 backward in bf16 at granite-moe's d 64 too; the SSD backward at b 8, s
 256, 24 heads, p 64, n 128 in bf16 and fp32, the final state's gradient
 zero and not, and in fp32 at p 128, two calls bitwise equal), beside
 their library call's backward timed through autograd (``F.rms_norm``,
 ``F.scaled_dot_product_attention``; none computes the SSD), and ssd_scan's
 forward at the training shape. Each flash and SSD backward case names its
-route (``design``: the wgmma kernels for bf16 at d 64 and 128, the
+route (``design``: the wgmma kernels for bf16 at d 64, 128 and 160, the
 CUDA-core ones otherwise; the SSD backward's tensor-core kernels for bf16
 at n <= 128, p <= 64, the CUDA-core ones otherwise); a bf16 SSD backward
 case also holds the CUDA-core design to the same checks on the same
@@ -368,11 +379,18 @@ PATH_KERNELS = {ARCH: ATTN_KERNELS,
                 MAMBA_ARCH: ("rmsnorm", "ssd_scan"),
                 MOE_ARCH: ATTN_KERNELS,
                 **{arch: ATTN_KERNELS for arch in NEW_ARCHS}}
-# The training paths: internlm2-1.8b and mamba2-130m at the launcher's seq
-# and batch, full remat.
+# The training paths: internlm2-1.8b, mamba2-130m and stablelm-12b (the
+# flash backward at d 160) at the launcher's seq and batch, full remat.
+# stablelm-12b trains at full width with 4 of its 40 layers: the whole
+# model's fp32 moments alone would take 96 GB; at 4 layers the step needs
+# about a third of the card.
 TRAIN_PATH = f"train {ARCH}"
 MAMBA_TRAIN_PATH = f"train {MAMBA_ARCH}"
-TRAIN_PATHS = {ARCH: TRAIN_PATH, MAMBA_ARCH: MAMBA_TRAIN_PATH}
+D160_ARCH = "stablelm-12b"
+D160_TRAIN_PATH = f"train {D160_ARCH}"
+TRAIN_PATHS = {ARCH: TRAIN_PATH, MAMBA_ARCH: MAMBA_TRAIN_PATH,
+               D160_ARCH: D160_TRAIN_PATH}
+TRAIN_LAYERS = {D160_ARCH: 4}
 TRAIN_SEQ, TRAIN_BATCH = 256, 8
 TRAIN_STEPS, TRAIN_INT8_STEPS, TRAIN_SAVE_AT = 8, 3, 4
 TRAIN_CKPT_DIR = "chiprun_train_ckpt"       # in the checkout, gitignored
@@ -418,8 +436,15 @@ def train_launches(arch: str, layers: int) -> dict:
             "flash_attention": 2 * layers, "flash_attention_bwd": layers}
 
 
-TRAIN_LAUNCHES = {arch: train_launches(arch, get_config(arch).num_layers)
-                  for arch in SHARDED_TRAIN_ARCHS}
+def train_cfg(arch: str):
+    """``arch``'s config as the train phase runs it: full width, its depth
+    cut to ``TRAIN_LAYERS`` where one card cannot hold it whole."""
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=TRAIN_LAYERS.get(arch, cfg.num_layers))
+
+
+TRAIN_LAUNCHES = {arch: train_launches(arch, train_cfg(arch).num_layers)
+                  for arch in (*SHARDED_TRAIN_ARCHS, *TRAIN_PATHS)}
 # int8_matmul has no model call site: the kernels phase is its path, at
 # the JAX benchmark's shape and an MLP up projection of a 333-token prefill.
 KERNELS_PHASE = "kernels phase"
@@ -649,14 +674,15 @@ def _main_path_patterns() -> list:
     attention path's head dim in bf16 (decode at the bucket of its group),
     each of ssd_scan's three
     tensor-core kernels (the bf16 path) and its CUDA-core kernel (the fp32
-    parity path), the rmsnorm backward's ring kernel at both training
-    widths in bf16 and fp32 (the train and train_parity paths; and every
+    parity path), the rmsnorm backward's ring kernel at each training
+    width in bf16 and fp32 (the train and train_parity paths; and every
     other instantiation of it and of block_rows, the widest rows' among
     them) and block_rows' dw kernel (the kernels phase times it), the
-    training path's flash backward kernels at internlm2's head dim in bf16
-    (the wgmma design), the flash
-    backward's CUDA-core kernels in fp32 at that head dim (the train_parity
-    path), the SSD backward's three tensor-core kernels in bf16 (mamba2's
+    training paths' flash backward kernels at internlm2's and
+    stablelm-12b's head dims (128, 160) in bf16 (the wgmma design), the
+    flash backward's CUDA-core kernels in fp32 at those head dims (the
+    train_parity paths), the SSD backward's three tensor-core kernels in
+    bf16 (mamba2's
     training path) and its four CUDA-core kernels in fp32 (its
     train_parity path) and in bf16 (the shapes the tensor-core design
     does not take; the kernels phase holds them to the plain backward)."""
@@ -678,12 +704,12 @@ def _main_path_patterns() -> list:
             p = krms.bwd_plan(TRAIN_BATCH * TRAIN_SEQ,
                               get_config(arch).d_model, es, True, sms)
             pats.append(rf"rmsnorm_bwd_ring_kernel<{dt},{p.nv},{p.wpr}>")
-    cfg = get_config(ARCH)
-    hd = cfg.resolved_head_dim
-    pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
-             for k in ("preprocess", "dkdv_wgmma", "dq_wgmma")]
-    pats += [rf"flash_bwd_{k}_kernel<f32,{hd}>"
-             for k in ("preprocess", "dkdv", "dq")]
+    for arch in (ARCH, D160_ARCH):
+        hd = get_config(arch).resolved_head_dim
+        pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
+                 for k in ("preprocess", "dkdv_wgmma", "dq_wgmma")]
+        pats += [rf"flash_bwd_{k}_kernel<f32,{hd}>"
+                 for k in ("preprocess", "dkdv", "dq")]
     for arch in PATH_KERNELS:
         cfg = get_config(arch)
         vec, nv, wpr, _ = krms.plan(1, cfg.d_model, 2, True)
@@ -782,8 +808,17 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
     dy = randn((rows, d), dtype, seed + 2)
     want = krms.plain_bwd(x, w, dy, 1e-5)
     e = x.element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     design = krms.bwd_design(d, e, True)
-    designs = [design] + [o for o in krms.BWD_DESIGNS if o != design]
+
+    def takes(o):       # block_rows takes rows of up to 1024 chunks
+        try:
+            krms.bwd_plan(rows, d, e, True, sms, o)
+        except ValueError:
+            return False
+        return True
+    designs = [design] + [o for o in krms.BWD_DESIGNS
+                          if o != design and takes(o)]
     calls = {o: (lambda o=o: krms._kernel_backward(x, w, dy, 1e-5, o))
              for o in designs}
     errs = {krms.BWD_DESIGNS[o]: _rmsnorm_bwd_check(calls[o], want, dtype,
@@ -803,9 +838,7 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
     b_ms, by = bound(*kernel_cost.rmsnorm_bwd(rows, d, e))
     return {"kernel": "rmsnorm_bwd", "path": path, "shape": [rows, d],
             "dtype": str(dtype), "design": name,
-            "plan": krms.bwd_plan(rows, d, e, True, torch.cuda
-                                  .get_device_properties(0)
-                                  .multi_processor_count)._asdict(),
+            "plan": krms.bwd_plan(rows, d, e, True, sms)._asdict(),
             "max_abs_err": errs[name], "max_abs_err_by_design": errs,
             "bitwise_repeat": True, "graph_replay_bitwise": True,
             "ms": by_design[name], "ms_by_design": by_design,
@@ -819,7 +852,7 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _flash_bwd_case(arch, b, s, dtype, seed=0):
+def _flash_bwd_case(arch, b, s, dtype, seed=0, path=TRAIN_PATH):
     """The backward of one layer's causal self-attention in training, at
     ``arch``'s heads; ``design`` names the route the call takes."""
     hq, hkv, d = _heads(arch)
@@ -841,7 +874,7 @@ def _flash_bwd_case(arch, b, s, dtype, seed=0):
         qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dt_)
     b_ms, by = bound(*kernel_cost.flash_bwd(b, s, s, hq, hkv, d, dtype))
-    return {"kernel": "flash_attention_bwd", "path": TRAIN_PATH,
+    return {"kernel": "flash_attention_bwd", "path": path,
             "heads_of": arch, "shape": [b, s, hq, hkv, d],
             "dtype": str(dtype), "design": kflash.bwd_design(dtype, d),
             "max_abs_err": err,
@@ -1181,6 +1214,17 @@ def phase_kernels() -> dict:
         if dtype == torch.bfloat16:     # the wgmma design at d 64 too
             cases.append(_flash_bwd_case(MOE_ARCH, TRAIN_BATCH, TRAIN_SEQ,
                                          dtype))
+        # stablelm-12b's training path (d 160, 32/8 heads): its norm at d
+        # 5120 and one attention, forward and backward.
+        d160 = get_config(D160_ARCH)
+        cases.append(_rmsnorm_case(D160_TRAIN_PATH, rows, d160.d_model,
+                                   dtype, False))
+        cases.append(_rmsnorm_bwd_case(rows, d160.d_model, dtype,
+                                       path=D160_TRAIN_PATH))
+        cases.append(_flash_case(D160_ARCH, TRAIN_SEQ, dtype, b=TRAIN_BATCH,
+                                 path=D160_TRAIN_PATH))
+        cases.append(_flash_bwd_case(D160_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                                     dtype, path=D160_TRAIN_PATH))
         # mamba2's training path: its norm, one SSD layer forward and
         # backward (the final state's gradient zero, as training gives it,
         # and not), and in fp32 the backward at jamba's head dim of 128.
@@ -1613,7 +1657,7 @@ def phase_train(smi: str, arch: str) -> dict:
     step 4 (losses bit for bit), then 3 with int8 moments. Returns the
     8-step run's launches."""
     import shutil
-    cfg = get_config(arch)
+    cfg = train_cfg(arch)
     loader = lambda: PrefetchingLoader(data_config(cfg, TRAIN_SEQ,
                                                    TRAIN_BATCH))
     tcfg = train_config(cfg, TRAIN_STEPS)
@@ -1660,7 +1704,8 @@ def phase_train(smi: str, arch: str) -> dict:
     del int8["params"], int8["opt_state"]
     torch.cuda.empty_cache()
     emit({"phase": "train", "arch": arch, "dtype": cfg.dtype,
-          "params": cfg.num_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+          "layers": cfg.num_layers, "params": cfg.num_params,
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
           "train_config": {k: getattr(tcfg, k) for k in (
               "remat", "opt_state_dtype", "microbatches", "learning_rate",
               "warmup_steps", "total_steps", "loss_chunk")},
@@ -2945,13 +2990,27 @@ def phase_sharded(smi: str) -> dict:
 # The dry run's production cells (arch, shape, multi-pod), each traced in
 # a process of its own on a fake world of 256 (512) ranks over a CUDA
 # mesh, all at once; qwen2-72b at train_4k (80 layers x 8 microbatches)
-# takes longer than the phase may and runs from the CLI.
+# takes longer than the phase may and runs from the CLI, as the rest of
+# the matrix does (``--all --both-meshes``). The train_4k cells
+# of mamba2-130m and internvl2-1b have heads that the model axis of 16
+# does not divide (24 Mamba heads, 14 q heads; phi3-medium's 40 fail the
+# same way and take 150 s to trace, so they run with the matrix), and
+# stablelm-12b's runs the flash backward's fake path at d 160.
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("internlm2-1.8b", "prefill_32k", False),
                 ("internlm2-1.8b", "decode_32k", False),
                 ("granite-moe-1b-a400m", "train_4k", False),
                 ("mamba2-130m", "long_500k", False),
-                ("internlm2-1.8b", "decode_32k", True))
+                ("internlm2-1.8b", "decode_32k", True),
+                ("mamba2-130m", "train_4k", False),
+                ("internvl2-1b", "train_4k", False),
+                ("stablelm-12b", "train_4k", False))
+# Cells whose GiB a device must fit the card: all but internvl2-1b's
+# train_4k, whose loss holds fp32 logits of 16 rows x 3840 x its vocab of
+# 151655 a device (ROADMAP Queue 3). granite-moe's tied table (vocab
+# 49155, whole over the model axis) is unembedded on each rank's own rows.
+DRYRUN_FIT = tuple(c for c in DRYRUN_CELLS
+                   if c != ("internvl2-1b", "train_4k", False))
 DRYRUN_TAG = "chip_smoke"
 DRYRUN_TIMEOUT_S = 300
 # The traced peak (arguments + temp) against max_memory_allocated of the
@@ -2961,31 +3020,18 @@ DRYRUN_MEMORY_TOL = 0.10
 
 
 def _dryrun_cells(smi: str) -> dict:
-    """Each production cell through ``python -m repro_torch.launch.dryrun
-    --device cuda`` (its own process: a fake world cannot share one with
-    an NCCL group), all started together; one line a cell from its
-    result file."""
-    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
-    procs = []
-    for arch, shape, multi in DRYRUN_CELLS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--device", "cuda", "--no-probes",
-               "--tag", DRYRUN_TAG] + (["--multi-pod"] if multi else [])
-        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE))
-    try:
-        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    """Each production cell through ``dryrun.run_cells`` (``python -m
+    repro_torch.launch.dryrun --device cuda`` in a process of its own: a
+    fake world cannot share one with an NCCL group), all started
+    together; one line a cell from its result file."""
     lines, failed = {}, []
-    for (arch, shape, multi), p, (out, err) in zip(DRYRUN_CELLS, procs, outs):
-        if p.returncode != 0:
-            print(out[-2000:], err[-4000:], file=sys.stderr, flush=True)
-            failed.append((arch, shape, multi, p.returncode))
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    for (arch, shape, multi), rc, out in dryrun.run_cells(
+            DRYRUN_CELLS, device="cuda", probes=False, tag=DRYRUN_TAG,
+            jobs=len(DRYRUN_CELLS), timeout=DRYRUN_TIMEOUT_S):
+        if rc != 0:
+            print(out[-6000:], file=sys.stderr, flush=True)
+            failed.append((arch, shape, multi, rc))
             continue
         with open(dryrun.result_path(arch, shape, multi, DRYRUN_TAG)) as f:
             res = json.load(f)
@@ -3006,6 +3052,11 @@ def _dryrun_cells(smi: str) -> dict:
                 "trace_s": res["lower_s"], "nvidia_smi": smi}
         emit(line)
         lines[f"{arch} {shape} {res['mesh']}"] = line
+        if (arch, shape, multi) in DRYRUN_FIT and \
+                mem["total_nonalias_bytes"] > card_bytes:
+            failed.append((arch, shape, multi,
+                           f"{line['gib_per_device']:.2f} GiB a device > "
+                           f"total_memory {card_bytes} B"))
     if failed:
         raise AssertionError(f"dryrun cells failed: {failed}")
     return lines

@@ -53,10 +53,10 @@
 // and delta = rowsum(dO * O):
 //   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = dS^T Q * scale,
 //   dQ = dS K * scale.
-// flash_bwd_preprocess_kernel writes delta (16-byte loads, D / 8 lanes a
-// bf16 row, D / 4 an fp32 one), then one of two routes, chosen by dtype
+// flash_bwd_preprocess_kernel writes delta (16-byte loads, up to 32 lanes
+// a row, delta_lanes), then one of two routes, chosen by dtype
 // and head dim as the forward's:
-// * bf16 at d 64 or 128 (the training path): flash_bwd_dkdv_wgmma_kernel,
+// * bf16 at d 64, 128 or 160 (the training paths): flash_bwd_dkdv_wgmma_kernel,
 //   one warpgroup a (kv tile of 64, kv head, batch), causal kv tile 0
 //   first; K and V come in once by TMA and Q, dO tiles of the group's q
 //   heads (on or below the diagonal when causal) through a 2-stage TMA
@@ -73,8 +73,13 @@
 //   rather than passed between the kernels: summing dQ across kv-tile
 //   blocks would need atomics (no bitwise resume), and writing dS out
 //   would move about 2 x 16.8 MB more at the training shape, where the
-//   recomputation is 2 of 7 products on the tensor cores.
-// * fp32 at d 16 to 128, and bf16 at d 16 or 32: flash_bwd_dkdv_kernel and
+//   recomputation is 2 of 7 products on the tensor cores. At d 160
+//   (stablelm-12b) every tile comes in as the forward's three boxes, the
+//   products into dK, dV and dQ run at N 192 over the third box's zero
+//   columns, and the dK/dV kernel runs two warpgroups, one holding dV and
+//   one dK, each forming P^T itself (dkdv_warpgroups): two sums of 96
+//   accumulators would not fit one thread's registers beside S^T and dP^T.
+// * fp32 at d 16 to 160, and bf16 at d 16 or 32: flash_bwd_dkdv_kernel and
 //   flash_bwd_dq_kernel, fp32 products on the CUDA cores, the same split:
 //   one block of 256 threads a (kv tile, kv head, batch) and a (q tile, q
 //   head, batch). Tiles are staged in shared memory as fp32, rows padded
@@ -639,7 +644,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Backward: CUDA-core kernels, fp32 products: fp32 at d 16 to 128, bf16
+// Backward: CUDA-core kernels, fp32 products: fp32 at d 16 to 160, bf16
 // at 16 or 32.
 // ---------------------------------------------------------------------------
 namespace bwd {
@@ -678,9 +683,19 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
   }
 }
 
-// delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]: each lane reads 16
-// bytes of a row of O and of dO, L = D / (16 / sizeof(T)) lanes a row (32 / L
-// rows a warp), the rows of (b, sq, hq) in memory order.
+// Lanes a row of the delta pass: the row's 16-byte chunks (D / (16 /
+// sizeof(T))) shared by the largest power of two up to 32 that divides
+// their count; d 160 gives 4 lanes (bf16) or 8 (fp32) of 5 chunks each.
+template <typename T, int D>
+__host__ __device__ constexpr int delta_lanes() {
+  constexpr int n = D / (16 / static_cast<int>(sizeof(T)));
+  return (n & -n) < 32 ? (n & -n) : 32;
+}
+
+// delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]: each lane reads C
+// 16-byte chunks of a row of O and of dO, L = delta_lanes lanes a row (32 /
+// L rows a warp; lane l takes chunks l, l + L, ...), the rows of (b, sq,
+// hq) in memory order.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_preprocess_kernel(const T* __restrict__ o,
@@ -688,20 +703,26 @@ flash_bwd_preprocess_kernel(const T* __restrict__ o,
                             float* __restrict__ delta, int b, int sq,
                             int hq) {
   constexpr int V = 16 / sizeof(T);  // elements a 16-byte chunk
-  constexpr int L = D / V;           // lanes a row
-  static_assert(L >= 1 && L <= 32 && 32 % L == 0, "head dim");
+  constexpr int L = delta_lanes<T, D>();
+  constexpr int C = D / V / L;       // chunks a lane
+  static_assert(L * C * V == D && 32 % L == 0, "head dim");
   const int lane = threadIdx.x & 31;
   const size_t row = (static_cast<size_t>(blockIdx.x) * kThreads +
                       threadIdx.x) / L;
   const bool valid = row < static_cast<size_t>(b) * sq * hq;
   float s = 0.f;
   if (valid) {  // no return: the whole warp takes part in the shuffles
-    const uint4 ov = reinterpret_cast<const uint4*>(o + row * D)[lane % L];
-    const uint4 gv = reinterpret_cast<const uint4*>(dout + row * D)[lane % L];
-    const T* oe = reinterpret_cast<const T*>(&ov);
-    const T* ge = reinterpret_cast<const T*>(&gv);
+    const uint4* orow = reinterpret_cast<const uint4*>(o + row * D);
+    const uint4* grow = reinterpret_cast<const uint4*>(dout + row * D);
 #pragma unroll
-    for (int i = 0; i < V; ++i) s = fmaf(to_f32(oe[i]), to_f32(ge[i]), s);
+    for (int c = 0; c < C; ++c) {
+      const uint4 ov = orow[lane % L + c * L];
+      const uint4 gv = grow[lane % L + c * L];
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) s = fmaf(to_f32(oe[i]), to_f32(ge[i]), s);
+    }
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1)
@@ -970,7 +991,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t preprocess(const void* o, const void* dout, float* delta, int b,
                        int sq, int hq, cudaStream_t stream) {
-  const size_t rows_a_block = kThreads / (D * sizeof(T) / 16);
+  const size_t rows_a_block = kThreads / delta_lanes<T, D>();
   const size_t rows = static_cast<size_t>(b) * sq * hq;
   flash_bwd_preprocess_kernel<T, D>
       <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
@@ -1016,7 +1037,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 at every head dim the backward takes (16, 32, 64, 128; not 160).
+// fp32 at every head dim (16, 32, 64, 128, 160): at 160 the dK/dV
+// kernel's tiles take 194 KB of shared memory, the dQ kernel's 177 KB.
 int dispatch_f32(int d, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const float* lse,
                  float* delta, void* dq, void* dk, void* dv, int b, int sq,
@@ -1027,6 +1049,7 @@ int dispatch_f32(int d, const void* q, const void* k, const void* v,
     case 32: return launch<float, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
     case 64: return launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
     case 128: return launch<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    case 160: return launch<float, 160>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1034,11 +1057,12 @@ int dispatch_f32(int d, const void* q, const void* k, const void* v,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// Backward in bf16 on the tensor cores (wgmma + TMA), d = 64 or 128.
+// Backward in bf16 on the tensor cores (wgmma + TMA), d = 64, 128 or 160.
 // ---------------------------------------------------------------------------
 namespace bwd_tc {
 
 using bf16 = __nv_bfloat16;
+using tc::boxes;
 using tc::kBox;
 using tc::mma_abt;
 using tc::mma_rb;
@@ -1047,24 +1071,38 @@ constexpr int kB = 64;          // rows a tile: one wgmma M, and the S tile's N
 constexpr int kThreads = 128;   // one warpgroup
 constexpr int kStages = 2;      // depth of the ring of streamed tiles
 
+// Warpgroups of the dK/dV kernel. At d 64 and 128 one holds both dK and
+// dV (2 x 64 fp32 accumulators a thread at 128). At d 160 the products
+// into dK and dV run at N 192 (d 160 is not a whole number of 64-column
+// swizzle atoms, so the third box is padded with TMA's zeros, as the
+// forward's P.V): 2 x 96 accumulators beside S^T and dP^T would pass 255
+// registers, so warpgroup 0 holds dV and warpgroup 1 dK, each recomputing
+// S^T (warpgroup 1 also dP^T) from the same tiles.
+template <int D>
+__host__ __device__ constexpr int dkdv_warpgroups() {
+  return D > 128 ? 2 : 1;
+}
+
 // Both kernels: two fixed tiles, a ring of two tiles a stage, barriers;
-// the dK/dV kernel also the lse and delta of a q tile a stage.
+// the dK/dV kernel also the lse and delta of a q tile a stage. Tiles of
+// 64 q rows and 64 kv rows, two stages, at every d: at 160 each tile is
+// three 8 KB boxes, 144 KB of tiles and 146 KB in all (one block an SM).
 template <int D>
 constexpr size_t smem_bytes() {
-  return 1024 + sizeof(bf16) * static_cast<size_t>(kBox) * (D / 64) *
+  return 1024 + sizeof(bf16) * static_cast<size_t>(kBox) * boxes<D>() *
                     (2 + 2 * kStages) +
          sizeof(float) * 2 * kStages * kB + 8 * (1 + kStages);
 }
 
-// This thread's two rows of a 64 x D accumulator, times `mul`, as bf16
-// into rows `row_a` and `row_a` + 8 (those below `rows`) of a (b, rows,
-// heads, D) tensor at (bb, h).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out,
-                                           const float (&acc)[D / 2],
+// This thread's two rows of a 64 x N accumulator (N >= D), times `mul`,
+// as bf16 into the first D columns of rows `row_a` and `row_a` + 8 (those
+// below `rows`) of a (b, rows, heads, D) tensor at (bb, h).
+template <int D, int NA>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NA],
                                            float mul, int bb, int row_a,
                                            int rows, int heads, int h,
                                            int col_t) {
+  static_assert(2 * NA >= D, "accumulator narrower than the head dim");
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row_a + 8 * half;
@@ -1081,11 +1119,11 @@ __device__ __forceinline__ void store_rows(bf16* out,
 
 // One block a (kv tile of 64 rows, kv head, batch): K and V stay in smem,
 // Q and dO tiles of the group's q heads stream through a TMA ring, and the
-// dK, dV accumulators stay in registers for the whole walk. In the
-// transposed score tile S^T (kv rows x q columns) lse and delta are per
-// column, read from smem.
+// dK, dV accumulators stay in registers for the whole walk (split between
+// two warpgroups at d 160, dkdv_warpgroups). In the transposed score tile
+// S^T (kv rows x q columns) lse and delta are per column, read from smem.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads * dkdv_warpgroups<D>())
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
@@ -1095,7 +1133,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int b, int sq, int skv, int hq, int hkv,
                             float scale, float scale_log2, int causal) {
-  constexpr int NB = D / 64;  // 64-column boxes a row
+  constexpr int NB = boxes<D>();  // 64-column boxes a row
+  constexpr int NP = 64 * NB;     // dV's and dK's N: d, or 160 padded to 192
+  constexpr int WGS = dkdv_warpgroups<D>();
+  constexpr int NACC = WGS == 1 ? 2 : 1;  // accumulators a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
@@ -1119,6 +1160,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int nq = max((sq + kB - 1) / kB - qt0, 0);
   const int n_it = g * nq;          // (q head of the group, q tile) pairs
   const int tid = threadIdx.x;
+  // Which sums this thread's warpgroup keeps (both with one warpgroup).
+  const int wg = tid / kThreads;
+  const bool does_dv = WGS == 1 || wg == 0;
+  const bool does_dk = WGS == 1 || wg == 1;
 
   const CUtensorMap* mq = &tq;
   const CUtensorMap* mdo = &tdo;
@@ -1162,14 +1207,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31;
+  const int t = tid % kThreads;             // thread of its warpgroup
+  const int warp = t >> 5, lane = t & 31;
   const int r_a = warp * 16 + (lane >> 2);  // tile row (kv) of the even pair
   const int kv_a = k0 + r_a, kv_b = kv_a + 8;
   const int col_t = 2 * (lane & 3);
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float acc[NACC][NP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[a][i] = 0.f;
+  float (&dv_acc)[NP / 2] = acc[0];
+  float (&dk_acc)[NP / 2] = acc[NACC - 1];
 
   mbar_wait(kvbar, 0);
   for (int it = 0; it < n_it; ++it) {
@@ -1191,8 +1241,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const bf16* Qt = Qs + stage * NB * kBox;
     const bf16* dOt = dOs + stage * NB * kBox;
 
-    // S^T = K Q^T and dP^T = V dO^T (kv rows x q columns), two groups:
-    // P^T is formed while dP^T is still on the tensor cores.
+    // S^T = K Q^T and, for dK, dP^T = V dO^T (kv rows x q columns), two
+    // groups: P^T is formed while dP^T is still on the tensor cores.
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
@@ -1201,13 +1251,18 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
     mma_abt<D>(s, Ks, Qt);
     wgmma_commit();
-    mma_abt<D>(dp, Vs, dOt);
-    wgmma_commit();
+    if (does_dk) {
+      mma_abt<D>(dp, Vs, dOt);
+      wgmma_commit();
+    }
     if (pre) {
       Ls[(it + 1) % kStages * kB + tid] = next_l;
       Dl[(it + 1) % kStages * kB + tid] = next_d;
     }
-    wgmma_wait<1>();
+    if (does_dk)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
     fence_regs(s);
 
     // P^T = exp(S^T scale - lse) in fp32 in place; zero where kv > q
@@ -1232,8 +1287,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     uint32_t p_frag[4][4], ds_frag[4][4];
     pack_a(p_frag, s);
-    wgmma_wait<0>();
-    fence_regs(dp);
+    if (does_dk) {
+      wgmma_wait<0>();
+      fence_regs(dp);
+    }
 
     // dV += P^T dO (P^T rounded to bf16 as the register A operand, dO read
     // MN-major) runs while dS^T = P^T (dP^T - delta) is formed; then
@@ -1241,21 +1298,25 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wgmma_fence();
-    mma_rb<D>(dv_acc, p_frag, dOt);
-    wgmma_commit();
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float dl = drow[8 * jj + col_t + c];
-        dp[4 * jj + c] = s[4 * jj + c] * (dp[4 * jj + c] - dl);
-        dp[4 * jj + 2 + c] = s[4 * jj + 2 + c] * (dp[4 * jj + 2 + c] - dl);
-      }
+    if (does_dv) {
+      mma_rb<NP>(dv_acc, p_frag, dOt);
+      wgmma_commit();
     }
-    pack_a(ds_frag, dp);
-    wgmma_fence();
-    mma_rb<D>(dk_acc, ds_frag, Qt);
-    wgmma_commit();
+    if (does_dk) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dl = drow[8 * jj + col_t + c];
+          dp[4 * jj + c] = s[4 * jj + c] * (dp[4 * jj + c] - dl);
+          dp[4 * jj + 2 + c] = s[4 * jj + 2 + c] * (dp[4 * jj + 2 + c] - dl);
+        }
+      }
+      pack_a(ds_frag, dp);
+      wgmma_fence();
+      mma_rb<NP>(dk_acc, ds_frag, Qt);
+      wgmma_commit();
+    }
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
@@ -1264,14 +1325,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && it + kStages < n_it) issue_q(stage, it + kStages);
   }
 
-  store_rows<D>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t);
-  store_rows<D>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t);
+  if (does_dk)
+    store_rows<D>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t);
+  if (does_dv)
+    store_rows<D>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t);
 }
 
 // One block a (q tile of 64 rows, q head, batch): Q and dO stay in smem,
 // K and V tiles up to the diagonal stream through a TMA ring; S and dP are
 // recomputed here (not read from the dK/dV kernel), so no block adds into
-// another's output.
+// another's output. At d 160 dQ += dS K runs at N 192 (96 accumulators a
+// thread), as the dK/dV kernel's products.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1283,7 +1347,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           bf16* __restrict__ dq, int b, int sq, int skv,
                           int hq, int hkv, int n_qtiles, float scale,
                           float scale_log2, int causal) {
-  constexpr int NB = D / 64;
+  constexpr int NB = boxes<D>();
+  constexpr int NP = 64 * NB;     // dQ's N: d, or 160 padded to 192
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
@@ -1344,9 +1409,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float d_a = row_a < sq ? delta[lbase + row_a] : 0.f;
   const float d_b = row_b < sq ? delta[lbase + row_b] : 0.f;
 
-  float acc[D / 2];
+  float acc[NP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(qbar, 0);
   for (int j = 0; j < n_kv; ++j) {
@@ -1406,7 +1471,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     pack_a(ds_frag, dp);
     fence_regs(acc);
     wgmma_fence();
-    mma_rb<D>(acc, ds_frag, Kt);
+    mma_rb<NP>(acc, ds_frag, Kt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1445,7 +1510,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = scale * tc::kLog2e;
   const int n_kt = (skv + kB - 1) / kB, n_qt = (sq + kB - 1) / kB;
-  flash_bwd_dkdv_wgmma_kernel<D><<<n_kt * hkv * b, kThreads, smem, stream>>>(
+  flash_bwd_dkdv_wgmma_kernel<D>
+      <<<n_kt * hkv * b, kThreads * dkdv_warpgroups<D>(), smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), b, sq, skv, hq, hkv, scale, scale_log2, causal);
   err = cudaGetLastError();
@@ -1491,7 +1557,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // dk, dv (b, skv, hkv, d), all contiguous in dtype; lse (b, hq, sq) float32
 // from the forward; delta (b, hq, sq) float32 scratch. Launches
 // flash_bwd_preprocess_kernel, then flash_bwd_dkdv_wgmma_kernel and
-// flash_bwd_dq_wgmma_kernel for bf16 at d 64 or 128 (a failed TMA encode,
+// flash_bwd_dq_wgmma_kernel for bf16 at d 64, 128 or 160 (a failed TMA encode,
 // attribute or launch is returned, never served by another route), else
 // flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the stream.
 extern "C" int repro_flash_attention_bwd(
@@ -1514,6 +1580,7 @@ extern "C" int repro_flash_attention_bwd(
       case 32: return bwd::launch<__nv_bfloat16, 32>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
       case 64: return bwd_tc::launch<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
       case 128: return bwd_tc::launch<128>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+      case 160: return bwd_tc::launch<160>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -418,18 +418,59 @@ def own_grad(x: DTensor) -> DTensor:
     return _OwnGrad.apply(x)
 
 
+def _whole_head_placements(x: DTensor, h: int) -> Tuple[Placement, ...]:
+    """``x``'s placements (x (..., h * k)) with the mesh dims that would
+    split its last dim into pieces other than whole groups of ``k`` made
+    ``Replicate``: in mesh order, a dim that shards the last dim stays
+    while the product of the sizes kept divides ``h``."""
+    mesh, kept, out = x.device_mesh, 1, []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim == x.ndim - 1:
+            if h % (kept * mesh.size(i)):
+                p = Replicate()
+            else:
+                kept *= mesh.size(i)
+        out.append(p)
+    return tuple(out)
+
+
 def whole_heads(y: DTensor, h: int) -> DTensor:
     """``y`` (..., h * k) with every mesh dim that splits its last dim
-    into pieces other than whole groups of ``k`` (its size does not divide
-    ``h``) gathered (``Replicate``), so the last dim splits into (h, k);
-    ``y`` itself where none does."""
-    mesh = y.device_mesh
-    plc = tuple(Replicate() if isinstance(p, Shard) and
-                p.dim % y.ndim == y.ndim - 1 and h % mesh.size(i) else p
-                for i, p in enumerate(y.placements))
+    into pieces other than whole groups of ``k``
+    (:func:`_whole_head_placements`) gathered (``Replicate``), so the last
+    dim splits into (h, k); ``y`` itself where none does."""
+    plc = _whole_head_placements(y, h)
     if plc == tuple(y.placements):
         return y
     return _Gather.apply(y, plc)
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """``x`` itself; its gradient gathered over the mesh dims that split
+    its last dim into pieces other than whole heads on the way back."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor, h: int) -> DTensor:
+        ctx.h = h
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor):
+        plc = _whole_head_placements(grad, ctx.h)
+        if plc != tuple(grad.placements):
+            grad = grad.redistribute(grad.device_mesh, plc)
+        return grad, None
+
+
+def whole_heads_grad(y: torch.Tensor, h: int) -> torch.Tensor:
+    """``y`` (..., h * k), flattened from (..., h, k), for a product that
+    follows: its gradient comes back split into whole heads (DTensor
+    splits a product's input gradient over whatever mesh dim it likes,
+    16 pieces of 48 columns for 12 heads of 64), so that the backward of
+    the flatten can unflatten it. ``y`` itself off a mesh."""
+    if not isinstance(y, DTensor):
+        return y
+    return _WholeHeadsGrad.apply(y, h)
 
 
 def kernel_placements(x: DTensor, logical: Logical

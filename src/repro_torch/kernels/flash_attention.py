@@ -7,9 +7,7 @@ JAX package. A tensor on the CPU goes to the plain version
 raises; a fake CUDA tensor to its fake path (checked, outputs
 allocated, counted by the dry run, not launched). Any ``sq`` and ``skv``
 are taken, and any ``hq / hkv``; head_dim must be 16, 32, 64, 128 or
-160 (``HEAD_DIMS``) for the forward and 16, 32, 64 or 128
-(``BWD_HEAD_DIMS``) for the backward: on the card, a call at head_dim 160
-that autograd would record raises ``NotImplementedError``.
+160 (``HEAD_DIMS``), forward and backward alike.
 
 Two hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
 tensor, both launched and counted as ``flash_attention``:
@@ -27,11 +25,12 @@ also writes each row's log-sum-exp, and the backward is one call, counted
 as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta) and
 two kernels on the route :func:`bwd_design` names:
 
-* ``"wgmma"``, bf16 at head_dim 64 or 128 (the training path):
+* ``"wgmma"``, bf16 at head_dim 64, 128 or 160 (the training paths):
   ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``,
   tensor cores (wgmma, fp32 accumulators, P and dS rounded to bf16 as
-  operands) fed by TMA, deterministic (no atomics);
-* ``"simt"``, fp32 at any backward head_dim and bf16 at 16 or 32:
+  operands) fed by TMA, deterministic (no atomics); d 160 in three boxes
+  as the forward's, the dK/dV kernel on two warpgroups;
+* ``"simt"``, fp32 at any head_dim and bf16 at 16 or 32:
   ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
   products on the CUDA cores.
 
@@ -46,14 +45,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
-                                        needs_grad, on_card, refuse_grad,
+                                        needs_grad, on_card,
                                         register_kernel, stream_handle)
 from repro_torch.kernels.ref import (attention_bwd_ref, attention_lse_ref,
                                      attention_ref)
 from repro_torch.roofline import kernel_cost
 
 HEAD_DIMS = (16, 32, 64, 128, 160)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128, 160)       # bf16 on the wgmma kernels
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
@@ -65,14 +64,16 @@ KERNEL_BWD = register_kernel(
 
 def bwd_design(dtype: torch.dtype, d: int) -> str:
     """The backward's route on the card, as ``repro_flash_attention_bwd``
-    dispatches it: ``"wgmma"`` for bfloat16 at head_dim 64 or 128, else
-    ``"simt"``; a dtype or head_dim no backward kernel takes raises."""
+    dispatches it: ``"wgmma"`` for bfloat16 at head_dim 64, 128 or 160,
+    else ``"simt"``; a dtype or head_dim no backward kernel takes
+    raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {BWD_HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
+        else "simt"
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -127,10 +128,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """q: (b, sq, hq, d); k, v: (b, skv, hkv, d) -> (b, sq, hq, d)."""
     if needs_grad(q, k, v):
-        d = q.shape[-1]
-        if on_card(q, "flash_attention") and d in HEAD_DIMS and \
-                d not in BWD_HEAD_DIMS:     # forward kernel, no backward
-            refuse_grad(f"flash_attention at head_dim {d}", q, k, v)
         return FlashAttentionFunction.apply(q, k, v, causal, scale)
     if not on_card(q, "flash_attention"):
         return plain(q, k, v, causal=causal, scale=scale)

@@ -50,8 +50,11 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -328,6 +331,47 @@ def result_path(arch: str, shape: str, multi_pod: bool, tag: str = "") -> str:
                         f"{suffix}.json")
 
 
+# Cells that ``run_cells`` traces at once: the card's host has 8 cores,
+# and each trace is one busy Python process.
+JOBS = 8
+
+
+def run_cells(cells, *, device: str = "cuda", probes: bool = True,
+              tag: str = "", opts: str = "{}", jobs: int = JOBS,
+              timeout: Optional[float] = None):
+    """Trace each (arch, shape, multi-pod) cell of ``cells`` through this
+    module's CLI, each in a process of its own (a fake world is one to a
+    process, and cannot share one with an NCCL group), ``jobs`` at a
+    time, each stopped after ``timeout`` s. Yields (cell, exit code or
+    None when stopped, its stdout and stderr) as each ends; the result
+    is at ``result_path(*cell, tag)``."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                      "..")),
+         os.environ.get("PYTHONPATH", "")])}
+
+    def one(cell):
+        arch, shape_name, multi_pod = cell
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--shape", shape_name, "--device", device,
+                "--tag", tag, "--opts", opts] + \
+            (["--multi-pod"] if multi_pod else []) + \
+            ([] if probes else ["--no-probes"])
+        try:
+            proc = subprocess.run(argv, env=env, text=True, timeout=timeout,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+        except subprocess.TimeoutExpired as e:     # killed by run()
+            out = e.stdout or ""
+            return cell, None, out.decode() if isinstance(out, bytes) \
+                else out
+        return cell, proc.returncode, proc.stdout
+
+    with ThreadPoolExecutor(max(1, min(jobs, len(cells)))) as pool:
+        for done in as_completed([pool.submit(one, c) for c in cells]):
+            yield done.result()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="multi-pod dry-run")
     ap.add_argument("--arch", default=None)
@@ -363,7 +407,7 @@ def main() -> None:
             ap.error("--arch/--shape or --all")
         cells.append((args.arch, args.shape))
 
-    failures = []
+    todo = []
     for multi_pod in meshes:
         for arch, shape_name in cells:
             cfg = get_config(arch)
@@ -377,16 +421,27 @@ def main() -> None:
                 print(f"[{arch} x {shape_name} x {_mesh_name(multi_pod)}] "
                       f"cached", flush=True)
                 continue
-            try:
-                res = run_cell(arch, shape_name, multi_pod=multi_pod,
-                               opts=dict(opts), probes=not args.no_probes,
-                               device=args.device)
-                save_result(res, tag=args.tag)
-            except Exception as e:  # noqa: BLE001
-                failures.append((arch, shape_name, multi_pod, repr(e)))
-                print(f"[{arch} x {shape_name} x "
-                      f"{_mesh_name(multi_pod)}] FAILED: {e}", flush=True)
-                traceback.print_exc()
+            todo.append((arch, shape_name, multi_pod))
+    failures = []
+    if len(todo) == 1:
+        arch, shape_name, multi_pod = todo[0]
+        try:
+            res = run_cell(arch, shape_name, multi_pod=multi_pod,
+                           opts=dict(opts), probes=not args.no_probes,
+                           device=args.device)
+            save_result(res, tag=args.tag)
+        except Exception as e:  # noqa: BLE001
+            failures.append((arch, shape_name, multi_pod, repr(e)))
+            print(f"[{arch} x {shape_name} x "
+                  f"{_mesh_name(multi_pod)}] FAILED: {e}", flush=True)
+            traceback.print_exc()
+    else:
+        for cell, rc, out in run_cells(todo, device=args.device,
+                                       probes=not args.no_probes,
+                                       tag=args.tag, opts=args.opts):
+            print(out, end="", flush=True)
+            if rc != 0:
+                failures.append((*cell, f"exit {rc}"))
     if failures:
         raise SystemExit(f"{len(failures)} dry-run cells failed: "
                          f"{[(f[0], f[1], f[2]) for f in failures]}")

@@ -24,7 +24,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.distributed.sharding import (local_slice, shard,
-                                              whole_heads)
+                                              whole_heads, whole_heads_grad)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, linear, pad_seq,
                                        rope_apply, rope_table)
@@ -203,5 +203,6 @@ def attn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
     out = shard(out, ("batch", "seq", "heads_act", None))
     hq, _, d = params["wo"].shape
-    y = linear(out.reshape(b, s, hq * hd), params["wo"].reshape(hq * hd, d))
+    flat = whole_heads_grad(out.reshape(b, s, hq * hd), hq)
+    y = linear(flat, params["wo"].reshape(hq * hd, d))
     return y, new_cache

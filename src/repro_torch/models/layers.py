@@ -190,10 +190,32 @@ def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
-        logits = linear(x, params["unembed"])
+        w, tied = params["unembed"], False
     else:
-        table = params["embedding"]
-        if isinstance(table, DTensor):
-            table = own_grad(table)
-        logits = linear(x, table.t())
+        w, tied = params["embedding"], True
+    if isinstance(w, DTensor) and not any(
+            isinstance(p, Shard) and p.dim == (0 if tied else 1)
+            for p in w.placements):
+        logits = _unembed_rows(w, x, tied)
+    else:
+        if tied and isinstance(w, DTensor):
+            w = own_grad(w)
+        logits = linear(x, w.t() if tied else w)
     return shard(logits, ("batch", "seq", "vocab_act"))
+
+
+def _unembed_rows(w: DTensor, x: torch.Tensor, tied: bool) -> torch.Tensor:
+    """``x @ w`` (``w.t()`` if ``tied``) for a table whose vocab is whole
+    on every mesh dim: the table gathered over its FSDP dims, each rank
+    the logits of its own rows of ``x`` only, the table's gradient a
+    partial sum over the rows' mesh dims, reduce-scattered to its own
+    placements (:func:`own_grad`). Through DTensor's product the fp32
+    gradient of the logits would be gathered over the whole batch on
+    every rank, (256, 4096, 49155) for granite-moe at train_4k."""
+    w, x = own_grad(w), replicated(x, w)
+    whole = (Replicate(),) * w.device_mesh.ndim
+    rows = row_placements(x, [-1])
+    return on_local_shards(
+        lambda xl, wl: linear(xl, wl.t() if tied else wl), w.device_mesh,
+        (rows, whole), rows,
+        (rows, grad_placements(whole, rows)))(x, w)

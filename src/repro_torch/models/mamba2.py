@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import shard, whole_heads_grad
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_decode_ref
 from repro_torch.models.layers import dense_init, linear, pad_seq
@@ -133,7 +133,7 @@ def mamba_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         dt = F.softplus(dt_raw.float() + params["dt_bias"])
         y, state = ops.ssd(xs, dt, A, B, C, params["D"],
                            chunk=m.chunk_size)
-        y = y.reshape(b, s, di)
+        y = whole_heads_grad(y.reshape(b, s, di), nh)
         new_cache = None
         if mode == "prefill":
             keep = m.d_conv - 1

@@ -24,7 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.distributed.sharding import (RuleSet, local_slice,
@@ -101,17 +101,36 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return unembed_apply(params["embed"], x), new_caches, aux
 
 
+class _PickGather(torch.autograd.Function):
+    """``gather(x, -1, idx)`` that keeps ``idx`` and not ``x`` for its
+    backward, which scatters into one zero buffer of ``x``'s shape in
+    place (autograd's own keeps ``x``, the fp32 logits, and scatters into
+    a second buffer)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return torch.gather(x, -1, idx)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        idx, = ctx.saved_tensors
+        return grad.new_zeros(ctx.shape).scatter_add_(-1, idx, grad), None
+
+
 def _pick(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``gather(logits, -1, idx)``. On vocab-sharded DTensor logits each
-    rank picks from its own vocab shard, 0 where the label lies in
-    another's, a partial sum over the vocab's mesh dims; through DTensor's
-    gather the backward would make a zero gradient of the logits' global
-    shape on every rank."""
-    last = logits.ndim - 1
-    vocab = [i for i, p in enumerate(getattr(logits, "placements", ()))
-             if isinstance(p, Shard) and p.dim % logits.ndim == last]
-    if not vocab:
+    """``gather(logits, -1, idx)``. On DTensor logits each rank picks from
+    its own rows and, where the vocab is sharded, its own vocab shard, 0
+    where the label lies in another's, a partial sum over the vocab's mesh
+    dims; through DTensor's gather the backward would make a zero gradient
+    of the logits' global shape on every rank. Where the vocab is whole,
+    the pick keeps no logits for its backward (``_PickGather``)."""
+    if not isinstance(logits, DTensor):
         return torch.gather(logits, -1, idx)
+    last = logits.ndim - 1
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim % logits.ndim == last]
     lp = tuple(logits.placements)
     rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(lp))
     out = tuple(Partial() if i in vocab else p for i, p in enumerate(lp))
@@ -119,7 +138,9 @@ def _pick(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     def local(lg, ix):
         j = ix - off
-        got = torch.gather(lg, -1, torch.clamp(j, 0, n - 1))
+        jj = torch.clamp(j, 0, n - 1)
+        got = torch.gather(lg, -1, jj) if vocab else \
+            _PickGather.apply(lg, jj)
         return torch.where((j >= 0) & (j < n), got, 0.0)
 
     return on_local_shards(local, logits.device_mesh, (lp, rows), out,

@@ -209,7 +209,8 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     tpg = tokens // groups
     cap = expert_capacity(tpg, moe)
 
-    xg = shard(x.reshape(groups, tpg, d), ("batch", None, "embed_act"))
+    xr = x.reshape(groups, tpg, d)
+    xg = shard(xr, ("batch", None, "embed_act"))
     noise = None
     if moe.router_jitter and generator is not None:
         noise = replicated(torch.randn((groups, tpg, e), generator=generator,
@@ -241,6 +242,11 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         yb = shard(yb, ("batch", "expert_act", None, "embed_act"))
         out = on_local_shards(combine, mesh, (gp, gp, gp), gp,
                               (gp, gp, gp))(yb, w, dest)
+        # Back to the split of x's rows: where the data shards outnumber
+        # the rows (16 a microbatch over pod x data = 32), the groups'
+        # split cuts rows in half, which no (b, s) view keeps.
+        if tuple(out.placements) != tuple(xr.placements):
+            out = out.redistribute(mesh, xr.placements)
     aux = moe.aux_loss_weight * e * torch.mean(grp[0]) if aux_loss else None
     out = out.reshape(b, s, d)
     return shard(out, ("batch", "seq", "embed_act")), aux

@@ -170,8 +170,9 @@ class Recorder(TorchDispatchMode):
         self.ops = 0
         self.kernels: Dict[str, KernelTally] = {}
         self.collectives = CollectiveStats()
-        # Live storage allocated under the recorder: (+/- bytes, key) in
-        # the order of the trace.
+        # Live storage allocated under the recorder: (+/- bytes, key,
+        # (op, shape, dtype) of an allocation or None) in the order of the
+        # trace.
         self._events: List[tuple] = []
         self._live: Dict[int, int] = {}
         self._lock = threading.Lock()
@@ -211,10 +212,11 @@ class Recorder(TorchDispatchMode):
                 "bytes accessed": self.bytes + self.kernel_bytes}
 
     # -- memory ------------------------------------------------------------
-    def _track(self, ins: Iterable[torch.Tensor],
+    def _track(self, func, ins: Iterable[torch.Tensor],
                outs: Iterable[torch.Tensor]) -> None:
         """Count the storages an op's outputs hold that none of its inputs
-        held (a view or an in-place op allocates nothing)."""
+        held (a view or an in-place op allocates nothing), each with the
+        op and the output's shape and dtype."""
         held = {id(t.untyped_storage()) for t in ins}
         for t in outs:
             st = t.untyped_storage()
@@ -224,27 +226,52 @@ class Recorder(TorchDispatchMode):
             n = st.nbytes()
             with self._lock:
                 self._live[key] = n
-                self._events.append((n, key))
+                self._events.append((n, key, (func, tuple(t.shape),
+                                              t.dtype)))
             weakref.finalize(st, self._free, key)
 
     def _free(self, key: int) -> None:
         with self._lock:
             n = self._live.pop(key, None)
             if n is not None:
-                self._events.append((-n, key))
+                self._events.append((-n, key, None))
+
+    def _peak(self, exclude: Iterable[torch.Tensor]) -> tuple:
+        """(the peak of live storage less ``exclude``'s, the number of
+        events up to and with the one that reached it)."""
+        skip = {id(t.untyped_storage()) for t in exclude}
+        live = peak = at = 0
+        with self._lock:
+            for i, (n, key, _) in enumerate(self._events):
+                if key not in skip:
+                    live += n
+                    if live > peak:
+                        peak, at = live, i + 1
+        return peak, at
 
     def temp_bytes(self, exclude: Iterable[torch.Tensor] = ()) -> int:
         """The peak of storage allocated under the recorder and live at
         once, less the storages of ``exclude`` (the step's new outputs,
         which ``output_size_in_bytes`` counts)."""
+        return self._peak(exclude)[0]
+
+    def peak_storages(self, exclude: Iterable[torch.Tensor] = ()) -> tuple:
+        """What :meth:`temp_bytes` holds at its peak: (peak bytes,
+        [(bytes, op, shape, dtype)] of the storages live then, largest
+        first), each storage named by the op that allocated it."""
+        exclude = list(exclude)
+        peak, at = self._peak(exclude)
         skip = {id(t.untyped_storage()) for t in exclude}
-        live = peak = 0
+        live: Dict[int, tuple] = {}
         with self._lock:
-            for n, key in self._events:
-                if key not in skip:
-                    live += n
-                    peak = max(peak, live)
-        return peak
+            for n, key, label in self._events[:at]:
+                if key in skip:
+                    continue
+                if n > 0:
+                    live[key] = (n, str(label[0]), *label[1:])
+                else:
+                    live.pop(key, None)
+        return peak, sorted(live.values(), key=lambda x: -x[0])
 
     def memory_analysis(self, args: Any, outputs: Any,
                         aliased: Any) -> Dict[str, float]:
@@ -320,7 +347,7 @@ class Recorder(TorchDispatchMode):
                 packet is not _funcol.wait_tensor:
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         self.ops += 1
-        self._track(ins, outs)
+        self._track(func, ins, outs)
         return out
 
 

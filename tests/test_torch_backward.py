@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tdecode
@@ -32,6 +33,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trmsnorm
 from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.roofline import kernel_cost
+from repro_torch.roofline.counter import Recorder
 
 TOL = 1e-5
 TILE = 64   # q and kv rows a tile of csrc/flash_attention.cu's backward
@@ -262,10 +265,11 @@ def _check_wgmma_emulation(rng, b, sq, skv, hq, hkv, d, causal):
                       if j >= i or not causal}
 
 
-# (b, sq, skv, hq, hkv, d): groups 8, 2, 4 and 1; lengths 1, 65, 130, 200.
+# (b, sq, skv, hq, hkv, d): groups 8, 2, 4 and 1; lengths 1, 65, 130, 200;
+# stablelm-12b's 32/8 heads at d 160 (three boxes, N 192).
 WGMMA_CASES = [(2, 130, 130, 8, 1, 64), (1, 65, 65, 4, 2, 128),
                (1, 200, 200, 8, 2, 64), (1, 1, 1, 2, 2, 128),
-               (1, 200, 200, 4, 4, 128)]
+               (1, 200, 200, 4, 4, 128), (1, 130, 130, 32, 8, 160)]
 # Full attention only: skv differs from sq.
 WGMMA_FULL_CASES = [(1, 65, 200, 4, 2, 64), (1, 200, 65, 8, 1, 128)]
 
@@ -292,16 +296,15 @@ def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
 
 
 def test_flash_bwd_design_routes():
-    """bf16 at d 64 and 128 takes the wgmma kernels, everything else the
-    CUDA-core ones; what no kernel takes raises, d 160 among them (the
-    forward takes it, the backward not yet)."""
-    assert set(tflash.BWD_HEAD_DIMS) == set(tflash.HEAD_DIMS) - {160}
+    """bf16 at d 64, 128 and 160 takes the wgmma kernels, everything else
+    the CUDA-core ones; the backward takes every head dim the forward
+    does; what no kernel takes raises."""
+    assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
+    assert tflash.bwd_design(torch.float32, 160) == "simt"
     for dtype in (torch.float32, torch.bfloat16):
-        with pytest.raises(ValueError):
-            tflash.bwd_design(dtype, 160)
-        for d in tflash.BWD_HEAD_DIMS:
-            want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
-                else "simt"
+        for d in tflash.HEAD_DIMS:
+            want = "wgmma" if dtype == torch.bfloat16 and \
+                d in (64, 128, 160) else "simt"
             assert tflash.bwd_design(dtype, d) == want
     with pytest.raises(ValueError):
         tflash.bwd_design(torch.bfloat16, 96)
@@ -320,8 +323,8 @@ def test_flash_bwd_design_matches_the_kernel_dispatch():
                re.findall(r"case (\d+): return bwd_tc::launch<", entry)}
     simt_dims = {int(x) for x in re.findall(
         r"case (\d+): return bwd::launch<__nv_bfloat16,", entry)}
-    assert tc_dims | simt_dims == set(tflash.BWD_HEAD_DIMS)
-    for d in tflash.BWD_HEAD_DIMS:
+    assert tc_dims | simt_dims == set(tflash.HEAD_DIMS)
+    for d in tflash.HEAD_DIMS:
         assert tflash.bwd_design(torch.bfloat16, d) == \
             ("wgmma" if d in tc_dims else "simt")
     assert "if (dtype == kF32)\n    return bwd::dispatch_f32(" in entry
@@ -663,21 +666,60 @@ def test_card_grad_runs_the_backward_kernels(fake_card, rng):
         assert calls == ["flash"]       # serving: no lse written
 
 
-def test_card_flash_at_head_dim_160_raises_under_grad(fake_card, rng):
-    """The forward kernels take d 160, the backward kernels not yet: on the
-    card a call autograd would record refuses before any launch, and the
-    same call under no_grad reaches the forward kernel."""
+def test_card_flash_at_head_dim_160_runs_its_backward_kernel(fake_card,
+                                                             rng):
+    """stablelm-12b's d 160 under grad on the card: the forward kernel
+    with the log-sum-exp, then the backward kernel, whose gradients
+    autograd hands back; under no_grad the forward kernel alone."""
     calls = []
-    fake_card.setattr(tflash, "_kernel_forward",
-                      lambda *a, **kw: calls.append("flash") or (None, None))
+
+    def fwd(q, k, v, causal, scale, with_lse=False):
+        calls.append("flash" + ("+lse" if with_lse else ""))
+        return (tref.attention_ref(q, k, v, causal=causal, scale=scale),
+                tref.attention_lse_ref(q, k, causal=causal, scale=scale)
+                if with_lse else None)
+
+    def bwd(q, k, v, out, dout, lse, causal, scale):
+        calls.append("flash_bwd")
+        return tref.attention_bwd_ref(q, k, v, out, dout, lse,
+                                      causal=causal, scale=scale)
+
+    fake_card.setattr(tflash, "_kernel_forward", fwd)
+    fake_card.setattr(tflash, "_kernel_backward", bwd)
     q = torch.randn(1, 8, 4, 160, requires_grad=True)
-    kv = torch.randn(1, 8, 2, 160)
-    with pytest.raises(NotImplementedError, match="head_dim 160"):
-        ops.attention(q, kv, kv)
-    assert calls == []
+    kv = torch.randn(1, 8, 2, 160, requires_grad=True)
+    ops.attention(q, kv, kv).sum().backward()
+    assert calls == ["flash+lse", "flash_bwd"]
+    want = torch.autograd.grad(tref.attention_ref(q, kv, kv).sum(),
+                               (q, kv))
+    torch.testing.assert_close(q.grad, want[0])
+    torch.testing.assert_close(kv.grad, want[1])
+    calls.clear()
     with torch.no_grad():
         ops.attention(q, kv, kv)
     assert calls == ["flash"]
+
+
+def test_fake_flash_backward_at_head_dim_160_counts_one_call():
+    """On fake CUDA tensors (the dry run's stablelm-12b train cells) the
+    backward at d 160 takes its fake path: one ``flash_attention_bwd``
+    call with its ``kernel_cost``, gradients of the inputs' shapes, no
+    launch and no refusal."""
+    before = ops.launch_counts()
+    with FakeTensorMode():
+        q = torch.empty(2, 64, 32, 160, dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty(2, 64, 8, 160, dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(2, 32, 64, device="cuda")
+        with Recorder() as rec:
+            grads = tflash._kernel_backward(q, kv, kv, q, q, lse, True,
+                                            160 ** -0.5)
+    assert [tuple(g.shape) for g in grads] == [tuple(q.shape),
+                                               tuple(kv.shape),
+                                               tuple(kv.shape)]
+    assert rec.kernel_calls() == {"flash_attention_bwd": 1}
+    assert rec.kernel_flops == kernel_cost.flash_bwd(
+        2, 64, 64, 32, 8, 160, torch.bfloat16, True).ops
+    assert ops.launch_counts() == before
 
 
 def test_card_kernels_without_backward_raise_under_grad(fake_card, rng):

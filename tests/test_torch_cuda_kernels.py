@@ -214,19 +214,36 @@ def test_flash_d160_bf16_takes_the_wgmma_kernel(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_at_head_dim_160_raises_under_grad(cuda, dtype):
-    """No backward kernel takes d 160: under grad the card refuses the
-    call (the forward alone runs under no_grad)."""
-    q = _randn((1, 64, 4, 160), dtype, cuda, 0).requires_grad_(True)
-    kv = _randn((1, 64, 2, 160), dtype, cuda, 1)
-    before = tflash.KERNEL.launches
-    with pytest.raises(NotImplementedError, match="160"):
-        ops.attention(q, kv, kv)
-    assert tflash.KERNEL.launches == before
-    with torch.no_grad():
-        ops.attention(q, kv, kv)
-    with pytest.raises(ValueError):
-        tflash.bwd_design(dtype, 160)
+@pytest.mark.parametrize("b,sq,skv,causal", [
+    (8, 256, 256, True), (8, 256, 256, False), (1, 130, 130, True),
+    (1, 130, 130, False), (2, 65, 200, False), (2, 200, 65, False),
+    (1, 1, 1, True)])
+def test_flash_bwd_at_head_dim_160_matches_plain(cuda, dtype, b, sq, skv,
+                                                 causal):
+    """stablelm-12b's 32/8 heads at d 160 (bf16: the wgmma kernels, tiles
+    in three boxes, dK/dV on two warpgroups; fp32: the CUDA-core ones),
+    at its training shape and ragged lengths, against the plain backward
+    at the tolerances of d 128; then through autograd, one forward and
+    one backward launch."""
+    q, k, v, dout = _attn_inputs(cuda, dtype, b, sq, skv, 32, 8, 160)
+    scale = 160 ** -0.5
+    out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
+    got = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    torch.cuda.synchronize()
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal,
+                            scale=scale)
+    for g, w_, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches)
+    grads = torch.autograd.grad(ops.attention(*leaves, causal=causal),
+                                leaves, dout)
+    torch.cuda.synchronize()
+    assert (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b_ in zip(grads, got):
+        assert torch.equal(a, b_)
 
 
 def _decode_lengths(skv):
@@ -867,11 +884,11 @@ def test_flash_bwd_kernel_full_attention_skv_differs(cuda, dtype, sq, skv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 64])
-def test_flash_bwd_wgmma_is_bitwise_repeatable(cuda, d):
+@pytest.mark.parametrize("d,hq", [(128, 16), (64, 16), (160, 32)])
+def test_flash_bwd_wgmma_is_bitwise_repeatable(cuda, d, hq):
     """Two calls at the training shape give the same gradients bit for bit:
     no block adds into another's output, so a resumed run repeats."""
-    q, k, v, dout = _attn_inputs(cuda, torch.bfloat16, 8, 256, 256, 16, 8, d)
+    q, k, v, dout = _attn_inputs(cuda, torch.bfloat16, 8, 256, 256, hq, 8, d)
     scale = d ** -0.5
     out, lse = tflash._kernel_forward(q, k, v, True, scale, with_lse=True)
     first = tflash._kernel_backward(q, k, v, out, dout, lse, True, scale)
@@ -884,10 +901,12 @@ def test_flash_bwd_wgmma_is_bitwise_repeatable(cuda, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 64),
+                                     (torch.bfloat16, 160),
                                      (torch.bfloat16, 32),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 128),
+                                     (torch.float32, 160)])
 def test_flash_bwd_launches_the_kernels_of_its_design(cuda, dtype, d):
-    """By the profiler's kernel names: bf16 at d 64/128 runs the wgmma
+    """By the profiler's kernel names: bf16 at d 64/128/160 runs the wgmma
     kernels and never the CUDA-core ones; the rest the CUDA-core ones."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v, dout = _attn_inputs(cuda, dtype, 2, 130, 130, 8, 4, d)

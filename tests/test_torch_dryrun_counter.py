@@ -24,7 +24,8 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import fake_world, make_mesh
 from repro_torch.launch.train import data_config
-from repro_torch.roofline import kernel_cost
+from repro_torch.models.transformer import block_period
+from repro_torch.roofline import counter, kernel_cost
 from repro_torch.roofline.analysis import wire_bytes
 from repro_torch.roofline.counter import Recorder, local_bytes
 from repro_torch.training.data import _gen_batch
@@ -111,6 +112,37 @@ def test_temp_is_the_peak_of_live_storage():
     assert mem["alias_size_in_bytes"] == 4096
     assert mem["temp_size_in_bytes"] == 2 * 4096
     assert mem["total_nonalias_bytes"] == 4 * 4096
+    f32 = torch.float32
+    assert rec.peak_storages() == (2 * 4096, [
+        (4096, "aten.mul.Tensor", (1024,), f32),
+        (4096, "aten.add.Tensor", (1024,), f32)])
+    assert rec.peak_storages([b, c]) == (4096, [
+        (4096, "aten.mul.Tensor", (1024,), f32)])
+
+
+def test_peak_storages_name_what_a_traced_step_holds_at_its_peak():
+    """internlm2's smoke config, one train step traced on a fake world of
+    one: the storages live at the peak add up to ``temp_size_in_bytes``
+    (new outputs set aside as it sets them aside), largest first, each
+    named by the aten op that allocated it."""
+    cfg, shape = _smoke_train()
+    with fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        traced, _, _ = dryrun._lower_cell(cfg, shape, mesh, opts={},
+                                          scan=True)
+    mem = dryrun._memory_analysis_dict(traced)
+    arg_keys = {id(t.untyped_storage())
+                for t in counter.local_tensors(traced.args)}
+    new_outs = [t for t in counter.local_tensors(traced.outputs)
+                if id(t.untyped_storage()) not in arg_keys]
+    peak, live = traced.recorder.peak_storages(new_outs)
+    assert peak == mem["temp_size_in_bytes"] > 0
+    assert sum(n for n, *_ in live) == peak
+    assert [n for n, *_ in live] == sorted((n for n, *_ in live),
+                                           reverse=True)
+    assert all(op.startswith("aten.") or op.startswith("_c10d")
+               for _, op, _, _ in live)
+    assert traced.recorder.peak_storages()[0] >= peak
 
 
 def _cuda(*shape, dtype=torch.bfloat16):
@@ -351,3 +383,130 @@ def test_local_shard_ops_equal_whole_tensor_ops(tmp_path):
         assert torch.equal(torch.from_numpy(o["lookup"]), look.detach())
         torch.testing.assert_close(torch.from_numpy(o["table_grad"]),
                                    table.grad, rtol=1e-6, atol=1e-6)
+
+
+# What the production mesh showed where the model axis divides neither
+# the heads nor the vocab, each now done on whole heads or local rows: a
+# flattened (h * k) tensor whose gradient a product hands back in pieces
+# of heads (3 heads of 4 over a model axis of 2), and the unembedding of
+# a table whose vocab stays whole (gathered over the batch on every rank
+# before), tied and untied. Held on 4 gloo ranks, a (2, 2) mesh, against
+# the same ops on whole tensors.
+UNEVEN_LOCAL_SHARD_CODE = """
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.distributed.sharding import whole_heads_grad
+from repro_torch.models.layers import unembed_apply
+mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+R, S = Replicate(), Shard
+coord = mesh.get_coordinate()
+def dt(t, plc):
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard):
+            t = t.chunk(2, dim=p.dim)[coord[i]]
+    return DTensor.from_local(t.contiguous(), mesh, plc,
+                              run_check=False).requires_grad_()
+g = torch.Generator().manual_seed(0)
+y_full = torch.randn(4, 3, 3, 4, generator=g)    # (b, s, h, k), h 3, k 4
+w_full = torch.randn(12, 5, generator=g)         # (h * k, d)
+for fix in (True, False):
+    y = dt(y_full, (S(0), R))                     # rows over data
+    w = dt(w_full, (R, S(0)))                     # columns over model
+    flat = y.reshape(4, 3, 12)
+    if fix:
+        flat = whole_heads_grad(flat, 3)
+    try:
+        (flat @ w).sum().backward()
+        out[f"heads_ok{int(fix)}"] = 1
+        out[f"heads_grad{int(fix)}"] = y.grad.full_tensor().numpy()
+    except RuntimeError as e:
+        out[f"heads_ok{int(fix)}"] = int("unevenly" not in str(e)) + 2
+x_full = torch.randn(4, 3, 6, generator=g)       # (b, s, d)
+table_full = torch.randn(10, 6, generator=g)     # vocab 10, d 6
+coef = torch.randn(4, 3, 10, generator=g)
+for tied in (True, False):
+    x = dt(x_full, (S(0), R))
+    if tied:
+        table = dt(table_full, (S(1), R))         # d over data (fsdp)
+        params = {"embedding": table}
+    else:
+        table = dt(table_full.t(), (S(0), R))
+        params = {"embedding": dt(table_full, (S(1), R)), "unembed": table}
+    logits = unembed_apply(params, x)
+    (logits * DTensor.from_local(coef, mesh, [R, R], run_check=False)
+     ).sum().backward()
+    t = "tied" if tied else "untied"
+    out[f"{t}_logits"] = logits.full_tensor().detach().numpy()
+    out[f"{t}_plc"] = int(tuple(logits.placements) == (S(0), R))
+    out[f"{t}_x_grad"] = x.grad.full_tensor().numpy()
+    out[f"{t}_w_grad"] = table.grad.full_tensor().numpy()
+    out[f"{t}_grad_plc"] = int(tuple(table.grad.placements) ==
+                               tuple(table.placements))
+"""
+
+
+def test_uneven_local_shard_ops_equal_whole_tensor_ops(tmp_path):
+    from torch_gloo import run_ranks
+    outs = run_ranks(UNEVEN_LOCAL_SHARD_CODE, 4, tmp_path)
+    g = torch.Generator().manual_seed(0)
+    y = torch.randn(4, 3, 3, 4, generator=g).requires_grad_()
+    w = torch.randn(12, 5, generator=g)
+    (y.reshape(4, 3, 12) @ w).sum().backward()
+    x = torch.randn(4, 3, 6, generator=g)
+    table = torch.randn(10, 6, generator=g)
+    coef = torch.randn(4, 3, 10, generator=g)
+    want = {}
+    for t in ("tied", "untied"):
+        xl = x.clone().requires_grad_()
+        tl = table.clone().requires_grad_()
+        logits = xl @ tl.t()
+        (logits * coef).sum().backward()
+        want[t] = (logits.detach(), xl.grad,
+                   tl.grad if t == "tied" else tl.grad.t())
+    for o in outs:
+        # the flattened heads: DTensor's own view backward refuses the
+        # gradient's split, the repaired one matches whole tensors
+        assert o["heads_ok0"] == 2 and o["heads_ok1"] == 1
+        torch.testing.assert_close(torch.from_numpy(o["heads_grad1"]),
+                                   y.grad, rtol=1e-6, atol=1e-6)
+        for t in ("tied", "untied"):
+            assert o[f"{t}_plc"] == 1 and o[f"{t}_grad_plc"] == 1
+            for got, ref in zip((o[f"{t}_logits"], o[f"{t}_x_grad"],
+                                 o[f"{t}_w_grad"]), want[t]):
+                torch.testing.assert_close(torch.from_numpy(got), ref,
+                                           rtol=1e-6, atol=1e-6)
+
+
+def _one_period_train_cell(arch):
+    """``arch`` at full width, its depth cut to one block period, at
+    train_4k on pod16x16 (a CPU mesh): the traced step's memory
+    analysis."""
+    cfg = get_config(arch)
+    cfg = dryrun._probe_cfg(cfg, block_period(cfg))
+    with fake_world(256):
+        mesh = make_mesh((16, 16), ("data", "model"), device="cpu")
+        traced, kind, _ = dryrun._lower_cell(cfg, SHAPES["train_4k"], mesh,
+                                             opts={}, scan=True)
+    assert kind == "train"
+    return dryrun._memory_analysis_dict(traced)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "mamba2-130m",
+                                  "phi3-medium-14b"])
+def test_uneven_heads_train_cells_trace_on_the_production_mesh(arch):
+    """14 q heads, 24 Mamba heads and 40 q heads over a model axis of 16:
+    the backward of each flattened heads tensor unflattened DTensor's
+    split of its gradient, which failed the trace before
+    ``whole_heads_grad``."""
+    mem = _one_period_train_cell(arch)
+    assert mem["temp_size_in_bytes"] > 0
+
+
+def test_granite_unembedding_keeps_to_its_own_rows():
+    """granite-moe's tied table (vocab 49155, whole over the model axis):
+    its logits and their gradient stay on each rank's 16 of the 256 rows,
+    the temp peak below a quarter of the global batch's fp32 logits
+    (243 GiB a chip before, the global (256, 4096, 49155) gradient)."""
+    mem = _one_period_train_cell("granite-moe-1b-a400m")
+    assert mem["temp_size_in_bytes"] < 256 * 4096 * 49155 * 4 / 4
