@@ -39,6 +39,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 path, and its launches here are the ones reported; beside
                 its library call (``torch._int_mm`` and the scales) it
                 times ``torch._int_mm`` alone (``int_mm_ms``).
+3b. ``contract`` the kernels at shapes the Pallas kernels compute and no
+                model path runs, in bf16 and fp32: flash forward and
+                backward at b 8, s 256, causal, at 32/32 heads d 96
+                (phi-3-mini) and d 80 (phi-2), 8/1 d 256 (gemma-2b) and
+                8/8 d 100 (rows not whole 16-byte chunks in bf16); decode
+                at the serve cache with 71/1 d 64 (falcon-7b: five slices
+                of q heads), 8/1 d 256 and 32/32 d 96, each in plain and
+                partial mode; ssd_scan forward and backward at b 1, s
+                512, 8 heads, p 64, d_state 512. Each case against its
+                plain version at the ``kernels`` phase's tolerances, its
+                design, its launches (every call launched its kernel; the
+                module's plain versions refuse while it runs), time by
+                graph replay, bound, plain version's and SDPA's (with the
+                lengths as a mask in decode) time; head dims 0 and 257
+                must raise, launching nothing; the ptxas line of every
+                padded or tiled instantiation. Then internlm2-1.8b at
+                PARITY_LAYERS layers with ``CONTRACT_MODELS``' heads
+                (gemma-2b's, a group of 32, phi-3-mini's): ``parity`` and
+                ``train_parity`` card vs CPU, launches exact.
 4. ``serve``    three paths, each full width in bf16 with random weights,
                 8 requests through ``repro_torch.launch.serve.serve``,
                 which runs them through the port's ``ClusterRuntime``
@@ -211,10 +230,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 train_4k, mamba2-130m at long_500k on pod16x16, and
                 internlm2 decode_32k on pod2x16x16; then the train_4k
                 cells of mamba2-130m and internvl2-1b, whose heads the
-                model axis does not divide, and of stablelm-12b, d 160),
+                model axis does not divide, and of stablelm-12b, d 160;
+                then internlm2 decode_32k with a group of 32 and
+                train_4k with gemma-2b's heads, through ``--opts``
+                ``model_overrides``),
                 each in a process of
                 its own (a fake world of 256 or 512 ranks cannot share one
-                with an NCCL group), all at once: one line a cell with its
+                with an NCCL group), eight at once, the longest first:
+                one line a cell with its
                 three roofline terms on the H100 spec, bound, roofline
                 fraction, GiB a device, collective wire bytes by kind and
                 kernel calls; each cell's GiB a device but internvl2-1b
@@ -258,8 +281,10 @@ Then the summary line of kernels (one row per kernel and path: a kernel
 several paths run, rmsnorm on all three and flash and decode on two, has
 a row for each, with that path's launches and its case at that path's
 shape; each training path has rows for its kernels and their backward
-kernels, with the launches of its 8-step run), the nvidia-smi line, and
-the result line ``{"ok": true, "device": {...}}``.
+kernels, with the launches of its 8-step run; the ``contract`` phase a
+row for each of its cases and backward cases, path ``contract phase``,
+with its checked launches), the nvidia-smi line, and the result line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -695,9 +720,9 @@ def _main_path_patterns() -> list:
             r"ssd_bwd_tc_states_kernel<bf16>",
             r"ssd_bwd_tc_local_kernel<bf16>",
             r"ssd_bwd_tc_reduce_kernel<bf16>"]
-    pats += [rf"ssd_bwd_{k}_kernel<{dt}>" for k in ("states", "local",
-                                                     "reduce")
+    pats += [rf"ssd_bwd_{k}_kernel<{dt}>" for k in ("states", "reduce")
              for dt in ("bf16", "f32")]
+    pats += [rf"ssd_bwd_local_kernel<{dt},0>" for dt in ("bf16", "f32")]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for arch in TRAIN_PATHS:
         for es, dt in ((2, "bf16"), (4, "f32")):
@@ -708,8 +733,8 @@ def _main_path_patterns() -> list:
         hd = get_config(arch).resolved_head_dim
         pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
                  for k in ("preprocess", "dkdv_wgmma", "dq_wgmma")]
-        pats += [rf"flash_bwd_{k}_kernel<f32,{hd}>"
-                 for k in ("preprocess", "dkdv", "dq")]
+        pats += [rf"flash_bwd_preprocess_kernel<f32,{hd}>"]
+        pats += [rf"flash_bwd_{k}_kernel<f32,{hd},0>" for k in ("dkdv", "dq")]
     for arch in PATH_KERNELS:
         cfg = get_config(arch)
         vec, nv, wpr, _ = krms.plan(1, cfg.d_model, 2, True)
@@ -717,8 +742,8 @@ def _main_path_patterns() -> list:
         if "flash_attention" in PATH_KERNELS[arch]:
             hd, g = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
             gm = kdec.group_bucket(g)
-            pats += [rf"flash_fwd_wgmma_kernel<bf16,{hd}>",
-                     rf"decode_split_kernel<bf16,{hd},{gm},{int(g == gm)}>"]
+            pats += [rf"flash_fwd_wgmma_kernel<bf16,{hd},0>",
+                     rf"decode_split_kernel<bf16,{hd},{gm},{int(g == gm)},0>"]
     for m, k, n in INT8_SHAPES:
         bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
         pats.append(rf"int8_wgmma_kernel<\w+,{bm // 64},{bn},\d+,1>")
@@ -1264,6 +1289,311 @@ def phase_kernels() -> dict:
     return head
 
 
+# ---------------------------------------------------------------------------
+# The contract phase: shapes the Pallas kernels compute and no model path
+# above runs. Head dims off the instantiated set (phi-3-mini's 96, phi-2's
+# 80, gemma-2b's 256, and 100, whose bf16 rows are not whole 16-byte
+# chunks), falcon-7b's group of 71 q heads on one kv head, d_state 512.
+# ---------------------------------------------------------------------------
+CONTRACT_PATH = "contract phase"
+CONTRACT_FLASH = ((32, 32, 96), (32, 32, 80), (8, 1, 256), (8, 8, 100))
+CONTRACT_DECODE = ((71, 1, 64), (8, 1, 256), (32, 32, 96))
+CONTRACT_SSD = (1, 512, 8, 64, 512)        # b, s, h, p, n
+# internlm2-1.8b at PARITY_LAYERS layers with three attention layouts of
+# ModelConfig.replace: gemma-2b's, a group of 32, and phi-3-mini's.
+CONTRACT_MODELS = {"gemma-2b heads": dict(num_heads=8, num_kv_heads=1,
+                                          head_dim=256),
+                   "group 32": dict(num_heads=32, num_kv_heads=1,
+                                    head_dim=64),
+                   "phi-3-mini heads": dict(num_heads=32, num_kv_heads=32,
+                                            head_dim=96)}
+
+
+@contextlib.contextmanager
+def _no_plain(*mods):
+    """Inside, a call of any of ``mods``' plain versions raises: every
+    call on the card must launch its kernel."""
+    def refuse(*_, **__):
+        raise AssertionError("a CUDA call went to the plain version")
+    saved = [(m, n, getattr(m, n)) for m in mods
+             for n in ("plain", "plain_bwd") if hasattr(m, n)]
+    for m, n, _ in saved:
+        setattr(m, n, refuse)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _launched(kernels, calls, want):
+    """Run ``calls`` with the plain versions refused; each of ``kernels``
+    must have launched ``want[i]`` times. Returns the calls' results."""
+    before = [k.launches for k in kernels]
+    with _no_plain(kflash, kdec, kssd):
+        out = calls()
+        torch.cuda.synchronize()
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    if got != list(want):
+        raise AssertionError(f"launches {got} != {list(want)} of "
+                             f"{[k.name for k in kernels]}")
+    return out, dict(zip((k.name for k in kernels), got))
+
+
+def _contract_flash_case(hq, hkv, d, dtype, seed=0):
+    """Flash forward and backward at b 8, s 256, causal: the wrapper
+    (no grad), the forward with its log-sum-exp and the backward, and one
+    autograd step through the wrapper, each a launch; against the plain
+    forward and backward; SDPA's forward and backward timed beside."""
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q = randn((b, s, hq, d), dtype, seed)
+    k = randn((b, s, hkv, d), dtype, seed + 1)
+    v = randn((b, s, hkv, d), dtype, seed + 2)
+    dout = randn((b, s, hq, d), dtype, seed + 3)
+    scale = kflash._scale(q, None)      # the wrapper's, bit for bit
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def calls():
+        out = kflash.flash_attention(q, k, v)
+        out2, lse = kflash._kernel_forward(q, k, v, True, scale,
+                                           with_lse=True)
+        grads = kflash._kernel_backward(q, k, v, out2, dout, lse, True,
+                                        scale)
+        auto = torch.autograd.grad(kflash.flash_attention(*leaves), leaves,
+                                   dout)
+        return out, out2, lse, grads, auto
+    (out, out2, lse, grads, auto), launches = _launched(
+        (kflash.KERNEL, kflash.KERNEL_BWD), calls, (3, 2))
+    err = max_err(out, kflash.plain(q, k, v, causal=True), dtype)
+    want = kflash.plain_bwd(q, k, v, out2, dout, lse, causal=True,
+                            scale=scale)
+    bwd_err = max(max_err(g, w, dtype) for g, w in zip(grads, want))
+    if not torch.equal(out, out2) or \
+            not all(torch.equal(a, g) for a, g in zip(auto, grads)):
+        raise AssertionError(f"flash d {d}: the wrapper's and autograd's "
+                             f"calls differ from the kernel's")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_fwd = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt),
+                                           dout.transpose(1, 2))
+    fwd = lambda: kflash._kernel_forward(q, k, v, True, scale)
+    bwd = lambda: kflash._kernel_backward(q, k, v, out2, dout, lse, True,
+                                          scale)
+    lib_ms = time_ms(lib_fwd)
+    b_ms, by = bound(*kernel_cost.flash(b, s, s, hq, hkv, d, dtype))
+    bb_ms, bby = bound(*kernel_cost.flash_bwd(b, s, s, hq, hkv, d, dtype))
+    return {"kernel": "flash_attention", "path": CONTRACT_PATH,
+            "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+            "padded_head_dim": kflash.padded_head_dim(d),
+            "design": kflash.fwd_design(dtype, d), "max_abs_err": err,
+            "checked_launches": launches["flash_attention"],
+            "ms": time_ms(fwd), "plain_ms": time_ms(lambda: kflash.plain(
+                q, k, v), 5),
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_call": "F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa)",
+            "bwd": {"kernel": "flash_attention_bwd",
+                    "design": kflash.bwd_design(dtype, d),
+                    "max_abs_err": bwd_err,
+                    "checked_launches": launches["flash_attention_bwd"],
+                    "ms": time_ms(bwd, 5),
+                    "plain_ms": time_ms(lambda: kflash.plain_bwd(
+                        q, k, v, out2, dout, lse, causal=True,
+                        scale=scale), 3),
+                    "library_ms": time_ms(lib_both, 5) - time_ms(lib_fwd, 5),
+                    "library_call": "SDPA backward (autograd): forward and "
+                                    "backward less the forward",
+                    "bound_ms": bb_ms, "bound_by": bby}}
+
+
+def _contract_decode_case(hq, hkv, d, dtype, lse, seed=0):
+    """One decode tick of SLOTS slots against the serve cache (the
+    kernels phase's internlm2 case: cache MAX_LEN, lengths 129 to 731),
+    plain or partial mode, against the plain version; SDPA with the
+    lengths as a mask timed beside."""
+    skv, lengths = DECODE_CASES[0]
+    b = SLOTS
+    q = randn((b, hq, d), dtype, seed)
+    k = randn((b, skv, hkv, d), dtype, seed + 1)
+    v = randn((b, skv, hkv, d), dtype, seed + 2)
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    call = lambda: kdec.decode_attention(q, k, v, length, return_lse=lse)
+    got, launches = _launched((kdec.KERNEL,), call, (1,))
+    want = kdec.plain(q, k, v, length, return_lse=lse)
+    if lse:
+        err = max(max_err(got[0], want[0], dtype),
+                  max_err(got[1], want[1], torch.float32))
+    else:
+        err = max_err(got, want, dtype)
+    mask = (torch.arange(skv, device="cuda")[None, :] < length[:, None])
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    b_ms, by = bound(*kernel_cost.decode(b, hq, hkv, d, sum(lengths), dtype,
+                                         lse))
+    g = hq // hkv
+    return {"kernel": "decode_attention", "path": CONTRACT_PATH,
+            "shape": [b, skv, hq, hkv, d], "lengths": lengths,
+            "mode": "partial (return_lse)" if lse else "plain",
+            "dtype": str(dtype), "padded_head_dim": kflash.padded_head_dim(d),
+            "group_bucket": kdec.group_bucket(g, d),
+            "group_slices": kdec.group_slices(g),
+            "max_abs_err": err, "checked_launches": launches[
+                "decode_attention"],
+            "ms": time_ms(call), "plain_ms": time_ms(lambda: kdec.plain(
+                q, k, v, length, return_lse=lse), 10),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None, None, :],
+                enable_gqa=True)),
+            "library_call": "F.scaled_dot_product_attention(attn_mask of "
+                            "the lengths, enable_gqa)",
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def _contract_ssd_case(dtype, seed=0):
+    """ssd_scan forward and backward at d_state 512 (b 1, s 512, 8 heads,
+    p 64, chunk 256): the forward against the plain version, the backward
+    (the final state's gradient zero, as training gives it, and not)
+    against the closed form, two calls bitwise equal."""
+    b, s, h, p, n = CONTRACT_SSD
+    chunk = 256
+    args = _ssd_inputs(b, s, h, p, n, dtype, seed)
+    dy = randn((b, s, h, p), dtype, seed + 1)
+    ds = randn((b, h, p, n), torch.float32, seed + 2)
+    (y, st), launches = _launched((kssd.KERNEL,), lambda: kssd.ssd_scan(
+        *args, chunk=chunk), (1,))
+    want_y, want_st = kssd.plain(*args, chunk=chunk)
+    err = max(max_err(y, want_y, dtype, SSD_TOL[dtype]),
+              max_err(st, want_st, torch.float32, SSD_TOL[torch.float32]))
+    bwd = {}
+    for name, dstate in (("zero", None), ("nonzero", ds)):
+        call = lambda dstate=dstate: kssd._kernel_backward(*args, dy, dstate)
+        want = kssd.plain_bwd(*args, dy, dstate, chunk=chunk)
+        with _no_plain(kssd):
+            errs, rel = _ssd_bwd_check(call, want, dtype, "simt")
+        bb_ms, bby = bound(*kernel_cost.ssd_bwd(b, s, h, p, n, dtype, chunk,
+                                               dstate is not None))
+        bwd[name] = {"max_abs_err": max(errs.values()), "abs_err": errs,
+                     "err_over_maxabs": rel, "bitwise_repeat": True,
+                     "checked_launches": 2,
+                     "ms": time_ms(call, 5),
+                     "plain_ms": time_ms(lambda dstate=dstate:
+                                         kssd.plain_bwd(*args, dy, dstate,
+                                                        chunk=chunk), 2, 3),
+                     "bound_ms": bb_ms, "bound_by": bby}
+    fwd = lambda: kssd.ssd_scan(*args, chunk=chunk)
+    b_ms, by = bound(*kernel_cost.ssd(b, s, h, p, n, dtype, chunk))
+    return {"kernel": "ssd_scan", "path": CONTRACT_PATH,
+            "shape": [b, s, h, p, n], "chunk": chunk, "dtype": str(dtype),
+            "design": kssd.DESIGNS[kssd.plan(dtype, n, p)],
+            "bwd_design": kssd.DESIGNS[kssd.bwd_design(dtype, n, p)],
+            "max_abs_err": err, "checked_launches": launches["ssd_scan"],
+            "kernel_us": device_us(fwd), "ms": time_ms(fwd),
+            "plain_ms": time_ms(lambda: kssd.plain(*args, chunk=chunk), 5),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD scan",
+            "bound_ms": b_ms, "bound_by": by, "bwd": bwd}
+
+
+def _contract_refusals() -> list:
+    """What no kernel takes raises on the card, before any launch: head
+    dim 0 and 257 (flash, its backward's design, decode)."""
+    out = []
+    for d in (0, 257):
+        q = randn((1, 8, 2, d), torch.bfloat16, 0)
+        qd, ln = randn((1, 2, d), torch.bfloat16, 0), torch.ones(
+            1, dtype=torch.int32, device="cuda")
+        for name, call in (("flash_attention", lambda: kflash.flash_attention(
+                               q, q, q)),
+                           ("flash_attention_bwd", lambda: kflash.bwd_design(
+                               torch.bfloat16, d)),
+                           ("decode_attention", lambda: kdec.decode_attention(
+                               qd, q, q, ln))):
+            before = ops.launch_counts()
+            try:
+                call()
+            except ValueError as e:
+                out.append({"kernel": name, "head_dim": d,
+                            "raised": str(e)})
+            else:
+                raise AssertionError(f"{name} at head_dim {d} did not raise")
+            if ops.launch_counts() != before:
+                raise AssertionError(f"{name} at head_dim {d} launched")
+    return out
+
+
+def _contract_rows(contract: dict) -> list:
+    """Rows of the summary line for the contract phase's shapes, forward
+    and backward kernels alike: launches are the phase's checked calls
+    (no model path runs these shapes)."""
+    rows = []
+    for c in contract.values():
+        parts = [c]
+        if c["kernel"] == "flash_attention":
+            parts.append({**c["bwd"], "shape": c["shape"]})
+        if c["kernel"] == "ssd_scan":
+            parts += [{**b, "kernel": "ssd_scan_bwd", "shape": c["shape"],
+                       "dstate": name, "design": c["bwd_design"],
+                       "library_ms": None,
+                       "library_note": c["library_note"]}
+                      for name, b in c["bwd"].items()]
+        for x in parts:
+            source, replaces = SOURCES[x["kernel"]]
+            rows.append({
+                "name": x["kernel"], "path": CONTRACT_PATH, "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": x["checked_launches"],
+                "launches_from": "contract phase (checked calls)",
+                "shape": x["shape"], "dtype": c["dtype"],
+                **{k: x[k] for k in ("design", "mode", "dstate")
+                   if k in x},
+                "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+                "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+                "bound_by": x["bound_by"], "library_ms": x["library_ms"]})
+    return rows
+
+
+def phase_contract(smi: str) -> dict:
+    """The kernels at the shapes the Pallas kernels compute beyond the
+    model paths, in bf16 and fp32 (each case's design, error against the
+    plain version, launches that prove each call ran the kernel, time by
+    graph replay, bound, plain version's and library's time); the
+    refusals; then internlm2-1.8b at PARITY_LAYERS layers with each of
+    CONTRACT_MODELS' heads, card against CPU (``phase_parity``,
+    ``phase_train_parity``). Returns the first case of each new shape, by
+    (kernel, shape, dtype)."""
+    t0 = time.monotonic()
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for hq, hkv, d in CONTRACT_FLASH:
+            cases.append(_contract_flash_case(hq, hkv, d, dtype))
+        for hq, hkv, d in CONTRACT_DECODE:
+            for lse in (False, True):
+                cases.append(_contract_decode_case(hq, hkv, d, dtype, lse))
+        cases.append(_contract_ssd_case(dtype))
+    ptxas = [p for p in _ptxas_summary(_build.build().ptxas)
+             if re.search(r"<\w+,256|,1>|flash_bwd_preprocess_rows|"
+                          r"ssd_scan_simt|ssd_bwd_local", p)]
+    emit({"phase": "contract", "tolerance": {
+        "bfloat16": KERNEL_TOL[torch.bfloat16],
+        "float32": KERNEL_TOL[torch.float32],
+        "ssd_scan": {"bfloat16": SSD_TOL[torch.bfloat16],
+                     "float32": SSD_TOL[torch.float32]},
+        "ssd_scan_bwd": {"over_maxabs": SSD_BWD_TOL}},
+        "cases": cases, "refusals": _contract_refusals(),
+        "padded_instantiations": ptxas,
+        "kernels_s": time.monotonic() - t0, "nvidia_smi": smi})
+    _free_card()
+    for label, over in CONTRACT_MODELS.items():
+        phase_parity(ARCH, (77, 45), overrides=over, label=label)
+        phase_train_parity(ARCH, overrides=over, label=label)
+        _free_card()
+    emit({"phase": "contract", "seconds": time.monotonic() - t0,
+          "nvidia_smi": smi})
+    return {(c["kernel"], tuple(c["shape"]), c["dtype"],
+             c.get("mode", "")): c for c in cases}
+
+
 def phase_serve(smi: str, arch: str, prompt_lens) -> dict:
     """Serve ``prompt_lens`` through the launcher (and so the runtime); the
     path's own kernels must launch and the other model kernels must not,
@@ -1457,7 +1787,8 @@ class RouterLog:
         return out
 
 
-def phase_parity(arch: str, prompt_lens) -> None:
+def phase_parity(arch: str, prompt_lens, overrides: dict | None = None,
+                 label: str | None = None) -> None:
     """fp32 logits on the card (kernels) vs the CPU (plain versions):
     prefill of two prompts at batch 1, their caches copied into a batch of
     two slots, then three per-slot decode steps, as the batcher runs them.
@@ -1467,9 +1798,13 @@ def phase_parity(arch: str, prompt_lens) -> None:
     ``frontend_dim``, drawn from a seeded generator, before each prompt.
     With MoE layers, a sequence whose routing differs between the sides in
     any layer is left out of the logit comparison from then on
-    (``RouterLog``)."""
+    (``RouterLog``). ``overrides`` (the contract phase's heads) go to
+    ``ModelConfig.replace``; the launches must then be exactly a dense
+    model's: every layer's norms and attention once a forward, the final
+    norm once."""
     cfg = get_config(arch).replace(dtype="float32",
-                                   num_layers=PARITY_LAYERS)
+                                   num_layers=PARITY_LAYERS,
+                                   **(overrides or {}))
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.device("cpu"))
     rng = np.random.default_rng(1)
@@ -1533,8 +1868,17 @@ def phase_parity(arch: str, prompt_lens) -> None:
             pos = pos + 1
     launches = ops.launch_counts()
     _check_path_launches(arch, launches)
+    if overrides:
+        n, forwards = PARITY_LAYERS, len(prompts) + 3
+        want = {"rmsnorm": (2 * n + 1) * forwards,
+                "flash_attention": n * len(prompts), "decode_attention": 3 * n}
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"{label}: parity launches {launches} != "
+                                 f"{want}")
     tokens_equal = greedy["card"] == greedy["cpu"]
     line = {"phase": "parity", "arch": arch, "dtype": "float32",
+            **({"contract": label, "overrides": overrides}
+               if overrides else {}),
             "layers": PARITY_LAYERS, "prompt_lens": list(prompt_lens),
             "frontend_tokens": ft, "decode_steps": 3,
             "tolerance": PARITY_TOL, "max_abs_err_per_step": errs,
@@ -1724,11 +2068,14 @@ def phase_train(smi: str, arch: str) -> dict:
     return launches
 
 
-def phase_train_parity(arch: str) -> None:
+def phase_train_parity(arch: str, overrides: dict | None = None,
+                       label: str | None = None) -> None:
     """One loss and its gradient, fp32 ``arch`` at full width with
     PARITY_LAYERS layers, full remat: on the card (kernels and their
-    backward kernels) against the CPU (plain versions)."""
-    cfg = get_config(arch).replace(dtype="float32", num_layers=PARITY_LAYERS)
+    backward kernels) against the CPU (plain versions). ``overrides`` as
+    ``phase_parity``'s."""
+    cfg = get_config(arch).replace(dtype="float32", num_layers=PARITY_LAYERS,
+                                   **(overrides or {}))
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.device("cpu"))
     batch = _gen_batch(data_config(cfg, TRAIN_PARITY_SEQ,
@@ -1752,14 +2099,19 @@ def phase_train_parity(arch: str) -> None:
     rel = [((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
            for a, c in zip(g_card, g_cpu)]
     finite = all(torch.isfinite(g).all() for g in g_card)
+    norm = {side: sum(g.double().square().sum() for g in gs).sqrt().item()
+            for side, gs in (("card", g_card), ("cpu", g_cpu))}
+    norm_err = abs(norm["card"] - norm["cpu"]) / norm["cpu"]
     emit({"phase": "train_parity", "arch": arch, "dtype": "float32",
-          "layers": n, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+          **({"contract": label, "overrides": overrides}
+             if overrides else {}), "layers": n, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
           "remat": "full", "tolerance": PARITY_TOL, "loss_card": l_card,
           "loss_cpu": l_cpu, "loss_abs_err": abs(l_card - l_cpu),
           "grad_leaves": len(rel), "max_grad_err_over_maxabs": max(rel),
-          "kernel_launches": launches})
+          "grad_norm_card": norm["card"], "grad_norm_cpu": norm["cpu"],
+          "grad_norm_rel_err": norm_err, "kernel_launches": launches})
     if not finite or abs(l_card - l_cpu) > PARITY_TOL * max(1, abs(l_cpu)) \
-            or max(rel) > PARITY_TOL:
+            or max(rel) > PARITY_TOL or norm_err > PARITY_TOL:
         raise AssertionError(f"train parity: loss {l_card} vs {l_cpu}, "
                              f"grad err {max(rel)} (tol {PARITY_TOL})")
 
@@ -2987,16 +3339,18 @@ def phase_sharded(smi: str) -> dict:
     return launched[ARCH]
 
 
-# The dry run's production cells (arch, shape, multi-pod), each traced in
-# a process of its own on a fake world of 256 (512) ranks over a CUDA
-# mesh, all at once; qwen2-72b at train_4k (80 layers x 8 microbatches)
-# takes longer than the phase may and runs from the CLI, as the rest of
-# the matrix does (``--all --both-meshes``). The train_4k cells
+# The dry run's production cells (arch, shape, multi-pod[, opts]), each
+# traced in a process of its own on a fake world of 256 (512) ranks over a
+# CUDA mesh, DRYRUN_JOBS at once (the host's cores), the longest trace
+# (stablelm-12b's, ~90 s) first; qwen2-72b at train_4k (80 layers x 8
+# microbatches) takes longer than the phase may and runs from the CLI, as
+# the rest of the matrix does (``--all --both-meshes``). The train_4k cells
 # of mamba2-130m and internvl2-1b have heads that the model axis of 16
 # does not divide (24 Mamba heads, 14 q heads; phi3-medium's 40 fail the
 # same way and take 150 s to trace, so they run with the matrix), and
 # stablelm-12b's runs the flash backward's fake path at d 160.
-DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
+DRYRUN_CELLS = (("stablelm-12b", "train_4k", False),
+                ("internlm2-1.8b", "train_4k", False),
                 ("internlm2-1.8b", "prefill_32k", False),
                 ("internlm2-1.8b", "decode_32k", False),
                 ("granite-moe-1b-a400m", "train_4k", False),
@@ -3004,14 +3358,24 @@ DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("internlm2-1.8b", "decode_32k", True),
                 ("mamba2-130m", "train_4k", False),
                 ("internvl2-1b", "train_4k", False),
-                ("stablelm-12b", "train_4k", False))
+                # ModelConfig.replace through --opts model_overrides: a
+                # group of 32 q heads on one kv head, and gemma-2b's heads
+                # (8/1 at d 256) in training
+                ("internlm2-1.8b", "decode_32k", False,
+                 {"model_overrides": {"num_heads": 32, "num_kv_heads": 1,
+                                      "head_dim": 64}}),
+                ("internlm2-1.8b", "train_4k", False,
+                 {"model_overrides": {"num_heads": 8, "num_kv_heads": 1,
+                                      "head_dim": 256}}))
 # Cells whose GiB a device must fit the card: all but internvl2-1b's
 # train_4k, whose loss holds fp32 logits of 16 rows x 3840 x its vocab of
-# 151655 a device (ROADMAP Queue 3). granite-moe's tied table (vocab
+# 151655 a device, in the reference's own dry run too (117.24 GiB; ROADMAP
+# Queue 3). granite-moe's tied table (vocab
 # 49155, whole over the model axis) is unembedded on each rank's own rows.
 DRYRUN_FIT = tuple(c for c in DRYRUN_CELLS
                    if c != ("internvl2-1b", "train_4k", False))
 DRYRUN_TAG = "chip_smoke"
+DRYRUN_JOBS = dryrun.JOBS
 DRYRUN_TIMEOUT_S = 300
 # The traced peak (arguments + temp) against max_memory_allocated of the
 # real step: the caching allocator rounds each block up, and cuBLAS keeps
@@ -3026,17 +3390,21 @@ def _dryrun_cells(smi: str) -> dict:
     together; one line a cell from its result file."""
     lines, failed = {}, []
     card_bytes = torch.cuda.get_device_properties(0).total_memory
-    for (arch, shape, multi), rc, out in dryrun.run_cells(
+    for cell, rc, out in dryrun.run_cells(
             DRYRUN_CELLS, device="cuda", probes=False, tag=DRYRUN_TAG,
-            jobs=len(DRYRUN_CELLS), timeout=DRYRUN_TIMEOUT_S):
+            jobs=DRYRUN_JOBS, timeout=DRYRUN_TIMEOUT_S):
+        arch, shape, multi = cell[:3]
+        opts = cell[3] if len(cell) > 3 else None
         if rc != 0:
             print(out[-6000:], file=sys.stderr, flush=True)
-            failed.append((arch, shape, multi, rc))
+            failed.append((arch, shape, multi, opts, rc))
             continue
-        with open(dryrun.result_path(arch, shape, multi, DRYRUN_TAG)) as f:
+        with open(dryrun.result_path(arch, shape, multi, dryrun.cell_tag(
+                DRYRUN_TAG, opts))) as f:
             res = json.load(f)
         r, mem = res["roofline"], res["memory_analysis"]
         line = {"phase": "dryrun", "arch": arch, "shape": shape,
+                **({"opts": opts} if opts else {}),
                 "mesh": res["mesh"], "chips": res["chips"],
                 "compute_s": r["compute_s"], "memory_s": r["memory_s"],
                 "collective_s": r["collective_s"], "bound": r["bound"],
@@ -3051,10 +3419,11 @@ def _dryrun_cells(smi: str) -> dict:
                 "kernel_calls": res["cost_analysis"]["kernel_calls"],
                 "trace_s": res["lower_s"], "nvidia_smi": smi}
         emit(line)
-        lines[f"{arch} {shape} {res['mesh']}"] = line
-        if (arch, shape, multi) in DRYRUN_FIT and \
+        lines[f"{arch} {shape} {res['mesh']}"
+              f"{' ' + json.dumps(opts) if opts else ''}"] = line
+        if cell in DRYRUN_FIT and \
                 mem["total_nonalias_bytes"] > card_bytes:
-            failed.append((arch, shape, multi,
+            failed.append((arch, shape, multi, opts,
                            f"{line['gib_per_device']:.2f} GiB a device > "
                            f"total_memory {card_bytes} B"))
     if failed:
@@ -3193,6 +3562,8 @@ def main() -> None:
     lap("build")
     head = phase_kernels()
     lap("kernels")
+    contract = phase_contract(dev["nvidia_smi"])
+    lap("contract")
     served = {arch: phase_serve(dev["nvidia_smi"], arch, lens)
               for arch, lens in ((ARCH, PROMPT_LENS),
                                  (MAMBA_ARCH, MAMBA_PROMPT_LENS),
@@ -3267,6 +3638,7 @@ def main() -> None:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             **({"library_note": c["library_note"]}
                if "library_note" in c else {})})
+    kernels += _contract_rows(contract)
     emit({"kernels": kernels, "seconds": time.monotonic() - t0,
           "phase_seconds": laps})
     print(dev["nvidia_smi"], flush=True)

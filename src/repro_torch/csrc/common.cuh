@@ -1,6 +1,7 @@
-// Shared helpers of the port's CUDA kernels: dtype conversion and warp
-// reductions. Every kernel computes in fp32 and reads and
-// writes float32 or bfloat16 (dtype code 0 or 1, as in _build.DTYPE_CODES).
+// Shared helpers of the port's CUDA kernels: dtype conversion, warp
+// reductions and the attention kernels' padded head dim. Every kernel
+// computes in fp32 and reads and writes float32 or bfloat16 (dtype code 0
+// or 1, as in _build.DTYPE_CODES).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,16 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// The instantiated head dim an attention call of head dim d runs at: the
+// least of 16, 32, 64, 128, 160 and 256 at or above d, 0 outside 1..256
+// (refused). Columns d..D - 1 load as zeros and are never stored.
+inline int padded_dim(int d) {
+  constexpr int kDims[] = {16, 32, 64, 128, 160, 256};
+  for (int dd : kDims)
+    if (d >= 1 && d <= dd) return dd;
+  return 0;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -27,20 +27,31 @@
 //   whole tile for all G heads are formed first (one thread per row and
 //   head group), then one max, one exp2 pass and one rescale per head and
 //   tile (a warp per head), then P.V with each thread owning 16 bytes of d.
-// * Any head dim that is a whole number of 16-byte chunks (16, 32, 64, 128
-//   and 160 are instantiated; d 160 is 20 chunks in bf16, 40 in fp32) and
-//   any group G = hq / hkv from 1 to 16: one instantiation serves each
-//   bucket of groups (GM = 1, 2, 4, 8, 16, the least GM >= G), sizing
-//   shared memory and registers for GM; a group equal to its bucket runs
-//   an instantiation where G is that constant, the others (3, 5-7, 9-15)
-//   one that reads G at run time. The P.V ownership (Layout) puts every
-//   (q head, 16 bytes of d, cache row) under exactly one thread for every
-//   G <= GM, with guarded loops where the thread groups and G do not
-//   divide each other (G 5 or 7, d 160); the threads left over idle.
-//   tests/test_torch_kernels.py reads the same arithmetic.
+// * Any head dim d from 1 to 256 (the Pallas kernel takes any): the
+//   kernel is instantiated at D = 16, 32, 64, 128, 160 and 256 (d 160 is
+//   20 chunks in bf16, 40 in fp32) and a call runs at the least D >= d,
+//   its shared-memory rows D wide. A d below D fills the first ceil(d /
+//   VE) 16-byte chunks of each row: by cp.async where d is whole chunks
+//   (a multiple of 8 in bf16, of 4 in fp32), else element by element with
+//   zeros past d (single-element loads: the global rows are not 16-byte
+//   aligned); the scores read those chunks alone, and the P.V threads of
+//   the chunks past them idle. fp32 at D 256 keeps one tile in flight
+//   (two would take 266 KB). Any group G = hq / hkv >= 1: one
+//   instantiation serves each bucket of groups (GM = 1, 2, 4, 8, 16, the
+//   least GM >= G), sizing shared memory and registers for GM; a group
+//   equal to its bucket runs an instantiation where G is that constant,
+//   the others (3, 5-7, 9-15) one that reads G at run time. A group above
+//   16 (falcon-7b's 71) runs the run-time GM 16 in ceil(G / 16) slices of
+//   q heads, a block each (grid (splits, hkv x slices, b)): every slice
+//   reads the kv head's rows again, so they are read ceil(G / 16) times.
+//   The P.V ownership (Layout) puts every (q head, 16 bytes of d, cache
+//   row) under exactly one thread for every G <= GM, with guarded loops
+//   where the thread groups and G do not divide each other (G 5 or 7, d
+//   160); the threads left over idle. tests/test_torch_kernels.py reads
+//   the same arithmetic.
 // * Combine in the same launch: each block writes its fp32 partial
-//   (m, l, acc[G][d], unnormalised) to scratch, fences, and counts itself
-//   on an int32 counter of its (b, kv head); the block that counts last
+//   (m, l, acc[G][D], unnormalised) to scratch, fences, and counts itself
+//   on an int32 counter of its (b, kv head, slice); the block that counts last
 //   combines the partials of the ceil(length / split_rows) splits that
 //   hold rows, writes o and sets the counter back to 0, so
 //   the next launch (or graph replay) finds it zeroed. l == 0 (length 0)
@@ -58,6 +69,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;  // cache rows per tile (one row per two threads)
+constexpr int kMaxGM = 16; // q heads a block: larger groups take slices
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -107,53 +120,116 @@ struct Layout {
   static constexpr int HPT = (GM + HG - 1) / HG;  // at most, heads a thread
   static constexpr int SPT = (GM + 1) / 2;      // score heads per thread
   static_assert(D % VE == 0 && HG >= 1, "head dim");
+  static constexpr size_t kStageBytes =
+      sizeof(T) * static_cast<size_t>(2 * kTile * LDS);   // K and V tiles
+  static constexpr size_t kFixedBytes =
+      sizeof(float) * static_cast<size_t>(GM * D + GM * kTile +
+                                          kThreads * VE + 3 * GM);
+  // Tiles in flight when a split has more than one: two, but one where
+  // two do not fit (fp32 at D 256: 2 x 133 KB).
+  static constexpr int kStages =
+      2 * kStageBytes + kFixedBytes <= kMaxSmem ? 2 : 1;
   static size_t smem(int stages) {
-    return sizeof(T) * static_cast<size_t>(stages) * 2 * kTile * LDS +
-           sizeof(float) * (GM * D + GM * kTile + kThreads * VE + 3 * GM);
+    return stages * kStageBytes + kFixedBytes;
   }
 };
 
 // Cache rows [r0, min(r0 + kTile, row_end)) of K and V into one stage
 // (K rows, then V rows, each kTile x LDS) as two cp.async commit groups, so
 // the scores can start while V is still on its way. Rows at or past
-// row_end are never read, and their shared-memory rows never used.
-template <typename T, int D>
+// row_end are never read, and their shared-memory rows never used. A head
+// dim d below D fills the row's first cd = ceil(d / VE) chunks: by
+// cp.async where d is whole chunks, else element by element (the global
+// rows are not 16-byte aligned) with zeros past d; chunks at or past cd
+// are never read.
+template <typename T, int D, bool kPad>
 __device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
                                           int r0, int row_end,
-                                          size_t row_stride) {
+                                          size_t row_stride, int d) {
   constexpr int VE = 16 / static_cast<int>(sizeof(T)), CH = D / VE;
   constexpr int LDS = D + VE;
 #pragma unroll
   for (int part = 0; part < 2; ++part) {
     T* dst = stage + part * kTile * LDS;
     const T* src = part ? vb : kb;
-    for (int c = threadIdx.x; c < kTile * CH; c += kThreads) {
-      const int r = c / CH, cc = c % CH;
-      if (r0 + r < row_end)
-        cp_async16(dst + r * LDS + cc * VE,
-                   src + (r0 + r) * row_stride + cc * VE);
+    if (!kPad) {
+      for (int c = threadIdx.x; c < kTile * CH; c += kThreads) {
+        const int r = c / CH, cc = c % CH;
+        if (r0 + r < row_end)
+          cp_async16(dst + r * LDS + cc * VE,
+                     src + (r0 + r) * row_stride + cc * VE);
+      }
+    } else {
+      const int cd = (d + VE - 1) / VE;
+      for (int c = threadIdx.x; c < kTile * cd; c += kThreads) {
+        const int r = c / cd, cc = c % cd;
+        if (r0 + r >= row_end) continue;
+        const T* s = src + (r0 + r) * row_stride + cc * VE;
+        if (cd * VE == d) {
+          cp_async16(dst + r * LDS + cc * VE, s);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VE; ++e)
+            dst[r * LDS + cc * VE + e] =
+                cc * VE + e < d ? s[e] : from_f32<T>(0.f);
+        }
+      }
     }
     cp_async_commit();
   }
 }
 
-template <typename T, int D, int GM, bool kExact>
+// dot[i] += K row r . q of head gh + 2 i, over the row's first nch chunks.
+template <typename T, int D, int SPT>
+__device__ __forceinline__ void score_row(float (&dot)[SPT], const T* krow,
+                                          const float* q_sm, int gh, int G,
+                                          int nch) {
+  constexpr int VE = 16 / static_cast<int>(sizeof(T));
+#pragma unroll 4
+  for (int c = 0; c < nch; ++c) {
+    float kf[VE];
+    load16<T>(krow + c * VE, kf);
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      const int g = gh + 2 * i;
+      if (g < G) {
+        const float* qg = q_sm + g * D + c * VE;
+#pragma unroll
+        for (int e = 0; e < VE; ++e) dot[i] += kf[e] * qg[e];
+      }
+    }
+  }
+}
+
+// kPad: a head dim d below D, read at run time (the one instantiation a D
+// has for it is the run-time bucket 16); else d is D.
+template <typename T, int D, int GM, bool kExact, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ length,
                     T* __restrict__ o, float* __restrict__ lse,
                     float* __restrict__ part_ml,
                     float* __restrict__ part_acc, int* __restrict__ counter,
-                    int skv, int hq, int hkv, int splits, int split_rows,
-                    float scale_log2) {
+                    int skv, int hq, int hkv, int d_arg, int splits,
+                    int split_rows, float scale_log2) {
   using L = Layout<T, D, GM>;
   constexpr int VE = L::VE, CH = L::CH, LDS = L::LDS, HG = L::HG;
   constexpr int HPT = L::HPT, SPT = L::SPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // q heads of this kv head: GM itself where the group is exactly the
-  // bucket (a constant the compiler folds), else read at run time.
-  const int G = kExact ? GM : hq / hkv;
-  const int stages = split_rows > kTile ? 2 : 1;  // as launch() sized it
+  // The kv head's q heads come in gs slices of at most GM (one unless the
+  // group passes kMaxGM, which only the run-time bucket 16 takes); this
+  // block serves slice `slice`, G heads from h0. G is GM itself where the
+  // group is exactly the bucket (a constant the compiler folds), else read
+  // at run time; GS is the slices' stride in the partials.
+  const int d = kPad ? d_arg : D;
+  const int g_all = kExact ? GM : hq / hkv;   // launch() checked it
+  const int gs = kExact || GM < kMaxGM ? 1 : (g_all + GM - 1) / GM;
+  const int kvh = blockIdx.y / gs, slice = blockIdx.y - kvh * gs;
+  const int G = kExact ? GM : min(GM, g_all - slice * GM);
+  const int GS = kExact ? GM : min(GM, g_all);
+  const int h0 = kvh * g_all + slice * GM;
+  const int cd = kPad ? (d + VE - 1) / VE : CH;    // chunks holding d
+  const int stages = split_rows > kTile && L::kStages == 2 ? 2 : 1;
   T* tiles = reinterpret_cast<T*>(smem_raw);  // [stages][K, V][kTile][LDS]
   float* q_sm = reinterpret_cast<float*>(tiles + stages * 2 * kTile * LDS);
   float* s_sm = q_sm + GM * D;        // [G][kTile] scores, then p
@@ -163,24 +239,31 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* st_a = st_l + GM;            // [G] this tile's rescale
   __shared__ int is_last;
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = min(max(length[b], 0), skv);
   const int row0 = split * split_rows;
-  const int pidx = (b * hkv + kvh) * splits + split;  // this partial
-  const size_t row_stride = static_cast<size_t>(hkv) * D;
+  const int unit = b * hkv * gs + blockIdx.y;         // (b, kv head, slice)
+  const int pidx = unit * splits + split;             // this partial
+  const size_t row_stride = static_cast<size_t>(hkv) * d;
   const T* kb = k + static_cast<size_t>(b) * skv * row_stride +
-                static_cast<size_t>(kvh) * D;
+                static_cast<size_t>(kvh) * d;
   const T* vb = v + static_cast<size_t>(b) * skv * row_stride +
-                static_cast<size_t>(kvh) * D;
+                static_cast<size_t>(kvh) * d;
 
   if (row0 < len) {
     const int row_end = min(len, row0 + split_rows);
     const int ntiles = (row_end - row0 + kTile - 1) / kTile;
-    load_tile<T, D>(tiles, kb, vb, row0, row_end, row_stride);
-    for (int i = tid; i < G * D; i += kThreads)
-      q_sm[i] = to_f32(q[(static_cast<size_t>(b) * hq + kvh * G) * D + i]) *
-                scale_log2;
+    load_tile<T, D, kPad>(tiles, kb, vb, row0, row_end, row_stride, d);
+    const T* qb = q + (static_cast<size_t>(b) * hq + h0) * d;
+    for (int i = tid; i < G * D; i += kThreads) {
+      if (kPad) {
+        const int g = i / D, c = i - g * D;
+        q_sm[i] = c < d ? to_f32(qb[g * d + c]) * scale_log2 : 0.f;
+      } else {
+        q_sm[i] = to_f32(qb[i]) * scale_log2;
+      }
+    }
     if (tid < G) {
       st_m[tid] = kNegInf;
       st_l[tid] = 0.f;
@@ -190,7 +273,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // pg + HG, ... below G, over the rows of slice rs of R.
     const int pc = tid % CH, grp = tid / CH;
     const int R = G < HG ? HG / G : 1;
-    const bool pv_active = grp < min(HG, R * G);
+    const bool pv_active = grp < min(HG, R * G) && (!kPad || pc < cd);
     const int pg = grp % G, rs = grp / G;
     float acc[HPT][VE];
 #pragma unroll
@@ -199,11 +282,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < VE; ++e) acc[i][e] = 0.f;
 
     for (int t = 0; t < ntiles; ++t) {
-      const int stage = t & 1;  // stages == 2 whenever ntiles > 1
-      const bool ahead = t + 1 < ntiles;
+      // Two stages (whenever ntiles > 1 where they fit): tile t + 1 loads
+      // while t computes. One: tile t loads once t - 1 is done (its last
+      // barrier).
+      constexpr bool kTwo = L::kStages == 2;
+      const int stage = kTwo ? t & 1 : 0;
+      const bool ahead = kTwo && t + 1 < ntiles;
+      if (!kTwo && t > 0)
+        load_tile<T, D, kPad>(tiles, kb, vb, row0 + t * kTile, row_end,
+                              row_stride, d);
       if (ahead)
-        load_tile<T, D>(tiles + (stage ^ 1) * 2 * kTile * LDS, kb, vb,
-                        row0 + (t + 1) * kTile, row_end, row_stride);
+        load_tile<T, D, kPad>(tiles + (stage ^ 1) * 2 * kTile * LDS, kb, vb,
+                              row0 + (t + 1) * kTile, row_end, row_stride,
+                              d);
       // Pending groups, oldest first: K(t), V(t) [, K(t + 1), V(t + 1)].
       if (ahead) cp_async_wait<3>(); else cp_async_wait<1>();
       __syncthreads();  // K of tile t (and q, the stats) visible to all
@@ -217,22 +308,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float dot[SPT];
 #pragma unroll
         for (int i = 0; i < SPT; ++i) dot[i] = 0.f;
-        if (r < nr) {
-#pragma unroll 4
-          for (int c = 0; c < CH; ++c) {
-            float kf[VE];
-            load16<T>(ks + r * LDS + c * VE, kf);
-#pragma unroll
-            for (int i = 0; i < SPT; ++i) {
-              const int g = gh + 2 * i;
-              if (g < G) {
-                const float* qg = q_sm + g * D + c * VE;
-#pragma unroll
-                for (int e = 0; e < VE; ++e) dot[i] += kf[e] * qg[e];
-              }
-            }
-          }
-        }
+        if (r < nr) score_row<T, D, SPT>(dot, ks + r * LDS, q_sm, gh, G, cd);
 #pragma unroll
         for (int i = 0; i < SPT; ++i) {
           const int g = gh + 2 * i;
@@ -286,7 +362,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // this stage's tiles and s_sm are free again
     }
 
-    float* pa = part_acc + static_cast<size_t>(pidx) * G * D;
+    float* pa = part_acc + static_cast<size_t>(pidx) * GS * D;
     if (R == 1) {
       if (pv_active) {
 #pragma unroll
@@ -304,6 +380,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       for (int i = tid; i < G * D; i += kThreads) {
         const int g = i / D, dd = i % D;
+        if (kPad && dd >= d) continue;
         float sum = 0.f;
         for (int s = 0; s < R; ++s)
           sum += red[((s * G + g) * CH + dd / VE) * VE + dd % VE];
@@ -311,16 +388,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (tid < G) {
-      part_ml[(pidx * G + tid) * 2] = st_m[tid];
-      part_ml[(pidx * G + tid) * 2 + 1] = st_l[tid];
+      part_ml[(pidx * GS + tid) * 2] = st_m[tid];
+      part_ml[(pidx * GS + tid) * 2 + 1] = st_l[tid];
     }
   }
 
-  // The last block of this (b, kv head) to finish combines the partials.
+  // The last block of this (b, kv head, slice) to finish combines the
+  // partials.
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* cnt = counter + b * hkv + kvh;
+    int* cnt = counter + unit;
     const int prev = atomicAdd(cnt, 1);
     is_last = prev == splits - 1;
     if (is_last) *cnt = 0;  // every split has counted: reset for the next
@@ -330,12 +408,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __threadfence();
 
   // Splits below ceil(len / split_rows) hold partials; the rest are empty.
-  const int base = (b * hkv + kvh) * splits;
+  const int base = unit * splits;
   const int nvalid = (len + split_rows - 1) / split_rows;
   float* w_sm = reinterpret_cast<float*>(smem_raw);  // [nvalid][G] weights
   for (int g = warp; g < G; g += kThreads / 32) {
     // nvalid <= splits <= 32 (wrapper), so one split per lane.
-    const float* ml = part_ml + ((base + lane) * G + g) * 2;
+    const float* ml = part_ml + ((base + lane) * GS + g) * 2;
     const float ms = lane < nvalid ? __ldcg(ml) : kNegInf;
     const float ls = lane < nvalid ? __ldcg(ml + 1) : 0.f;
     const float mx = warp_max(ms);
@@ -343,83 +421,102 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = warp_sum(ls * w);
     if (lane < nvalid) w_sm[lane * G + g] = w / (l == 0.f ? 1.f : l);
     if (lse != nullptr && lane == 0)
-      lse[static_cast<size_t>(b) * hq + kvh * G + g] =
+      lse[static_cast<size_t>(b) * hq + h0 + g] =
           l == 0.f ? __int_as_float(0xff800000) : (mx + log2f(l)) * kLn2;
   }
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
-    const float* pa = part_acc + static_cast<size_t>(base) * G * D + i;
+    const int g = i / D, dd = i - g * D;
+    if (kPad && dd >= d) continue;
+    const float* pa = part_acc + static_cast<size_t>(base) * GS * D + i;
     float sum = 0.f;
 #pragma unroll 4
     for (int s = 0; s < nvalid; ++s)
-      sum += __ldcg(pa + static_cast<size_t>(s) * G * D) * w_sm[s * G + g];
-    o[(static_cast<size_t>(b) * hq + kvh * G) * D + i] = from_f32<T>(sum);
+      sum += __ldcg(pa + static_cast<size_t>(s) * GS * D) * w_sm[s * G + g];
+    o[(static_cast<size_t>(b) * hq + h0) * d + (kPad ? g * d + dd : i)] =
+        from_f32<T>(sum);
   }
 }
 
-template <typename T, int D, int GM, bool kExact>
+template <typename T, int D, int GM, bool kExact, bool kPad = false>
 int launch(const void* q, const void* k, const void* v, const int* length,
            void* o, float* lse, float* part_ml, float* part_acc,
            int* counter, int b,
-           int skv, int hq, int hkv, int split_rows, float scale,
+           int skv, int hq, int hkv, int d, int split_rows, float scale,
            cudaStream_t stream) {
+  using L = Layout<T, D, GM>;
   const int splits = (skv + split_rows - 1) / split_rows;
-  if (splits > 32 || hq / hkv > GM || (kExact && hq / hkv != GM))
+  const int g = hq / hkv;
+  if (splits > 32 || (kExact ? g != GM : g > GM && GM != kMaxGM) ||
+      (kPad ? d > D : d != D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int stages = split_rows > kTile ? 2 : 1;
-  const size_t smem = Layout<T, D, GM>::smem(stages);
+  const int gs = (g + GM - 1) / GM;     // q-head slices of a kv head
+  const int stages = split_rows > kTile && L::kStages == 2 ? 2 : 1;
+  const size_t smem = L::smem(stages);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T, D, GM, kExact>,
+      decode_split_kernel<T, D, GM, kExact, kPad>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(splits, hkv, b);
-  decode_split_kernel<T, D, GM, kExact><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(splits, hkv * gs, b);
+  decode_split_kernel<T, D, GM, kExact, kPad>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), length, static_cast<T*>(o), lse, part_ml,
-      part_acc, counter, skv, hq, hkv, splits, split_rows, scale * kLog2e);
+      part_acc, counter, skv, hq, hkv, d, splits, split_rows,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define REPRO_DECODE_ARGS \
-  q, k, v, length, o, lse, part_ml, part_acc, counter, b, skv, hq, hkv, \
+  q, k, v, length, o, lse, part_ml, part_acc, counter, b, skv, hq, hkv, d, \
       split_rows, scale, s
 
 // The group g = hq / hkv takes the instantiation of the least GM >= g: the
 // exact one (g a compile-time constant) where g == GM, else the one that
-// reads g at run time.
+// reads g at run time; a group above 16 the run-time 16, in ceil(g / 16)
+// slices of q heads. A head dim below D takes the padded run-time 16 at
+// any group, and so does D 256 at every d (no model of the first port had
+// it: one instantiation a dtype keeps the build short).
 template <typename T, int D>
 int dispatch_g(int g, const void* q, const void* k, const void* v,
                const int* length, void* o, float* lse, float* part_ml,
                float* part_acc,
-               int* counter, int b, int skv, int hq, int hkv, int split_rows,
-               float scale, cudaStream_t s) {
-  switch (g) {
-    case 1: return launch<T, D, 1, true>(REPRO_DECODE_ARGS);
-    case 2: return launch<T, D, 2, true>(REPRO_DECODE_ARGS);
-    case 4: return launch<T, D, 4, true>(REPRO_DECODE_ARGS);
-    case 8: return launch<T, D, 8, true>(REPRO_DECODE_ARGS);
-    case 16: return launch<T, D, 16, true>(REPRO_DECODE_ARGS);
-  }
+               int* counter, int b, int skv, int hq, int hkv, int d,
+               int split_rows, float scale, cudaStream_t s) {
   if (g < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (g <= 4) return launch<T, D, 4, false>(REPRO_DECODE_ARGS);
-  if (g <= 8) return launch<T, D, 8, false>(REPRO_DECODE_ARGS);
-  if (g <= 16) return launch<T, D, 16, false>(REPRO_DECODE_ARGS);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (D == 256) {
+    return launch<T, D, 16, false, true>(REPRO_DECODE_ARGS);
+  } else {
+    if (d != D) return launch<T, D, 16, false, true>(REPRO_DECODE_ARGS);
+    switch (g) {
+      case 1: return launch<T, D, 1, true>(REPRO_DECODE_ARGS);
+      case 2: return launch<T, D, 2, true>(REPRO_DECODE_ARGS);
+      case 4: return launch<T, D, 4, true>(REPRO_DECODE_ARGS);
+      case 8: return launch<T, D, 8, true>(REPRO_DECODE_ARGS);
+      case 16: return launch<T, D, 16, true>(REPRO_DECODE_ARGS);
+    }
+    if (g <= 4) return launch<T, D, 4, false>(REPRO_DECODE_ARGS);
+    if (g <= 8) return launch<T, D, 8, false>(REPRO_DECODE_ARGS);
+    if (g <= 16) return launch<T, D, 16, false>(REPRO_DECODE_ARGS);
+    return launch<T, D, 16, false>(REPRO_DECODE_ARGS);   // slices of 16
+  }
 }
 
+// Head dim d at the least instantiated D at or above it (16, 32, 64, 128,
+// 160, 256); past 256 nothing is instantiated.
 template <typename T>
 int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
                const int* length, void* o, float* lse, float* part_ml,
                float* part_acc,
                int* counter, int b, int skv, int hq, int hkv, int split_rows,
                float scale, cudaStream_t s) {
-  switch (d) {
+  switch (padded_dim(d)) {
     case 16: return dispatch_g<T, 16>(g, REPRO_DECODE_ARGS);
     case 32: return dispatch_g<T, 32>(g, REPRO_DECODE_ARGS);
     case 64: return dispatch_g<T, 64>(g, REPRO_DECODE_ARGS);
     case 128: return dispatch_g<T, 128>(g, REPRO_DECODE_ARGS);
     case 160: return dispatch_g<T, 160>(g, REPRO_DECODE_ARGS);
+    case 256: return dispatch_g<T, 256>(g, REPRO_DECODE_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -429,13 +526,15 @@ int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro
 
-// part_ml: (b, hkv, splits, G, 2) fp32 and part_acc: (b, hkv, splits, G, d)
-// fp32 scratch, splits = ceil(skv / split_rows), written only for the
-// splits below ceil(length / split_rows); counter: b * hkv int32,
-// zero on entry and left zero on exit. split_rows is a multiple of 64 and
-// gives at most 32 splits (the combine takes one split per lane). d is 16,
-// 32, 64, 128 or 160 and hq / hkv at most 16; anything else returns
-// cudaErrorInvalidValue. lse: null, or (b, hq) fp32 (partial mode).
+// With G = hq / hkv, gs = ceil(G / 16) slices of GS = min(G, 16) q heads
+// and D the padded head dim: part_ml (b, hkv, gs, splits, GS, 2) fp32 and
+// part_acc (b, hkv, gs, splits, GS, D) fp32 scratch, splits = ceil(skv /
+// split_rows), written only for the splits below ceil(length /
+// split_rows); counter: b * hkv * gs int32, zero on entry and left zero
+// on exit. split_rows is a multiple of 64 and gives at most 32 splits (the
+// combine takes one split per lane). d is 1 to 256; anything else
+// returns cudaErrorInvalidValue. lse: null, or (b, hq) fp32 (partial
+// mode).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* length,
                                       void* o, void* lse, void* part_ml,

@@ -5,9 +5,21 @@
 // (_fa_kernel), whose grid walks 128x128 q/kv tiles in order and carries the
 // running max, sum and accumulator in VMEM scratch across the kv axis.
 //
+// Any head dim d from 1 to 256 (the Pallas kernel takes any d): each call
+// runs at a padded D, the least of 16, 32, 64, 128, 160 and 256 at or
+// above d (padded_dim). Q and K columns d..D - 1 come in as zeros, so
+// Q.K^T is unchanged; V's give output columns that are never stored; the
+// scale is the caller's (1 / sqrt(d) of the real d). Above 256 nothing is
+// instantiated and the call is refused: no public decoder uses such a
+// head dim.
+//
 // Two hand-written kernels serve it, chosen by dtype and head dim:
 //
-// * flash_fwd_wgmma_kernel: bf16 at d 64, 128 or 160 (the serving path).
+// * flash_fwd_wgmma_kernel: bf16 where d is a multiple of 8 above 32
+//   (tc_route; the TMA maps' row stride must be a multiple of 16 bytes):
+//   D 64, 128, 160 or 256 (the serving path at 64, 128 and 160). The
+//   tensor maps take the real d as their inner extent, so TMA fills each
+//   box's columns past d with zeros.
 //   Bound on the H100: at a few hundred tokens and b 1 the work is a few
 //   GFLOP and K, V of a layer sit in L2, so the card is short of blocks
 //   and of latency hiding, not of bandwidth. Design: one warpgroup (128 threads)
@@ -28,9 +40,13 @@
 //   the tensor map and so zeros from TMA: Q.K^T stops its k steps at 160,
 //   and P.V runs at N = 192 (one m64n192k16 wgmma a k step), whose last
 //   32 accumulator columns are zeros and never stored. 120 KB of shared
-//   memory (one block an SM) and 96 fp32 accumulators a thread.
-// * flash_fwd_simt_kernel: fp32 at every d (16, 32, 64, 128, 160; 137 KB
-//   of shared memory at 160), and bf16 at d 16 or 32. fp32
+//   memory (one block an SM) and 96 fp32 accumulators a thread. D 256
+//   (gemma-2b's head dim) takes four boxes, P.V at N 256 (m64n256k16), on
+//   the same one warpgroup: its 128 O accumulators beside the 32 of S and
+//   P's 16 packed registers fit one thread's 255; Q and the two-stage K/V
+//   ring take 161 KB.
+// * flash_fwd_simt_kernel: fp32 at every d (137 KB of shared memory at D
+//   160, 209 KB at 256), and bf16 where tc_route does not hold. fp32
 //   products on the CUDA cores: full fp32 products are what the fp32 path
 //   is checked for (1e-4), which TF32 tensor cores would not hold. One
 //   block of 256 threads per (q tile of 64 rows, q head, batch); it stages
@@ -54,9 +70,11 @@
 //   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = dS^T Q * scale,
 //   dQ = dS K * scale.
 // flash_bwd_preprocess_kernel writes delta (16-byte loads, up to 32 lanes
-// a row, delta_lanes), then one of two routes, chosen by dtype
-// and head dim as the forward's:
-// * bf16 at d 64, 128 or 160 (the training paths): flash_bwd_dkdv_wgmma_kernel,
+// a row, delta_lanes; at a d below its D, flash_bwd_preprocess_rows_kernel,
+// a warp a row, sums over the real d), then one of two routes, chosen by
+// dtype and head dim as the forward's, at the same padded D:
+// * bf16 where tc_route holds (the training paths at d 64, 128 and 160):
+//   flash_bwd_dkdv_wgmma_kernel,
 //   one warpgroup a (kv tile of 64, kv head, batch), causal kv tile 0
 //   first; K and V come in once by TMA and Q, dO tiles of the group's q
 //   heads (on or below the diagonal when causal) through a 2-stage TMA
@@ -79,14 +97,20 @@
 //   columns, and the dK/dV kernel runs two warpgroups, one holding dV and
 //   one dK, each forming P^T itself (dkdv_warpgroups): two sums of 96
 //   accumulators would not fit one thread's registers beside S^T and dP^T.
-// * fp32 at d 16 to 160, and bf16 at d 16 or 32: flash_bwd_dkdv_kernel and
-//   flash_bwd_dq_kernel, fp32 products on the CUDA cores, the same split:
-//   one block of 256 threads a (kv tile, kv head, batch) and a (q tile, q
-//   head, batch). Tiles are staged in shared memory as fp32, rows padded
-//   by one word against bank conflicts; each thread owns a 4 x 4 patch of
-//   the score tile and a 4-row, d / 16-column patch of its accumulators,
-//   as the forward's SIMT kernel. Full fp32 products are what the fp32
-//   path is checked for (1e-5), which TF32 would not hold.
+//   D 256 takes four boxes, N 256, and the same two warpgroups (128
+//   accumulators a thread beside S^T, dP^T and dS's fragments), with 194 KB
+//   of shared memory.
+// * fp32 at every d, and bf16 where tc_route does not:
+//   flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, fp32 products on the
+//   CUDA cores, the same split: one block of 256 threads a (kv tile, kv
+//   head, batch) and a (q tile, q head, batch). Tiles are staged in
+//   shared memory as fp32, rows padded by one word against bank
+//   conflicts; each thread owns a 4 x 4 patch of the score tile and a
+//   4-row, d / 16-column patch of its accumulators, as the forward's SIMT
+//   kernel. Full fp32 products are what the fp32
+//   path is checked for (1e-5), which TF32 would not hold. At D 256 the
+//   streamed tiles (q in the dK/dV kernel, kv in the dQ one) are 32 rows
+//   (stream_rows), so the fp32 tiles fit a block's shared memory.
 // Bound: causal, the five products over the (query, key) pairs on or
 // below the diagonal: 5 x 2 x d flops a pair and head, 5.4 GFLOP at b 8,
 // s 256, 16 heads, d 128, against the bytes the call must move (q, k, v,
@@ -112,6 +136,10 @@ constexpr size_t smem_bytes() {
                           static_cast<size_t>(kBQ) * (kBK + 1));
 }
 
+// bf16 at a head dim that is a whole number of 16-byte chunks (the TMA
+// maps' row stride) and above 32: the wgmma designs, forward and backward.
+bool tc_route(int d) { return d > 32 && d <= 256 && d % 8 == 0; }
+
 __device__ __forceinline__ float group16_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -126,12 +154,15 @@ __device__ __forceinline__ float group16_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+// kPad: d below D, read at run time; else d is D and the code is the
+// unpadded kernel's.
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int skv, int hq, int hkv,
-                 float scale, int causal) {
+                 int d_arg, float scale, int causal) {
+  const int d = kPad ? d_arg : D;
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -151,8 +182,8 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int qi = q0 + r;
-    Qs[r * LD + c] = qi < sq
-        ? to_f32(q[((static_cast<size_t>(b) * sq + qi) * hq + h) * D + c])
+    Qs[r * LD + c] = qi < sq && c < d
+        ? to_f32(q[((static_cast<size_t>(b) * sq + qi) * hq + h) * d + c])
         : 0.f;
   }
 
@@ -172,9 +203,9 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, c = idx % D;
       const int ki = k0 + r;
       float kval = 0.f, vval = 0.f;
-      if (ki < skv) {
+      if (ki < skv && c < d) {
         const size_t off =
-            ((static_cast<size_t>(b) * skv + ki) * hkv + kvh) * D + c;
+            ((static_cast<size_t>(b) * skv + ki) * hkv + kvh) * d + c;
         kval = to_f32(k[off]);
         vval = to_f32(v[off]);
       }
@@ -252,46 +283,69 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = l[i] == 0.f ? 1.f : l[i];
     if (lse != nullptr && lc == 0)
       lse[(static_cast<size_t>(b) * hq + h) * sq + row] = m[i] + logf(denom);
-    T* orow = o + ((static_cast<size_t>(b) * sq + row) * hq + h) * D;
+    T* orow = o + ((static_cast<size_t>(b) * sq + row) * hq + h) * d;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      orow[lc + 16 * j] = from_f32<T>(acc[i][j] / denom);
+      if (lc + 16 * j < d) orow[lc + 16 * j] = from_f32<T>(acc[i][j] / denom);
   }
+}
+
+template <typename T, int D, bool kPad>
+int launch_simt_as(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int b, int sq, int skv, int hq, int hkv, int d,
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_simt_kernel<T, D, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
+  flash_fwd_simt_kernel<T, D, kPad><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, hq, hkv,
+      d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Head dims the CUDA-core kernels took before any padding (fp32 at 16 to
+// 160, bf16 at 16 and 32): called at d == D, they keep their unpadded
+// instantiation; every other d runs the padded one.
+template <typename T, int D>
+constexpr bool unpadded_simt() {
+  return sizeof(T) == 4 ? D <= 160 : D <= 32;
 }
 
 template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
-                float* lse, int b, int sq, int skv, int hq, int hkv,
+                float* lse, int b, int sq, int skv, int hq, int hkv, int d,
                 float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_fwd_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, hq, hkv,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (unpadded_simt<T, D>()) {
+    if (d == D)
+      return launch_simt_as<T, D, false>(q, k, v, o, lse, b, sq, skv, hq,
+                                         hkv, d, scale, causal, stream);
+  }
+  return launch_simt_as<T, D, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, d,
+                                    scale, causal, stream);
 }
 
-// fp32 at every head dim the forward takes.
+// The CUDA-core forward at head dim d, instantiated at its padded D.
+template <typename T>
 int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
                   float* lse, int b, int sq, int skv, int hq, int hkv,
                   float scale, int causal, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_simt<float, 16>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
-    case 32: return launch_simt<float, 32>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
-    case 64: return launch_simt<float, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
-    case 128: return launch_simt<float, 128>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
-    case 160: return launch_simt<float, 160>(q, k, v, o, lse, b, sq, skv, hq, hkv, scale, causal, s);
+  switch (padded_dim(d)) {
+    case 16: return launch_simt<T, 16>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 32: return launch_simt<T, 32>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 64: return launch_simt<T, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 128: return launch_simt<T, 128>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 160: return launch_simt<T, 160>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 256: return launch_simt<T, 256>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel (wgmma + TMA), d = 64, 128 or 160.
+// bf16 tensor-core kernel (wgmma + TMA), D = 64, 128, 160 or 256.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -353,6 +407,12 @@ __device__ __forceinline__ void wgmma_pv<192>(float (&o)[96],
                                               uint64_t desc) {
   wgmma_m64n192k16_rs_tb(o, a, desc);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  wgmma_m64n256k16_rs_tb(o, a, desc);
+}
 
 // Accumulator layout of a wgmma m64nN (fp32), thread t of the warpgroup:
 // row 16 * (t / 32) + (t % 32) / 4 (+ 8 for the odd pair), column
@@ -397,16 +457,19 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
       a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
-template <int D>
+// kPad: d below D (or D 256), read at run time for the stores; else d is
+// D, as before there was padding.
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        bf16* __restrict__ o, float* __restrict__ lse, int b,
-                       int sq, int skv, int hq, int hkv, int n_qtiles,
-                       float scale_log2, int causal) {
+                       int sq, int skv, int hq, int hkv, int d_arg,
+                       int n_qtiles, float scale_log2, int causal) {
+  const int d = kPad ? d_arg : D;
   constexpr int NB = boxes<D>();  // 64-column boxes per row
-  constexpr int NP = 64 * NB;     // P.V's N: d, or d 160 padded to 192
+  constexpr int NP = 64 * NB;     // P.V's N: D, or 160 padded to 192
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
@@ -561,9 +624,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = row_a + 8 * half;
     if (row >= sq) continue;
     const float inv = half ? inv_b : inv_a;
-    bf16* orow = o + ((static_cast<size_t>(bb) * sq + row) * hq + h) * D;
+    bf16* orow = o + ((static_cast<size_t>(bb) * sq + row) * hq + h) * d;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
+      if (8 * jj >= d) break;   // d is a multiple of 8
       *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
           pack_bf16(acc[4 * jj + 2 * half] * inv,
                     acc[4 * jj + 2 * half + 1] * inv);
@@ -598,7 +662,8 @@ EncodeTiled encode_tiled() {
 }
 
 // Tensor map of a (batch, rows, heads, d) bf16 tensor, boxes of 64 rows x
-// 64 columns of one head, 128-byte swizzle; rows past `rows` read as 0.
+// 64 columns of one head, 128-byte swizzle; rows past `rows` and columns
+// past d read as 0. The row stride, 2 d bytes, must be a multiple of 16.
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
               int heads, int d) {
   const EncodeTiled encode = encode_tiled();
@@ -618,27 +683,43 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int b, int sq, int skv, int hq, int hkv, float scale, int causal,
-           cudaStream_t stream) {
+template <int D, bool kPad>
+int launch_as(const void* q, const void* k, const void* v, void* o,
+              float* lse, int b, int sq, int skv, int hq, int hkv, int d,
+              float scale, int causal, cudaStream_t stream) {
   // Encoded on every call: the maps hold the tensors' pointers, and as
-  // __grid_constant__ parameters a CUDA graph records them by value.
+  // __grid_constant__ parameters a CUDA graph records them by value. Their
+  // rows are the real d: the boxes' columns past it come in as zeros.
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, b, sq, hq, D) || !make_map(&tk, k, b, skv, hkv, D) ||
-      !make_map(&tv, v, b, skv, hkv, D))
+  if (!make_map(&tq, q, b, sq, hq, d) || !make_map(&tk, k, b, skv, hkv, d) ||
+      !make_map(&tv, v, b, skv, hkv, d))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_wgmma_kernel<D, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (sq + kBQ - 1) / kBQ;
   const dim3 grid(n_qtiles * hq * b);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), lse, b, sq, skv, hq, hkv, n_qtiles,
-      scale * kLog2e, causal);
+  flash_fwd_wgmma_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, b, sq, skv, hq, hkv, d,
+      n_qtiles, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The unpadded instantiation at the head dims it took before (64, 128,
+// 160, called at d == D), the padded one at every other d.
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int skv, int hq, int hkv, int d, float scale,
+           int causal, cudaStream_t stream) {
+  if constexpr (D <= 160) {
+    if (d == D)
+      return launch_as<D, false>(q, k, v, o, lse, b, sq, skv, hq, hkv, d,
+                                 scale, causal, stream);
+  }
+  return launch_as<D, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale,
+                            causal, stream);
 }
 
 }  // namespace tc
@@ -649,37 +730,46 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // ---------------------------------------------------------------------------
 namespace bwd {
 
-constexpr int kB = 64;          // q rows, and kv rows, a tile
+constexpr int kB = 64;          // rows of a block's fixed tile
 constexpr int kThreads = 256;   // 16 row groups x 16 lanes
 constexpr int kR = 4;           // tile rows a thread (kB / 16)
-constexpr int kC = 4;           // tile columns a thread (kB / 16)
-constexpr int kLS = kB + 1;     // row stride of a score tile in smem
+
+// Rows of the tiles a block streams (q tiles in the dK/dV kernel, kv tiles
+// in the dQ kernel): 64 up to d 160, 32 at 256, where four 64-row fp32
+// tiles of 257 words a row (263 KB) would not fit a block's 227 KB; the
+// score tile is then 64 x 32, two columns a thread.
+template <int D>
+__host__ __device__ constexpr int stream_rows() {
+  return D > 160 ? 32 : 64;
+}
 
 template <int D>
 constexpr size_t dkdv_smem() {  // K, V, Q, dO tiles; P, dS; lse, delta
-  return sizeof(float) * (4 * static_cast<size_t>(kB) * (D + 1) +
-                          2 * static_cast<size_t>(kB) * kLS + 2 * kB);
+  constexpr size_t S = stream_rows<D>();
+  return sizeof(float) * (2 * (kB + S) * (D + 1) + 2 * kB * (S + 1) + 2 * S);
 }
 
 template <int D>
 constexpr size_t dq_smem() {    // Q, dO, K, V tiles; dS
-  return sizeof(float) * (4 * static_cast<size_t>(kB) * (D + 1) +
-                          static_cast<size_t>(kB) * kLS);
+  constexpr size_t S = stream_rows<D>();
+  return sizeof(float) * (2 * (kB + S) * (D + 1) + kB * (S + 1));
 }
 
-// Rows r < kB of a (batch, rows, heads, D) tensor from row0, head h, as
-// fp32 into smem (row stride D + 1); rows past n read as 0.
-template <typename T, int D>
+// Rows r < R of a (batch, rows, heads, d) tensor from row0, head h, as
+// fp32 into smem (row stride D + 1); rows past n and columns past d read
+// as 0.
+template <typename T, int D, int R = kB>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       int bb, int row0, int n, int heads,
-                                      int h) {
-  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
+                                      int h, int d) {
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int row = row0 + r;
     dst[r * (D + 1) + c] =
-        row < n ? to_f32(src[((static_cast<size_t>(bb) * n + row) * heads +
-                              h) * D + c])
-                : 0.f;
+        row < n && c < d
+            ? to_f32(src[((static_cast<size_t>(bb) * n + row) * heads + h) *
+                             d + c])
+            : 0.f;
   }
 }
 
@@ -736,25 +826,56 @@ flash_bwd_preprocess_kernel(const T* __restrict__ o,
   }
 }
 
-template <typename T, int D>
+// The same sum at a head dim no instantiation equals (its rows are not
+// whole 16-byte chunks, or not a padded D): one warp a row, lane l
+// taking elements l, l + 32, ... below d.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_preprocess_rows_kernel(const T* __restrict__ o,
+                                 const T* __restrict__ dout,
+                                 float* __restrict__ delta, int b, int sq,
+                                 int hq, int d) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (static_cast<size_t>(blockIdx.x) * kThreads +
+                      threadIdx.x) / 32;
+  const bool valid = row < static_cast<size_t>(b) * sq * hq;
+  float s = 0.f;
+  if (valid)
+    for (int c = lane; c < d; c += 32)
+      s = fmaf(to_f32(o[row * d + c]), to_f32(dout[row * d + c]), s);
+  s = warp_sum(s);
+  if (valid && lane == 0) {
+    const int h = static_cast<int>(row % hq);
+    const size_t bi = row / hq;
+    const int i = static_cast<int>(bi % sq);
+    const int bb = static_cast<int>(bi / sq);
+    delta[(static_cast<size_t>(bb) * hq + h) * sq + i] = s;
+  }
+}
+
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int sq, int skv, int hq, int hkv,
-                      float scale, int causal) {
+                      int d_arg, float scale, int causal) {
+  const int d = kPad ? d_arg : D;   // as the forward's
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
+  constexpr int QB = stream_rows<D>();   // q rows a streamed tile
+  constexpr int kC = QB / 16;            // score columns a thread
+  constexpr int kLS = QB + 1;            // row stride of P and dS
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + kB * LD;
   float* Qs = Vs + kB * LD;
-  float* dOs = Qs + kB * LD;
-  float* Ps = dOs + kB * LD;    // [kv row][q row]
+  float* dOs = Qs + QB * LD;
+  float* Ps = dOs + QB * LD;    // [kv row][q row]
   float* dSs = Ps + kB * kLS;   // [kv row][q row]
   float* Ls = dSs + kB * kLS;   // lse of the q tile's rows
-  float* Dl = Ls + kB;          // delta of the q tile's rows
+  float* Dl = Ls + QB;          // delta of the q tile's rows
 
   const int k0 = blockIdx.x * kB;
   const int kvh = blockIdx.y;
@@ -764,8 +885,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid >> 4;   // kv rows rg * 4 .. rg * 4 + 3
   const int lc = tid & 15;   // q columns lc + 16 j; d columns lc + 16 j
 
-  stage<T, D>(Ks, k, bb, k0, skv, hkv, kvh);
-  stage<T, D>(Vs, v, bb, k0, skv, hkv, kvh);
+  stage<T, D>(Ks, k, bb, k0, skv, hkv, kvh, d);
+  stage<T, D>(Vs, v, bb, k0, skv, hkv, kvh, d);
 
   float dk_acc[kR][DC], dv_acc[kR][DC];
 #pragma unroll
@@ -773,18 +894,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int n_qt = (sq + kB - 1) / kB;
-  const int qt0 = causal ? k0 / kB : 0;  // q tiles above the diagonal: none
+  const int n_qt = (sq + QB - 1) / QB;
+  const int qt0 = causal ? k0 / QB : 0;  // q tiles above the diagonal: none
   for (int gi = 0; gi < g; ++gi) {
     const int h = kvh * g + gi;
     const float* lse_h = lse + (static_cast<size_t>(bb) * hq + h) * sq;
     const float* del_h = delta + (static_cast<size_t>(bb) * hq + h) * sq;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kB;
+      const int q0 = qt * QB;
       __syncthreads();  // the previous tile's Q, dO, P, dS are no longer read
-      stage<T, D>(Qs, q, bb, q0, sq, hq, h);
-      stage<T, D>(dOs, dout, bb, q0, sq, hq, h);
-      if (tid < kB) {
+      stage<T, D, QB>(Qs, q, bb, q0, sq, hq, h, d);
+      stage<T, D, QB>(dOs, dout, bb, q0, sq, hq, h, d);
+      if (tid < QB) {
         const int qi = q0 + tid;
         Ls[tid] = qi < sq ? lse_h[qi] : 0.f;
         Dl[tid] = qi < sq ? del_h[qi] : 0.f;
@@ -835,7 +956,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       // dV += P^T dO, dK += dS^T Q over the tile's valid q rows.
-      const int qn = min(kB, sq - q0);
+      const int qn = min(QB, sq - q0);
 #pragma unroll 4
       for (int r = 0; r < qn; ++r) {
         float pr[kR], dsr[kR];
@@ -862,31 +983,36 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kR; ++i) {
     const int kvi = k0 + rg * kR + i;
     if (kvi >= skv) continue;
-    const size_t off = ((static_cast<size_t>(bb) * skv + kvi) * hkv + kvh) * D;
+    const size_t off = ((static_cast<size_t>(bb) * skv + kvi) * hkv + kvh) * d;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
+      if (lc + 16 * j >= d) continue;
       dk[off + lc + 16 * j] = from_f32<T>(dk_acc[i][j] * scale);
       dv[off + lc + 16 * j] = from_f32<T>(dv_acc[i][j]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int skv, int hq, int hkv, float scale,
+                    int sq, int skv, int hq, int hkv, int d_arg, float scale,
                     int causal) {
+  const int d = kPad ? d_arg : D;
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
+  constexpr int KB = stream_rows<D>();   // kv rows a streamed tile
+  constexpr int kC = KB / 16;            // score columns a thread
+  constexpr int kLS = KB + 1;            // row stride of dS
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + kB * LD;
   float* Ks = dOs + kB * LD;
-  float* Vs = Ks + kB * LD;
-  float* dSs = Vs + kB * LD;    // [q row][kv row]
+  float* Vs = Ks + KB * LD;
+  float* dSs = Vs + KB * LD;    // [q row][kv row]
 
   const int q0 = blockIdx.x * kB;
   const int h = blockIdx.y;
@@ -896,8 +1022,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid >> 4;   // q rows rg * 4 .. rg * 4 + 3
   const int lc = tid & 15;   // kv columns lc + 16 j; d columns lc + 16 j
 
-  stage<T, D>(Qs, q, bb, q0, sq, hq, h);
-  stage<T, D>(dOs, dout, bb, q0, sq, hq, h);
+  stage<T, D>(Qs, q, bb, q0, sq, hq, h, d);
+  stage<T, D>(dOs, dout, bb, q0, sq, hq, h, d);
   float lr[kR], dl[kR];
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
@@ -913,10 +1039,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DC; ++j) dq_acc[i][j] = 0.f;
 
   const int kv_end = causal ? min(skv, q0 + kB) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kB) {
+  for (int k0 = 0; k0 < kv_end; k0 += KB) {
     __syncthreads();  // the previous tile's K, V, dS are no longer read
-    stage<T, D>(Ks, k, bb, k0, skv, hkv, kvh);
-    stage<T, D>(Vs, v, bb, k0, skv, hkv, kvh);
+    stage<T, D, KB>(Ks, k, bb, k0, skv, hkv, kvh, d);
+    stage<T, D, KB>(Vs, v, bb, k0, skv, hkv, kvh, d);
     __syncthreads();
 
     float s[kR][kC], dp[kR][kC];
@@ -960,7 +1086,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    const int kn = min(kB, kv_end - k0);
+    const int kn = min(KB, kv_end - k0);
 #pragma unroll 4
     for (int r = 0; r < kn; ++r) {
       float dsr[kR];
@@ -980,76 +1106,106 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kR; ++i) {
     const int qi = q0 + rg * kR + i;
     if (qi >= sq) continue;
-    const size_t off = ((static_cast<size_t>(bb) * sq + qi) * hq + h) * D;
+    const size_t off = ((static_cast<size_t>(bb) * sq + qi) * hq + h) * d;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      dq[off + lc + 16 * j] = from_f32<T>(dq_acc[i][j] * scale);
+      if (lc + 16 * j < d)
+        dq[off + lc + 16 * j] = from_f32<T>(dq_acc[i][j] * scale);
   }
 }
 
-// delta = rowsum(dO * O) into (b, hq, sq) float32.
+// delta = rowsum(dO * O) over the real d into (b, hq, sq) float32: the
+// 16-byte kernel where d is the instantiated D, else one warp a row.
 template <typename T, int D>
 cudaError_t preprocess(const void* o, const void* dout, float* delta, int b,
-                       int sq, int hq, cudaStream_t stream) {
-  const size_t rows_a_block = kThreads / delta_lanes<T, D>();
+                       int sq, int hq, int d, cudaStream_t stream) {
   const size_t rows = static_cast<size_t>(b) * sq * hq;
-  flash_bwd_preprocess_kernel<T, D>
-      <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
-         kThreads, 0, stream>>>(static_cast<const T*>(o),
-                                static_cast<const T*>(dout), delta, b, sq,
-                                hq);
+  if (d == D) {
+    const size_t rows_a_block = kThreads / delta_lanes<T, D>();
+    flash_bwd_preprocess_kernel<T, D>
+        <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
+           kThreads, 0, stream>>>(static_cast<const T*>(o),
+                                  static_cast<const T*>(dout), delta, b, sq,
+                                  hq);
+  } else {
+    const size_t rows_a_block = kThreads / 32;
+    flash_bwd_preprocess_rows_kernel<T>
+        <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
+           kThreads, 0, stream>>>(static_cast<const T*>(o),
+                                  static_cast<const T*>(dout), delta, b, sq,
+                                  hq, d);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-           float scale, int causal, cudaStream_t stream) {
+template <typename T, int D, bool kPad>
+int launch_as(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* delta, void* dq,
+              void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+              int d, float scale, int causal, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  cudaError_t err = preprocess<T, D>(o, dout, delta, b, sq, hq, stream);
+  cudaError_t err = preprocess<T, D>(o, dout, delta, b, sq, hq, d, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr size_t s_kv = dkdv_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D, kPad>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s_kv));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T, D>
+  flash_bwd_dkdv_kernel<T, D, kPad>
       <<<dim3((skv + kB - 1) / kB, hkv, b), kThreads, s_kv, stream>>>(
           qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), sq, skv, hq, hkv, scale, causal);
+          static_cast<T*>(dv), sq, skv, hq, hkv, d, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr size_t s_q = dq_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, kPad>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T, D>
+  flash_bwd_dq_kernel<T, D, kPad>
       <<<dim3((sq + kB - 1) / kB, hq, b), kThreads, s_q, stream>>>(
           qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), sq, skv, hq, hkv,
-          scale, causal);
+          d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 at every head dim (16, 32, 64, 128, 160): at 160 the dK/dV
-// kernel's tiles take 194 KB of shared memory, the dQ kernel's 177 KB.
-int dispatch_f32(int d, const void* q, const void* k, const void* v,
-                 const void* o, const void* dout, const float* lse,
-                 float* delta, void* dq, void* dk, void* dv, int b, int sq,
-                 int skv, int hq, int hkv, float scale, int causal,
-                 cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<float, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 32: return launch<float, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 64: return launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 128: return launch<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-    case 160: return launch<float, 160>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+// The unpadded instantiation at the head dims it took before (as the
+// forward's launch_simt), the padded one at every other d.
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+           int d, float scale, int causal, cudaStream_t stream) {
+  if constexpr (unpadded_simt<T, D>()) {
+    if (d == D)
+      return launch_as<T, D, false>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    b, sq, skv, hq, hkv, d, scale, causal,
+                                    stream);
+  }
+  return launch_as<T, D, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
+                               sq, skv, hq, hkv, d, scale, causal, stream);
+}
+
+// Every head dim at its padded D: at 160 the dK/dV kernel's tiles take
+// 194 KB of shared memory, the dQ kernel's 177 KB; at 256 (32-row
+// streamed tiles) 210 KB and 201 KB.
+template <typename T>
+int dispatch(int d, const void* q, const void* k, const void* v,
+             const void* o, const void* dout, const float* lse, float* delta,
+             void* dq, void* dk, void* dv, int b, int sq, int skv, int hq,
+             int hkv, float scale, int causal, cudaStream_t s) {
+  switch (padded_dim(d)) {
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 160: return launch<T, 160>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1057,7 +1213,8 @@ int dispatch_f32(int d, const void* q, const void* k, const void* v,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// Backward in bf16 on the tensor cores (wgmma + TMA), d = 64, 128 or 160.
+// Backward in bf16 on the tensor cores (wgmma + TMA), D = 64, 128, 160 or
+// 256.
 // ---------------------------------------------------------------------------
 namespace bwd_tc {
 
@@ -1077,7 +1234,8 @@ constexpr int kStages = 2;      // depth of the ring of streamed tiles
 // swizzle atoms, so the third box is padded with TMA's zeros, as the
 // forward's P.V): 2 x 96 accumulators beside S^T and dP^T would pass 255
 // registers, so warpgroup 0 holds dV and warpgroup 1 dK, each recomputing
-// S^T (warpgroup 1 also dP^T) from the same tiles.
+// S^T (warpgroup 1 also dP^T) from the same tiles. D 256 splits the same
+// way, at N 256 (128 accumulators a thread).
 template <int D>
 __host__ __device__ constexpr int dkdv_warpgroups() {
   return D > 128 ? 2 : 1;
@@ -1094,24 +1252,26 @@ constexpr size_t smem_bytes() {
          sizeof(float) * 2 * kStages * kB + 8 * (1 + kStages);
 }
 
-// This thread's two rows of a 64 x N accumulator (N >= D), times `mul`,
-// as bf16 into the first D columns of rows `row_a` and `row_a` + 8 (those
-// below `rows`) of a (b, rows, heads, D) tensor at (bb, h).
+// This thread's two rows of a 64 x N accumulator (N >= D >= d), times
+// `mul`, as bf16 into the d columns of rows `row_a` and `row_a` + 8 (those
+// below `rows`) of a (b, rows, heads, d) tensor at (bb, h); d is a
+// multiple of 8.
 template <int D, int NA>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NA],
                                            float mul, int bb, int row_a,
                                            int rows, int heads, int h,
-                                           int col_t) {
+                                           int col_t, int d) {
   static_assert(2 * NA >= D, "accumulator narrower than the head dim");
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row_a + 8 * half;
     if (row >= rows) continue;
     bf16* orow =
-        out + ((static_cast<size_t>(bb) * rows + row) * heads + h) * D;
+        out + ((static_cast<size_t>(bb) * rows + row) * heads + h) * d;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
+      if (8 * jj < d)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
           tc::pack_bf16(acc[4 * jj + 2 * half] * mul,
                         acc[4 * jj + 2 * half + 1] * mul);
   }
@@ -1131,7 +1291,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            int b, int sq, int skv, int hq, int hkv,
+                            int b, int sq, int skv, int hq, int hkv, int d,
                             float scale, float scale_log2, int causal) {
   constexpr int NB = boxes<D>();  // 64-column boxes a row
   constexpr int NP = 64 * NB;     // dV's and dK's N: d, or 160 padded to 192
@@ -1326,9 +1486,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   if (does_dk)
-    store_rows<D>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t);
+    store_rows<D>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t, d);
   if (does_dv)
-    store_rows<D>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t);
+    store_rows<D>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t, d);
 }
 
 // One block a (q tile of 64 rows, q head, batch): Q and dO stay in smem,
@@ -1345,7 +1505,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int b, int sq, int skv,
-                          int hq, int hkv, int n_qtiles, float scale,
+                          int hq, int hkv, int d, int n_qtiles, float scale,
                           float scale_log2, int causal) {
   constexpr int NB = boxes<D>();
   constexpr int NP = 64 * NB;     // dQ's N: d, or 160 padded to 192
@@ -1480,23 +1640,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && j + kStages < n_kv) issue_kv(stage, j + kStages);
   }
 
-  store_rows<D>(dq, acc, scale, bb, row_a, sq, hq, h, col_t);
+  store_rows<D>(dq, acc, scale, bb, row_a, sq, hq, h, col_t, d);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-           float scale, int causal, cudaStream_t stream) {
+           int d, float scale, int causal, cudaStream_t stream) {
   // Encoded on every call, as the forward's (a CUDA graph records the maps
-  // by value). Any failure is returned: there is no other route.
+  // by value), at the real d. Any failure is returned: there is no other
+  // route.
   CUtensorMap tq, tk, tv, tdo;
-  if (!tc::make_map(&tq, q, b, sq, hq, D) ||
-      !tc::make_map(&tk, k, b, skv, hkv, D) ||
-      !tc::make_map(&tv, v, b, skv, hkv, D) ||
-      !tc::make_map(&tdo, dout, b, sq, hq, D))
+  if (!tc::make_map(&tq, q, b, sq, hq, d) ||
+      !tc::make_map(&tk, k, b, skv, hkv, d) ||
+      !tc::make_map(&tv, v, b, skv, hkv, d) ||
+      !tc::make_map(&tdo, dout, b, sq, hq, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = bwd::preprocess<bf16, D>(o, dout, delta, b, sq, hq,
+  cudaError_t err = bwd::preprocess<bf16, D>(o, dout, delta, b, sq, hq, d,
                                              stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr size_t smem = smem_bytes<D>();
@@ -1513,12 +1674,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dkdv_wgmma_kernel<D>
       <<<n_kt * hkv * b, kThreads * dkdv_warpgroups<D>(), smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), b, sq, skv, hq, hkv, scale, scale_log2, causal);
+      static_cast<bf16*>(dv), b, sq, skv, hq, hkv, d, scale, scale_log2,
+      causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_wgmma_kernel<D><<<n_qt * hq * b, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), b, sq, skv, hq,
-      hkv, n_qt, scale, scale_log2, causal);
+      hkv, d, n_qt, scale, scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1536,28 +1698,30 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      padded_dim(d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
-    return dispatch_simt(d, q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal,
-                         s);
-  if (dtype == kBF16) {
-    switch (d) {
-      case 16: return launch_simt<__nv_bfloat16, 16>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
-      case 32: return launch_simt<__nv_bfloat16, 32>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
-      case 64: return tc::launch<64>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
-      case 128: return tc::launch<128>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
-      case 160: return tc::launch<160>(q, k, v, o, l, b, sq, skv, hq, hkv, scale, causal, s);
+    return dispatch_simt<float>(d, q, k, v, o, l, b, sq, skv, hq, hkv, scale,
+                                causal, s);
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc_route(d)) {
+    switch (padded_dim(d)) {
+      case 64: return tc::launch<64>(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 128: return tc::launch<128>(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 160: return tc::launch<160>(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 256: return tc::launch<256>(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale, causal, s);
     }
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_simt<__nv_bfloat16>(d, q, k, v, o, l, b, sq, skv, hq, hkv,
+                                      scale, causal, s);
 }
 
 // Backward of repro_flash_attention: q, o, dout, dq (b, sq, hq, d); k, v,
 // dk, dv (b, skv, hkv, d), all contiguous in dtype; lse (b, hq, sq) float32
 // from the forward; delta (b, hq, sq) float32 scratch. Launches
 // flash_bwd_preprocess_kernel, then flash_bwd_dkdv_wgmma_kernel and
-// flash_bwd_dq_wgmma_kernel for bf16 at d 64, 128 or 160 (a failed TMA encode,
+// flash_bwd_dq_wgmma_kernel for bf16 where tc_route holds (a failed TMA encode,
 // attribute or launch is returned, never served by another route), else
 // flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the stream.
 extern "C" int repro_flash_attention_bwd(
@@ -1567,21 +1731,23 @@ extern "C" int repro_flash_attention_bwd(
     int causal, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      padded_dim(d) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == kF32)
-    return bwd::dispatch_f32(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,
-                             skv, hq, hkv, scale, causal, s);
-  if (dtype == kBF16) {
-    switch (d) {
-      case 16: return bwd::launch<__nv_bfloat16, 16>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-      case 32: return bwd::launch<__nv_bfloat16, 32>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-      case 64: return bwd_tc::launch<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-      case 128: return bwd_tc::launch<128>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
-      case 160: return bwd_tc::launch<160>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, scale, causal, s);
+    return bwd::dispatch<float>(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,
+                                skv, hq, hkv, scale, causal, s);
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc_route(d)) {
+    switch (padded_dim(d)) {
+      case 64: return bwd_tc::launch<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 128: return bwd_tc::launch<128>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 160: return bwd_tc::launch<160>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 256: return bwd_tc::launch<256>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
     }
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd::dispatch<__nv_bfloat16>(d, q, k, v, o, dout, l, dl, dq, dk, dv,
+                                      b, sq, skv, hq, hkv, scale, causal, s);
 }

@@ -59,7 +59,7 @@
 //   blocks of a 512-step call load their tiles at once, about 14 MB from
 //   L2 in the outputs kernel (C and B re-read by every head, H_{c-1} as a
 //   pair), and 60 of the 132 SMs run two blocks.
-// * simt (float32 at any shape, bfloat16 where tc does not fit, n <= 256):
+// * simt (float32 at any shape, bfloat16 where tc does not fit, any n):
 //   the CUDA-core kernel of the first port. One block owns a (batch, head,
 //   slice of kPS columns of p) and loops over the sequence itself, its
 //   state slice (n x kPS, fp32) in shared memory from tile to tile; the
@@ -71,7 +71,11 @@
 //   2. y_t = sum_{j<=t} M[t, j] x_j + exp(L_t) C_t . h_in + D x_t;
 //   3. h = exp(L_last) h + sum_j exp(L_last - L_j) dt_j B_j (x) x_j.
 //   fp32 products on the CUDA cores are what the fp32 path is checked for
-//   (2e-4 on y and the state).
+//   (2e-4 on y and the state). d_state comes in tiles of kNT = 256 columns
+//   (the shared memory of B, C and the state at n 256): the state's rows
+//   are independent in 3., and the sums over n in 1. and 2. run over the
+//   tiles in a fixed order; past one tile the state is carried from step
+//   tile to step tile in the output's own rows.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "ssd_common.cuh"
@@ -85,9 +89,11 @@ constexpr int kT = 64;          // steps per tile
 constexpr int kPS = 16;         // columns of p per block
 constexpr int kLd = kT + 4;     // row stride of the transposed B, C and M
 constexpr int kThreads = 256;
+constexpr int kNT = 256;        // columns of n a tile of B, C and the state
 
-__host__ __device__ constexpr int ssd_smem_floats(int n) {
-  return 2 * n * kLd + kT * kLd + kT * kPS + n * kPS + 4 * kT;
+// Shared memory of a block whose tiles hold nt columns of n (min(n, kNT)).
+__host__ __device__ constexpr int ssd_smem_floats(int nt) {
+  return 2 * nt * kLd + kT * kLd + kT * kPS + nt * kPS + 4 * kT;
 }
 
 template <typename T>
@@ -97,14 +103,24 @@ ssd_scan_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const T* __restrict__ C, const float* __restrict__ D,
                 T* __restrict__ y, float* __restrict__ state, int s, int h,
                 int p, int n) {
+  // d_state in tiles of nt columns. One tile (n <= kNT): B, C and the
+  // carried state stay in shared memory whole. More: each step tile walks
+  // the n tiles in order, B and C of each loaded in turn, and the state
+  // of each carried between step tiles in `state` itself (the block's own
+  // (p0 .. p0 + kPS, n) rows, final once the last step tile is done). The
+  // sums over n (C.B^T and C.h_in) run over the tiles in order, so the
+  // result does not depend on the timing, and with one tile it is the
+  // same sum as ever.
+  const int nt = n < kNT ? n : kNT;
+  const int n_tiles = (n + nt - 1) / nt;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* Ct = smem;                    // [n][kLd], C of the tile, transposed
-  float* Bt = Ct + n * kLd;            // [n][kLd]
-  float* Ms = Bt + n * kLd;            // [kT][kLd]
+  float* Ct = smem;                    // [nt][kLd], C of the tile, transposed
+  float* Bt = Ct + nt * kLd;           // [nt][kLd]
+  float* Ms = Bt + nt * kLd;           // [kT][kLd]
   float* xs = Ms + kT * kLd;           // [kT][kPS]
-  float* hs = xs + kT * kPS;           // [n][kPS], the carried state
-  float* Ls = hs + n * kPS;            // [kT] cumsum of dt * A
+  float* hs = xs + kT * kPS;           // [nt][kPS], the carried state
+  float* Ls = hs + nt * kPS;           // [kT] cumsum of dt * A
   float* eL = Ls + kT;                 // [kT] exp(L_t)
   float* ws = eL + kT;                 // [kT] exp(L_last - L_j) dt_j
   float* dts = ws + kT;                // [kT] dt (0 past s)
@@ -116,8 +132,11 @@ ssd_scan_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float a = A[hi];
   const float d_skip = D[hi];
   const size_t row_x = static_cast<size_t>(h) * p;   // x, y step stride
+  float* st = state + ((static_cast<size_t>(bi) * h + hi) * p + p0) * n;
+  const int pp_y = tid % kPS, tg = tid / kPS;        // y: (t, pp) a thread
 
-  for (int i = tid; i < n * kPS; i += kThreads) hs[i] = 0.f;
+  if (n_tiles == 1)
+    for (int i = tid; i < n * kPS; i += kThreads) hs[i] = 0.f;
 
   for (int t0 = 0; t0 < s; t0 += kT) {
     // --- 1. load the tile; warp 0 scans dt * A --------------------------
@@ -149,13 +168,6 @@ ssd_scan_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         dts[t] = dv[k];
       }
     }
-    for (int i = tid; i < kT * n; i += kThreads) {
-      const int t = i / n, nn = i - t * n;
-      const bool ok = t0 + t < s;
-      const size_t g = (static_cast<size_t>(bi) * s + t0 + t) * n + nn;
-      Bt[nn * kLd + t] = ok ? to_f32(B[g]) : 0.f;
-      Ct[nn * kLd + t] = ok ? to_f32(C[g]) : 0.f;
-    }
     for (int i = tid; i < kT * kPS; i += kThreads) {
       const int t = i / kPS, pp = i - t * kPS;
       const bool ok = t0 + t < s && p0 + pp < p;
@@ -163,14 +175,34 @@ ssd_scan_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                             static_cast<size_t>(hi) * p + p0 + pp])
                  : 0.f;
     }
-    __syncthreads();
 
-    // --- 2. M[t, j] = (C_t . B_j) exp(L_t - L_j) dt_j, j <= t -------------
-    {
-      const int ti = tid / 16, tj = tid % 16;
+    float mc[4][4] = {};     // C_t . B_j, this thread's 4 x 4 of M
+    float inter[4] = {};     // C_t . h_in of this thread's (t, pp)
+    const int ti = tid / 16, tj = tid % 16;
+    for (int k = 0; k < n_tiles; ++k) {
+      const int n0 = k * nt, nw = min(nt, n - n0);
+      if (k > 0) __syncthreads();  // the previous n tile is no longer read
+      for (int i = tid; i < kT * nw; i += kThreads) {
+        const int t = i / nw, nn = i - t * nw;
+        const bool ok = t0 + t < s;
+        const size_t g = (static_cast<size_t>(bi) * s + t0 + t) * n + n0 + nn;
+        Bt[nn * kLd + t] = ok ? to_f32(B[g]) : 0.f;
+        Ct[nn * kLd + t] = ok ? to_f32(C[g]) : 0.f;
+      }
+      if (n_tiles > 1) {     // this n tile's state, from the last step tile
+        for (int i = tid; i < kPS * nw; i += kThreads) {
+          const int pp = i / nw, nn = i - pp * nw;
+          hs[nn * kPS + pp] =
+              t0 > 0 && p0 + pp < p ? st[static_cast<size_t>(pp) * n + n0 + nn]
+                                    : 0.f;
+        }
+      }
+      __syncthreads();
+
+      // --- 2. M[t, j] = (C_t . B_j) exp(L_t - L_j) dt_j, j <= t: the sum
+      //        over this n tile ---------------------------------------------
       if (tj <= ti) {
-        float acc[4][4] = {};
-        for (int nn = 0; nn < n; ++nn) {
+        for (int nn = 0; nn < nw; ++nn) {
           const float4 cv = *reinterpret_cast<const float4*>(
               Ct + nn * kLd + ti * 4);
           const float4 bv = *reinterpret_cast<const float4*>(
@@ -180,59 +212,69 @@ ssd_scan_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] += c4[r] * b4[c];
+            for (int c = 0; c < 4; ++c) mc[r][c] += c4[r] * b4[c];
         }
+      }
+
+      // --- 3a. C_t . h_in over this n tile -------------------------------
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int t = ti * 4 + r;
+      for (int q = 0; q < 4; ++q) {
+        const int t = tg + q * (kThreads / kPS);
+        for (int nn = 0; nn < nw; ++nn)
+          inter[q] += Ct[nn * kLd + t] * hs[nn * kPS + pp_y];
+      }
+      __syncthreads();   // h_in is read before the update below
+
+      // --- 4. h = exp(L_last) h + sum_j exp(L_last - L_j) dt_j B_j (x) x_j
+      {
+        const int pp = tid % kPS, ng = tid / kPS;
+        const float a_last = eL[kT - 1];
+        for (int nn = ng; nn < nw; nn += kThreads / kPS) {
+          float g = 0.f;
+          for (int j = 0; j < kT; ++j)
+            g += ws[j] * Bt[nn * kLd + j] * xs[j * kPS + pp];
+          const float hv = a_last * hs[nn * kPS + pp] + g;
+          hs[nn * kPS + pp] = hv;
+          if (n_tiles > 1 && p0 + pp < p)
+            st[static_cast<size_t>(pp) * n + n0 + nn] = hv;
+        }
+      }
+    }
+
+    if (tj <= ti) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int j = tj * 4 + c;
-            if (j <= t)
-              Ms[t * kLd + j] = acc[r][c] * expf(Ls[t] - Ls[j]) * dts[j];
-          }
+      for (int r = 0; r < 4; ++r) {
+        const int t = ti * 4 + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = tj * 4 + c;
+          if (j <= t) Ms[t * kLd + j] = mc[r][c] * expf(Ls[t] - Ls[j]) * dts[j];
         }
       }
     }
     __syncthreads();
 
-    // --- 3. y_t = sum_{j<=t} M[t, j] x_j + exp(L_t) C_t . h_in + D x_t ----
-    {
-      const int pp = tid % kPS, tg = tid / kPS;
-      for (int t = tg; t < kT; t += kThreads / kPS) {
-        if (t0 + t >= s || p0 + pp >= p) continue;
-        float intra = 0.f;
-        for (int j = 0; j <= t; ++j) intra += Ms[t * kLd + j] * xs[j * kPS + pp];
-        float inter = 0.f;
-        for (int nn = 0; nn < n; ++nn)
-          inter += Ct[nn * kLd + t] * hs[nn * kPS + pp];
-        const float yv = (intra + eL[t] * inter) + xs[t * kPS + pp] * d_skip;
-        y[(static_cast<size_t>(bi) * s + t0 + t) * row_x +
-          static_cast<size_t>(hi) * p + p0 + pp] = from_f32<T>(yv);
-      }
-    }
-    __syncthreads();
-
-    // --- 4. h = exp(L_last) h + sum_j exp(L_last - L_j) dt_j B_j (x) x_j --
-    {
-      const int pp = tid % kPS, ng = tid / kPS;
-      const float a_last = eL[kT - 1];
-      for (int nn = ng; nn < n; nn += kThreads / kPS) {
-        float g = 0.f;
-        for (int j = 0; j < kT; ++j)
-          g += ws[j] * Bt[nn * kLd + j] * xs[j * kPS + pp];
-        hs[nn * kPS + pp] = a_last * hs[nn * kPS + pp] + g;
-      }
+    // --- 3b. y_t = sum_{j<=t} M[t, j] x_j + exp(L_t) C_t . h_in + D x_t ---
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = tg + q * (kThreads / kPS);
+      if (t0 + t >= s || p0 + pp_y >= p) continue;
+      float intra = 0.f;
+      for (int j = 0; j <= t; ++j)
+        intra += Ms[t * kLd + j] * xs[j * kPS + pp_y];
+      const float yv = (intra + eL[t] * inter[q]) + xs[t * kPS + pp_y] * d_skip;
+      y[(static_cast<size_t>(bi) * s + t0 + t) * row_x +
+        static_cast<size_t>(hi) * p + p0 + pp_y] = from_f32<T>(yv);
     }
     __syncthreads();
   }
 
-  // final state, (b, h, p, n) fp32
-  for (int i = tid; i < kPS * n; i += kThreads) {
-    const int pp = i / n, nn = i - pp * n;
-    if (p0 + pp < p)
-      state[((static_cast<size_t>(bi) * h + hi) * p + p0 + pp) * n + nn] =
-          hs[nn * kPS + pp];
+  // final state, (b, h, p, n) fp32 (with several n tiles already there)
+  if (n_tiles == 1) {
+    for (int i = tid; i < kPS * n; i += kThreads) {
+      const int pp = i / n, nn = i - pp * n;
+      if (p0 + pp < p) st[static_cast<size_t>(pp) * n + nn] = hs[nn * kPS + pp];
+    }
   }
 }
 
@@ -241,7 +283,7 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
                    const void* B, const void* C, const float* D, void* y,
                    float* state, int b, int s, int h, int p, int n,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ssd_smem_floats(n);
+  const size_t smem = sizeof(float) * ssd_smem_floats(n < kNT ? n : kNT);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_simt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -668,7 +710,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               void* Hp, int b, int s, int h, int p, int n,
                               int dtype, int design, void* stream) {
   using namespace repro;
-  if (b <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 || n > 256)
+  if (b <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);

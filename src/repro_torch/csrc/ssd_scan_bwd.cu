@@ -82,8 +82,8 @@
 //   save the 16.8 MB, but an H100 holds only 30 clusters of four such
 //   blocks at once (its GPCs), so 2 of the 32 run in a second wave.
 // * simt (float32 at any shape the forward takes, and bfloat16 where tc
-//   does not fit: 1 <= n <= 256, any p): CUDA cores and fp32 accumulators,
-//   in four launches:
+//   does not fit: any n, any p): CUDA cores and fp32 accumulators, in four
+//   launches:
 //   1. ssd_bwd_states_kernel, grid (tile, head, batch): the tile's state
 //      G = sum_j exp(L_T - L_j) dt_j x_j B_j^T, its decay exp(L_T) and
 //      Gd = sum_t exp(L_t) dy_t C_t^T, each stored (p, n).
@@ -99,7 +99,10 @@
 //      so the row-strided shared-memory reads are free of bank conflicts);
 //      KE, EP and Q go to shared memory, and dl's straddling sum is a row
 //      prefix of Q followed by column sums. x, dy and the states stream
-//      through in chunks of kPC columns of p (and kNC of n). dx and ddt are
+//      through in chunks of kPC columns of p (and kNC of n). Past kNT =
+//      256 columns of n, B and C come in tiles of kNT, loaded again in each
+//      phase that walks n, whose sums run over the tiles in order (the
+//      shared memory of B and C at n 256). dx and ddt are
 //      written once; dB and dC of each head go to fp32 partials, dA and dD
 //      of each block too.
 //   4. ssd_bwd_reduce_kernel: the partials of dB and dC summed over the
@@ -128,7 +131,7 @@ constexpr int kSC = 32;           // columns of p and n a chunk of the states
 constexpr int kLdS = kSC + 1;
 constexpr int kPassThreads = 256;
 constexpr int kPassTiles = 8;     // tiles whose loads the pass issues at once
-constexpr int kMaxState = 256;    // d_state the forward takes
+constexpr int kNT = 256;          // columns of n a B, C tile (local kernel)
 constexpr int kMaxSmem = 232448;  // shared memory a block may use (sm_90)
 
 // Row stride, in elements, of B and C held in shared memory: an odd
@@ -138,20 +141,21 @@ __host__ __device__ constexpr int ld_bc(int n) {
   return n + (sizeof(T) == 2 ? 2 : 1);
 }
 
-__host__ __device__ constexpr int stage_floats(int n) {
+// Of a local kernel whose B, C tiles hold nt columns of n (min(n, kNT)).
+__host__ __device__ constexpr int stage_floats(int nt) {
   return 2 * kT * kLdP +
-         (kPC * (n + 1) > 2 * kPC * kLdN ? kPC * (n + 1) : 2 * kPC * kLdN);
+         (kPC * (nt + 1) > 2 * kPC * kLdN ? kPC * (nt + 1) : 2 * kPC * kLdN);
 }
 
 template <typename T>
-__host__ __device__ constexpr size_t local_smem(int n) {
-  return sizeof(float) * (3 * kT * kLdM + 8 * kT + 32 + stage_floats(n)) +
-         sizeof(T) * 2 * static_cast<size_t>(kT) * ld_bc<T>(n);
+__host__ __device__ constexpr size_t local_smem(int nt) {
+  return sizeof(float) * (3 * kT * kLdM + 8 * kT + 32 + stage_floats(nt)) +
+         sizeof(T) * 2 * static_cast<size_t>(kT) * ld_bc<T>(nt);
 }
-static_assert(local_smem<float>(kMaxState) <= kMaxSmem &&
-                  local_smem<__nv_bfloat16>(kMaxState) <= kMaxSmem,
-              "the local kernel's shared memory must fit a block at every "
-              "d_state the forward takes");
+static_assert(local_smem<float>(kNT) <= kMaxSmem &&
+                  local_smem<__nv_bfloat16>(kNT) <= kMaxSmem,
+              "the local kernel's shared memory must fit a block at a "
+              "whole tile of n");
 
 // 1. G[pp][nn] = sum_j (w_j x_j[pp]) B_j[nn], w_j = exp(L_T - L_j) dt_j, and
 //    Gd[pp][nn] = sum_t (exp(L_t) dy_t[pp]) C_t[nn], in chunks of kSC x kSC
@@ -284,7 +288,9 @@ ssd_bwd_pass_kernel(float* __restrict__ G, float* __restrict__ Gd,
 //       C, plus H dy and dS u over chunks of p), the sums (C_t^T H) . dy_t
 //       and B_j^T dS u_j over the chunks in order, and <H, dS>.
 //    6. dl, ddt; the block's dA and dD partials.
-template <typename T>
+// kTiled: n above kNT, B and C walked in tiles; else one tile of n, as
+// before there were tiles.
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ A, const T* __restrict__ B,
@@ -310,10 +316,15 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* red = dli + kT;                         // [32] block sums
   float* S1 = red + 32;                          // [kT][kLdP]
   float* S2 = S1 + kT * kLdP;                    // [kT][kLdP]
-  float* S3 = S2 + kT * kLdP;                    // [kPC][n + 1] or [kPC][kLdN]
+  float* S3 = S2 + kT * kLdP;                    // [kPC][tn + 1] or [kPC][kLdN]
   float* S4 = S3 + kPC * kLdN;                   // [kPC][kLdN]
-  const int ldb = ld_bc<T>(n);
-  T* Bs = reinterpret_cast<T*>(S1 + stage_floats(n));   // [kT][ldb]
+  // d_state in tiles of tn columns: B and C of one tile in shared memory
+  // at a time (all of them when n <= kNT), loaded again where a phase
+  // walks n; every sum over n runs over the tiles in order.
+  const int tn = kTiled ? kNT : n;
+  const int n_tiles = kTiled ? (n + kNT - 1) / kNT : 1;
+  const int ldb = ld_bc<T>(tn);
+  T* Bs = reinterpret_cast<T*>(S1 + stage_floats(tn));  // [kT][ldb]
   T* Cs = Bs + kT * ldb;                                // [kT][ldb]
 
   const int c = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
@@ -325,15 +336,29 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const size_t tile = ((static_cast<size_t>(bi) * h + hi) * nt + c) *
                       static_cast<size_t>(p) * n;
   const float a = A[hi], d_skip = D[hi];
+  // B, C columns [k tn, k tn + nw) of the tile into Bs, Cs (the caller
+  // brackets it with barriers).
+  auto load_bc = [&](int k) {
+    const int n0 = k * tn, nw = min(tn, n - n0);
+    for (int i = tid; i < kT * nw; i += kThreads) {
+      const int t = i / nw, nn = i - t * nw;
+      const bool ok = t < valid;
+      const size_t g = (row0 + t) * n + n0 + nn;
+      Bs[t * ldb + nn] = ok ? B[g] : from_f32<T>(0.f);
+      Cs[t * ldb + nn] = ok ? C[g] : from_f32<T>(0.f);
+    }
+  };
+  int resident = 0;                // the n tile in Bs, Cs
+  auto use_tile = [&](int k) {     // uniform across the block
+    if (k == resident) return;
+    __syncthreads();
+    load_bc(k);
+    __syncthreads();
+    resident = k;
+  };
 
   // --- 0. ---------------------------------------------------------------
-  for (int i = tid; i < kT * n; i += kThreads) {
-    const int t = i / n, nn = i - t * n;
-    const bool ok = t < valid;
-    const size_t g = (row0 + t) * n + nn;
-    Bs[t * ldb + nn] = ok ? B[g] : from_f32<T>(0.f);
-    Cs[t * ldb + nn] = ok ? C[g] : from_f32<T>(0.f);
-  }
+  load_bc(0);
   if (warp == 0) {
     const float last = tile_cumsum(dt, row0 * h + hi, h, valid, a, Ls, dts);
 #pragma unroll
@@ -353,17 +378,21 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int q = 0; q < 4; ++q) K[r][q] = P[r][q] = 0.f;
-  for (int nn = 0; nn < n; ++nn) {
-    float cr[4], bq[4];
+  for (int k = 0; k < n_tiles; ++k) {
+    use_tile(k);
+    const int nw = min(tn, n - k * tn);
+    for (int nn = 0; nn < nw; ++nn) {
+      float cr[4], bq[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      cr[r] = to_f32(Cs[(ti + 16 * r) * ldb + nn]);
-      bq[r] = to_f32(Bs[(tj + 16 * r) * ldb + nn]);
+      for (int r = 0; r < 4; ++r) {
+        cr[r] = to_f32(Cs[(ti + 16 * r) * ldb + nn]);
+        bq[r] = to_f32(Bs[(tj + 16 * r) * ldb + nn]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) K[r][q] += cr[r] * bq[q];
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) K[r][q] += cr[r] * bq[q];
   }
   float ddp = 0.f;   // dD: this thread's share of sum dy . x
   for (int p0 = 0; p0 < p; p0 += kPC) {
@@ -428,7 +457,17 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   // --- 4. ---------------------------------------------------------------
   {
     const int jr = tid >> 2, c0 = (tid & 3) * 4;
-    const int ldd = n + 1;
+    const int ldd = tn + 1;
+    // dS columns [n0, n0 + nw) of chunk p0 into S3.
+    auto load_ds = [&](int p0, int n0, int nw) {
+      for (int i = tid; i < kPC * nw; i += kThreads) {
+        const int cc = i / nw, nn = i - cc * nw;
+        S3[cc * ldd + nn] =
+            p0 + cc < p
+                ? dSo[tile + static_cast<size_t>(p0 + cc) * n + n0 + nn]
+                : 0.f;
+      }
+    };
     for (int p0 = 0; p0 < p; p0 += kPC) {
       __syncthreads();
       for (int i = tid; i < kT * kPC; i += kThreads) {
@@ -438,12 +477,7 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         S1[t * kLdP + cc] = ok ? to_f32(dy[g]) : 0.f;
         S2[t * kLdP + cc] = ok ? to_f32(x[g]) : 0.f;
       }
-      for (int i = tid; i < kPC * n; i += kThreads) {
-        const int cc = i / n, nn = i - cc * n;
-        S3[cc * ldd + nn] =
-            p0 + cc < p ? dSo[tile + static_cast<size_t>(p0 + cc) * n + nn]
-                        : 0.f;
-      }
+      if (n_tiles == 1) load_ds(p0, 0, n);
       __syncthreads();
       float a1[4] = {0.f, 0.f, 0.f, 0.f}, a2[4] = {0.f, 0.f, 0.f, 0.f};
       for (int t = jr; t < kT; ++t) {
@@ -451,10 +485,20 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int k = 0; k < 4; ++k) a1[k] += ke * S1[t * kLdP + c0 + k];
       }
-      for (int nn = 0; nn < n; ++nn) {
-        const float bv = to_f32(Bs[jr * ldb + nn]);
+      for (int kn = 0; kn < n_tiles; ++kn) {
+        const int nw = min(tn, n - kn * tn);
+        if (n_tiles > 1) {   // this n tile's B and dS
+          __syncthreads();
+          if (kn != resident) load_bc(kn);
+          resident = kn;
+          load_ds(p0, kn * tn, nw);
+          __syncthreads();
+        }
+        for (int nn = 0; nn < nw; ++nn) {
+          const float bv = to_f32(Bs[jr * ldb + nn]);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) a2[k] += bv * S3[(c0 + k) * ldd + nn];
+          for (int k = 0; k < 4; ++k) a2[k] += bv * S3[(c0 + k) * ldd + nn];
+        }
       }
       float xd = 0.f;
 #pragma unroll
@@ -477,72 +521,79 @@ ssd_bwd_local_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   {
     const int rw = tid >> 2, nq = tid & 3;   // row t (dC), j (dB); nq + 4 k
     const size_t out_row = (static_cast<size_t>(bi) * h + hi) * s + t0 + rw;
-    for (int n0 = 0; n0 < n; n0 += kNC) {
-      float aC[8], aB[8], hy[8], su[8];
-      int col[8];
+    for (int kn = 0; kn < n_tiles; ++kn) {
+      use_tile(kn);
+      const int nb = kn * tn, nw = min(tn, n - nb);   // the tile's columns
+      for (int c0n = 0; c0n < nw; c0n += kNC) {
+        const int n0 = nb + c0n;                      // in the whole of n
+        float aC[8], aB[8], hy[8], su[8];
+        int col[8];                                   // in the tile
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        aC[k] = aB[k] = hy[k] = su[k] = 0.f;
-        col[k] = min(n0 + nq + 4 * k, n - 1);   // past n: read, not kept
-      }
-      for (int j = 0; j <= rw; ++j) {
-        const float ep = EP[rw * kLdM + j];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) aC[k] += ep * to_f32(Bs[j * ldb + col[k]]);
-      }
-      for (int t = rw; t < kT; ++t) {
-        const float ep = EP[t * kLdM + rw];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) aB[k] += ep * to_f32(Cs[t * ldb + col[k]]);
-      }
-      for (int p0 = 0; p0 < p; p0 += kPC) {
-        __syncthreads();
-        for (int i = tid; i < kT * kPC; i += kThreads) {
-          const int t = i / kPC, cc = i - t * kPC;
-          const bool ok = t < valid && p0 + cc < p;
-          const size_t g = (row0 + t) * xrow + xcol + p0 + cc;
-          S1[t * kLdP + cc] = ok ? to_f32(dy[g]) : 0.f;
-          S2[t * kLdP + cc] = ok ? dts[t] * to_f32(x[g]) : 0.f;
+        for (int k = 0; k < 8; ++k) {
+          aC[k] = aB[k] = hy[k] = su[k] = 0.f;
+          col[k] = min(c0n + nq + 4 * k, nw - 1);   // past n: read, not kept
         }
-        for (int i = tid; i < kPC * kNC; i += kThreads) {
-          const int cc = i / kNC, nc = i - cc * kNC;
-          const bool ok = p0 + cc < p && n0 + nc < n;
-          const size_t g = tile + static_cast<size_t>(p0 + cc) * n + n0 + nc;
-          const float hv = ok ? Hin[g] : 0.f, dv = ok ? dSo[g] : 0.f;
-          S3[cc * kLdN + nc] = hv;
-          S4[cc * kLdN + nc] = dv;
-          hds += hv * dv;
-        }
-        __syncthreads();
-        for (int cc = 0; cc < kPC; ++cc) {
-          const float yv = S1[rw * kLdP + cc], uv = S2[rw * kLdP + cc];
+        for (int j = 0; j <= rw; ++j) {
+          const float ep = EP[rw * kLdM + j];
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            hy[k] += yv * S3[cc * kLdN + nq + 4 * k];
-            su[k] += uv * S4[cc * kLdN + nq + 4 * k];
+          for (int k = 0; k < 8; ++k)
+            aC[k] += ep * to_f32(Bs[j * ldb + col[k]]);
+        }
+        for (int t = rw; t < kT; ++t) {
+          const float ep = EP[t * kLdM + rw];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            aB[k] += ep * to_f32(Cs[t * ldb + col[k]]);
+        }
+        for (int p0 = 0; p0 < p; p0 += kPC) {
+          __syncthreads();
+          for (int i = tid; i < kT * kPC; i += kThreads) {
+            const int t = i / kPC, cc = i - t * kPC;
+            const bool ok = t < valid && p0 + cc < p;
+            const size_t g = (row0 + t) * xrow + xcol + p0 + cc;
+            S1[t * kLdP + cc] = ok ? to_f32(dy[g]) : 0.f;
+            S2[t * kLdP + cc] = ok ? dts[t] * to_f32(x[g]) : 0.f;
+          }
+          for (int i = tid; i < kPC * kNC; i += kThreads) {
+            const int cc = i / kNC, nc = i - cc * kNC;
+            const bool ok = p0 + cc < p && c0n + nc < nw;
+            const size_t g = tile + static_cast<size_t>(p0 + cc) * n + n0 + nc;
+            const float hv = ok ? Hin[g] : 0.f, dv = ok ? dSo[g] : 0.f;
+            S3[cc * kLdN + nc] = hv;
+            S4[cc * kLdN + nc] = dv;
+            hds += hv * dv;
+          }
+          __syncthreads();
+          for (int cc = 0; cc < kPC; ++cc) {
+            const float yv = S1[rw * kLdP + cc], uv = S2[rw * kLdP + cc];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              hy[k] += yv * S3[cc * kLdN + nq + 4 * k];
+              su[k] += uv * S4[cc * kLdN + nq + 4 * k];
+            }
           }
         }
-      }
-      float iyp = 0.f, rp = 0.f;
+        float iyp = 0.f, rp = 0.f;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int nn = n0 + nq + 4 * k;
-        if (nn < n) {
-          iyp += to_f32(Cs[rw * ldb + nn]) * hy[k];
-          rp += to_f32(Bs[rw * ldb + nn]) * su[k];
-          if (rw < valid) {
-            dCh[out_row * n + nn] = aC[k] + eL[rw] * hy[k];
-            dBh[out_row * n + nn] = aB[k] + wl[rw] * su[k];
+        for (int k = 0; k < 8; ++k) {
+          const int nn = c0n + nq + 4 * k;
+          if (nn < nw) {
+            iyp += to_f32(Cs[rw * ldb + nn]) * hy[k];
+            rp += to_f32(Bs[rw * ldb + nn]) * su[k];
+            if (rw < valid) {
+              dCh[out_row * n + nb + nn] = aC[k] + eL[rw] * hy[k];
+              dBh[out_row * n + nb + nn] = aB[k] + wl[rw] * su[k];
+            }
           }
         }
-      }
-      iyp += __shfl_xor_sync(0xffffffffu, iyp, 1);
-      iyp += __shfl_xor_sync(0xffffffffu, iyp, 2);
-      rp += __shfl_xor_sync(0xffffffffu, rp, 1);
-      rp += __shfl_xor_sync(0xffffffffu, rp, 2);
-      if (nq == 0) {
-        iy[rw] += eL[rw] * iyp;
-        rr[rw] += wl[rw] * rp;
+        iyp += __shfl_xor_sync(0xffffffffu, iyp, 1);
+        iyp += __shfl_xor_sync(0xffffffffu, iyp, 2);
+        rp += __shfl_xor_sync(0xffffffffu, rp, 1);
+        rp += __shfl_xor_sync(0xffffffffu, rp, 2);
+        if (nq == 0) {
+          iy[rw] += eL[rw] * iyp;
+          rr[rw] += wl[rw] * rp;
+        }
       }
     }
   }
@@ -635,10 +686,14 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
   const T* Bt = static_cast<const T*>(B);
   const T* Ct = static_cast<const T*>(C);
   const T* dyt = static_cast<const T*>(dy);
-  const size_t smem = local_smem<T>(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_local_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const bool tiled = n > kNT;
+  const size_t smem = local_smem<T>(tiled ? kNT : n);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err =
+      tiled ? cudaFuncSetAttribute(ssd_bwd_local_kernel<T, true>, attr,
+                                   static_cast<int>(smem))
+            : cudaFuncSetAttribute(ssd_bwd_local_kernel<T, false>, attr,
+                                   static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(nt, h, b);
   ssd_bwd_states_kernel<T><<<grid, kThreads, 0, stream>>>(
@@ -648,9 +703,14 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
                         kPassThreads, 0, stream>>>(G, Gd, decay, dstate, nt,
                                                    static_cast<int>(pn));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_local_kernel<T><<<grid, kThreads, smem, stream>>>(
-      xt, dt, A, Bt, Ct, D, dyt, G, Gd, static_cast<T*>(dx), ddt, dBh, dCh,
-      partA, partD, s, h, p, n, nt);
+  if (tiled)
+    ssd_bwd_local_kernel<T, true><<<grid, kThreads, smem, stream>>>(
+        xt, dt, A, Bt, Ct, D, dyt, G, Gd, static_cast<T*>(dx), ddt, dBh, dCh,
+        partA, partD, s, h, p, n, nt);
+  else
+    ssd_bwd_local_kernel<T, false><<<grid, kThreads, smem, stream>>>(
+        xt, dt, A, Bt, Ct, D, dyt, G, Gd, static_cast<T*>(dx), ddt, dBh, dCh,
+        partA, partD, s, h, p, n, nt);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t elems = static_cast<size_t>(b) * s * n;
   ssd_bwd_reduce_kernel<T><<<(elems + kThreads - 1) / kThreads, kThreads, 0,
@@ -1549,8 +1609,7 @@ extern "C" int repro_ssd_scan_bwd(const void* x, const void* dt,
                                   int n, int dtype, int design,
                                   void* stream) {
   using namespace repro;
-  if (b <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 ||
-      n > ssd_bwd::kMaxState)
+  if (b <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);

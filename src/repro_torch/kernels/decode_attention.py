@@ -8,10 +8,13 @@ call raises; a fake CUDA tensor to its fake path (checked, outputs
 allocated, counted by the dry run as a read of the whole cache, since a
 fake length has no value; not launched). The kernel has no backward: on
 the card, a call that autograd would record raises
-``NotImplementedError``. Any ``skv`` is taken; head_dim must be 16, 32,
-64, 128 or 160 and ``hq / hkv`` any group from 1 to ``MAX_GROUP`` (16),
-in bf16 or fp32. :func:`pv_layout` is the kernel's
-arithmetic for who owns which head, 16 bytes of d and cache row in P.V.
+``NotImplementedError``. Any ``skv`` is taken, any head_dim d from 1 to
+``MAX_HEAD_DIM`` (256; run at the least of ``HEAD_DIMS`` at or above it,
+as the flash kernel) and any group ``hq / hkv`` >= 1, in bf16 or fp32. A
+group above ``MAX_GROUP`` (16) runs in ``group_slices(g)`` slices of at
+most 16 q heads, a block each, each reading the kv head's rows. Above 256
+it raises. :func:`pv_layout` is the kernel's arithmetic for who owns
+which head, 16 bytes of d and cache row in P.V.
 
 The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
 each over ``split_rows(skv)`` cache rows, combined in the same launch by
@@ -37,6 +40,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
                                         on_card, refuse_grad,
                                         register_kernel, stream_handle)
@@ -44,9 +48,11 @@ from repro_torch.kernels.ref import (decode_attention_partial_ref,
                                      decode_attention_ref)
 from repro_torch.roofline import kernel_cost
 
-HEAD_DIMS = (16, 32, 64, 128, 160)
-MAX_GROUP = 16
+HEAD_DIMS = _flash.HEAD_DIMS        # the instantiated (padded) head dims
+MAX_HEAD_DIM = _flash.MAX_HEAD_DIM
+MAX_GROUP = 16      # q heads a block; larger groups run in slices of 16
 THREADS = 128   # a block (kThreads)
+MAX_SMEM = 232448   # shared memory a block may use (kMaxSmem)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "decode_attention", "repro_decode_attention",
@@ -71,29 +77,54 @@ def num_splits(skv: int) -> int:
     return -(-skv // split_rows(skv))
 
 
-def group_bucket(g: int) -> int:
-    """The bucket of the instantiation that serves group ``g``: the least
-    of 1, 2, 4, 8, 16 at or above it (``dispatch_g``; the group is a
-    constant there where it equals its bucket, else read at run time)."""
-    if not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"hq / hkv = {g} not in 1..{MAX_GROUP}")
-    return next(gm for gm in (1, 2, 4, 8, 16) if gm >= g)
+def group_bucket(g: int, d: Optional[int] = None) -> int:
+    """The bucket of the instantiation that serves group ``g``
+    (``dispatch_g``): the least of 1, 2, 4, 8, 16 at or above it, 16 above
+    16; the group is a constant there where it equals its bucket, else
+    read at run time. A head dim ``d`` below its padded D takes the
+    padded instantiation, the run-time bucket 16, at any group, and so
+    does every d at D 256 (the one instantiation there)."""
+    if g < 1:
+        raise ValueError(f"hq / hkv = {g} is not a group of q heads")
+    if d is not None:
+        big = _flash.padded_head_dim(d)
+        if d != big or big == MAX_HEAD_DIM:
+            return MAX_GROUP
+    return next((gm for gm in (1, 2, 4, 8, 16) if gm >= g), MAX_GROUP)
+
+
+def group_slices(g: int) -> int:
+    """Blocks a (split, kv head) takes: ceil(g / 16) slices of q heads."""
+    return -(-g // group_bucket(g))
 
 
 def pv_layout(element_size: int, d: int, g: int) -> Dict[str, int]:
     """The P.V ownership of ``csrc/decode_attention.cu`` (``Layout`` and
-    the kernel's ``pc``, ``grp``, ``R``, ``pg``, ``rs``): thread t takes
-    16-byte chunk ``t % ch`` of d in thread group ``t // ch``; group grp,
-    if below ``active``, takes head ``grp % g`` over the rows r with
-    ``r % r_slices == grp // g``, and heads ``grp % g + hg * i`` below g
-    for i < ``hpt``."""
+    the kernel's ``pc``, ``grp``, ``R``, ``pg``, ``rs``) for a group of
+    ``g`` q heads, in the block of its first slice (gb = min(g, 16) heads;
+    ``slices`` blocks a kv head), at the padded head dim ``D``: thread t
+    takes 16-byte chunk ``t % ch`` of D in thread group ``t // ch``, and
+    works only if that chunk is below ``chunks``, the ones holding the
+    real d; group grp, if below ``active``, takes head ``grp % gb`` over
+    the rows r with ``r % r_slices == grp // gb``, and heads ``grp % gb +
+    hg * i`` below gb for i < ``hpt``. ``vec``: the rows load as whole
+    16-byte chunks (else element by element, zero past d). ``stages``:
+    tiles in flight (``Layout::kStages``; one where two would not fit in
+    ``MAX_SMEM``)."""
     ve = 16 // element_size
-    ch = d // ve
+    big = _flash.padded_head_dim(d)
+    ch = big // ve
     hg = THREADS // ch
-    gm = group_bucket(g)
-    r_slices = hg // g if g < hg else 1
-    return {"ve": ve, "ch": ch, "hg": hg, "hpt": -(-gm // hg),
-            "r_slices": r_slices, "active": min(hg, r_slices * g)}
+    gm = group_bucket(g, d)
+    gb = min(g, gm)             # q heads of the first slice's block
+    r_slices = hg // gb if gb < hg else 1
+    stage = element_size * 2 * TILE * (big + ve)        # K and V tiles
+    fixed = 4 * (gm * big + gm * TILE + THREADS * ve + 3 * gm)
+    return {"D": big, "ve": ve, "ch": ch, "chunks": -(-d // ve),
+            "vec": d % ve == 0, "hg": hg, "hpt": -(-gm // hg),
+            "r_slices": r_slices, "active": min(hg, r_slices * gb),
+            "slices": group_slices(g),
+            "stages": 2 if 2 * stage + fixed <= MAX_SMEM else 1}
 
 
 def _counter(device: torch.device, n: int) -> torch.Tensor:
@@ -135,11 +166,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, length {tuple(length.shape)} "
                          "do not fit")
-    if hkv == 0 or hq % hkv or not 1 <= hq // hkv <= MAX_GROUP:
-        raise ValueError(f"hq / hkv = {hq}/{hkv} is not a group of 1 to "
-                         f"{MAX_GROUP} q heads a kv head")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if hkv == 0 or hq % hkv or hq == 0:
+        raise ValueError(f"hq / hkv = {hq}/{hkv} is not a whole group of "
+                         "q heads a kv head")
+    big = _flash.padded_head_dim(d)
     if skv == 0:
         raise ValueError("decode_attention needs skv >= 1")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -153,12 +183,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                             return_lse))
         return (out, lse) if return_lse else out
     g, splits = hq // hkv, num_splits(skv)
-    # One fp32 scratch for the partials: (m, l) of each (b, kv head, split,
-    # q head), then their accumulators of d each.
-    n_part = b * hkv * splits * g
-    part = torch.empty(n_part * (2 + d), dtype=torch.float32,
+    gs, per = group_slices(g), min(g, MAX_GROUP)
+    # One fp32 scratch for the partials: (m, l) of each (b, kv head, slice,
+    # split, q head of the slice), then their accumulators of D each.
+    n_part = b * hkv * gs * splits * per
+    part = torch.empty(n_part * (2 + big), dtype=torch.float32,
                        device=q.device)
-    counter = _counter(q.device, b * hkv)
+    counter = _counter(q.device, b * hkv * gs)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
            out.data_ptr(), None if lse is None else lse.data_ptr(),
            part.data_ptr(), part.data_ptr() + 8 * n_part,

@@ -6,18 +6,22 @@ JAX package. A tensor on the CPU goes to the plain version
 (``ref.attention_ref``); a CUDA tensor goes to the kernel, or the call
 raises; a fake CUDA tensor to its fake path (checked, outputs
 allocated, counted by the dry run, not launched). Any ``sq`` and ``skv``
-are taken, and any ``hq / hkv``; head_dim must be 16, 32, 64, 128 or
-160 (``HEAD_DIMS``), forward and backward alike.
+are taken, any ``hq / hkv``, and any head_dim d from 1 to
+``MAX_HEAD_DIM`` (256), forward and backward alike: a call runs at
+``padded_head_dim(d)``, the least of ``HEAD_DIMS`` (16, 32, 64, 128, 160,
+256) at or above d, its columns past d zero. Above 256 it raises (the
+Pallas kernel computes there; no public decoder has such a head dim).
 
 Two hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
-tensor, both launched and counted as ``flash_attention``:
+tensor, both launched and counted as ``flash_attention``, on the route
+:func:`fwd_design` names:
 
-* bf16 at head_dim 64, 128 or 160 (the serving path):
-  ``flash_fwd_wgmma_kernel``, tensor cores (wgmma, fp32 accumulators, P
-  rounded to bf16 for P.V) fed by TMA; d 160 as three 64-column boxes,
-  zero past 160;
-* fp32 at any head_dim, and bf16 at 16 or 32: ``flash_fwd_simt_kernel``,
-  full fp32 products on the CUDA cores.
+* ``"wgmma"``, bf16 where d is a multiple of 8 above 32 (the serving path
+  at 64, 128 and 160): ``flash_fwd_wgmma_kernel``, tensor cores (wgmma,
+  fp32 accumulators, P rounded to bf16 for P.V) fed by TMA, 64-column
+  boxes zero past d;
+* ``"simt"``, fp32 at any head_dim and bf16 at the others:
+  ``flash_fwd_simt_kernel``, full fp32 products on the CUDA cores.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
@@ -25,14 +29,17 @@ also writes each row's log-sum-exp, and the backward is one call, counted
 as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta) and
 two kernels on the route :func:`bwd_design` names:
 
-* ``"wgmma"``, bf16 at head_dim 64, 128 or 160 (the training paths):
+* ``"wgmma"``, as the forward's (the training paths at 64, 128 and 160):
   ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``,
   tensor cores (wgmma, fp32 accumulators, P and dS rounded to bf16 as
-  operands) fed by TMA, deterministic (no atomics); d 160 in three boxes
-  as the forward's, the dK/dV kernel on two warpgroups;
-* ``"simt"``, fp32 at any head_dim and bf16 at 16 or 32:
+  operands) fed by TMA, deterministic (no atomics); D 160 and 256 in
+  three and four boxes as the forward's, the dK/dV kernel on two
+  warpgroups;
+* ``"simt"``, fp32 at any head_dim and bf16 at the others:
   ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
   products on the CUDA cores.
+
+delta = rowsum(dO * O) is summed over the real d.
 
 On the CPU the backward is the closed form ``ref.attention_bwd_ref``.
 """
@@ -51,8 +58,8 @@ from repro_torch.kernels.ref import (attention_bwd_ref, attention_lse_ref,
                                      attention_ref)
 from repro_torch.roofline import kernel_cost
 
-HEAD_DIMS = (16, 32, 64, 128, 160)
-TC_HEAD_DIMS = (64, 128, 160)       # bf16 on the wgmma kernels
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)   # the instantiated (padded) dims
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
@@ -62,18 +69,34 @@ KERNEL_BWD = register_kernel(
     [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P])
 
 
-def bwd_design(dtype: torch.dtype, d: int) -> str:
-    """The backward's route on the card, as ``repro_flash_attention_bwd``
-    dispatches it: ``"wgmma"`` for bfloat16 at head_dim 64, 128 or 160,
-    else ``"simt"``; a dtype or head_dim no backward kernel takes
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim a call of head dim ``d`` runs at (the C
+    ``padded_dim``): the least of ``HEAD_DIMS`` at or above it; d outside
+    1..``MAX_HEAD_DIM`` raises."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} not in 1..{MAX_HEAD_DIM} (no "
+                         f"kernel is built above {MAX_HEAD_DIM})")
+    return next(dd for dd in HEAD_DIMS if dd >= d)
+
+
+def fwd_design(dtype: torch.dtype, d: int) -> str:
+    """The forward's route on the card, as ``repro_flash_attention``
+    dispatches it (the C ``tc_route``): ``"wgmma"`` for bfloat16 where d
+    is a multiple of 8 above 32 (the TMA maps' rows are whole 16-byte
+    chunks), else ``"simt"``; a dtype or head_dim no kernel takes
     raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
+    padded_head_dim(d)
+    return "wgmma" if dtype == torch.bfloat16 and d > 32 and d % 8 == 0 \
         else "simt"
+
+
+def bwd_design(dtype: torch.dtype, d: int) -> str:
+    """The backward's route on the card, as ``repro_flash_attention_bwd``
+    dispatches it: the forward's (:func:`fwd_design`)."""
+    return fwd_design(dtype, d)
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,7 +113,10 @@ def plain_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
-    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    """1 / sqrt(d) of the real d (head_dim 0 is refused by the checks)."""
+    if scale is not None:
+        return scale
+    return 1.0 / math.sqrt(max(q.shape[-1], 1))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -144,8 +170,7 @@ def _check(q, k, v):
                          f"v {tuple(v.shape)} do not fit")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    padded_head_dim(d)
 
 
 def _kernel_forward(q, k, v, causal: bool, scale: float,

@@ -12,7 +12,9 @@ not depend on the chunk beyond rounding.
 :func:`plan` picks one of two forward designs: the tensor-core one (bf16,
 three launches parallel over the tiles, scratch from the caching
 allocator) or the CUDA-core one (float32, and bf16 shapes the first does
-not take).
+not take). Any d_state n >= 1 is taken, as the Pallas kernel takes it:
+past ``SIMT_STATE_TILE`` (256) the CUDA-core designs walk n in tiles of
+256, summing over them in a fixed order.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`SSDScanFunction`: the same forward, and a
@@ -37,7 +39,8 @@ from repro_torch.kernels.ref import (check_ssd_chunk, ssd_chunked,
                                      ssd_chunked_bwd_ref)
 from repro_torch.roofline import kernel_cost
 
-MAX_STATE = 256          # d_state either design's shared memory holds
+TC_MAX_STATE = 256       # d_state the tensor-core forward's smem holds
+SIMT_STATE_TILE = 256    # columns of n a tile of the CUDA-core designs
 TC_MAX_HEADDIM = 64      # head dim the tensor-core design's smem holds
 TC_BWD_MAX_STATE = 128   # d_state the tensor-core backward's registers hold
 TC_BWD_GROUPS = 4        # its blocks a (tile, batch), each a group of heads
@@ -56,15 +59,15 @@ BWD_TILE = 64            # steps a tile of the backward (csrc/ssd_scan_bwd.cu)
 
 def plan(dtype: torch.dtype, n: int, p: int) -> int:
     """The design of a launch: ``TENSOR_CORES`` for bfloat16 where d_state
-    ``n`` and the head dim ``p`` are multiples of 16, n <= ``MAX_STATE``
-    and p <= ``TC_MAX_HEADDIM``; else ``SIMT`` for float32 or bfloat16 with
-    1 <= n <= ``MAX_STATE``; anything else raises."""
+    ``n`` and the head dim ``p`` are multiples of 16, n <= ``TC_MAX_STATE``
+    and p <= ``TC_MAX_HEADDIM``; else ``SIMT`` for float32 or bfloat16 at
+    any n >= 1; anything else raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"d_state {n} not in 1..{MAX_STATE}")
+    if n < 1:
+        raise ValueError(f"d_state {n} is not >= 1")
     if dtype == torch.bfloat16 and n % 16 == 0 and p % 16 == 0 and \
-            16 <= p <= TC_MAX_HEADDIM:
+            n <= TC_MAX_STATE and 16 <= p <= TC_MAX_HEADDIM:
         return TENSOR_CORES
     return SIMT
 
@@ -73,13 +76,12 @@ def bwd_design(dtype: torch.dtype, n: int, p: int) -> int:
     """The design of a backward launch (``csrc/ssd_scan_bwd.cu``):
     ``TENSOR_CORES`` for bfloat16 where d_state ``n`` and the head dim
     ``p`` are multiples of 16, n <= ``TC_BWD_MAX_STATE`` and p <=
-    ``TC_MAX_HEADDIM``; else ``SIMT`` for float32 or bfloat16 with
-    1 <= n <= ``MAX_STATE`` and any p, the shapes the forward takes;
-    anything else raises."""
+    ``TC_MAX_HEADDIM``; else ``SIMT`` for float32 or bfloat16 at any n >=
+    1 and any p, the shapes the forward takes; anything else raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"d_state {n} not in 1..{MAX_STATE}")
+    if n < 1:
+        raise ValueError(f"d_state {n} is not >= 1")
     if dtype == torch.bfloat16 and n % 16 == 0 and p % 16 == 0 and \
             n <= TC_BWD_MAX_STATE and 16 <= p <= TC_MAX_HEADDIM:
         return TENSOR_CORES

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -331,6 +332,16 @@ def result_path(arch: str, shape: str, multi_pod: bool, tag: str = "") -> str:
                         f"{suffix}.json")
 
 
+def cell_tag(tag: str, opts: Optional[Dict[str, Any]] = None) -> str:
+    """The result tag of a cell traced with its own ``opts``: ``tag``,
+    with a hash of the opts appended when there are any, so that cells of
+    one arch, shape and mesh under other opts keep files of their own."""
+    if not opts:
+        return tag
+    h = hashlib.sha1(json.dumps(opts, sort_keys=True).encode()).hexdigest()
+    return f"{tag}-{h[:8]}" if tag else h[:8]
+
+
 # Cells that ``run_cells`` traces at once: the card's host has 8 cores,
 # and each trace is one busy Python process.
 JOBS = 8
@@ -342,19 +353,24 @@ def run_cells(cells, *, device: str = "cuda", probes: bool = True,
     """Trace each (arch, shape, multi-pod) cell of ``cells`` through this
     module's CLI, each in a process of its own (a fake world is one to a
     process, and cannot share one with an NCCL group), ``jobs`` at a
-    time, each stopped after ``timeout`` s. Yields (cell, exit code or
-    None when stopped, its stdout and stderr) as each ends; the result
-    is at ``result_path(*cell, tag)``."""
+    time, each stopped after ``timeout`` s. A cell may carry a fourth
+    item, a dict of opts of its own (``model_overrides`` and the like),
+    laid over ``opts`` key by key. Yields (cell, exit code or None when
+    stopped, its stdout and stderr) as each ends; the result is at
+    ``result_path(*cell[:3], cell_tag(tag, cell's own opts))``."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                       "..")),
          os.environ.get("PYTHONPATH", "")])}
 
     def one(cell):
-        arch, shape_name, multi_pod = cell
+        arch, shape_name, multi_pod, *own = cell
+        own = own[0] if own else None
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
                 "--arch", arch, "--shape", shape_name, "--device", device,
-                "--tag", tag, "--opts", opts] + \
+                "--tag", cell_tag(tag, own),
+                "--opts", json.dumps({**json.loads(opts), **own}) if own
+                else opts] + \
             (["--multi-pod"] if multi_pod else []) + \
             ([] if probes else ["--no-probes"])
         try:

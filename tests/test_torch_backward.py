@@ -296,38 +296,47 @@ def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
 
 
 def test_flash_bwd_design_routes():
-    """bf16 at d 64, 128 and 160 takes the wgmma kernels, everything else
-    the CUDA-core ones; the backward takes every head dim the forward
-    does; what no kernel takes raises."""
+    """bf16 at d 64, 128, 160 and 256 (every instantiated d above 32)
+    takes the wgmma kernels, everything else the CUDA-core ones; the
+    backward takes every head dim the forward does; what no kernel takes
+    raises."""
     assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
     assert tflash.bwd_design(torch.float32, 160) == "simt"
     for dtype in (torch.float32, torch.bfloat16):
         for d in tflash.HEAD_DIMS:
             want = "wgmma" if dtype == torch.bfloat16 and \
-                d in (64, 128, 160) else "simt"
+                d in (64, 128, 160, 256) else "simt"
             assert tflash.bwd_design(dtype, d) == want
     with pytest.raises(ValueError):
-        tflash.bwd_design(torch.bfloat16, 96)
+        tflash.bwd_design(torch.bfloat16, 257)
     with pytest.raises(TypeError):
         tflash.bwd_design(torch.float16, 64)
 
 
 def test_flash_bwd_design_matches_the_kernel_dispatch():
-    """``bwd_design`` is ``repro_flash_attention_bwd``'s dispatch: the bf16
-    cases that launch ``bwd_tc::launch`` are the wgmma head dims, the
-    others ``bwd::launch``; fp32 goes to ``bwd::dispatch_f32``."""
+    """``bwd_design`` is ``repro_flash_attention_bwd``'s dispatch: bf16
+    where ``tc_route`` holds (evaluated from the source) launches
+    ``bwd_tc::launch`` at the padded head dims its cases list, the rest
+    ``bwd::dispatch``, whose cases are ``HEAD_DIMS``; fp32 goes to
+    ``bwd::dispatch<float>``."""
     src = (Path(tflash.__file__).parents[1] / "csrc" /
            "flash_attention.cu").read_text()
     entry = src[src.index('extern "C" int repro_flash_attention_bwd'):]
     tc_dims = {int(x) for x in
                re.findall(r"case (\d+): return bwd_tc::launch<", entry)}
+    simt = src[src.index("int dispatch(int d, const void* q"):]
     simt_dims = {int(x) for x in re.findall(
-        r"case (\d+): return bwd::launch<__nv_bfloat16,", entry)}
-    assert tc_dims | simt_dims == set(tflash.HEAD_DIMS)
-    for d in tflash.HEAD_DIMS:
-        assert tflash.bwd_design(torch.bfloat16, d) == \
-            ("wgmma" if d in tc_dims else "simt")
-    assert "if (dtype == kF32)\n    return bwd::dispatch_f32(" in entry
+        r"case (\d+): return launch<T, \1>", simt[:simt.index("default:")])}
+    assert simt_dims == set(tflash.HEAD_DIMS)
+    assert tc_dims == {d for d in tflash.HEAD_DIMS if d > 32}
+    route = re.search(r"bool tc_route\(int d\) \{ return ([^;]+); \}",
+                      src).group(1).replace("&&", "and")
+    for d in range(1, tflash.MAX_HEAD_DIM + 1):
+        want = "wgmma" if eval(route, {"d": d}) else "simt"
+        assert tflash.bwd_design(torch.bfloat16, d) == want, d
+        assert tflash.fwd_design(torch.bfloat16, d) == want, d
+        assert tflash.bwd_design(torch.float32, d) == "simt"
+    assert "if (dtype == kF32)\n    return bwd::dispatch<float>(" in entry
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -315,12 +315,45 @@ def test_decode_kernel_at_the_new_archs_heads(cuda, hq, hkv, d):
 
 
 @pytest.mark.gpu
-def test_decode_kernel_refuses_groups_above_16(cuda):
-    q = _randn((1, 17, 64), torch.bfloat16, cuda, 0)
-    kv = _randn((1, 64, 1, 64), torch.bfloat16, cuda, 1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(71, 1, 64), (17, 1, 128),
+                                      (40, 2, 72), (8, 1, 256),
+                                      (32, 32, 96), (4, 1, 100),
+                                      (33, 1, 250), (6, 2, 1)])
+@pytest.mark.parametrize("skv", [740, 4096])
+def test_decode_kernel_groups_above_16_and_padded_head_dims(cuda, dtype, hq,
+                                                            hkv, d, skv):
+    """falcon-7b's group of 71 (five slices of q heads), groups 17 and 20,
+    head dims between the instantiated ones (whole 16-byte chunks or not)
+    and 256, in both modes, lengths on split boundaries and 0."""
+    q = _randn((4, hq, d), dtype, cuda, 0)
+    k = _randn((4, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((4, skv, hkv, d), dtype, cuda, 2)
+    length = torch.tensor(_decode_lengths(skv), dtype=torch.int32,
+                          device=cuda)
+    before = tdecode.KERNEL.launches
+    out = tdecode.decode_attention(q, k, v, length)
+    out2, lse = tdecode.decode_attention(q, k, v, length, return_lse=True)
+    torch.cuda.synchronize()
+    assert tdecode.KERNEL.launches == before + 2
+    want, want_lse = tdecode.plain(q, k, v, length, return_lse=True)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, out2)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], want_lse[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_head_dims_above_256(cuda):
+    q = _randn((1, 2, 257), torch.bfloat16, cuda, 0)
+    kv = _randn((1, 64, 1, 257), torch.bfloat16, cuda, 1)
     length = torch.tensor([10], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="1 to 16"):
+    before = tdecode.KERNEL.launches
+    with pytest.raises(ValueError, match="head_dim 257"):
         tdecode.decode_attention(q, kv, kv, length)
+    assert tdecode.KERNEL.launches == before
 
 
 @pytest.mark.gpu
@@ -420,7 +453,7 @@ def test_ssd_simt_kernel_takes_bf16_shapes_tc_does_not(cuda, n, p, s):
 @pytest.mark.gpu
 def test_ssd_kernel_raises_where_no_design_fits(cuda):
     args = list(_ssd_inputs(1, 64, 2, 16, 16, torch.float32, cuda))
-    args[3] = args[4] = torch.zeros((1, 64, 300), device=cuda)
+    args[3] = args[4] = torch.zeros((1, 64, 0), device=cuda)
     with pytest.raises(ValueError, match="d_state"):
         tssd.ssd_scan(*args, chunk=64)
     with pytest.raises(TypeError):
@@ -428,6 +461,32 @@ def test_ssd_kernel_raises_where_no_design_fits(cuda):
                         enumerate(_ssd_inputs(1, 64, 2, 16, 16,
                                               torch.float32, cuda))),
                       chunk=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,s", [(512, 512), (300, 129), (257, 64),
+                                 (1024, 200)])
+def test_ssd_kernels_at_any_d_state(cuda, dtype, n, s):
+    """Past 256, both CUDA-core designs walk d_state in tiles of 256: the
+    forward against the plain version, the backward against the closed
+    form, two calls bitwise equal."""
+    args = _ssd_inputs(1, s, 4, 64, n, dtype, cuda)
+    assert tssd.plan(dtype, n, 64) == tssd.bwd_design(dtype, n, 64) == \
+        tssd.SIMT
+    _ssd_check(args)
+    dy = _randn((1, s, 4, 64), dtype, cuda, 5)
+    ds = _randn((1, 4, 64, n), torch.float32, cuda, 6)
+    got = tssd._kernel_backward(*args, dy, ds)
+    again = tssd._kernel_backward(*args, dy, ds)
+    torch.cuda.synchronize()
+    want = tssd.plain_bwd(*args, dy, ds, chunk=256)
+    for g, r, w in zip(got, again, want):
+        assert torch.equal(g, r)
+        # fp32 gradients at 2e-4 of their max-abs, bf16 ones at one ulp
+        tol = SSD_TOL[g.dtype]
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item())
 
 
 @pytest.mark.gpu
@@ -871,6 +930,43 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, b, s, hq, hkv,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (2, 200, 8, 8, 96), (2, 200, 8, 8, 80), (2, 200, 8, 1, 256),
+    (2, 200, 8, 8, 100), (1, 77, 4, 2, 40), (1, 77, 4, 2, 136),
+    (1, 77, 4, 2, 250), (1, 65, 4, 2, 8), (1, 65, 2, 1, 1)])
+def test_flash_kernels_at_padded_head_dims(cuda, dtype, causal, b, s, hq,
+                                           hkv, d):
+    """Forward and backward at head dims between the instantiated ones
+    and at 256, on the route ``fwd_design`` names (bf16 with whole
+    16-byte rows above 32 on the wgmma kernels), against the plain
+    versions."""
+    q, k, v, dout = _attn_inputs(cuda, dtype, b, s, s, hq, hkv, d)
+    scale = 1.0 / d ** 0.5
+    out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
+    got = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    torch.cuda.synchronize()
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), tflash.plain(q, k, v, causal=causal,
+                                  scale=scale).float(), rtol=tol, atol=tol)
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal,
+                            scale=scale)
+    for g, w_ in zip(got, want):
+        _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+def test_flash_refuses_head_dims_above_256(cuda):
+    q = _randn((1, 8, 2, 257), torch.bfloat16, cuda, 0)
+    before = tflash.KERNEL.launches
+    with pytest.raises(ValueError, match="head_dim 257"):
+        tflash.flash_attention(q, q, q)
+    assert tflash.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv", [(65, 200), (200, 65)])
 def test_flash_bwd_kernel_full_attention_skv_differs(cuda, dtype, sq, skv):
     q, k, v, dout = _attn_inputs(cuda, dtype, 2, sq, skv, 4, 2, 64)
@@ -1217,15 +1313,15 @@ def test_ssd_bwd_routes_by_dtype_and_shape(cuda, dtype, n, p, design):
 
 @pytest.mark.gpu
 def test_ssd_bwd_raises_where_no_design_fits(cuda):
-    """d_state past 256 and float16 raise before any launch; the
-    tensor-core design asked for where it does not fit raises too."""
+    """d_state 0 and float16 raise before any launch; the tensor-core
+    design asked for where it does not fit raises too."""
     args = list(_ssd_inputs(1, 64, 2, 16, 16, torch.float32, cuda))
     dy = _randn((1, 64, 2, 16), torch.float32, cuda, 5)
     before = tssd.KERNEL_BWD.launches
     with pytest.raises(ValueError):
         tssd._kernel_backward(*args, dy, None, tssd.TENSOR_CORES)
     big = list(args)
-    big[3] = big[4] = torch.zeros((1, 64, 300), device=cuda)
+    big[3] = big[4] = torch.zeros((1, 64, 0), device=cuda)
     with pytest.raises(ValueError, match="d_state"):
         tssd._kernel_backward(*big, dy, None)
     half = [a.half() if i in (0, 3, 4) else a for i, a in enumerate(args)]

@@ -216,8 +216,8 @@ def test_fake_cuda_tensors_take_each_kernels_fake_path(monkeypatch):
 
 def test_fake_cuda_call_checks_shapes_as_the_card_does():
     with FakeTensorMode():
-        q, k = _cuda(1, 8, 2, 96), _cuda(1, 8, 2, 96)
-        with pytest.raises(ValueError, match="head_dim 96"):
+        q, k = _cuda(1, 8, 2, 257), _cuda(1, 8, 2, 257)
+        with pytest.raises(ValueError, match="head_dim 257"):
             kflash.flash_attention(q, k, k)
 
 

@@ -43,3 +43,34 @@ def test_a_cell_past_its_time_limit_is_stopped():
                                      tag=TAG, opts=ONE_LAYER, timeout=0.5)
     assert got == cell and rc is None
     assert not os.path.exists(dryrun.result_path(*cell, TAG))
+
+
+def test_a_cell_with_opts_of_its_own_keeps_its_own_file():
+    """A cell's fourth item, its own opts (here gemma-2b's heads at one
+    layer through ``model_overrides``), is traced under its own tag:
+    beside the plain cell of the same arch, shape and mesh."""
+    heads = {"model_overrides": {"num_layers": 1, "num_heads": 8,
+                                 "num_kv_heads": 1, "head_dim": 256}}
+    cells = [CELLS[1][:2] + (False,), CELLS[1][:2] + (False, heads)]
+    tags = [dryrun.cell_tag(TAG), dryrun.cell_tag(TAG, heads)]
+    assert tags[0] == TAG and tags[1] != TAG
+    assert dryrun.cell_tag(TAG, dict(heads)) == tags[1]
+    paths = [dryrun.result_path(*c[:3], t) for c, t in zip(cells, tags)]
+    try:
+        done = list(dryrun.run_cells(cells, device="cpu", probes=False,
+                                     tag=TAG, opts=ONE_LAYER))
+        assert all(rc == 0 for _, rc, _ in done)
+        res = []
+        for path in paths:
+            with open(path) as f:
+                res.append(json.load(f))
+        # one kv head of 256 against internlm2's 8 of 128: a smaller
+        # cache and k, v projections at the same depth
+        args = [r["memory_analysis"]["argument_size_in_bytes"] for r in res]
+        assert 0 < args[1] < args[0]
+        assert res[0]["cost_analysis"]["kernel_calls"] == \
+            res[1]["cost_analysis"]["kernel_calls"] == {}
+    finally:
+        for path in paths:
+            if os.path.exists(path):
+                os.remove(path)

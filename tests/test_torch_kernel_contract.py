@@ -1,0 +1,430 @@
+"""The port's kernels at every shape the Pallas kernels compute, on the
+CPU: head dims off the instantiated set (80, 96, 100 and gemma-2b's 256),
+groups above 16 (falcon-7b's 71 q heads on one kv head) and d_state 512.
+
+Each wrapper's plain version (what a CPU tensor runs) is held against the
+JAX package's Pallas kernel in interpret mode and its ``repro.kernels.ref``
+oracle on the same seeded numpy inputs, each backward against ``jax.grad``
+of the oracle, at the tolerances of the ``tests/test_kernels_*.py`` case
+nearest each shape. The design functions name the route the card takes at
+each new shape and still refuse what no kernel takes (head dim 0 or 257);
+``kernel_cost`` counts the work at the real d, group and d_state, never at
+the padded size. Three smoke-size models with the overridden attention of
+``chip_smoke.py``'s ``contract`` phase are held to ``repro``: logits,
+loss and every gradient leaf. The CUDA kernels themselves are held to
+their plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda_kernels.py``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_config as jget_config
+from repro.config import smoke_config as jsmoke_config
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jdecode
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.ssd_scan import ssd_scan as jssd
+from repro.models import model as jlm
+from repro_torch.config import get_config, smoke_config
+from repro_torch.convert import from_jax_params, to_jax_params
+from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.models import model as lm
+from repro_torch.roofline import kernel_cost
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+F32_ATTN_TOL = 2e-6     # tests/test_kernels_attention.py, fp32
+BF16_TOL = 2e-2         # tests/test_kernels_attention.py, bf16
+SSD_TOL = 2e-4          # tests/test_kernels_ssd.py
+GRAD_TOL = 1e-5         # tests/test_torch_backward.py, of max(1, max-abs)
+MODEL_TOL = 1e-4        # tests/test_models_smoke.py, fp32 logits
+LOSS_TOL = 1e-5         # tests/test_torch_training.py
+MODEL_GRAD_TOL = 1e-4   # tests/test_torch_training.py, of each leaf's max-abs
+
+# (hq, hkv, d): phi-3-mini's 32/32 at d 96, phi-2's at d 80, gemma-2b's 8/1
+# at d 256, and d 100 (no 16-byte chunks in bf16): the flash shapes of the
+# smoke's contract phase, with the heads cut to keep the CPU quick.
+FLASH_HEADS = [(4, 4, 96), (4, 4, 80), (8, 1, 256), (4, 4, 100)]
+FLASH_IDS = ["phi3-d96", "phi2-d80", "gemma-d256", "d100"]
+# decode: falcon-7b's group of 71 on one kv head at d 64, gemma-2b's 8/1
+# at d 256.
+DECODE_HEADS = [(71, 1, 64), (8, 1, 256)]
+DECODE_IDS = ["falcon-g71", "gemma-d256"]
+# The models of the contract phase: internlm2-1.8b's smoke config with
+# gemma-2b's attention, a group of 32, and phi-3-mini's heads, each cut
+# (heads and d_model) to smoke width.
+MODEL_OVERRIDES = {
+    "gemma-d256": dict(num_heads=8, num_kv_heads=1, head_dim=256),
+    "group32-d64": dict(num_heads=32, num_kv_heads=1, head_dim=64),
+    "phi3-d96": dict(num_heads=32, num_kv_heads=32, head_dim=96),
+}
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.detach().float().numpy()
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention, forward and backward.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", FLASH_HEADS, ids=FLASH_IDS)
+def test_flash_plain_matches_pallas_at_new_head_dims(causal, hq, hkv, d,
+                                                     rng):
+    b, s = 1, 128
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    out = tflash.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    pallas = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, block_q=64, block_k=64, interpret=True)
+    oracle = jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal)
+    for want in (pallas, oracle):
+        _close(out, want, F32_ATTN_TOL)
+
+
+@pytest.mark.parametrize("hq,hkv,d", FLASH_HEADS, ids=FLASH_IDS)
+def test_flash_plain_matches_pallas_at_new_head_dims_bf16(hq, hkv, d, rng):
+    b, s = 1, 128
+    q, k, v = (jnp.asarray(rng.standard_normal(sh), jnp.bfloat16) for sh in
+               ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    tq, tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    pallas = jflash(q, k, v, causal=True, block_q=64, block_k=64,
+                    interpret=True)
+    _close(out, pallas.astype(jnp.float32), BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", FLASH_HEADS, ids=FLASH_IDS)
+def test_flash_backward_matches_jax_grad_at_new_head_dims(causal, hq, hkv,
+                                                          d, rng):
+    """The closed-form backward (the CPU's) and autograd through the
+    wrapper against ``jax.vjp`` of the oracle; lengths past one 64-row
+    tile with a ragged edge."""
+    b, s = 1, 77
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)) for sh in ((b, s, hq, d), (b, s, hkv, d),
+                                (b, s, hkv, d), (b, s, hq, d)))
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(a, b_, c,
+                                                         causal=causal),
+                     *(jnp.asarray(_np(t)) for t in (q, k, v)))
+    want = vjp(jnp.asarray(_np(dout)))
+    out = tref.attention_ref(q, k, v, causal=causal)
+    lse = tref.attention_lse_ref(q, k, causal=causal)
+    closed = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        tflash.flash_attention(*leaves, causal=causal), leaves, dout)
+    for got in (closed, auto):
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            err = np.abs(_np(g) - w).max()
+            assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
+
+
+@pytest.mark.parametrize("d,dtype,design", [
+    (96, torch.bfloat16, "wgmma"), (80, torch.bfloat16, "wgmma"),
+    (256, torch.bfloat16, "wgmma"), (136, torch.bfloat16, "wgmma"),
+    (40, torch.bfloat16, "wgmma"), (100, torch.bfloat16, "simt"),
+    (250, torch.bfloat16, "simt"), (24, torch.bfloat16, "simt"),
+    (8, torch.bfloat16, "simt"), (256, torch.float32, "simt"),
+    (96, torch.float32, "simt"), (1, torch.float32, "simt")])
+def test_flash_designs_name_the_route_at_new_head_dims(d, dtype, design):
+    """bf16 with d a multiple of 8 above 32 on the wgmma kernels (the TMA
+    maps need rows of whole 16-byte chunks), everything else on the CUDA
+    cores, forward and backward alike, at the padded head dim."""
+    assert tflash.fwd_design(dtype, d) == tflash.bwd_design(dtype, d) == \
+        design
+    padded = tflash.padded_head_dim(d)
+    assert padded in tflash.HEAD_DIMS and padded >= d
+    assert all(p < d for p in tflash.HEAD_DIMS if p < padded)
+
+
+@pytest.mark.parametrize("d", [0, 257, 512])
+def test_flash_and_decode_refuse_head_dims_no_kernel_takes(d):
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            tflash.fwd_design(dtype, d)
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            tflash.bwd_design(dtype, d)
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        tdecode.pv_layout(2, d, 1)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hq,hkv,d", DECODE_HEADS, ids=DECODE_IDS)
+def test_decode_plain_matches_pallas_at_new_shapes(hq, hkv, d, rng):
+    b, skv = 4, 256
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    length = np.array([1, skv, 100, 37], np.int32)
+    out = tdecode.decode_attention(_t(q), _t(k), _t(v), _t(length))
+    pallas = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(length), block_k=128, interpret=True)
+    oracle = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(length))
+    for want in (pallas, oracle):
+        _close(out, want, F32_ATTN_TOL)
+    # partial mode: the same out, and the log-sum-exp of the scaled scores
+    out2, lse = tdecode.decode_attention(_t(q), _t(k), _t(v), _t(length),
+                                         return_lse=True)
+    _close(out2, oracle, F32_ATTN_TOL)
+    s = np.einsum("bhd,bshd->bhs", q,
+                  np.repeat(k, hq // hkv, axis=2)) / np.sqrt(d)
+    s = np.where(np.arange(skv)[None, None] < length[:, None, None], s,
+                 -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + \
+        s.max(-1)
+    np.testing.assert_allclose(_np(lse), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("g,bucket,slices", [
+    (1, 1, 1), (5, 8, 1), (16, 16, 1), (17, 16, 2), (32, 16, 2),
+    (71, 16, 5)])
+def test_decode_group_bucket_and_slices_follow_the_kernel(g, bucket, slices):
+    """A group above 16 runs the run-time bucket 16 in ceil(g / 16) slices
+    of q heads; every (head of a slice, 16 bytes of d, cache row) has one
+    owner in its block's P.V layout, at d 64 and 256 and at d 100 (a
+    partial last chunk: the chunks past it idle)."""
+    assert tdecode.group_bucket(g) == bucket
+    assert tdecode.group_slices(g) == slices
+    for es in (2, 4):
+        for d in (64, 100, 256):
+            lay = tdecode.pv_layout(es, d, g)
+            assert lay["slices"] == slices
+            assert lay["D"] == tflash.padded_head_dim(d)
+            assert lay["ch"] * lay["ve"] == lay["D"]
+            assert lay["chunks"] == -(-d // lay["ve"])
+            assert lay["vec"] == (d % lay["ve"] == 0)
+            gb = min(g, 16)
+            for first in range(0, g, 16):       # each slice's block
+                heads = min(16, g - first)
+                hg = lay["hg"]
+                r = hg // heads if heads < hg else 1
+                owners = np.zeros((heads, lay["ch"], tdecode.TILE), int)
+                active = min(hg, r * heads)
+                for tid in range(tdecode.THREADS):
+                    pc, grp = tid % lay["ch"], tid // lay["ch"]
+                    if grp >= active or pc >= lay["chunks"]:
+                        continue
+                    for i in range(lay["hpt"]):
+                        h = grp % heads + hg * i
+                        if h < heads:
+                            owners[h, pc, grp // heads::r] += 1
+                assert (owners[:, :lay["chunks"]] == 1).all(), (es, d, g)
+                assert (owners[:, lay["chunks"]:] == 0).all()
+                if first == 0:
+                    assert lay["active"] == active and heads == gb
+
+
+def test_decode_fp32_at_d256_keeps_one_tile_in_flight():
+    """Two fp32 tiles of 64 x 260 words for K and V would take 266 KB;
+    bf16 keeps two."""
+    assert tdecode.pv_layout(4, 256, 8)["stages"] == 1
+    assert tdecode.pv_layout(2, 256, 8)["stages"] == 2
+    assert tdecode.pv_layout(4, 160, 16)["stages"] == 2
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD at d_state 512.
+# ---------------------------------------------------------------------------
+def _ssd_inputs(rng, b, s, h, p, n):
+    """numpy inputs as tests/test_kernels_ssd.py draws them."""
+    return (rng.standard_normal((b, s, h, p)).astype(np.float32),
+            rng.uniform(0.01, 0.3, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.3, 2.0, (h,)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32),
+            rng.standard_normal((h,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("s,chunk", [(128, 64), (100, 128)])
+def test_ssd_plain_matches_pallas_at_d_state_512(s, chunk, rng):
+    args = _ssd_inputs(rng, 1, s, 2, 16, 512)
+    y, st = tssd.ssd_scan(*map(_t, args), chunk=chunk)
+    assert st.shape == (1, 2, 16, 512)
+    jargs = [jnp.asarray(a) for a in args]
+    for wy, ws in (jssd(*jargs, chunk=chunk, interpret=True),
+                   jref.ssd_ref(*jargs)):
+        _close(y, wy, SSD_TOL)
+        _close(st, ws, SSD_TOL)
+
+
+@pytest.mark.parametrize("dstate", [False, True])
+def test_ssd_backward_matches_jax_grad_at_d_state_512(dstate, rng):
+    """The closed-form backward against ``jax.grad`` of
+    ``repro.kernels.ref.ssd_chunked`` at 1e-5 of each gradient's max-abs
+    (tests/test_torch_ssd_backward.py)."""
+    b, s, h, p, n, chunk = 1, 96, 2, 16, 512, 32
+    args = _ssd_inputs(rng, b, s, h, p, n)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    ds = rng.standard_normal((b, h, p, n)).astype(np.float32) \
+        if dstate else None
+
+    def loss(*a):
+        y, st = jref.ssd_chunked(*a, chunk=chunk)
+        out = jnp.sum(y * dy)
+        return out if ds is None else out + jnp.sum(st * ds)
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in args))
+    got = tssd.plain_bwd(*map(_t, args), _t(dy),
+                         None if ds is None else _t(ds), chunk=chunk)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(_np(g) - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("dtype,n,p,fwd,bwd", [
+    (torch.bfloat16, 512, 64, tssd.SIMT, tssd.SIMT),
+    (torch.bfloat16, 256, 64, tssd.TENSOR_CORES, tssd.SIMT),
+    (torch.bfloat16, 128, 64, tssd.TENSOR_CORES, tssd.TENSOR_CORES),
+    (torch.bfloat16, 272, 32, tssd.SIMT, tssd.SIMT),
+    (torch.float32, 512, 64, tssd.SIMT, tssd.SIMT),
+    (torch.float32, 1000, 7, tssd.SIMT, tssd.SIMT)])
+def test_ssd_designs_take_any_d_state(dtype, n, p, fwd, bwd):
+    """Past 256 both CUDA-core designs take any d_state in tiles of
+    ``SIMT_STATE_TILE``; the tensor-core designs keep their limits (n <=
+    256 forward, 128 backward)."""
+    assert tssd.plan(dtype, n, p) == fwd
+    assert tssd.bwd_design(dtype, n, p) == bwd
+    assert tssd.bwd_plan(dtype, 1, 100, 2, p, n) > 0
+    with pytest.raises(ValueError):
+        tssd.plan(dtype, 0, p)
+
+
+# ---------------------------------------------------------------------------
+# kernel_cost: the function's work at the real d, group and d_state.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d", [80, 96, 100, 256])
+def test_kernel_cost_counts_the_real_head_dim(d):
+    """The bound of a call is the work the Pallas kernel does at its d:
+    linear in d, whatever D the card pads it to."""
+    bf16 = torch.bfloat16
+    for fn in (kernel_cost.flash, kernel_cost.flash_bwd):
+        one = fn(8, 256, 256, 32, 32, 1, bf16)
+        c = fn(8, 256, 256, 32, 32, d, bf16)
+        assert c.ops == d * one.ops
+        lse = 4 * 8 * 32 * 256 if fn is kernel_cost.flash_bwd else 0
+        assert c.bytes - lse == d * (one.bytes - lse)
+    dec = kernel_cost.decode(4, 8, 1, d, 1711, bf16)
+    assert dec.ops == 4 * 1711 * 8 * d
+    assert dec.bytes == 2 * (2 * 4 * 8 * d + 2 * 1711 * d) + 16
+
+
+def test_kernel_cost_counts_kv_rows_once_at_any_group():
+    """falcon-7b's 71/1: the kv rows are counted once, as the function
+    reads them, though the card's five slices of q heads read them five
+    times."""
+    one = kernel_cost.decode(4, 1, 1, 64, 1711, torch.bfloat16)
+    g71 = kernel_cost.decode(4, 71, 1, 64, 1711, torch.bfloat16)
+    assert g71.ops == 71 * one.ops
+    assert g71.bytes - one.bytes == 2 * 2 * 4 * 70 * 64
+
+
+def test_kernel_cost_counts_the_real_d_state():
+    a = kernel_cost.ssd(1, 512, 8, 64, 512, torch.bfloat16, 256)
+    b = kernel_cost.ssd(1, 512, 8, 64, 256, torch.bfloat16, 256)
+    q, nc = 256, 2
+    pairs = q * (q + 1) // 2
+    assert a.ops - b.ops == nc * 256 * (2 * pairs + 8 * 4 * q * 64)
+    bw = kernel_cost.ssd_bwd(1, 512, 8, 64, 512, torch.bfloat16, 256, False)
+    assert bw.bytes == 2 * (3 * 512 * 8 * 64 + 4 * 512 * 512) + \
+        8 * 512 * 8 + 16 * 8
+
+
+# ---------------------------------------------------------------------------
+# Smoke-size models with the contract phase's attention, against repro.
+# ---------------------------------------------------------------------------
+def _override_pair(name):
+    over = dict(MODEL_OVERRIDES[name])
+    jcfg = jsmoke_config(jget_config("internlm2-1.8b")).replace(
+        dtype="float32", num_layers=2, **over)
+    cfg = smoke_config(get_config("internlm2-1.8b")).replace(
+        dtype="float32", num_layers=2, **over)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jparams = jlm.init_params(jcfg, jax.random.key(1))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, cfg, jparams, params
+
+
+@pytest.fixture(scope="module", params=list(MODEL_OVERRIDES))
+def override_pair(request):
+    return _override_pair(request.param)
+
+
+def test_override_models_keep_the_overridden_heads(override_pair):
+    _, cfg, _, params = override_pair
+    wq = params["layers"][0]["mixer"]["wq"]
+    assert wq.shape == (cfg.d_model, cfg.num_heads, cfg.resolved_head_dim)
+    assert cfg.resolved_head_dim in (64, 96, 256)
+
+
+def test_override_models_prefill_and_decode_match_jax(override_pair):
+    jcfg, cfg, jparams, params = override_pair
+    b, s, max_len = 2, 9, 16
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s + 2)).astype(np.int32)
+    jlg, jcaches = jlm.prefill(jparams, jcfg,
+                               {"tokens": jnp.asarray(toks[:, :s])},
+                               max_len=max_len)
+    lg, caches = lm.prefill(params, cfg,
+                            {"tokens": torch.as_tensor(toks[:, :s])},
+                            max_len=max_len)
+    _close(lg, jlg, MODEL_TOL)
+    pos = np.array([s, s - 3], np.int32)
+    for t in range(2):
+        new = toks[:, s + t:s + t + 1]
+        jlg, jcaches = jlm.decode_step(jparams, jcfg, jnp.asarray(new),
+                                       jcaches, pos=jnp.asarray(pos + t))
+        lg, caches = lm.decode_step(params, cfg, torch.as_tensor(new),
+                                    caches, pos=torch.as_tensor(pos + t))
+        _close(lg, jlg, MODEL_TOL)
+
+
+def test_override_models_loss_and_grads_match_jax(override_pair):
+    jcfg, cfg, jparams, params = override_pair
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 25)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": (rng.random((2, 24)) < 0.85).astype(np.float32)}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, jcfg, batch, remat="full"),
+        has_aux=True)(jparams)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in tree_leaves(params)]
+    loss, _ = lm.loss_fn(tree_unflatten(params, leaves), cfg,
+                         {k: torch.from_numpy(v) for k, v in batch.items()},
+                         remat="full")
+    grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    got = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), to_jax_params(grads, cfg)))[0]
+    want = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g - w).max() <= MODEL_GRAD_TOL * np.abs(w).max(), path

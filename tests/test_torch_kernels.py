@@ -385,14 +385,16 @@ def _decode_c_layout():
 
 @pytest.mark.parametrize("element_size", [2, 4])
 def test_decode_layout_owns_every_head_and_row_once(element_size):
-    """For every head dim the kernel takes and every group 1..16, the P.V
-    ownership of ``pv_layout`` (the arithmetic of the C ``Layout`` and the
-    kernel's pc, grp, R, pg, rs) puts each (q head, 16 bytes of d, cache
-    row of a 64-row tile) under exactly one thread, within the heads a
-    thread has registers for (``hpt``, sized for the group's bucket), and
-    the bucket's shared memory fits the 227 KB a block may have. Groups
-    1, 2, 4, 8 and 16 run instantiations where the group is a constant,
-    the others one of the buckets 4, 8, 16 that read it at run time."""
+    """For every head dim the kernel is instantiated at and every group
+    1..16, the P.V ownership of ``pv_layout`` (the arithmetic of the C
+    ``Layout`` and the kernel's pc, grp, R, pg, rs) puts each (q head, 16
+    bytes of d, cache row of a 64-row tile) under exactly one thread,
+    within the heads a thread has registers for (``hpt``, sized for the
+    group's bucket), and the bucket's shared memory at its tiles in flight
+    (``stages``: two where they fit) fits the 227 KB a block may have.
+    Groups 1, 2, 4, 8 and 16 run instantiations where the group is a
+    constant, the others one of the buckets 4, 8, 16 that read it at run
+    time; a group above 16 the bucket 16."""
     threads, exact, run_time, dims = _decode_c_layout()
     assert threads == tdecode.THREADS
     assert exact == [1, 2, 4, 8, 16] and run_time == [4, 8, 16]
@@ -405,7 +407,7 @@ def test_decode_layout_owns_every_head_and_row_once(element_size):
         for g in range(1, tdecode.MAX_GROUP + 1):
             lay = tdecode.pv_layout(element_size, d, g)
             ve, ch, hg, r = (lay[k] for k in ("ve", "ch", "hg", "r_slices"))
-            assert ch * ve == d and hg * ch <= threads
+            assert ch * ve == lay["D"] == d and hg * ch <= threads
             owners = np.zeros((g, ch, tdecode.TILE), np.int64)
             for tid in range(threads):
                 pc, grp = tid % ch, tid // ch
@@ -416,12 +418,14 @@ def test_decode_layout_owns_every_head_and_row_once(element_size):
                     if h < g:
                         owners[h, pc, grp // g::r] += 1
             assert (owners == 1).all(), (element_size, d, g)
-            gm = tdecode.group_bucket(g)
-            smem = element_size * 2 * 2 * tdecode.TILE * (d + ve) + 4 * (
-                gm * d + gm * tdecode.TILE + threads * ve + 3 * gm)
-            assert smem <= 232448
+            gm = tdecode.group_bucket(g, d)
+            stage = element_size * 2 * tdecode.TILE * (d + ve)
+            fixed = 4 * (gm * d + gm * tdecode.TILE + threads * ve + 3 * gm)
+            assert lay["stages"] * stage + fixed <= 232448
+            assert (lay["stages"] == 2) == (2 * stage + fixed <= 232448)
+    assert tdecode.group_bucket(17) == tdecode.group_bucket(71) == 16
     with pytest.raises(ValueError):
-        tdecode.group_bucket(17)
+        tdecode.group_bucket(0)
 
 
 def test_decode_split_count_depends_on_capacity_alone():
@@ -797,9 +801,9 @@ def test_ssd_plan_routes_by_dtype_and_shape(dtype, n, p, design):
 
 
 @pytest.mark.parametrize("dtype,n,p,exc", [
-    (torch.bfloat16, 257, 64, ValueError),
+    (torch.bfloat16, 0, 64, ValueError),
     (torch.float32, 0, 64, ValueError),
-    (torch.float32, 512, 16, ValueError),
+    (torch.float32, -1, 16, ValueError),
     (torch.float16, 128, 64, TypeError),
 ])
 def test_ssd_plan_raises_where_no_design_fits(dtype, n, p, exc):
@@ -817,7 +821,7 @@ def test_ssd_tc_limits_match_the_kernel():
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int (k\w+) = (\d+);", tc)}
     assert (consts["kT"], consts["kMaxN"], consts["kMaxP"]) == \
-        (tssd.TILE, tssd.MAX_STATE, tssd.TC_MAX_HEADDIM)
+        (tssd.TILE, tssd.TC_MAX_STATE, tssd.TC_MAX_HEADDIM)
     assert "design == 1 && dtype == kBF16" in src
     assert tssd.TENSOR_CORES == 1 and tssd.SIMT == 0
 

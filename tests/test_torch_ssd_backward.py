@@ -114,6 +114,7 @@ def test_ssd_bwd_ref_matches_jax_grad(b, s, h, p, n, chunk, dstate):
 # csrc/ssd_scan_bwd.cu, launch for launch.
 # ---------------------------------------------------------------------------
 KT, KPC, KNC = tssd.BWD_TILE, 16, 32     # the tile, chunks of p and of n
+KNT = tssd.SIMT_STATE_TILE              # columns of n a B, C tile
 
 
 def ssd_bwd_emulated(x, dt, A, B, C, D, dy, dstate):
@@ -122,8 +123,10 @@ def ssd_bwd_emulated(x, dt, A, B, C, D, dy, dstate):
     loops where a block walks chunks: (1) the tile states G, Gd and decays;
     (2) the pass over the tiles; (3) the local gradients of each tile and
     head, p in chunks of KPC and n in chunks of KNC, each sum over chunks
-    taken in the kernel's order; (4) dB, dC over the heads and dA, dD over
-    batches and tiles, in order."""
+    taken in the kernel's order, and past KNT columns of n the sums over n
+    (K = C B^T, B dS) taken tile by tile of KNT, as the kernel walks B and
+    C; (4) dB, dC over the heads and dA, dD over batches and tiles, in
+    order."""
     f = lambda t: t.detach().to(torch.float32)
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -162,7 +165,9 @@ def ssd_bwd_emulated(x, dt, A, B, C, D, dy, dstate):
     Hin, dSo = G, Gd
 
     # 3. the local kernel
-    K = torch.einsum("bctn,bcjn->bctj", Cr, Br)[:, :, None]  # (b,nt,1,t,j)
+    ntiles = [slice(n0, n0 + KNT) for n0 in range(0, n, KNT)]
+    K = sum(torch.einsum("bctn,bcjn->bctj", Cr[..., m], Br[..., m])
+            for m in ntiles)[:, :, None]                    # (b,nt,1,t,j)
     P = torch.zeros((b, nt, h, KT, KT))
     ddp = torch.zeros((b, nt, h))
     for p0 in range(0, p, KPC):
@@ -182,7 +187,8 @@ def ssd_bwd_emulated(x, dt, A, B, C, D, dy, dstate):
     for p0 in range(0, p, KPC):
         q = slice(p0, p0 + KPC)
         a1 = torch.einsum("bchtj,bcthq->bchjq", KE, yr[..., q])
-        a2 = torch.einsum("bcjn,bchqn->bchjq", Br, dSo[:, :, :, q])
+        a2 = sum(torch.einsum("bcjn,bchqn->bchjq", Br[..., m],
+                              dSo[:, :, :, q, m]) for m in ntiles)
         du = a1 + wl[..., None] * a2                        # (b,nt,h,j,q)
         dx[..., q] = (dts[..., None] * du + Df[:, None, None] *
                       yr[..., q].permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
@@ -253,10 +259,19 @@ def test_ssd_bwd_emulation_at_the_training_heads():
         assert err <= TOL * w.abs().max().item(), (name, err)
 
 
+@pytest.mark.parametrize("n", [300, 512])
+def test_ssd_bwd_emulation_walks_d_state_in_tiles(n):
+    """d_state past one tile of B and C (300: a ragged second tile; 512:
+    two whole ones), the final state's gradient nonzero, against jax.grad
+    and float64 autograd."""
+    ins = _inputs(1, 70, 2, 16, n, seed=n)
+    _check(ssd_bwd_emulated(*_torch(ins)), ins, 128)
+
+
 def test_ssd_bwd_emulation_constants_match_the_kernel():
     src = CU.read_text()
     for name, value in (("kT", KT), ("kPC", KPC), ("kNC", KNC),
-                        ("kMaxState", tssd.MAX_STATE)):
+                        ("kNT", tssd.SIMT_STATE_TILE)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == value, name
 
@@ -574,8 +589,9 @@ def test_ssd_bwd_design_matches_the_kernel_dispatch():
     src = CU.read_text()
     assert "design == 1 && dtype == kBF16" in src
     assert "design == 0 && dtype == kF32" in src
+    assert tssd.bwd_design(torch.bfloat16, 257, 64) == tssd.SIMT
     with pytest.raises(ValueError):
-        tssd.bwd_design(torch.bfloat16, 257, 64)
+        tssd.bwd_design(torch.bfloat16, 0, 64)
     with pytest.raises(TypeError):
         tssd.bwd_design(torch.float16, 128, 64)
     with pytest.raises(ValueError):
