@@ -43,17 +43,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 model path runs, in bf16 and fp32: flash forward and
                 backward at b 8, s 256, causal, at 32/32 heads d 96
                 (phi-3-mini) and d 80 (phi-2), 8/1 d 256 (gemma-2b) and
-                8/8 d 100 (rows not whole 16-byte chunks in bf16); decode
-                at the serve cache with 71/1 d 64 (falcon-7b: five slices
-                of q heads), 8/1 d 256 and 32/32 d 96, each in plain and
-                partial mode; ssd_scan forward and backward at b 1, s
+                8/8 d 100 (rows not whole 16-byte chunks in bf16), and
+                above 256 on the column-tile kernels: 8/8 d 257, 8/2 d
+                288, 8/8 d 512; decode at the serve cache with 71/1 d 64
+                (falcon-7b: five slices of q heads), 8/1 d 256, 32/32
+                d 96, 16/1 d 512 and 128/1 d 576 (an absorbed MLA
+                decode: eight slices, three column tiles), each in plain
+                and partial mode; ssd_scan forward and backward at b 1, s
                 512, 8 heads, p 64, d_state 512. Each case against its
                 plain version at the ``kernels`` phase's tolerances, its
                 design, its launches (every call launched its kernel; the
                 module's plain versions refuse while it runs), time by
                 graph replay, bound, plain version's and SDPA's (with the
-                lengths as a mask in decode) time; head dims 0 and 257
-                must raise, launching nothing; the ptxas line of every
+                lengths as a mask in decode) time, SDPA's backend named
+                from the kernels it launched (``library_backend``); head
+                dim 0 must raise, launching nothing; the ptxas line of every
                 padded or tiled instantiation. Then internlm2-1.8b at
                 PARITY_LAYERS layers with ``CONTRACT_MODELS``' heads
                 (gemma-2b's, a group of 32, phi-3-mini's): ``parity`` and
@@ -94,7 +98,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 then 3 steps with int8 moments. Step ms, grad norm,
                 ``max_memory_allocated``; one more step timed, then traced
                 (device busy ms, idle share, top kernels, the flash, SSD
-                and rmsnorm backward kernels' device ms).
+                and rmsnorm backward kernels' device ms). Then
+                internlm2-1.8b again with ``mlp_lowp`` (path
+                ``LOWP_TRAIN_PATH``): 3 steps, launches a step as the
+                unflagged run's, the first loss within 1 % of that run's
+                first loss (same weights and batch), printed beside it.
 7. ``train_parity`` fp32 internlm2-1.8b, mamba2-130m and stablelm-12b
                 at full width with 2 layers: one ``loss_fn`` and its
                 gradient on the card
@@ -231,9 +239,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 internlm2 decode_32k on pod2x16x16; then the train_4k
                 cells of mamba2-130m and internvl2-1b, whose heads the
                 model axis does not divide, and of stablelm-12b, d 160;
-                then internlm2 decode_32k with a group of 32 and
-                train_4k with gemma-2b's heads, through ``--opts``
-                ``model_overrides``),
+                then internlm2 decode_32k with a group of 32, and
+                train_4k with gemma-2b's heads and with ``mlp_lowp``,
+                through ``--opts`` ``model_overrides``),
                 each in a process of
                 its own (a fake world of 256 or 512 ranks cannot share one
                 with an NCCL group), eight at once, the longest first:
@@ -256,7 +264,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 The ``kernels`` phase also holds the three backward kernels
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``) to their
 closed-form plain backwards at the training shapes (2048 x 2048, 2048 x
-768 and 2048 x 5120; b 8, s 256, 16/8 heads, d 128, and stablelm-12b's
+768 and 2048 x 5120, and 2048 x 2048 under ``lowp``, against
+``ref.rmsnorm_lowp_bwd_ref``; 2 x 20000, the stream design's row, with
+and without ``lowp``; b 8, s 256, 16/8 heads, d 128, and stablelm-12b's
 32/8 heads at d 160, bf16 and fp32; the flash
 backward in bf16 at granite-moe's d 64 too; the SSD backward at b 8, s
 256, 24 heads, p 64, n 128 in bf16 and fp32, the final state's gradient
@@ -270,8 +280,9 @@ at n <= 128, p <= 64, the CUDA-core ones otherwise); a bf16 SSD backward
 case also holds the CUDA-core design to the same checks on the same
 inputs and times it in the same call (``simt_max_abs_err``,
 ``simt_abs_err``, ``simt_ms``, ``simt_kernel_us``). Each rmsnorm
-backward case names its design (``ring`` where rows are 16-byte chunks)
-and holds both designs (``ring``, ``block_rows``) to the same checks on
+backward case names its design (``ring`` where rows are up to 2048
+16-byte chunks, ``stream`` past 2048 chunks) and holds every design that
+takes the row (``ring``, ``block_rows``, ``stream``) to the same checks on
 the same inputs (two calls and the replays of a captured graph bitwise
 equal), timing them in turns (``ms_by_design``). The ``train`` profile reads the step's flash, SSD
 and rmsnorm backward device time (``flash_bwd_device_ms``,
@@ -416,9 +427,18 @@ D160_TRAIN_PATH = f"train {D160_ARCH}"
 TRAIN_PATHS = {ARCH: TRAIN_PATH, MAMBA_ARCH: MAMBA_TRAIN_PATH,
                D160_ARCH: D160_TRAIN_PATH}
 TRAIN_LAYERS = {D160_ARCH: 4}
+# internlm2-1.8b at full width under ModelConfig.mlp_lowp (every norm and
+# its backward in bf16, as ref.rmsnorm_lowp): a few steps, launches as the
+# unflagged run's, the first loss beside that run's.
+LOWP_TRAIN_PATH = f"train {ARCH} mlp_lowp"
+LOWP_TRAIN_STEPS = 3
+LOWP_LOSS_TOL = 0.01        # of the unflagged run's first loss
+# The rmsnorm backward's widest case: a row only the stream design takes.
+RMS_WIDE_ROWS = (2, 20000)
 TRAIN_SEQ, TRAIN_BATCH = 256, 8
 TRAIN_STEPS, TRAIN_INT8_STEPS, TRAIN_SAVE_AT = 8, 3, 4
 TRAIN_CKPT_DIR = "chiprun_train_ckpt"       # in the checkout, gitignored
+TRAIN_FIRST_LOSS = {}       # arch -> its train phase's first loss
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
 SHARDED_STEPS, SHARDED_NEW = 3, 8
 # The MoE, hybrid and int8 paths on the mesh: granite-moe trains
@@ -630,6 +650,23 @@ def device_us(fn, iters: int = 10) -> dict:
     return out
 
 
+# SDPA's backends, by a word in the names of the CUDA kernels each launches
+# (first match wins: the math backend runs cuBLAS and elementwise
+# kernels, none of these).
+SDPA_BACKENDS = (("cudnn", "cudnn"), ("flash", "flash"),
+                 ("efficient", "fmha|mem_eff|efficient|cutlassF|cutlassB"))
+
+
+def sdpa_backend(fn) -> dict:
+    """The backend SDPA picked for ``fn``, named from the CUDA kernels one
+    call launches (torch.profiler): ``backend`` and those kernels."""
+    kernels = sorted(device_us(fn, iters=1))
+    for name, pat in SDPA_BACKENDS:
+        if any(re.search(pat, k, re.IGNORECASE) for k in kernels):
+            return {"backend": name, "kernels": kernels}
+    return {"backend": "math", "kernels": kernels}
+
+
 def randn(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -674,9 +711,11 @@ def _ptxas_summary(lines):
         if used and name:
             kern = re.search(r"(rmsnorm_kernel|rmsnorm_bwd_kernel|"
                              r"rmsnorm_bwd_ring_kernel|"
+                             r"rmsnorm_bwd_stream_kernel|"
                              r"rmsnorm_dw_kernel|flash_fwd_wgmma_kernel|"
-                             r"flash_fwd_simt_kernel|flash_bwd_\w+_kernel|"
-                             r"decode_split_kernel|"
+                             r"flash_fwd_simt_kernel|flash_fwd_wide_kernel|"
+                             r"flash_bwd_\w+_kernel|"
+                             r"decode_split_kernel|decode_wide_kernel|"
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
                              r"ssd_tc_outputs_kernel|ssd_scan_simt_kernel|"
                              r"ssd_bwd_(?:states|pass|local|reduce)_kernel|"
@@ -702,7 +741,10 @@ def _main_path_patterns() -> list:
     parity path), the rmsnorm backward's ring kernel at each training
     width in bf16 and fp32 (the train and train_parity paths; and every
     other instantiation of it and of block_rows, the widest rows' among
-    them) and block_rows' dw kernel (the kernels phase times it), the
+    them, and the stream design's, which the kernels phase runs at a row
+    of 20000; each with and without lowp in bf16, the ring at internlm2's
+    width under lowp its ``mlp_lowp`` training path) and block_rows' dw
+    kernel (the kernels phase times it), the
     training paths' flash backward kernels at internlm2's and
     stablelm-12b's head dims (128, 160) in bf16 (the wgmma design), the
     flash backward's CUDA-core kernels in fp32 at those head dims (the
@@ -714,8 +756,9 @@ def _main_path_patterns() -> list:
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
             r"rmsnorm_dw_kernel<f32>",
-            r"rmsnorm_bwd_kernel<\w+,\d+,\d+>",
-            r"rmsnorm_bwd_ring_kernel<\w+,\d+,\d+>",
+            r"rmsnorm_bwd_kernel<\w+,\d+,\d+,[01]>",
+            r"rmsnorm_bwd_ring_kernel<\w+,\d+,\d+,[01]>",
+            r"rmsnorm_bwd_stream_kernel<\w+,\d+,[01]>",
             r"ssd_bwd_pass_kernel<f32>",
             r"ssd_bwd_tc_states_kernel<bf16>",
             r"ssd_bwd_tc_local_kernel<bf16>",
@@ -728,7 +771,11 @@ def _main_path_patterns() -> list:
         for es, dt in ((2, "bf16"), (4, "f32")):
             p = krms.bwd_plan(TRAIN_BATCH * TRAIN_SEQ,
                               get_config(arch).d_model, es, True, sms)
-            pats.append(rf"rmsnorm_bwd_ring_kernel<{dt},{p.nv},{p.wpr}>")
+            pats.append(rf"rmsnorm_bwd_ring_kernel<{dt},{p.nv},{p.wpr},0>")
+    # internlm2's norms under mlp_lowp (LOWP_TRAIN_PATH), bf16
+    p = krms.bwd_plan(TRAIN_BATCH * TRAIN_SEQ, get_config(ARCH).d_model, 2,
+                      True, sms)
+    pats.append(rf"rmsnorm_bwd_ring_kernel<bf16,{p.nv},{p.wpr},1>")
     for arch in (ARCH, D160_ARCH):
         hd = get_config(arch).resolved_head_dim
         pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
@@ -788,12 +835,16 @@ def _rmsnorm_case(path, rows, d, dtype, lowp, seed=0):
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _rmsnorm_bwd_check(call, want, dtype, design) -> float:
+def _rmsnorm_bwd_check(call, want, dtype, design, lowp=False) -> float:
     """Two calls of one rmsnorm backward design, each one ``rmsnorm_bwd``
     launch and bitwise equal; a CUDA graph of three calls, replayed twice,
     bitwise equal to them; dx at ``KERNEL_TOL``, dw at fp32's
     ``KERNEL_TOL`` and within ``RMS_BWD_DW_TOL`` x (1 + its max-abs) of
-    the plain backward. Returns the max abs error."""
+    the plain backward (under bf16 lowp, where dw is rounded to bf16 once,
+    both at bf16's ``KERNEL_TOL``). Returns the max abs error."""
+    lowp = lowp and dtype == torch.bfloat16
+    dw_tol = KERNEL_TOL[torch.bfloat16] if lowp else RMS_BWD_DW_TOL
+    dw_kind = torch.bfloat16 if lowp else torch.float32
     before = krms.KERNEL_BWD.launches
     (dx, dw), (dx2, dw2) = call(), call()
     torch.cuda.synchronize()
@@ -815,23 +866,23 @@ def _rmsnorm_bwd_check(call, want, dtype, design) -> float:
     want_dx, want_dw = want
     dw_err = (dw - want_dw).abs().max().item()
     scale = 1 + want_dw.abs().max().item()
-    if not torch.isfinite(dw).all() or dw_err > RMS_BWD_DW_TOL * scale:
+    if not torch.isfinite(dw).all() or dw_err > dw_tol * scale:
         raise AssertionError(f"rmsnorm_bwd {design} dw: max abs err "
-                             f"{dw_err} > {RMS_BWD_DW_TOL} x {scale}")
-    return max(max_err(dx, want_dx, dtype),
-               max_err(dw, want_dw, torch.float32))
+                             f"{dw_err} > {dw_tol} x {scale}")
+    return max(max_err(dx, want_dx, dtype), max_err(dw, want_dw, dw_kind))
 
 
-def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
+def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH, lowp=False):
     """The backward of one norm of a training step: ``rows`` = b x s, on
     the design training takes (``krms.bwd_design``), held to
-    ``_rmsnorm_bwd_check``. block_rows, where it takes the row, is held to
-    the same checks on the same inputs and timed in turns with it: each
-    design twice, in the order a, b, b, a; ``ms`` is the mean of the chosen
-    design's two."""
+    ``_rmsnorm_bwd_check`` (``lowp``: against ``ref.rmsnorm_lowp_bwd_ref``,
+    dw then rounded to bf16). Every other design that takes the row is
+    held to the same checks on the same inputs and timed in turns with it:
+    each design twice, in the order a, b, b, a; ``ms`` is the mean of the
+    chosen design's two."""
     x, w = randn((rows, d), dtype, seed), randn((d,), torch.float32, seed + 1)
     dy = randn((rows, d), dtype, seed + 2)
-    want = krms.plain_bwd(x, w, dy, 1e-5)
+    want = krms.plain_bwd(x, w, dy, 1e-5, lowp)
     e = x.element_size()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     design = krms.bwd_design(d, e, True)
@@ -844,11 +895,11 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
         return True
     designs = [design] + [o for o in krms.BWD_DESIGNS
                           if o != design and takes(o)]
-    calls = {o: (lambda o=o: krms._kernel_backward(x, w, dy, 1e-5, o))
+    calls = {o: (lambda o=o: krms._kernel_backward(x, w, dy, 1e-5, o,
+                                                   lowp=lowp))
              for o in designs}
-    errs = {krms.BWD_DESIGNS[o]: _rmsnorm_bwd_check(calls[o], want, dtype,
-                                                    krms.BWD_DESIGNS[o])
-            for o in designs}
+    errs = {krms.BWD_DESIGNS[o]: _rmsnorm_bwd_check(
+        calls[o], want, dtype, krms.BWD_DESIGNS[o], lowp) for o in designs}
     runs = {}
     for o in designs + designs[::-1]:
         runs.setdefault(krms.BWD_DESIGNS[o], []).append(time_ms(calls[o]))
@@ -862,7 +913,8 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (xl, wl), dy)
     b_ms, by = bound(*kernel_cost.rmsnorm_bwd(rows, d, e))
     return {"kernel": "rmsnorm_bwd", "path": path, "shape": [rows, d],
-            "dtype": str(dtype), "design": name,
+            "dtype": str(dtype), "lowp": lowp, "design": name,
+            "checked_launches": 2 * len(designs),
             "plan": krms.bwd_plan(rows, d, e, True, sms)._asdict(),
             "max_abs_err": errs[name], "max_abs_err_by_design": errs,
             "bitwise_repeat": True, "graph_replay_bitwise": True,
@@ -870,7 +922,8 @@ def _rmsnorm_bwd_case(rows, d, dtype, seed=0, path=TRAIN_PATH):
             "runs_ms_by_design": runs,
             "kernel_us": device_us(calls[design]),
             "eager_ms": eager_ms(calls[design]),
-            "plain_ms": time_ms(lambda: krms.plain_bwd(x, w, dy, 1e-5)),
+            "plain_ms": time_ms(lambda: krms.plain_bwd(x, w, dy, 1e-5,
+                                                       lowp)),
             "library_ms": time_ms(lib_both) - time_ms(lib_fwd),
             "library_call": "F.rms_norm backward (autograd): forward and "
                             "backward less the forward, each replayed",
@@ -1236,6 +1289,15 @@ def phase_kernels() -> dict:
         cases.append(_flash_case(ARCH, TRAIN_SEQ, dtype, b=TRAIN_BATCH,
                                  path=TRAIN_PATH))
         cases.append(_flash_bwd_case(ARCH, TRAIN_BATCH, TRAIN_SEQ, dtype))
+        # its norms under mlp_lowp (in fp32 the flag changes nothing), and
+        # the rmsnorm backward at a row only the stream design takes
+        cases.append(_rmsnorm_case(LOWP_TRAIN_PATH, rows, d_model[ARCH],
+                                   dtype, True))
+        cases.append(_rmsnorm_bwd_case(rows, d_model[ARCH], dtype,
+                                       path=LOWP_TRAIN_PATH, lowp=True))
+        for lowp in (False, True):
+            cases.append(_rmsnorm_bwd_case(*RMS_WIDE_ROWS, dtype,
+                                           path=KERNELS_PHASE, lowp=lowp))
         if dtype == torch.bfloat16:     # the wgmma design at d 64 too
             cases.append(_flash_bwd_case(MOE_ARCH, TRAIN_BATCH, TRAIN_SEQ,
                                          dtype))
@@ -1296,8 +1358,14 @@ def phase_kernels() -> dict:
 # chunks), falcon-7b's group of 71 q heads on one kv head, d_state 512.
 # ---------------------------------------------------------------------------
 CONTRACT_PATH = "contract phase"
-CONTRACT_FLASH = ((32, 32, 96), (32, 32, 80), (8, 1, 256), (8, 8, 100))
-CONTRACT_DECODE = ((71, 1, 64), (8, 1, 256), (32, 32, 96))
+# Above 256 (the column-tile kernels): d 257 (rows not whole 16-byte
+# chunks, two tiles), 288 with a group of 4, 512; decode at a group of 16
+# at d 512 and the absorbed MLA decode of DeepSeek-V2/V3 (128 q heads on
+# one latent head of 512 + 64).
+CONTRACT_FLASH = ((32, 32, 96), (32, 32, 80), (8, 1, 256), (8, 8, 100),
+                  (8, 8, 257), (8, 2, 288), (8, 8, 512))
+CONTRACT_DECODE = ((71, 1, 64), (8, 1, 256), (32, 32, 96), (16, 1, 512),
+                   (128, 1, 576))
 CONTRACT_SSD = (1, 512, 8, 64, 512)        # b, s, h, p, n
 # internlm2-1.8b at PARITY_LAYERS layers with three attention layouts of
 # ModelConfig.replace: gemma-2b's, a group of 32, and phi-3-mini's.
@@ -1394,6 +1462,7 @@ def _contract_flash_case(hq, hkv, d, dtype, seed=0):
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
             "library_call": "F.scaled_dot_product_attention(is_causal, "
                             "enable_gqa)",
+            "library_backend": sdpa_backend(lib_fwd),
             "bwd": {"kernel": "flash_attention_bwd",
                     "design": kflash.bwd_design(dtype, d),
                     "max_abs_err": bwd_err,
@@ -1405,6 +1474,7 @@ def _contract_flash_case(hq, hkv, d, dtype, seed=0):
                     "library_ms": time_ms(lib_both, 5) - time_ms(lib_fwd, 5),
                     "library_call": "SDPA backward (autograd): forward and "
                                     "backward less the forward",
+                    "library_backend": sdpa_backend(lib_both),
                     "bound_ms": bb_ms, "bound_by": bby}}
 
 
@@ -1432,6 +1502,8 @@ def _contract_decode_case(hq, hkv, d, dtype, lse, seed=0):
     b_ms, by = bound(*kernel_cost.decode(b, hq, hkv, d, sum(lengths), dtype,
                                          lse))
     g = hq // hkv
+    lib = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True)
     return {"kernel": "decode_attention", "path": CONTRACT_PATH,
             "shape": [b, skv, hq, hkv, d], "lengths": lengths,
             "mode": "partial (return_lse)" if lse else "plain",
@@ -1440,13 +1512,13 @@ def _contract_decode_case(hq, hkv, d, dtype, lse, seed=0):
             "group_slices": kdec.group_slices(g),
             "max_abs_err": err, "checked_launches": launches[
                 "decode_attention"],
+            "route": kdec.pv_layout(q.element_size(), d, g)["route"],
             "ms": time_ms(call), "plain_ms": time_ms(lambda: kdec.plain(
                 q, k, v, length, return_lse=lse), 10),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask[:, None, None, :],
-                enable_gqa=True)),
+            "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention(attn_mask of "
                             "the lengths, enable_gqa)",
+            "library_backend": sdpa_backend(lib),
             "bound_ms": b_ms, "bound_by": by}
 
 
@@ -1497,9 +1569,10 @@ def _contract_ssd_case(dtype, seed=0):
 
 def _contract_refusals() -> list:
     """What no kernel takes raises on the card, before any launch: head
-    dim 0 and 257 (flash, its backward's design, decode)."""
+    dim 0 (flash, its backward's design, decode); above 256 every d is
+    taken."""
     out = []
-    for d in (0, 257):
+    for d in (0,):
         q = randn((1, 8, 2, d), torch.bfloat16, 0)
         qd, ln = randn((1, 2, d), torch.bfloat16, 0), torch.ones(
             1, dtype=torch.int32, device="cuda")
@@ -1573,7 +1646,7 @@ def phase_contract(smi: str) -> dict:
         cases.append(_contract_ssd_case(dtype))
     ptxas = [p for p in _ptxas_summary(_build.build().ptxas)
              if re.search(r"<\w+,256|,1>|flash_bwd_preprocess_rows|"
-                          r"ssd_scan_simt|ssd_bwd_local", p)]
+                          r"ssd_scan_simt|ssd_bwd_local|wide|stream", p)]
     emit({"phase": "contract", "tolerance": {
         "bfloat16": KERNEL_TOL[torch.bfloat16],
         "float32": KERNEL_TOL[torch.float32],
@@ -2012,6 +2085,7 @@ def phase_train(smi: str, arch: str) -> dict:
     full = _train_run(trainer, loader(), TRAIN_STEPS)
     launches = ops.launch_counts()
     per_step = _check_train_launches(arch, launches, TRAIN_STEPS)
+    TRAIN_FIRST_LOSS[arch] = full["loss"][0]
     peak = torch.cuda.max_memory_allocated()
     prof = _profile_train_step(trainer, full.pop("params"),
                                full.pop("opt_state"),
@@ -2065,6 +2139,42 @@ def phase_train(smi: str, arch: str) -> dict:
           "max_memory_allocated": peak, "profile": prof,
           "kernel_launches": launches, "launches_per_step": per_step,
           "nvidia_smi": smi})
+    return launches
+
+
+def phase_train_lowp(smi: str) -> dict:
+    """internlm2-1.8b at full width under ``mlp_lowp``, through the port's
+    Trainer on the ``train`` phase's config, weights (seed 0) and batches:
+    LOWP_TRAIN_STEPS steps, each loss finite, launches a step exactly the
+    unflagged path's (every norm's forward and backward on its kernels,
+    with the flag); the first loss within LOWP_LOSS_TOL of the unflagged
+    run's first loss, printed beside it. Returns the run's launches."""
+    cfg = train_cfg(ARCH).replace(mlp_lowp=True)
+    loader = PrefetchingLoader(data_config(cfg, TRAIN_SEQ, TRAIN_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _train_run(Trainer(cfg, train_config(cfg, LOWP_TRAIN_STEPS)),
+                     loader, LOWP_TRAIN_STEPS)
+    launches = ops.launch_counts()
+    per_step = _check_train_launches(ARCH, launches, LOWP_TRAIN_STEPS)
+    del run["params"], run["opt_state"]
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    ref = TRAIN_FIRST_LOSS[ARCH]
+    rel = abs(run["loss"][0] - ref) / abs(ref)
+    emit({"phase": "train", "arch": ARCH, "path": LOWP_TRAIN_PATH,
+          "mlp_lowp": True, "dtype": cfg.dtype, "layers": cfg.num_layers,
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+          "loss": run["loss"], "grad_norm": run["grad_norm"],
+          "step_ms": [1e3 * t for t in run["step_time_s"]],
+          "first_loss": run["loss"][0], "first_loss_without_lowp": ref,
+          "first_loss_rel_diff": rel, "tolerance": LOWP_LOSS_TOL,
+          "max_memory_allocated": peak, "kernel_launches": launches,
+          "launches_per_step": per_step, "nvidia_smi": smi})
+    if rel > LOWP_LOSS_TOL:
+        raise AssertionError(f"mlp_lowp first loss {run['loss'][0]} vs "
+                             f"{ref} without it: {rel} > {LOWP_LOSS_TOL}")
     return launches
 
 
@@ -3366,7 +3476,10 @@ DRYRUN_CELLS = (("stablelm-12b", "train_4k", False),
                                       "head_dim": 64}}),
                 ("internlm2-1.8b", "train_4k", False,
                  {"model_overrides": {"num_heads": 8, "num_kv_heads": 1,
-                                      "head_dim": 256}}))
+                                      "head_dim": 256}}),
+                # every norm and its backward under mlp_lowp in training
+                ("internlm2-1.8b", "train_4k", False,
+                 {"model_overrides": {"mlp_lowp": True}}))
 # Cells whose GiB a device must fit the card: all but internvl2-1b's
 # train_4k, whose loss holds fp32 logits of 16 rows x 3840 x its vocab of
 # 151655 a device, in the reference's own dry run too (117.24 GiB; ROADMAP
@@ -3596,6 +3709,8 @@ def main() -> None:
     for arch, path in TRAIN_PATHS.items():
         served[path] = phase_train(dev["nvidia_smi"], arch)
         lap(f"train {arch}")
+    served[LOWP_TRAIN_PATH] = phase_train_lowp(dev["nvidia_smi"])
+    lap("train mlp_lowp")
     for arch in TRAIN_PATHS:
         phase_train_parity(arch)
         lap(f"train_parity {arch}")
@@ -3622,9 +3737,11 @@ def main() -> None:
         else:
             launches, origin = served[path][name], f"serve {path}"
         per_step = {}
-        if path in TRAIN_PATHS.values():
-            origin = f"{path}, {TRAIN_STEPS} steps"
-            per_step = {"launches_per_step": launches / TRAIN_STEPS}
+        if path in TRAIN_PATHS.values() or path == LOWP_TRAIN_PATH:
+            steps = LOWP_TRAIN_STEPS if path == LOWP_TRAIN_PATH \
+                else TRAIN_STEPS
+            origin = f"{path}, {steps} steps"
+            per_step = {"launches_per_step": launches / steps}
         kernels.append({
             "name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3632,6 +3749,7 @@ def main() -> None:
             **({"heads_of": c["heads_of"]} if "heads_of" in c else {}),
             **({"design": c["design"]} if "design" in c else {}),
             **({"mode": c["mode"]} if "mode" in c else {}),
+            **({"lowp": c["lowp"]} if c.get("lowp") else {}),
             "shape": c["shape"],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -31,12 +31,27 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // The instantiated head dim an attention call of head dim d runs at: the
 // least of 16, 32, 64, 128, 160 and 256 at or above d, 0 outside 1..256
-// (refused). Columns d..D - 1 load as zeros and are never stored.
+// (above 256 the column-tile kernels serve it; below 1 it is refused).
+// Columns d..D - 1 load as zeros and are never stored.
 inline int padded_dim(int d) {
   constexpr int kDims[] = {16, 32, 64, 128, 160, 256};
   for (int dd : kDims)
     if (d >= 1 && d <= dd) return dd;
   return 0;
+}
+
+// Head dims above 256 (the attention kernels' column-tile designs): the
+// output's d columns in ceil(d / 256) tiles of equal width, rounded up to
+// 16, the last cut at d; a block a tile.
+constexpr int kWideTileCols = 256;  // output columns a tile, at most
+
+__host__ __device__ inline int wide_col_tiles(int d) {
+  return (d + kWideTileCols - 1) / kWideTileCols;
+}
+
+__host__ __device__ inline int wide_tile_width(int d) {
+  const int n = wide_col_tiles(d);
+  return ((d + n - 1) / n + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -27,7 +27,7 @@
 //   whole tile for all G heads are formed first (one thread per row and
 //   head group), then one max, one exp2 pass and one rescale per head and
 //   tile (a warp per head), then P.V with each thread owning 16 bytes of d.
-// * Any head dim d from 1 to 256 (the Pallas kernel takes any): the
+// * Any head dim d >= 1 (the Pallas kernel takes any). Up to 256 the
 //   kernel is instantiated at D = 16, 32, 64, 128, 160 and 256 (d 160 is
 //   20 chunks in bf16, 40 in fp32) and a call runs at the least D >= d,
 //   its shared-memory rows D wide. A d below D fills the first ceil(d /
@@ -57,6 +57,20 @@
 //   the next launch (or graph replay) finds it zeroed. l == 0 (length 0)
 //   gives zeros, as in the JAX kernel. Any skv is taken (the JAX kernel
 //   asserts skv % 256 == 0).
+// * Above 256, decode_wide_kernel: the output's columns in column tiles of
+//   at most 256 (wide_tile_width), one block a (split, kv head, slice of
+//   16 q heads, column tile), the same splits. Each block scores its rows
+//   over the whole d, q and K streamed through shared memory in 64-column
+//   pieces in the same order in every tile (so its m, l and the combine's
+//   weights are bitwise equal across tiles), then P.V over its tile's
+//   columns of V, thread t owning columns t and t + 128 for every head.
+//   Each (b, kv head, slice, column tile) has its own partials and
+//   counter; column tile 0 writes the lse. Scores over streamed pieces
+//   first and P.V a tile of columns at a time after: the column tiles
+//   keep a block's shared memory (91 KB) and registers (32 fp32
+//   accumulators a thread) fixed at any d, where one block over all of
+//   d would need G x d accumulators (36 KB at the MLA decode's 16 x 576,
+//   more past it). The cost is the scores once per tile (three at 576).
 // * Partial mode: given a non-null `lse` (b, hq) fp32, the combining block
 //   also writes each head's natural log-sum-exp of its scaled scores,
 //   (max + log2(sum)) * ln 2, and -inf where length is 0; o is the same
@@ -198,6 +212,63 @@ __device__ __forceinline__ void score_row(float (&dot)[SPT], const T* krow,
         for (int e = 0; e < VE; ++e) dot[i] += kf[e] * qg[e];
       }
     }
+  }
+}
+
+// The combine of a unit's partials, in the launch: each block of the unit
+// (decode_split_kernel's (b, kv head, slice); decode_wide_kernel's also a
+// column tile) counts itself on counter[unit] after its partial is out;
+// the last of the `splits` sets the counter back to 0, so the next launch
+// (or graph replay) finds it zeroed, and combines the splits below
+// ceil(len / split_rows), the ones that hold rows. Head g of the unit's G
+// (GS a split's stride in heads) has its accumulator `stride` floats after
+// head g - 1's; its `cols` output columns go to o[o_base + g * d + c],
+// and with `lse` (this unit's first head's) each head's log-sum-exp. w_sm:
+// smem for splits x G weights; is_last: the block's shared flag.
+template <typename T>
+__device__ __forceinline__ void combine_partials(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    int* __restrict__ counter, T* __restrict__ o, float* __restrict__ lse,
+    float* w_sm, int& is_last, int unit, int splits, int len, int split_rows,
+    int G, int GS, int stride, int cols, size_t o_base, int d) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counter + unit;
+    const int prev = atomicAdd(cnt, 1);
+    is_last = prev == splits - 1;
+    if (is_last) *cnt = 0;  // every split has counted: reset for the next
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  const int base = unit * splits;
+  const int nvalid = (len + split_rows - 1) / split_rows;
+  for (int g = warp; g < G; g += kThreads / 32) {
+    // nvalid <= splits <= 32 (wrapper), so one split per lane.
+    const float* ml = part_ml + ((base + lane) * GS + g) * 2;
+    const float ms = lane < nvalid ? __ldcg(ml) : kNegInf;
+    const float ls = lane < nvalid ? __ldcg(ml + 1) : 0.f;
+    const float mx = warp_max(ms);
+    const float w = lane < nvalid ? exp2f(ms - mx) : 0.f;
+    const float l = warp_sum(ls * w);
+    if (lane < nvalid) w_sm[lane * G + g] = w / (l == 0.f ? 1.f : l);
+    if (lse != nullptr && lane == 0)
+      lse[g] = l == 0.f ? __int_as_float(0xff800000) : (mx + log2f(l)) * kLn2;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * cols; i += kThreads) {
+    const int g = i / cols, c = i - g * cols;
+    const float* pa = part_acc + static_cast<size_t>(base) * GS * stride +
+                      g * stride + c;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < nvalid; ++s)
+      sum += __ldcg(pa + static_cast<size_t>(s) * GS * stride) *
+             w_sm[s * G + g];
+    o[o_base + static_cast<size_t>(g) * d + c] = from_f32<T>(sum);
   }
 }
 
@@ -393,49 +464,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // The last block of this (b, kv head, slice) to finish combines the
-  // partials.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    int* cnt = counter + unit;
-    const int prev = atomicAdd(cnt, 1);
-    is_last = prev == splits - 1;
-    if (is_last) *cnt = 0;  // every split has counted: reset for the next
-  }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-  // Splits below ceil(len / split_rows) hold partials; the rest are empty.
-  const int base = unit * splits;
-  const int nvalid = (len + split_rows - 1) / split_rows;
-  float* w_sm = reinterpret_cast<float*>(smem_raw);  // [nvalid][G] weights
-  for (int g = warp; g < G; g += kThreads / 32) {
-    // nvalid <= splits <= 32 (wrapper), so one split per lane.
-    const float* ml = part_ml + ((base + lane) * GS + g) * 2;
-    const float ms = lane < nvalid ? __ldcg(ml) : kNegInf;
-    const float ls = lane < nvalid ? __ldcg(ml + 1) : 0.f;
-    const float mx = warp_max(ms);
-    const float w = lane < nvalid ? exp2f(ms - mx) : 0.f;
-    const float l = warp_sum(ls * w);
-    if (lane < nvalid) w_sm[lane * G + g] = w / (l == 0.f ? 1.f : l);
-    if (lse != nullptr && lane == 0)
-      lse[static_cast<size_t>(b) * hq + h0 + g] =
-          l == 0.f ? __int_as_float(0xff800000) : (mx + log2f(l)) * kLn2;
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, dd = i - g * D;
-    if (kPad && dd >= d) continue;
-    const float* pa = part_acc + static_cast<size_t>(base) * GS * D + i;
-    float sum = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < nvalid; ++s)
-      sum += __ldcg(pa + static_cast<size_t>(s) * GS * D) * w_sm[s * G + g];
-    o[(static_cast<size_t>(b) * hq + h0) * d + (kPad ? g * d + dd : i)] =
-        from_f32<T>(sum);
-  }
+  combine_partials<T>(part_ml, part_acc, counter, o,
+                      lse == nullptr ? nullptr
+                                     : lse + static_cast<size_t>(b) * hq + h0,
+                      reinterpret_cast<float*>(smem_raw), is_last, unit,
+                      splits, len, split_rows, G, GS, D, kPad ? d : D,
+                      (static_cast<size_t>(b) * hq + h0) * d, d);
 }
 
 template <typename T, int D, int GM, bool kExact, bool kPad = false>
@@ -523,6 +557,214 @@ int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
 
 #undef REPRO_DECODE_ARGS
 
+// ---------------------------------------------------------------------------
+// Head dims above 256: column tiles.
+// ---------------------------------------------------------------------------
+namespace wide {
+
+constexpr int kPiece = 64;                    // columns of d a piece
+constexpr int kLP = kPiece + 1;               // row stride of a K piece
+constexpr int kLV = kWideTileCols + 1;        // row stride of a V tile
+constexpr int kCPT = kWideTileCols / kThreads;  // output columns a thread
+constexpr int kSPT = kMaxGM / 2;              // score heads a thread
+
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (kMaxGM * kPiece + kTile * kLP + kTile * kLV +
+                          kMaxGM * kTile + 3 * kMaxGM);
+}
+
+// Grid (splits, hkv x slices x column tiles, b): block (s, (h, slice,
+// ct), b) takes the cache rows of split s of kv head h for its slice's G
+// <= 16 q heads and writes output columns [c0, c0 + cw) of column tile ct
+// (wide_tile_width). Per tile of kTile rows: the scores over the whole d,
+// q and K streamed through smem in kPiece-column pieces, in the same order
+// in every column tile (so m, l and the weights of the combine are bitwise
+// equal across tiles); the online softmax as decode_split_kernel's; then
+// P.V over the tile's columns of V, thread t owning columns t and t +
+// kThreads for every head. Partials and the combine as there, a counter
+// each (b, kv head, slice, column tile); tile 0 writes the lse.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ length,
+                   T* __restrict__ o, float* __restrict__ lse,
+                   float* __restrict__ part_ml, float* __restrict__ part_acc,
+                   int* __restrict__ counter, int skv, int hq, int hkv, int d,
+                   int splits, int split_rows, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qp = reinterpret_cast<float*>(smem_raw);  // [kMaxGM][kPiece]
+  float* kp = qp + kMaxGM * kPiece;                // [kTile][kLP]
+  float* vs = kp + kTile * kLP;                    // [kTile][kLV]
+  float* s_sm = vs + kTile * kLV;                  // [G][kTile]
+  float* st_m = s_sm + kMaxGM * kTile;
+  float* st_l = st_m + kMaxGM;
+  float* st_a = st_l + kMaxGM;
+  __shared__ int is_last;
+
+  const int n_ct = wide_col_tiles(d), tw = wide_tile_width(d);
+  const int g_all = hq / hkv;
+  const int gs = (g_all + kMaxGM - 1) / kMaxGM;
+  const int ct = blockIdx.y % n_ct, hs = blockIdx.y / n_ct;
+  const int kvh = hs / gs, slice = hs - kvh * gs;
+  const int G = min(kMaxGM, g_all - slice * kMaxGM);
+  const int GS = min(kMaxGM, g_all);
+  const int h0 = kvh * g_all + slice * kMaxGM;
+  const int c0 = ct * tw, cw = min(tw, d - c0);
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = min(max(length[b], 0), skv);
+  const int row0 = split * split_rows;
+  const int unit = b * gridDim.y + blockIdx.y;  // (b, kv head, slice, tile)
+  const int pidx = unit * splits + split;
+  const size_t row_stride = static_cast<size_t>(hkv) * d;
+  const T* kb = k + static_cast<size_t>(b) * skv * row_stride +
+                static_cast<size_t>(kvh) * d;
+  const T* vb = v + static_cast<size_t>(b) * skv * row_stride +
+                static_cast<size_t>(kvh) * d;
+  const T* qb = q + (static_cast<size_t>(b) * hq + h0) * d;
+
+  if (row0 < len) {
+    const int row_end = min(len, row0 + split_rows);
+    if (tid < G) {
+      st_m[tid] = kNegInf;
+      st_l[tid] = 0.f;
+    }
+    float acc[kMaxGM][kCPT];
+#pragma unroll
+    for (int g = 0; g < kMaxGM; ++g)
+#pragma unroll
+      for (int j = 0; j < kCPT; ++j) acc[g][j] = 0.f;
+
+    for (int t0 = row0; t0 < row_end; t0 += kTile) {
+      const int nr = min(kTile, row_end - t0);
+      // Scores: thread (r, gh) takes row r for heads gh, gh + 2, ...
+      const int r = tid % kTile, gh = tid / kTile;
+      float dot[kSPT];
+#pragma unroll
+      for (int i = 0; i < kSPT; ++i) dot[i] = 0.f;
+      for (int p0 = 0; p0 < d; p0 += kPiece) {
+        __syncthreads();  // the last piece, and the last tile's V and p
+        const int pw = min(kPiece, d - p0);
+        for (int i = tid; i < G * kPiece; i += kThreads) {
+          const int g = i / kPiece, c = i % kPiece;
+          qp[i] = c < pw ? to_f32(qb[static_cast<size_t>(g) * d + p0 + c]) *
+                               scale_log2
+                         : 0.f;
+        }
+        for (int i = tid; i < kTile * kPiece; i += kThreads) {
+          const int rr = i / kPiece, c = i % kPiece;
+          kp[rr * kLP + c] =
+              rr < nr && c < pw
+                  ? to_f32(kb[static_cast<size_t>(t0 + rr) * row_stride +
+                              p0 + c])
+                  : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int c = 0; c < kPiece; ++c) {
+          const float kv = kp[r * kLP + c];
+#pragma unroll
+          for (int i = 0; i < kSPT; ++i)
+            if (gh + 2 * i < G) dot[i] += kv * qp[(gh + 2 * i) * kPiece + c];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kSPT; ++i) {
+        const int g = gh + 2 * i;
+        if (g < G) s_sm[g * kTile + r] = r < nr ? dot[i] : kNegInf;
+      }
+      for (int i = tid; i < kTile * kWideTileCols; i += kThreads) {
+        const int rr = i / kWideTileCols, c = i % kWideTileCols;
+        vs[rr * kLV + c] =
+            rr < nr && c < cw
+                ? to_f32(vb[static_cast<size_t>(t0 + rr) * row_stride + c0 +
+                            c])
+                : 0.f;
+      }
+      __syncthreads();  // the scores and V visible to all
+
+      // One max, one exp2 pass and one rescale per head and tile.
+      for (int g = warp; g < G; g += kThreads / 32) {
+        const float x0 = s_sm[g * kTile + lane];
+        const float x1 = s_sm[g * kTile + lane + 32];
+        const float m_old = st_m[g];
+        const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+        const float p0 = exp2f(x0 - m_new), p1 = exp2f(x1 - m_new);
+        s_sm[g * kTile + lane] = p0;
+        s_sm[g * kTile + lane + 32] = p1;
+        const float sum = warp_sum(p0 + p1);
+        if (lane == 0) {
+          const float alpha = exp2f(m_old - m_new);
+          st_a[g] = alpha;
+          st_l[g] = st_l[g] * alpha + sum;
+          st_m[g] = m_new;
+        }
+      }
+      __syncthreads();  // p and the rescales visible to all
+
+#pragma unroll
+      for (int j = 0; j < kCPT; ++j) {
+        const int col = tid + kThreads * j;
+        if (col >= cw) continue;
+#pragma unroll
+        for (int g = 0; g < kMaxGM; ++g)
+          if (g < G) acc[g][j] *= st_a[g];
+        for (int rr = 0; rr < nr; ++rr) {
+          const float vv = vs[rr * kLV + col];
+#pragma unroll
+          for (int g = 0; g < kMaxGM; ++g)
+            if (g < G) acc[g][j] += s_sm[g * kTile + rr] * vv;
+        }
+      }
+    }
+
+    float* pa = part_acc + static_cast<size_t>(pidx) * GS * kWideTileCols;
+#pragma unroll
+    for (int j = 0; j < kCPT; ++j) {
+      const int col = tid + kThreads * j;
+      if (col >= cw) continue;
+#pragma unroll
+      for (int g = 0; g < kMaxGM; ++g)
+        if (g < G) pa[g * kWideTileCols + col] = acc[g][j];
+    }
+    if (tid < G) {
+      part_ml[(pidx * GS + tid) * 2] = st_m[tid];
+      part_ml[(pidx * GS + tid) * 2 + 1] = st_l[tid];
+    }
+  }
+
+  combine_partials<T>(part_ml, part_acc, counter, o,
+                      lse == nullptr || ct != 0
+                          ? nullptr
+                          : lse + static_cast<size_t>(b) * hq + h0,
+                      reinterpret_cast<float*>(smem_raw), is_last, unit,
+                      splits, len, split_rows, G, GS, kWideTileCols, cw,
+                      (static_cast<size_t>(b) * hq + h0) * d + c0, d);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const int* length,
+           void* o, float* lse, float* part_ml, float* part_acc, int* counter,
+           int b, int skv, int hq, int hkv, int d, int split_rows,
+           float scale, cudaStream_t stream) {
+  const int splits = (skv + split_rows - 1) / split_rows;
+  if (splits > 32 || d <= 256) return static_cast<int>(cudaErrorInvalidValue);
+  const int g = hq / hkv, gs = (g + kMaxGM - 1) / kMaxGM;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, hkv * gs * wide_col_tiles(d), b);
+  decode_wide_kernel<T><<<grid, kThreads, smem_bytes(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), length, static_cast<T*>(o), lse, part_ml,
+      part_acc, counter, skv, hq, hkv, d, splits, split_rows,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
 }  // namespace
 }  // namespace repro
 
@@ -531,8 +773,11 @@ int dispatch_d(int d, int g, const void* q, const void* k, const void* v,
 // part_acc (b, hkv, gs, splits, GS, D) fp32 scratch, splits = ceil(skv /
 // split_rows), written only for the splits below ceil(length /
 // split_rows); counter: b * hkv * gs int32, zero on entry and left zero
-// on exit. split_rows is a multiple of 64 and gives at most 32 splits (the
-// combine takes one split per lane). d is 1 to 256; anything else
+// on exit. Above d 256 (decode_wide_kernel) each of the nct =
+// wide_col_tiles(d) column tiles is a unit of its own: part_ml (b, hkv,
+// gs, nct, splits, GS, 2), part_acc (b, hkv, gs, nct, splits, GS, 256),
+// counter b * hkv * gs * nct. split_rows is a multiple of 64 and gives at
+// most 32 splits (the combine takes one split per lane). d below 1
 // returns cudaErrorInvalidValue. lse: null, or (b, hq) fp32 (partial
 // mode).
 extern "C" int repro_decode_attention(const void* q, const void* k,
@@ -553,6 +798,16 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   int* cnt = static_cast<int*>(counter);
   float* ls = static_cast<float*>(lse);
   const int g = hq / hkv;
+  if (d > 256) {
+    if (dtype == kF32)
+      return wide::launch<float>(q, k, v, len, o, ls, ml, acc, cnt, b, skv,
+                                 hq, hkv, d, split_rows, scale, s);
+    if (dtype == kBF16)
+      return wide::launch<__nv_bfloat16>(q, k, v, len, o, ls, ml, acc, cnt, b,
+                                         skv, hq, hkv, d, split_rows, scale,
+                                         s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == kF32)
     return dispatch_d<float>(d, g, q, k, v, len, o, ls, ml, acc, cnt, b, skv,
                              hq, hkv, split_rows, scale, s);

@@ -34,7 +34,7 @@
 // sizeof(T)) plus w and dw: 2.8 us at 2048 x 768 bf16, 7.5 us at 2048 x
 // 2048. r is recomputed from the row (the forward saves nothing). No
 // floating-point atomics anywhere, so two calls are bitwise equal (a
-// checkpoint resume is checked bit for bit). Two designs, as
+// checkpoint resume is checked bit for bit). Three designs, as
 // kernels/rmsnorm.py::bwd_design picks:
 // * ring (rmsnorm_bwd_ring_kernel; 16-byte chunks, rows of up to 2048 of
 //   them): one persistent block of 16 warps an SM, each block a contiguous
@@ -67,6 +67,27 @@
 //   single-element chunks (d not a multiple of 16 bytes, or a misaligned
 //   view), which bulk copies cannot, and 16-byte chunks up to 1024 a row so
 //   the ring design can be timed against it.
+// * stream (rmsnorm_bwd_stream_kernel + rmsnorm_dw_kernel): rows of any
+//   width, 16-byte chunks or single elements; the rows the other two do
+//   not take (more than 2048 chunks, or single elements past 2048). One
+//   block of kBwdThreads a row at a time, as block_rows, but nothing of
+//   the row is held: a first pass over its chunks for the two sums, a
+//   second that reads x, dy and w again (from L2) to write dx and adds
+//   each chunk's dw into the block's partial row in memory. A thread owns
+//   the same columns of that row for every row, so no other thread
+//   touches them and the sums keep a fixed order.
+//
+// Backward under lowp (bf16): jax.grad of ref.rmsnorm_lowp, whose multiply
+// chain runs in bf16. With j = mean(x^2) + eps, r = rsqrt(j), inv =
+// bf16(r) and g = bf16(dy * bf16(w)):
+//   dx = bf16(bf16(g * inv) + bf16(c * 2x)), c = bf16(sum bf16(x * g)) *
+//        (-r / (2 j)) / d;
+//   dw = bf16(sum over rows of bf16(bf16(x * inv) * dy)).
+// The sums run in fp32 and are rounded once (XLA on the CPU rounds a bf16
+// sum after every add; the closed form ref.rmsnorm_lowp_bwd_ref rounds
+// once, as here). In fp32 every rounding is the identity and lowp is the
+// plain backward's arithmetic: lowp is a template flag of the bf16
+// backward kernels only (with_lowp), so the unflagged ones keep their code.
 //
 // lowp: the JAX package's Pallas path drops `lowp` (src/repro/kernels/ops.py:59)
 // and always computes in fp32. This kernel follows the reference-mode
@@ -341,14 +362,112 @@ bool aligned16(const void* p) {
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
 
+// v rounded to T and back (the identity for float).
+template <typename T>
+__device__ __forceinline__ float round_t(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// lowp takes effect in bf16 only: in fp32 it is the plain arithmetic.
+template <typename T>
+__device__ __forceinline__ bool lowp_of(int lowp) {
+  return !std::is_same_v<T, float> && lowp != 0;
+}
+
+// f(std::true_type) for bf16 under lowp, else f(std::false_type): the
+// backward kernels take lowp as a template parameter, so the unflagged
+// instantiations keep their code and registers, and fp32 has no lowp
+// instantiation at all (the flag is the plain arithmetic there).
+template <typename T, typename F>
+cudaError_t with_lowp(int lowp, F f) {
+  if constexpr (std::is_same_v<T, float>) {
+    return f(std::false_type{});
+  } else {
+    return lowp ? f(std::true_type{}) : f(std::false_type{});
+  }
+}
+
+// A row's coefficients, from its sums ss = sum x^2 and sd = sum x w dy (or,
+// under lowp, sum bf16(x g)).
+struct BwdRow {
+  float r;    // rsqrt(ss / d + eps)
+  float k;    // plain: r^3 sd / d
+  float inv;  // lowp: bf16(r)
+  float c;    // lowp: bf16(sd) * (-r / (2 j)) / d
+};
+
+template <typename T>
+__device__ __forceinline__ BwdRow bwd_row(float ss, float sd, int d,
+                                          float eps, bool lowp) {
+  BwdRow o;
+  const float j = ss / static_cast<float>(d) + eps;
+  o.r = rsqrtf(j);
+  o.k = o.r * o.r * o.r * (sd / static_cast<float>(d));
+  o.inv = o.c = 0.f;
+  if (lowp) {
+    o.inv = round_t<T>(o.r);
+    o.c = round_t<T>(sd) * (-0.5f * (o.r / j)) / static_cast<float>(d);
+  }
+  return o;
+}
+
+// One element's term of the row's second sum.
+template <typename T>
+__device__ __forceinline__ float sd_add(float sd, float x, float w, float g,
+                                        bool lowp) {
+  if (lowp) return sd + round_t<T>(x * round_t<T>(g * round_t<T>(w)));
+  return fmaf(x, w * g, sd);
+}
+
+// One element's dx, before the store rounds it to T.
+template <typename T>
+__device__ __forceinline__ float dx_of(const BwdRow& c, float x, float w,
+                                       float g, bool lowp) {
+  if (lowp)
+    return round_t<T>(round_t<T>(g * round_t<T>(w)) * c.inv) +
+           round_t<T>(c.c * (2.f * x));
+  return c.r * (w * g) - x * c.k;
+}
+
+// One element's dw added to acc.
+template <typename T>
+__device__ __forceinline__ float dw_add(float acc, const BwdRow& c, float x,
+                                        float g, bool lowp) {
+  if (lowp) return acc + round_t<T>(round_t<T>(x * c.inv) * g);
+  return fmaf(g, x * c.r, acc);
+}
+
+// A row's two sums across the block's kBwdWarps warps: each warp's by a
+// butterfly, then the warps' in warp order. red: this row's [2][kBwdWarps]
+// (rows alternate between two, so one barrier a row does).
+__device__ __forceinline__ void block_sums(float& ss, float& sd,
+                                           float (&red)[2][kBwdWarps],
+                                           int warp, int lane) {
+  ss = warp_sum(ss);
+  sd = warp_sum(sd);
+  if (lane == 0) {
+    red[0][warp] = ss;
+    red[1][warp] = sd;
+  }
+  __syncthreads();
+  ss = 0.f;
+  sd = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBwdWarps; ++j) {
+    ss += red[0][j];
+    sd += red[1][j];
+  }
+}
+
 // Rows of d = nchunks * V elements, one block a row at a time (rows
 // blockIdx.x, + gridDim.x, ...); thread t holds chunks t + i * kBwdThreads,
 // i < NV. dw_part: (gridDim.x, d) fp32, this block's sum of dy * x * r.
-template <typename T, int V, int NV>
+template <typename T, int V, int NV, bool kLowp>
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    const T* __restrict__ dy, T* __restrict__ dx,
                    float* __restrict__ dw_part, int rows, int d, float eps) {
+  constexpr bool lowp = kLowp;
   const int t = threadIdx.x;
   const int warp = t >> 5, lane = t & 31;
   const int nchunks = d / V;
@@ -387,24 +506,10 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         ss = fmaf(xf[i][e], xf[i][e], ss);
-        sd = fmaf(xf[i][e], wv[i][e] * gf[i][e], sd);
+        sd = sd_add<T>(sd, xf[i][e], wv[i][e], gf[i][e], lowp);
       }
-    ss = warp_sum(ss);
-    sd = warp_sum(sd);
-    if (lane == 0) {
-      red[parity][0][warp] = ss;
-      red[parity][1][warp] = sd;
-    }
-    __syncthreads();
-    ss = 0.f;
-    sd = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBwdWarps; ++j) {
-      ss += red[parity][0][j];
-      sd += red[parity][1][j];
-    }
-    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-    const float k = r * r * r * (sd / static_cast<float>(d));
+    block_sums(ss, sd, red[parity], warp, lane);
+    const BwdRow co = bwd_row<T>(ss, sd, d, eps, lowp);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = t + i * kBwdThreads;
@@ -412,8 +517,8 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
       float o[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        o[e] = r * (wv[i][e] * gf[i][e]) - xf[i][e] * k;
-        acc[i][e] = fmaf(gf[i][e], xf[i][e] * r, acc[i][e]);
+        o[e] = dx_of<T>(co, xf[i][e], wv[i][e], gf[i][e], lowp);
+        acc[i][e] = dw_add<T>(acc[i][e], co, xf[i][e], gf[i][e], lowp);
       }
       store_raw<T, V>(dx + base + c * V, pack<T, V>(o));
     }
@@ -428,12 +533,14 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// dw[c] = sum over b < nparts of part[b, c], in the same order every call:
-// a block takes 32 columns (one a lane, coalesced), warp j sums the
-// partials j, j + 8, ..., and the warps' sums are added in warp order.
+// dw[c] = sum over b < nparts of part[b, c], in the same order every call
+// (rounded to T once under lowp): a block takes 32 columns (one a lane,
+// coalesced), warp j sums the partials j, j + 8, ..., and the warps' sums
+// are added in warp order.
+template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                  int nparts, int d) {
+                  int nparts, int d, int lowp_arg) {
   __shared__ float red[kBwdWarps][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * 32 + lane;
@@ -447,22 +554,35 @@ rmsnorm_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
     float tot = 0.f;
 #pragma unroll
     for (int j = 0; j < kBwdWarps; ++j) tot += red[j][lane];
-    dw[c] = tot;
+    dw[c] = lowp_of<T>(lowp_arg) ? round_t<T>(tot) : tot;
   }
+}
+
+// The partials' column sums (rmsnorm_dw_kernel) after a block_rows or
+// stream launch.
+template <typename T>
+cudaError_t launch_dw(float* dw, const float* part, int blocks, int d,
+                      int lowp, cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_kernel<T><<<(d + 31) / 32, kBwdThreads, 0, s>>>(part, dw,
+                                                              blocks, d,
+                                                              lowp);
+  return cudaGetLastError();
 }
 
 template <typename T, int V, int NV>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
                        float* dw, float* part, int rows, int d, float eps,
-                       int blocks, cudaStream_t s) {
-  rmsnorm_bwd_kernel<T, V, NV><<<blocks, kBwdThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, d, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<<<(d + 31) / 32, kBwdThreads, 0, s>>>(part, dw, blocks,
-                                                           d);
-  return cudaGetLastError();
+                       int lowp, int blocks, cudaStream_t s) {
+  return with_lowp<T>(lowp, [&](auto lp) {
+    rmsnorm_bwd_kernel<T, V, NV, decltype(lp)::value>
+        <<<blocks, kBwdThreads, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const float*>(w),
+            static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, d,
+            eps);
+    return launch_dw<T>(dw, part, blocks, d, lowp, s);
+  });
 }
 
 // block_rows: NV 1, 2 or 4 chunks a thread of 16 bytes (vec), or 1, 2, 4
@@ -470,30 +590,107 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
 template <typename T>
 cudaError_t dispatch_bwd(const void* x, const void* w, const void* dy,
                          void* dx, float* dw, float* part, int rows, int d,
-                         float eps, int vec, int nv, int blocks,
+                         float eps, int lowp, int vec, int nv, int blocks,
                          cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   if (vec) {
     switch (nv) {
-      case 1: return launch_bwd<T, V, 1>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
-      case 2: return launch_bwd<T, V, 2>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
-      case 4: return launch_bwd<T, V, 4>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+      case 1: return launch_bwd<T, V, 1>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
+      case 2: return launch_bwd<T, V, 2>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
+      case 4: return launch_bwd<T, V, 4>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (nv) {
-    case 1: return launch_bwd<T, 1, 1>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
-    case 2: return launch_bwd<T, 1, 2>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
-    case 4: return launch_bwd<T, 1, 4>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
-    case 8: return launch_bwd<T, 1, 8>(x, w, dy, dx, dw, part, rows, d, eps, blocks, s);
+    case 1: return launch_bwd<T, 1, 1>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
+    case 2: return launch_bwd<T, 1, 2>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
+    case 4: return launch_bwd<T, 1, 4>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
+    case 8: return launch_bwd<T, 1, 8>(x, w, dy, dx, dw, part, rows, d, eps, lowp, blocks, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// stream: rows of any width, d = nchunks * V elements (16-byte chunks or
+// single elements). One block a row at a time (rows blockIdx.x, +
+// gridDim.x, ...); thread t takes chunks t, t + kBwdThreads, ... of every
+// row, in both passes: the first sums x^2 and the dw-side product, the
+// second reads the chunks again to write dx and adds their dw into
+// dw_part's row of this block, columns this thread alone touches.
+template <typename T, int V, bool kLowp>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_stream_kernel(const T* __restrict__ x,
+                          const float* __restrict__ w,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ dw_part, int rows, int d,
+                          float eps) {
+  constexpr bool lowp = kLowp;
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int nchunks = d / V;
+  __shared__ float red[2][2][kBwdWarps];
+  float* part = dw_part + static_cast<size_t>(blockIdx.x) * d;
+  for (int c = t; c < nchunks; c += kBwdThreads)
+#pragma unroll
+    for (int e = 0; e < V; ++e) part[c * V + e] = 0.f;
+
+  int parity = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float ss = 0.f, sd = 0.f;
+    for (int c = t; c < nchunks; c += kBwdThreads) {
+      float xf[V], gf[V], wf[V];
+      unpack<T, V>(load_raw<T, V>(x + base + c * V), xf);
+      unpack<T, V>(load_raw<T, V>(dy + base + c * V), gf);
+      load_w<V>(w + c * V, wf);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ss = fmaf(xf[e], xf[e], ss);
+        sd = sd_add<T>(sd, xf[e], wf[e], gf[e], lowp);
+      }
+    }
+    block_sums(ss, sd, red[parity], warp, lane);
+    const BwdRow co = bwd_row<T>(ss, sd, d, eps, lowp);
+    for (int c = t; c < nchunks; c += kBwdThreads) {
+      float xf[V], gf[V], wf[V], o[V];
+      unpack<T, V>(load_raw<T, V>(x + base + c * V), xf);
+      unpack<T, V>(load_raw<T, V>(dy + base + c * V), gf);
+      load_w<V>(w + c * V, wf);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        o[e] = dx_of<T>(co, xf[e], wf[e], gf[e], lowp);
+        part[c * V + e] = dw_add<T>(part[c * V + e], co, xf[e], gf[e], lowp);
+      }
+      store_raw<T, V>(dx + base + c * V, pack<T, V>(o));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_stream(const void* x, const void* w, const void* dy,
+                            void* dx, float* dw, float* part, int rows,
+                            int d, float eps, int lowp, int vec, int blocks,
+                            cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  return with_lowp<T>(lowp, [&](auto lp) {
+    constexpr bool L = decltype(lp)::value;
+    auto run = [&](auto kernel) {
+      kernel<<<blocks, kBwdThreads, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const float*>(w),
+          static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, d,
+          eps);
+    };
+    if (vec)
+      run(rmsnorm_bwd_stream_kernel<T, V, L>);
+    else
+      run(rmsnorm_bwd_stream_kernel<T, 1, L>);
+    return launch_dw<T>(dw, part, blocks, d, lowp, s);
+  });
 }
 
 // ---------------------------------------------------------------------------
 // Backward, ring design.
 // ---------------------------------------------------------------------------
-constexpr int kBlockRows = 0, kRing = 1;  // design codes
+constexpr int kBlockRows = 0, kRing = 1, kStream = 2;  // design codes
 constexpr int kRingWarps = 16;
 constexpr int kRingThreads = kRingWarps * 32;
 constexpr int kMaxSmem = 232448;    // dynamic shared memory a block, sm_90
@@ -538,12 +735,14 @@ __host__ __device__ __forceinline__ int dw_slice_width(int d, int nparts) {
 // order: thread t takes column c0 + t % sw and sums partials t / sw,
 // t / sw + tpc, ... (tpc = kRingThreads / sw) in that order, loading
 // kSliceLoads of them at once; then each column's tpc sums are added in
-// order. red: kRingThreads floats of shared memory.
+// order (rounded to T once under lowp). red: kRingThreads floats of shared
+// memory.
 constexpr int kSliceLoads = 16;
 
+template <typename T>
 __device__ __forceinline__ void dw_slice(const float* part, float* dw,
                                          int nparts, int d, int c0, int sw,
-                                         float* red) {
+                                         float* red, bool lowp) {
   const int t = threadIdx.x, tpc = kRingThreads / sw;
   const int c = c0 + t % sw;
   float s = 0.f;
@@ -567,7 +766,7 @@ __device__ __forceinline__ void dw_slice(const float* part, float* dw,
     float tot = 0.f;
 #pragma unroll 8
     for (int q = 0; q < tpc; ++q) tot += red[q * sw + t];
-    dw[c] = tot;
+    dw[c] = lowp ? round_t<T>(tot) : tot;
   }
   __syncthreads();
 }
@@ -581,13 +780,14 @@ __device__ __forceinline__ Raw<T, V> load_shared(const T* p) {
 // warps, lane t of it holding chunks t + i * WPR * 32, i < NV. part:
 // (gridDim.x, d) fp32, this block's sum of dy * x * r; dw: (d,). spg:
 // ring slots a group. A cooperative launch (the grid sync).
-template <typename T, int NV, int WPR>
+template <typename T, int NV, int WPR, bool kLowp>
 __global__ void __launch_bounds__(kRingThreads, 1)
 rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
                         const T* __restrict__ dy, T* __restrict__ dx,
                         float* __restrict__ part, float* __restrict__ dw,
                         int rows, int d, float eps, int spg) {
   constexpr int V = 16 / sizeof(T);
+  constexpr bool lowp = kLowp;
   constexpr int kRowThreads = WPR * 32;
   constexpr int kGroups = kRingWarps / WPR;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -656,7 +856,7 @@ rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         ss = fmaf(xf[e], xf[e], ss);
-        sd = fmaf(xf[e], wv[i][e] * gf[e], sd);
+        sd = sd_add<T>(sd, xf[e], wv[i][e], gf[e], lowp);
       }
     }
     ss = warp_sum(ss);
@@ -676,8 +876,7 @@ rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
         sd += xch[g * WPR + j][1];
       }
     }
-    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-    const float kk = r * r * r * (sd / static_cast<float>(d));
+    const BwdRow co = bwd_row<T>(ss, sd, d, eps, lowp);
     T* out = dx + static_cast<size_t>(r0 + g + k * kGroups) * d;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -688,8 +887,8 @@ rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
       unpack<T, V>(load_shared<T, V>(gs + c * V), gf);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        o[e] = r * (wv[i][e] * gf[e]) - xf[e] * kk;
-        acc[i][e] = fmaf(gf[e], xf[e] * r, acc[i][e]);
+        o[e] = dx_of<T>(co, xf[e], wv[i][e], gf[e], lowp);
+        acc[i][e] = dw_add<T>(acc[i][e], co, xf[e], gf[e], lowp);
       }
       store_raw<T, V>(out + c * V, pack<T, V>(o));
     }
@@ -730,35 +929,38 @@ rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
   cooperative_groups::this_grid().sync();
   const int sw = dw_slice_width(d, gridDim.x);
   for (int j = blockIdx.x; j * sw < d; j += gridDim.x)
-    dw_slice(part, dw, gridDim.x, d, j * sw, sw, sums);
+    dw_slice<T>(part, dw, gridDim.x, d, j * sw, sw, sums, lowp);
 }
 
 template <typename T, int NV, int WPR>
 cudaError_t launch_ring(const void* x, const void* w, const void* dy,
                         void* dx, float* dw, float* part, int rows, int d,
-                        float eps, int spg, int blocks, cudaStream_t s) {
-  auto kernel = rmsnorm_bwd_ring_kernel<T, NV, WPR>;
+                        float eps, int lowp, int spg, int blocks,
+                        cudaStream_t s) {
   const size_t smem = ring_smem_bytes(d, sizeof(T), kRingWarps / WPR, spg);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kRingThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
-                           static_cast<const float*>(w),
-                           static_cast<const T*>(dy), static_cast<T*>(dx),
-                           part, dw, rows, d, eps, spg);
-  return err == cudaSuccess ? cudaGetLastError() : err;
+  return with_lowp<T>(lowp, [&](auto lp) {
+    auto kernel = rmsnorm_bwd_ring_kernel<T, NV, WPR, decltype(lp)::value>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kRingThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                             static_cast<const float*>(w),
+                             static_cast<const T*>(dy), static_cast<T*>(dx),
+                             part, dw, rows, d, eps, spg);
+    return err == cudaSuccess ? cudaGetLastError() : err;
+  });
 }
 
 // ring: NV 1..4 chunks a lane with one warp a row, or NV 4 with 2, 4, 8
@@ -766,10 +968,11 @@ cudaError_t launch_ring(const void* x, const void* w, const void* dy,
 template <typename T>
 cudaError_t dispatch_ring(const void* x, const void* w, const void* dy,
                           void* dx, float* dw, float* part, int rows, int d,
-                          float eps, int nv, int wpr, int spg, int blocks,
-                          cudaStream_t s) {
+                          float eps, int lowp, int nv, int wpr, int spg,
+                          int blocks, cudaStream_t s) {
 #define REPRO_RING(NV, WPR) \
-  launch_ring<T, NV, WPR>(x, w, dy, dx, dw, part, rows, d, eps, spg, blocks, s)
+  launch_ring<T, NV, WPR>(x, w, dy, dx, dw, part, rows, d, eps, lowp, spg, \
+                          blocks, s)
   if (wpr == 1) {
     switch (nv) {
       case 1: return REPRO_RING(1, 1);
@@ -822,45 +1025,54 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out,
   return static_cast<int>(err);
 }
 
-// Backward of repro_rmsnorm (lowp off): x, dy, dx (rows, d) in dtype, w and
-// dw (d,) float32, part (blocks, d) float32 scratch; design, vec, nv, wpr,
-// spg, blocks: the plan of kernels/rmsnorm.py::bwd_plan. block_rows: d /
-// (16 bytes or 1 element) chunks, at most nv * 256 of them, wpr and spg
-// unused; launches rmsnorm_bwd_kernel, then rmsnorm_dw_kernel. ring:
-// 16-byte chunks, at most nv * wpr * 32 of them, spg ring slots a row
-// group, blocks <= rows and co-resident; launches rmsnorm_bwd_ring_kernel,
-// cooperative. All on the stream.
+// Backward of repro_rmsnorm: x, dy, dx (rows, d) in dtype, w and dw (d,)
+// float32, part (blocks, d) float32 scratch; lowp: jax.grad of
+// ref.rmsnorm_lowp in bf16 (ignored in fp32, where it is the plain
+// arithmetic); design, vec, nv, wpr, spg, blocks: the plan of
+// kernels/rmsnorm.py::bwd_plan. block_rows: d / (16 bytes or 1 element)
+// chunks, at most nv * 256 of them, wpr and spg unused; launches
+// rmsnorm_bwd_kernel, then rmsnorm_dw_kernel. ring: 16-byte chunks, at
+// most nv * wpr * 32 of them, spg ring slots a row group, blocks <= rows
+// and co-resident; launches rmsnorm_bwd_ring_kernel, cooperative. stream:
+// any d, nv, wpr and spg unused; launches rmsnorm_bwd_stream_kernel, then
+// rmsnorm_dw_kernel. All on the stream.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* w,
                                  const void* dy, void* dx, void* dw,
                                  void* part, int rows, int d, float eps,
-                                 int dtype, int design, int vec, int nv,
-                                 int wpr, int spg, int blocks,
+                                 int lowp, int dtype, int design, int vec,
+                                 int nv, int wpr, int spg, int blocks,
                                  void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int esize = dtype == kF32 ? 4 : 2;
   const int nchunks = vec ? d * esize / 16 : d;
-  const bool ring = design == kRing;
+  const bool ring = design == kRing, streamed = design == kStream;
   if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows ||
-      (design != kBlockRows && !ring) || (ring && (!vec || spg <= 0)) ||
-      nchunks > nv * (ring ? wpr * 32 : kBwdThreads))
+      (design != kBlockRows && !ring && !streamed) ||
+      (ring && (!vec || spg <= 0)) ||
+      (!streamed && nchunks > nv * (ring ? wpr * 32 : kBwdThreads)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec && ((d * esize) % 16 || !aligned16(x) || !aligned16(w) ||
               !aligned16(dy) || !aligned16(dx)))
     return static_cast<int>(cudaErrorInvalidValue);
   float* dwf = static_cast<float*>(dw);
   float* pf = static_cast<float*>(part);
+  auto run = [&](auto zero) -> cudaError_t {
+    using T = decltype(zero);
+    if (ring)
+      return dispatch_ring<T>(x, w, dy, dx, dwf, pf, rows, d, eps, lowp, nv,
+                              wpr, spg, blocks, s);
+    if (streamed)
+      return dispatch_stream<T>(x, w, dy, dx, dwf, pf, rows, d, eps, lowp,
+                                vec, blocks, s);
+    return dispatch_bwd<T>(x, w, dy, dx, dwf, pf, rows, d, eps, lowp, vec,
+                           nv, blocks, s);
+  };
   cudaError_t err;
   if (dtype == kF32)
-    err = ring ? dispatch_ring<float>(x, w, dy, dx, dwf, pf, rows, d, eps,
-                                      nv, wpr, spg, blocks, s)
-               : dispatch_bwd<float>(x, w, dy, dx, dwf, pf, rows, d, eps, vec,
-                                     nv, blocks, s);
+    err = run(0.f);
   else if (dtype == kBF16)
-    err = ring ? dispatch_ring<__nv_bfloat16>(x, w, dy, dx, dwf, pf, rows, d,
-                                              eps, nv, wpr, spg, blocks, s)
-               : dispatch_bwd<__nv_bfloat16>(x, w, dy, dx, dwf, pf, rows, d,
-                                             eps, vec, nv, blocks, s);
+    err = run(__nv_bfloat16{});
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -8,13 +8,17 @@ call raises; a fake CUDA tensor to its fake path (checked, outputs
 allocated, counted by the dry run as a read of the whole cache, since a
 fake length has no value; not launched). The kernel has no backward: on
 the card, a call that autograd would record raises
-``NotImplementedError``. Any ``skv`` is taken, any head_dim d from 1 to
-``MAX_HEAD_DIM`` (256; run at the least of ``HEAD_DIMS`` at or above it,
-as the flash kernel) and any group ``hq / hkv`` >= 1, in bf16 or fp32. A
-group above ``MAX_GROUP`` (16) runs in ``group_slices(g)`` slices of at
-most 16 q heads, a block each, each reading the kv head's rows. Above 256
-it raises. :func:`pv_layout` is the kernel's arithmetic for who owns
-which head, 16 bytes of d and cache row in P.V.
+``NotImplementedError``. Any ``skv`` is taken, any head_dim d >= 1 and any
+group ``hq / hkv`` >= 1, in bf16 or fp32. Up to ``MAX_HEAD_DIM`` (256) the
+call runs at the least of ``HEAD_DIMS`` at or above d, as the flash
+kernel; above it, ``decode_wide_kernel`` takes the output's columns in
+``flash_attention.col_tiles(d)`` tiles of at most 256, a block each, each
+recomputing the scores over the whole d (streamed in pieces, in the same
+order in every tile) and combining its own columns. A group above
+``MAX_GROUP`` (16) runs in ``group_slices(g)`` slices of at most 16 q
+heads, a block each, each reading the kv head's rows. Only d < 1 raises.
+:func:`pv_layout` is the kernel's arithmetic for who owns which head,
+16 bytes of d and cache row in P.V, and names the route.
 
 The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
 each over ``split_rows(skv)`` cache rows, combined in the same launch by
@@ -59,6 +63,7 @@ KERNEL = register_kernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
      _P])
 TILE = 64   # cache rows per tile inside a block; split_rows is a multiple
+WIDE_PIECE = 64     # columns of d a streamed piece above MAX_HEAD_DIM
 MAX_SPLITS = 16
 # Combine counters, one list per device; every buffer stays alive, since a
 # captured CUDA graph keeps the pointer it was given.
@@ -83,12 +88,13 @@ def group_bucket(g: int, d: Optional[int] = None) -> int:
     16; the group is a constant there where it equals its bucket, else
     read at run time. A head dim ``d`` below its padded D takes the
     padded instantiation, the run-time bucket 16, at any group, and so
-    does every d at D 256 (the one instantiation there)."""
+    does every d at D 256 (the one instantiation there) and above (the
+    column-tile kernel, which reads the group at run time)."""
     if g < 1:
         raise ValueError(f"hq / hkv = {g} is not a group of q heads")
     if d is not None:
         big = _flash.padded_head_dim(d)
-        if d != big or big == MAX_HEAD_DIM:
+        if d != big or big >= MAX_HEAD_DIM:
             return MAX_GROUP
     return next((gm for gm in (1, 2, 4, 8, 16) if gm >= g), MAX_GROUP)
 
@@ -110,9 +116,24 @@ def pv_layout(element_size: int, d: int, g: int) -> Dict[str, int]:
     hg * i`` below gb for i < ``hpt``. ``vec``: the rows load as whole
     16-byte chunks (else element by element, zero past d). ``stages``:
     tiles in flight (``Layout::kStages``; one where two would not fit in
-    ``MAX_SMEM``)."""
+    ``MAX_SMEM``). ``route``: ``"split"`` (``decode_split_kernel``).
+
+    Above ``MAX_HEAD_DIM``, ``route`` ``"wide"`` (``decode_wide_kernel``):
+    ``col_tiles`` blocks a (split, kv head, slice), each over ``tile``
+    output columns (the last cut at d), thread t owning columns t and t +
+    ``THREADS`` of its tile for each of the slice's heads; one tile in
+    flight, K and q staged in ``WIDE_PIECE``-column pieces, ``smem``
+    bytes."""
     ve = 16 // element_size
     big = _flash.padded_head_dim(d)
+    if big > MAX_HEAD_DIM:
+        n, tw = _flash.col_tiles(d)
+        smem = 4 * (MAX_GROUP * WIDE_PIECE + TILE * (WIDE_PIECE + 1) +
+                    TILE * (_flash.WIDE_TILE_COLS + 1) + MAX_GROUP * TILE +
+                    3 * MAX_GROUP)
+        return {"route": "wide", "D": d, "col_tiles": n, "tile": tw,
+                "cols_per_thread": _flash.WIDE_TILE_COLS // THREADS,
+                "slices": group_slices(g), "stages": 1, "smem": smem}
     ch = big // ve
     hg = THREADS // ch
     gm = group_bucket(g, d)
@@ -120,7 +141,8 @@ def pv_layout(element_size: int, d: int, g: int) -> Dict[str, int]:
     r_slices = hg // gb if gb < hg else 1
     stage = element_size * 2 * TILE * (big + ve)        # K and V tiles
     fixed = 4 * (gm * big + gm * TILE + THREADS * ve + 3 * gm)
-    return {"D": big, "ve": ve, "ch": ch, "chunks": -(-d // ve),
+    return {"route": "split", "D": big, "ve": ve, "ch": ch,
+            "chunks": -(-d // ve),
             "vec": d % ve == 0, "hg": hg, "hpt": -(-gm // hg),
             "r_slices": r_slices, "active": min(hg, r_slices * gb),
             "slices": group_slices(g),
@@ -185,11 +207,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g, splits = hq // hkv, num_splits(skv)
     gs, per = group_slices(g), min(g, MAX_GROUP)
     # One fp32 scratch for the partials: (m, l) of each (b, kv head, slice,
-    # split, q head of the slice), then their accumulators of D each.
-    n_part = b * hkv * gs * splits * per
-    part = torch.empty(n_part * (2 + big), dtype=torch.float32,
+    # column tile, split, q head of the slice), then their accumulators of
+    # D (a column tile's width at most, above MAX_HEAD_DIM) each.
+    nct = _flash.col_tiles(d)[0]
+    width = min(big, _flash.WIDE_TILE_COLS)
+    n_part = b * hkv * gs * nct * splits * per
+    part = torch.empty(n_part * (2 + width), dtype=torch.float32,
                        device=q.device)
-    counter = _counter(q.device, b * hkv * gs)
+    counter = _counter(q.device, b * hkv * gs * nct)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
            out.data_ptr(), None if lse is None else lse.data_ptr(),
            part.data_ptr(), part.data_ptr() + 8 * n_part,

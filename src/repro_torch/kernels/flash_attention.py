@@ -6,22 +6,27 @@ JAX package. A tensor on the CPU goes to the plain version
 (``ref.attention_ref``); a CUDA tensor goes to the kernel, or the call
 raises; a fake CUDA tensor to its fake path (checked, outputs
 allocated, counted by the dry run, not launched). Any ``sq`` and ``skv``
-are taken, any ``hq / hkv``, and any head_dim d from 1 to
-``MAX_HEAD_DIM`` (256), forward and backward alike: a call runs at
+are taken, any ``hq / hkv``, and any head_dim d >= 1, forward and
+backward alike: up to ``MAX_HEAD_DIM`` (256) a call runs at
 ``padded_head_dim(d)``, the least of ``HEAD_DIMS`` (16, 32, 64, 128, 160,
-256) at or above d, its columns past d zero. Above 256 it raises (the
-Pallas kernel computes there; no public decoder has such a head dim).
+256) at or above d, its columns past d zero; above it, on the column-tile
+kernels at the real d. Only d < 1 raises.
 
-Two hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
-tensor, both launched and counted as ``flash_attention``, on the route
+Three hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
+tensor, each launched and counted as ``flash_attention``, on the route
 :func:`fwd_design` names:
 
 * ``"wgmma"``, bf16 where d is a multiple of 8 above 32 (the serving path
   at 64, 128 and 160): ``flash_fwd_wgmma_kernel``, tensor cores (wgmma,
   fp32 accumulators, P rounded to bf16 for P.V) fed by TMA, 64-column
   boxes zero past d;
-* ``"simt"``, fp32 at any head_dim and bf16 at the others:
-  ``flash_fwd_simt_kernel``, full fp32 products on the CUDA cores.
+* ``"simt"``, fp32 at any head_dim up to 256 and bf16 at the others:
+  ``flash_fwd_simt_kernel``, full fp32 products on the CUDA cores;
+* ``"wide"``, fp32 and bf16 above 256: ``flash_fwd_wide_kernel``, full
+  fp32 products on the CUDA cores, a block a (q tile, q head, batch,
+  column tile of at most 256 output columns, ``col_tiles``): each
+  recomputes the scores over the whole d, streamed in pieces in the same
+  order in every tile, and writes its own columns.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
@@ -35,9 +40,13 @@ two kernels on the route :func:`bwd_design` names:
   operands) fed by TMA, deterministic (no atomics); D 160 and 256 in
   three and four boxes as the forward's, the dK/dV kernel on two
   warpgroups;
-* ``"simt"``, fp32 at any head_dim and bf16 at the others:
+* ``"simt"``, fp32 at any head_dim up to 256 and bf16 at the others:
   ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
-  products on the CUDA cores.
+  products on the CUDA cores;
+* ``"wide"``, above 256: ``flash_bwd_dkdv_wide_kernel`` and
+  ``flash_bwd_dq_wide_kernel``, the forward's column tiles (S and dP
+  recomputed over the whole d in each, each writing its own columns of
+  dK, dV or dQ; no atomics).
 
 delta = rowsum(dO * O) is summed over the real d.
 
@@ -59,7 +68,8 @@ from repro_torch.kernels.ref import (attention_bwd_ref, attention_lse_ref,
 from repro_torch.roofline import kernel_cost
 
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)   # the instantiated (padded) dims
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_HEAD_DIM = HEAD_DIMS[-1]    # above it, the column-tile kernels
+WIDE_TILE_COLS = 256    # output columns a column tile, at most
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
@@ -70,25 +80,38 @@ KERNEL_BWD = register_kernel(
 
 
 def padded_head_dim(d: int) -> int:
-    """The instantiated head dim a call of head dim ``d`` runs at (the C
-    ``padded_dim``): the least of ``HEAD_DIMS`` at or above it; d outside
-    1..``MAX_HEAD_DIM`` raises."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} not in 1..{MAX_HEAD_DIM} (no "
-                         f"kernel is built above {MAX_HEAD_DIM})")
-    return next(dd for dd in HEAD_DIMS if dd >= d)
+    """The head dim a call of head dim ``d`` runs at (the C
+    ``padded_dim``): the least of ``HEAD_DIMS`` at or above it, or d
+    itself above ``MAX_HEAD_DIM`` (the column-tile kernels pad nothing);
+    d < 1 raises."""
+    if d < 1:
+        raise ValueError(f"head_dim {d} is not a head dim (no kernel takes "
+                         f"d < 1)")
+    return next((dd for dd in HEAD_DIMS if dd >= d), d)
+
+
+def col_tiles(d: int) -> tuple[int, int]:
+    """(tiles, width) of the column-tile kernels above ``MAX_HEAD_DIM``
+    (the C ``wide_col_tiles``, ``wide_tile_width``): ceil(d / 256) tiles of
+    equal width rounded up to 16, the last cut at d; one tile of d below."""
+    if d <= MAX_HEAD_DIM:
+        return 1, padded_head_dim(d)
+    n = -(-d // WIDE_TILE_COLS)
+    width = -(-d // n)
+    return n, -(-width // 16) * 16
 
 
 def fwd_design(dtype: torch.dtype, d: int) -> str:
     """The forward's route on the card, as ``repro_flash_attention``
-    dispatches it (the C ``tc_route``): ``"wgmma"`` for bfloat16 where d
-    is a multiple of 8 above 32 (the TMA maps' rows are whole 16-byte
-    chunks), else ``"simt"``; a dtype or head_dim no kernel takes
-    raises."""
+    dispatches it (the C ``tc_route``): ``"wide"`` above ``MAX_HEAD_DIM``;
+    ``"wgmma"`` for bfloat16 where d is a multiple of 8 above 32 (the TMA
+    maps' rows are whole 16-byte chunks); else ``"simt"``; a dtype or
+    head_dim no kernel takes raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
-    padded_head_dim(d)
+    if padded_head_dim(d) > MAX_HEAD_DIM:
+        return "wide"
     return "wgmma" if dtype == torch.bfloat16 and d > 32 and d % 8 == 0 \
         else "simt"
 

@@ -8,16 +8,15 @@
 * A CUDA tensor goes to the hand-written kernel, or the call raises. As in
   the JAX package's kernel modes, ``impl`` is not read there. ``rmsnorm``
   honours ``lowp`` on both devices.
-* Under grad mode, where an input requires grad, ``rmsnorm`` (lowp off),
-  ``attention`` and ``ssd`` run through their ``torch.autograd.Function``:
-  the same forward, and a backward that is a hand-written kernel on the
-  card and the closed-form plain backward on the CPU.
-  ``decode_attention`` and ``int8_matmul`` have no backward kernel: on the
-  card they raise ``NotImplementedError`` rather than return a result that
-  carries no gradient (a kernel writes through a raw pointer, which
-  autograd does not see); on the CPU autograd runs through the plain
-  version. So does ``rmsnorm`` with ``lowp``, which raises on the card
-  under grad.
+* Under grad mode, where an input requires grad, ``rmsnorm`` (with or
+  without ``lowp``), ``attention`` and ``ssd`` run through their
+  ``torch.autograd.Function``: the same forward, and a backward that is a
+  hand-written kernel on the card and the closed-form plain backward on
+  the CPU. ``decode_attention`` and ``int8_matmul`` have no backward
+  kernel: on the card they raise ``NotImplementedError`` rather than
+  return a result that carries no gradient (a kernel writes through a raw
+  pointer, which autograd does not see); on the CPU autograd runs through
+  the plain version.
 
 There is no process-global mode: the device of the data decides.
 

@@ -61,6 +61,32 @@ def rmsnorm_lowp(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return x * inv * w.to(x.dtype)
 
 
+def rmsnorm_lowp_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                         eps: float = 1e-5
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``rmsnorm_lowp`` in closed form, rounded where
+    ``jax.grad`` of the JAX package's ``rmsnorm_lowp`` rounds: with j =
+    mean(x^2) + eps, r = rsqrt(j), inv = r in x's dtype and g = dy * w in
+    x's dtype, every product below in x's dtype,
+    dx = g inv + (sum(x g) (-r / (2 j)) / d) 2x, that term rounded before
+    the add; dw = sum over rows of (x inv) dy, rounded to x's dtype, in w's.
+    The sums run in fp32 and are rounded once. In float32 (and float64)
+    every rounding is the identity: this is ``rmsnorm_bwd_ref``."""
+    if x.dtype in (torch.float32, torch.float64):
+        return rmsnorm_bwd_ref(x, w, dy, eps)
+    dt, d = x.dtype, x.shape[-1]
+    xf = x.float()
+    j = torch.sum(xf * xf, dim=-1, keepdim=True) / d + eps
+    r = torch.rsqrt(j)
+    inv = r.to(dt)
+    g = dy * w.to(dt)
+    sd = (x * g).float().sum(-1, keepdim=True).to(dt).float()
+    c = sd * (-0.5 * (r / j)) / d
+    dx = ((g * inv).float() + (c * (2 * xf)).to(dt).float()).to(dt)
+    dw = ((x * inv) * dy).float().reshape(-1, d).sum(0).to(dt)
+    return dx, dw.to(w.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention (prefill / train): GQA, causal or full.
 # q: (b, sq, hq, d)   k, v: (b, skv, hkv, d)

@@ -12,9 +12,10 @@ Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`RMSNormFunction`: the same forward, and a
 backward that is one C call on the card (counted as ``rmsnorm_bwd``;
 :func:`bwd_design` picks its design, :func:`bwd_plan` sets its launch) and
-``ref.rmsnorm_bwd_ref`` on the CPU.
-``lowp`` has no backward kernel: under grad it raises on the card, and on
-the CPU autograd runs through ``ref.rmsnorm_lowp``.
+the closed form on the CPU (``ref.rmsnorm_bwd_ref``, or
+``ref.rmsnorm_lowp_bwd_ref`` with ``lowp``: ``jax.grad`` of
+``ref.rmsnorm_lowp``, whose multiply chain and its backward run in bf16).
+Both directions take any row width, with or without ``lowp``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 from repro_torch.kernels._build import (check_operand, dtype_code, is_fake,
                                         needs_grad, num_sms, on_card,
                                         register_kernel, stream_handle)
-from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_lowp, rmsnorm_ref
+from repro_torch.kernels.ref import (rmsnorm_bwd_ref, rmsnorm_lowp,
+                                     rmsnorm_lowp_bwd_ref, rmsnorm_ref)
 from repro_torch.roofline import kernel_cost
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -34,7 +36,7 @@ KERNEL = register_kernel("rmsnorm", "repro_rmsnorm",
                          [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                           _P])
 KERNEL_BWD = register_kernel("rmsnorm_bwd", "repro_rmsnorm_bwd",
-                             [_P] * 6 + [_I, _I, _F] + [_I] * 7 + [_P])
+                             [_P] * 6 + [_I, _I, _F] + [_I] * 8 + [_P])
 MAX_NV = 8      # chunks a lane holds in registers
 MAX_WPR = 8     # warps a row
 MAX_ROWS_PER_BLOCK = 8
@@ -70,11 +72,12 @@ def plan(rows: int, d: int, element_size: int, aligned: bool
 # block_rows, a block a row at a time, then a second kernel for dw (the
 # first design); ring, one persistent block an SM streaming its rows
 # through a shared-memory ring, dw's column sums after a grid sync in the
-# same launch.
-BLOCK_ROWS, RING = 0, 1
-BWD_DESIGNS = {BLOCK_ROWS: "block_rows", RING: "ring"}
-BWD_THREADS = 256       # threads a block of block_rows
-BWD_MAX_CHUNKS = 2048   # chunks a row of the backward, at most
+# same launch; stream, a block a row at a time in two passes over the row
+# (its sums, then dx and dw), nothing of it held, for rows of any width.
+BLOCK_ROWS, RING, STREAM = 0, 1, 2
+BWD_DESIGNS = {BLOCK_ROWS: "block_rows", RING: "ring", STREAM: "stream"}
+BWD_THREADS = 256       # threads a block of block_rows and stream
+BWD_MAX_CHUNKS = 2048   # chunks a row of ring and block_rows, at most
 BWD_BLOCKS_PER_SM = 2   # block_rows: blocks an SM
 # block_rows: chunks a thread at most, of 16 bytes and of one element
 BLOCK_ROWS_MAX_NV = {True: 4, False: 8}
@@ -96,18 +99,28 @@ class BwdPlan(NamedTuple):
     blocks: int
 
 
+def _chunks(d: int, element_size: int, aligned: bool) -> tuple[bool, int]:
+    """(vec, chunks): 16-byte chunks where d fills them and every pointer is
+    16-byte aligned, else single elements."""
+    vec = aligned and (d * element_size) % 16 == 0
+    return vec, d * element_size // 16 if vec else d
+
+
 def bwd_design(d: int, element_size: int, aligned: bool) -> int:
-    """``RING`` where the row is 16-byte chunks (d fills them and every
-    pointer is 16-byte aligned), which its bulk copies need; else
-    ``BLOCK_ROWS`` (single-element chunks)."""
-    return RING if aligned and (d * element_size) % 16 == 0 else BLOCK_ROWS
+    """``RING`` where the row is at most ``BWD_MAX_CHUNKS`` 16-byte chunks,
+    which its bulk copies need; ``BLOCK_ROWS`` where it is at most as many
+    single elements; ``STREAM`` for every wider row."""
+    vec, chunks = _chunks(d, element_size, aligned)
+    if chunks > BWD_MAX_CHUNKS:
+        return STREAM
+    return RING if vec else BLOCK_ROWS
 
 
 def bwd_plan(rows: int, d: int, element_size: int, aligned: bool,
              num_sms: int, design: Optional[int] = None) -> BwdPlan:
-    """The launch of ``design`` (:func:`bwd_design`'s by default). A row of
-    more than ``BWD_MAX_CHUNKS`` chunks raises, as does a design that does
-    not take the row.
+    """The launch of ``design`` (:func:`bwd_design`'s by default). A design
+    that does not take the row raises: ring and block_rows past
+    ``BWD_MAX_CHUNKS`` chunks, or where their other limits say so.
 
     block_rows: ``nv`` the least power of two with ``nv * BWD_THREADS``
     chunks >= the row's (up to ``BLOCK_ROWS_MAX_NV``); ``blocks`` blocks of
@@ -121,14 +134,19 @@ def bwd_plan(rows: int, d: int, element_size: int, aligned: bool,
     rows; ``spg`` slots for each of the ``RING_WARPS // wpr`` row groups:
     enough for the group's rows, within ``RING_BYTES`` and
     ``RING_MAX_SLOTS``. The C side sizes the launch's shared memory and
-    refuses a plan that does not fit a block."""
-    vec = aligned and (d * element_size) % 16 == 0
-    chunks = d * element_size // 16 if vec else d
-    if chunks > BWD_MAX_CHUNKS:
-        raise ValueError(f"rmsnorm backward takes rows of at most "
-                         f"{BWD_MAX_CHUNKS} chunks, got {chunks}")
+    refuses a plan that does not fit a block.
+
+    stream: any row, ``blocks`` as block_rows'."""
+    vec, chunks = _chunks(d, element_size, aligned)
     design = bwd_design(d, element_size, aligned) if design is None \
         else design
+    row_blocks = max(1, min(rows, BWD_BLOCKS_PER_SM * num_sms))
+    if design == STREAM:
+        return BwdPlan(STREAM, vec, 1, 1, 0, row_blocks)
+    if chunks > BWD_MAX_CHUNKS:
+        raise ValueError(f"the {BWD_DESIGNS.get(design, design)} design "
+                         f"takes rows of at most {BWD_MAX_CHUNKS} chunks, "
+                         f"got {chunks}")
     if design == BLOCK_ROWS:
         nv = 1
         while nv * BWD_THREADS < chunks:
@@ -137,8 +155,7 @@ def bwd_plan(rows: int, d: int, element_size: int, aligned: bool,
             raise ValueError(f"block_rows takes rows of at most "
                              f"{BLOCK_ROWS_MAX_NV[vec] * BWD_THREADS} "
                              f"chunks of this size, got {chunks}")
-        return BwdPlan(BLOCK_ROWS, vec, nv, 1, 0,
-                       max(1, min(rows, BWD_BLOCKS_PER_SM * num_sms)))
+        return BwdPlan(BLOCK_ROWS, vec, nv, 1, 0, row_blocks)
     if design != RING:
         raise ValueError(f"unknown rmsnorm backward design {design}")
     if not vec:
@@ -165,40 +182,39 @@ def plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
 
 
 def plain_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-              eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+              eps: float = 1e-5, lowp: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    if lowp:
+        return rmsnorm_lowp_bwd_ref(x, w, dy, eps)
     return rmsnorm_bwd_ref(x, w, dy, eps)
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """rmsnorm (lowp off) with its backward: kernels on the card, the
-    closed form ``plain_bwd`` on the CPU."""
+    """rmsnorm with its backward: kernels on the card, the closed form
+    ``plain_bwd`` on the CPU."""
 
     @staticmethod
-    def forward(ctx, x, w, eps):
+    def forward(ctx, x, w, eps, lowp=False):
         ctx.save_for_backward(x, w)
-        ctx.eps = eps
-        return _forward(x, w, eps, False)
+        ctx.eps, ctx.lowp = eps, lowp
+        return _forward(x, w, eps, lowp)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
         if on_card(x, "rmsnorm"):
-            dx, dw = _kernel_backward(x, w, dy, ctx.eps)
+            dx, dw = _kernel_backward(x, w, dy, ctx.eps, lowp=ctx.lowp)
         else:
-            dx, dw = plain_bwd(x, w, dy, ctx.eps)
-        return dx, dw, None
+            dx, dw = plain_bwd(x, w, dy, ctx.eps, ctx.lowp)
+        return dx, dw, None, None
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
             lowp: bool = False) -> torch.Tensor:
     """x: (..., d) float32/bfloat16, w: (d,) float32 -> x's shape/dtype."""
     if needs_grad(x, w):
-        if not lowp:
-            return RMSNormFunction.apply(x, w, eps)
-        if on_card(x, "rmsnorm"):
-            raise NotImplementedError(
-                "rmsnorm with lowp has no backward kernel")
+        return RMSNormFunction.apply(x, w, eps, lowp)
     return _forward(x, w, eps, lowp)
 
 
@@ -233,11 +249,13 @@ def _kernel_forward(x: torch.Tensor, w: torch.Tensor, eps: float,
 
 
 def _kernel_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-                     eps: float, design: Optional[int] = None
+                     eps: float, design: Optional[int] = None,
+                     lowp: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """dx, dw on the card, by ``design`` (:func:`bwd_design`'s by default,
     as training calls it); raises where that design does not take the
-    row."""
+    row. ``lowp``: the gradient of ``ref.rmsnorm_lowp`` (in fp32 the plain
+    one's arithmetic)."""
     d = x.shape[-1]
     check_operand("x", x, x.device, x.dim(), aligned=False)
     check_operand("w", w, x.device, 1, torch.float32, aligned=False)
@@ -260,6 +278,6 @@ def _kernel_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     part = torch.empty((p.blocks, d), dtype=torch.float32, device=x.device)
     KERNEL_BWD(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                dw.data_ptr(), part.data_ptr(), rows, d, float(eps),
-               dtype_code(x), p.design, int(p.vec), p.nv, p.wpr, p.spg,
-               p.blocks, stream_handle(x.device))
+               int(lowp), dtype_code(x), p.design, int(p.vec), p.nv, p.wpr,
+               p.spg, p.blocks, stream_handle(x.device))
     return dx, dw

@@ -297,9 +297,9 @@ def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
 
 def test_flash_bwd_design_routes():
     """bf16 at d 64, 128, 160 and 256 (every instantiated d above 32)
-    takes the wgmma kernels, everything else the CUDA-core ones; the
-    backward takes every head dim the forward does; what no kernel takes
-    raises."""
+    takes the wgmma kernels, everything else up to 256 the CUDA-core ones
+    and above 256 the column-tile ones; the backward takes every head dim
+    the forward does; what no kernel takes raises."""
     assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
     assert tflash.bwd_design(torch.float32, 160) == "simt"
     for dtype in (torch.float32, torch.bfloat16):
@@ -307,8 +307,9 @@ def test_flash_bwd_design_routes():
             want = "wgmma" if dtype == torch.bfloat16 and \
                 d in (64, 128, 160, 256) else "simt"
             assert tflash.bwd_design(dtype, d) == want
+    assert tflash.bwd_design(torch.bfloat16, 257) == "wide"
     with pytest.raises(ValueError):
-        tflash.bwd_design(torch.bfloat16, 257)
+        tflash.bwd_design(torch.bfloat16, 0)
     with pytest.raises(TypeError):
         tflash.bwd_design(torch.float16, 64)
 
@@ -385,7 +386,29 @@ def dw_slice_width(d, nparts):
     return sw
 
 
-def rmsnorm_bwd_emulated(x, w, dy, eps, plan):
+def _rb(t):
+    """t rounded to bf16, back in fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def rmsnorm_bwd_row(xr, wf, gr, eps, lowp):
+    """One row of every backward design (``bwd_row``, ``sd_add``, ``dx_of``
+    and ``dw_add`` of ``csrc/rmsnorm.cu``), in fp32 on the row's values:
+    (dx before the store rounds it, the row's dw term). ``lowp`` rounds as
+    the bf16 kernels do; the plain arithmetic otherwise."""
+    d = xr.shape[-1]
+    j = (xr * xr).sum() / d + eps
+    r = torch.rsqrt(j)
+    if not lowp:
+        k = r * r * r * ((xr * (wf * gr)).sum() / d)
+        return r * (wf * gr) - xr * k, gr * (xr * r)
+    g = _rb(gr * _rb(wf))
+    inv = _rb(r)
+    c = _rb(_rb(xr * g).sum()) * (-0.5 * (r / j)) / d
+    return _rb(g * inv) + _rb(c * (2 * xr)), _rb(_rb(xr * inv) * gr)
+
+
+def rmsnorm_bwd_emulated(x, w, dy, eps, plan, lowp=False):
     """The ring design of ``csrc/rmsnorm.cu`` in fp32, launch for launch:
     block b of ``plan.blocks`` takes the contiguous rows
     ``ring_rows(rows, blocks, b)``; its row group g of ``RING_WARPS //
@@ -394,7 +417,8 @@ def rmsnorm_bwd_emulated(x, w, dy, eps, plan):
     its partial row. Then, after the grid sync, column slice j of
     ``dw_slice_width(d, blocks)`` columns: for each column, thread q of
     tpc = ``RING_THREADS // sw`` sums partials q, q + tpc, ... in order,
-    and the tpc sums are added in q order."""
+    and the tpc sums are added in q order (rounded to bf16 once under
+    ``lowp``)."""
     xf, gf, wf = (t.detach().to(torch.float32) for t in (x, dy, w))
     d = xf.shape[-1]
     xf, gf = xf.reshape(-1, d), gf.reshape(-1, d)
@@ -407,10 +431,8 @@ def rmsnorm_bwd_emulated(x, w, dy, eps, plan):
         sums = torch.zeros((groups, d))
         for g in range(groups):
             for r in rows[g::groups]:
-                rr = torch.rsqrt((xf[r] * xf[r]).sum() / d + eps)
-                k = rr * rr * rr * ((xf[r] * (wf * gf[r])).sum() / d)
-                dx[r] = rr * (wf * gf[r]) - xf[r] * k
-                sums[g] = sums[g] + gf[r] * (xf[r] * rr)
+                dx[r], dw_r = rmsnorm_bwd_row(xf[r], wf, gf[r], eps, lowp)
+                sums[g] = sums[g] + dw_r
         for g in range(groups):
             part[b] = part[b] + sums[g]
     sw = dw_slice_width(d, blocks)
@@ -423,14 +445,24 @@ def rmsnorm_bwd_emulated(x, w, dy, eps, plan):
             for p_ in range(q, blocks, tpc):
                 s_ = s_ + part[p_, cols]
             dw[cols] = dw[cols] + s_
-    return dx.reshape(x.shape), dw
+    return _stored(dx, x, lowp), _rb(dw) if lowp else dw
 
 
-def rmsnorm_bwd_block_rows_emulated(x, w, dy, eps, blocks, warps=8):
+def _stored(dx, x, lowp):
+    """dx as the kernel stores it: in x's dtype (bf16 under lowp)."""
+    dx = dx.reshape(x.shape)
+    return _rb(dx) if lowp else dx
+
+
+def rmsnorm_bwd_block_rows_emulated(x, w, dy, eps, blocks, warps=8,
+                                    lowp=False):
     """The block_rows design (``rmsnorm_bwd_kernel`` and
     ``rmsnorm_dw_kernel``) in fp32: block j takes rows j, j + blocks, ...
     and keeps its own partial dw; the second kernel's warp i sums partials
-    i, i + warps, ..., then the warps' sums are added in warp order."""
+    i, i + warps, ..., then the warps' sums are added in warp order
+    (rounded to bf16 once under ``lowp``). The stream design
+    (``rmsnorm_bwd_stream_kernel``) takes the rows and sums the partials
+    the same way: it differs in what it holds, not in its order."""
     xf, gf, wf = (t.detach().to(torch.float32) for t in (x, dy, w))
     d = xf.shape[-1]
     xf, gf = xf.reshape(-1, d), gf.reshape(-1, d)
@@ -438,15 +470,13 @@ def rmsnorm_bwd_block_rows_emulated(x, w, dy, eps, blocks, warps=8):
     part = torch.zeros((blocks, d))
     for j in range(blocks):
         for r in range(j, xf.shape[0], blocks):
-            rr = torch.rsqrt((xf[r] * xf[r]).sum() / d + eps)
-            k = rr * rr * rr * ((xf[r] * (wf * gf[r])).sum() / d)
-            dx[r] = rr * (wf * gf[r]) - xf[r] * k
-            part[j] += gf[r] * (xf[r] * rr)
+            dx[r], dw_r = rmsnorm_bwd_row(xf[r], wf, gf[r], eps, lowp)
+            part[j] += dw_r
     by_warp = [part[i::warps].sum(0) for i in range(warps)]
     dw = torch.zeros(d)
     for s_ in by_warp:
         dw = dw + s_
-    return dx.reshape(x.shape), dw
+    return _stored(dx, x, lowp), _rb(dw) if lowp else dw
 
 
 def _rmsnorm_bwd_inputs(rng, rows, d):
@@ -496,21 +526,125 @@ def test_rmsnorm_block_rows_emulation_matches_autograd_and_jax(rows, d,
         x, w, dy, 1e-5, min(rows, blocks)))
 
 
+def _bf16_rms_inputs(rng, rows, d):
+    x, w, dy = _rmsnorm_bwd_inputs(rng, rows, d)
+    return x.to(torch.bfloat16), w, dy.to(torch.bfloat16)
+
+
+def _jax_lowp_grads(x, w, dy):
+    """``jax.vjp`` of the JAX package's ``rmsnorm_lowp`` in bf16."""
+    _, vjp = jax.vjp(lambda a, b_: jref.rmsnorm_lowp(a, b_, 1e-5),
+                     jnp.asarray(_np(x.float()), jnp.bfloat16),
+                     jnp.asarray(_np(w)))
+    gx, gw = vjp(jnp.asarray(_np(dy.float()), jnp.bfloat16))
+    return np.asarray(gx.astype(jnp.float32)), np.asarray(gw)
+
+
+@pytest.mark.parametrize("rows,d", [(7, 64), (33, 100), (2, 2050),
+                                    (4, 4096), (64, 32)])
+def test_rmsnorm_lowp_bwd_ref_matches_jax_grad(rows, d, rng):
+    """``ref.rmsnorm_lowp_bwd_ref`` against ``jax.grad`` of
+    ``repro.kernels.ref.rmsnorm_lowp`` in bf16, at BF16_TOL of max(1,
+    max-abs): the same rounding points, but the sums in fp32 rounded once,
+    where XLA on the CPU rounds a bf16 sum after every add. In fp32 it is
+    the plain backward."""
+    x, w, dy = _bf16_rms_inputs(rng, rows, d)
+    dx, dw = tref.rmsnorm_lowp_bwd_ref(x, w, dy)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    for got, want in zip((dx, dw), _jax_lowp_grads(x, w, dy)):
+        _close(_np(got.float()), want, BF16_TOL)
+    xf, wf, gf = x.float(), w, dy.float()
+    for a, b_ in zip(tref.rmsnorm_lowp_bwd_ref(xf, wf, gf),
+                     tref.rmsnorm_bwd_ref(xf, wf, gf)):
+        assert torch.equal(a, b_)
+
+
+def test_rmsnorm_lowp_bwd_ref_rounds_where_jax_grad_rounds(rng):
+    """One row of 32 (one window of XLA's bf16 sum, which then rounds after
+    each add in order): the closed form with its sums so rounded gives
+    ``jax.grad``'s dx and dw bit for bit, so every other rounding point is
+    the JAX package's."""
+    x, w, dy = _bf16_rms_inputs(rng, 32, 32)
+    xf = x.float()
+    j = (xf * xf).sum(-1, keepdim=True) / 32 + 1e-5
+    r = torch.rsqrt(j)
+    inv = r.to(torch.bfloat16)
+    g = dy * w.to(torch.bfloat16)
+
+    def seq(t, dim):        # a bf16 sum rounded after every add
+        t = t.movedim(dim, 0)
+        acc = torch.zeros_like(t[0])
+        for i in range(t.shape[0]):
+            acc = acc + t[i]
+        return acc
+    sd = seq(x * g, -1).unsqueeze(-1).float()
+    c = sd * (-0.5 * (r / j)) / 32
+    dx = ((g * inv).float() + (c * (2 * xf)).to(torch.bfloat16).float()
+          ).to(torch.bfloat16)
+    dw = seq((x * inv) * dy, 0).float()
+    jdx, jdw = _jax_lowp_grads(x, w, dy)
+    assert np.array_equal(_np(dx.float()), jdx)
+    assert np.array_equal(_np(dw), jdw)
+
+
+# (rows, d, design) of the emulations under lowp and of the stream design:
+# training's 2048 x 2048 on the ring, block_rows at single elements, and
+# the rows only the stream design takes (20000 16-byte-chunked elements,
+# 2050 single ones).
+RMS_LOWP_CASES = [(2048, 2048, "ring"), (64, 100, "block_rows"),
+                  (2, 20000, "stream"), (2, 2050, "stream")]
+
+
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("rows,d,design", RMS_LOWP_CASES)
+def test_rmsnorm_bwd_designs_under_lowp_and_wide_rows(rows, d, design, lowp,
+                                                      rng):
+    """Each design's emulation in bf16, the plan ``bwd_plan`` gives the
+    shape, against the closed form (``rmsnorm_lowp_bwd_ref`` or
+    ``rmsnorm_bwd_ref``) and ``jax.grad`` of the JAX reference, at
+    BF16_TOL of max(1, max-abs)."""
+    x, w, dy = _bf16_rms_inputs(rng, rows, d)
+    plan = trmsnorm.bwd_plan(rows, d, 2, True, 132)
+    assert trmsnorm.BWD_DESIGNS[plan.design] == design
+    if plan.design == trmsnorm.RING:
+        emu = rmsnorm_bwd_emulated(x, w, dy, 1e-5, plan, lowp)
+    else:
+        emu = rmsnorm_bwd_block_rows_emulated(x, w, dy, 1e-5, plan.blocks,
+                                              lowp=lowp)
+    closed = trmsnorm.plain_bwd(x, w, dy, 1e-5, lowp)
+    if lowp:
+        jgrads = _jax_lowp_grads(x, w, dy)
+    else:
+        _, vjp = jax.vjp(lambda a, b_: jref.rmsnorm_ref(a, b_, 1e-5),
+                         jnp.asarray(_np(x.float()), jnp.bfloat16),
+                         jnp.asarray(_np(w)))
+        jgrads = [np.asarray(jnp.asarray(g_, jnp.float32)) for g_ in
+                  vjp(jnp.asarray(_np(dy.float()), jnp.bfloat16))]
+    for got, want, jw in zip(emu, closed, jgrads):
+        _close(_np(got.float()), _np(want.float()), BF16_TOL)
+        _close(_np(got.float()), jw, BF16_TOL)
+
+
 @pytest.mark.parametrize("element_size", [2, 4])
 @pytest.mark.parametrize("d", [8, 100, 768, 2048, 8192, 16384])
 def test_rmsnorm_bwd_plan_fits_the_kernel(element_size, d):
     """16-byte chunks take the ring design, single elements block_rows;
     each plan's chunks cover the row with the fewest lanes and warps of the
-    C dispatch, and rows wider than BWD_MAX_CHUNKS raise. At 2048 rows on
-    132 SMs the ring's grid fits the grid barrier (a block an SM at most),
-    its shared memory fits a block, and its blocks and row groups take
-    every row once, in slots that fit RING_BYTES."""
+    C dispatch, and rows wider than BWD_MAX_CHUNKS take the stream design
+    (ring and block_rows, asked for there, raise). At 2048 rows on 132 SMs
+    the ring's grid fits the grid barrier (a block an SM at most), its
+    shared memory fits a block, and its blocks and row groups take every
+    row once, in slots that fit RING_BYTES."""
     for aligned in (True, False):
         vec = aligned and (d * element_size) % 16 == 0
         chunks = d * element_size // 16 if vec else d
         if chunks > trmsnorm.BWD_MAX_CHUNKS:
-            with pytest.raises(ValueError):
-                trmsnorm.bwd_plan(5, d, element_size, aligned, 132)
+            assert trmsnorm.bwd_plan(5, d, element_size, aligned, 132) == \
+                trmsnorm.BwdPlan(trmsnorm.STREAM, vec, 1, 1, 0, 5)
+            for design in (trmsnorm.RING, trmsnorm.BLOCK_ROWS):
+                with pytest.raises(ValueError):
+                    trmsnorm.bwd_plan(5, d, element_size, aligned, 132,
+                                      design)
             continue
         p = trmsnorm.bwd_plan(5, d, element_size, aligned, 132)
         assert p.vec == vec and p.blocks == 5
@@ -558,7 +692,7 @@ def test_rmsnorm_bwd_block_rows_takes_what_it_did():
         trmsnorm.bwd_plan(9, 16384, 2, True, 132, br)
     assert trmsnorm.bwd_plan(9, 2048, 2, False, 132).nv == 8
     with pytest.raises(ValueError):
-        trmsnorm.bwd_plan(9, 2048, 2, True, 132, 2)
+        trmsnorm.bwd_plan(9, 2048, 2, True, 132, 3)
 
 
 def test_rmsnorm_bwd_plan_matches_the_kernel_source():
@@ -570,9 +704,11 @@ def test_rmsnorm_bwd_plan_matches_the_kernel_source():
     assert int(consts["kBwdThreads"]) == trmsnorm.BWD_THREADS
     assert int(consts["kRingWarps"]) == trmsnorm.RING_WARPS
     assert int(consts["kMaxSmem"]) == MAX_SMEM
-    assert "kBlockRows = 0, kRing = 1;" in src
-    assert (trmsnorm.BLOCK_ROWS, trmsnorm.RING) == (0, 1)
-    assert set(trmsnorm.BWD_DESIGNS) == {0, 1}
+    assert "kBlockRows = 0, kRing = 1, kStream = 2;" in src
+    assert (trmsnorm.BLOCK_ROWS, trmsnorm.RING, trmsnorm.STREAM) == (0, 1, 2)
+    assert set(trmsnorm.BWD_DESIGNS) == {0, 1, 2}
+    assert "rmsnorm_bwd_stream_kernel<T, V, L>" in src and \
+        "rmsnorm_bwd_stream_kernel<T, 1, L>" in src
     ring = {(int(a), int(b)) for a, b in
             re.findall(r"return REPRO_RING\((\d+), (\d+)\)", src)}
     assert ring == {(nv, 1) for nv in range(1, 5)} | {(4, 2), (4, 4), (4, 8),
@@ -619,9 +755,9 @@ def test_cpu_grad_runs_through_the_functions(rng):
         "FlashAttentionFunctionBackward"
     with torch.no_grad():       # serving: the plain forward, no Function
         assert ops.rmsnorm(x, torch.ones(16)).grad_fn is None
-    # lowp has no backward kernel: on the CPU autograd runs through the
-    # plain lowp version.
-    assert ops.rmsnorm(x, torch.ones(16), lowp=True).grad_fn is not None
+    # lowp too: its closed-form backward on the CPU, its kernel on the card
+    assert type(ops.rmsnorm(x, torch.ones(16), lowp=True).grad_fn
+                ).__name__ == "RMSNormFunctionBackward"
 
 
 @pytest.fixture
@@ -642,7 +778,7 @@ def test_card_grad_runs_the_backward_kernels(fake_card, rng):
         calls.append("rmsnorm")
         return tref.rmsnorm_ref(x, w, eps)
 
-    def bwd_rms(x, w, dy, eps):
+    def bwd_rms(x, w, dy, eps, design=None, lowp=False):
         calls.append("rmsnorm_bwd")
         return tref.rmsnorm_bwd_ref(x, w, dy, eps)
 
@@ -734,7 +870,8 @@ def test_fake_flash_backward_at_head_dim_160_counts_one_call():
 def test_card_kernels_without_backward_raise_under_grad(fake_card, rng):
     """decode_attention and int8_matmul have no backward kernel: on the
     card, a call autograd would record raises rather than return a result
-    that carries no gradient. So does rmsnorm with lowp."""
+    that carries no gradient. (rmsnorm with lowp has its kernel:
+    test_card_rmsnorm_lowp_runs_its_backward_kernel.)"""
     q = torch.randn(2, 4, 16, requires_grad=True)
     kv = torch.randn(2, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="no backward"):
@@ -744,6 +881,32 @@ def test_card_kernels_without_backward_raise_under_grad(fake_card, rng):
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.int8_matmul(xq, torch.ones(4, requires_grad=True),
                         torch.zeros((8, 3), dtype=torch.int8), torch.ones(3))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.rmsnorm(torch.randn(3, 16, requires_grad=True), torch.ones(16),
-                    lowp=True)
+
+
+
+def test_card_rmsnorm_lowp_runs_its_backward_kernel(fake_card, rng):
+    """rmsnorm with lowp under grad on the card: the forward kernel with
+    lowp, then the backward kernel with lowp, whose gradients autograd
+    hands back (the model's ``mlp_lowp`` training path)."""
+    calls = []
+
+    def fwd(x, w, eps, lowp):
+        calls.append(("rmsnorm", lowp))
+        return tref.rmsnorm_lowp(x, w, eps)
+
+    def bwd(x, w, dy, eps, design=None, lowp=False):
+        calls.append(("rmsnorm_bwd", lowp))
+        return tref.rmsnorm_lowp_bwd_ref(x, w, dy, eps)
+
+    fake_card.setattr(trmsnorm, "_kernel_forward", fwd)
+    fake_card.setattr(trmsnorm, "_kernel_backward", bwd)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 32)).astype(np.float32)
+                         ).to(torch.bfloat16).requires_grad_(True)
+    w = torch.from_numpy(rng.standard_normal(32).astype(np.float32)
+                         ).requires_grad_(True)
+    dy = torch.from_numpy(rng.standard_normal((3, 5, 32)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    ops.rmsnorm(x, w, lowp=True).backward(dy)
+    assert calls == [("rmsnorm", True), ("rmsnorm_bwd", True)]
+    want = tref.rmsnorm_lowp_bwd_ref(x.detach(), w.detach(), dy)
+    assert torch.equal(x.grad, want[0]) and torch.equal(w.grad, want[1])

@@ -346,14 +346,76 @@ def test_decode_kernel_groups_above_16_and_padded_head_dims(cuda, dtype, hq,
 
 
 @pytest.mark.gpu
-def test_decode_kernel_refuses_head_dims_above_256(cuda):
-    q = _randn((1, 2, 257), torch.bfloat16, cuda, 0)
-    kv = _randn((1, 64, 1, 257), torch.bfloat16, cuda, 1)
+def test_decode_kernel_refuses_head_dim_0(cuda):
+    q = _randn((1, 2, 0), torch.bfloat16, cuda, 0)
+    kv = _randn((1, 64, 1, 0), torch.bfloat16, cuda, 1)
     length = torch.tensor([10], dtype=torch.int32, device=cuda)
     before = tdecode.KERNEL.launches
-    with pytest.raises(ValueError, match="head_dim 257"):
+    with pytest.raises(ValueError, match="head_dim 0"):
         tdecode.decode_attention(q, kv, kv, length)
     assert tdecode.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 1, 512), (128, 1, 576),
+                                      (8, 2, 300), (5, 1, 257)])
+def test_decode_kernel_above_256_matches_plain(cuda, dtype, lse, hq, hkv,
+                                               d):
+    """The column-tile kernel (decode_wide_kernel), both modes, at a group
+    of 16, the absorbed MLA decode's 128 on one latent head of 576 (eight
+    slices), and rows not whole 16-byte chunks; one launch a call; the
+    same out in both modes; two calls bitwise equal."""
+    b, skv = 4, 740
+    q = _randn((b, hq, d), dtype, cuda, 0)
+    k = _randn((b, skv, hkv, d), dtype, cuda, 1)
+    v = _randn((b, skv, hkv, d), dtype, cuda, 2)
+    length = torch.tensor([129, 334, 740, 1], dtype=torch.int32,
+                          device=cuda)
+    before = tdecode.KERNEL.launches
+    got = tdecode.decode_attention(q, k, v, length, return_lse=lse)
+    again = tdecode.decode_attention(q, k, v, length, return_lse=lse)
+    torch.cuda.synchronize()
+    assert tdecode.KERNEL.launches == before + 2
+    want = tdecode.plain(q, k, v, length, return_lse=lse)
+    out, want_out = (got[0], want[0]) if lse else (got, want)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(out, again[0] if lse else again)
+    if lse:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_above_256_replays_in_a_cuda_graph(cuda):
+    """The column-tile kernel captured once and replayed with ``length``
+    changed in place: each replay matches the plain version and two back
+    to back agree (its combine counters left at 0)."""
+    b, skv, hq, hkv, d = 4, 740, 32, 1, 576
+    q = _randn((b, hq, d), torch.bfloat16, cuda, 0)
+    k = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 1)
+    v = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 2)
+    length = torch.tensor([129, 334, 517, 731], dtype=torch.int32,
+                          device=cuda)
+    tdecode.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdecode.decode_attention(q, k, v, length)
+    tol = GPU_TOL[torch.bfloat16]
+    for lens in ([1, 2, 3, 4], [740, 64, 65, 700]):
+        length.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, first, rtol=0, atol=0)
+        want = tdecode.plain(q, k, v, length)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.gpu
@@ -735,13 +797,44 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d):
     """Every plan of the design training takes (the ring: 1 to 4 chunks a
     lane, 1 to 16 warps a row; d 16384 in bf16 is 2048 chunks, the widest
     row, whose block_rows instantiation spilled), more rows than blocks;
-    fp32 at d 16384 (4096 chunks) raises."""
+    fp32 at d 16384 (4096 chunks) takes the stream design."""
     x, w, dy = _rmsnorm_bwd_inputs(cuda, dtype, rows, d)
     if d * x.element_size() // 16 > trmsnorm.BWD_MAX_CHUNKS:
-        with pytest.raises(ValueError):
-            trmsnorm._kernel_backward(x, w, dy, 1e-5)
-        return
+        assert trmsnorm.bwd_design(d, x.element_size(), True) == \
+            trmsnorm.STREAM
     _rmsnorm_bwd_check(x, w, dy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("rows,d", [(2048, 2048), (333, 768), (2, 20000),
+                                    (2, 2050), (7, 20001), (64, 100)])
+def test_rmsnorm_bwd_kernel_under_lowp_and_wide_rows(cuda, dtype, lowp,
+                                                     rows, d):
+    """Every design that takes the row (ring, block_rows, stream), with and
+    without lowp, against the closed form of the same policy; one launch a
+    call; two calls bitwise equal."""
+    x, w, dy = _rmsnorm_bwd_inputs(cuda, dtype, rows, d)
+    want_dx, want_dw = trmsnorm.plain_bwd(x, w, dy, 1e-5, lowp)
+    tol = GPU_TOL[dtype]
+    for design in trmsnorm.BWD_DESIGNS:
+        try:
+            trmsnorm.bwd_plan(rows, d, x.element_size(), True, 132, design)
+        except ValueError:
+            continue
+        before = trmsnorm.KERNEL_BWD.launches
+        dx, dw = trmsnorm._kernel_backward(x, w, dy, 1e-5, design,
+                                           lowp=lowp)
+        dx2, dw2 = trmsnorm._kernel_backward(x, w, dy, 1e-5, design,
+                                             lowp=lowp)
+        torch.cuda.synchronize()
+        assert trmsnorm.KERNEL_BWD.launches == before + 2
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
+                                   atol=tol)
+        _rel_close(dw, want_dw, 1e-5 if dtype == torch.float32 and not lowp
+                   else tol)
 
 
 @pytest.mark.gpu
@@ -866,10 +959,15 @@ def test_rmsnorm_autograd_runs_the_backward_kernel(cuda, dtype):
 
 
 @pytest.mark.gpu
-def test_rmsnorm_lowp_under_grad_raises_on_card(cuda):
+def test_rmsnorm_lowp_under_grad_runs_its_backward_on_card(cuda):
     x = _randn((4, 64), torch.bfloat16, cuda, 0).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        ops.rmsnorm(x, torch.ones(64, device=cuda), lowp=True)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    before = trmsnorm.KERNEL_BWD.launches
+    ops.rmsnorm(x, w, lowp=True).sum().backward()
+    assert trmsnorm.KERNEL_BWD.launches == before + 1
+    want = trmsnorm.plain_bwd(x.detach(), w.detach(),
+                              torch.ones_like(x), 1e-5, True)
+    assert torch.equal(x.grad, want[0])
 
 
 def _attn_inputs(cuda, dtype, b, sq, skv, hq, hkv, d):
@@ -957,12 +1055,46 @@ def test_flash_kernels_at_padded_head_dims(cuda, dtype, causal, b, s, hq,
 
 
 @pytest.mark.gpu
-def test_flash_refuses_head_dims_above_256(cuda):
-    q = _randn((1, 8, 2, 257), torch.bfloat16, cuda, 0)
+def test_flash_refuses_head_dim_0(cuda):
+    q = _randn((1, 8, 2, 0), torch.bfloat16, cuda, 0)
     before = tflash.KERNEL.launches
-    with pytest.raises(ValueError, match="head_dim 257"):
+    with pytest.raises(ValueError, match="head_dim 0"):
         tflash.flash_attention(q, q, q)
     assert tflash.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (2, 130, 130, 4, 4, 257, True), (2, 130, 130, 4, 4, 257, False),
+    (1, 200, 200, 4, 1, 288, True), (1, 200, 200, 4, 1, 288, False),
+    (2, 77, 77, 2, 2, 512, True), (2, 77, 77, 2, 2, 512, False),
+    (1, 65, 200, 2, 1, 300, False)])
+def test_flash_above_256_forward_and_backward_match_plain(
+        cuda, dtype, b, sq, skv, hq, hkv, d, causal):
+    """The column-tile kernels, forward with its lse and backward, against
+    the plain versions; one launch each; the backward bitwise
+    repeatable."""
+    q, k, v, dout = _attn_inputs(cuda, dtype, b, sq, skv, hq, hkv, d)
+    scale = d ** -0.5
+    before = (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches)
+    out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
+    got = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    again = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    torch.cuda.synchronize()
+    assert (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), tflash.plain(q, k, v, causal=causal,
+                                  scale=scale).float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, attention_lse_ref(
+        q, k, causal=causal, scale=scale), rtol=1e-5, atol=1e-5)
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal,
+                            scale=scale)
+    for g, w_ in zip(got, want):
+        _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.gpu

@@ -215,10 +215,31 @@ def test_fake_cuda_tensors_take_each_kernels_fake_path(monkeypatch):
 
 
 def test_fake_cuda_call_checks_shapes_as_the_card_does():
+    """The fake path refuses what the card refuses (head dim 0) and takes
+    what it takes (257, on the column-tile kernel)."""
     with FakeTensorMode():
-        q, k = _cuda(1, 8, 2, 257), _cuda(1, 8, 2, 257)
-        with pytest.raises(ValueError, match="head_dim 257"):
+        q, k = _cuda(1, 8, 2, 0), _cuda(1, 8, 2, 0)
+        with pytest.raises(ValueError, match="head_dim 0"):
             kflash.flash_attention(q, k, k)
+        q, k = _cuda(1, 8, 2, 257), _cuda(1, 8, 2, 257)
+        assert tuple(kflash.flash_attention(q, k, k).shape) == (1, 8, 2, 257)
+
+
+def test_fake_rmsnorm_backward_under_lowp_at_any_width(monkeypatch):
+    """The rmsnorm backward's fake path under lowp and at a row no ring or
+    block_rows plan takes (20000 bf16): one call each at
+    ``kernel_cost.rmsnorm_bwd``, never the plain path."""
+    monkeypatch.setattr(krms, "plain_bwd", _refuse)
+    with FakeTensorMode():
+        x, w = _cuda(8, 20000), _cuda(20000, dtype=torch.float32)
+        x2, w2 = _cuda(8, 2048), _cuda(2048, dtype=torch.float32)
+        with Recorder() as rec:
+            dx, dw = krms._kernel_backward(x, w, x, 1e-5, lowp=True)
+            krms._kernel_backward(x2, w2, x2, 1e-5, lowp=True)
+    assert tuple(dx.shape) == (8, 20000) and dw.dtype == torch.float32
+    assert rec.kernel_calls() == {"rmsnorm_bwd": 2}
+    assert rec.kernel_bytes == kernel_cost.rmsnorm_bwd(8, 20000, 2).bytes + \
+        kernel_cost.rmsnorm_bwd(8, 2048, 2).bytes
 
 
 def _smoke_train(arch="internlm2-1.8b"):
@@ -501,6 +522,20 @@ def test_uneven_heads_train_cells_trace_on_the_production_mesh(arch):
     ``whole_heads_grad``."""
     mem = _one_period_train_cell(arch)
     assert mem["temp_size_in_bytes"] > 0
+
+
+def test_lowp_train_cell_traces_on_the_production_mesh():
+    """internlm2-1.8b's train_4k cell with ``mlp_lowp`` (every norm's
+    backward under the flag) at one block period on the 16 x 16 CPU
+    mesh, as the reference's dry run traces it."""
+    cfg = get_config("internlm2-1.8b").replace(mlp_lowp=True)
+    cfg = dryrun._probe_cfg(cfg, block_period(cfg))
+    with fake_world(256):
+        mesh = make_mesh((16, 16), ("data", "model"), device="cpu")
+        traced, kind, _ = dryrun._lower_cell(cfg, SHAPES["train_4k"], mesh,
+                                             opts={}, scan=True)
+    assert kind == "train"
+    assert dryrun._memory_analysis_dict(traced)["temp_size_in_bytes"] > 0
 
 
 def test_granite_unembedding_keeps_to_its_own_rows():

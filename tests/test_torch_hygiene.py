@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
 ``src/repro_torch/``, ``chip_smoke.py``, the port's measurement tools
-``tools/train_step_ab.py`` and ``tools/attention_ab.py`` or its examples
+``tools/train_step_ab.py``, ``tools/attention_ab.py`` and
+``tools/nvcc_times.py`` or its examples
 ``examples/torch_*.py``; its copied configs equal the JAX package's, and
 so does every definition of its copies of the numpy layer; its entry
 points refuse a missing card instead of running on the CPU."""
@@ -21,7 +22,8 @@ from repro_torch.serving.engine import ServingEngine
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py",
-    REPO / "tools" / "attention_ab.py"] + sorted(
+    REPO / "tools" / "attention_ab.py", REPO / "tools" / "nvcc_times.py"
+] + sorted(
     (REPO / "examples").glob("torch_*.py"))
 
 

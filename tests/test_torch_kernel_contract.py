@@ -1,13 +1,15 @@
 """The port's kernels at every shape the Pallas kernels compute, on the
-CPU: head dims off the instantiated set (80, 96, 100 and gemma-2b's 256),
-groups above 16 (falcon-7b's 71 q heads on one kv head) and d_state 512.
+CPU: head dims off the instantiated set (80, 96, 100 and gemma-2b's 256)
+and above 256 (257, 288 and 512 in flash; 512 and the 576 of an absorbed
+MLA decode, a group of 128 on one latent head, in decode), groups above
+16 (falcon-7b's 71 q heads on one kv head) and d_state 512.
 
 Each wrapper's plain version (what a CPU tensor runs) is held against the
 JAX package's Pallas kernel in interpret mode and its ``repro.kernels.ref``
 oracle on the same seeded numpy inputs, each backward against ``jax.grad``
 of the oracle, at the tolerances of the ``tests/test_kernels_*.py`` case
 nearest each shape. The design functions name the route the card takes at
-each new shape and still refuse what no kernel takes (head dim 0 or 257);
+each new shape and still refuse what no kernel takes (head dim 0 or -1);
 ``kernel_cost`` counts the work at the real d, group and d_state, never at
 the padded size. Three smoke-size models with the overridden attention of
 ``chip_smoke.py``'s ``contract`` phase are held to ``repro``: logits,
@@ -51,12 +53,22 @@ MODEL_GRAD_TOL = 1e-4   # tests/test_torch_training.py, of each leaf's max-abs
 # (hq, hkv, d): phi-3-mini's 32/32 at d 96, phi-2's at d 80, gemma-2b's 8/1
 # at d 256, and d 100 (no 16-byte chunks in bf16): the flash shapes of the
 # smoke's contract phase, with the heads cut to keep the CPU quick.
-FLASH_HEADS = [(4, 4, 96), (4, 4, 80), (8, 1, 256), (4, 4, 100)]
-FLASH_IDS = ["phi3-d96", "phi2-d80", "gemma-d256", "d100"]
+# Above 256, the column-tile kernels: d 257 (no 16-byte rows, two tiles),
+# 288 with a group of 4, and 512 (two whole tiles).
+FLASH_HEADS = [(4, 4, 96), (4, 4, 80), (8, 1, 256), (4, 4, 100),
+               (4, 4, 257), (4, 1, 288), (2, 2, 512)]
+FLASH_IDS = ["phi3-d96", "phi2-d80", "gemma-d256", "d100", "d257",
+             "g4-d288", "d512"]
 # decode: falcon-7b's group of 71 on one kv head at d 64, gemma-2b's 8/1
 # at d 256.
 DECODE_HEADS = [(71, 1, 64), (8, 1, 256)]
 DECODE_IDS = ["falcon-g71", "gemma-d256"]
+# decode above 256: a group of 16 at d 512, and DeepSeek-V2/V3's absorbed
+# MLA decode, 128 q heads on one latent head of 512 + 64 (eight slices of
+# 16 q heads, three column tiles).
+DECODE_WIDE = [(16, 1, 512), (128, 1, 576)]
+DECODE_WIDE_IDS = ["g16-d512", "mla-g128-d576"]
+WIDE_DIMS = [257, 288, 300, 512, 576]
 # The models of the contract phase: internlm2-1.8b's smoke config with
 # gemma-2b's attention, a group of 32, and phi-3-mini's heads, each cut
 # (heads and d_model) to smoke width.
@@ -160,7 +172,32 @@ def test_flash_designs_name_the_route_at_new_head_dims(d, dtype, design):
     assert all(p < d for p in tflash.HEAD_DIMS if p < padded)
 
 
-@pytest.mark.parametrize("d", [0, 257, 512])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_flash_and_decode_designs_name_the_route_above_256(d):
+    """Above 256 every dtype takes the column-tile kernels, forward and
+    backward, at the real d: ceil(d / 256) tiles of equal width rounded up
+    to 16, covering d, the last cut at d; decode's route is its column-tile
+    kernel at any group, in slices of 16 q heads."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert tflash.fwd_design(dtype, d) == tflash.bwd_design(dtype, d) \
+            == "wide"
+    assert tflash.padded_head_dim(d) == d
+    n, tw = tflash.col_tiles(d)
+    assert n == -(-d // 256) and tw % 16 == 0 and tw <= 256
+    assert (n - 1) * tw < d <= n * tw
+    for g, slices in ((1, 1), (16, 1), (128, 8), (71, 5)):
+        assert tdecode.group_bucket(g, d) == 16
+        for es in (2, 4):
+            lay = tdecode.pv_layout(es, d, g)
+            assert lay["route"] == "wide" and lay["D"] == d
+            assert (lay["col_tiles"], lay["tile"]) == (n, tw)
+            assert lay["slices"] == slices
+            assert lay["smem"] <= tdecode.MAX_SMEM
+            assert lay["cols_per_thread"] * tdecode.THREADS >= tw
+    assert tdecode.pv_layout(2, 256, 8)["route"] == "split"
+
+
+@pytest.mark.parametrize("d", [0, -1])
 def test_flash_and_decode_refuse_head_dims_no_kernel_takes(d):
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match=f"head_dim {d}"):
@@ -199,6 +236,51 @@ def test_decode_plain_matches_pallas_at_new_shapes(hq, hkv, d, rng):
     want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + \
         s.max(-1)
     np.testing.assert_allclose(_np(lse), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("hq,hkv,d", DECODE_WIDE, ids=DECODE_WIDE_IDS)
+def test_decode_plain_matches_pallas_above_256(hq, hkv, d, lse, rng):
+    """The Pallas decode kernel (interpret mode) computes at any d: the
+    plain version matches it and the oracle, in out-only and partial mode
+    (the out the same, the lse that of the scaled scores)."""
+    b, skv = 2, 128
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    length = np.array([skv, 37], np.int32)
+    got = tdecode.decode_attention(_t(q), _t(k), _t(v), _t(length),
+                                   return_lse=lse)
+    out = got[0] if lse else got
+    pallas = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(length), block_k=64, interpret=True)
+    oracle = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(length))
+    for want in (pallas, oracle):
+        _close(out, want, F32_ATTN_TOL)
+    if lse:
+        s = np.einsum("bhd,bshd->bhs", q.astype(np.float64),
+                      np.repeat(k, hq // hkv, axis=2)) / np.sqrt(d)
+        s = np.where(np.arange(skv)[None, None] < length[:, None, None], s,
+                     -np.inf)
+        m = s.max(-1)
+        want = np.log(np.exp(s - m[..., None]).sum(-1)) + m
+        np.testing.assert_allclose(_np(got[1]), want, rtol=1e-5, atol=1e-5)
+
+
+def test_decode_bf16_plain_matches_pallas_at_mla_width(rng):
+    """bf16 at the absorbed MLA shape, against the Pallas kernel at
+    BF16_TOL."""
+    b, skv, hq, d = 2, 128, 128, 576
+    q, k, v = (jnp.asarray(rng.standard_normal(sh), jnp.bfloat16) for sh in
+               ((b, hq, d), (b, skv, 1, d), (b, skv, 1, d)))
+    length = jnp.asarray([100, skv], jnp.int32)
+    tq, tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (q, k, v))
+    out = tdecode.decode_attention(tq, tk, tv, _t(np.asarray(length)))
+    assert out.dtype == torch.bfloat16
+    pallas = jdecode(q, k, v, length, block_k=64, interpret=True)
+    _close(out, pallas.astype(jnp.float32), BF16_TOL)
 
 
 @pytest.mark.parametrize("g,bucket,slices", [
@@ -318,7 +400,7 @@ def test_ssd_designs_take_any_d_state(dtype, n, p, fwd, bwd):
 # ---------------------------------------------------------------------------
 # kernel_cost: the function's work at the real d, group and d_state.
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("d", [80, 96, 100, 256])
+@pytest.mark.parametrize("d", [80, 96, 100, 256, 257, 288, 512, 576])
 def test_kernel_cost_counts_the_real_head_dim(d):
     """The bound of a call is the work the Pallas kernel does at its d:
     linear in d, whatever D the card pads it to."""
@@ -353,6 +435,49 @@ def test_kernel_cost_counts_the_real_d_state():
     bw = kernel_cost.ssd_bwd(1, 512, 8, 64, 512, torch.bfloat16, 256, False)
     assert bw.bytes == 2 * (3 * 512 * 8 * 64 + 4 * 512 * 512) + \
         8 * 512 * 8 + 16 * 8
+
+
+@pytest.mark.parametrize("d", [257, 512, 576])
+def test_fake_paths_above_256_count_the_real_head_dim(d):
+    """On fake CUDA tensors (the dry run) flash forward, its backward and
+    decode at d above 256 check their operands, allocate their outputs and
+    count one call each at ``kernel_cost``'s real d, launching nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.counter import Recorder
+    bf16 = torch.bfloat16
+    before = ops.launch_counts()
+    with FakeTensorMode():
+        q = torch.empty(2, 64, 8, d, dtype=bf16, device="cuda")
+        kv = torch.empty(2, 64, 2, d, dtype=bf16, device="cuda")
+        lse = torch.empty(2, 8, 64, device="cuda")
+        qd = torch.empty(2, 8, d, dtype=bf16, device="cuda")
+        ln = torch.empty(2, dtype=torch.int32, device="cuda")
+        with Recorder() as rec:
+            out, lse2 = tflash._kernel_forward(q, kv, kv, True, d ** -0.5,
+                                               with_lse=True)
+            grads = tflash._kernel_backward(q, kv, kv, out, q, lse, True,
+                                            d ** -0.5)
+            dec, dlse = tdecode.decode_attention(qd, kv, kv, ln,
+                                                 return_lse=True)
+        with pytest.raises(ValueError, match="do not fit"):
+            tdecode.decode_attention(
+                torch.empty(2, 8, d - 1, dtype=bf16, device="cuda"), kv, kv,
+                ln)
+    assert tuple(out.shape) == tuple(q.shape) and tuple(lse2.shape) == \
+        (2, 8, 64)
+    assert [tuple(g.shape) for g in grads] == [tuple(q.shape),
+                                               tuple(kv.shape),
+                                               tuple(kv.shape)]
+    assert tuple(dec.shape) == (2, 8, d) and tuple(dlse.shape) == (2, 8)
+    assert rec.kernel_calls() == {"flash_attention": 1,
+                                  "flash_attention_bwd": 1,
+                                  "decode_attention": 1}
+    assert rec.kernel_flops == (
+        kernel_cost.flash(2, 64, 64, 8, 2, d, bf16, True, True).ops +
+        kernel_cost.flash_bwd(2, 64, 64, 8, 2, d, bf16, True).ops +
+        kernel_cost.decode(2, 8, 2, d, 2 * 64, bf16, True).ops)
+    assert ops.launch_counts() == before
 
 
 # ---------------------------------------------------------------------------
