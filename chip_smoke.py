@@ -550,6 +550,9 @@ SOURCES = {
     "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul.py:43"),
 }
+# Flash attention's tensor-core column tiles above a head dim of 256 (the
+# "wgmma_wide" design, forward and backward) live in a source of their own.
+WGMMA_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
 
 
 def emit(obj: dict) -> None:
@@ -713,6 +716,7 @@ def _ptxas_summary(lines):
                              r"rmsnorm_bwd_ring_kernel|"
                              r"rmsnorm_bwd_stream_kernel|"
                              r"rmsnorm_dw_kernel|flash_fwd_wgmma_kernel|"
+                             r"flash_fwd_wgmma_wide_kernel|"
                              r"flash_fwd_simt_kernel|flash_fwd_wide_kernel|"
                              r"flash_bwd_\w+_kernel|"
                              r"decode_split_kernel|decode_wide_kernel|"
@@ -752,7 +756,11 @@ def _main_path_patterns() -> list:
     bf16 (mamba2's
     training path) and its four CUDA-core kernels in fp32 (its
     train_parity path) and in bf16 (the shapes the tensor-core design
-    does not take; the kernels phase holds them to the plain backward)."""
+    does not take; the kernels phase holds them to the plain backward).
+    And the tensor-core column tiles above a head dim of 256 at both
+    widths (forward, dK/dV and dQ), which the contract phase runs: no
+    model path reaches them, but they are held to no spill all the
+    same."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
             r"rmsnorm_dw_kernel<f32>",
@@ -794,6 +802,9 @@ def _main_path_patterns() -> list:
     for m, k, n in INT8_SHAPES:
         bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
         pats.append(rf"int8_wgmma_kernel<\w+,{bm // 64},{bn},\d+,1>")
+    pats += [rf"flash_{k}_wgmma_wide_kernel<bf16,{n}>"
+             for k in ("fwd", "bwd_dkdv", "bwd_dq")
+             for n in kflash.TC_WIDE_WIDTHS]
     return pats
 
 
@@ -1359,11 +1370,12 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 CONTRACT_PATH = "contract phase"
 # Above 256 (the column-tile kernels): d 257 (rows not whole 16-byte
-# chunks, two tiles), 288 with a group of 4, 512; decode at a group of 16
-# at d 512 and the absorbed MLA decode of DeepSeek-V2/V3 (128 q heads on
-# one latent head of 512 + 64).
+# chunks, two tiles; bf16 on the CUDA cores), 288 with a group of 4, 512
+# and 576 on one kv head (three tiles of 192; in bf16 these three on the
+# tensor cores); decode at a group of 16 at d 512 and the absorbed MLA
+# decode of DeepSeek-V2/V3 (128 q heads on one latent head of 512 + 64).
 CONTRACT_FLASH = ((32, 32, 96), (32, 32, 80), (8, 1, 256), (8, 8, 100),
-                  (8, 8, 257), (8, 2, 288), (8, 8, 512))
+                  (8, 8, 257), (8, 2, 288), (8, 8, 512), (8, 1, 576))
 CONTRACT_DECODE = ((71, 1, 64), (8, 1, 256), (32, 32, 96), (16, 1, 512),
                    (128, 1, 576))
 CONTRACT_SSD = (1, 512, 8, 64, 512)        # b, s, h, p, n
@@ -1612,6 +1624,8 @@ def _contract_rows(contract: dict) -> list:
                       for name, b in c["bwd"].items()]
         for x in parts:
             source, replaces = SOURCES[x["kernel"]]
+            if x.get("design") == "wgmma_wide":
+                source = WGMMA_WIDE_SOURCE
             rows.append({
                 "name": x["kernel"], "path": CONTRACT_PATH, "route": "cuda",
                 "source": source, "replaces": replaces,

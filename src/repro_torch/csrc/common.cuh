@@ -54,6 +54,37 @@ __host__ __device__ inline int wide_tile_width(int d) {
   return ((d + n - 1) / n + 15) / 16 * 16;
 }
 
+// bf16 above 256 where the rows are whole 16-byte chunks (the TMA maps'
+// row stride) and the backward's resident tiles fit shared memory: the
+// tensor-core column-tile kernels of flash_attention_wide.cu, forward and
+// backward. Their own tile plans, of widths 192 or 256 (the wgmma N, a
+// compile-time constant), the last tile cut at d. The backward's:
+// ceil(d / 256) tiles of equal width rounded up to a whole 64-column box.
+// The forward's: tiles of 192 while two blocks an SM fit shared memory
+// beside the resident Q (d <= kTcWideFwd192MaxDim), else the backward's.
+constexpr int kTcWideMaxDim = 768;
+constexpr int kTcWideFwd192MaxDim = 704;
+
+__host__ __device__ inline bool tc_wide_route(int d) {
+  return d > 256 && d <= kTcWideMaxDim && d % 8 == 0;
+}
+
+__host__ __device__ inline int tc_wide_col_tiles(int d) {
+  return (d + 255) / 256;
+}
+
+__host__ __device__ inline int tc_wide_tile_width(int d) {
+  return ((d + tc_wide_col_tiles(d) - 1) / tc_wide_col_tiles(d) + 63) / 64 * 64;
+}
+
+__host__ __device__ inline int tc_wide_fwd_tile_width(int d) {
+  return d <= kTcWideFwd192MaxDim ? 192 : tc_wide_tile_width(d);
+}
+
+__host__ __device__ inline int tc_wide_fwd_col_tiles(int d) {
+  return (d + tc_wide_fwd_tile_width(d) - 1) / tc_wide_fwd_tile_width(d);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

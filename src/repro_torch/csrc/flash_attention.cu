@@ -10,8 +10,10 @@
 // above d (padded_dim). Q and K columns d..D - 1 come in as zeros, so
 // Q.K^T is unchanged; V's give output columns that are never stored; the
 // scale is the caller's (1 / sqrt(d) of the real d). Above 256 (the
-// Pallas kernel takes any d) the column-tile kernels of namespace wide
-// serve every dtype, forward and backward, at the real d.
+// Pallas kernel takes any d), at the real d: bf16 where tc_wide_route holds
+// (d a multiple of 8 up to kTcWideMaxDim) on the tensor-core column tiles
+// of flash_attention_wide.cu, forward and backward; fp32 and the other bf16
+// head dims on the CUDA-core column tiles of namespace wide.
 //
 // Up to 256, two hand-written kernels serve it, chosen by dtype and head
 // dim:
@@ -119,8 +121,10 @@
 // on the H100, at 0.0151 ms. The kernels run 7 products (S and dP twice)
 // over whole 64 x 64 tiles, 9.4 GFLOP.
 //
-// Above a head dim of 256 (flash_fwd_wide_kernel, flash_bwd_dkdv_wide_kernel,
-// flash_bwd_dq_wide_kernel; fp32 and bf16 on the CUDA cores): the output's
+// Above a head dim of 256, where tc_wide_route does not hold
+// (flash_fwd_wide_kernel, flash_bwd_dkdv_wide_kernel,
+// flash_bwd_dq_wide_kernel; fp32, and bf16 at a d that is not a multiple of
+// 8 or above kTcWideMaxDim, on the CUDA cores): the output's
 // d columns in ceil(d / 256) tiles of at most 256 (wide_tile_width), one
 // block a (row tile, head, batch, column tile). A block recomputes S (and
 // in the backward dP) over the whole d, Q and K (dO and V) streamed
@@ -383,21 +387,6 @@ constexpr size_t smem_bytes() {
                     (1 + 2 * kStages) + 8 * (1 + kStages);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
                                          const uint32_t (&a)[4],
@@ -427,12 +416,6 @@ __device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
   wgmma_m64n256k16_rs_tb(o, a, desc);
 }
 
-// Accumulator layout of a wgmma m64nN (fp32), thread t of the warpgroup:
-// row 16 * (t / 32) + (t % 32) / 4 (+ 8 for the odd pair), column
-// 8 * j + 2 * (t % 4) (+ 1): register 4 j + {0, 1} holds the even row's
-// pair, 4 j + {2, 3} the odd row's. For k step kk of 16 columns, registers
-// 8 kk .. 8 kk + 7 are exactly the A fragment of a m64k16 wgmma.
-
 // acc (64 x 64) += A . B^T: A and B are 64-row tiles of d columns in
 // smem, K-major in ceil(D / 64) swizzled boxes (as TMA writes them); the
 // k steps stop at D, so a third box's zero columns are never read.
@@ -458,16 +441,6 @@ __device__ __forceinline__ void mma_rb(float (&acc)[N / 2],
   for (int kk = 0; kk < 4; ++kk)
     wgmma_pv<N>(acc, a[kk],
                 desc_sw128(b + kk * 16 * 64, kBox * sizeof(bf16), 1024));
-}
-
-// bf16 pairs of accumulator registers, in the A fragment order.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
 // kPad: d below D (or D 256), read at run time for the stores; else d is
@@ -646,54 +619,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     acc[4 * jj + 2 * half + 1] * inv);
     }
   }
-}
-
-// cuTensorMapEncodeTiled is a driver call; it is fetched through the
-// runtime (cudaGetDriverEntryPoint), so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map of a (batch, rows, heads, d) bf16 tensor, boxes of 64 rows x
-// 64 columns of one head, 128-byte swizzle; rows past `rows` and columns
-// past d read as 0. The row stride, 2 d bytes, must be a multiple of 16.
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-              int heads, int d) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t e = sizeof(bf16);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {e * d, e * d * heads, e * d * heads * rows};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kPad>
@@ -1127,6 +1052,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// delta at any d, one warp a row (the routes above 256).
+template <typename T>
+cudaError_t preprocess_rows(const void* o, const void* dout, float* delta,
+                            int b, int sq, int hq, int d,
+                            cudaStream_t stream) {
+  const size_t rows = static_cast<size_t>(b) * sq * hq;
+  const size_t rows_a_block = kThreads / 32;
+  flash_bwd_preprocess_rows_kernel<T>
+      <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
+         kThreads, 0, stream>>>(static_cast<const T*>(o),
+                                static_cast<const T*>(dout), delta, b, sq,
+                                hq, d);
+  return cudaGetLastError();
+}
+
 // delta = rowsum(dO * O) over the real d into (b, hq, sq) float32: the
 // 16-byte kernel where d is the instantiated D, else one warp a row.
 template <typename T, int D>
@@ -1140,15 +1080,9 @@ cudaError_t preprocess(const void* o, const void* dout, float* delta, int b,
            kThreads, 0, stream>>>(static_cast<const T*>(o),
                                   static_cast<const T*>(dout), delta, b, sq,
                                   hq);
-  } else {
-    const size_t rows_a_block = kThreads / 32;
-    flash_bwd_preprocess_rows_kernel<T>
-        <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
-           kThreads, 0, stream>>>(static_cast<const T*>(o),
-                                  static_cast<const T*>(dout), delta, b, sq,
-                                  hq, d);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  return preprocess_rows<T>(o, dout, delta, b, sq, hq, d, stream);
 }
 
 template <typename T, int D, bool kPad>
@@ -1236,7 +1170,6 @@ using tc::boxes;
 using tc::kBox;
 using tc::mma_abt;
 using tc::mma_rb;
-using tc::pack_a;
 constexpr int kB = 64;          // rows a tile: one wgmma M, and the S tile's N
 constexpr int kThreads = 128;   // one warpgroup
 constexpr int kStages = 2;      // depth of the ring of streamed tiles
@@ -1285,7 +1218,7 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NA],
     for (int jj = 0; jj < D / 8; ++jj)
       if (8 * jj < d)
         *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
-          tc::pack_bf16(acc[4 * jj + 2 * half] * mul,
+          pack_bf16(acc[4 * jj + 2 * half] * mul,
                         acc[4 * jj + 2 * half + 1] * mul);
   }
 }
@@ -1665,10 +1598,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   // by value), at the real d. Any failure is returned: there is no other
   // route.
   CUtensorMap tq, tk, tv, tdo;
-  if (!tc::make_map(&tq, q, b, sq, hq, d) ||
-      !tc::make_map(&tk, k, b, skv, hkv, d) ||
-      !tc::make_map(&tv, v, b, skv, hkv, d) ||
-      !tc::make_map(&tdo, dout, b, sq, hq, d))
+  if (!make_map(&tq, q, b, sq, hq, d) || !make_map(&tk, k, b, skv, hkv, d) ||
+      !make_map(&tv, v, b, skv, hkv, d) ||
+      !make_map(&tdo, dout, b, sq, hq, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = bwd::preprocess<bf16, D>(o, dout, delta, b, sq, hq, d,
                                              stream);
@@ -1700,7 +1632,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace bwd_tc
 
 // ---------------------------------------------------------------------------
-// Head dims above 256, fp32 and bf16: CUDA-core kernels over column tiles.
+// Head dims above 256, fp32 and bf16 off tc_wide_route: CUDA-core kernels
+// over column tiles.
 // ---------------------------------------------------------------------------
 namespace wide {
 
@@ -2164,13 +2097,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const size_t rows = static_cast<size_t>(b) * sq * hq;
-  const size_t rows_a_block = bwd::kThreads / 32;
-  bwd::flash_bwd_preprocess_rows_kernel<T>
-      <<<static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block),
-         bwd::kThreads, 0, stream>>>(static_cast<const T*>(o), dot, delta, b,
-                                     sq, hq, d);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = bwd::preprocess_rows<T>(o, dout, delta, b, sq, hq, d,
+                                            stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_ct = wide_col_tiles(d);
   err = set_smem(flash_bwd_dkdv_wide_kernel<T>, dkdv_smem());
@@ -2193,6 +2121,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 }  // namespace wide
 
 }  // namespace
+
+// bf16 above 256 where tc_wide_route holds: flash_attention_wide.cu.
+namespace wgmma_wide {
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int sq, int skv, int hq, int hkv, int d,
+               float scale, int causal, cudaStream_t stream);
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, void* dk,
+               void* dv, int b, int sq, int skv, int hq, int hkv, int d,
+               float scale, int causal, cudaStream_t stream);
+}  // namespace wgmma_wide
 }  // namespace repro
 
 // lse: null, or (b, hq, sq) float32 that takes each row's log-sum-exp.
@@ -2207,6 +2146,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (d > 256) {
+    if (dtype == kBF16 && tc_wide_route(d))
+      return wgmma_wide::launch_fwd(q, k, v, o, l, b, sq, skv, hq, hkv, d,
+                                    scale, causal, s);
     if (dtype == kF32)
       return wide::launch_fwd<float>(q, k, v, o, l, b, sq, skv, hq, hkv, d,
                                      scale, causal, s);
@@ -2237,7 +2179,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // flash_bwd_preprocess_kernel, then flash_bwd_dkdv_wgmma_kernel and
 // flash_bwd_dq_wgmma_kernel for bf16 where tc_route holds (a failed TMA encode,
 // attribute or launch is returned, never served by another route), else
-// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the stream.
+// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the stream. Above 256:
+// flash_bwd_preprocess_rows_kernel, then the wgmma column-tile kernels of
+// flash_attention_wide.cu for bf16 where tc_wide_route holds (failures
+// returned likewise), else those of namespace wide.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2250,6 +2195,13 @@ extern "C" int repro_flash_attention_bwd(
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (d > 256) {
+    if (dtype == kBF16 && tc_wide_route(d)) {
+      const cudaError_t err = bwd::preprocess_rows<__nv_bfloat16>(
+          o, dout, dl, b, sq, hq, d, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return wgmma_wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, b, sq,
+                                    skv, hq, hkv, d, scale, causal, s);
+    }
     if (dtype == kF32)
       return wide::launch_bwd<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b,
                                      sq, skv, hq, hkv, d, scale, causal, s);

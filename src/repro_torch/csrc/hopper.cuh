@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
-// mbarriers, TMA tile and bulk loads, cp.async, wgmma descriptors and the wgmma
-// shapes flash_attention.cu uses, ldmatrix and the warp-level bf16 mma
-// ssd_scan.cu uses. Only the wgmma and TMA parts need sm_90a.
+// mbarriers, named barriers, TMA tile and bulk loads and the tensor maps
+// they read, cp.async, wgmma descriptors and the wgmma shapes
+// flash_attention.cu and flash_attention_wide.cu use, ldmatrix and the
+// warp-level bf16 mma ssd_scan.cu uses. Only the wgmma and TMA parts need
+// sm_90a.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,6 +35,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// Arrive once, with no transactions.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // Wait until the barrier's phase `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -45,6 +54,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') among the first `threads`
+// threads that reach it, a multiple of 32.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -72,6 +87,54 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// cuTensorMapEncodeTiled is a driver call; it is fetched through the
+// runtime (cudaGetDriverEntryPoint), so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a (batch, rows, heads, d) bf16 tensor, boxes of 64 rows x
+// 64 columns of one head, 128-byte swizzle; rows past `rows` and columns
+// past d read as 0. The row stride, 2 d bytes, must be a multiple of 16.
+inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
+                     int heads, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = 2;  // sizeof(__nv_bfloat16)
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {e * d, e * d * heads, e * d * heads * rows};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------------------
@@ -177,6 +240,38 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Accumulator layout of a wgmma m64nN (fp32), thread t of the warpgroup:
+// row 16 * (t / 32) + (t % 32) / 4 (+ 8 for the odd pair), column
+// 8 * j + 2 * (t % 4) (+ 1): register 4 j + {0, 1} holds the even row's
+// pair, 4 j + {2, 3} the odd row's. For k step kk of 16 columns, registers
+// 8 kk .. 8 kk + 7 are exactly the A fragment of a m64k16 wgmma. A row's
+// columns are spread over the 4 threads of a quad.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// bf16 pairs of a 64 x 64 accumulator's registers, in the A fragment order.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Max and sum of a row over the 4 threads of its quad.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // D (64 x 64, fp32) += A (64 x 16, smem, K-major) * B (64 x 16, smem,

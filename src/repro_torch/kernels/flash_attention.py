@@ -12,9 +12,9 @@ backward alike: up to ``MAX_HEAD_DIM`` (256) a call runs at
 256) at or above d, its columns past d zero; above it, on the column-tile
 kernels at the real d. Only d < 1 raises.
 
-Three hand-written kernels of ``csrc/flash_attention.cu`` serve a CUDA
-tensor, each launched and counted as ``flash_attention``, on the route
-:func:`fwd_design` names:
+Four hand-written kernels of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_wide.cu`` serve a CUDA tensor, each launched and
+counted as ``flash_attention``, on the route :func:`fwd_design` names:
 
 * ``"wgmma"``, bf16 where d is a multiple of 8 above 32 (the serving path
   at 64, 128 and 160): ``flash_fwd_wgmma_kernel``, tensor cores (wgmma,
@@ -22,11 +22,19 @@ tensor, each launched and counted as ``flash_attention``, on the route
   boxes zero past d;
 * ``"simt"``, fp32 at any head_dim up to 256 and bf16 at the others:
   ``flash_fwd_simt_kernel``, full fp32 products on the CUDA cores;
-* ``"wide"``, fp32 and bf16 above 256: ``flash_fwd_wide_kernel``, full
-  fp32 products on the CUDA cores, a block a (q tile, q head, batch,
-  column tile of at most 256 output columns, ``col_tiles``): each
-  recomputes the scores over the whole d, streamed in pieces in the same
-  order in every tile, and writes its own columns.
+* ``"wgmma_wide"``, bf16 above 256 where d is a multiple of 8 up to
+  ``TC_WIDE_MAX_HEAD_DIM`` (768): ``flash_fwd_wgmma_wide_kernel``, tensor
+  cores fed by TMA, a block a (q tile, q head, batch, column tile of 192
+  or 256 output columns, ``wgmma_col_tiles(d, forward=True)``; two
+  blocks an SM at 192): each recomputes S over the
+  whole d from 64-column boxes streamed through a shared-memory ring by a
+  producer warp, in the same order in every tile, and accumulates P.V for
+  its own columns;
+* ``"wide"``, fp32 above 256 and the other bf16 head dims there:
+  ``flash_fwd_wide_kernel``, full fp32 products on the CUDA cores, a block
+  a (q tile, q head, batch, column tile of at most 256 output columns,
+  ``col_tiles``): each recomputes the scores over the whole d, streamed in
+  pieces in the same order in every tile, and writes its own columns.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
@@ -43,7 +51,12 @@ two kernels on the route :func:`bwd_design` names:
 * ``"simt"``, fp32 at any head_dim up to 256 and bf16 at the others:
   ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
   products on the CUDA cores;
-* ``"wide"``, above 256: ``flash_bwd_dkdv_wide_kernel`` and
+* ``"wgmma_wide"``, as the forward's: ``flash_bwd_dkdv_wgmma_wide_kernel``
+  (a block a kv tile, kv head, batch, column tile and role: dV or dK) and
+  ``flash_bwd_dq_wgmma_wide_kernel``, the forward's column tiles and ring
+  on the tensor cores (S and dP recomputed over the whole d in each, P and
+  dS rounded to bf16 as operands; no atomics);
+* ``"wide"``, the forward's: ``flash_bwd_dkdv_wide_kernel`` and
   ``flash_bwd_dq_wide_kernel``, the forward's column tiles (S and dP
   recomputed over the whole d in each, each writing its own columns of
   dK, dV or dQ; no atomics).
@@ -70,6 +83,9 @@ from repro_torch.roofline import kernel_cost
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)   # the instantiated (padded) dims
 MAX_HEAD_DIM = HEAD_DIMS[-1]    # above it, the column-tile kernels
 WIDE_TILE_COLS = 256    # output columns a column tile, at most
+TC_WIDE_MAX_HEAD_DIM = 768      # the C kTcWideMaxDim
+TC_WIDE_FWD_192_MAX = 704       # the C kTcWideFwd192MaxDim
+TC_WIDE_WIDTHS = (192, 256)     # the wgmma column tiles' instantiated N
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
@@ -101,9 +117,27 @@ def col_tiles(d: int) -> tuple[int, int]:
     return n, -(-width // 16) * 16
 
 
+def wgmma_col_tiles(d: int, forward: bool = False) -> tuple[int, int]:
+    """(tiles, width) of the tensor-core column-tile kernels above
+    ``MAX_HEAD_DIM``, each width one of ``TC_WIDE_WIDTHS``, the last tile
+    cut at d. The backward's (the C ``tc_wide_col_tiles``,
+    ``tc_wide_tile_width``): ceil(d / 256) tiles of equal width rounded up
+    to a whole 64-column box. The forward's (``tc_wide_fwd_col_tiles``,
+    ``tc_wide_fwd_tile_width``): tiles of 192 up to
+    ``TC_WIDE_FWD_192_MAX``, where two blocks an SM fit, else the
+    backward's."""
+    if forward and d <= TC_WIDE_FWD_192_MAX:
+        return -(-d // 192), 192
+    n = -(-d // WIDE_TILE_COLS)
+    width = -(-d // n)
+    return n, -(-width // 64) * 64
+
+
 def fwd_design(dtype: torch.dtype, d: int) -> str:
     """The forward's route on the card, as ``repro_flash_attention``
-    dispatches it (the C ``tc_route``): ``"wide"`` above ``MAX_HEAD_DIM``;
+    dispatches it (the C ``tc_route`` and ``tc_wide_route``): above
+    ``MAX_HEAD_DIM``, ``"wgmma_wide"`` for bfloat16 where d is a multiple
+    of 8 up to ``TC_WIDE_MAX_HEAD_DIM``, else ``"wide"``; up to it,
     ``"wgmma"`` for bfloat16 where d is a multiple of 8 above 32 (the TMA
     maps' rows are whole 16-byte chunks); else ``"simt"``; a dtype or
     head_dim no kernel takes raises."""
@@ -111,7 +145,8 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
     if padded_head_dim(d) > MAX_HEAD_DIM:
-        return "wide"
+        return "wgmma_wide" if dtype == torch.bfloat16 and d % 8 == 0 and \
+            d <= TC_WIDE_MAX_HEAD_DIM else "wide"
     return "wgmma" if dtype == torch.bfloat16 and d > 32 and d % 8 == 0 \
         else "simt"
 

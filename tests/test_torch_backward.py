@@ -297,9 +297,10 @@ def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
 
 def test_flash_bwd_design_routes():
     """bf16 at d 64, 128, 160 and 256 (every instantiated d above 32)
-    takes the wgmma kernels, everything else up to 256 the CUDA-core ones
-    and above 256 the column-tile ones; the backward takes every head dim
-    the forward does; what no kernel takes raises."""
+    takes the wgmma kernels, everything else up to 256 the CUDA-core ones;
+    above 256 bf16 at a multiple of 8 takes the tensor-core column tiles,
+    fp32 and the other bf16 head dims the CUDA-core ones; the backward
+    takes every head dim the forward does; what no kernel takes raises."""
     assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
     assert tflash.bwd_design(torch.float32, 160) == "simt"
     for dtype in (torch.float32, torch.bfloat16):
@@ -308,6 +309,12 @@ def test_flash_bwd_design_routes():
                 d in (64, 128, 160, 256) else "simt"
             assert tflash.bwd_design(dtype, d) == want
     assert tflash.bwd_design(torch.bfloat16, 257) == "wide"
+    for d in (264, 288, 512, 576):
+        assert tflash.bwd_design(torch.bfloat16, d) == "wgmma_wide"
+        assert tflash.bwd_design(torch.float32, d) == "wide"
+    for d in (257, 300):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tflash.bwd_design(dtype, d) == "wide"
     with pytest.raises(ValueError):
         tflash.bwd_design(torch.bfloat16, 0)
     with pytest.raises(TypeError):

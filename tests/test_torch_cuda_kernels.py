@@ -1063,18 +1063,32 @@ def test_flash_refuses_head_dim_0(cuda):
     assert tflash.KERNEL.launches == before
 
 
+# Above 256: every shape in both dtypes (bf16 at 288 and 512 on the
+# tensor-core column tiles, the rest on the CUDA-core ones), then bf16 on
+# the tensor-core ones at d 264, 320, 384 and 576 (two and three tiles of
+# 192): groups 1, 4 and 8, sq and skv of 1, 65 and 333, causal and full.
+WIDE_FLASH_CASES = [
+    (dtype, *case) for dtype in (torch.float32, torch.bfloat16)
+    for case in ((2, 130, 130, 4, 4, 257, True),
+                 (2, 130, 130, 4, 4, 257, False),
+                 (1, 200, 200, 4, 1, 288, True),
+                 (1, 200, 200, 4, 1, 288, False),
+                 (2, 77, 77, 2, 2, 512, True), (2, 77, 77, 2, 2, 512, False),
+                 (1, 65, 200, 2, 1, 300, False))] + [
+    (torch.bfloat16, *case) for case in (
+        (2, 65, 65, 4, 1, 264, True), (2, 65, 333, 4, 1, 264, False),
+        (1, 333, 65, 4, 4, 320, False), (2, 1, 1, 4, 4, 320, True),
+        (1, 1, 333, 8, 8, 384, False), (1, 333, 333, 8, 2, 384, True),
+        (1, 333, 333, 8, 1, 576, True), (1, 333, 333, 8, 1, 576, False))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
-    (2, 130, 130, 4, 4, 257, True), (2, 130, 130, 4, 4, 257, False),
-    (1, 200, 200, 4, 1, 288, True), (1, 200, 200, 4, 1, 288, False),
-    (2, 77, 77, 2, 2, 512, True), (2, 77, 77, 2, 2, 512, False),
-    (1, 65, 200, 2, 1, 300, False)])
+@pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,causal", WIDE_FLASH_CASES)
 def test_flash_above_256_forward_and_backward_match_plain(
         cuda, dtype, b, sq, skv, hq, hkv, d, causal):
-    """The column-tile kernels, forward with its lse and backward, against
-    the plain versions; one launch each; the backward bitwise
-    repeatable."""
+    """The column-tile kernels of both routes, forward with its lse and
+    backward, against the plain versions; one launch each; the backward
+    bitwise repeatable."""
     q, k, v, dout = _attn_inputs(cuda, dtype, b, sq, skv, hq, hkv, d)
     scale = d ** -0.5
     before = (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches)

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
 ``src/repro_torch/``, ``chip_smoke.py``, the port's measurement tools
-``tools/train_step_ab.py``, ``tools/attention_ab.py`` and
-``tools/nvcc_times.py`` or its examples
-``examples/torch_*.py``; its copied configs equal the JAX package's, and
+``tools/train_step_ab.py``, ``tools/attention_ab.py``,
+``tools/flash_variants_ab.py`` and ``tools/nvcc_times.py`` or its
+examples ``examples/torch_*.py``; its copied configs equal the JAX package's, and
 so does every definition of its copies of the numpy layer; its entry
 points refuse a missing card instead of running on the CPU."""
 import ast
@@ -22,7 +22,8 @@ from repro_torch.serving.engine import ServingEngine
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py",
-    REPO / "tools" / "attention_ab.py", REPO / "tools" / "nvcc_times.py"
+    REPO / "tools" / "attention_ab.py", REPO / "tools" / "nvcc_times.py",
+    REPO / "tools" / "flash_variants_ab.py"
 ] + sorted(
     (REPO / "examples").glob("torch_*.py"))
 
@@ -48,15 +49,18 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 def test_port_has_the_three_kernel_sources():
     """One CUDA source for each of the JAX package's five Pallas kernels,
-    and the SSD scan's backward in one of its own (the name dates from the
-    first slice, which had three)."""
+    the SSD scan's backward in one of its own and flash attention's
+    tensor-core kernels above a head dim of 256 in another (the name dates
+    from the first slice, which had three)."""
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
-        "ssd_scan.cu", "ssd_scan_bwd.cu", "int8_matmul.cu"}
+        "rmsnorm.cu", "flash_attention.cu", "flash_attention_wide.cu",
+        "decode_attention.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+        "int8_matmul.cu"}
     pallas = {p.stem for p in (REPO / "src" / "repro" / "kernels").glob(
         "*.py") if "pl.pallas_call" in p.read_text()}
-    assert {p.stem.removesuffix("_bwd") for p in csrc.glob("*.cu")} == pallas
+    assert {p.stem.removesuffix("_bwd").removesuffix("_wide")
+            for p in csrc.glob("*.cu")} == pallas
 
 
 def test_port_has_every_arch_of_the_reference():

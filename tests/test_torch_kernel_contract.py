@@ -18,6 +18,8 @@ their plain versions on the card by ``chip_smoke.py`` and
 ``tests/test_torch_cuda_kernels.py``.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +70,11 @@ DECODE_IDS = ["falcon-g71", "gemma-d256"]
 # 16 q heads, three column tiles).
 DECODE_WIDE = [(16, 1, 512), (128, 1, 576)]
 DECODE_WIDE_IDS = ["g16-d512", "mla-g128-d576"]
-WIDE_DIMS = [257, 288, 300, 512, 576]
+WIDE_DIMS = [257, 264, 288, 300, 512, 576]
+# bf16 head dims above 256 on the tensor-core column tiles (multiples of 8
+# up to tflash.TC_WIDE_MAX_HEAD_DIM); the rest of WIDE_DIMS stays on the
+# CUDA-core ones.
+WGMMA_WIDE_DIMS = {264, 288, 512, 576}
 # The models of the contract phase: internlm2-1.8b's smoke config with
 # gemma-2b's attention, a group of 32, and phi-3-mini's heads, each cut
 # (heads and d_model) to smoke width.
@@ -174,13 +180,17 @@ def test_flash_designs_name_the_route_at_new_head_dims(d, dtype, design):
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_flash_and_decode_designs_name_the_route_above_256(d):
-    """Above 256 every dtype takes the column-tile kernels, forward and
-    backward, at the real d: ceil(d / 256) tiles of equal width rounded up
-    to 16, covering d, the last cut at d; decode's route is its column-tile
+    """Above 256 every dtype takes a column-tile route, forward and
+    backward, at the real d: bf16 at a multiple of 8 the tensor-core one
+    (``"wgmma_wide"``), fp32 and the other bf16 head dims the CUDA-core one
+    (``"wide"``: ceil(d / 256) tiles of equal width rounded up to 16,
+    covering d, the last cut at d); decode's route is its column-tile
     kernel at any group, in slices of 16 q heads."""
-    for dtype in (torch.float32, torch.bfloat16):
-        assert tflash.fwd_design(dtype, d) == tflash.bwd_design(dtype, d) \
-            == "wide"
+    assert tflash.fwd_design(torch.float32, d) == \
+        tflash.bwd_design(torch.float32, d) == "wide"
+    want = "wgmma_wide" if d in WGMMA_WIDE_DIMS else "wide"
+    assert tflash.fwd_design(torch.bfloat16, d) == \
+        tflash.bwd_design(torch.bfloat16, d) == want
     assert tflash.padded_head_dim(d) == d
     n, tw = tflash.col_tiles(d)
     assert n == -(-d // 256) and tw % 16 == 0 and tw <= 256
@@ -195,6 +205,57 @@ def test_flash_and_decode_designs_name_the_route_above_256(d):
             assert lay["smem"] <= tdecode.MAX_SMEM
             assert lay["cols_per_thread"] * tdecode.THREADS >= tw
     assert tdecode.pv_layout(2, 256, 8)["route"] == "split"
+
+
+CSRC = Path(tflash.__file__).resolve().parents[1] / "csrc"
+
+
+def _c_int_fn(src: str, name: str):
+    """A one-line ``__host__ __device__ inline`` int function of
+    ``src`` as a Python function of d (C's / on ints >= 0 is //)."""
+    body = re.search(rf"inline \w+ {name}\(int d\) \{{\s*return "
+                     rf"([^;]+);\s*\}}", src).group(1)
+    body = body.replace("&&", " and ").replace("/", "//")
+    fns = {n: _c_int_fn(src, n) for n in re.findall(r"(tc_wide_\w+)\(d\)",
+                                                     body) if n != name}
+    body = re.sub(r"^(.+) \? (.+) : (.+)$", r"(\2 if \1 else \3)", body)
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    return lambda d: eval(body, {**fns, **{k: int(v) for k, v in
+                                           const.items()}, "d": d})
+
+
+@pytest.mark.parametrize("d", [264, 288, 320, 384, 392, 512, 520, 576, 640,
+                               704, 712, 768])
+def test_wgmma_wide_tile_plan_covers_d_at_instantiated_widths(d):
+    """The tensor-core column tiles (``wgmma_col_tiles``, the backward's
+    and the forward's plan): they cover d, none is empty, each is at most
+    256 wide and an N the C dispatch instantiates (its ``case`` labels,
+    forward and backward); the plans are ``csrc/common.cuh``'s
+    ``tc_wide_col_tiles`` / ``tc_wide_tile_width`` and
+    ``tc_wide_fwd_col_tiles`` / ``tc_wide_fwd_tile_width`` evaluated from
+    the source, and the route is ``tc_wide_route``'s."""
+    common = (CSRC / "common.cuh").read_text()
+    for forward, fn in ((False, ""), (True, "fwd_")):
+        n, width = tflash.wgmma_col_tiles(d, forward=forward)
+        assert (n - 1) * width < d <= n * width
+        assert width <= 256 and width % 64 == 0
+        assert width in tflash.TC_WIDE_WIDTHS
+        assert (_c_int_fn(common, f"tc_wide_{fn}col_tiles")(d),
+                _c_int_fn(common, f"tc_wide_{fn}tile_width")(d)) == \
+            (n, width)
+    assert tflash.wgmma_col_tiles(d, forward=True)[1] == (
+        192 if d <= tflash.TC_WIDE_FWD_192_MAX else
+        tflash.wgmma_col_tiles(d)[1])
+    assert bool(_c_int_fn(common, "tc_wide_route")(d)) == \
+        (tflash.fwd_design(torch.bfloat16, d) == "wgmma_wide")
+    wide = (CSRC / "flash_attention_wide.cu").read_text()
+    for launch in ("fwd_as", "bwd_as"):
+        cases = {int(x) for x in re.findall(
+            rf"case (\d+): return tcw::{launch}<\1>", wide)}
+        assert cases == set(tflash.TC_WIDE_WIDTHS)
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
+    assert int(const["kTcWideMaxDim"]) == tflash.TC_WIDE_MAX_HEAD_DIM
+    assert int(const["kTcWideFwd192MaxDim"]) == tflash.TC_WIDE_FWD_192_MAX
 
 
 @pytest.mark.parametrize("d", [0, -1])

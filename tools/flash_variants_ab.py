@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Time variants of the flash attention sources against each other on one
+CUDA card, above a head dim of 256 in bf16.
+
+    python3 tools/flash_variants_ab.py VARIANT_DIR [VARIANT_DIR ...]
+
+Each VARIANT_DIR holds a copy of ``src/repro_torch/csrc``'s
+``flash_attention.cu``, ``flash_attention_wide.cu``, ``common.cuh`` and
+``hopper.cuh``, edited as the variant wants. Runs a worker for each
+variant in turns (the variants in order, then in reverse), each a fresh
+process that builds its own library from that directory (into
+``VARIANT_DIR/_build``), then at b 8, s 256, causal times by CUDA-graph
+replay ``_kernel_forward`` and ``_kernel_backward`` at each of SHAPES,
+with the forward's max abs error and the backward's error over (1 +
+max-abs) against the plain versions. Prints one JSON line a run (with
+ptxas's registers and spills of the ``wgmma_wide`` kernels) and the
+card's name and power limit.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SHAPES = [(8, 2, 288), (8, 8, 512), (8, 1, 576), (8, 8, 384), (8, 8, 768),
+          (8, 8, 448)]      # (hq, hkv, d)
+
+
+def worker(vdir: str) -> None:
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+
+    from repro_torch.kernels import _build
+    _build.CSRC_DIR = pathlib.Path(vdir)
+    _build.BUILD_ROOT = pathlib.Path(vdir) / "_build"
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as kf
+
+    info = _build.build()
+    out = {"variant": os.path.basename(vdir), "build_s": info.seconds,
+           "regs": [p for p in cs._ptxas_summary(info.ptxas)
+                    if "wgmma_wide" in p]}
+
+    def rnd(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    for hq, hkv, d in SHAPES:
+        b, s = 8, 256
+        q, k, v = rnd((b, s, hq, d), 0), rnd((b, s, hkv, d), 1), \
+            rnd((b, s, hkv, d), 2)
+        do = rnd((b, s, hq, d), 3)
+        sc = d ** -0.5
+        o, lse = kf._kernel_forward(q, k, v, True, sc, with_lse=True)
+        err = (o.float() - kf.plain(q, k, v).float()).abs().max().item()
+        got = kf._kernel_backward(q, k, v, o, do, lse, True, sc)
+        want = kf.plain_bwd(q, k, v, o, do, lse, causal=True, scale=sc)
+        berr = max(((a.float() - c.float()).abs().max() /
+                    (1 + c.float().abs().max())).item()
+                   for a, c in zip(got, want))
+        out[f"{hq}/{hkv} d{d}"] = {
+            "fwd_ms": cs.time_ms(lambda: kf._kernel_forward(q, k, v, True,
+                                                            sc)),
+            "bwd_ms": cs.time_ms(lambda: kf._kernel_backward(
+                q, k, v, o, do, lse, True, sc), 5),
+            "fwd_err": err, "bwd_rel": berr}
+    print(json.dumps(out), flush=True)
+
+
+def main() -> None:
+    if sys.argv[1] == "--worker":
+        worker(sys.argv[2])
+        return
+    dirs = sys.argv[1:]
+    for vdir in dirs + dirs[::-1]:
+        r = subprocess.run([sys.executable, __file__, "--worker", vdir],
+                           capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+        print(lines[-1] if lines else
+              f"{vdir}: rc {r.returncode} {r.stderr[-2000:]}", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()
