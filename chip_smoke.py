@@ -42,12 +42,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 3b. ``contract`` the kernels at shapes the Pallas kernels compute and no
                 model path runs, in bf16 and fp32: flash forward and
                 backward at b 8, s 256, causal, at 32/32 heads d 96
-                (phi-3-mini) and d 80 (phi-2), 8/1 d 256 (gemma-2b) and
-                8/8 d 100 (rows not whole 16-byte chunks in bf16), and
-                above 256 on the column-tile kernels: 8/8 d 257, 8/2 d
-                288, 8/8 d 512; decode at the serve cache with 71/1 d 64
-                (falcon-7b: five slices of q heads), 8/1 d 256, 32/32
-                d 96, 16/1 d 512 and 128/1 d 576 (an absorbed MLA
+                (phi-3-mini) and d 80 (phi-2), 8/1 d 256 (gemma-2b), 8/8
+                d 100 and 8/2 d 99 (rows not whole 16-byte chunks in
+                bf16: the backward's "wgmma_staged" route), and above
+                256 on the column-tile kernels: 8/8 d 257, 8/2 d 288,
+                8/8 d 512, 8/1 d 576; decode at the serve cache with 71/1
+                d 64 (falcon-7b: five slices of q heads), 8/1 d 256
+                (route "mma", decode_attention_tc.cu), 32/32 d 96, 16/1
+                d 512 and 128/1 d 576 (an absorbed MLA
                 decode: eight slices, three column tiles), each in plain
                 and partial mode; ssd_scan forward and backward at b 1, s
                 512, 8 heads, p 64, d_state 512. Each case against its
@@ -275,8 +277,9 @@ their library call's backward timed through autograd (``F.rms_norm``,
 ``F.scaled_dot_product_attention``; none computes the SSD), and ssd_scan's
 forward at the training shape. Each flash and SSD backward case names its
 route (``design``: the wgmma kernels for bf16 at d 64, 128 and 160, the
-CUDA-core ones otherwise; the SSD backward's tensor-core kernels for bf16
-at n <= 128, p <= 64, the CUDA-core ones otherwise); a bf16 SSD backward
+CUDA-core ones otherwise, and in the contract phase ``wgmma_staged``; the
+SSD backward's tensor-core kernels for bf16 at n <= 128, p <= 64, the
+CUDA-core ones otherwise); a bf16 SSD backward
 case also holds the CUDA-core design to the same checks on the same
 inputs and times it in the same call (``simt_max_abs_err``,
 ``simt_abs_err``, ``simt_ms``, ``simt_kernel_us``). Each rmsnorm
@@ -551,8 +554,11 @@ SOURCES = {
                     "src/repro/kernels/int8_matmul.py:43"),
 }
 # Flash attention's tensor-core column tiles above a head dim of 256 (the
-# "wgmma_wide" design, forward and backward) live in a source of their own.
+# "wgmma_wide" design, forward and backward) live in a source of their own,
+# and so does decode attention's tensor-core kernel (route "mma", bf16 at
+# D 256).
 WGMMA_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
+DECODE_MMA_SOURCE = "src/repro_torch/csrc/decode_attention_tc.cu"
 
 
 def emit(obj: dict) -> None:
@@ -720,6 +726,7 @@ def _ptxas_summary(lines):
                              r"flash_fwd_simt_kernel|flash_fwd_wide_kernel|"
                              r"flash_bwd_\w+_kernel|"
                              r"decode_split_kernel|decode_wide_kernel|"
+                             r"decode_mma_kernel|"
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
                              r"ssd_tc_outputs_kernel|ssd_scan_simt_kernel|"
                              r"ssd_bwd_(?:states|pass|local|reduce)_kernel|"
@@ -758,9 +765,11 @@ def _main_path_patterns() -> list:
     train_parity path) and in bf16 (the shapes the tensor-core design
     does not take; the kernels phase holds them to the plain backward).
     And the tensor-core column tiles above a head dim of 256 at both
-    widths (forward, dK/dV and dQ), which the contract phase runs: no
-    model path reaches them, but they are held to no spill all the
-    same."""
+    widths (forward, dK/dV and dQ), the backward's staged wgmma kernels at
+    every padded D with their staging copies (each load width), and the
+    tensor-core decode (``decode_mma_kernel``), which the contract phase
+    runs: no model path in bf16 reaches them, but they are held to no
+    spill all the same."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
             r"rmsnorm_dw_kernel<f32>",
@@ -786,8 +795,9 @@ def _main_path_patterns() -> list:
     pats.append(rf"rmsnorm_bwd_ring_kernel<bf16,{p.nv},{p.wpr},1>")
     for arch in (ARCH, D160_ARCH):
         hd = get_config(arch).resolved_head_dim
-        pats += [rf"flash_bwd_{k}_kernel<bf16,{hd}>"
-                 for k in ("preprocess", "dkdv_wgmma", "dq_wgmma")]
+        pats += [rf"flash_bwd_preprocess_kernel<bf16,{hd}>"]
+        pats += [rf"flash_bwd_{k}_kernel<bf16,{hd},0>"
+                 for k in ("dkdv_wgmma", "dq_wgmma")]
         pats += [rf"flash_bwd_preprocess_kernel<f32,{hd}>"]
         pats += [rf"flash_bwd_{k}_kernel<f32,{hd},0>" for k in ("dkdv", "dq")]
     for arch in PATH_KERNELS:
@@ -805,6 +815,10 @@ def _main_path_patterns() -> list:
     pats += [rf"flash_{k}_wgmma_wide_kernel<bf16,{n}>"
              for k in ("fwd", "bwd_dkdv", "bwd_dq")
              for n in kflash.TC_WIDE_WIDTHS]
+    pats += [rf"flash_bwd_{k}_wgmma_kernel<bf16,{n},1>"
+             for k in ("dkdv", "dq") for n in (64, 128, 160, 256)]
+    pats += [rf"flash_bwd_stage_rows_kernel<bf16,{w}>" for w in (1, 2, 4)]
+    pats.append(r"decode_mma_kernel<bf16>")
     return pats
 
 
@@ -1365,8 +1379,9 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 # The contract phase: shapes the Pallas kernels compute and no model path
 # above runs. Head dims off the instantiated set (phi-3-mini's 96, phi-2's
-# 80, gemma-2b's 256, and 100, whose bf16 rows are not whole 16-byte
-# chunks), falcon-7b's group of 71 q heads on one kv head, d_state 512.
+# 80, gemma-2b's 256, and 100 and 99, whose bf16 rows are not whole 16-byte
+# chunks: the backward's staged route, at an even and an odd d), falcon-7b's
+# group of 71 q heads on one kv head, d_state 512.
 # ---------------------------------------------------------------------------
 CONTRACT_PATH = "contract phase"
 # Above 256 (the column-tile kernels): d 257 (rows not whole 16-byte
@@ -1375,7 +1390,8 @@ CONTRACT_PATH = "contract phase"
 # tensor cores); decode at a group of 16 at d 512 and the absorbed MLA
 # decode of DeepSeek-V2/V3 (128 q heads on one latent head of 512 + 64).
 CONTRACT_FLASH = ((32, 32, 96), (32, 32, 80), (8, 1, 256), (8, 8, 100),
-                  (8, 8, 257), (8, 2, 288), (8, 8, 512), (8, 1, 576))
+                  (8, 2, 99), (8, 8, 257), (8, 2, 288), (8, 8, 512),
+                  (8, 1, 576))
 CONTRACT_DECODE = ((71, 1, 64), (8, 1, 256), (32, 32, 96), (16, 1, 512),
                    (128, 1, 576))
 CONTRACT_SSD = (1, 512, 8, 64, 512)        # b, s, h, p, n
@@ -1525,6 +1541,7 @@ def _contract_decode_case(hq, hkv, d, dtype, lse, seed=0):
             "max_abs_err": err, "checked_launches": launches[
                 "decode_attention"],
             "route": kdec.pv_layout(q.element_size(), d, g)["route"],
+            "design": kdec.pv_layout(q.element_size(), d, g)["route"],
             "ms": time_ms(call), "plain_ms": time_ms(lambda: kdec.plain(
                 q, k, v, length, return_lse=lse), 10),
             "library_ms": time_ms(lib),
@@ -1626,6 +1643,8 @@ def _contract_rows(contract: dict) -> list:
             source, replaces = SOURCES[x["kernel"]]
             if x.get("design") == "wgmma_wide":
                 source = WGMMA_WIDE_SOURCE
+            if x["kernel"] == "decode_attention" and x["design"] == "mma":
+                source = DECODE_MMA_SOURCE
             rows.append({
                 "name": x["kernel"], "path": CONTRACT_PATH, "route": "cuda",
                 "source": source, "replaces": replaces,
@@ -1660,6 +1679,7 @@ def phase_contract(smi: str) -> dict:
         cases.append(_contract_ssd_case(dtype))
     ptxas = [p for p in _ptxas_summary(_build.build().ptxas)
              if re.search(r"<\w+,256|,1>|flash_bwd_preprocess_rows|"
+                          r"flash_bwd_stage_rows|decode_mma|"
                           r"ssd_scan_simt|ssd_bwd_local|wide|stream", p)]
     emit({"phase": "contract", "tolerance": {
         "bfloat16": KERNEL_TOL[torch.bfloat16],

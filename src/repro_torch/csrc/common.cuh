@@ -85,6 +85,50 @@ __host__ __device__ inline int tc_wide_fwd_col_tiles(int d) {
   return (d + tc_wide_fwd_tile_width(d) - 1) / tc_wide_fwd_tile_width(d);
 }
 
+// bf16 from 33 to 256 where a row is not whole 16-byte chunks: the flash
+// backward's staged route (flash_attention.cu), which copies Q, K, V and dO
+// into rows of staged_ld(d) elements, the least multiple of 8 at or above d,
+// and runs the tensor-core kernels on them.
+__host__ __device__ inline bool staged_route(int d) {
+  return d > 32 && d <= 256 && d % 8 != 0;
+}
+
+__host__ __device__ inline int staged_ld(int d) { return (d + 7) / 8 * 8; }
+
+// bf16 decode at the padded head dim 256 where d is whole 16-byte chunks
+// (d 168-256): decode_attention_tc.cu, on the tensor cores. Its cache rows
+// come in tiles of kDecodeMmaTile (eight warps a block, each scoring 8
+// rows); its splits are planned from skv and the number of (batch, kv
+// head, q-head slice) units alone, never from the lengths: as many as fill
+// the card (about kDecodeMmaBlocks blocks, one an SM: a block's two tiles
+// in flight take 144 KB), at most 32 (the combine takes one split a lane),
+// but at least kDecodeMmaMinRows rows a split (a tile: each split adds a
+// partial that the combine reads after the last split).
+constexpr int kDecodeMmaTile = 64;
+constexpr int kDecodeMmaBlocks = 132;
+constexpr int kDecodeMmaMinRows = 64;
+
+__host__ __device__ inline bool decode_mma_route(int d) {
+  return d > 160 && d <= 256 && d % 8 == 0;
+}
+
+__host__ __device__ inline int decode_mma_splits(int units) {
+  return (kDecodeMmaBlocks + units - 1) / units > 32
+             ? 32 : (kDecodeMmaBlocks + units - 1) / units;
+}
+
+// The least whole tiles that cover skv in decode_mma_splits(units) splits.
+__host__ __device__ inline int decode_mma_fill_rows(int skv, int units) {
+  return kDecodeMmaTile * ((skv + kDecodeMmaTile * decode_mma_splits(units) -
+                            1) / (kDecodeMmaTile * decode_mma_splits(units)));
+}
+
+// Cache rows a split: decode_mma_fill_rows, but at least kDecodeMmaMinRows.
+__host__ __device__ inline int decode_mma_split_rows(int skv, int units) {
+  return decode_mma_fill_rows(skv, units) < kDecodeMmaMinRows
+             ? kDecodeMmaMinRows : decode_mma_fill_rows(skv, units);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -36,7 +36,11 @@
 //   zeros past d (single-element loads: the global rows are not 16-byte
 //   aligned); the scores read those chunks alone, and the P.V threads of
 //   the chunks past them idle. fp32 at D 256 keeps one tile in flight
-//   (two would take 266 KB). Any group G = hq / hkv >= 1: one
+//   (two would take 266 KB). bf16 at D 256 where d is whole 16-byte chunks
+//   (decode_mma_route: d 168-256, gemma-2b's 256) does not reach this
+//   kernel: repro_decode_attention sends it to decode_attention_tc.cu's
+//   tensor-core kernel, its own source so that it compiles in parallel
+//   with this one. Any group G = hq / hkv >= 1: one
 //   instantiation serves each bucket of groups (GM = 1, 2, 4, 8, 16, the
 //   least GM >= G), sizing shared memory and registers for GM; a group
 //   equal to its bucket runs an instantiation where G is that constant,
@@ -509,8 +513,9 @@ int launch(const void* q, const void* k, const void* v, const int* length,
 // exact one (g a compile-time constant) where g == GM, else the one that
 // reads g at run time; a group above 16 the run-time 16, in ceil(g / 16)
 // slices of q heads. A head dim below D takes the padded run-time 16 at
-// any group, and so does D 256 at every d (no model of the first port had
-// it: one instantiation a dtype keeps the build short).
+// any group, and so does D 256 at every d this kernel serves there (fp32,
+// and bf16 at a d that is not whole 16-byte chunks; bf16 at the others
+// goes to decode_attention_tc.cu before this dispatch).
 template <typename T, int D>
 int dispatch_g(int g, const void* q, const void* k, const void* v,
                const int* length, void* o, float* lse, float* part_ml,
@@ -766,6 +771,15 @@ int launch(const void* q, const void* k, const void* v, const int* length,
 }  // namespace wide
 
 }  // namespace
+
+// bf16 at the padded head dim 256 where d is whole 16-byte chunks
+// (decode_mma_route): the tensor-core kernel of decode_attention_tc.cu.
+namespace decode_tc {
+int launch(const void* q, const void* k, const void* v, const int* length,
+           void* o, float* lse, float* part_ml, float* part_acc, int* counter,
+           int b, int skv, int hq, int hkv, int d, int split_rows,
+           float scale, cudaStream_t stream);
+}  // namespace decode_tc
 }  // namespace repro
 
 // With G = hq / hkv, gs = ceil(G / 16) slices of GS = min(G, 16) q heads
@@ -777,8 +791,12 @@ int launch(const void* q, const void* k, const void* v, const int* length,
 // wide_col_tiles(d) column tiles is a unit of its own: part_ml (b, hkv,
 // gs, nct, splits, GS, 2), part_acc (b, hkv, gs, nct, splits, GS, 256),
 // counter b * hkv * gs * nct. split_rows is a multiple of 64 and gives at
-// most 32 splits (the combine takes one split per lane). d below 1
-// returns cudaErrorInvalidValue. lse: null, or (b, hq) fp32 (partial
+// most 32 splits (the combine takes one split per lane). bf16 where
+// decode_mma_route holds (d 168-256, a multiple of 8) runs
+// decode_attention_tc.cu's decode_mma_kernel, with the same scratch at D 256
+// (part_acc 16-byte aligned) and counter, and split_rows
+// decode_mma_split_rows(skv, b * hkv * gs), whole tiles of 32 rows. d below
+// 1 returns cudaErrorInvalidValue. lse: null, or (b, hq) fp32 (partial
 // mode).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* length,
@@ -789,9 +807,16 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
                                       float scale, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || split_rows <= 0 ||
-      split_rows % kTile != 0)
+  if (b <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || split_rows <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBF16 && decode_mma_route(d))
+    return decode_tc::launch(q, k, v, static_cast<const int*>(length), o,
+                             static_cast<float*>(lse),
+                             static_cast<float*>(part_ml),
+                             static_cast<float*>(part_acc),
+                             static_cast<int*>(counter), b, skv, hq, hkv, d,
+                             split_rows, scale, s);
+  if (split_rows % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int* len = static_cast<const int*>(length);
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);

@@ -15,8 +15,8 @@
 // of flash_attention_wide.cu, forward and backward; fp32 and the other bf16
 // head dims on the CUDA-core column tiles of namespace wide.
 //
-// Up to 256, two hand-written kernels serve it, chosen by dtype and head
-// dim:
+// Up to 256, two hand-written kernels serve the forward, chosen by dtype
+// and head dim (the backward adds a staged route, below):
 //
 // * flash_fwd_wgmma_kernel: bf16 where d is a multiple of 8 above 32
 //   (tc_route; the TMA maps' row stride must be a multiple of 16 bytes):
@@ -74,8 +74,8 @@
 //   dQ = dS K * scale.
 // flash_bwd_preprocess_kernel writes delta (16-byte loads, up to 32 lanes
 // a row, delta_lanes; at a d below its D, flash_bwd_preprocess_rows_kernel,
-// a warp a row, sums over the real d), then one of two routes, chosen by
-// dtype and head dim as the forward's, at the same padded D:
+// a warp a row, sums over the real d), then one of three routes, chosen by
+// dtype and head dim, at the forward's padded D:
 // * bf16 where tc_route holds (the training paths at d 64, 128 and 160):
 //   flash_bwd_dkdv_wgmma_kernel,
 //   one warpgroup a (kv tile of 64, kv head, batch), causal kv tile 0
@@ -103,7 +103,23 @@
 //   D 256 takes four boxes, N 256, and the same two warpgroups (128
 //   accumulators a thread beside S^T, dP^T and dS's fragments), with 194 KB
 //   of shared memory.
-// * fp32 at every d, and bf16 where tc_route does not:
+// * bf16 where staged_route holds (d from 33 to 256, not a multiple of 8:
+//   the rows are not whole 16-byte chunks, so no TMA map can read them):
+//   flash_bwd_stage_rows_kernel copies Q, K, V and dO into a scratch of
+//   rows staged_ld(d) elements long (the least multiple of 8), columns past
+//   d zero, in loads of the widest width the row alignment allows (8, 4 or
+//   2 bytes), and writes delta over the real d from the dO rows it copies
+//   and the same columns of O; then the two wgmma kernels above run at the
+//   padded D with maps on the copies (inner extent d, row stride
+//   staged_ld(d)), in instantiations of their own (kStaged) whose only
+//   difference is the store: dQ, dK and dV go straight to the caller's
+//   tensors at the real d, each column masked (4-byte pairs where d is
+//   even, else 2-byte stores), since an 8-column chunk past d would run
+//   into the next head.
+//   The copy moves the four inputs twice more (26.8 MB at 8/8 heads, d
+//   100, b 8, s 256); the CUDA-core kernels it replaces there ran full
+//   fp32 products.
+// * fp32 at every d, and bf16 where neither route above holds (d <= 32):
 //   flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, fp32 products on the
 //   CUDA cores, the same split: one block of 256 threads a (kv tile, kv
 //   head, batch) and a (q tile, q head, batch). Tiles are staged in
@@ -1138,22 +1154,31 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                                sq, skv, hq, hkv, d, scale, causal, stream);
 }
 
-// Every head dim at its padded D: at 160 the dK/dV kernel's tiles take
-// 194 KB of shared memory, the dQ kernel's 177 KB; at 256 (32-row
-// streamed tiles) 210 KB and 201 KB.
+// fp32: every head dim at its padded D (at 160 the dK/dV kernel's tiles
+// take 194 KB of shared memory, the dQ kernel's 177 KB; at 256, 32-row
+// streamed tiles, 210 KB and 201 KB). bf16 only up to 32: above it every d
+// runs the wgmma kernels (tc_route, or staged_route's copies).
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* delta,
              void* dq, void* dk, void* dv, int b, int sq, int skv, int hq,
              int hkv, float scale, int causal, cudaStream_t s) {
-  switch (padded_dim(d)) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 160: return launch<T, 160>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (sizeof(T) == 2) {
+    switch (padded_dim(d)) {
+      case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (padded_dim(d)) {
+      case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 160: return launch<T, 160>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -1200,9 +1225,11 @@ constexpr size_t smem_bytes() {
 
 // This thread's two rows of a 64 x N accumulator (N >= D >= d), times
 // `mul`, as bf16 into the d columns of rows `row_a` and `row_a` + 8 (those
-// below `rows`) of a (b, rows, heads, d) tensor at (bb, h); d is a
-// multiple of 8.
-template <int D, int NA>
+// below `rows`) of a (b, rows, heads, d) tensor at (bb, h). d is a multiple
+// of 8, or with kStaged any d: each column is masked, a pair stored as 4
+// bytes where d is even (so the pair is whole and 4-byte aligned), else
+// element by element.
+template <int D, bool kStaged, int NA>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NA],
                                            float mul, int bb, int row_a,
                                            int rows, int heads, int h,
@@ -1215,11 +1242,24 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NA],
     bf16* orow =
         out + ((static_cast<size_t>(bb) * rows + row) * heads + h) * d;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
-      if (8 * jj < d)
+    for (int jj = 0; jj < D / 8; ++jj) {
+      if constexpr (kStaged) {
+        const int c = 8 * jj + col_t;
+        const float x0 = acc[4 * jj + 2 * half] * mul;
+        const float x1 = acc[4 * jj + 2 * half + 1] * mul;
+        if (d % 2 == 0) {
+          if (c < d)
+            *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(x0, x1);
+        } else {
+          if (c < d) orow[c] = __float2bfloat16(x0);
+          if (c + 1 < d) orow[c + 1] = __float2bfloat16(x1);
+        }
+      } else if (8 * jj < d) {
         *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
           pack_bf16(acc[4 * jj + 2 * half] * mul,
                         acc[4 * jj + 2 * half + 1] * mul);
+      }
+    }
   }
 }
 
@@ -1228,7 +1268,9 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NA],
 // dK, dV accumulators stay in registers for the whole walk (split between
 // two warpgroups at d 160, dkdv_warpgroups). In the transposed score tile
 // S^T (kv rows x q columns) lse and delta are per column, read from smem.
-template <int D>
+// kStaged: the maps read the staged rows (staged_route), and dK, dV are
+// stored column by column (store_rows); the rest is the same code.
+template <int D, bool kStaged>
 __global__ void __launch_bounds__(kThreads * dkdv_warpgroups<D>())
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -1432,17 +1474,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   if (does_dk)
-    store_rows<D>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t, d);
+    store_rows<D, kStaged>(dk, dk_acc, scale, bb, kv_a, skv, hkv, kvh, col_t,
+                           d);
   if (does_dv)
-    store_rows<D>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t, d);
+    store_rows<D, kStaged>(dv, dv_acc, 1.f, bb, kv_a, skv, hkv, kvh, col_t,
+                           d);
 }
 
 // One block a (q tile of 64 rows, q head, batch): Q and dO stay in smem,
 // K and V tiles up to the diagonal stream through a TMA ring; S and dP are
 // recomputed here (not read from the dK/dV kernel), so no block adds into
 // another's output. At d 160 dQ += dS K runs at N 192 (96 accumulators a
-// thread), as the dK/dV kernel's products.
-template <int D>
+// thread), as the dK/dV kernel's products. kStaged as the dK/dV kernel's.
+template <int D, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -1586,44 +1630,197 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && j + kStages < n_kv) issue_kv(stage, j + kStages);
   }
 
-  store_rows<D>(dq, acc, scale, bb, row_a, sq, hq, h, col_t, d);
+  store_rows<D, kStaged>(dq, acc, scale, bb, row_a, sq, hq, h, col_t, d);
 }
 
-template <int D>
+// The staged route's copy, with delta: rows of Q, K, V and dO (blockIdx.y
+// 0-3) into rows of ld = staged_ld(d) elements of the scratch, in that
+// order, columns d..ld - 1 zero; and for each dO row delta = rowsum(dO *
+// O) over the real d into (b, hq, sq) float32, from the dO chunks the copy
+// reads anyway and the same chunks of O (a separate pass,
+// flash_bwd_preprocess_rows_kernel, would read dO again and cost a launch;
+// PERF.md §6 has the times). A row takes a group of P threads (P
+// the least power of two at or above its ld / 8 16-byte chunks; 32 / P rows
+// a warp), thread j of the group chunk j, stored whole, gathered from the
+// source in W-element loads: 8 bytes where d % 4 == 0, 4 where d is even, 2
+// where it is odd, the widest the source rows' alignment allows (a row
+// starts 2 d bytes after the last). A thread's 8 / W loads are
+// independent, in flight together; the group sums delta with shuffles.
+// Bound by bytes: each input read once (O's d columns too), its staged copy
+// and delta written once.
+constexpr int kStageThreads = 256;
+
+template <int W>
+__global__ void __launch_bounds__(kStageThreads)
+flash_bwd_stage_rows_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const bf16* __restrict__ o,
+                            float* __restrict__ delta,
+                            bf16* __restrict__ scratch, long long nq,
+                            long long nk, int sq, int hq, int d, int ld,
+                            int log2p) {
+  const int which = blockIdx.y;
+  const long long rows = which == 0 || which == 3 ? nq : nk;
+  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
+  const long long first = which == 0 ? 0
+                          : which == 1 ? nq
+                          : which == 2 ? nq + nk
+                                       : nq + 2 * nk;
+  const int p = 1 << log2p, j = threadIdx.x & (p - 1);
+  const long long r = (static_cast<long long>(blockIdx.x) * kStageThreads +
+                       threadIdx.x) >> log2p;
+  if (r >= rows) return;    // whole groups: a row's threads leave together
+  const int c0 = 8 * j;
+  __align__(16) unsigned short buf[8];
+  __align__(16) unsigned short obuf[8];
+#pragma unroll
+  for (int e = 0; e < 8; e += W) {
+    // d is a multiple of W, so a W-element group lies wholly below d or not
+    const bool ok = c0 + e < d;
+    const long long at = r * d + c0 + e;
+    if constexpr (W == 4) {
+      const uint2 z = make_uint2(0, 0);
+      *reinterpret_cast<uint2*>(buf + e) =
+          ok ? __ldg(reinterpret_cast<const uint2*>(src + at)) : z;
+      if (which == 3)
+        *reinterpret_cast<uint2*>(obuf + e) =
+            ok ? __ldg(reinterpret_cast<const uint2*>(o + at)) : z;
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<unsigned int*>(buf + e) =
+          ok ? __ldg(reinterpret_cast<const unsigned int*>(src + at)) : 0u;
+      if (which == 3)
+        *reinterpret_cast<unsigned int*>(obuf + e) =
+            ok ? __ldg(reinterpret_cast<const unsigned int*>(o + at)) : 0u;
+    } else {
+      const unsigned short z = 0;
+      buf[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(src + at))
+                  : z;
+      if (which == 3)
+        obuf[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(o + at))
+                     : z;
+    }
+  }
+  if (c0 < ld)
+    *reinterpret_cast<uint4*>(scratch + (first + r) * ld + c0) =
+        *reinterpret_cast<const uint4*>(buf);
+  if (which != 3) return;
+  float s = 0.f;    // zero past d: both chunks hold zeros there
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    s = fmaf(to_f32(reinterpret_cast<const bf16*>(obuf)[e]),
+             to_f32(reinterpret_cast<const bf16*>(buf)[e]), s);
+  // The group's lanes only: at the tail a warp's later groups have left.
+  const int lane = threadIdx.x & 31;
+  const unsigned group =
+      p == 32 ? 0xffffffffu : ((1u << p) - 1) << (lane & ~(p - 1));
+  for (int off = 1; off < p; off <<= 1)
+    s += __shfl_xor_sync(group, s, off);
+  if (j == 0) {
+    const int h = static_cast<int>(r % hq);
+    const long long bi = r / hq;
+    const int i = static_cast<int>(bi % sq);
+    delta[(bi / sq * hq + h) * sq + i] = s;
+  }
+}
+
+template <int W>
+cudaError_t stage_rows_as(const void* q, const void* k, const void* v,
+                          const void* dout, const void* o, float* delta,
+                          bf16* scratch, long long nq, long long nk, int sq,
+                          int hq, int d, int ld, cudaStream_t stream) {
+  int log2p = 0;
+  while ((1 << log2p) < ld / 8) ++log2p;
+  const long long threads = (nq > nk ? nq : nk) << log2p;
+  const dim3 grid(
+      static_cast<unsigned>((threads + kStageThreads - 1) / kStageThreads),
+      4);
+  flash_bwd_stage_rows_kernel<W><<<grid, kStageThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(o), delta, scratch, nq, nk, sq, hq, d, ld,
+      log2p);
+  return cudaGetLastError();
+}
+
+cudaError_t stage_rows(const void* q, const void* k, const void* v,
+                       const void* dout, const void* o, float* delta,
+                       bf16* scratch, long long nq, long long nk, int sq,
+                       int hq, int d, int ld, cudaStream_t stream) {
+  if (d % 4 == 0)
+    return stage_rows_as<4>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq,
+                            d, ld, stream);
+  if (d % 2 == 0)
+    return stage_rows_as<2>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq,
+                            d, ld, stream);
+  return stage_rows_as<1>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq,
+                          d, ld, stream);
+}
+
+// kStaged (staged_route): Q, K, V and dO are first copied into `scratch`
+// ((2 b sq hq + 2 b skv hkv) staged_ld(d) bf16) by
+// flash_bwd_stage_rows_kernel, which also writes delta, and the maps read
+// the copies (inner extent d, row stride staged_ld(d)); dQ, dK and dV are
+// written straight into the caller's tensors at the real d.
+template <int D, bool kStaged = false>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-           int d, float scale, int causal, cudaStream_t stream) {
+           int d, float scale, int causal, cudaStream_t stream,
+           void* scratch = nullptr) {
+  // The tiles the maps read: the inputs, or their staged copies.
+  const void *mq = q, *mk = k, *mv = v, *mdo = dout;
+  int ld = d;
+  if constexpr (kStaged) {
+    if (scratch == nullptr || !staged_route(d))
+      return static_cast<int>(cudaErrorInvalidValue);
+    ld = staged_ld(d);
+    const long long nq = static_cast<long long>(b) * sq * hq;
+    const long long nk = static_cast<long long>(b) * skv * hkv;
+    bf16* st = static_cast<bf16*>(scratch);
+    const cudaError_t err = stage_rows(q, k, v, dout, o, delta, st, nq, nk,
+                                       sq, hq, d, ld, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mq = st;
+    mk = st + nq * ld;
+    mv = st + (nq + nk) * ld;
+    mdo = st + (nq + 2 * nk) * ld;
+  }
   // Encoded on every call, as the forward's (a CUDA graph records the maps
   // by value), at the real d. Any failure is returned: there is no other
   // route.
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, b, sq, hq, d) || !make_map(&tk, k, b, skv, hkv, d) ||
-      !make_map(&tv, v, b, skv, hkv, d) ||
-      !make_map(&tdo, dout, b, sq, hq, d))
+  if (!make_map(&tq, mq, b, sq, hq, d, ld) ||
+      !make_map(&tk, mk, b, skv, hkv, d, ld) ||
+      !make_map(&tv, mv, b, skv, hkv, d, ld) ||
+      !make_map(&tdo, mdo, b, sq, hq, d, ld))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = bwd::preprocess<bf16, D>(o, dout, delta, b, sq, hq, d,
-                                             stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if constexpr (!kStaged) {
+    err = bwd::preprocess<bf16, D>(o, dout, delta, b, sq, hq, d, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   constexpr size_t smem = smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D, kStaged>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D, kStaged>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = scale * tc::kLog2e;
   const int n_kt = (skv + kB - 1) / kB, n_qt = (sq + kB - 1) / kB;
-  flash_bwd_dkdv_wgmma_kernel<D>
+  flash_bwd_dkdv_wgmma_kernel<D, kStaged>
       <<<n_kt * hkv * b, kThreads * dkdv_warpgroups<D>(), smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), b, sq, skv, hq, hkv, d, scale, scale_log2,
       causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wgmma_kernel<D><<<n_qt * hq * b, kThreads, smem, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D, kStaged>
+      <<<n_qt * hq * b, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), b, sq, skv, hq,
       hkv, d, n_qt, scale, scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
@@ -2178,16 +2375,21 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // from the forward; delta (b, hq, sq) float32 scratch. Launches
 // flash_bwd_preprocess_kernel, then flash_bwd_dkdv_wgmma_kernel and
 // flash_bwd_dq_wgmma_kernel for bf16 where tc_route holds (a failed TMA encode,
-// attribute or launch is returned, never served by another route), else
-// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the stream. Above 256:
-// flash_bwd_preprocess_rows_kernel, then the wgmma column-tile kernels of
-// flash_attention_wide.cu for bf16 where tc_wide_route holds (failures
+// attribute or launch is returned, never served by another route); for bf16
+// where staged_route holds, flash_bwd_stage_rows_kernel into `scratch`
+// ((2 b sq hq + 2 b skv hkv) staged_ld(d) bf16; null on every other route,
+// where it is not read) and delta, then the staged instantiations of the
+// two wgmma kernels (failures returned likewise); else (fp32, and bf16 at d
+// 32 and below) flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the
+// stream. Above
+// 256: flash_bwd_preprocess_rows_kernel, then the wgmma column-tile kernels
+// of flash_attention_wide.cu for bf16 where tc_wide_route holds (failures
 // returned likewise), else those of namespace wide.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int b, int sq, int skv, int hq, int hkv, int d, float scale,
-    int causal, int dtype, void* stream) {
+    void* dv, void* scratch, int b, int sq, int skv, int hq, int hkv, int d,
+    float scale, int causal, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || d <= 0)
@@ -2221,6 +2423,14 @@ extern "C" int repro_flash_attention_bwd(
       case 128: return bwd_tc::launch<128>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
       case 160: return bwd_tc::launch<160>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
       case 256: return bwd_tc::launch<256>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    }
+  }
+  if (staged_route(d)) {
+    switch (padded_dim(d)) {
+      case 64: return bwd_tc::launch<64, true>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, scratch);
+      case 128: return bwd_tc::launch<128, true>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, scratch);
+      case 160: return bwd_tc::launch<160, true>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, scratch);
+      case 256: return bwd_tc::launch<256, true>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, scratch);
     }
   }
   return bwd::dispatch<__nv_bfloat16>(d, q, k, v, o, dout, l, dl, dq, dk, dv,

@@ -115,19 +115,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a (batch, rows, heads, d) bf16 tensor, boxes of 64 rows x
-// 64 columns of one head, 128-byte swizzle; rows past `rows` and columns
-// past d read as 0. The row stride, 2 d bytes, must be a multiple of 16.
+// Tensor map of a (batch, rows, heads, d) bf16 tensor whose rows are `ld`
+// elements apart (d where ld is 0), boxes of 64 rows x 64 columns of one
+// head, 128-byte swizzle; rows past `rows` and columns past d read as 0.
+// The row stride, 2 ld bytes, must be a multiple of 16.
 inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-                     int heads, int d) {
+                     int heads, int d, int ld = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t e = 2;  // sizeof(__nv_bfloat16)
+  const cuuint64_t row = e * static_cast<cuuint64_t>(ld > 0 ? ld : d);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {e * d, e * d * heads, e * d * heads * rows};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,

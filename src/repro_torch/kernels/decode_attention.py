@@ -20,10 +20,21 @@ heads, a block each, each reading the kv head's rows. Only d < 1 raises.
 :func:`pv_layout` is the kernel's arithmetic for who owns which head,
 16 bytes of d and cache row in P.V, and names the route.
 
+bf16 at D 256 where d is a multiple of 8 (d 168-256, gemma-2b's 256; the
+C ``decode_mma_route``) takes route ``"mma"`` instead:
+``decode_mma_kernel`` of ``csrc/decode_attention_tc.cu``, the slice's q
+heads as the 16 rows of ``mma.sync`` m16n8k16 over cache tiles of
+``MMA_TILE`` rows (scores and P.V on the tensor cores, P rounded to bf16
+for P.V, fp32 sums), its splits planned by :func:`mma_split_rows` so
+that the grid fills the card. fp32, bf16 at other d, and every D below
+256 keep ``"split"``.
+
 The kernel is split-KV: ``num_splits(skv)`` blocks per (batch, kv head),
-each over ``split_rows(skv)`` cache rows, combined in the same launch by
-the block that finishes last. Both numbers follow from ``skv`` (the
-cache's capacity) alone, never from ``length``, so a call reads nothing
+each over ``split_rows(skv)`` cache rows (on route ``"mma"``,
+``mma_split_rows(skv, units)`` with units the (batch, kv head, q-head
+slice) blocks of a split), combined in the same launch by the block that
+finishes last. Both numbers follow from ``skv`` (the cache's capacity)
+and the shape alone, never from ``length``, so a call reads nothing
 back to the host and can be captured in a CUDA graph. The combine counts
 blocks on an int32 buffer per device that the kernel leaves zeroed; calls
 on one device are assumed to be ordered (one stream at a time).
@@ -65,6 +76,10 @@ KERNEL = register_kernel(
 TILE = 64   # cache rows per tile inside a block; split_rows is a multiple
 WIDE_PIECE = 64     # columns of d a streamed piece above MAX_HEAD_DIM
 MAX_SPLITS = 16
+MMA_TILE = 64       # cache rows a tile on route "mma" (kDecodeMmaTile)
+MMA_BLOCKS = 132    # blocks the "mma" split plan aims at (kDecodeMmaBlocks)
+MMA_MIN_ROWS = 64   # cache rows a split on route "mma", at least
+MMA_MAX_SPLITS = 32     # the combine takes one split a lane
 # Combine counters, one list per device; every buffer stays alive, since a
 # captured CUDA graph keeps the pointer it was given.
 _COUNTERS: Dict[torch.device, List[torch.Tensor]] = {}
@@ -80,6 +95,28 @@ def split_rows(skv: int) -> int:
 
 def num_splits(skv: int) -> int:
     return -(-skv // split_rows(skv))
+
+
+def mma_route(dtype: torch.dtype, d: int) -> bool:
+    """Whether a call takes route ``"mma"`` (the C ``decode_mma_route``,
+    bf16 only): D 256 and d whole 16-byte chunks."""
+    return dtype == torch.bfloat16 and 160 < d <= MAX_HEAD_DIM and d % 8 == 0
+
+
+def mma_splits(units: int) -> int:
+    """Splits a (batch, kv head, slice) unit aims at on route ``"mma"``
+    (the C ``decode_mma_splits``): ceil(MMA_BLOCKS / units), at most 32."""
+    return min(MMA_MAX_SPLITS, -(-MMA_BLOCKS // units))
+
+
+def mma_split_rows(skv: int, units: int) -> int:
+    """Cache rows a split on route ``"mma"`` (the C
+    ``decode_mma_split_rows``): the least whole tiles of ``MMA_TILE`` that
+    cover ``skv`` in :func:`mma_splits` (units) splits, but at least
+    ``MMA_MIN_ROWS``. 4 slots on one kv head at cache 740: 12 splits of
+    64 rows, 48 blocks; at cache 4096, 32 splits of 128 rows."""
+    n = mma_splits(units)
+    return max(MMA_MIN_ROWS, MMA_TILE * -(-skv // (MMA_TILE * n)))
 
 
 def group_bucket(g: int, d: Optional[int] = None) -> int:
@@ -123,9 +160,24 @@ def pv_layout(element_size: int, d: int, g: int) -> Dict[str, int]:
     output columns (the last cut at d), thread t owning columns t and t +
     ``THREADS`` of its tile for each of the slice's heads; one tile in
     flight, K and q staged in ``WIDE_PIECE``-column pieces, ``smem``
-    bytes."""
+    bytes.
+
+    bf16 at D 256 where d is a multiple of 8: ``route`` ``"mma"``
+    (``decode_mma_kernel``): a block a (split, kv head, slice of ``heads``
+    q heads, the mma's M), cache tiles of ``tile`` rows, ``warps`` warps
+    each scoring ``tile / warps`` rows and owning ``cols_per_warp`` output
+    columns in P.V; ``stages`` tiles in flight where a split has more than
+    one, ``smem`` bytes then."""
     ve = 16 // element_size
     big = _flash.padded_head_dim(d)
+    if element_size == 2 and 160 < d <= MAX_HEAD_DIM and d % 8 == 0:
+        lds, warps = MAX_HEAD_DIM + 8, MMA_TILE // 8
+        smem = 2 * (2 * 2 * MMA_TILE * lds + MAX_GROUP * lds +
+                    MAX_GROUP * (MMA_TILE + 8)) + 4 * 2 * warps * MAX_GROUP
+        return {"route": "mma", "D": MAX_HEAD_DIM, "tile": MMA_TILE,
+                "heads": MAX_GROUP, "warps": warps,
+                "cols_per_warp": MAX_HEAD_DIM // warps,
+                "slices": group_slices(g), "stages": 2, "smem": smem}
     if big > MAX_HEAD_DIM:
         n, tw = _flash.col_tiles(d)
         smem = 4 * (MAX_GROUP * WIDE_PIECE + TILE * (WIDE_PIECE + 1) +
@@ -204,20 +256,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         KERNEL.fake_call(kernel_cost.decode(b, hq, hkv, d, b * skv, q.dtype,
                                             return_lse))
         return (out, lse) if return_lse else out
-    g, splits = hq // hkv, num_splits(skv)
+    g = hq // hkv
     gs, per = group_slices(g), min(g, MAX_GROUP)
+    rows = (mma_split_rows(skv, b * hkv * gs) if mma_route(q.dtype, d)
+            else split_rows(skv))
+    splits = -(-skv // rows)
     # One fp32 scratch for the partials: (m, l) of each (b, kv head, slice,
-    # column tile, split, q head of the slice), then their accumulators of
-    # D (a column tile's width at most, above MAX_HEAD_DIM) each.
+    # column tile, split, q head of the slice), then, from a 16-byte
+    # boundary, their accumulators of D (a column tile's width at most,
+    # above MAX_HEAD_DIM) each.
     nct = _flash.col_tiles(d)[0]
     width = min(big, _flash.WIDE_TILE_COLS)
     n_part = b * hkv * gs * nct * splits * per
-    part = torch.empty(n_part * (2 + width), dtype=torch.float32,
+    n_ml = -(-2 * n_part // 4) * 4
+    part = torch.empty(n_ml + n_part * width, dtype=torch.float32,
                        device=q.device)
     counter = _counter(q.device, b * hkv * gs * nct)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
            out.data_ptr(), None if lse is None else lse.data_ptr(),
-           part.data_ptr(), part.data_ptr() + 8 * n_part,
-           counter.data_ptr(), b, skv, hq, hkv, d, split_rows(skv),
+           part.data_ptr(), part.data_ptr() + 4 * n_ml,
+           counter.data_ptr(), b, skv, hq, hkv, d, rows,
            float(scale), dtype_code(q), stream_handle(q.device))
     return (out, lse) if return_lse else out

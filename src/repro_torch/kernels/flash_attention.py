@@ -39,8 +39,9 @@ counted as ``flash_attention``, on the route :func:`fwd_design` names:
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
 also writes each row's log-sum-exp, and the backward is one call, counted
-as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta) and
-two kernels on the route :func:`bwd_design` names:
+as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta; the
+staged route's copy kernel writes it instead) and two kernels on the route
+:func:`bwd_design` names:
 
 * ``"wgmma"``, as the forward's (the training paths at 64, 128 and 160):
   ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``,
@@ -48,7 +49,15 @@ two kernels on the route :func:`bwd_design` names:
   operands) fed by TMA, deterministic (no atomics); D 160 and 256 in
   three and four boxes as the forward's, the dK/dV kernel on two
   warpgroups;
-* ``"simt"``, fp32 at any head_dim up to 256 and bf16 at the others:
+* ``"wgmma_staged"``, bf16 at a head dim that is not whole 16-byte rows
+  (d not a multiple of 8) from 33 to 256: ``flash_bwd_stage_rows_kernel``
+  copies q, k, v and dout into a scratch of rows :func:`staged_ld` (d)
+  elements long, columns past d zero, so the TMA maps' row stride is a
+  multiple of 16 bytes, and writes delta from the dout rows it copies;
+  then the ``"wgmma"`` kernels at the padded D read the copies
+  (instantiations of their own, which store dq, dk and dv column by
+  column at the real d);
+* ``"simt"``, fp32 at any head_dim up to 256 and bf16 at d 32 and below:
   ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
   products on the CUDA cores;
 * ``"wgmma_wide"``, as the forward's: ``flash_bwd_dkdv_wgmma_wide_kernel``
@@ -92,7 +101,7 @@ KERNEL = register_kernel(
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P])
 KERNEL_BWD = register_kernel(
     "flash_attention_bwd", "repro_flash_attention_bwd",
-    [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P])
+    [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P])
 
 
 def padded_head_dim(d: int) -> int:
@@ -153,8 +162,26 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
 
 def bwd_design(dtype: torch.dtype, d: int) -> str:
     """The backward's route on the card, as ``repro_flash_attention_bwd``
-    dispatches it: the forward's (:func:`fwd_design`)."""
-    return fwd_design(dtype, d)
+    dispatches it: the forward's (:func:`fwd_design`), but
+    ``"wgmma_staged"`` for bfloat16 where d is not a multiple of 8 from 33
+    to 256 (the C ``staged_route``), where the forward takes ``"simt"``."""
+    design = fwd_design(dtype, d)
+    if dtype == torch.bfloat16 and 32 < d <= MAX_HEAD_DIM and d % 8:
+        return "wgmma_staged"
+    return design
+
+
+def staged_ld(d: int) -> int:
+    """Elements a staged row (the C ``staged_ld``): the least multiple of 8
+    at or above d, so that a bf16 row is whole 16-byte chunks."""
+    return -(-d // 8) * 8
+
+
+def staged_scratch_numel(b: int, sq: int, skv: int, hq: int, hkv: int,
+                         d: int) -> int:
+    """bf16 elements of the ``"wgmma_staged"`` route's scratch: q, k, v
+    and dout in rows of :func:`staged_ld` (d)."""
+    return (2 * b * sq * hq + 2 * b * skv * hkv) * staged_ld(d)
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -269,6 +296,11 @@ def _kernel_backward(q, k, v, out, dout, lse, causal: bool, scale: float):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    # The staged route's copies (on a fake tensor too, so the dry run's
+    # memory peak holds them).
+    scratch = (torch.empty(staged_scratch_numel(b, sq, skv, hq, hkv, d),
+                           dtype=q.dtype, device=q.device)
+               if bwd_design(q.dtype, d) == "wgmma_staged" else None)
     if is_fake(q):
         KERNEL_BWD.fake_call(kernel_cost.flash_bwd(b, sq, skv, hq, hkv, d,
                                                    q.dtype, causal))
@@ -276,7 +308,8 @@ def _kernel_backward(q, k, v, out, dout, lse, causal: bool, scale: float):
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     KERNEL_BWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq,
-               hkv, d, float(scale), int(causal), dtype_code(q),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               None if scratch is None else scratch.data_ptr(), b, sq, skv,
+               hq, hkv, d, float(scale), int(causal), dtype_code(q),
                stream_handle(q.device))
     return dq, dk, dv

@@ -297,10 +297,13 @@ def test_fa2_wgmma_backward_emulation_at_training_shape(d, rng):
 
 def test_flash_bwd_design_routes():
     """bf16 at d 64, 128, 160 and 256 (every instantiated d above 32)
-    takes the wgmma kernels, everything else up to 256 the CUDA-core ones;
-    above 256 bf16 at a multiple of 8 takes the tensor-core column tiles,
-    fp32 and the other bf16 head dims the CUDA-core ones; the backward
-    takes every head dim the forward does; what no kernel takes raises."""
+    takes the wgmma kernels, bf16 at a d from 33 to 256 that is not a
+    multiple of 8 the same kernels through staged rows ("wgmma_staged"),
+    where the forward stays on the CUDA cores; fp32, and bf16 at d 32 and
+    below, the CUDA-core ones; above 256 bf16 at a multiple of 8 takes the
+    tensor-core column tiles, fp32 and the other bf16 head dims the
+    CUDA-core ones; the backward takes every head dim the forward does;
+    what no kernel takes raises."""
     assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
     assert tflash.bwd_design(torch.float32, 160) == "simt"
     for dtype in (torch.float32, torch.bfloat16):
@@ -308,6 +311,17 @@ def test_flash_bwd_design_routes():
             want = "wgmma" if dtype == torch.bfloat16 and \
                 d in (64, 128, 160, 256) else "simt"
             assert tflash.bwd_design(dtype, d) == want
+    for d in (36, 76, 99, 100, 130, 250):
+        assert tflash.bwd_design(torch.bfloat16, d) == "wgmma_staged"
+        assert tflash.fwd_design(torch.bfloat16, d) == "simt"
+        assert tflash.bwd_design(torch.float32, d) == "simt"
+        assert tflash.staged_ld(d) % 8 == 0
+        assert 0 < tflash.staged_ld(d) - d < 8
+    for d in (1, 7, 17, 31, 32):
+        assert tflash.bwd_design(torch.bfloat16, d) == "simt"
+    for d in (40, 80, 96, 104, 136, 248):
+        assert tflash.bwd_design(torch.bfloat16, d) == "wgmma"
+        assert tflash.staged_ld(d) == d
     assert tflash.bwd_design(torch.bfloat16, 257) == "wide"
     for d in (264, 288, 512, 576):
         assert tflash.bwd_design(torch.bfloat16, d) == "wgmma_wide"
@@ -324,26 +338,42 @@ def test_flash_bwd_design_routes():
 def test_flash_bwd_design_matches_the_kernel_dispatch():
     """``bwd_design`` is ``repro_flash_attention_bwd``'s dispatch: bf16
     where ``tc_route`` holds (evaluated from the source) launches
-    ``bwd_tc::launch`` at the padded head dims its cases list, the rest
-    ``bwd::dispatch``, whose cases are ``HEAD_DIMS``; fp32 goes to
-    ``bwd::dispatch<float>``."""
-    src = (Path(tflash.__file__).parents[1] / "csrc" /
-           "flash_attention.cu").read_text()
+    ``bwd_tc::launch`` at the padded head dims its cases list, bf16 where
+    ``common.cuh``'s ``staged_route`` holds its staged instantiations at
+    the same padded head dims, the rest (d 32 and below) ``bwd::dispatch``,
+    whose bf16 cases are 16 and 32; fp32 goes to ``bwd::dispatch<float>``,
+    whose cases are ``HEAD_DIMS``."""
+    csrc = Path(tflash.__file__).parents[1] / "csrc"
+    src = (csrc / "flash_attention.cu").read_text()
     entry = src[src.index('extern "C" int repro_flash_attention_bwd'):]
     tc_dims = {int(x) for x in
-               re.findall(r"case (\d+): return bwd_tc::launch<", entry)}
+               re.findall(r"case (\d+): return bwd_tc::launch<\1>", entry)}
+    staged_dims = {int(x) for x in re.findall(
+        r"case (\d+): return bwd_tc::launch<\1, true>", entry)}
+    assert staged_dims == tc_dims
     simt = src[src.index("int dispatch(int d, const void* q"):]
-    simt_dims = {int(x) for x in re.findall(
-        r"case (\d+): return launch<T, \1>", simt[:simt.index("default:")])}
-    assert simt_dims == set(tflash.HEAD_DIMS)
+    bf16_part, f32_part = simt.split("default:")[:2]
+    simt_dims = [{int(x) for x in re.findall(
+        r"case (\d+): return launch<T, \1>", part)}
+        for part in (bf16_part, f32_part)]
+    assert "if constexpr (sizeof(T) == 2)" in bf16_part
+    assert simt_dims == [{16, 32}, set(tflash.HEAD_DIMS)]
     assert tc_dims == {d for d in tflash.HEAD_DIMS if d > 32}
     route = re.search(r"bool tc_route\(int d\) \{ return ([^;]+); \}",
                       src).group(1).replace("&&", "and")
+    staged = re.search(r"bool staged_route\(int d\) \{\s*return ([^;]+);",
+                       (csrc / "common.cuh").read_text()).group(1)
+    staged = staged.replace("&&", "and")
     for d in range(1, tflash.MAX_HEAD_DIM + 1):
         want = "wgmma" if eval(route, {"d": d}) else "simt"
-        assert tflash.bwd_design(torch.bfloat16, d) == want, d
+        assert not (eval(route, {"d": d}) and eval(staged, {"d": d}))
+        assert tflash.bwd_design(torch.bfloat16, d) == (
+            "wgmma_staged" if eval(staged, {"d": d}) else want), d
         assert tflash.fwd_design(torch.bfloat16, d) == want, d
         assert tflash.bwd_design(torch.float32, d) == "simt"
+    assert entry.index("if (tc_route(d))") < \
+        entry.index("if (staged_route(d))") < \
+        entry.index("return bwd::dispatch<__nv_bfloat16>(")
     assert "if (dtype == kF32)\n    return bwd::dispatch<float>(" in entry
 
 

@@ -1111,6 +1111,120 @@ def test_flash_above_256_forward_and_backward_match_plain(
         _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
 
 
+# bf16 head dims from 33 to 256 that are not whole 16-byte rows: the
+# backward's "wgmma_staged" route at each padded D (64, 128, 160, 256),
+# odd and even d, groups 1-4, ragged and unequal lengths.
+STAGED_FLASH_CASES = [
+    (8, 256, 256, 8, 8, 100, True), (8, 256, 256, 8, 2, 99, True),
+    (2, 65, 65, 4, 1, 36, True), (1, 333, 333, 8, 2, 76, False),
+    (1, 65, 333, 4, 4, 130, False), (1, 333, 65, 4, 4, 250, True),
+    (2, 1, 1, 4, 4, 99, True), (1, 200, 200, 4, 1, 255, True),
+    (1, 100, 100, 2, 2, 33, False), (1, 129, 129, 4, 2, 161, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", STAGED_FLASH_CASES)
+def test_flash_staged_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d,
+                                             causal):
+    """The staged route: one launch a call, against the plain backward at
+    the bf16 tolerance of d 128 (1e-2 of 1 + max-abs), bitwise repeatable,
+    and the same through autograd."""
+    assert tflash.bwd_design(torch.bfloat16, d) == "wgmma_staged"
+    q, k, v, dout = _attn_inputs(cuda, torch.bfloat16, b, sq, skv, hq, hkv,
+                                 d)
+    scale = tflash._scale(q, None)      # the wrapper's, bit for bit
+    out, lse = tflash._kernel_forward(q, k, v, causal, scale, with_lse=True)
+    before = tflash.KERNEL_BWD.launches
+    got = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    again = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    torch.cuda.synchronize()
+    assert tflash.KERNEL_BWD.launches == before + 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal,
+                            scale=scale)
+    for g, w_, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _rel_close(g, w_, 1e-2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(ops.attention(*leaves, causal=causal),
+                               leaves, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(auto, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d,lengths", [
+    (8, 1, 256, [129, 334, 517, 731]), (8, 1, 256, [0, 1, 129, 731]),
+    (1, 1, 256, [0, 1, 129, 731]), (5, 1, 256, [0, 1, 129, 731]),
+    (16, 1, 256, [0, 1, 129, 731]), (71, 1, 256, [0, 1, 129, 731]),
+    (16, 8, 256, [740, 0, 64, 65]), (8, 1, 168, [129, 334, 517, 731]),
+    (8, 2, 200, [740, 0, 33, 64]), (4, 1, 248, [32, 33, 31, 1])])
+def test_decode_mma_route_matches_plain(cuda, hq, hkv, d, lengths):
+    """bf16 at D 256 with d a multiple of 8 (route "mma"): one launch a
+    call in each mode, against the plain version (out at GPU_TOL, the
+    lse at 1e-5), the same out in both modes, -inf at length 0; and no
+    row at or past length is read (NaN there changes nothing)."""
+    skv = 740
+    assert tdecode.pv_layout(2, d, hq // hkv)["route"] == "mma"
+    q = _randn((4, hq, d), torch.bfloat16, cuda, 0)
+    k = _randn((4, skv, hkv, d), torch.bfloat16, cuda, 1)
+    v = _randn((4, skv, hkv, d), torch.bfloat16, cuda, 2)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = tdecode.KERNEL.launches
+    out = tdecode.decode_attention(q, k, v, length)
+    out2, lse = tdecode.decode_attention(q, k, v, length, return_lse=True)
+    torch.cuda.synchronize()
+    assert tdecode.KERNEL.launches == before + 2
+    want, want_lse = tdecode.plain(q, k, v, length, return_lse=True)
+    tol = GPU_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, out2)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], want_lse[fin], rtol=1e-5, atol=1e-5)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    assert torch.equal(tdecode.decode_attention(q, k, v, length), out)
+
+
+@pytest.mark.gpu
+def test_decode_mma_route_replays_in_a_cuda_graph(cuda):
+    """gemma-2b's 8/1 at d 256 on route "mma", captured once and replayed
+    with `length` changed in place: each replay matches the plain version,
+    two replays agree (the combine counters are back at 0), and rows past
+    length, set to NaN, are never read."""
+    b, skv, hq, hkv, d = 4, 740, 8, 1, 256
+    q = _randn((b, hq, d), torch.bfloat16, cuda, 0)
+    k = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 1)
+    v = _randn((b, skv, hkv, d), torch.bfloat16, cuda, 2)
+    length = torch.tensor([129, 334, 517, 731], dtype=torch.int32,
+                          device=cuda)
+    tdecode.decode_attention(q, k, v, length)      # warm-up: counter, build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdecode.decode_attention(q, k, v, length)
+    tol = GPU_TOL[torch.bfloat16]
+    for lens in ([1, 2, 3, 4], [740, 0, 64, 65], [700, 600, 500, 400]):
+        length.copy_(torch.tensor(lens, dtype=torch.int32))
+        want = tdecode.plain(q, k, v, length)
+        want = torch.where(length[:, None, None] == 0, 0.0, want.float())
+        k_past, v_past = k.clone(), v.clone()
+        for i, n in enumerate(lens):
+            k[i, n:] = float("nan")
+            v[i, n:] = float("nan")
+        graph.replay()
+        torch.cuda.synchronize()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, first, rtol=0, atol=0)
+        torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+        k.copy_(k_past)
+        v.copy_(v_past)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv", [(65, 200), (200, 65)])
@@ -1145,11 +1259,15 @@ def test_flash_bwd_wgmma_is_bitwise_repeatable(cuda, d, hq):
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 160),
                                      (torch.bfloat16, 32),
+                                     (torch.bfloat16, 100),
+                                     (torch.bfloat16, 99),
                                      (torch.float32, 128),
                                      (torch.float32, 160)])
 def test_flash_bwd_launches_the_kernels_of_its_design(cuda, dtype, d):
     """By the profiler's kernel names: bf16 at d 64/128/160 runs the wgmma
-    kernels and never the CUDA-core ones; the rest the CUDA-core ones."""
+    kernels and never the CUDA-core ones; at d 100 and 99 the staging copy
+    (which writes delta) and the wgmma kernels; the rest the CUDA-core
+    ones."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v, dout = _attn_inputs(cuda, dtype, 2, 130, 130, 8, 4, d)
     scale = d ** -0.5
@@ -1163,7 +1281,11 @@ def test_flash_bwd_launches_the_kernels_of_its_design(cuda, dtype, d):
     simt = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
     want, never = (wgmma, simt) if tflash.bwd_design(dtype, d) == "wgmma" \
         else (simt, wgmma)
-    assert "flash_bwd_preprocess_kernel" in names
+    if tflash.bwd_design(dtype, d) == "wgmma_staged":
+        want = wgmma + ("flash_bwd_stage_rows_kernel",)
+        never = simt + ("flash_bwd_preprocess",)
+    else:
+        assert "flash_bwd_preprocess_kernel" in names
     assert all(n in names for n in want), names
     assert not any(n in names for n in never), names
 

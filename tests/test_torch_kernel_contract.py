@@ -160,6 +160,68 @@ def test_flash_backward_matches_jax_grad_at_new_head_dims(causal, hq, hkv,
             assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
 
 
+def _stage_rows(x: torch.Tensor) -> torch.Tensor:
+    """The ``"wgmma_staged"`` route's copy (``flash_bwd_stage_rows_kernel``)
+    of a (b, rows, heads, d) tensor, as the kernel builds it: rows of
+    ``staged_ld(d)`` elements, each 16-byte chunk (stored whole) gathered
+    from W-element loads of the source rows (8 bytes where d % 4 == 0, 4
+    where d is even, 2 where odd), zeros past d. Asserts that each load
+    lies wholly below d and is aligned to its width (its element offset a
+    multiple of W, the tensor itself 16-byte aligned), and that each chunk
+    starts on 16 bytes of the staged row."""
+    d = x.shape[-1]
+    ld, w = tflash.staged_ld(d), 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    flat = x.reshape(-1)
+    rows = torch.arange(flat.numel() // d)[:, None]
+    out = torch.zeros(rows.numel(), ld, dtype=x.dtype)
+    for c in range(0, ld, w):
+        assert not ((rows * ld + c - c % 8) % 8).any()
+        if c >= d:
+            continue            # the kernel stores zeros there
+        assert c + w <= d
+        at = rows * d + c
+        assert not (at % w).any()
+        out[:, c:c + w] = flat[at + torch.arange(w)]
+    return out.reshape(*x.shape[:-1], ld)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 100), (4, 2, 99), (2, 1, 250),
+                                      (2, 2, 36)],
+                         ids=["d100", "g2-d99", "g2-d250", "d36"])
+def test_flash_staged_backward_arithmetic(causal, hq, hkv, d, rng):
+    """The ``"wgmma_staged"`` backward in fp32: q, k, v and dout staged to
+    rows of ``staged_ld(d)`` (o too, for delta, which the kernel sums over
+    the real d), the closed form at that width equals ``attention_bwd_ref``
+    at d bit for bit in its first d columns (the zero columns add exact
+    zeros) and is zero past them; and it matches ``jax.vjp`` of
+    ``repro.kernels.ref.attention_ref`` within GRAD_TOL of max(1,
+    max-abs)."""
+    b, s = 1, 77
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)) for sh in ((b, s, hq, d), (b, s, hkv, d),
+                                (b, s, hkv, d), (b, s, hq, d)))
+    scale = 1.0 / np.sqrt(d)
+    out = tref.attention_ref(q, k, v, causal=causal)
+    lse = tref.attention_lse_ref(q, k, causal=causal)
+    want = tref.attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
+                                  scale=scale)
+    staged = tref.attention_bwd_ref(
+        *(_stage_rows(t) for t in (q, k, v, out, dout)), lse, causal=causal,
+        scale=scale)
+    for g, w in zip(staged, want):
+        assert g.shape[-1] == tflash.staged_ld(d) > d
+        assert torch.equal(g[..., :d], w)
+        assert not g[..., d:].any()
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(a, b_, c,
+                                                         causal=causal),
+                     *(jnp.asarray(_np(t)) for t in (q, k, v)))
+    for g, w in zip(staged, vjp(jnp.asarray(_np(dout)))):
+        w = np.asarray(w)
+        err = np.abs(_np(g[..., :d]) - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
+
+
 @pytest.mark.parametrize("d,dtype,design", [
     (96, torch.bfloat16, "wgmma"), (80, torch.bfloat16, "wgmma"),
     (256, torch.bfloat16, "wgmma"), (136, torch.bfloat16, "wgmma"),
@@ -170,9 +232,13 @@ def test_flash_backward_matches_jax_grad_at_new_head_dims(causal, hq, hkv,
 def test_flash_designs_name_the_route_at_new_head_dims(d, dtype, design):
     """bf16 with d a multiple of 8 above 32 on the wgmma kernels (the TMA
     maps need rows of whole 16-byte chunks), everything else on the CUDA
-    cores, forward and backward alike, at the padded head dim."""
-    assert tflash.fwd_design(dtype, d) == tflash.bwd_design(dtype, d) == \
-        design
+    cores, forward and backward alike, at the padded head dim; but the
+    backward at bf16 d 100 and 250 (above 32, not whole 16-byte rows) on
+    the wgmma kernels through staged rows."""
+    assert tflash.fwd_design(dtype, d) == design
+    staged = dtype == torch.bfloat16 and d in (100, 250)
+    assert tflash.bwd_design(dtype, d) == (
+        "wgmma_staged" if staged else design)
     padded = tflash.padded_head_dim(d)
     assert padded in tflash.HEAD_DIMS and padded >= d
     assert all(p < d for p in tflash.HEAD_DIMS if p < padded)
@@ -204,24 +270,33 @@ def test_flash_and_decode_designs_name_the_route_above_256(d):
             assert lay["slices"] == slices
             assert lay["smem"] <= tdecode.MAX_SMEM
             assert lay["cols_per_thread"] * tdecode.THREADS >= tw
-    assert tdecode.pv_layout(2, 256, 8)["route"] == "split"
+    # at D 256: bf16 d 256 on the tensor cores, fp32 and bf16 d 250 (not
+    # whole 16-byte chunks) on decode_split_kernel
+    assert tdecode.pv_layout(2, 256, 8)["route"] == "mma"
+    assert tdecode.pv_layout(4, 256, 8)["route"] == "split"
+    assert tdecode.pv_layout(2, 250, 8)["route"] == "split"
 
 
 CSRC = Path(tflash.__file__).resolve().parents[1] / "csrc"
 
 
 def _c_int_fn(src: str, name: str):
-    """A one-line ``__host__ __device__ inline`` int function of
-    ``src`` as a Python function of d (C's / on ints >= 0 is //)."""
-    body = re.search(rf"inline \w+ {name}\(int d\) \{{\s*return "
-                     rf"([^;]+);\s*\}}", src).group(1)
+    """A one-statement ``__host__ __device__ inline`` int function of
+    ``src`` (int arguments; C's / on ints >= 0 is //, one ?: at the top
+    level, calls of the other such functions of ``src``) as a Python
+    function of the same arguments."""
+    m = re.search(rf"inline \w+ {name}\(((?:int \w+(?:, )?)+)\) \{{\s*"
+                  rf"return ([^;]+);\s*\}}", src)
+    args = re.findall(r"int (\w+)", m.group(1))
+    body = " ".join(m.group(2).split())
     body = body.replace("&&", " and ").replace("/", "//")
-    fns = {n: _c_int_fn(src, n) for n in re.findall(r"(tc_wide_\w+)\(d\)",
-                                                     body) if n != name}
+    fns = {n: _c_int_fn(src, n) for n in re.findall(r"(\w+)\(", body)
+           if n != name and re.search(rf"inline \w+ {n}\(", src)}
     body = re.sub(r"^(.+) \? (.+) : (.+)$", r"(\2 if \1 else \3)", body)
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    return lambda d: eval(body, {**fns, **{k: int(v) for k, v in
-                                           const.items()}, "d": d})
+    return lambda *vals: eval(body, {**fns, **{k: int(v) for k, v in
+                                               const.items()},
+                                     **dict(zip(args, vals))})
 
 
 @pytest.mark.parametrize("d", [264, 288, 320, 384, 392, 512, 520, 576, 640,
@@ -256,6 +331,49 @@ def test_wgmma_wide_tile_plan_covers_d_at_instantiated_widths(d):
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
     assert int(const["kTcWideMaxDim"]) == tflash.TC_WIDE_MAX_HEAD_DIM
     assert int(const["kTcWideFwd192MaxDim"]) == tflash.TC_WIDE_FWD_192_MAX
+
+
+@pytest.mark.parametrize("skv", [1, 31, 32, 33, 256, 740, 1024, 1025, 4096,
+                                 32768])
+def test_staged_rows_and_decode_split_plan_follow_the_c_source(skv):
+    """The Python twins of ``csrc/common.cuh``, evaluated from the source:
+    the staged flash backward's route and row length (``staged_route``,
+    ``staged_ld``), and the tensor-core decode's route and split plan
+    (``decode_mma_route``, ``decode_mma_splits``,
+    ``decode_mma_split_rows``) at several unit counts (b x hkv x slices).
+    The plan covers skv in whole tiles, at most 32 splits (the combine's
+    lanes), at least ``MMA_MIN_ROWS`` rows a split, and otherwise fills
+    about ``MMA_BLOCKS`` blocks."""
+    common = (CSRC / "common.cuh").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
+    assert int(const["kDecodeMmaTile"]) == tdecode.MMA_TILE
+    assert int(const["kDecodeMmaBlocks"]) == tdecode.MMA_BLOCKS
+    assert int(const["kDecodeMmaMinRows"]) == tdecode.MMA_MIN_ROWS
+    staged_route = _c_int_fn(common, "staged_route")
+    staged_ld = _c_int_fn(common, "staged_ld")
+    mma_route = _c_int_fn(common, "decode_mma_route")
+    for d in range(1, 600):
+        assert staged_ld(d) == tflash.staged_ld(d)
+        assert bool(staged_route(d)) == (
+            tflash.bwd_design(torch.bfloat16, d) == "wgmma_staged")
+        assert bool(mma_route(d)) == tdecode.mma_route(torch.bfloat16, d)
+        assert not tdecode.mma_route(torch.float32, d)
+    splits = _c_int_fn(common, "decode_mma_splits")
+    rows = _c_int_fn(common, "decode_mma_split_rows")
+    for units in (1, 2, 3, 4, 8, 32, 64, 71, 132, 264, 265, 1024):
+        assert splits(units) == tdecode.mma_splits(units)
+        sr = tdecode.mma_split_rows(skv, units)
+        assert rows(skv, units) == sr
+        n = -(-skv // sr)
+        assert sr % tdecode.MMA_TILE == 0 and sr >= tdecode.MMA_MIN_ROWS
+        assert n <= tdecode.mma_splits(units) <= tdecode.MMA_MAX_SPLITS
+        # the least whole tiles that keep to the plan's splits
+        assert sr == tdecode.MMA_MIN_ROWS or \
+            -(-skv // (sr - tdecode.MMA_TILE)) > tdecode.mma_splits(units)
+    # 4 slots on one kv head at the serve cache: 12 splits of 64 rows; at a
+    # cache of 4096, 32 splits of 128
+    assert tdecode.mma_split_rows(740, 4) == 64
+    assert tdecode.mma_split_rows(4096, 4) == 128
 
 
 @pytest.mark.parametrize("d", [0, -1])
@@ -344,6 +462,90 @@ def test_decode_bf16_plain_matches_pallas_at_mla_width(rng):
     _close(out, pallas.astype(jnp.float32), BF16_TOL)
 
 
+def _decode_mma_emulation(q, k, v, length):
+    """``decode_mma_kernel``'s arithmetic (route ``"mma"``) on fp32 tensors
+    holding bf16 values: the splits of ``mma_split_rows`` (at most 32),
+    tiles of ``MMA_TILE`` rows, S in fp32 (the bf16 products are exact),
+    the running max (log2 units) and sum over tiles in fp32, P rounded to
+    bf16 for P.V with fp32 sums, then the combine of the splits that hold
+    rows by exp2 weights. Returns out (rounded to bf16) and the lse (-inf
+    at length 0)."""
+    b, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    rows = tdecode.mma_split_rows(skv, b * hkv * tdecode.group_slices(g))
+    splits = -(-skv // rows)
+    assert splits <= tdecode.MMA_MAX_SPLITS
+    c = np.float32(np.log2(np.e) / np.sqrt(d))
+    out = torch.zeros(b, hq, d)
+    lse = torch.full((b, hq), -np.inf)
+    for bb in range(b):
+        n = min(max(int(length[bb]), 0), skv)
+        for h in range(hkv):
+            qh = q[bb, h * g:(h + 1) * g]
+            parts = []
+            for r0 in range(0, n, rows):        # the splits below length
+                r1 = min(n, r0 + rows)
+                m = torch.full((g,), -1e30)
+                l, acc = torch.zeros(g), torch.zeros(g, d)
+                for t0 in range(r0, r1, tdecode.MMA_TILE):
+                    t1 = min(r1, t0 + tdecode.MMA_TILE)
+                    st = (qh @ k[bb, t0:t1, h].T) * c
+                    mn = torch.maximum(m, st.max(-1).values)
+                    p = torch.exp2(st - mn[:, None])
+                    a = torch.exp2(m - mn)
+                    l = l * a + p.sum(-1)
+                    acc = acc * a[:, None] + \
+                        p.bfloat16().float() @ v[bb, t0:t1, h]
+                    m = mn
+                parts.append((m, l, acc))
+            if not parts:
+                continue
+            ms = torch.stack([p_[0] for p_ in parts])
+            mx = ms.max(0).values
+            w = torch.exp2(ms - mx)
+            tot = (w * torch.stack([p_[1] for p_ in parts])).sum(0)
+            o = sum((w[i] / tot)[:, None] * p_[2] for i, p_ in
+                    enumerate(parts))
+            out[bb, h * g:(h + 1) * g] = o
+            lse[bb, h * g:(h + 1) * g] = (mx + torch.log2(tot)) * np.log(2)
+    return out.bfloat16().float(), lse
+
+
+@pytest.mark.parametrize("hq", [1, 5, 8, 16, 71],
+                         ids=["g1", "g5", "gemma-g8", "g16", "falcon-g71"])
+def test_decode_mma_emulation_matches_pallas_at_d256(hq, rng):
+    """Route ``"mma"`` (bf16, d 256) emulated (``_decode_mma_emulation``),
+    against the Pallas decode kernel in interpret mode on the same bf16
+    inputs within BF16_TOL, at groups 1, 5, 8 (gemma-2b's 8/1), 16 and 71
+    (five slices of q heads), lengths 0, 1, 129 and 731 of a cache of 768
+    (12 splits of one 64-row tile; at 71 heads, five slices, 6 splits of
+    two tiles); partial mode's lse against the
+    log-sum-exp of the scaled scores in float64 within 1e-5 (rtol and
+    atol: fp32 sums in another order), -inf at length 0."""
+    assert tdecode.mma_split_rows(768, 4 * tdecode.group_slices(hq)) == (
+        128 if hq > 16 else 64)
+    b, skv, d = 4, 768, 256
+    q, k, v = (jnp.asarray(rng.standard_normal(sh), jnp.bfloat16) for sh in
+               ((b, hq, d), (b, skv, 1, d), (b, skv, 1, d)))
+    lens = np.array([0, 1, 129, 731], np.int32)
+    tq, tk, tv = (_t(np.asarray(a.astype(jnp.float32))) for a in (q, k, v))
+    assert tdecode.pv_layout(2, d, hq)["route"] == "mma"
+    out, lse = _decode_mma_emulation(tq, tk, tv, lens)
+    pallas = jdecode(q, k, v, jnp.asarray(lens), block_k=256,
+                     interpret=True)
+    _close(out, pallas.astype(jnp.float32), BF16_TOL)
+    assert not out[0].any()
+    s = np.einsum("bhd,bsd->bhs", _np(tq).astype(np.float64),
+                  _np(tk)[:, :, 0].astype(np.float64)) / np.sqrt(d)
+    s = np.where(np.arange(skv)[None, None] < lens[:, None, None], s,
+                 -np.inf)
+    m = s[1:].max(-1, keepdims=True)        # slot 0 has no row
+    want = np.log(np.exp(s[1:] - m).sum(-1)) + m[..., 0]
+    assert np.isneginf(_np(lse)[0]).all()
+    np.testing.assert_allclose(_np(lse)[1:], want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("g,bucket,slices", [
     (1, 1, 1), (5, 8, 1), (16, 16, 1), (17, 16, 2), (32, 16, 2),
     (71, 16, 5)])
@@ -354,9 +556,13 @@ def test_decode_group_bucket_and_slices_follow_the_kernel(g, bucket, slices):
     partial last chunk: the chunks past it idle)."""
     assert tdecode.group_bucket(g) == bucket
     assert tdecode.group_slices(g) == slices
+    mma = tdecode.pv_layout(2, 256, g)      # bf16 d 256: route "mma"
+    assert mma["route"] == "mma" and mma["slices"] == slices
+    assert mma["heads"] == tdecode.MAX_GROUP >= min(g, 16)
     for es in (2, 4):
-        for d in (64, 100, 256):
+        for d in (64, 100, 250 if es == 2 else 256):
             lay = tdecode.pv_layout(es, d, g)
+            assert lay["route"] == "split"
             assert lay["slices"] == slices
             assert lay["D"] == tflash.padded_head_dim(d)
             assert lay["ch"] * lay["ve"] == lay["D"]
@@ -385,9 +591,14 @@ def test_decode_group_bucket_and_slices_follow_the_kernel(g, bucket, slices):
 
 def test_decode_fp32_at_d256_keeps_one_tile_in_flight():
     """Two fp32 tiles of 64 x 260 words for K and V would take 266 KB;
-    bf16 keeps two."""
+    bf16 keeps two, on decode_split_kernel at d 250 and on the tensor-core
+    kernel at d 256 (two tiles of 64 rows, 144 KB)."""
     assert tdecode.pv_layout(4, 256, 8)["stages"] == 1
-    assert tdecode.pv_layout(2, 256, 8)["stages"] == 2
+    assert tdecode.pv_layout(4, 256, 8)["route"] == "split"
+    assert tdecode.pv_layout(2, 250, 8)["stages"] == 2
+    lay = tdecode.pv_layout(2, 256, 8)
+    assert (lay["route"], lay["stages"]) == ("mma", 2)
+    assert lay["smem"] <= tdecode.MAX_SMEM
     assert tdecode.pv_layout(4, 160, 16)["stages"] == 2
 
 
@@ -496,6 +707,36 @@ def test_kernel_cost_counts_the_real_d_state():
     bw = kernel_cost.ssd_bwd(1, 512, 8, 64, 512, torch.bfloat16, 256, False)
     assert bw.bytes == 2 * (3 * 512 * 8 * 64 + 4 * 512 * 512) + \
         8 * 512 * 8 + 16 * 8
+
+
+@pytest.mark.parametrize("d", [100, 99, 104])
+def test_fake_staged_backward_holds_its_scratch(d):
+    """On fake CUDA tensors (the dry run) the backward at bf16 d 100 and
+    99 (route ``"wgmma_staged"``) allocates the staged copies of q, k, v
+    and dout, so the dry run's memory peak holds them, and counts one call
+    at ``kernel_cost``'s real d (the copy's bytes are the design's, not
+    the function's); at d 104 (route ``"wgmma"``) there is no scratch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline.counter import Recorder
+    bf16 = torch.bfloat16
+    with FakeTensorMode():
+        q = torch.empty(2, 64, 8, d, dtype=bf16, device="cuda")
+        kv = torch.empty(2, 64, 2, d, dtype=bf16, device="cuda")
+        lse = torch.empty(2, 8, 64, device="cuda")
+        with Recorder() as rec:
+            grads = tflash._kernel_backward(q, kv, kv, q, q, lse, True,
+                                            d ** -0.5)
+        _, live = rec.peak_storages(grads)
+    staged = tflash.bwd_design(bf16, d) == "wgmma_staged"
+    assert staged == (d != 104)
+    scratch = 2 * tflash.staged_scratch_numel(2, 64, 64, 8, 2, d)
+    assert scratch == 2 * (2 * 2 * 64 * 8 + 2 * 2 * 64 * 2) * 104
+    big = [x for x in live if x[0] >= 1024]     # beside grads at the peak
+    assert big == ([(scratch, "aten.empty.memory_format", (scratch // 2,),
+                     bf16)] if staged else [])
+    assert rec.kernel_calls() == {"flash_attention_bwd": 1}
+    assert rec.kernel_flops == kernel_cost.flash_bwd(2, 64, 64, 8, 2, d,
+                                                     bf16, True).ops
 
 
 @pytest.mark.parametrize("d", [257, 512, 576])

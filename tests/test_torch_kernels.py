@@ -394,7 +394,9 @@ def test_decode_layout_owns_every_head_and_row_once(element_size):
     (``stages``: two where they fit) fits the 227 KB a block may have.
     Groups 1, 2, 4, 8 and 16 run instantiations where the group is a
     constant, the others one of the buckets 4, 8, 16 that read it at run
-    time; a group above 16 the bucket 16."""
+    time; a group above 16 the bucket 16. In bf16 at D 256 the split
+    instantiation serves the head dims that are not whole 16-byte chunks
+    (d 256 takes route ``"mma"``), so it is read there at d 250."""
     threads, exact, run_time, dims = _decode_c_layout()
     assert threads == tdecode.THREADS
     assert exact == [1, 2, 4, 8, 16] and run_time == [4, 8, 16]
@@ -405,7 +407,11 @@ def test_decode_layout_owns_every_head_and_row_once(element_size):
             g if g in exact else min(b for b in run_time if b >= g))
     for d in dims:
         for g in range(1, tdecode.MAX_GROUP + 1):
-            lay = tdecode.pv_layout(element_size, d, g)
+            mma = element_size == 2 and d == tdecode.MAX_HEAD_DIM
+            assert (tdecode.pv_layout(element_size, d, g)["route"] ==
+                    "mma") == mma
+            lay = tdecode.pv_layout(element_size, d - 6 if mma else d, g)
+            assert lay["route"] == "split"
             ve, ch, hg, r = (lay[k] for k in ("ve", "ch", "hg", "r_slices"))
             assert ch * ve == lay["D"] == d and hg * ch <= threads
             owners = np.zeros((g, ch, tdecode.TILE), np.int64)

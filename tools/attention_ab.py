@@ -2,7 +2,7 @@
 """Compare the attention kernels of two checkouts of the port on one CUDA
 card, at the serving shapes both checkouts run.
 
-    python3 tools/attention_ab.py PARENT_DIR CHANGE_DIR [--above-256]
+    python3 tools/attention_ab.py PARENT CHANGE [--above-256 | --contract]
 
 Runs a worker in each checkout in turns (parent, change, change, parent),
 each a fresh process that imports that checkout's ``repro_torch`` and
@@ -14,8 +14,16 @@ each beside its SDPA time. With ``--above-256`` it times instead the
 flash forward and backward above a head dim of 256 in bf16
 (``chip_smoke._contract_flash_case`` at b 8, s 256, causal: 8/8 d 257,
 8/2 d 288, 8/8 d 512 and 8/1 d 576), each with its design, error, plain
-and SDPA times. Prints one JSON line a run and the card's name and power
-limit.
+and SDPA times. With ``--contract`` it times the bf16 flash backward where
+the rows are not whole 16-byte chunks (8/8 d 100, 8/2 d 99) and bf16
+decode at gemma-2b's 8/1 d 256 in plain and partial mode
+(``chip_smoke._contract_decode_case``: 4 slots, cache 740), each beside
+SDPA and the plain version, and beside them routes those shapes do not
+take: the wgmma backward at 32/32 d 96, the fp32 backward at 8/8 d 100,
+decode in bf16 at 8/1 d 250 and in fp32 at 8/1 d 256, and internlm2's
+serve decode; the bf16 cases at d 100, 99 and 256 also with each CUDA
+kernel's device time a call (``chip_smoke.device_us``, torch.profiler).
+Prints one JSON line a run and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -26,6 +34,12 @@ import sys
 
 
 ABOVE_256 = ((8, 8, 257), (8, 2, 288), (8, 8, 512), (8, 1, 576))
+# (hq, hkv, d, dtype name): the contract cases, then routes they leave.
+CONTRACT_FLASH = ((8, 8, 100, "bfloat16"), (8, 2, 99, "bfloat16"),
+                  (32, 32, 96, "bfloat16"), (8, 8, 100, "float32"))
+CONTRACT_DECODE = ((8, 1, 256, "bfloat16"), (8, 1, 250, "bfloat16"),
+                   (8, 1, 256, "float32"))
+KEYS = ("design", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 
 
 def worker_above_256() -> None:
@@ -44,6 +58,52 @@ def worker_above_256() -> None:
             "bwd": {k: c["bwd"][k] for k in (
                 "design", "ms", "plain_ms", "library_ms", "bound_ms",
                 "max_abs_err")}}
+    print(json.dumps(out), flush=True)
+
+
+def worker_contract() -> None:
+    sys.path[:0] = [os.path.join(os.getcwd(), "src"), os.getcwd()]
+    import torch
+
+    import chip_smoke as cs
+
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = torch.bfloat16
+    out = {"tree": os.getcwd()}
+    for hq, hkv, d, dt in CONTRACT_FLASH:
+        c = cs._contract_flash_case(hq, hkv, d, getattr(torch, dt))
+        row = out[f"flash bwd {hq}/{hkv} d {d} {dt}"] = {
+            k: c["bwd"][k] for k in KEYS}
+        if dt == "bfloat16" and d % 8:      # the inputs of the case
+            b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
+            q, k, v, dout = (cs.randn(sh, bf16, i) for i, sh in enumerate((
+                (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                (b, s, hq, d))))
+            sc = kf._scale(q, None)
+            o, lse = kf._kernel_forward(q, k, v, True, sc, with_lse=True)
+            row["kernel_us"] = cs.device_us(lambda: kf._kernel_backward(
+                q, k, v, o, dout, lse, True, sc))
+    for hq, hkv, d, dt in CONTRACT_DECODE:
+        for lse in (False, True):
+            c = cs._contract_decode_case(hq, hkv, d, getattr(torch, dt), lse)
+            row = out[f"decode {hq}/{hkv} d {d} {dt} {c['mode']}"] = {
+                "route": c["route"],
+                **{k: c[k] for k in KEYS if k != "design"}}
+            if (d, dt) == (256, "bfloat16"):
+                skv, lengths = cs.DECODE_CASES[0]
+                q, k, v = (cs.randn(sh, bf16, i) for i, sh in enumerate((
+                    (cs.SLOTS, hq, d), (cs.SLOTS, skv, hkv, d),
+                    (cs.SLOTS, skv, hkv, d))))
+                n = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+                row["kernel_us"] = cs.device_us(
+                    lambda: kd.decode_attention(q, k, v, n, return_lse=lse))
+    skv, lengths = cs.DECODE_CASES[0]
+    c = cs._decode_case(cs.ARCH, torch.bfloat16, skv, lengths)
+    out[f"decode {cs.ARCH} cache {skv}"] = {
+        k: c[k] for k in ("ms", "library_ms", "max_abs_err")}
     print(json.dumps(out), flush=True)
 
 
@@ -71,10 +131,15 @@ def worker() -> None:
 
 def main() -> None:
     if sys.argv[1:2] == ["--worker"]:
-        worker_above_256() if "--above-256" in sys.argv else worker()
+        if "--above-256" in sys.argv:
+            worker_above_256()
+        elif "--contract" in sys.argv:
+            worker_contract()
+        else:
+            worker()
         return
     parent, change = (os.path.abspath(d) for d in sys.argv[1:3])
-    flags = ["--above-256"] if "--above-256" in sys.argv[3:] else []
+    flags = [f for f in ("--above-256", "--contract") if f in sys.argv[3:]]
     for tree in (parent, change, change, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--worker", *flags], cwd=tree,

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time variants of the flash attention sources against each other on one
-CUDA card, above a head dim of 256 in bf16.
+"""Time variants of the attention sources against each other on one CUDA
+card: flash above a head dim of 256 in bf16; with ``--staged`` flash at
+the bf16 head dims whose rows are not whole 16-byte chunks (8/8 d 100, 8/2
+d 99: the backward's ``wgmma_staged`` route, or a variant's other design
+there); with ``--decode`` bf16 decode on route ``mma`` (8/1 and 16/16 at
+d 256, 4 slots, cache 740, plain and partial mode).
 
-    python3 tools/flash_variants_ab.py VARIANT_DIR [VARIANT_DIR ...]
+    python3 tools/flash_variants_ab.py [--staged | --decode] VARIANT_DIR ...
 
-Each VARIANT_DIR holds a copy of ``src/repro_torch/csrc``'s
-``flash_attention.cu``, ``flash_attention_wide.cu``, ``common.cuh`` and
-``hopper.cuh``, edited as the variant wants. Runs a worker for each
+Each VARIANT_DIR holds a copy of ``src/repro_torch/csrc``, edited as the
+variant wants. Runs a worker for each
 variant in turns (the variants in order, then in reverse), each a fresh
 process that builds its own library from that directory (into
 ``VARIANT_DIR/_build``), then at b 8, s 256, causal times by CUDA-graph
-replay ``_kernel_forward`` and ``_kernel_backward`` at each of SHAPES,
-with the forward's max abs error and the backward's error over (1 +
-max-abs) against the plain versions. Prints one JSON line a run (with
-ptxas's registers and spills of the ``wgmma_wide`` kernels) and the
-card's name and power limit.
+replay ``_kernel_forward`` and ``_kernel_backward`` at each of SHAPES
+(STAGED_SHAPES with ``--staged``), with the forward's max abs error and
+the backward's error over (1 + max-abs) against the plain versions; with
+``--decode`` it times ``chip_smoke._contract_decode_case`` (error, SDPA
+with a mask beside), the decode wrapper's split-plan constants
+(``MMA_TILE``, ``MMA_BLOCKS``, ``MMA_MIN_ROWS``) read from the variant's
+``common.cuh``. Prints one JSON line a run (with ptxas's registers and
+spills of the ``wgmma_wide`` kernels, with ``--staged`` of the backward's
+wgmma and staging kernels, with ``--decode`` of ``decode_mma_kernel``) and
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -27,9 +35,45 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = [(8, 2, 288), (8, 8, 512), (8, 1, 576), (8, 8, 384), (8, 8, 768),
           (8, 8, 448)]      # (hq, hkv, d)
+STAGED_SHAPES = [(8, 8, 100), (8, 2, 99)]
 
 
-def worker(vdir: str) -> None:
+DECODE_SHAPES = [(8, 1, 256), (16, 16, 256)]
+DECODE_CONSTS = {"MMA_TILE": "kDecodeMmaTile",
+                 "MMA_BLOCKS": "kDecodeMmaBlocks",
+                 "MMA_MIN_ROWS": "kDecodeMmaMinRows"}
+
+
+def decode_worker(vdir: str) -> None:
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import re
+
+    import torch
+
+    from repro_torch.kernels import _build
+    _build.CSRC_DIR = pathlib.Path(vdir)
+    _build.BUILD_ROOT = pathlib.Path(vdir) / "_build"
+    import chip_smoke as cs
+    from repro_torch.kernels import decode_attention as kd
+
+    common = (pathlib.Path(vdir) / "common.cuh").read_text()
+    for py, c in DECODE_CONSTS.items():
+        setattr(kd, py, int(re.search(rf"constexpr int {c} = (\d+);",
+                                      common).group(1)))
+    info = _build.build()
+    out = {"variant": os.path.basename(vdir), "build_s": info.seconds,
+           **{py: getattr(kd, py) for py in DECODE_CONSTS},
+           "regs": [p for p in cs._ptxas_summary(info.ptxas)
+                    if "decode_mma" in p]}
+    for hq, hkv, d in DECODE_SHAPES:
+        for lse in (False, True):
+            c = cs._contract_decode_case(hq, hkv, d, torch.bfloat16, lse)
+            out[f"{hq}/{hkv} d{d} {'partial' if lse else 'plain'}"] = {
+                k: c[k] for k in ("ms", "library_ms", "max_abs_err")}
+    print(json.dumps(out), flush=True)
+
+
+def worker(vdir: str, staged: bool = False) -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
@@ -42,14 +86,15 @@ def worker(vdir: str) -> None:
     info = _build.build()
     out = {"variant": os.path.basename(vdir), "build_s": info.seconds,
            "regs": [p for p in cs._ptxas_summary(info.ptxas)
-                    if "wgmma_wide" in p]}
+                    if ("wgmma_kernel<bf16,128" in p or "stage_rows" in p
+                        if staged else "wgmma_wide" in p)]}
 
     def rnd(shape, seed):
         g = torch.Generator(device="cuda").manual_seed(seed)
         return torch.randn(shape, generator=g,
                            device="cuda").to(torch.bfloat16)
 
-    for hq, hkv, d in SHAPES:
+    for hq, hkv, d in STAGED_SHAPES if staged else SHAPES:
         b, s = 8, 256
         q, k, v = rnd((b, s, hq, d), 0), rnd((b, s, hkv, d), 1), \
             rnd((b, s, hkv, d), 2)
@@ -72,12 +117,18 @@ def worker(vdir: str) -> None:
 
 
 def main() -> None:
-    if sys.argv[1] == "--worker":
-        worker(sys.argv[2])
+    flags = [a for a in sys.argv[1:] if a in ("--staged", "--decode")]
+    args = [a for a in sys.argv[1:] if a not in flags]
+    if args[0] == "--worker":
+        if "--decode" in flags:
+            decode_worker(args[1])
+        else:
+            worker(args[1], "--staged" in flags)
         return
-    dirs = sys.argv[1:]
+    dirs = args
     for vdir in dirs + dirs[::-1]:
-        r = subprocess.run([sys.executable, __file__, "--worker", vdir],
+        r = subprocess.run([sys.executable, __file__, "--worker", vdir,
+                            *flags],
                            capture_output=True, text=True, timeout=600)
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
         print(lines[-1] if lines else
