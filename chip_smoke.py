@@ -45,8 +45,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 (phi-3-mini) and d 80 (phi-2), 8/1 d 256 (gemma-2b), 8/8
                 d 100 and 8/2 d 99 (rows not whole 16-byte chunks in
                 bf16: the backward's "wgmma_staged" route), and above
-                256 on the column-tile kernels: 8/8 d 257, 8/2 d 288,
-                8/8 d 512, 8/1 d 576; decode at the serve cache with 71/1
+                256 on the column-tile kernels: 8/8 d 257 (in bf16 route
+                "wgmma_wide_staged", flash_attention_wide.cu on copies
+                in 16-byte rows), 8/2 d 288, 8/8 d 512, 8/1 d 576;
+                decode at the serve cache with 71/1
                 d 64 (falcon-7b: five slices of q heads), 8/1 d 256
                 (route "mma", decode_attention_tc.cu), 32/32 d 96, 16/1
                 d 512 and 128/1 d 576 (an absorbed MLA
@@ -58,9 +60,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 module's plain versions refuse while it runs), time by
                 graph replay, bound, plain version's and SDPA's (with the
                 lengths as a mask in decode) time, SDPA's backend named
-                from the kernels it launched (``library_backend``); head
-                dim 0 must raise, launching nothing; the ptxas line of every
-                padded or tiled instantiation. Then internlm2-1.8b at
+                from the kernels it launched (``library_backend``), and
+                the case's own ``seconds``; head dim 0 must raise,
+                launching nothing; the ptxas line of every padded or
+                tiled instantiation. Then internlm2-1.8b at
                 PARITY_LAYERS layers with ``CONTRACT_MODELS``' heads
                 (gemma-2b's, a group of 32, phi-3-mini's): ``parity`` and
                 ``train_parity`` card vs CPU, launches exact.
@@ -277,7 +280,8 @@ their library call's backward timed through autograd (``F.rms_norm``,
 ``F.scaled_dot_product_attention``; none computes the SSD), and ssd_scan's
 forward at the training shape. Each flash and SSD backward case names its
 route (``design``: the wgmma kernels for bf16 at d 64, 128 and 160, the
-CUDA-core ones otherwise, and in the contract phase ``wgmma_staged``; the
+CUDA-core ones otherwise, and in the contract phase ``wgmma_staged``,
+``wgmma_wide`` and ``wgmma_wide_staged``; the
 SSD backward's tensor-core kernels for bf16 at n <= 128, p <= 64, the
 CUDA-core ones otherwise); a bf16 SSD backward
 case also holds the CUDA-core design to the same checks on the same
@@ -554,7 +558,8 @@ SOURCES = {
                     "src/repro/kernels/int8_matmul.py:43"),
 }
 # Flash attention's tensor-core column tiles above a head dim of 256 (the
-# "wgmma_wide" design, forward and backward) live in a source of their own,
+# "wgmma_wide" and "wgmma_wide_staged" designs, forward and backward; the
+# latter's copy is flash_attention.cu's) live in a source of their own,
 # and so does decode attention's tensor-core kernel (route "mma", bf16 at
 # D 256).
 WGMMA_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
@@ -724,7 +729,7 @@ def _ptxas_summary(lines):
                              r"rmsnorm_dw_kernel|flash_fwd_wgmma_kernel|"
                              r"flash_fwd_wgmma_wide_kernel|"
                              r"flash_fwd_simt_kernel|flash_fwd_wide_kernel|"
-                             r"flash_bwd_\w+_kernel|"
+                             r"flash_bwd_\w+_kernel|flash_stage_rows_kernel|"
                              r"decode_split_kernel|decode_wide_kernel|"
                              r"decode_mma_kernel|"
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
@@ -765,7 +770,9 @@ def _main_path_patterns() -> list:
     train_parity path) and in bf16 (the shapes the tensor-core design
     does not take; the kernels phase holds them to the plain backward).
     And the tensor-core column tiles above a head dim of 256 at both
-    widths (forward, dK/dV and dQ), the backward's staged wgmma kernels at
+    widths (forward, dK/dV and dQ), on the callers' rows and on staged
+    copies (``kStaged``), the copy above 256 (``flash_stage_rows_kernel``,
+    each load width), the backward's staged wgmma kernels at
     every padded D with their staging copies (each load width), and the
     tensor-core decode (``decode_mma_kernel``), which the contract phase
     runs: no model path in bf16 reaches them, but they are held to no
@@ -812,9 +819,10 @@ def _main_path_patterns() -> list:
     for m, k, n in INT8_SHAPES:
         bm, bn = kint8.TILES[kint8.plan(m, k, n, 0, 0, sms)[1]]
         pats.append(rf"int8_wgmma_kernel<\w+,{bm // 64},{bn},\d+,1>")
-    pats += [rf"flash_{k}_wgmma_wide_kernel<bf16,{n}>"
+    pats += [rf"flash_{k}_wgmma_wide_kernel<bf16,{n},{staged}>"
              for k in ("fwd", "bwd_dkdv", "bwd_dq")
-             for n in kflash.TC_WIDE_WIDTHS]
+             for n in kflash.TC_WIDE_WIDTHS for staged in (0, 1)]
+    pats += [rf"flash_stage_rows_kernel<bf16,{w}>" for w in (1, 2, 4)]
     pats += [rf"flash_bwd_{k}_wgmma_kernel<bf16,{n},1>"
              for k in ("dkdv", "dq") for n in (64, 128, 160, 256)]
     pats += [rf"flash_bwd_stage_rows_kernel<bf16,{w}>" for w in (1, 2, 4)]
@@ -1385,7 +1393,8 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 CONTRACT_PATH = "contract phase"
 # Above 256 (the column-tile kernels): d 257 (rows not whole 16-byte
-# chunks, two tiles; bf16 on the CUDA cores), 288 with a group of 4, 512
+# chunks, two tiles; bf16 on the tensor cores through staged rows), 288
+# with a group of 4, 512
 # and 576 on one kv head (three tiles of 192; in bf16 these three on the
 # tensor cores); decode at a group of 16 at d 512 and the absorbed MLA
 # decode of DeepSeek-V2/V3 (128 q heads on one latent head of 512 + 64).
@@ -1641,7 +1650,7 @@ def _contract_rows(contract: dict) -> list:
                       for name, b in c["bwd"].items()]
         for x in parts:
             source, replaces = SOURCES[x["kernel"]]
-            if x.get("design") == "wgmma_wide":
+            if x.get("design") in ("wgmma_wide", "wgmma_wide_staged"):
                 source = WGMMA_WIDE_SOURCE
             if x["kernel"] == "decode_attention" and x["design"] == "mma":
                 source = DECODE_MMA_SOURCE
@@ -1670,16 +1679,20 @@ def phase_contract(smi: str) -> dict:
     (kernel, shape, dtype)."""
     t0 = time.monotonic()
     cases = []
+
+    def timed(case, *args):     # each case with its own host seconds
+        t = time.monotonic()
+        cases.append({**case(*args), "seconds": time.monotonic() - t})
     for dtype in (torch.bfloat16, torch.float32):
         for hq, hkv, d in CONTRACT_FLASH:
-            cases.append(_contract_flash_case(hq, hkv, d, dtype))
+            timed(_contract_flash_case, hq, hkv, d, dtype)
         for hq, hkv, d in CONTRACT_DECODE:
             for lse in (False, True):
-                cases.append(_contract_decode_case(hq, hkv, d, dtype, lse))
-        cases.append(_contract_ssd_case(dtype))
+                timed(_contract_decode_case, hq, hkv, d, dtype, lse)
+        timed(_contract_ssd_case, dtype)
     ptxas = [p for p in _ptxas_summary(_build.build().ptxas)
              if re.search(r"<\w+,256|,1>|flash_bwd_preprocess_rows|"
-                          r"flash_bwd_stage_rows|decode_mma|"
+                          r"flash_bwd_stage_rows|flash_stage_rows|decode_mma|"
                           r"ssd_scan_simt|ssd_bwd_local|wide|stream", p)]
     emit({"phase": "contract", "tolerance": {
         "bfloat16": KERNEL_TOL[torch.bfloat16],

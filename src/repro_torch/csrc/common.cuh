@@ -95,6 +95,15 @@ __host__ __device__ inline bool staged_route(int d) {
 
 __host__ __device__ inline int staged_ld(int d) { return (d + 7) / 8 * 8; }
 
+// bf16 above 256 where a row is not whole 16-byte chunks, up to
+// kTcWideMaxDim: the flash forward and backward copy their inputs into rows
+// of staged_ld(d) elements (flash_stage_rows_kernel) and run the tensor-core
+// column tiles of flash_attention_wide.cu on the copies, at the plans of
+// tc_wide_route's d.
+__host__ __device__ inline bool tc_wide_staged_route(int d) {
+  return d > 256 && d <= kTcWideMaxDim && d % 8 != 0;
+}
+
 // bf16 decode at the padded head dim 256 where d is whole 16-byte chunks
 // (d 168-256): decode_attention_tc.cu, on the tensor cores. Its cache rows
 // come in tiles of kDecodeMmaTile (eight warps a block, each scoring 8

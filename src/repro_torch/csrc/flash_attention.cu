@@ -10,10 +10,13 @@
 // above d (padded_dim). Q and K columns d..D - 1 come in as zeros, so
 // Q.K^T is unchanged; V's give output columns that are never stored; the
 // scale is the caller's (1 / sqrt(d) of the real d). Above 256 (the
-// Pallas kernel takes any d), at the real d: bf16 where tc_wide_route holds
-// (d a multiple of 8 up to kTcWideMaxDim) on the tensor-core column tiles
-// of flash_attention_wide.cu, forward and backward; fp32 and the other bf16
-// head dims on the CUDA-core column tiles of namespace wide.
+// Pallas kernel takes any d), at the real d: bf16 up to kTcWideMaxDim on
+// the tensor-core column tiles of flash_attention_wide.cu, forward and
+// backward, on the caller's rows where tc_wide_route holds (d a multiple of
+// 8) and where tc_wide_staged_route holds (the other d) on copies in rows
+// of staged_ld(d) elements made by flash_stage_rows_kernel (namespace
+// stage, below); fp32, and bf16 above kTcWideMaxDim, on the CUDA-core
+// column tiles of namespace wide.
 //
 // Up to 256, two hand-written kernels serve the forward, chosen by dtype
 // and head dim (the backward adds a staged route, below):
@@ -137,10 +140,10 @@
 // on the H100, at 0.0151 ms. The kernels run 7 products (S and dP twice)
 // over whole 64 x 64 tiles, 9.4 GFLOP.
 //
-// Above a head dim of 256, where tc_wide_route does not hold
-// (flash_fwd_wide_kernel, flash_bwd_dkdv_wide_kernel,
-// flash_bwd_dq_wide_kernel; fp32, and bf16 at a d that is not a multiple of
-// 8 or above kTcWideMaxDim, on the CUDA cores): the output's
+// Above a head dim of 256, where neither tc_wide_route nor
+// tc_wide_staged_route holds (flash_fwd_wide_kernel,
+// flash_bwd_dkdv_wide_kernel, flash_bwd_dq_wide_kernel; fp32, and bf16
+// above kTcWideMaxDim, on the CUDA cores): the output's
 // d columns in ceil(d / 256) tiles of at most 256 (wide_tile_width), one
 // block a (row tile, head, batch, column tile). A block recomputes S (and
 // in the backward dP) over the whole d, Q and K (dO and V) streamed
@@ -1829,7 +1832,158 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace bwd_tc
 
 // ---------------------------------------------------------------------------
-// Head dims above 256, fp32 and bf16 off tc_wide_route: CUDA-core kernels
+// The staged routes' copy above 256 (tc_wide_staged_route), forward and
+// backward.
+// ---------------------------------------------------------------------------
+namespace stage {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;   // eight warps, a row each
+constexpr int kPer = 3;         // 16-byte chunks a lane holds in one pass
+
+// Rows of Q, K, V and, where the grid has a fourth y (the backward), dO
+// (blockIdx.y 0-3) into rows of ld elements of the scratch, in that order,
+// columns d..ld - 1 zero; ld is any multiple of 8 at or above d
+// (staged_ld(d) on the routes). With dO, also delta = rowsum(dO * O) over
+// the real d for each dO row into (b, hq, sq) float32, from the dO chunks
+// the copy reads and the same chunks of O. A row takes one warp, lane
+// j its chunks j, j + 32, j + 64 (ld / 8 chunks, up to kPer a lane in one
+// pass: a row of up to 768 elements; wider rows take more passes), each
+// stored whole, gathered from the source in W-element loads: 8 bytes where
+// d % 4 == 0, 4 where d is even, 2 where it is odd, the widest the source
+// rows' alignment allows (a row starts 2 d bytes after the last). A lane's
+// loads of a pass are independent, in flight together; the warp sums delta
+// with shuffles, so the mapping holds at any ld (flash_bwd_stage_rows_kernel
+// below 256 gives a row a group of up to 32 lanes, one chunk each).
+// Bound by bytes: each input read once (O's d columns too), its staged copy
+// and delta written once.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_stage_rows_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const bf16* __restrict__ o,
+                        float* __restrict__ delta,
+                        bf16* __restrict__ scratch, long long nq,
+                        long long nk, int sq, int hq, int d, int ld) {
+  const int which = blockIdx.y;
+  const long long rows = which == 0 || which == 3 ? nq : nk;
+  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
+  const long long first = which == 0 ? 0
+                          : which == 1 ? nq
+                          : which == 2 ? nq + nk
+                                       : nq + 2 * nk;
+  const long long r = (static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x) >> 5;
+  if (r >= rows) return;    // whole warps: a row's lanes leave together
+  const int lane = threadIdx.x & 31;
+  const int chunks = ld / 8;
+  const bool with_delta = which == 3;  // the whole warp alike
+  bf16* dst = scratch + (first + r) * ld;
+  float s = 0.f;    // zero past d: both chunks hold zeros there
+  for (int base = 0; base < chunks; base += 32 * kPer) {
+    __align__(16) unsigned short buf[kPer][8];
+    __align__(16) unsigned short obuf[kPer][8];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c0 = 8 * (base + 32 * i + lane);
+#pragma unroll
+      for (int e = 0; e < 8; e += W) {
+        // d is a multiple of W, so a W-element group lies wholly below d
+        // or not
+        const bool ok = c0 + e < d;
+        const long long at = r * d + c0 + e;
+        if constexpr (W == 4) {
+          const uint2 z = make_uint2(0, 0);
+          *reinterpret_cast<uint2*>(buf[i] + e) =
+              ok ? __ldg(reinterpret_cast<const uint2*>(src + at)) : z;
+          if (with_delta)
+            *reinterpret_cast<uint2*>(obuf[i] + e) =
+                ok ? __ldg(reinterpret_cast<const uint2*>(o + at)) : z;
+        } else if constexpr (W == 2) {
+          *reinterpret_cast<unsigned int*>(buf[i] + e) =
+              ok ? __ldg(reinterpret_cast<const unsigned int*>(src + at))
+                 : 0u;
+          if (with_delta)
+            *reinterpret_cast<unsigned int*>(obuf[i] + e) =
+                ok ? __ldg(reinterpret_cast<const unsigned int*>(o + at))
+                   : 0u;
+        } else {
+          const unsigned short z = 0;
+          buf[i][e] =
+              ok ? __ldg(reinterpret_cast<const unsigned short*>(src + at))
+                 : z;
+          if (with_delta)
+            obuf[i][e] =
+                ok ? __ldg(reinterpret_cast<const unsigned short*>(o + at))
+                   : z;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = base + 32 * i + lane;
+      if (c < chunks)
+        *reinterpret_cast<uint4*>(dst + 8 * c) =
+            *reinterpret_cast<const uint4*>(buf[i]);
+      if (with_delta)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          s = fmaf(to_f32(reinterpret_cast<const bf16*>(obuf[i])[e]),
+                   to_f32(reinterpret_cast<const bf16*>(buf[i])[e]), s);
+    }
+  }
+  if (!with_delta) return;
+  s = warp_sum(s);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % hq);
+    const long long bi = r / hq;
+    const int i = static_cast<int>(bi % sq);
+    delta[(bi / sq * hq + h) * sq + i] = s;
+  }
+}
+
+template <int W>
+cudaError_t copy_as(const void* q, const void* k, const void* v,
+                    const void* dout, const void* o, float* delta,
+                    bf16* scratch, long long nq, long long nk, int sq, int hq,
+                    int d, int ld, cudaStream_t stream) {
+  const long long threads = (nq > nk ? nq : nk) * 32;
+  const dim3 grid(
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+      dout != nullptr ? 4 : 3);
+  flash_stage_rows_kernel<W><<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(o), delta, scratch, nq, nk, sq, hq, d, ld);
+  return cudaGetLastError();
+}
+
+// q, k, v and, unless null, dout ((b, rows, heads, d) bf16; nq = b sq hq
+// and nk = b skv hkv rows) into `scratch` ((2 nq + 2 nk) ld bf16 with dout,
+// else (nq + 2 nk) ld), and with dout delta from it and o (dout's shape;
+// null without dout).
+cudaError_t copy(const void* q, const void* k, const void* v,
+                 const void* dout, const void* o, float* delta,
+                 bf16* scratch, long long nq, long long nk, int sq, int hq,
+                 int d, int ld, cudaStream_t stream) {
+  if (ld % 8 != 0 || ld < d || (o == nullptr) != (dout == nullptr))
+    return cudaErrorInvalidValue;
+  if (d % 4 == 0)
+    return copy_as<4>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                      ld, stream);
+  if (d % 2 == 0)
+    return copy_as<2>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                      ld, stream);
+  return copy_as<1>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d, ld,
+                    stream);
+}
+
+}  // namespace stage
+
+// ---------------------------------------------------------------------------
+// Head dims above 256, fp32 and bf16 above kTcWideMaxDim: CUDA-core kernels
 // over column tiles.
 // ---------------------------------------------------------------------------
 namespace wide {
@@ -2319,24 +2473,32 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// bf16 above 256 where tc_wide_route holds: flash_attention_wide.cu.
+// bf16 above 256 where tc_wide_route holds (ld 0: the caller's rows) or
+// tc_wide_staged_route does (ld staged_ld(d): the copies'):
+// flash_attention_wide.cu.
 namespace wgmma_wide {
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int b, int sq, int skv, int hq, int hkv, int d,
-               float scale, int causal, cudaStream_t stream);
+               float scale, int causal, cudaStream_t stream, int ld);
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
                void* dv, int b, int sq, int skv, int hq, int hkv, int d,
-               float scale, int causal, cudaStream_t stream);
+               float scale, int causal, cudaStream_t stream, int ld);
 }  // namespace wgmma_wide
 }  // namespace repro
 
 // lse: null, or (b, hq, sq) float32 that takes each row's log-sum-exp.
+// scratch: where tc_wide_staged_route holds for bf16, (b sq hq + 2 b skv
+// hkv) staged_ld(d) bf16 that flash_stage_rows_kernel fills with copies of
+// q, k and v, which the wgmma column-tile kernels of
+// flash_attention_wide.cu then read (a failed copy, TMA encode, attribute
+// or launch is returned, never served by another route); null on every
+// other route, where it is not read.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
-                                     int b, int sq, int skv, int hq, int hkv,
-                                     int d, float scale, int causal,
-                                     int dtype, void* stream) {
+                                     void* scratch, int b, int sq, int skv,
+                                     int hq, int hkv, int d, float scale,
+                                     int causal, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -2345,7 +2507,20 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (d > 256) {
     if (dtype == kBF16 && tc_wide_route(d))
       return wgmma_wide::launch_fwd(q, k, v, o, l, b, sq, skv, hq, hkv, d,
-                                    scale, causal, s);
+                                    scale, causal, s, 0);
+    if (dtype == kBF16 && tc_wide_staged_route(d)) {
+      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      const int ld = staged_ld(d);
+      const long long nq = static_cast<long long>(b) * sq * hq;
+      const long long nk = static_cast<long long>(b) * skv * hkv;
+      __nv_bfloat16* st = static_cast<__nv_bfloat16*>(scratch);
+      const cudaError_t err = stage::copy(q, k, v, nullptr, nullptr, nullptr,
+                                          st, nq, nk, sq, hq, d, ld, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return wgmma_wide::launch_fwd(st, st + nq * ld, st + (nq + nk) * ld, o,
+                                    l, b, sq, skv, hq, hkv, d, scale, causal,
+                                    s, ld);
+    }
     if (dtype == kF32)
       return wide::launch_fwd<float>(q, k, v, o, l, b, sq, skv, hq, hkv, d,
                                      scale, causal, s);
@@ -2384,7 +2559,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // stream. Above
 // 256: flash_bwd_preprocess_rows_kernel, then the wgmma column-tile kernels
 // of flash_attention_wide.cu for bf16 where tc_wide_route holds (failures
-// returned likewise), else those of namespace wide.
+// returned likewise); for bf16 where tc_wide_staged_route holds,
+// flash_stage_rows_kernel into `scratch` (the size above) and delta, then
+// the staged instantiations of those kernels (failures returned likewise);
+// else those of namespace wide.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2402,7 +2580,20 @@ extern "C" int repro_flash_attention_bwd(
           o, dout, dl, b, sq, hq, d, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       return wgmma_wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, b, sq,
-                                    skv, hq, hkv, d, scale, causal, s);
+                                    skv, hq, hkv, d, scale, causal, s, 0);
+    }
+    if (dtype == kBF16 && tc_wide_staged_route(d)) {
+      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      const int ld = staged_ld(d);
+      const long long nq = static_cast<long long>(b) * sq * hq;
+      const long long nk = static_cast<long long>(b) * skv * hkv;
+      __nv_bfloat16* st = static_cast<__nv_bfloat16*>(scratch);
+      const cudaError_t err = stage::copy(q, k, v, dout, o, dl, st, nq, nk,
+                                          sq, hq, d, ld, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return wgmma_wide::launch_bwd(
+          st, st + nq * ld, st + (nq + nk) * ld, st + (nq + 2 * nk) * ld, l,
+          dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
     }
     if (dtype == kF32)
       return wide::launch_bwd<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b,

@@ -1,14 +1,20 @@
 // Flash attention above a head dim of 256 in bf16 on the tensor cores:
 // the forward and the backward's two kernels of csrc/flash_attention.cu's
-// route "wgmma_wide", where tc_wide_route(d) holds (d a multiple of 8, so
-// the TMA maps' rows are whole 16-byte chunks, up to kTcWideMaxDim).
+// routes "wgmma_wide", where tc_wide_route(d) holds (d a multiple of 8, so
+// the TMA maps' rows are whole 16-byte chunks, up to kTcWideMaxDim), and
+// "wgmma_wide_staged", where tc_wide_staged_route(d) holds (d not a
+// multiple of 8, up to kTcWideMaxDim): there flash_attention.cu's
+// flash_stage_rows_kernel first copies the inputs into rows of
+// staged_ld(d) elements, the maps read the copies (row stride staged_ld(d),
+// inner extent d), and the kStaged instantiations store each output column
+// on its own at the real d (the rest is the same code).
 //
 // Replaces, for those shapes, the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel), which
 // takes any head dim; its backward is the port's own (FlashAttention-2's,
-// as below 256). fp32 at every d above 256, and bf16 at a d that is not a
-// multiple of 8, stay on the CUDA-core column tiles of flash_attention.cu
-// (namespace wide).
+// as below 256). fp32 at every d above 256, and bf16 above kTcWideMaxDim,
+// stay on the CUDA-core column tiles of flash_attention.cu (namespace
+// wide).
 //
 // Bound on the H100: bytes. At b 8, s 256, d 512 the forward moves 67 MB
 // (0.020 ms at 3.35 TB/s) for 4.3 GFLOP (0.004 ms at 989 TFLOP/s).
@@ -50,8 +56,9 @@
 // tile 0 writes the log-sum-exp.
 //
 // Backward: delta = rowsum(dO * O) by flash_bwd_preprocess_rows_kernel (in
-// flash_attention.cu), then two kernels, split as below 256 so that no
-// block adds into another's output (no atomics; bitwise repeatable):
+// flash_attention.cu; on the staged route the copy writes it), then two
+// kernels, split as below 256 so that no block adds into another's output
+// (no atomics; bitwise repeatable):
 // * flash_bwd_dkdv_wgmma_wide_kernel, a block a (kv tile, kv head, batch,
 //   column tile, role): role 0 keeps dV, role 1 dK (below 256, D 160 and
 //   256 split them between two warpgroups of one block; here they are two
@@ -238,8 +245,11 @@ __device__ __forceinline__ void mma_tile(const Smem& s, Ring& r,
 
 // This thread's two rows (row_a, row_a + 8) of a tile's accumulators, times
 // `mul`, as bf16 into columns c0 + 64 i + ... below d of a (b, rows, heads,
-// d) tensor at (bb, h); d is a multiple of 8.
-template <int NV>
+// d) tensor at (bb, h). d is a multiple of 8, or with kStaged any d: each
+// column is masked, a pair stored as 4 bytes where d is even (so the pair
+// is whole and 4-byte aligned), else element by element (a row starts on
+// an odd element, and the pair at d - 1 would write into the next head).
+template <int NV, bool kStaged>
 __device__ __forceinline__ void store_tile(bf16* out, const float (&acc)[NV][32],
                                            float mul_a, float mul_b, int bb,
                                            int row_a, int rows, int heads,
@@ -256,10 +266,21 @@ __device__ __forceinline__ void store_tile(bf16* out, const float (&acc)[NV][32]
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int col = c0 + 64 * i + 8 * jj + col_t;
-        if (col < d)
+        if constexpr (kStaged) {
+          const float x0 = acc[i][4 * jj + 2 * half] * mul;
+          const float x1 = acc[i][4 * jj + 2 * half + 1] * mul;
+          if (d % 2 == 0) {
+            if (col < d)
+              *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(x0, x1);
+          } else {
+            if (col < d) orow[col] = __float2bfloat16(x0);
+            if (col + 1 < d) orow[col + 1] = __float2bfloat16(x1);
+          }
+        } else if (col < d) {
           *reinterpret_cast<uint32_t*>(orow + col) =
               pack_bf16(acc[i][4 * jj + 2 * half] * mul,
                         acc[i][4 * jj + 2 * half + 1] * mul);
+        }
       }
   }
 }
@@ -274,7 +295,7 @@ __device__ __forceinline__ void store_tile(bf16* out, const float (&acc)[NV][32]
 template <int N>
 constexpr int kFwdBlocks = N == 192 ? 2 : 1;
 
-template <int N>
+template <int N, bool kStaged>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks<N>)
 flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -414,16 +435,16 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     if (row_a + 8 < sq)
       lrow[row_a + 8] = (m_b + (l_b == 0.f ? 0.f : log2f(l_b))) * kLn2;
   }
-  store_tile<NV>(o, acc, 1.f / (l_a == 0.f ? 1.f : l_a),
-                 1.f / (l_b == 0.f ? 1.f : l_b), bb, row_a, sq, hq, h, d, c0,
-                 col_t);
+  store_tile<NV, kStaged>(o, acc, 1.f / (l_a == 0.f ? 1.f : l_a),
+                          1.f / (l_b == 0.f ? 1.f : l_b), bb, row_a, sq, hq,
+                          h, d, c0, col_t);
 }
 
 // dK or dV of a (kv tile, kv head, batch, column tile): role 0 dV, role 1
 // dK. Per step (q head of the group, q tile), the ring brings Q's boxes (and
 // for dK dO's, interleaved) over d, then the column tile's boxes of dO (dV)
 // or Q (dK).
-template <int N>
+template <int N, bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
@@ -594,16 +615,17 @@ flash_bwd_dkdv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   if (does_dk)
-    store_tile<NV>(dk, acc, scale, scale, bb, kv_a, skv, hkv, kvh, d, c0,
-                   col_t);
+    store_tile<NV, kStaged>(dk, acc, scale, scale, bb, kv_a, skv, hkv, kvh,
+                            d, c0, col_t);
   else
-    store_tile<NV>(dv, acc, 1.f, 1.f, bb, kv_a, skv, hkv, kvh, d, c0, col_t);
+    store_tile<NV, kStaged>(dv, acc, 1.f, 1.f, bb, kv_a, skv, hkv, kvh, d,
+                            c0, col_t);
 }
 
 // dQ of a (q tile, q head, batch, column tile): Q and dO resident; per kv
 // tile up to the diagonal the ring brings K's and V's boxes over d,
 // interleaved, then the column tile's boxes of K.
-template <int N>
+template <int N, bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -735,7 +757,8 @@ flash_bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     mma_tile<NV>(sm, r, acc, ds_frag);
   }
 
-  store_tile<NV>(dq, acc, scale, scale, bb, row_a, sq, hq, h, d, c0, col_t);
+  store_tile<NV, kStaged>(dq, acc, scale, scale, bb, row_a, sq, hq, h, d,
+                          c0, col_t);
 }
 
 template <typename Kern>
@@ -745,7 +768,7 @@ cudaError_t set_smem(Kern kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int N>
+template <int N, bool kStaged = false>
 int fwd_as(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, void* o, float* lse, int b, int sq,
            int skv, int hq, int hkv, int d, float scale, int causal,
@@ -754,10 +777,10 @@ int fwd_as(const CUtensorMap& tq, const CUtensorMap& tk,
   const int ring = ring_slots(nb, 0, 2, kFwdBlocks<N>);
   if (ring == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(nb, ring, 0);
-  cudaError_t err = set_smem(flash_fwd_wgmma_wide_kernel<N>, smem);
+  cudaError_t err = set_smem(flash_fwd_wgmma_wide_kernel<N, kStaged>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (sq + kB - 1) / kB;
-  flash_fwd_wgmma_wide_kernel<N>
+  flash_fwd_wgmma_wide_kernel<N, kStaged>
       <<<n_qtiles * hq * b * tc_wide_fwd_col_tiles(d), kThreads, smem,
          stream>>>(
           tq, tk, tv, static_cast<bf16*>(o), lse, b, sq, skv, hq, hkv, d,
@@ -765,7 +788,7 @@ int fwd_as(const CUtensorMap& tq, const CUtensorMap& tk,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
+template <int N, bool kStaged = false>
 int bwd_as(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const CUtensorMap& tdo, const float* lse,
            const float* delta, void* dq, void* dk, void* dv, int b, int sq,
@@ -779,21 +802,22 @@ int bwd_as(const CUtensorMap& tq, const CUtensorMap& tk,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t s_kv = smem_bytes(2 * nb, ring_kv, lsd);
   const size_t s_q = smem_bytes(2 * nb, ring_q, 0);
-  cudaError_t err = set_smem(flash_bwd_dkdv_wgmma_wide_kernel<N>, s_kv);
+  cudaError_t err =
+      set_smem(flash_bwd_dkdv_wgmma_wide_kernel<N, kStaged>, s_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = set_smem(flash_bwd_dq_wgmma_wide_kernel<N>, s_q);
+  err = set_smem(flash_bwd_dq_wgmma_wide_kernel<N, kStaged>, s_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = scale * kLog2e;
   const int n_ct = tc_wide_col_tiles(d);
   const int n_kt = (skv + kB - 1) / kB, n_qt = (sq + kB - 1) / kB;
-  flash_bwd_dkdv_wgmma_wide_kernel<N>
+  flash_bwd_dkdv_wgmma_wide_kernel<N, kStaged>
       <<<n_kt * hkv * b * n_ct * 2, kThreads, s_kv, stream>>>(
           tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
           static_cast<bf16*>(dv), b, sq, skv, hq, hkv, d, ring_kv, scale,
           scale_log2, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wgmma_wide_kernel<N>
+  flash_bwd_dq_wgmma_wide_kernel<N, kStaged>
       <<<n_qt * hq * b * n_ct, kThreads, s_q, stream>>>(
           tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), b, sq, skv,
           hq, hkv, d, n_qt, ring_q, scale, scale_log2, causal);
@@ -805,17 +829,30 @@ int bwd_as(const CUtensorMap& tq, const CUtensorMap& tk,
 
 namespace wgmma_wide {
 
-// The forward where tc_wide_route(d) holds. The tensor maps are encoded on
-// every call (they hold the tensors' pointers, and a CUDA graph records
-// them by value), at the real d. Any failure is returned: there is no
-// other route.
+// The forward where tc_wide_route(d) holds, on the caller's rows (ld 0); or
+// where tc_wide_staged_route(d) holds, on copies whose rows are ld =
+// staged_ld(d) elements apart (flash_stage_rows_kernel's), in the kStaged
+// instantiations, which store O column by column at the real d. The tensor
+// maps are encoded on every call (they hold the tensors' pointers, and a
+// CUDA graph records them by value), at the real d. Any failure is
+// returned: there is no other route.
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int b, int sq, int skv, int hq, int hkv, int d,
-               float scale, int causal, cudaStream_t stream) {
+               float scale, int causal, cudaStream_t stream, int ld) {
   CUtensorMap tq, tk, tv;
-  if (!tc_wide_route(d) || !make_map(&tq, q, b, sq, hq, d) ||
-      !make_map(&tk, k, b, skv, hkv, d) || !make_map(&tv, v, b, skv, hkv, d))
+  if (!(ld == 0 ? tc_wide_route(d)
+                : tc_wide_staged_route(d) && ld == staged_ld(d)) ||
+      !make_map(&tq, q, b, sq, hq, d, ld) ||
+      !make_map(&tk, k, b, skv, hkv, d, ld) ||
+      !make_map(&tv, v, b, skv, hkv, d, ld))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ld != 0) {
+    switch (tc_wide_fwd_tile_width(d)) {
+      case 192: return tcw::fwd_as<192, true>(tq, tk, tv, o, lse, b, sq, skv, hq, hkv, d, scale, causal, stream);
+      case 256: return tcw::fwd_as<256, true>(tq, tk, tv, o, lse, b, sq, skv, hq, hkv, d, scale, causal, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (tc_wide_fwd_tile_width(d)) {
     case 192: return tcw::fwd_as<192>(tq, tk, tv, o, lse, b, sq, skv, hq, hkv, d, scale, causal, stream);
     case 256: return tcw::fwd_as<256>(tq, tk, tv, o, lse, b, sq, skv, hq, hkv, d, scale, causal, stream);
@@ -823,17 +860,27 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The backward's dK/dV and dQ kernels, delta already written.
+// The backward's dK/dV and dQ kernels, delta already written; q, k, v and
+// dout the caller's rows (ld 0) or their staged copies, as the forward's.
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
                void* dv, int b, int sq, int skv, int hq, int hkv, int d,
-               float scale, int causal, cudaStream_t stream) {
+               float scale, int causal, cudaStream_t stream, int ld) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!tc_wide_route(d) || !make_map(&tq, q, b, sq, hq, d) ||
-      !make_map(&tk, k, b, skv, hkv, d) ||
-      !make_map(&tv, v, b, skv, hkv, d) ||
-      !make_map(&tdo, dout, b, sq, hq, d))
+  if (!(ld == 0 ? tc_wide_route(d)
+                : tc_wide_staged_route(d) && ld == staged_ld(d)) ||
+      !make_map(&tq, q, b, sq, hq, d, ld) ||
+      !make_map(&tk, k, b, skv, hkv, d, ld) ||
+      !make_map(&tv, v, b, skv, hkv, d, ld) ||
+      !make_map(&tdo, dout, b, sq, hq, d, ld))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ld != 0) {
+    switch (tc_wide_tile_width(d)) {
+      case 192: return tcw::bwd_as<192, true>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, stream);
+      case 256: return tcw::bwd_as<256, true>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (tc_wide_tile_width(d)) {
     case 192: return tcw::bwd_as<192>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, stream);
     case 256: return tcw::bwd_as<256>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, stream);

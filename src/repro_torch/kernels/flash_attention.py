@@ -12,9 +12,10 @@ backward alike: up to ``MAX_HEAD_DIM`` (256) a call runs at
 256) at or above d, its columns past d zero; above it, on the column-tile
 kernels at the real d. Only d < 1 raises.
 
-Four hand-written kernels of ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_wide.cu`` serve a CUDA tensor, each launched and
-counted as ``flash_attention``, on the route :func:`fwd_design` names:
+Hand-written kernels of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_wide.cu`` serve a CUDA tensor, one call of them
+counted as a launch of ``flash_attention``, on the route
+:func:`fwd_design` names:
 
 * ``"wgmma"``, bf16 where d is a multiple of 8 above 32 (the serving path
   at 64, 128 and 160): ``flash_fwd_wgmma_kernel``, tensor cores (wgmma,
@@ -30,7 +31,14 @@ counted as ``flash_attention``, on the route :func:`fwd_design` names:
   whole d from 64-column boxes streamed through a shared-memory ring by a
   producer warp, in the same order in every tile, and accumulates P.V for
   its own columns;
-* ``"wide"``, fp32 above 256 and the other bf16 head dims there:
+* ``"wgmma_wide_staged"``, bf16 above 256 where d is not a multiple of 8,
+  up to ``TC_WIDE_MAX_HEAD_DIM``: ``flash_stage_rows_kernel`` copies q, k
+  and v into a scratch of rows :func:`staged_ld` (d) elements long,
+  columns past d zero, so the TMA maps' row stride is a multiple of 16
+  bytes; then ``flash_fwd_wgmma_wide_kernel`` reads the copies, at the
+  column tiles of d's ``"wgmma_wide"`` plan (an instantiation of its own,
+  which stores the output column by column at the real d);
+* ``"wide"``, fp32 above 256 and bf16 above ``TC_WIDE_MAX_HEAD_DIM``:
   ``flash_fwd_wide_kernel``, full fp32 products on the CUDA cores, a block
   a (q tile, q head, batch, column tile of at most 256 output columns,
   ``col_tiles``): each recomputes the scores over the whole d, streamed in
@@ -40,7 +48,7 @@ Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
 also writes each row's log-sum-exp, and the backward is one call, counted
 as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta; the
-staged route's copy kernel writes it instead) and two kernels on the route
+staged routes' copy kernels write it instead) and two kernels on the route
 :func:`bwd_design` names:
 
 * ``"wgmma"``, as the forward's (the training paths at 64, 128 and 160):
@@ -65,6 +73,10 @@ staged route's copy kernel writes it instead) and two kernels on the route
   ``flash_bwd_dq_wgmma_wide_kernel``, the forward's column tiles and ring
   on the tensor cores (S and dP recomputed over the whole d in each, P and
   dS rounded to bf16 as operands; no atomics);
+* ``"wgmma_wide_staged"``, as the forward's: ``flash_stage_rows_kernel``
+  copies q, k, v and dout and writes delta from the dout rows it copies,
+  then the ``"wgmma_wide"`` kernels read the copies (instantiations of
+  their own, which store dq, dk and dv column by column at the real d);
 * ``"wide"``, the forward's: ``flash_bwd_dkdv_wide_kernel`` and
   ``flash_bwd_dq_wide_kernel``, the forward's column tiles (S and dP
   recomputed over the whole d in each, each writing its own columns of
@@ -98,7 +110,7 @@ TC_WIDE_WIDTHS = (192, 256)     # the wgmma column tiles' instantiated N
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P])
+    [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P])
 KERNEL_BWD = register_kernel(
     "flash_attention_bwd", "repro_flash_attention_bwd",
     [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P])
@@ -144,9 +156,10 @@ def wgmma_col_tiles(d: int, forward: bool = False) -> tuple[int, int]:
 
 def fwd_design(dtype: torch.dtype, d: int) -> str:
     """The forward's route on the card, as ``repro_flash_attention``
-    dispatches it (the C ``tc_route`` and ``tc_wide_route``): above
-    ``MAX_HEAD_DIM``, ``"wgmma_wide"`` for bfloat16 where d is a multiple
-    of 8 up to ``TC_WIDE_MAX_HEAD_DIM``, else ``"wide"``; up to it,
+    dispatches it (the C ``tc_route``, ``tc_wide_route`` and
+    ``tc_wide_staged_route``): above ``MAX_HEAD_DIM``, for bfloat16 up to
+    ``TC_WIDE_MAX_HEAD_DIM`` ``"wgmma_wide"`` where d is a multiple of 8
+    and ``"wgmma_wide_staged"`` where it is not, else ``"wide"``; up to it,
     ``"wgmma"`` for bfloat16 where d is a multiple of 8 above 32 (the TMA
     maps' rows are whole 16-byte chunks); else ``"simt"``; a dtype or
     head_dim no kernel takes raises."""
@@ -154,8 +167,9 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
     if padded_head_dim(d) > MAX_HEAD_DIM:
-        return "wgmma_wide" if dtype == torch.bfloat16 and d % 8 == 0 and \
-            d <= TC_WIDE_MAX_HEAD_DIM else "wide"
+        if dtype != torch.bfloat16 or d > TC_WIDE_MAX_HEAD_DIM:
+            return "wide"
+        return "wgmma_wide" if d % 8 == 0 else "wgmma_wide_staged"
     return "wgmma" if dtype == torch.bfloat16 and d > 32 and d % 8 == 0 \
         else "simt"
 
@@ -177,11 +191,15 @@ def staged_ld(d: int) -> int:
     return -(-d // 8) * 8
 
 
+STAGED_DESIGNS = ("wgmma_staged", "wgmma_wide_staged")   # take a scratch
+
+
 def staged_scratch_numel(b: int, sq: int, skv: int, hq: int, hkv: int,
-                         d: int) -> int:
-    """bf16 elements of the ``"wgmma_staged"`` route's scratch: q, k, v
-    and dout in rows of :func:`staged_ld` (d)."""
-    return (2 * b * sq * hq + 2 * b * skv * hkv) * staged_ld(d)
+                         d: int, forward: bool = False) -> int:
+    """bf16 elements of a staged route's scratch (``STAGED_DESIGNS``): q,
+    k, v and, for the backward, dout in rows of :func:`staged_ld` (d)."""
+    return ((1 if forward else 2) * b * sq * hq +
+            2 * b * skv * hkv) * staged_ld(d)
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -271,13 +289,21 @@ def _kernel_forward(q, k, v, causal: bool, scale: float,
         return out, lse
     if skv == 0:
         raise ValueError("flash_attention needs skv >= 1")
+    # The staged route's copies (on a fake tensor too, so the dry run's
+    # memory peak holds them).
+    scratch = (torch.empty(staged_scratch_numel(b, sq, skv, hq, hkv, d,
+                                                forward=True),
+                           dtype=q.dtype, device=q.device)
+               if fwd_design(q.dtype, d) in STAGED_DESIGNS else None)
     if is_fake(q):
         KERNEL.fake_call(kernel_cost.flash(b, sq, skv, hq, hkv, d, q.dtype,
                                            causal, with_lse))
         return out, lse
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           lse.data_ptr() if with_lse else None, b, sq, skv, hq, hkv, d,
-           float(scale), int(causal), dtype_code(q), stream_handle(q.device))
+           lse.data_ptr() if with_lse else None,
+           None if scratch is None else scratch.data_ptr(), b, sq, skv, hq,
+           hkv, d, float(scale), int(causal), dtype_code(q),
+           stream_handle(q.device))
     return out, lse
 
 
@@ -300,7 +326,7 @@ def _kernel_backward(q, k, v, out, dout, lse, causal: bool, scale: float):
     # memory peak holds them).
     scratch = (torch.empty(staged_scratch_numel(b, sq, skv, hq, hkv, d),
                            dtype=q.dtype, device=q.device)
-               if bwd_design(q.dtype, d) == "wgmma_staged" else None)
+               if bwd_design(q.dtype, d) in STAGED_DESIGNS else None)
     if is_fake(q):
         KERNEL_BWD.fake_call(kernel_cost.flash_bwd(b, sq, skv, hq, hkv, d,
                                                    q.dtype, causal))

@@ -300,10 +300,11 @@ def test_flash_bwd_design_routes():
     takes the wgmma kernels, bf16 at a d from 33 to 256 that is not a
     multiple of 8 the same kernels through staged rows ("wgmma_staged"),
     where the forward stays on the CUDA cores; fp32, and bf16 at d 32 and
-    below, the CUDA-core ones; above 256 bf16 at a multiple of 8 takes the
-    tensor-core column tiles, fp32 and the other bf16 head dims the
-    CUDA-core ones; the backward takes every head dim the forward does;
-    what no kernel takes raises."""
+    below, the CUDA-core ones; above 256 bf16 up to 768 takes the
+    tensor-core column tiles, on the caller's rows at a multiple of 8 and
+    through staged rows at any other d (forward and backward alike), fp32
+    and bf16 above 768 the CUDA-core ones; the backward takes every head
+    dim the forward does; what no kernel takes raises."""
     assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
     assert tflash.bwd_design(torch.float32, 160) == "simt"
     for dtype in (torch.float32, torch.bfloat16):
@@ -322,11 +323,17 @@ def test_flash_bwd_design_routes():
     for d in (40, 80, 96, 104, 136, 248):
         assert tflash.bwd_design(torch.bfloat16, d) == "wgmma"
         assert tflash.staged_ld(d) == d
-    assert tflash.bwd_design(torch.bfloat16, 257) == "wide"
-    for d in (264, 288, 512, 576):
+    assert tflash.bwd_design(torch.bfloat16, 257) == "wgmma_wide_staged"
+    for d in (264, 288, 512, 576, 768):
         assert tflash.bwd_design(torch.bfloat16, d) == "wgmma_wide"
         assert tflash.bwd_design(torch.float32, d) == "wide"
-    for d in (257, 300):
+    for d in (257, 300, 767):
+        assert tflash.bwd_design(torch.float32, d) == "wide"
+        assert tflash.bwd_design(torch.bfloat16, d) == \
+            tflash.fwd_design(torch.bfloat16, d) == "wgmma_wide_staged"
+        assert tflash.staged_ld(d) % 8 == 0
+        assert 0 < tflash.staged_ld(d) - d < 8
+    for d in (769, 800, 1024):
         for dtype in (torch.float32, torch.bfloat16):
             assert tflash.bwd_design(dtype, d) == "wide"
     with pytest.raises(ValueError):

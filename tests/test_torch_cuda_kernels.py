@@ -1152,6 +1152,157 @@ def test_flash_staged_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d,
     assert all(torch.equal(a, b_) for a, b_ in zip(auto, got))
 
 
+# bf16 head dims above 256 that are not whole 16-byte rows: route
+# "wgmma_wide_staged", forward and backward, at odd and even d, one kv head
+# and groups of 1 to 5, one to four column tiles of 192 and 256, lengths
+# that are not multiples of 64, sq above and below skv.
+WIDE_STAGED_HEADS = [(5, 1, 257), (4, 4, 263), (8, 2, 300), (2, 2, 767)]
+WIDE_STAGED_CASES = [(b, sq, skv, hq, hkv, d, causal)
+                     for hq, hkv, d in WIDE_STAGED_HEADS
+                     for b, sq, skv in ((2, 130, 130), (1, 130, 77))
+                     for causal in (True, False)]
+WIDE_STAGED_KERNELS = ("flash_stage_rows_kernel",
+                       "flash_fwd_wgmma_wide_kernel",
+                       "flash_bwd_dkdv_wgmma_wide_kernel",
+                       "flash_bwd_dq_wgmma_wide_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", WIDE_STAGED_CASES)
+def test_flash_wide_staged_matches_plain(cuda, b, sq, skv, hq, hkv, d,
+                                         causal):
+    """The staged route above 256: one launch a call each way, which by
+    the profiler's kernel names runs the copy and the tensor-core column
+    tiles and never the CUDA-core ones or delta's own pass; the forward
+    and its lse against the plain version, the backward against the plain
+    backward at the staged route's tolerance below 256 (1e-2 of 1 +
+    max-abs); both bitwise repeatable."""
+    from torch.profiler import ProfilerActivity, profile
+    bf16 = torch.bfloat16
+    assert tflash.fwd_design(bf16, d) == tflash.bwd_design(bf16, d) == \
+        "wgmma_wide_staged"
+    q, k, v, dout = _attn_inputs(cuda, bf16, b, sq, skv, hq, hkv, d)
+    scale = tflash._scale(q, None)      # the wrapper's, bit for bit
+    before = (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = tflash._kernel_forward(q, k, v, causal, scale,
+                                          with_lse=True)
+        got = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+        torch.cuda.synchronize()
+    out2, lse2 = tflash._kernel_forward(q, k, v, causal, scale,
+                                        with_lse=True)
+    again = tflash._kernel_backward(q, k, v, out, dout, lse, causal, scale)
+    torch.cuda.synchronize()
+    assert (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches) == \
+        (before[0] + 2, before[1] + 2)
+    names = " ".join(e.key for e in prof.key_averages())
+    assert all(n in names for n in WIDE_STAGED_KERNELS), names
+    assert not any(n in names for n in (
+        "flash_fwd_wide_kernel", "flash_bwd_dkdv_wide_kernel",
+        "flash_bwd_dq_wide_kernel", "flash_bwd_preprocess")), names
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    tol = GPU_TOL[bf16]
+    torch.testing.assert_close(
+        out.float(), tflash.plain(q, k, v, causal=causal,
+                                  scale=scale).float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, attention_lse_ref(
+        q, k, causal=causal, scale=scale), rtol=LSE_TOL[bf16],
+        atol=LSE_TOL[bf16])
+    want = tflash.plain_bwd(q, k, v, out, dout, lse, causal=causal,
+                            scale=scale)
+    for g, w_, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _rel_close(g, w_, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", WIDE_STAGED_HEADS)
+def test_flash_wide_staged_replays_in_a_cuda_graph(cuda, hq, hkv, d):
+    """Forward and backward captured once (the copies' scratch from the
+    graph's pool, the tensor maps by value) and replayed after the inputs
+    change in place: each replay equals eager calls on the new inputs bit
+    for bit."""
+    bf16 = torch.bfloat16
+    q, k, v, dout = _attn_inputs(cuda, bf16, 2, 130, 130, hq, hkv, d)
+    scale = tflash._scale(q, None)
+    out, lse = tflash._kernel_forward(q, k, v, True, scale, with_lse=True)
+    tflash._kernel_backward(q, k, v, out, dout, lse, True, scale)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_lse = tflash._kernel_forward(q, k, v, True, scale,
+                                              with_lse=True)
+        g_grads = tflash._kernel_backward(q, k, v, g_out, dout, g_lse, True,
+                                          scale)
+    for seed in (10, 20):
+        for i, t in enumerate((q, k, v, dout)):
+            t.copy_(_randn(t.shape, bf16, cuda, seed + i))
+        graph.replay()
+        torch.cuda.synchronize()
+        w_out, w_lse = tflash._kernel_forward(q, k, v, True, scale,
+                                              with_lse=True)
+        w_grads = tflash._kernel_backward(q, k, v, w_out, dout, w_lse, True,
+                                          scale)
+        torch.cuda.synchronize()
+        assert torch.equal(g_out, w_out) and torch.equal(g_lse, w_lse)
+        assert all(torch.equal(a, b_) for a, b_ in zip(g_grads, w_grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", WIDE_STAGED_HEADS)
+def test_flash_wide_staged_writes_nothing_past_d(cuda, hq, hkv, d):
+    """o, dq, dk and dv carved from the front of larger buffers that hold a
+    canary value: each buffer's tail keeps it (a store past d in the last
+    row would land there), and each output equals the wrapper's own. The
+    route refuses to run without its scratch (the call raises), where the
+    CUDA-core column tiles would have served it."""
+    from repro_torch.kernels._build import dtype_code, stream_handle
+    bf16 = torch.bfloat16
+    b, sq, skv = 1, 130, 77
+    q, k, v, dout = _attn_inputs(cuda, bf16, b, sq, skv, hq, hkv, d)
+    scale = tflash._scale(q, None)
+    out, lse = tflash._kernel_forward(q, k, v, True, scale, with_lse=True)
+    dq, dk, dv = tflash._kernel_backward(q, k, v, out, dout, lse, True,
+                                         scale)
+
+    def carve(t):
+        buf = torch.full((t.numel() + 64,), -7.0, dtype=bf16, device=cuda)
+        return buf, buf[:t.numel()].view(t.shape)
+    (ob, o2), (qb, dq2), (kb, dk2), (vb, dv2) = (
+        carve(t) for t in (out, dq, dk, dv))
+    lse2 = torch.empty_like(lse)
+    delta = torch.empty_like(lse)
+    f_scratch = torch.empty(tflash.staged_scratch_numel(
+        b, sq, skv, hq, hkv, d, forward=True), dtype=bf16, device=cuda)
+    b_scratch = torch.empty(tflash.staged_scratch_numel(
+        b, sq, skv, hq, hkv, d), dtype=bf16, device=cuda)
+    stream = stream_handle(q.device)
+    ints = (b, sq, skv, hq, hkv, d, scale, 1, dtype_code(q), stream)
+    tflash.KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
+                  lse2.data_ptr(), f_scratch.data_ptr(), *ints)
+    tflash.KERNEL_BWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), dq2.data_ptr(), dk2.data_ptr(),
+                      dv2.data_ptr(), b_scratch.data_ptr(), *ints)
+    torch.cuda.synchronize()
+    for buf, got, want in ((ob, o2, out), (qb, dq2, dq), (kb, dk2, dk),
+                           (vb, dv2, dv)):
+        assert (buf[got.numel():] == -7.0).all()
+        assert torch.equal(got, want)
+    assert torch.equal(lse2, lse)
+    before = (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tflash.KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o2.data_ptr(), lse2.data_ptr(), None, *ints)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tflash.KERNEL_BWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                          delta.data_ptr(), dq2.data_ptr(), dk2.data_ptr(),
+                          dv2.data_ptr(), None, *ints)
+    assert (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches) == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hq,hkv,d,lengths", [
     (8, 1, 256, [129, 334, 517, 731]), (8, 1, 256, [0, 1, 129, 731]),

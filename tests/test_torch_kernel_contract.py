@@ -71,9 +71,9 @@ DECODE_IDS = ["falcon-g71", "gemma-d256"]
 DECODE_WIDE = [(16, 1, 512), (128, 1, 576)]
 DECODE_WIDE_IDS = ["g16-d512", "mla-g128-d576"]
 WIDE_DIMS = [257, 264, 288, 300, 512, 576]
-# bf16 head dims above 256 on the tensor-core column tiles (multiples of 8
-# up to tflash.TC_WIDE_MAX_HEAD_DIM); the rest of WIDE_DIMS stays on the
-# CUDA-core ones.
+# bf16 head dims above 256 on the tensor-core column tiles over the
+# caller's rows (multiples of 8 up to tflash.TC_WIDE_MAX_HEAD_DIM); the rest
+# of WIDE_DIMS (257, 300) takes the same tiles over staged rows.
 WGMMA_WIDE_DIMS = {264, 288, 512, 576}
 # The models of the contract phase: internlm2-1.8b's smoke config with
 # gemma-2b's attention, a group of 32, and phi-3-mini's heads, each cut
@@ -160,37 +160,84 @@ def test_flash_backward_matches_jax_grad_at_new_head_dims(causal, hq, hkv,
             assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
 
 
+COPY_PER = 3    # chunks a lane of flash_stage_rows_kernel holds in a pass
+
+
+def _copy_lanes(d: int) -> list:
+    """(lane, chunk) of each 16-byte chunk a staged row's copy stores, in
+    the kernel's order. Up to 256 (``flash_bwd_stage_rows_kernel``) a row
+    takes a group of p lanes, p the least power of two at or above its
+    ``staged_ld(d) / 8`` chunks, lane j chunk j; above 256
+    (``flash_stage_rows_kernel``) one warp, lane j its chunks j, j + 32, j
+    + 64 in a pass of ``COPY_PER`` a lane."""
+    chunks = tflash.staged_ld(d) // 8
+    if d <= tflash.MAX_HEAD_DIM:
+        p = 1 << (chunks - 1).bit_length()
+        assert p <= 32
+        return [(j, j) for j in range(p) if j < chunks]
+    return [(lane, c) for base in range(0, chunks, 32 * COPY_PER)
+            for i in range(COPY_PER) for lane in range(32)
+            if (c := base + 32 * i + lane) < chunks]
+
+
 def _stage_rows(x: torch.Tensor) -> torch.Tensor:
-    """The ``"wgmma_staged"`` route's copy (``flash_bwd_stage_rows_kernel``)
-    of a (b, rows, heads, d) tensor, as the kernel builds it: rows of
-    ``staged_ld(d)`` elements, each 16-byte chunk (stored whole) gathered
-    from W-element loads of the source rows (8 bytes where d % 4 == 0, 4
-    where d is even, 2 where odd), zeros past d. Asserts that each load
-    lies wholly below d and is aligned to its width (its element offset a
-    multiple of W, the tensor itself 16-byte aligned), and that each chunk
-    starts on 16 bytes of the staged row."""
+    """The staged routes' copy of a (b, rows, heads, d) tensor, as the
+    kernels build it (``_copy_lanes``' mapping): rows of ``staged_ld(d)``
+    elements, each 16-byte chunk (stored whole, by one lane) gathered from
+    W-element loads of the source rows (8 bytes where d % 4 == 0, 4 where
+    d is even, 2 where odd), zeros past d. Asserts that each load lies
+    wholly below d and is aligned to its width (its element offset a
+    multiple of W, the tensor itself 16-byte aligned), that each chunk
+    starts on 16 bytes of the staged row and is stored exactly once, and,
+    above 256, that no lane stores more than ceil(ld / 256) chunks."""
     d = x.shape[-1]
     ld, w = tflash.staged_ld(d), 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
     flat = x.reshape(-1)
     rows = torch.arange(flat.numel() // d)[:, None]
     out = torch.zeros(rows.numel(), ld, dtype=x.dtype)
-    for c in range(0, ld, w):
-        assert not ((rows * ld + c - c % 8) % 8).any()
-        if c >= d:
-            continue            # the kernel stores zeros there
-        assert c + w <= d
-        at = rows * d + c
-        assert not (at % w).any()
-        out[:, c:c + w] = flat[at + torch.arange(w)]
+    lanes = _copy_lanes(d)
+    assert sorted(c for _, c in lanes) == list(range(ld // 8))
+    if d > tflash.MAX_HEAD_DIM:
+        per_lane = [sum(1 for j, _ in lanes if j == lane)
+                    for lane in range(32)]
+        assert max(per_lane) == -(-ld // 256)
+    for _, chunk in lanes:
+        for c in range(8 * chunk, 8 * chunk + 8, w):
+            assert not ((rows * ld + c - c % 8) % 8).any()
+            if c >= d:
+                continue            # the kernel stores zeros there
+            assert c + w <= d
+            at = rows * d + c
+            assert not (at % w).any()
+            out[:, c:c + w] = flat[at + torch.arange(w)]
     return out.reshape(*x.shape[:-1], ld)
 
 
+@pytest.mark.parametrize("d", [257, 260, 263, 300, 767, 100, 99])
+def test_stage_rows_copies_each_row_whole(d, rng):
+    """The copy's emulation (``_stage_rows``: every load below d and
+    aligned to its width, every chunk stored once and whole; above 256 one
+    warp a row, at most ceil(ld / 256) chunks a lane) gives the rows
+    themselves followed by zeros, bit for bit, at odd, even and 4-aligned
+    d from 257 to 767, and below 256 at d 100 and 99."""
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = _stage_rows(x)
+    assert got.shape == (2, 3, 5, tflash.staged_ld(d))
+    assert torch.equal(got[..., :d], x)
+    assert not got[..., d:].any()
+
+
+STAGED_HEADS = [(4, 4, 100), (4, 2, 99), (2, 1, 250), (2, 2, 36),
+                (4, 4, 257), (4, 2, 263)]
+STAGED_IDS = ["d100", "g2-d99", "g2-d250", "d36", "d257", "g2-d263"]
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 100), (4, 2, 99), (2, 1, 250),
-                                      (2, 2, 36)],
-                         ids=["d100", "g2-d99", "g2-d250", "d36"])
+@pytest.mark.parametrize("hq,hkv,d", STAGED_HEADS, ids=STAGED_IDS)
 def test_flash_staged_backward_arithmetic(causal, hq, hkv, d, rng):
-    """The ``"wgmma_staged"`` backward in fp32: q, k, v and dout staged to
+    """The staged backward (``"wgmma_staged"``, and above 256
+    ``"wgmma_wide_staged"``) in fp32: q, k, v and dout staged to
     rows of ``staged_ld(d)`` (o too, for delta, which the kernel sums over
     the real d), the closed form at that width equals ``attention_bwd_ref``
     at d bit for bit in its first d columns (the zero columns add exact
@@ -222,6 +269,40 @@ def test_flash_staged_backward_arithmetic(causal, hq, hkv, d, rng):
         assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 257), (4, 2, 263), (2, 1, 300),
+                                      (4, 4, 100)],
+                         ids=["d257", "g2-d263", "g2-d300", "d100"])
+def test_flash_staged_forward_arithmetic(causal, hq, hkv, d, rng):
+    """The staged forward (``"wgmma_wide_staged"``; at d 100 the copy that
+    the forward below 256 would take) in fp32: q, k and v staged to rows
+    of ``staged_ld(d)`` as the copy builds them, ``attention_ref`` at that
+    width with the real d's scale (1 / sqrt(d), not 1 / sqrt(ld)) equals
+    the result at d bit for bit in its first d columns (the zero columns
+    add exact zeros to every score, and their output columns are zero),
+    and matches the Pallas kernel in interpret mode and
+    ``repro.kernels.ref.attention_ref`` within GRAD_TOL of max(1,
+    max-abs); two 64-row tiles, as the Pallas kernel takes them."""
+    b, s = 1, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    scale = 1.0 / np.sqrt(d)
+    want = tref.attention_ref(q, k, v, causal=causal, scale=scale)
+    staged = tref.attention_ref(*(_stage_rows(t) for t in (q, k, v)),
+                                causal=causal, scale=scale)
+    assert staged.shape[-1] == tflash.staged_ld(d) > d
+    assert torch.equal(staged[..., :d], want)
+    assert not staged[..., d:].any()
+    jq, jk, jv = (jnp.asarray(_np(t)) for t in (q, k, v))
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    pallas = jflash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                    interpret=True)
+    for w in (oracle, pallas):
+        w = np.asarray(w)
+        err = np.abs(_np(staged[..., :d]) - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
+
+
 @pytest.mark.parametrize("d,dtype,design", [
     (96, torch.bfloat16, "wgmma"), (80, torch.bfloat16, "wgmma"),
     (256, torch.bfloat16, "wgmma"), (136, torch.bfloat16, "wgmma"),
@@ -247,14 +328,15 @@ def test_flash_designs_name_the_route_at_new_head_dims(d, dtype, design):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_flash_and_decode_designs_name_the_route_above_256(d):
     """Above 256 every dtype takes a column-tile route, forward and
-    backward, at the real d: bf16 at a multiple of 8 the tensor-core one
-    (``"wgmma_wide"``), fp32 and the other bf16 head dims the CUDA-core one
-    (``"wide"``: ceil(d / 256) tiles of equal width rounded up to 16,
-    covering d, the last cut at d); decode's route is its column-tile
-    kernel at any group, in slices of 16 q heads."""
+    backward, at the real d: bf16 the tensor-core one, over the caller's
+    rows at a multiple of 8 (``"wgmma_wide"``) and over rows staged to
+    ``staged_ld(d)`` at the other d (``"wgmma_wide_staged"``), fp32 the
+    CUDA-core one (``"wide"``: ceil(d / 256) tiles of equal width rounded
+    up to 16, covering d, the last cut at d); decode's route is its
+    column-tile kernel at any group, in slices of 16 q heads."""
     assert tflash.fwd_design(torch.float32, d) == \
         tflash.bwd_design(torch.float32, d) == "wide"
-    want = "wgmma_wide" if d in WGMMA_WIDE_DIMS else "wide"
+    want = "wgmma_wide" if d in WGMMA_WIDE_DIMS else "wgmma_wide_staged"
     assert tflash.fwd_design(torch.bfloat16, d) == \
         tflash.bwd_design(torch.bfloat16, d) == want
     assert tflash.padded_head_dim(d) == d
@@ -331,6 +413,46 @@ def test_wgmma_wide_tile_plan_covers_d_at_instantiated_widths(d):
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
     assert int(const["kTcWideMaxDim"]) == tflash.TC_WIDE_MAX_HEAD_DIM
     assert int(const["kTcWideFwd192MaxDim"]) == tflash.TC_WIDE_FWD_192_MAX
+
+
+def test_wide_staged_route_follows_the_c_source():
+    """``csrc/common.cuh``'s ``tc_wide_staged_route`` and ``staged_ld``,
+    evaluated from the source, equal their Python twins at every d from
+    257 to 800: the route is where ``fwd_design`` and ``bwd_design`` name
+    ``"wgmma_wide_staged"`` for bf16 (never for fp32), disjoint from
+    ``tc_wide_route``, the two together every d up to 768; its rows are
+    whole 16-byte chunks, under 8 elements past d. Both entry points of
+    ``flash_attention.cu`` try it after ``tc_wide_route`` and before the
+    CUDA-core column tiles, and ``flash_attention_wide.cu`` instantiates
+    its kernels (``kStaged``) at both widths, forward and backward."""
+    common = (CSRC / "common.cuh").read_text()
+    route = _c_int_fn(common, "tc_wide_staged_route")
+    aligned = _c_int_fn(common, "tc_wide_route")
+    staged_ld = _c_int_fn(common, "staged_ld")
+    bf16 = torch.bfloat16
+    for d in range(257, 801):
+        staged = tflash.fwd_design(bf16, d) == "wgmma_wide_staged"
+        assert bool(route(d)) == staged == (
+            tflash.bwd_design(bf16, d) == "wgmma_wide_staged")
+        assert tflash.fwd_design(torch.float32, d) == "wide"
+        assert not (route(d) and aligned(d))
+        assert bool(route(d) or aligned(d)) == (
+            d <= tflash.TC_WIDE_MAX_HEAD_DIM)
+        assert staged_ld(d) == tflash.staged_ld(d)
+        assert staged_ld(d) % 8 == 0 and 0 <= staged_ld(d) - d < 8
+        assert (staged_ld(d) > d) == (d % 8 != 0)
+    src = (CSRC / "flash_attention.cu").read_text()
+    for entry in ('extern "C" int repro_flash_attention(',
+                  'extern "C" int repro_flash_attention_bwd('):
+        body = src[src.index(entry):]
+        assert body.index("tc_wide_route(d)") < \
+            body.index("tc_wide_staged_route(d)") < \
+            body.index("return wide::launch_")
+    wide = (CSRC / "flash_attention_wide.cu").read_text()
+    for launch in ("fwd_as", "bwd_as"):
+        cases = {int(x) for x in re.findall(
+            rf"case (\d+): return tcw::{launch}<\1, true>", wide)}
+        assert cases == set(tflash.TC_WIDE_WIDTHS)
 
 
 @pytest.mark.parametrize("skv", [1, 31, 32, 33, 256, 740, 1024, 1025, 4096,
@@ -709,34 +831,54 @@ def test_kernel_cost_counts_the_real_d_state():
         8 * 512 * 8 + 16 * 8
 
 
-@pytest.mark.parametrize("d", [100, 99, 104])
-def test_fake_staged_backward_holds_its_scratch(d):
+@pytest.mark.parametrize("d,dtype", [
+    (100, torch.bfloat16), (99, torch.bfloat16), (104, torch.bfloat16),
+    (257, torch.bfloat16), (264, torch.bfloat16), (257, torch.float32)],
+    ids=["100", "99", "104", "257", "264", "257-f32"])
+def test_fake_staged_backward_holds_its_scratch(d, dtype):
     """On fake CUDA tensors (the dry run) the backward at bf16 d 100 and
-    99 (route ``"wgmma_staged"``) allocates the staged copies of q, k, v
-    and dout, so the dry run's memory peak holds them, and counts one call
-    at ``kernel_cost``'s real d (the copy's bytes are the design's, not
-    the function's); at d 104 (route ``"wgmma"``) there is no scratch."""
+    99 (route ``"wgmma_staged"``) and 257 (``"wgmma_wide_staged"``)
+    allocates the staged copies of q, k, v and dout, and the forward at
+    bf16 d 257 those of q, k and v, so the dry run's memory peak holds
+    them; each counts one call at ``kernel_cost``'s real d (the copy's
+    bytes are the design's, not the function's). At d 104 and 264
+    (``"wgmma"``, ``"wgmma_wide"``) and in fp32 there is no scratch."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.roofline.counter import Recorder
-    bf16 = torch.bfloat16
     with FakeTensorMode():
-        q = torch.empty(2, 64, 8, d, dtype=bf16, device="cuda")
-        kv = torch.empty(2, 64, 2, d, dtype=bf16, device="cuda")
+        q = torch.empty(2, 64, 8, d, dtype=dtype, device="cuda")
+        kv = torch.empty(2, 64, 2, d, dtype=dtype, device="cuda")
         lse = torch.empty(2, 8, 64, device="cuda")
+        with Recorder() as fwd:
+            out, lse2 = tflash._kernel_forward(q, kv, kv, True, d ** -0.5,
+                                               with_lse=True)
+        _, live_fwd = fwd.peak_storages((out, lse2))
         with Recorder() as rec:
             grads = tflash._kernel_backward(q, kv, kv, q, q, lse, True,
                                             d ** -0.5)
         _, live = rec.peak_storages(grads)
-    staged = tflash.bwd_design(bf16, d) == "wgmma_staged"
-    assert staged == (d != 104)
+    bf16 = dtype == torch.bfloat16
+    staged = tflash.bwd_design(dtype, d) in tflash.STAGED_DESIGNS
+    staged_fwd = tflash.fwd_design(dtype, d) in tflash.STAGED_DESIGNS
+    assert staged == (bf16 and d in (100, 99, 257))
+    assert staged_fwd == (bf16 and d == 257)
+    ld = tflash.staged_ld(d)
     scratch = 2 * tflash.staged_scratch_numel(2, 64, 64, 8, 2, d)
-    assert scratch == 2 * (2 * 2 * 64 * 8 + 2 * 2 * 64 * 2) * 104
-    big = [x for x in live if x[0] >= 1024]     # beside grads at the peak
-    assert big == ([(scratch, "aten.empty.memory_format", (scratch // 2,),
-                     bf16)] if staged else [])
+    assert scratch == 2 * (2 * 2 * 64 * 8 + 2 * 2 * 64 * 2) * ld
+    scratch_fwd = 2 * tflash.staged_scratch_numel(2, 64, 64, 8, 2, d,
+                                                  forward=True)
+    assert scratch_fwd == 2 * (2 * 64 * 8 + 2 * 2 * 64 * 2) * ld
+    for got, n, on in ((live, scratch, staged),
+                       (live_fwd, scratch_fwd, staged_fwd)):
+        big = [x for x in got if x[0] >= 1024]  # beside the outputs at peak
+        assert big == ([(n, "aten.empty.memory_format", (n // 2,), dtype)]
+                       if on else [])
+    assert fwd.kernel_calls() == {"flash_attention": 1}
     assert rec.kernel_calls() == {"flash_attention_bwd": 1}
+    assert fwd.kernel_flops == kernel_cost.flash(2, 64, 64, 8, 2, d, dtype,
+                                                 True, True).ops
     assert rec.kernel_flops == kernel_cost.flash_bwd(2, 64, 64, 8, 2, d,
-                                                     bf16, True).ops
+                                                     dtype, True).ops
 
 
 @pytest.mark.parametrize("d", [257, 512, 576])

@@ -14,7 +14,14 @@ each beside its SDPA time. With ``--above-256`` it times instead the
 flash forward and backward above a head dim of 256 in bf16
 (``chip_smoke._contract_flash_case`` at b 8, s 256, causal: 8/8 d 257,
 8/2 d 288, 8/8 d 512 and 8/1 d 576), each with its design, error, plain
-and SDPA times. With ``--contract`` it times the bf16 flash backward where
+and SDPA times, and beside them routes those shapes leave: fp32 at 8/8 d
+257, bf16 at 8/8 d 100 (the forward's CUDA cores, the backward's
+``wgmma_staged``), bf16 at 8/8 d 264 (``wgmma_wide`` at d 257's plan and
+heads, no copy) and internlm2's serve flash; the bf16 cases at d 257, 100
+and 264 also with each CUDA kernel's device time a call
+(``chip_smoke.device_us``, torch.profiler: the copies' share), and each
+tree's ptxas registers and spills of the flash kernels above 256 and the
+copies. With ``--contract`` it times the bf16 flash backward where
 the rows are not whole 16-byte chunks (8/8 d 100, 8/2 d 99) and bf16
 decode at gemma-2b's 8/1 d 256 in plain and partial mode
 (``chip_smoke._contract_decode_case``: 4 slots, cache 740), each beside
@@ -29,11 +36,18 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
 
 ABOVE_256 = ((8, 8, 257), (8, 2, 288), (8, 8, 512), (8, 1, 576))
+# (hq, hkv, d, dtype name): routes the cases above leave, timed beside them
+# (bf16 8/8 d 264: d 257's plan and heads on the caller's rows).
+ABOVE_256_BESIDE = ((8, 8, 257, "float32"), (8, 8, 100, "bfloat16"),
+                    (8, 8, 264, "bfloat16"))
+# Kernel-time breakdowns (the copy's share), bf16.
+ABOVE_256_SPLIT = ((8, 8, 257), (8, 8, 100), (8, 8, 264))
 # (hq, hkv, d, dtype name): the contract cases, then routes they leave.
 CONTRACT_FLASH = ((8, 8, 100, "bfloat16"), (8, 2, 99, "bfloat16"),
                   (32, 32, 96, "bfloat16"), (8, 8, 100, "float32"))
@@ -42,22 +56,46 @@ CONTRACT_DECODE = ((8, 1, 256, "bfloat16"), (8, 1, 250, "bfloat16"),
 KEYS = ("design", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 
 
+def _split_us(cs, kf, hq, hkv, d) -> dict:
+    """Each CUDA kernel's device time a call (µs) of the bf16 forward and
+    backward on the contract case's inputs."""
+    import torch
+    bf16 = torch.bfloat16
+    b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
+    q, k, v, dout = (cs.randn(sh, bf16, i) for i, sh in enumerate((
+        (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d))))
+    sc = kf._scale(q, None)
+    o, lse = kf._kernel_forward(q, k, v, True, sc, with_lse=True)
+    return {"fwd_kernel_us": cs.device_us(lambda: kf._kernel_forward(
+                q, k, v, True, sc)),
+            "bwd_kernel_us": cs.device_us(lambda: kf._kernel_backward(
+                q, k, v, o, dout, lse, True, sc))}
+
+
 def worker_above_256() -> None:
     sys.path[:0] = [os.path.join(os.getcwd(), "src"), os.getcwd()]
     import torch
 
     import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kf
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"tree": os.getcwd()}
-    for hq, hkv, d in ABOVE_256:
-        c = cs._contract_flash_case(hq, hkv, d, torch.bfloat16)
-        out[f"flash {hq}/{hkv} d {d}"] = {
-            **{k: c[k] for k in ("design", "ms", "plain_ms", "library_ms",
-                                 "bound_ms", "max_abs_err")},
-            "bwd": {k: c["bwd"][k] for k in (
-                "design", "ms", "plain_ms", "library_ms", "bound_ms",
-                "max_abs_err")}}
+    out = {"tree": os.getcwd(), "regs": [
+        p for p in cs._ptxas_summary(_build.build().ptxas)
+        if re.search(r"wgmma_wide|stage_rows", p)]}
+    cases = [(hq, hkv, d, "bfloat16") for hq, hkv, d in ABOVE_256]
+    for hq, hkv, d, dt in cases + list(ABOVE_256_BESIDE):
+        c = cs._contract_flash_case(hq, hkv, d, getattr(torch, dt))
+        row = out[f"flash {hq}/{hkv} d {d}" +
+                  ("" if dt == "bfloat16" else f" {dt}")] = {
+            **{k: c[k] for k in KEYS},
+            "bwd": {k: c["bwd"][k] for k in KEYS}}
+        if dt == "bfloat16" and (hq, hkv, d) in ABOVE_256_SPLIT:
+            row.update(_split_us(cs, kf, hq, hkv, d))
+    c = cs._flash_case(cs.ARCH, cs.PROMPT_LENS[0], torch.bfloat16)
+    out[f"flash {cs.ARCH} sq {cs.PROMPT_LENS[0]}"] = {
+        k: c[k] for k in ("ms", "library_ms", "max_abs_err")}
     print(json.dumps(out), flush=True)
 
 

@@ -3,10 +3,17 @@
 card: flash above a head dim of 256 in bf16; with ``--staged`` flash at
 the bf16 head dims whose rows are not whole 16-byte chunks (8/8 d 100, 8/2
 d 99: the backward's ``wgmma_staged`` route, or a variant's other design
-there); with ``--decode`` bf16 decode on route ``mma`` (8/1 and 16/16 at
+there); with ``--wide-staged`` flash above 256 in bf16 at 8/8 d 257, 8/2
+d 300 (route ``wgmma_wide_staged``) and 8/8 d 264 (``wgmma_wide``, or
+where a variant's ``tc_wide_staged_route`` takes it, staged too: the
+wrapper's bf16 routes above 256 follow the variant's ``common.cuh``
+predicates, evaluated from its source), with each CUDA kernel's device
+time a call (``chip_smoke.device_us``);
+with ``--decode`` bf16 decode on route ``mma`` (8/1 and 16/16 at
 d 256, 4 slots, cache 740, plain and partial mode).
 
-    python3 tools/flash_variants_ab.py [--staged | --decode] VARIANT_DIR ...
+    python3 tools/flash_variants_ab.py [--staged | --wide-staged | --decode]
+        VARIANT_DIR ...
 
 Each VARIANT_DIR holds a copy of ``src/repro_torch/csrc``, edited as the
 variant wants. Runs a worker for each
@@ -14,14 +21,16 @@ variant in turns (the variants in order, then in reverse), each a fresh
 process that builds its own library from that directory (into
 ``VARIANT_DIR/_build``), then at b 8, s 256, causal times by CUDA-graph
 replay ``_kernel_forward`` and ``_kernel_backward`` at each of SHAPES
-(STAGED_SHAPES with ``--staged``), with the forward's max abs error and
+(STAGED_SHAPES with ``--staged``, WIDE_STAGED_SHAPES with
+``--wide-staged``), with the forward's max abs error and
 the backward's error over (1 + max-abs) against the plain versions; with
 ``--decode`` it times ``chip_smoke._contract_decode_case`` (error, SDPA
 with a mask beside), the decode wrapper's split-plan constants
 (``MMA_TILE``, ``MMA_BLOCKS``, ``MMA_MIN_ROWS``) read from the variant's
 ``common.cuh``. Prints one JSON line a run (with ptxas's registers and
-spills of the ``wgmma_wide`` kernels, with ``--staged`` of the backward's
-wgmma and staging kernels, with ``--decode`` of ``decode_mma_kernel``) and
+spills of the ``wgmma_wide`` kernels (and with ``--wide-staged`` the
+copy's), with ``--staged`` of the backward's wgmma and staging kernels,
+with ``--decode`` of ``decode_mma_kernel``) and
 the card's name and power limit.
 """
 from __future__ import annotations
@@ -36,6 +45,38 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = [(8, 2, 288), (8, 8, 512), (8, 1, 576), (8, 8, 384), (8, 8, 768),
           (8, 8, 448)]      # (hq, hkv, d)
 STAGED_SHAPES = [(8, 8, 100), (8, 2, 99)]
+WIDE_STAGED_SHAPES = [(8, 8, 257), (8, 2, 300), (8, 8, 264)]
+
+
+def _follow_routes(kf, common: str) -> None:
+    """Point the wrapper's bf16 routes above 256 at the variant's
+    ``tc_wide_route`` and ``tc_wide_staged_route`` (each a one-statement
+    predicate of d in its ``common.cuh``), so it allocates the scratch
+    wherever the variant's dispatch stages the rows."""
+    import re
+
+    import torch
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (\w+) = (\d+);", common)}
+
+    def pred(name):
+        body = re.search(rf"inline bool {name}\(int d\) \{{\s*return "
+                         rf"([^;]+);", common).group(1)
+        body = " ".join(body.split()).replace("&&", " and ")
+        return lambda d: eval(body, dict(const, d=d))
+    aligned, staged = pred("tc_wide_route"), pred("tc_wide_staged_route")
+
+    def follow(design):
+        def route(dtype, d):
+            if dtype == torch.bfloat16 and d > kf.MAX_HEAD_DIM:
+                if staged(d):
+                    return "wgmma_wide_staged"
+                if aligned(d):
+                    return "wgmma_wide"
+            return design(dtype, d)
+        return route
+    kf.fwd_design, kf.bwd_design = follow(kf.fwd_design), \
+        follow(kf.bwd_design)
 
 
 DECODE_SHAPES = [(8, 1, 256), (16, 16, 256)]
@@ -73,7 +114,8 @@ def decode_worker(vdir: str) -> None:
     print(json.dumps(out), flush=True)
 
 
-def worker(vdir: str, staged: bool = False) -> None:
+def worker(vdir: str, staged: bool = False,
+           wide_staged: bool = False) -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
@@ -83,18 +125,23 @@ def worker(vdir: str, staged: bool = False) -> None:
     import chip_smoke as cs
     from repro_torch.kernels import flash_attention as kf
 
+    if wide_staged:
+        _follow_routes(kf, (pathlib.Path(vdir) / "common.cuh").read_text())
     info = _build.build()
     out = {"variant": os.path.basename(vdir), "build_s": info.seconds,
            "regs": [p for p in cs._ptxas_summary(info.ptxas)
                     if ("wgmma_kernel<bf16,128" in p or "stage_rows" in p
-                        if staged else "wgmma_wide" in p)]}
+                        if staged else "wgmma_wide" in p or
+                        wide_staged and "flash_stage_rows" in p)]}
 
     def rnd(shape, seed):
         g = torch.Generator(device="cuda").manual_seed(seed)
         return torch.randn(shape, generator=g,
                            device="cuda").to(torch.bfloat16)
 
-    for hq, hkv, d in STAGED_SHAPES if staged else SHAPES:
+    shapes = STAGED_SHAPES if staged else \
+        WIDE_STAGED_SHAPES if wide_staged else SHAPES
+    for hq, hkv, d in shapes:
         b, s = 8, 256
         q, k, v = rnd((b, s, hq, d), 0), rnd((b, s, hkv, d), 1), \
             rnd((b, s, hkv, d), 2)
@@ -113,17 +160,25 @@ def worker(vdir: str, staged: bool = False) -> None:
             "bwd_ms": cs.time_ms(lambda: kf._kernel_backward(
                 q, k, v, o, do, lse, True, sc), 5),
             "fwd_err": err, "bwd_rel": berr}
+        if wide_staged:
+            out[f"{hq}/{hkv} d{d}"].update(
+                design=kf.fwd_design(torch.bfloat16, d),
+                fwd_kernel_us=cs.device_us(lambda: kf._kernel_forward(
+                    q, k, v, True, sc)),
+                bwd_kernel_us=cs.device_us(lambda: kf._kernel_backward(
+                    q, k, v, o, do, lse, True, sc)))
     print(json.dumps(out), flush=True)
 
 
 def main() -> None:
-    flags = [a for a in sys.argv[1:] if a in ("--staged", "--decode")]
+    flags = [a for a in sys.argv[1:]
+             if a in ("--staged", "--wide-staged", "--decode")]
     args = [a for a in sys.argv[1:] if a not in flags]
     if args[0] == "--worker":
         if "--decode" in flags:
             decode_worker(args[1])
         else:
-            worker(args[1], "--staged" in flags)
+            worker(args[1], "--staged" in flags, "--wide-staged" in flags)
         return
     dirs = args
     for vdir in dirs + dirs[::-1]:
