@@ -563,6 +563,9 @@ SOURCES = {
 # and so does decode attention's tensor-core kernel (route "mma", bf16 at
 # D 256).
 WGMMA_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
+# Its CUDA-core column tiles above 256 (route "wide": fp32, and bf16 above
+# 768) in a third, compiled in parallel with the other two.
+SIMT_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_simt_wide.cu"
 DECODE_MMA_SOURCE = "src/repro_torch/csrc/decode_attention_tc.cu"
 
 
@@ -775,8 +778,10 @@ def _main_path_patterns() -> list:
     each load width), the backward's staged wgmma kernels at
     every padded D with their staging copies (each load width), and the
     tensor-core decode (``decode_mma_kernel``), which the contract phase
-    runs: no model path in bf16 reaches them, but they are held to no
-    spill all the same."""
+    runs, and the CUDA-core column tiles above 256 (route ``wide``: fp32,
+    and bf16 above 768; forward, dK/dV and dQ at both tile widths, with
+    16-byte and element copies): no model path reaches them, but they are
+    held to no spill all the same."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
             r"rmsnorm_dw_kernel<f32>",
@@ -827,6 +832,9 @@ def _main_path_patterns() -> list:
              for k in ("dkdv", "dq") for n in (64, 128, 160, 256)]
     pats += [rf"flash_bwd_stage_rows_kernel<bf16,{w}>" for w in (1, 2, 4)]
     pats.append(r"decode_mma_kernel<bf16>")
+    pats += [rf"flash_{k}_wide_kernel<{dt},{vec},{tw}>"
+             for k in ("fwd", "bwd_dkdv", "bwd_dq") for dt in ("f32", "bf16")
+             for vec in (1, 4) for tw in kflash.SIMT_WIDE_WIDTHS]
     return pats
 
 
@@ -1493,6 +1501,8 @@ def _contract_flash_case(hq, hkv, d, dtype, seed=0):
             "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
             "padded_head_dim": kflash.padded_head_dim(d),
             "design": kflash.fwd_design(dtype, d), "max_abs_err": err,
+            **({"plan": kflash.simt_wide_plan(d)}
+               if kflash.fwd_design(dtype, d) == "wide" else {}),
             "checked_launches": launches["flash_attention"],
             "ms": time_ms(fwd), "plain_ms": time_ms(lambda: kflash.plain(
                 q, k, v), 5),
@@ -1636,7 +1646,8 @@ def _contract_refusals() -> list:
 def _contract_rows(contract: dict) -> list:
     """Rows of the summary line for the contract phase's shapes, forward
     and backward kernels alike: launches are the phase's checked calls
-    (no model path runs these shapes)."""
+    (no model path runs these shapes); route ``wide``'s rows carry its
+    plan (``simt_wide_plan``: column tiles, clusters, slices of d)."""
     rows = []
     for c in contract.values():
         parts = [c]
@@ -1652,6 +1663,9 @@ def _contract_rows(contract: dict) -> list:
             source, replaces = SOURCES[x["kernel"]]
             if x.get("design") in ("wgmma_wide", "wgmma_wide_staged"):
                 source = WGMMA_WIDE_SOURCE
+            if x.get("design") == "wide" and \
+                    x["kernel"].startswith("flash_attention"):
+                source = SIMT_WIDE_SOURCE
             if x["kernel"] == "decode_attention" and x["design"] == "mma":
                 source = DECODE_MMA_SOURCE
             rows.append({
@@ -1662,6 +1676,7 @@ def _contract_rows(contract: dict) -> list:
                 "shape": x["shape"], "dtype": c["dtype"],
                 **{k: x[k] for k in ("design", "mode", "dstate")
                    if k in x},
+                **({"plan": c["plan"]} if "plan" in c else {}),
                 "max_abs_err": x["max_abs_err"], "ms": x["ms"],
                 "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                 "bound_by": x["bound_by"], "library_ms": x["library_ms"]})

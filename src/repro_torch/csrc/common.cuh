@@ -29,6 +29,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
+// The max and the sum over a group of 16 lanes (lanes whose ids differ in
+// the low four bits), as the CUDA-core flash kernels reduce a score row.
+__device__ __forceinline__ float group16_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float group16_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // The instantiated head dim an attention call of head dim d runs at: the
 // least of 16, 32, 64, 128, 160 and 256 at or above d, 0 outside 1..256
 // (above 256 the column-tile kernels serve it; below 1 it is refused).
@@ -52,6 +68,52 @@ __host__ __device__ inline int wide_col_tiles(int d) {
 __host__ __device__ inline int wide_tile_width(int d) {
   const int n = wide_col_tiles(d);
   return ((d + n - 1) / n + 15) / 16 * 16;
+}
+
+// fp32 above 256, and bf16 above kTcWideMaxDim: the CUDA-core column tiles
+// of flash_attention.cu (namespace wide), forward and backward. The
+// output's d columns in simt_wide_col_tiles(d) tiles of equal width
+// rounded up to a 64-column multiple (192 or 256 above 256), a block a
+// tile, the last cut at d. The tiles of one (row tile, head, batch) run as
+// clusters of simt_wide_cluster(d) blocks (at most kSimtWideMaxCluster,
+// the portable cluster size; simt_wide_clusters(d) clusters, padded with
+// blocks past d that store nothing): block r of a cluster computes the
+// partial scores over slice r of d, simt_wide_slice_width(d) columns (a
+// multiple of kSimtWidePiece, half a staged piece; the last cut at d), and
+// every block sums the cluster's partials in rank order. The dK/dV
+// kernel's blocks take kSimtWideKvRows kv rows each (simt_wide_kv_tiles),
+// so that one kv head at a few hundred tokens fills the card.
+constexpr int kSimtWideCols = 256;
+constexpr int kSimtWideMaxCluster = 8;
+constexpr int kSimtWidePiece = 32;
+constexpr int kSimtWideKvRows = 32;
+
+__host__ __device__ inline int simt_wide_col_tiles(int d) {
+  return (d + kSimtWideCols - 1) / kSimtWideCols;
+}
+
+__host__ __device__ inline int simt_wide_tile_width(int d) {
+  return ((d + simt_wide_col_tiles(d) - 1) / simt_wide_col_tiles(d) + 63) /
+         64 * 64;
+}
+
+__host__ __device__ inline int simt_wide_cluster(int d) {
+  return simt_wide_col_tiles(d) < kSimtWideMaxCluster
+             ? simt_wide_col_tiles(d) : kSimtWideMaxCluster;
+}
+
+__host__ __device__ inline int simt_wide_clusters(int d) {
+  return (simt_wide_col_tiles(d) + simt_wide_cluster(d) - 1) /
+         simt_wide_cluster(d);
+}
+
+__host__ __device__ inline int simt_wide_slice_width(int d) {
+  return ((d + simt_wide_cluster(d) - 1) / simt_wide_cluster(d) +
+          kSimtWidePiece - 1) / kSimtWidePiece * kSimtWidePiece;
+}
+
+__host__ __device__ inline int simt_wide_kv_tiles(int skv) {
+  return (skv + kSimtWideKvRows - 1) / kSimtWideKvRows;
 }
 
 // bf16 above 256 where the rows are whole 16-byte chunks (the TMA maps'

@@ -16,7 +16,7 @@
 // 8) and where tc_wide_staged_route holds (the other d) on copies in rows
 // of staged_ld(d) elements made by flash_stage_rows_kernel (namespace
 // stage, below); fp32, and bf16 above kTcWideMaxDim, on the CUDA-core
-// column tiles of namespace wide.
+// column tiles of flash_attention_simt_wide.cu.
 //
 // Up to 256, two hand-written kernels serve the forward, chosen by dtype
 // and head dim (the backward adds a staged route, below):
@@ -141,18 +141,9 @@
 // over whole 64 x 64 tiles, 9.4 GFLOP.
 //
 // Above a head dim of 256, where neither tc_wide_route nor
-// tc_wide_staged_route holds (flash_fwd_wide_kernel,
-// flash_bwd_dkdv_wide_kernel, flash_bwd_dq_wide_kernel; fp32, and bf16
-// above kTcWideMaxDim, on the CUDA cores): the output's
-// d columns in ceil(d / 256) tiles of at most 256 (wide_tile_width), one
-// block a (row tile, head, batch, column tile). A block recomputes S (and
-// in the backward dP) over the whole d, Q and K (dO and V) streamed
-// through shared memory in 64-column pieces, in the same order in every
-// column tile, so the scores, m, l and P are bitwise equal across tiles;
-// it accumulates only its own columns of O, dK and dV, or dQ, staged a
-// tile at a time. The price is S once per column tile (two at d 257-512);
-// the bound counts the function's work once (roofline/kernel_cost.py). As
-// below 256, no atomics; 64-bit offsets throughout.
+// tc_wide_staged_route holds (fp32, and bf16 above kTcWideMaxDim): the
+// CUDA-core column tiles of flash_attention_simt_wide.cu (namespace wide),
+// after flash_bwd_preprocess_rows_kernel for the backward's delta.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -175,20 +166,6 @@ constexpr size_t smem_bytes() {
 // bf16 at a head dim that is a whole number of 16-byte chunks (the TMA
 // maps' row stride) and above 32: the wgmma designs, forward and backward.
 bool tc_route(int d) { return d > 32 && d <= 256 && d % 8 == 0; }
-
-__device__ __forceinline__ float group16_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float group16_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // kPad: d below D, read at run time; else d is D and the code is the
 // unpadded kernel's.
@@ -1982,494 +1959,6 @@ cudaError_t copy(const void* q, const void* k, const void* v,
 
 }  // namespace stage
 
-// ---------------------------------------------------------------------------
-// Head dims above 256, fp32 and bf16 above kTcWideMaxDim: CUDA-core kernels
-// over column tiles.
-// ---------------------------------------------------------------------------
-namespace wide {
-
-constexpr int kB = 64;          // rows of a block's fixed tile
-constexpr int kS = 32;          // rows of a streamed tile (backward)
-constexpr int kThreads = 256;   // 16 row groups x 16 lanes
-constexpr int kR = 4;           // fixed-tile rows a thread (kB / 16)
-constexpr int kPiece = 64;      // columns of d a streamed piece
-constexpr int kLP = kPiece + 1; // row stride of a piece in smem
-constexpr int kTC = kWideTileCols / 16;   // output columns a thread
-constexpr int kLV = kWideTileCols + 1;    // row stride of a column tile
-
-// Rows r < R of a (batch, rows, heads, d) tensor, row0 on, head h, columns
-// [c0, c0 + C) as fp32 into smem of row stride LD; rows past n and columns
-// past cw (the piece's or tile's width) read as 0. 64-bit offsets.
-template <typename T, int R, int C, int LD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int bb, int row0, int n, int heads,
-                                      int h, int d, int c0, int cw) {
-  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    const int row = row0 + r;
-    dst[r * LD + c] =
-        row < n && c < cw
-            ? to_f32(src[((static_cast<size_t>(bb) * n + row) * heads + h) *
-                             static_cast<size_t>(d) + c0 + c])
-            : 0.f;
-  }
-}
-
-// Forward. Grid (q tiles of kB, hq, b x column tiles): block (i, h, (bb,
-// ct)) computes S = Q K^T over the whole d, Q and K streamed through smem
-// in kPiece-column pieces in the same order in every column tile (so m
-// and l are bitwise equal across tiles and every column is normalised
-// alike), runs the online softmax as flash_fwd_simt_kernel, and
-// accumulates O for its tile's columns alone (V staged a tile at a time).
-// Tile 0 writes the lse.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int sq, int skv, int hq,
-                      int hkv, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* Qp = smem;                 // kB x kLP
-  float* Kp = Qp + kB * kLP;        // kB x kLP
-  float* Vs = Kp + kB * kLP;        // kB x kLV
-  float* Ps = Vs + kB * kLV;        // kB x (kB + 1)
-  const int n_ct = wide_col_tiles(d), tw = wide_tile_width(d);
-  const int q0 = blockIdx.x * kB, h = blockIdx.y;
-  const int bb = blockIdx.z / n_ct, ct = blockIdx.z % n_ct;
-  const int c0 = ct * tw, cw = min(tw, d - c0);
-  const int kvh = h / (hq / hkv);
-  const int tid = threadIdx.x, rg = tid >> 4, lc = tid & 15;
-
-  float m[kR], l[kR], acc[kR][kTC];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_end = causal ? min(skv, q0 + kB) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kB) {
-    float s[kR][kR];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j) s[i][j] = 0.f;
-    for (int p0 = 0; p0 < d; p0 += kPiece) {
-      __syncthreads();  // the last piece (and tile's V and P) is read
-      const int pw = min(kPiece, d - p0);
-      stage<T, kB, kPiece, kLP>(Qp, q, bb, q0, sq, hq, h, d, p0, pw);
-      stage<T, kB, kPiece, kLP>(Kp, k, bb, k0, skv, hkv, kvh, d, p0, pw);
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kPiece; ++c) {
-        float qv[kR], kv[kR];
-#pragma unroll
-        for (int i = 0; i < kR; ++i) qv[i] = Qp[(rg * kR + i) * kLP + c];
-#pragma unroll
-        for (int j = 0; j < kR; ++j) kv[j] = Kp[(lc + 16 * j) * kLP + c];
-#pragma unroll
-        for (int i = 0; i < kR; ++i)
-#pragma unroll
-          for (int j = 0; j < kR; ++j) s[i][j] += qv[i] * kv[j];
-      }
-    }
-    stage<T, kB, kWideTileCols, kLV>(Vs, v, bb, k0, skv, hkv, kvh, d, c0,
-                                     cw);
-
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int row = q0 + rg * kR + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const int col = k0 + lc + 16 * j;
-        float val = s[i][j] * scale;
-        if (col >= skv || (causal && col > row)) val = kNegInf;
-        s[i][j] = val;
-        mx = fmaxf(mx, val);
-      }
-      const float m_new = fmaxf(m[i], group16_max(mx));
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rowsum += p;
-        Ps[(rg * kR + i) * (kB + 1) + lc + 16 * j] = p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + group16_sum(rowsum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    const int kn = min(kB, kv_end - k0);
-#pragma unroll 4
-    for (int c = 0; c < kn; ++c) {
-      float pv[kR];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) pv[i] = Ps[(rg * kR + i) * (kB + 1) + c];
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) {
-        const float vv = Vs[c * kLV + lc + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kR; ++i) acc[i][j] += pv[i] * vv;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int row = q0 + rg * kR + i;
-    if (row >= sq) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
-    if (lse != nullptr && ct == 0 && lc == 0)
-      lse[(static_cast<size_t>(bb) * hq + h) * sq + row] = m[i] + logf(denom);
-    T* orow = o + ((static_cast<size_t>(bb) * sq + row) * hq + h) *
-                      static_cast<size_t>(d) + c0;
-#pragma unroll
-    for (int j = 0; j < kTC; ++j)
-      if (lc + 16 * j < cw) orow[lc + 16 * j] = from_f32<T>(acc[i][j] / denom);
-  }
-}
-
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kB * kLP + kB * kLV + kB * (kB + 1));
-}
-
-// dK, dV. Grid (kv tiles of kB, hkv, b x column tiles): for each q head of
-// the kv head's group and each q tile of kS rows (none above the diagonal
-// when causal), S^T = K Q^T and dP^T = V dO^T over the whole d, streamed
-// in pieces as the forward's; P^T and dS^T = P^T (dP^T - delta) from the
-// lse; dV += P^T dO and dK += dS^T Q over this tile's columns of dO and Q.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           T* __restrict__ dk, T* __restrict__ dv, int sq,
-                           int skv, int hq, int hkv, int d, float scale,
-                           int causal) {
-  constexpr int kC = kS / 16;       // q columns a thread
-  constexpr int kLS = kS + 1;       // row stride of P and dS
-  extern __shared__ float smem[];
-  float* Kp = smem;                 // kB x kLP
-  float* Vp = Kp + kB * kLP;        // kB x kLP
-  float* Qp = Vp + kB * kLP;        // kS x kLP
-  float* dOp = Qp + kS * kLP;       // kS x kLP
-  float* Qo = dOp + kS * kLP;       // kS x kLV: this tile's columns of Q
-  float* dOo = Qo + kS * kLV;       // kS x kLV
-  float* Ps = dOo + kS * kLV;       // [kv row][q row]
-  float* dSs = Ps + kB * kLS;
-  float* Ls = dSs + kB * kLS;       // lse of the q tile's rows
-  float* Dl = Ls + kS;              // delta of the q tile's rows
-  const int n_ct = wide_col_tiles(d), tw = wide_tile_width(d);
-  const int k0 = blockIdx.x * kB, kvh = blockIdx.y;
-  const int bb = blockIdx.z / n_ct, ct = blockIdx.z % n_ct;
-  const int c0 = ct * tw, cw = min(tw, d - c0);
-  const int g = hq / hkv;
-  const int tid = threadIdx.x, rg = tid >> 4, lc = tid & 15;
-
-  float dk_acc[kR][kTC], dv_acc[kR][kTC];
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int n_qt = (sq + kS - 1) / kS;
-  const int qt0 = causal ? k0 / kS : 0;
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = kvh * g + gi;
-    const float* lse_h = lse + (static_cast<size_t>(bb) * hq + h) * sq;
-    const float* del_h = delta + (static_cast<size_t>(bb) * hq + h) * sq;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kS;
-      float s[kR][kC], dp[kR][kC];
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int p0 = 0; p0 < d; p0 += kPiece) {
-        __syncthreads();  // the last piece, P, dS and Q, dO's tiles are read
-        const int pw = min(kPiece, d - p0);
-        stage<T, kB, kPiece, kLP>(Kp, k, bb, k0, skv, hkv, kvh, d, p0, pw);
-        stage<T, kB, kPiece, kLP>(Vp, v, bb, k0, skv, hkv, kvh, d, p0, pw);
-        stage<T, kS, kPiece, kLP>(Qp, q, bb, q0, sq, hq, h, d, p0, pw);
-        stage<T, kS, kPiece, kLP>(dOp, dout, bb, q0, sq, hq, h, d, p0, pw);
-        if (p0 == 0 && tid < kS) {
-          const int qi = q0 + tid;
-          Ls[tid] = qi < sq ? lse_h[qi] : 0.f;
-          Dl[tid] = qi < sq ? del_h[qi] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int c = 0; c < kPiece; ++c) {
-          float kr[kR], vr[kR], qc[kC], oc[kC];
-#pragma unroll
-          for (int i = 0; i < kR; ++i) {
-            kr[i] = Kp[(rg * kR + i) * kLP + c];
-            vr[i] = Vp[(rg * kR + i) * kLP + c];
-          }
-#pragma unroll
-          for (int j = 0; j < kC; ++j) {
-            qc[j] = Qp[(lc + 16 * j) * kLP + c];
-            oc[j] = dOp[(lc + 16 * j) * kLP + c];
-          }
-#pragma unroll
-          for (int i = 0; i < kR; ++i)
-#pragma unroll
-            for (int j = 0; j < kC; ++j) {
-              s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
-              dp[i][j] = fmaf(vr[i], oc[j], dp[i][j]);
-            }
-        }
-      }
-      stage<T, kS, kWideTileCols, kLV>(Qo, q, bb, q0, sq, hq, h, d, c0, cw);
-      stage<T, kS, kWideTileCols, kLV>(dOo, dout, bb, q0, sq, hq, h, d, c0,
-                                       cw);
-#pragma unroll
-      for (int i = 0; i < kR; ++i) {
-        const int kr_ = rg * kR + i;
-        const int kvi = k0 + kr_;
-#pragma unroll
-        for (int j = 0; j < kC; ++j) {
-          const int qc_ = lc + 16 * j;
-          const int qi = q0 + qc_;
-          const bool ok = kvi < skv && qi < sq && (!causal || kvi <= qi);
-          const float p = ok ? expf(s[i][j] * scale - Ls[qc_]) : 0.f;
-          Ps[kr_ * kLS + qc_] = p;
-          dSs[kr_ * kLS + qc_] = p * (dp[i][j] - Dl[qc_]);
-        }
-      }
-      __syncthreads();
-
-      const int qn = min(kS, sq - q0);
-#pragma unroll 4
-      for (int r = 0; r < qn; ++r) {
-        float pr[kR], dsr[kR];
-#pragma unroll
-        for (int i = 0; i < kR; ++i) {
-          pr[i] = Ps[(rg * kR + i) * kLS + r];
-          dsr[i] = dSs[(rg * kR + i) * kLS + r];
-        }
-#pragma unroll
-        for (int j = 0; j < kTC; ++j) {
-          const float ov = dOo[r * kLV + lc + 16 * j];
-          const float qv = Qo[r * kLV + lc + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kR; ++i) {
-            dv_acc[i][j] = fmaf(pr[i], ov, dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(dsr[i], qv, dk_acc[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int kvi = k0 + rg * kR + i;
-    if (kvi >= skv) continue;
-    const size_t off = ((static_cast<size_t>(bb) * skv + kvi) * hkv + kvh) *
-                           static_cast<size_t>(d) + c0;
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) {
-      if (lc + 16 * j >= cw) continue;
-      dk[off + lc + 16 * j] = from_f32<T>(dk_acc[i][j] * scale);
-      dv[off + lc + 16 * j] = from_f32<T>(dv_acc[i][j]);
-    }
-  }
-}
-
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (2 * (kB + kS) * kLP + 2 * kS * kLV +
-                          2 * kB * (kS + 1) + 2 * kS);
-}
-
-// dQ. Grid (q tiles of kB, hq, b x column tiles): for each kv tile of kS
-// rows up to the diagonal, S = Q K^T and dP = dO V^T over the whole d in
-// pieces, dS = P (dP - delta), and dQ += dS K over this tile's columns of
-// K.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dq,
-                         int sq, int skv, int hq, int hkv, int d, float scale,
-                         int causal) {
-  constexpr int kC = kS / 16;       // kv columns a thread
-  constexpr int kLS = kS + 1;       // row stride of dS
-  extern __shared__ float smem[];
-  float* Qp = smem;                 // kB x kLP
-  float* dOp = Qp + kB * kLP;       // kB x kLP
-  float* Kp = dOp + kB * kLP;       // kS x kLP
-  float* Vp = Kp + kS * kLP;        // kS x kLP
-  float* Ko = Vp + kS * kLP;        // kS x kLV: this tile's columns of K
-  float* dSs = Ko + kS * kLV;       // [q row][kv row]
-  const int n_ct = wide_col_tiles(d), tw = wide_tile_width(d);
-  const int q0 = blockIdx.x * kB, h = blockIdx.y;
-  const int bb = blockIdx.z / n_ct, ct = blockIdx.z % n_ct;
-  const int c0 = ct * tw, cw = min(tw, d - c0);
-  const int kvh = h / (hq / hkv);
-  const int tid = threadIdx.x, rg = tid >> 4, lc = tid & 15;
-
-  float lr[kR], dl[kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int qi = q0 + rg * kR + i;
-    const size_t off = (static_cast<size_t>(bb) * hq + h) * sq + qi;
-    lr[i] = qi < sq ? lse[off] : 0.f;
-    dl[i] = qi < sq ? delta[off] : 0.f;
-  }
-  float dq_acc[kR][kTC];
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) dq_acc[i][j] = 0.f;
-
-  const int kv_end = causal ? min(skv, q0 + kB) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kS) {
-    float s[kR][kC], dp[kR][kC];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kC; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int p0 = 0; p0 < d; p0 += kPiece) {
-      __syncthreads();  // the last piece, dS and K's tile are read
-      const int pw = min(kPiece, d - p0);
-      stage<T, kB, kPiece, kLP>(Qp, q, bb, q0, sq, hq, h, d, p0, pw);
-      stage<T, kB, kPiece, kLP>(dOp, dout, bb, q0, sq, hq, h, d, p0, pw);
-      stage<T, kS, kPiece, kLP>(Kp, k, bb, k0, skv, hkv, kvh, d, p0, pw);
-      stage<T, kS, kPiece, kLP>(Vp, v, bb, k0, skv, hkv, kvh, d, p0, pw);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < kPiece; ++c) {
-        float qr[kR], orr[kR], kc[kC], vc[kC];
-#pragma unroll
-        for (int i = 0; i < kR; ++i) {
-          qr[i] = Qp[(rg * kR + i) * kLP + c];
-          orr[i] = dOp[(rg * kR + i) * kLP + c];
-        }
-#pragma unroll
-        for (int j = 0; j < kC; ++j) {
-          kc[j] = Kp[(lc + 16 * j) * kLP + c];
-          vc[j] = Vp[(lc + 16 * j) * kLP + c];
-        }
-#pragma unroll
-        for (int i = 0; i < kR; ++i)
-#pragma unroll
-          for (int j = 0; j < kC; ++j) {
-            s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-            dp[i][j] = fmaf(orr[i], vc[j], dp[i][j]);
-          }
-      }
-    }
-    stage<T, kS, kWideTileCols, kLV>(Ko, k, bb, k0, skv, hkv, kvh, d, c0, cw);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int qr_ = rg * kR + i;
-      const int qi = q0 + qr_;
-#pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const int kc_ = lc + 16 * j;
-        const int ki = k0 + kc_;
-        const bool ok = qi < sq && ki < skv && (!causal || ki <= qi);
-        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        dSs[qr_ * kLS + kc_] = p * (dp[i][j] - dl[i]);
-      }
-    }
-    __syncthreads();
-
-    const int kn = min(kS, kv_end - k0);
-#pragma unroll 4
-    for (int r = 0; r < kn; ++r) {
-      float dsr[kR];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) dsr[i] = dSs[(rg * kR + i) * kLS + r];
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) {
-        const float kv = Ko[r * kLV + lc + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kR; ++i)
-          dq_acc[i][j] = fmaf(dsr[i], kv, dq_acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int qi = q0 + rg * kR + i;
-    if (qi >= sq) continue;
-    const size_t off = ((static_cast<size_t>(bb) * sq + qi) * hq + h) *
-                           static_cast<size_t>(d) + c0;
-#pragma unroll
-    for (int j = 0; j < kTC; ++j)
-      if (lc + 16 * j < cw)
-        dq[off + lc + 16 * j] = from_f32<T>(dq_acc[i][j] * scale);
-  }
-}
-
-constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * (kB + kS) * kLP + kS * kLV + kB * (kS + 1));
-}
-
-template <typename Kern>
-cudaError_t set_smem(Kern kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int sq, int skv, int hq, int hkv, int d,
-               float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = set_smem(flash_fwd_wide_kernel<T>, fwd_smem());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kB - 1) / kB, hq, b * wide_col_tiles(d));
-  flash_fwd_wide_kernel<T><<<grid, kThreads, fwd_smem(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, hq, hkv, d,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-               int d, float scale, int causal, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  cudaError_t err = bwd::preprocess_rows<T>(o, dout, delta, b, sq, hq, d,
-                                            stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_ct = wide_col_tiles(d);
-  err = set_smem(flash_bwd_dkdv_wide_kernel<T>, dkdv_smem());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_wide_kernel<T>
-      <<<dim3((skv + kB - 1) / kB, hkv, b * n_ct), kThreads, dkdv_smem(),
-         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
-                   static_cast<T*>(dv), sq, skv, hq, hkv, d, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = set_smem(flash_bwd_dq_wide_kernel<T>, dq_smem());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wide_kernel<T>
-      <<<dim3((sq + kB - 1) / kB, hq, b * n_ct), kThreads, dq_smem(),
-         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), sq, skv,
-                   hq, hkv, d, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace wide
 
 }  // namespace
 
@@ -2485,6 +1974,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                void* dv, int b, int sq, int skv, int hq, int hkv, int d,
                float scale, int causal, cudaStream_t stream, int ld);
 }  // namespace wgmma_wide
+
+// fp32 (dtype kF32) at any d, and bf16 (kBF16) where no tensor-core route
+// holds: flash_attention_simt_wide.cu (the backward's delta comes first).
+namespace wide {
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int sq, int skv, int hq, int hkv, int d,
+               float scale, int causal, int dtype, cudaStream_t stream);
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, void* dk,
+               void* dv, int b, int sq, int skv, int hq, int hkv, int d,
+               float scale, int causal, int dtype, cudaStream_t stream);
+}  // namespace wide
 }  // namespace repro
 
 // lse: null, or (b, hq, sq) float32 that takes each row's log-sum-exp.
@@ -2521,13 +2022,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                     l, b, sq, skv, hq, hkv, d, scale, causal,
                                     s, ld);
     }
-    if (dtype == kF32)
-      return wide::launch_fwd<float>(q, k, v, o, l, b, sq, skv, hq, hkv, d,
-                                     scale, causal, s);
-    if (dtype == kBF16)
-      return wide::launch_fwd<__nv_bfloat16>(q, k, v, o, l, b, sq, skv, hq,
-                                             hkv, d, scale, causal, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != kF32 && dtype != kBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return wide::launch_fwd(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale,
+                            causal, dtype, s);
   }
   if (dtype == kF32)
     return dispatch_simt<float>(d, q, k, v, o, l, b, sq, skv, hq, hkv, scale,
@@ -2562,7 +2060,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // returned likewise); for bf16 where tc_wide_staged_route holds,
 // flash_stage_rows_kernel into `scratch` (the size above) and delta, then
 // the staged instantiations of those kernels (failures returned likewise);
-// else those of namespace wide.
+// else the CUDA-core column tiles of flash_attention_simt_wide.cu (failures
+// returned likewise).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2595,14 +2094,16 @@ extern "C" int repro_flash_attention_bwd(
           st, st + nq * ld, st + (nq + nk) * ld, st + (nq + 2 * nk) * ld, l,
           dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
     }
-    if (dtype == kF32)
-      return wide::launch_bwd<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b,
-                                     sq, skv, hq, hkv, d, scale, causal, s);
-    if (dtype == kBF16)
-      return wide::launch_bwd<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk,
-                                             dv, b, sq, skv, hq, hkv, d,
-                                             scale, causal, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != kF32 && dtype != kBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err =
+        dtype == kF32
+            ? bwd::preprocess_rows<float>(o, dout, dl, b, sq, hq, d, s)
+            : bwd::preprocess_rows<__nv_bfloat16>(o, dout, dl, b, sq, hq, d,
+                                                  s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, b, sq, skv, hq,
+                            hkv, d, scale, causal, dtype, s);
   }
   if (dtype == kF32)
     return bwd::dispatch<float>(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,

@@ -13,8 +13,7 @@
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel), which
 // takes any head dim; its backward is the port's own (FlashAttention-2's,
 // as below 256). fp32 at every d above 256, and bf16 above kTcWideMaxDim,
-// stay on the CUDA-core column tiles of flash_attention.cu (namespace
-// wide).
+// stay on the CUDA-core column tiles of flash_attention_simt_wide.cu.
 //
 // Bound on the H100: bytes. At b 8, s 256, d 512 the forward moves 67 MB
 // (0.020 ms at 3.35 TB/s) for 4.3 GFLOP (0.004 ms at 989 TFLOP/s).

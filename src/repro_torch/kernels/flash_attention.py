@@ -12,10 +12,10 @@ backward alike: up to ``MAX_HEAD_DIM`` (256) a call runs at
 256) at or above d, its columns past d zero; above it, on the column-tile
 kernels at the real d. Only d < 1 raises.
 
-Hand-written kernels of ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_wide.cu`` serve a CUDA tensor, one call of them
-counted as a launch of ``flash_attention``, on the route
-:func:`fwd_design` names:
+Hand-written kernels of ``csrc/flash_attention.cu``,
+``csrc/flash_attention_wide.cu`` and ``csrc/flash_attention_simt_wide.cu``
+serve a CUDA tensor, one call of them counted as a launch of
+``flash_attention``, on the route :func:`fwd_design` names:
 
 * ``"wgmma"``, bf16 where d is a multiple of 8 above 32 (the serving path
   at 64, 128 and 160): ``flash_fwd_wgmma_kernel``, tensor cores (wgmma,
@@ -40,9 +40,15 @@ counted as a launch of ``flash_attention``, on the route
   which stores the output column by column at the real d);
 * ``"wide"``, fp32 above 256 and bf16 above ``TC_WIDE_MAX_HEAD_DIM``:
   ``flash_fwd_wide_kernel``, full fp32 products on the CUDA cores, a block
-  a (q tile, q head, batch, column tile of at most 256 output columns,
-  ``col_tiles``): each recomputes the scores over the whole d, streamed in
-  pieces in the same order in every tile, and writes its own columns.
+  a (q tile, q head, batch, column tile of 192 or 256 output columns,
+  :func:`simt_wide_plan`), the column tiles of a row tile launched as a
+  thread-block cluster of up to 8: each block computes the partial scores
+  over its own slice of d, every block sums the cluster's partials in
+  rank order through distributed shared memory (so S, m and l are bitwise
+  equal across the tiles), then runs the online softmax and P.V over its
+  own columns; pieces staged by cp.async (bf16 converted to fp32 once in
+  shared memory) while the last is multiplied, register tiles fed by
+  128-bit shared loads.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
@@ -77,10 +83,13 @@ staged routes' copy kernels write it instead) and two kernels on the route
   copies q, k, v and dout and writes delta from the dout rows it copies,
   then the ``"wgmma_wide"`` kernels read the copies (instantiations of
   their own, which store dq, dk and dv column by column at the real d);
-* ``"wide"``, the forward's: ``flash_bwd_dkdv_wide_kernel`` and
-  ``flash_bwd_dq_wide_kernel``, the forward's column tiles (S and dP
-  recomputed over the whole d in each, each writing its own columns of
-  dK, dV or dQ; no atomics).
+* ``"wide"``, the forward's: ``flash_bwd_dkdv_wide_kernel`` (a block a
+  kv tile of ``SIMT_WIDE_KV_ROWS`` rows, kv head, batch and column tile,
+  walking the group's q heads and q tiles) and
+  ``flash_bwd_dq_wide_kernel``, the forward's column tiles and clusters
+  (S^T and dP^T, or S and dP, summed once per cluster from each block's
+  slice of d; each block writing its own columns of dK and dV, or dQ; no
+  atomics).
 
 delta = rowsum(dO * O) is summed over the real d.
 
@@ -107,6 +116,11 @@ WIDE_TILE_COLS = 256    # output columns a column tile, at most
 TC_WIDE_MAX_HEAD_DIM = 768      # the C kTcWideMaxDim
 TC_WIDE_FWD_192_MAX = 704       # the C kTcWideFwd192MaxDim
 TC_WIDE_WIDTHS = (192, 256)     # the wgmma column tiles' instantiated N
+SIMT_WIDE_COLS = 256        # the C kSimtWideCols: output columns a tile
+SIMT_WIDE_MAX_CLUSTER = 8   # kSimtWideMaxCluster: blocks a cluster
+SIMT_WIDE_PIECE = 32        # kSimtWidePiece: columns of d a staged piece
+SIMT_WIDE_KV_ROWS = 32      # kSimtWideKvRows: kv rows a dK/dV block
+SIMT_WIDE_WIDTHS = (192, 256)   # the instantiated tile widths
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
@@ -136,6 +150,29 @@ def col_tiles(d: int) -> tuple[int, int]:
     n = -(-d // WIDE_TILE_COLS)
     width = -(-d // n)
     return n, -(-width // 16) * 16
+
+
+def simt_wide_plan(d: int) -> dict:
+    """The CUDA-core column tiles' plan (route ``"wide"``; the C
+    ``simt_wide_*`` functions of ``common.cuh``): ``tiles`` of ``width``
+    output columns (ceil(d / 256) tiles of equal width rounded up to a
+    multiple of 64, the last cut at d), run as ``clusters`` clusters of
+    ``cluster`` blocks (at most 8; blocks past the last tile store
+    nothing), block r of a cluster summing the scores over slice r of d,
+    ``slice`` columns (whole 32-column pieces, the last slice cut at d)."""
+    tiles = -(-d // SIMT_WIDE_COLS)
+    width = -(-(-(-d // tiles)) // 64) * 64
+    cluster = min(tiles, SIMT_WIDE_MAX_CLUSTER)
+    return {"tiles": tiles, "width": width, "cluster": cluster,
+            "clusters": -(-tiles // cluster),
+            "slice": -(-(-(-d // cluster)) // SIMT_WIDE_PIECE) *
+            SIMT_WIDE_PIECE}
+
+
+def simt_wide_kv_tiles(skv: int) -> int:
+    """Blocks along the kv rows of the column tiles' dK/dV kernel (the C
+    ``simt_wide_kv_tiles``): ``SIMT_WIDE_KV_ROWS`` rows each."""
+    return -(-skv // SIMT_WIDE_KV_ROWS)
 
 
 def wgmma_col_tiles(d: int, forward: bool = False) -> tuple[int, int]:

@@ -1080,6 +1080,18 @@ WIDE_FLASH_CASES = [
         (1, 333, 65, 4, 4, 320, False), (2, 1, 1, 4, 4, 320, True),
         (1, 1, 333, 8, 8, 384, False), (1, 333, 333, 8, 2, 384, True),
         (1, 333, 333, 8, 1, 576, True), (1, 333, 333, 8, 1, 576, False))]
+# Route "wide" (the CUDA-core column tiles, S summed once per cluster):
+# fp32 at three tiles on one kv head, at four tiles (d 1000, skv above
+# sq), and at nine tiles in two clusters of 8 (d 2100, the second
+# cluster's blocks past the last tile storing nothing); bf16 above 768.
+WIDE_SIMT_CASES = [
+    (dtype, *case, causal) for dtype, case in (
+        (torch.float32, (1, 333, 333, 8, 1, 576)),
+        (torch.float32, (1, 65, 130, 2, 2, 1000)),
+        (torch.float32, (1, 40, 40, 2, 1, 2100)),
+        (torch.bfloat16, (1, 130, 77, 4, 2, 800)))
+    for causal in (True, False)]
+WIDE_FLASH_CASES += WIDE_SIMT_CASES
 
 
 @pytest.mark.gpu
@@ -1109,6 +1121,78 @@ def test_flash_above_256_forward_and_backward_match_plain(
                             scale=scale)
     for g, w_ in zip(got, want):
         _rel_close(g, w_, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,causal", [
+    c for c in WIDE_FLASH_CASES if tflash.fwd_design(c[0], c[6]) == "wide"])
+def test_flash_wide_replays_in_a_cuda_graph_and_writes_nothing_past_d(
+        cuda, dtype, b, sq, skv, hq, hkv, d, causal):
+    """Route "wide": the profiler names its three column-tile kernels (and
+    delta's pass) and no other route's; o, dq, dk and dv carved from the
+    front of larger buffers that hold a canary keep it in each tail (a
+    store past d in the last row, or by a cluster's blocks past the last
+    tile, would land there) and equal the wrapper's own; forward and
+    backward captured once in a CUDA graph and replayed after the inputs
+    change in place equal eager calls on the new inputs bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels._build import dtype_code, stream_handle
+    assert tflash.fwd_design(dtype, d) == tflash.bwd_design(dtype, d) == \
+        "wide"
+    q, k, v, dout = _attn_inputs(cuda, dtype, b, sq, skv, hq, hkv, d)
+    scale = tflash._scale(q, None)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = tflash._kernel_forward(q, k, v, causal, scale,
+                                          with_lse=True)
+        dq, dk, dv = tflash._kernel_backward(q, k, v, out, dout, lse, causal,
+                                             scale)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert all(n in names for n in (
+        "flash_fwd_wide_kernel", "flash_bwd_dkdv_wide_kernel",
+        "flash_bwd_dq_wide_kernel", "flash_bwd_preprocess_rows")), names
+    assert "wgmma" not in names and "stage_rows" not in names, names
+
+    def carve(t):
+        buf = torch.full((t.numel() + 300,), -7.0, dtype=dtype, device=cuda)
+        return buf, buf[:t.numel()].view(t.shape)
+    (ob, o2), (qb, dq2), (kb, dk2), (vb, dv2) = (
+        carve(t) for t in (out, dq, dk, dv))
+    lse2, delta = torch.empty_like(lse), torch.empty_like(lse)
+    ints = (b, sq, skv, hq, hkv, d, scale, int(causal), dtype_code(q),
+            stream_handle(q.device))
+    tflash.KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
+                  lse2.data_ptr(), None, *ints)
+    tflash.KERNEL_BWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), dq2.data_ptr(), dk2.data_ptr(),
+                      dv2.data_ptr(), None, *ints)
+    torch.cuda.synchronize()
+    for buf, got, want in ((ob, o2, out), (qb, dq2, dq), (kb, dk2, dk),
+                           (vb, dv2, dv)):
+        assert (buf[got.numel():] == -7.0).all()
+        assert torch.equal(got, want)
+    assert torch.equal(lse2, lse)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_lse = tflash._kernel_forward(q, k, v, causal, scale,
+                                              with_lse=True)
+        g_grads = tflash._kernel_backward(q, k, v, g_out, dout, g_lse,
+                                          causal, scale)
+    for seed in (10, 20):
+        for i, t in enumerate((q, k, v, dout)):
+            t.copy_(_randn(t.shape, dtype, cuda, seed + i))
+        graph.replay()
+        torch.cuda.synchronize()
+        w_out, w_lse = tflash._kernel_forward(q, k, v, causal, scale,
+                                              with_lse=True)
+        w_grads = tflash._kernel_backward(q, k, v, w_out, dout, w_lse,
+                                          causal, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(g_out, w_out) and torch.equal(g_lse, w_lse)
+        assert all(torch.equal(a, b_) for a, b_ in zip(g_grads, w_grads))
 
 
 # bf16 head dims from 33 to 256 that are not whole 16-byte rows: the

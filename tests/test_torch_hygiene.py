@@ -50,18 +50,20 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_port_has_the_three_kernel_sources():
     """One CUDA source for each of the JAX package's five Pallas kernels,
     the SSD scan's backward in one of its own, flash attention's
-    tensor-core kernels above a head dim of 256 in another and decode
-    attention's tensor-core kernel in a third (the name dates from the
-    first slice, which had three)."""
+    tensor-core kernels above a head dim of 256 in another, its CUDA-core
+    ones above 256 in another and decode attention's tensor-core kernel in
+    a fifth (the name dates from the first slice, which had three)."""
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "rmsnorm.cu", "flash_attention.cu", "flash_attention_wide.cu",
-        "decode_attention.cu", "decode_attention_tc.cu", "ssd_scan.cu",
-        "ssd_scan_bwd.cu", "int8_matmul.cu"}
+        "flash_attention_simt_wide.cu", "decode_attention.cu",
+        "decode_attention_tc.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+        "int8_matmul.cu"}
     pallas = {p.stem for p in (REPO / "src" / "repro" / "kernels").glob(
         "*.py") if "pl.pallas_call" in p.read_text()}
     assert {p.stem.removesuffix("_bwd").removesuffix("_wide")
-            .removesuffix("_tc") for p in csrc.glob("*.cu")} == pallas
+            .removesuffix("_tc").removesuffix("_simt")
+            for p in csrc.glob("*.cu")} == pallas
 
 
 def test_port_has_every_arch_of_the_reference():

@@ -455,6 +455,239 @@ def test_wide_staged_route_follows_the_c_source():
         assert cases == set(tflash.TC_WIDE_WIDTHS)
 
 
+SIMT_WIDE_FNS = {"tiles": "simt_wide_col_tiles",
+                 "width": "simt_wide_tile_width",
+                 "cluster": "simt_wide_cluster",
+                 "clusters": "simt_wide_clusters",
+                 "slice": "simt_wide_slice_width"}
+
+
+def _check_simt_wide_plan(d, plan):
+    """The plan covers d: tiles of ``width`` (an instantiated width above
+    256) none empty, the last holding column d - 1; clusters of at most 8
+    that hold every tile; slices of whole 32-column pieces, none empty,
+    that cover d."""
+    n, w, c, sw = plan["tiles"], plan["width"], plan["cluster"], \
+        plan["slice"]
+    assert (n - 1) * w < d <= n * w and w % 64 == 0 and w <= 256
+    if d > tflash.MAX_HEAD_DIM:
+        assert w in tflash.SIMT_WIDE_WIDTHS
+    assert 1 <= c <= tflash.SIMT_WIDE_MAX_CLUSTER and c <= n
+    assert (plan["clusters"] - 1) * c < n <= plan["clusters"] * c
+    assert sw % tflash.SIMT_WIDE_PIECE == 0
+    assert (c - 1) * sw < d <= c * sw
+
+
+@pytest.mark.parametrize("lo", range(257, 4201, 493))
+def test_simt_wide_plan_follows_the_c_source(lo):
+    """``csrc/common.cuh``'s plan of the CUDA-core column tiles (route
+    ``"wide"``: ``simt_wide_col_tiles``, ``simt_wide_tile_width``,
+    ``simt_wide_cluster``, ``simt_wide_clusters``,
+    ``simt_wide_slice_width``, ``simt_wide_kv_tiles``), evaluated from the
+    source, equals its Python twin (``simt_wide_plan``,
+    ``simt_wide_kv_tiles``) at every d from 257 to 4200 (this case's 493 of
+    them) and covers d (``_check_simt_wide_plan``);
+    ``flash_attention_simt_wide.cu`` instantiates the route's kernels at
+    exactly ``SIMT_WIDE_WIDTHS``,
+    forward and backward; decode's plan (``col_tiles``) is not this one's
+    and stays as it was."""
+    common = (CSRC / "common.cuh").read_text()
+    fns = {k: _c_int_fn(common, name) for k, name in SIMT_WIDE_FNS.items()}
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
+    assert (int(const["kSimtWideCols"]), int(const["kSimtWideMaxCluster"]),
+            int(const["kSimtWidePiece"]), int(const["kSimtWideKvRows"])) == (
+        tflash.SIMT_WIDE_COLS, tflash.SIMT_WIDE_MAX_CLUSTER,
+        tflash.SIMT_WIDE_PIECE, tflash.SIMT_WIDE_KV_ROWS)
+    for d in range(lo, min(lo + 493, 4201)):
+        plan = tflash.simt_wide_plan(d)
+        assert {k: fn(d) for k, fn in fns.items()} == plan
+        _check_simt_wide_plan(d, plan)
+        assert tflash.col_tiles(d) == (
+            -(-d // 256), -(-(-(-d // -(-d // 256))) // 16) * 16)
+    src = (CSRC / "flash_attention_simt_wide.cu").read_text()
+    for launch in ("fwd_as", "bwd_as"):
+        cases = {int(x) for x in re.findall(
+            rf"case (\d+):\s+return v4 \? {launch}<T, 4, \1>", src)}
+        assert cases == set(tflash.SIMT_WIDE_WIDTHS)
+    kv = _c_int_fn(common, "simt_wide_kv_tiles")
+    for skv in (1, 31, 32, 33, 256, 333, 4096):
+        assert kv(skv) == tflash.simt_wide_kv_tiles(skv) == -(-skv // 32)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS + [800, 2100, 4200])
+def test_flash_wide_plan_covers_d(d):
+    """Route ``"wide"`` (fp32 above 256, bf16 above 768) plans its column
+    tiles, clusters and slices of d as ``_check_simt_wide_plan`` holds;
+    at 8/1 d 576, b 8, s 256 its dK/dV kernel launches at least one block
+    an SM of the H100 (132), where PR 33's launched 96."""
+    assert tflash.fwd_design(torch.float32, d) == "wide"
+    if d > tflash.TC_WIDE_MAX_HEAD_DIM:
+        assert tflash.fwd_design(torch.bfloat16, d) == \
+            tflash.bwd_design(torch.bfloat16, d) == "wide"
+    plan = tflash.simt_wide_plan(d)
+    _check_simt_wide_plan(d, plan)
+    if d == 576:
+        blocks = tflash.simt_wide_kv_tiles(256) * 1 * 8 * \
+            plan["cluster"] * plan["clusters"]
+        assert blocks >= 132
+
+
+def _wide_slices(d):
+    plan = tflash.simt_wide_plan(d)
+    return plan, [(r * plan["slice"], min(d, (r + 1) * plan["slice"]))
+                  for r in range(plan["cluster"])]
+
+
+def _rank_sum(x, y, slices):
+    """x (..., m, d) y (..., n, d)^T as the cluster computes it: each rank
+    the product over its slice of d, every block summing them in rank
+    order."""
+    tot = None
+    for s0, s1 in slices:
+        part = torch.einsum("...md,...nd->...mn", x[..., s0:s1],
+                            y[..., s0:s1])
+        tot = part if tot is None else tot + part
+    return tot
+
+
+def _heads_first(t, g=1):
+    """(b, s, h, d) -> (b, h g, s, d), each head repeated g times."""
+    return t.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+
+
+def _wide_cluster_forward(q, k, v, causal, scale):
+    """The forward of route ``"wide"`` in fp32, block by block: every
+    column tile of every cluster sums the partial scores of the plan's
+    slices in rank order, runs the online softmax over 64-row kv tiles
+    and accumulates P V over its own columns. Returns out (b, s, hq, d),
+    lse (b, hq, s), and each tile's m and l."""
+    b, sq, hq, d = q.shape
+    skv, g = k.shape[1], hq // k.shape[2]
+    qh, kh, vh = _heads_first(q), _heads_first(k, g), _heads_first(v, g)
+    plan, slices = _wide_slices(d)
+    out = torch.zeros(b, hq, sq, d)
+    rows = torch.arange(sq)[:, None]
+    ms, ls = [], []
+    for ct in range(plan["cluster"] * plan["clusters"]):
+        c0, c1 = ct * plan["width"], min(d, (ct + 1) * plan["width"])
+        m = torch.full((b, hq, sq), -1e30)
+        l = torch.zeros(b, hq, sq)
+        acc = torch.zeros(b, hq, sq, max(c1 - c0, 0))
+        for k0 in range(0, skv, 64):
+            s = _rank_sum(qh, kh[:, :, k0:k0 + 64], slices) * scale
+            cols = torch.arange(k0, min(skv, k0 + 64))[None, :]
+            if causal:
+                s = torch.where(cols > rows, torch.tensor(-1e30), s)
+            m_new = torch.maximum(m, s.max(-1).values)
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            m = m_new
+            acc = alpha[..., None] * acc + p @ vh[:, :, k0:k0 + 64, c0:c1]
+        ms.append(m)
+        ls.append(l)
+        if c0 < d:
+            out[..., c0:c1] = acc / torch.where(l == 0, 1.0, l)[..., None]
+    lse = ms[0] + torch.log(torch.where(ls[0] == 0, 1.0, ls[0]))
+    return out.permute(0, 2, 1, 3), lse, ms, ls
+
+
+WIDE_CLUSTER_HEADS = [(4, 4, 257), (4, 2, 288), (2, 1, 576), (2, 2, 2100)]
+WIDE_CLUSTER_IDS = ["d257", "g2-d288", "g2-d576", "two-clusters-d2100"]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", WIDE_CLUSTER_HEADS, ids=WIDE_CLUSTER_IDS)
+def test_wide_cluster_forward_arithmetic(causal, hq, hkv, d, rng):
+    """The cluster's arithmetic (``_wide_cluster_forward``) in fp32: every
+    column tile, in every cluster (two at d 2100), holds m and l bitwise
+    equal to every other's, so every column is normalised alike; the
+    result matches ``repro.kernels.ref.attention_ref`` and the Pallas
+    kernel in interpret mode within GRAD_TOL of max(1, max-abs), at two
+    64-row q and kv tiles."""
+    b, s = 1, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    out, lse, ms, ls = _wide_cluster_forward(q, k, v, causal, d ** -0.5)
+    assert len(ms) == len(ls) > 1
+    assert all(torch.equal(m, ms[0]) and torch.equal(l, ls[0])
+               for m, l in zip(ms, ls))
+    jq, jk, jv = (jnp.asarray(_np(t)) for t in (q, k, v))
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    pallas = jflash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                    interpret=True)
+    for w in (oracle, pallas):
+        w = np.asarray(w)
+        err = np.abs(_np(out) - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
+    torch.testing.assert_close(lse, tref.attention_lse_ref(
+        q, k, causal=causal), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def _wide_cluster_backward(q, k, v, out, dout, lse, causal, scale):
+    """The backward of route ``"wide"`` in fp32, as its two kernels
+    compute it: the dK/dV blocks sum the partial S^T = K Q^T and dP^T = V
+    dO^T of the plan's slices in rank order, the dQ blocks S = Q K^T and
+    dP = dO V^T likewise; P from the forward's lse, dS = P (dP - delta)
+    with delta over the real d; dV = P^T dO, dK = dS^T Q scale, dQ = dS K
+    scale, each column tile over its own columns."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qh, oh, dh = (_heads_first(t) for t in (q, out, dout))
+    kh, vh = _heads_first(k, g), _heads_first(v, g)
+    plan, slices = _wide_slices(d)
+    delta = (dh * oh).sum(-1)
+    ok = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        ok = torch.arange(skv)[None, :] <= torch.arange(sq)[:, None]
+    st = _rank_sum(kh, qh, slices)                     # S^T (dK/dV blocks)
+    dpt = _rank_sum(vh, dh, slices)
+    pt = torch.where(ok.T, torch.exp(st * scale - lse[..., None, :]), 0.0)
+    dst = pt * (dpt - delta[..., None, :])
+    s = _rank_sum(qh, kh, slices)                      # S (dQ blocks)
+    dp = _rank_sum(dh, vh, slices)
+    p = torch.where(ok, torch.exp(s * scale - lse[..., None]), 0.0)
+    ds = p * (dp - delta[..., None])
+    dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), \
+        torch.zeros_like(vh)
+    for ct in range(plan["tiles"]):
+        c0, c1 = ct * plan["width"], min(d, (ct + 1) * plan["width"])
+        dv[..., c0:c1] = pt @ dh[..., c0:c1]
+        dk[..., c0:c1] = dst @ qh[..., c0:c1] * scale
+        dq[..., c0:c1] = ds @ kh[..., c0:c1] * scale
+
+    def back(t, heads):
+        t = t.reshape(b, heads, -1, *t.shape[2:]).sum(2)
+        return t.permute(0, 2, 1, 3)
+    return dq.permute(0, 2, 1, 3), back(dk, hkv), back(dv, hkv)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", WIDE_CLUSTER_HEADS, ids=WIDE_CLUSTER_IDS)
+def test_wide_cluster_backward_arithmetic(causal, hq, hkv, d, rng):
+    """The backward twin (``_wide_cluster_backward``: partial S^T and dP^T,
+    S and dP, over the plan's slices summed in rank order) on the
+    emulated forward's output and lse matches ``jax.vjp`` of
+    ``repro.kernels.ref.attention_ref`` within GRAD_TOL of max(1,
+    max-abs)."""
+    b, s = 1, 96
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)) for sh in ((b, s, hq, d), (b, s, hkv, d),
+                                (b, s, hkv, d), (b, s, hq, d)))
+    scale = d ** -0.5
+    out, lse, _, _ = _wide_cluster_forward(q, k, v, causal, scale)
+    got = _wide_cluster_backward(q, k, v, out, dout, lse, causal, scale)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(a, b_, c,
+                                                         causal=causal),
+                     *(jnp.asarray(_np(t)) for t in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(_np(dout)))):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        err = np.abs(_np(g) - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
+
+
 @pytest.mark.parametrize("skv", [1, 31, 32, 33, 256, 740, 1024, 1025, 4096,
                                  32768])
 def test_staged_rows_and_decode_split_plan_follow_the_c_source(skv):

@@ -11,19 +11,17 @@ each a fresh process that imports that checkout's ``repro_torch`` and
 cache of 740 and a cache of 4096) and at granite-moe-1b-a400m's, and
 ``chip_smoke._flash_case`` at both models' heads for a 333-token prompt,
 each beside its SDPA time. With ``--above-256`` it times instead the
-flash forward and backward above a head dim of 256 in bf16
-(``chip_smoke._contract_flash_case`` at b 8, s 256, causal: 8/8 d 257,
-8/2 d 288, 8/8 d 512 and 8/1 d 576), each with its design, error, plain
-and SDPA times, and beside them routes those shapes leave: fp32 at 8/8 d
-257, bf16 at 8/8 d 100 (the forward's CUDA cores, the backward's
-``wgmma_staged``), bf16 at 8/8 d 264 (``wgmma_wide`` at d 257's plan and
-heads, no copy) and internlm2's serve flash; the bf16 cases at d 257, 100
-and 264 also with each CUDA kernel's device time a call
-(``chip_smoke.device_us``, torch.profiler: the copies' share), and each
-tree's ptxas registers and spills of the flash kernels above 256 and the
-copies. With ``--contract`` it times the bf16 flash backward where
-the rows are not whole 16-byte chunks (8/8 d 100, 8/2 d 99) and bf16
-decode at gemma-2b's 8/1 d 256 in plain and partial mode
+flash forward and backward on route ``"wide"`` (the CUDA-core column
+tiles: ``chip_smoke._contract_flash_case`` at b 8, s 256, causal, fp32 at
+8/8 d 257, 8/2 d 288, 8/8 d 512 and 8/1 d 576, and bf16 at 8/8 d 800),
+each with its design, error, plain and SDPA times and each CUDA kernel's
+device time a call (``chip_smoke.device_us``, torch.profiler), and beside
+them routes those shapes leave: bf16 at 8/8 d 257 (``wgmma_wide_staged``)
+and 8/2 d 288 (``wgmma_wide``), fp32 at 32/32 d 96 (``simt``) and
+internlm2's serve flash; and each tree's ptxas registers and spills of the
+flash kernels above 256 and the copies. With ``--contract`` it times the
+bf16 flash backward where the rows are not whole 16-byte chunks (8/8 d
+100, 8/2 d 99) and bf16 decode at gemma-2b's 8/1 d 256 in plain and partial mode
 (``chip_smoke._contract_decode_case``: 4 slots, cache 740), each beside
 SDPA and the plain version, and beside them routes those shapes do not
 take: the wgmma backward at 32/32 d 96, the fp32 backward at 8/8 d 100,
@@ -41,13 +39,13 @@ import subprocess
 import sys
 
 
-ABOVE_256 = ((8, 8, 257), (8, 2, 288), (8, 8, 512), (8, 1, 576))
-# (hq, hkv, d, dtype name): routes the cases above leave, timed beside them
-# (bf16 8/8 d 264: d 257's plan and heads on the caller's rows).
-ABOVE_256_BESIDE = ((8, 8, 257, "float32"), (8, 8, 100, "bfloat16"),
-                    (8, 8, 264, "bfloat16"))
-# Kernel-time breakdowns (the copy's share), bf16.
-ABOVE_256_SPLIT = ((8, 8, 257), (8, 8, 100), (8, 8, 264))
+# (hq, hkv, d, dtype name): route "wide", each with its kernels' times.
+ABOVE_256 = ((8, 8, 257, "float32"), (8, 2, 288, "float32"),
+             (8, 8, 512, "float32"), (8, 1, 576, "float32"),
+             (8, 8, 800, "bfloat16"))
+# Routes the cases above leave, timed beside them.
+ABOVE_256_BESIDE = ((8, 8, 257, "bfloat16"), (8, 2, 288, "bfloat16"),
+                    (32, 32, 96, "float32"))
 # (hq, hkv, d, dtype name): the contract cases, then routes they leave.
 CONTRACT_FLASH = ((8, 8, 100, "bfloat16"), (8, 2, 99, "bfloat16"),
                   (32, 32, 96, "bfloat16"), (8, 8, 100, "float32"))
@@ -56,13 +54,11 @@ CONTRACT_DECODE = ((8, 1, 256, "bfloat16"), (8, 1, 250, "bfloat16"),
 KEYS = ("design", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 
 
-def _split_us(cs, kf, hq, hkv, d) -> dict:
-    """Each CUDA kernel's device time a call (µs) of the bf16 forward and
+def _split_us(cs, kf, hq, hkv, d, dtype) -> dict:
+    """Each CUDA kernel's device time a call (µs) of the forward and
     backward on the contract case's inputs."""
-    import torch
-    bf16 = torch.bfloat16
     b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
-    q, k, v, dout = (cs.randn(sh, bf16, i) for i, sh in enumerate((
+    q, k, v, dout = (cs.randn(sh, dtype, i) for i, sh in enumerate((
         (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d))))
     sc = kf._scale(q, None)
     o, lse = kf._kernel_forward(q, k, v, True, sc, with_lse=True)
@@ -83,16 +79,14 @@ def worker_above_256() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": os.getcwd(), "regs": [
         p for p in cs._ptxas_summary(_build.build().ptxas)
-        if re.search(r"wgmma_wide|stage_rows", p)]}
-    cases = [(hq, hkv, d, "bfloat16") for hq, hkv, d in ABOVE_256]
-    for hq, hkv, d, dt in cases + list(ABOVE_256_BESIDE):
+        if re.search(r"wide_kernel|stage_rows", p)]}
+    for hq, hkv, d, dt in ABOVE_256 + ABOVE_256_BESIDE:
         c = cs._contract_flash_case(hq, hkv, d, getattr(torch, dt))
-        row = out[f"flash {hq}/{hkv} d {d}" +
-                  ("" if dt == "bfloat16" else f" {dt}")] = {
+        row = out[f"flash {hq}/{hkv} d {d} {dt}"] = {
             **{k: c[k] for k in KEYS},
             "bwd": {k: c["bwd"][k] for k in KEYS}}
-        if dt == "bfloat16" and (hq, hkv, d) in ABOVE_256_SPLIT:
-            row.update(_split_us(cs, kf, hq, hkv, d))
+        if (hq, hkv, d, dt) in ABOVE_256:
+            row.update(_split_us(cs, kf, hq, hkv, d, getattr(torch, dt)))
     c = cs._flash_case(cs.ARCH, cs.PROMPT_LENS[0], torch.bfloat16)
     out[f"flash {cs.ARCH} sq {cs.PROMPT_LENS[0]}"] = {
         k: c[k] for k in ("ms", "library_ms", "max_abs_err")}

@@ -10,10 +10,13 @@ wrapper's bf16 routes above 256 follow the variant's ``common.cuh``
 predicates, evaluated from its source), with each CUDA kernel's device
 time a call (``chip_smoke.device_us``);
 with ``--decode`` bf16 decode on route ``mma`` (8/1 and 16/16 at
-d 256, 4 slots, cache 740, plain and partial mode).
+d 256, 4 slots, cache 740, plain and partial mode); with ``--wide-f32``
+flash on route ``wide`` (the CUDA-core column tiles) in fp32 at 8/8 d 257,
+8/2 d 288, 8/8 d 512 and 8/1 d 576 and in bf16 at 8/8 d 800, with each
+CUDA kernel's device time a call.
 
-    python3 tools/flash_variants_ab.py [--staged | --wide-staged | --decode]
-        VARIANT_DIR ...
+    python3 tools/flash_variants_ab.py [--staged | --wide-staged | --decode
+        | --wide-f32] VARIANT_DIR ...
 
 Each VARIANT_DIR holds a copy of ``src/repro_torch/csrc``, edited as the
 variant wants. Runs a worker for each
@@ -30,8 +33,8 @@ with a mask beside), the decode wrapper's split-plan constants
 ``common.cuh``. Prints one JSON line a run (with ptxas's registers and
 spills of the ``wgmma_wide`` kernels (and with ``--wide-staged`` the
 copy's), with ``--staged`` of the backward's wgmma and staging kernels,
-with ``--decode`` of ``decode_mma_kernel``) and
-the card's name and power limit.
+with ``--decode`` of ``decode_mma_kernel``, with ``--wide-f32`` of route
+``wide``'s kernels) and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -46,6 +49,10 @@ SHAPES = [(8, 2, 288), (8, 8, 512), (8, 1, 576), (8, 8, 384), (8, 8, 768),
           (8, 8, 448)]      # (hq, hkv, d)
 STAGED_SHAPES = [(8, 8, 100), (8, 2, 99)]
 WIDE_STAGED_SHAPES = [(8, 8, 257), (8, 2, 300), (8, 8, 264)]
+# route "wide": (hq, hkv, d, dtype name)
+WIDE_F32_SHAPES = [(8, 8, 257, "float32"), (8, 2, 288, "float32"),
+                   (8, 8, 512, "float32"), (8, 1, 576, "float32"),
+                   (8, 8, 800, "bfloat16")]
 
 
 def _follow_routes(kf, common: str) -> None:
@@ -115,7 +122,7 @@ def decode_worker(vdir: str) -> None:
 
 
 def worker(vdir: str, staged: bool = False,
-           wide_staged: bool = False) -> None:
+           wide_staged: bool = False, wide_f32: bool = False) -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
@@ -131,21 +138,24 @@ def worker(vdir: str, staged: bool = False,
     out = {"variant": os.path.basename(vdir), "build_s": info.seconds,
            "regs": [p for p in cs._ptxas_summary(info.ptxas)
                     if ("wgmma_kernel<bf16,128" in p or "stage_rows" in p
-                        if staged else "wgmma_wide" in p or
+                        if staged else
+                        "wide_kernel" in p and "wgmma" not in p
+                        if wide_f32 else "wgmma_wide" in p or
                         wide_staged and "flash_stage_rows" in p)]}
 
-    def rnd(shape, seed):
+    def rnd(shape, seed, dtype=torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(seed)
-        return torch.randn(shape, generator=g,
-                           device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     shapes = STAGED_SHAPES if staged else \
-        WIDE_STAGED_SHAPES if wide_staged else SHAPES
-    for hq, hkv, d in shapes:
+        WIDE_STAGED_SHAPES if wide_staged else \
+        WIDE_F32_SHAPES if wide_f32 else SHAPES
+    for hq, hkv, d, *dt in shapes:
         b, s = 8, 256
-        q, k, v = rnd((b, s, hq, d), 0), rnd((b, s, hkv, d), 1), \
-            rnd((b, s, hkv, d), 2)
-        do = rnd((b, s, hq, d), 3)
+        dtype = getattr(torch, dt[0]) if dt else torch.bfloat16
+        q, k, v = rnd((b, s, hq, d), 0, dtype), \
+            rnd((b, s, hkv, d), 1, dtype), rnd((b, s, hkv, d), 2, dtype)
+        do = rnd((b, s, hq, d), 3, dtype)
         sc = d ** -0.5
         o, lse = kf._kernel_forward(q, k, v, True, sc, with_lse=True)
         err = (o.float() - kf.plain(q, k, v).float()).abs().max().item()
@@ -154,15 +164,16 @@ def worker(vdir: str, staged: bool = False,
         berr = max(((a.float() - c.float()).abs().max() /
                     (1 + c.float().abs().max())).item()
                    for a, c in zip(got, want))
-        out[f"{hq}/{hkv} d{d}"] = {
+        name = f"{hq}/{hkv} d{d}" + (f" {dt[0]}" if dt else "")
+        out[name] = {
             "fwd_ms": cs.time_ms(lambda: kf._kernel_forward(q, k, v, True,
                                                             sc)),
             "bwd_ms": cs.time_ms(lambda: kf._kernel_backward(
                 q, k, v, o, do, lse, True, sc), 5),
             "fwd_err": err, "bwd_rel": berr}
-        if wide_staged:
-            out[f"{hq}/{hkv} d{d}"].update(
-                design=kf.fwd_design(torch.bfloat16, d),
+        if wide_staged or wide_f32:
+            out[name].update(
+                design=kf.fwd_design(dtype, d),
                 fwd_kernel_us=cs.device_us(lambda: kf._kernel_forward(
                     q, k, v, True, sc)),
                 bwd_kernel_us=cs.device_us(lambda: kf._kernel_backward(
@@ -172,13 +183,15 @@ def worker(vdir: str, staged: bool = False,
 
 def main() -> None:
     flags = [a for a in sys.argv[1:]
-             if a in ("--staged", "--wide-staged", "--decode")]
+             if a in ("--staged", "--wide-staged", "--decode",
+                      "--wide-f32")]
     args = [a for a in sys.argv[1:] if a not in flags]
     if args[0] == "--worker":
         if "--decode" in flags:
             decode_worker(args[1])
         else:
-            worker(args[1], "--staged" in flags, "--wide-staged" in flags)
+            worker(args[1], "--staged" in flags, "--wide-staged" in flags,
+                   "--wide-f32" in flags)
         return
     dirs = args
     for vdir in dirs + dirs[::-1]:
