@@ -44,7 +44,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 backward at b 8, s 256, causal, at 32/32 heads d 96
                 (phi-3-mini) and d 80 (phi-2), 8/1 d 256 (gemma-2b), 8/8
                 d 100 and 8/2 d 99 (rows not whole 16-byte chunks in
-                bf16: the backward's "wgmma_staged" route), and above
+                bf16: route "wgmma_staged", forward and backward; fp32
+                below 257 route "wide" at one tile), and above
                 256 on the column-tile kernels: 8/8 d 257 (in bf16 route
                 "wgmma_wide_staged", flash_attention_wide.cu on copies
                 in 16-byte rows), 8/2 d 288, 8/8 d 512, 8/1 d 576;
@@ -280,8 +281,8 @@ their library call's backward timed through autograd (``F.rms_norm``,
 ``F.scaled_dot_product_attention``; none computes the SSD), and ssd_scan's
 forward at the training shape. Each flash and SSD backward case names its
 route (``design``: the wgmma kernels for bf16 at d 64, 128 and 160, the
-CUDA-core ones otherwise, and in the contract phase ``wgmma_staged``,
-``wgmma_wide`` and ``wgmma_wide_staged``; the
+CUDA-core tiles of route ``wide`` in fp32, and in the contract phase
+``wgmma_staged``, ``wgmma_wide`` and ``wgmma_wide_staged``; the
 SSD backward's tensor-core kernels for bf16 at n <= 128, p <= 64, the
 CUDA-core ones otherwise); a bf16 SSD backward
 case also holds the CUDA-core design to the same checks on the same
@@ -564,8 +565,10 @@ SOURCES = {
 # D 256).
 WGMMA_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
 # Its CUDA-core column tiles above 256 (route "wide": fp32, and bf16 above
-# 768) in a third, compiled in parallel with the other two.
+# 768) in a third, and route "wide" at one tile (fp32 at d 33-256) in a
+# fourth, each compiled in parallel with the others.
 SIMT_WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_simt_wide.cu"
+SIMT_TILE_SOURCE = "src/repro_torch/csrc/flash_attention_simt_tile.cu"
 DECODE_MMA_SOURCE = "src/repro_torch/csrc/decode_attention_tc.cu"
 
 
@@ -732,7 +735,8 @@ def _ptxas_summary(lines):
                              r"rmsnorm_dw_kernel|flash_fwd_wgmma_kernel|"
                              r"flash_fwd_wgmma_wide_kernel|"
                              r"flash_fwd_simt_kernel|flash_fwd_wide_kernel|"
-                             r"flash_bwd_\w+_kernel|flash_stage_rows_kernel|"
+                             r"flash_bwd_\w+_kernel|"
+                             r"flash_stage_rows(?:_group)?_kernel|"
                              r"decode_split_kernel|decode_wide_kernel|"
                              r"decode_mma_kernel|"
                              r"ssd_tc_states_kernel|ssd_tc_pass_kernel|"
@@ -766,8 +770,10 @@ def _main_path_patterns() -> list:
     kernel (the kernels phase times it), the
     training paths' flash backward kernels at internlm2's and
     stablelm-12b's head dims (128, 160) in bf16 (the wgmma design), the
-    flash backward's CUDA-core kernels in fp32 at those head dims (the
-    train_parity paths), the SSD backward's three tensor-core kernels in
+    flash forward and backward of route ``wide`` at one tile in fp32 at
+    those head dims (widths 128 and 192: the parity and train_parity
+    paths) with delta's pass and the parts' sum, the SSD backward's three
+    tensor-core kernels in
     bf16 (mamba2's
     training path) and its four CUDA-core kernels in fp32 (its
     train_parity path) and in bf16 (the shapes the tensor-core design
@@ -778,10 +784,16 @@ def _main_path_patterns() -> list:
     each load width), the backward's staged wgmma kernels at
     every padded D with their staging copies (each load width), and the
     tensor-core decode (``decode_mma_kernel``), which the contract phase
-    runs, and the CUDA-core column tiles above 256 (route ``wide``: fp32,
-    and bf16 above 768; forward, dK/dV and dQ at both tile widths, with
-    16-byte and element copies): no model path reaches them, but they are
-    held to no spill all the same."""
+    runs, the staged forward (``flash_fwd_wgmma_kernel`` in its kStaged
+    instantiation at every padded D), and every instantiation of route
+    ``wide`` (``SIMT_WIDE_KERNELS``: fp32 at one tile of 64-256, which the
+    contract models' parity paths run at 64, 96 and 256, and the column
+    tiles above 256; forward, dK/dV and dQ, with 16-byte and element
+    copies), and route ``simt`` (d up to 32: ``flash_fwd_simt_kernel``,
+    ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel`` at D 16 and 32,
+    both dtypes, unpadded and padded; the contract phase runs d 32 and
+    17): no other model path reaches them, but they are held to no spill
+    all the same."""
     pats = [r"ssd_tc_states_kernel<bf16>", r"ssd_tc_pass_kernel<bf16>",
             r"ssd_tc_outputs_kernel<bf16>", r"ssd_scan_simt_kernel<\w+>",
             r"rmsnorm_dw_kernel<f32>",
@@ -810,8 +822,11 @@ def _main_path_patterns() -> list:
         pats += [rf"flash_bwd_preprocess_kernel<bf16,{hd}>"]
         pats += [rf"flash_bwd_{k}_kernel<bf16,{hd},0>"
                  for k in ("dkdv_wgmma", "dq_wgmma")]
-        pats += [rf"flash_bwd_preprocess_kernel<f32,{hd}>"]
-        pats += [rf"flash_bwd_{k}_kernel<f32,{hd},0>" for k in ("dkdv", "dq")]
+        tw = kflash.simt_wide_plan(hd)["width"]
+        pats += [rf"flash_{k}_wide_kernel<f32,4,{tw},{kflash.ONE_TILE}>"
+                 for k in ("fwd", "bwd_dkdv", "bwd_dq")]
+    pats += [r"flash_bwd_preprocess_rows_kernel<f32>",
+             r"flash_bwd_parts_sum_kernel<f32>"]
     for arch in PATH_KERNELS:
         cfg = get_config(arch)
         vec, nv, wpr, _ = krms.plan(1, cfg.d_model, 2, True)
@@ -830,11 +845,18 @@ def _main_path_patterns() -> list:
     pats += [rf"flash_stage_rows_kernel<bf16,{w}>" for w in (1, 2, 4)]
     pats += [rf"flash_bwd_{k}_wgmma_kernel<bf16,{n},1>"
              for k in ("dkdv", "dq") for n in (64, 128, 160, 256)]
-    pats += [rf"flash_bwd_stage_rows_kernel<bf16,{w}>" for w in (1, 2, 4)]
+    pats += [rf"flash_stage_rows_group_kernel<bf16,{w}>" for w in (1, 2, 4)]
+    pats += [rf"flash_fwd_wgmma_kernel<bf16,{n},2>"
+             for n in (64, 128, 160, 256)]
     pats.append(r"decode_mma_kernel<bf16>")
-    pats += [rf"flash_{k}_wide_kernel<{dt},{vec},{tw}>"
-             for k in ("fwd", "bwd_dkdv", "bwd_dq") for dt in ("f32", "bf16")
-             for vec in (1, 4) for tw in kflash.SIMT_WIDE_WIDTHS]
+    label = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    pats += [rf"flash_{k}_wide_kernel<{label[dt]},{vec},{tw},{mode}>"
+             for k in ("fwd", "bwd_dkdv", "bwd_dq")
+             for dt, vec, tw, mode in kflash.SIMT_WIDE_KERNELS]
+    pats.append(r"flash_bwd_parts_sum_kernel<bf16>")
+    pats += [rf"flash_{k}_kernel<{dt},{n},{pad}>"
+             for k in ("fwd_simt", "bwd_dkdv", "bwd_dq")
+             for dt in ("bf16", "f32") for n in (16, 32) for pad in (0, 1)]
     return pats
 
 
@@ -1396,8 +1418,9 @@ def phase_kernels() -> dict:
 # The contract phase: shapes the Pallas kernels compute and no model path
 # above runs. Head dims off the instantiated set (phi-3-mini's 96, phi-2's
 # 80, gemma-2b's 256, and 100 and 99, whose bf16 rows are not whole 16-byte
-# chunks: the backward's staged route, at an even and an odd d), falcon-7b's
-# group of 71 q heads on one kv head, d_state 512.
+# chunks: the staged route, at an even and an odd d), the CUDA-core route
+# "simt" at d 32 and 17 (its only head dims, both dtypes: d == D and
+# padded), falcon-7b's group of 71 q heads on one kv head, d_state 512.
 # ---------------------------------------------------------------------------
 CONTRACT_PATH = "contract phase"
 # Above 256 (the column-tile kernels): d 257 (rows not whole 16-byte
@@ -1407,8 +1430,8 @@ CONTRACT_PATH = "contract phase"
 # tensor cores); decode at a group of 16 at d 512 and the absorbed MLA
 # decode of DeepSeek-V2/V3 (128 q heads on one latent head of 512 + 64).
 CONTRACT_FLASH = ((32, 32, 96), (32, 32, 80), (8, 1, 256), (8, 8, 100),
-                  (8, 2, 99), (8, 8, 257), (8, 2, 288), (8, 8, 512),
-                  (8, 1, 576))
+                  (8, 2, 99), (8, 2, 32), (8, 2, 17), (8, 8, 257),
+                  (8, 2, 288), (8, 8, 512), (8, 1, 576))
 CONTRACT_DECODE = ((71, 1, 64), (8, 1, 256), (32, 32, 96), (16, 1, 512),
                    (128, 1, 576))
 CONTRACT_SSD = (1, 512, 8, 64, 512)        # b, s, h, p, n
@@ -1665,7 +1688,8 @@ def _contract_rows(contract: dict) -> list:
                 source = WGMMA_WIDE_SOURCE
             if x.get("design") == "wide" and \
                     x["kernel"].startswith("flash_attention"):
-                source = SIMT_WIDE_SOURCE
+                source = SIMT_TILE_SOURCE if c["plan"]["tiles"] == 1 \
+                    else SIMT_WIDE_SOURCE
             if x["kernel"] == "decode_attention" and x["design"] == "mma":
                 source = DECODE_MMA_SOURCE
             rows.append({
@@ -1707,7 +1731,7 @@ def phase_contract(smi: str) -> dict:
         timed(_contract_ssd_case, dtype)
     ptxas = [p for p in _ptxas_summary(_build.build().ptxas)
              if re.search(r"<\w+,256|,1>|flash_bwd_preprocess_rows|"
-                          r"flash_bwd_stage_rows|flash_stage_rows|decode_mma|"
+                          r"flash_stage_rows|decode_mma|"
                           r"ssd_scan_simt|ssd_bwd_local|wide|stream", p)]
     emit({"phase": "contract", "tolerance": {
         "bfloat16": KERNEL_TOL[torch.bfloat16],

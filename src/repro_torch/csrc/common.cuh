@@ -70,23 +70,37 @@ __host__ __device__ inline int wide_tile_width(int d) {
   return ((d + n - 1) / n + 15) / 16 * 16;
 }
 
-// fp32 above 256, and bf16 above kTcWideMaxDim: the CUDA-core column tiles
-// of flash_attention.cu (namespace wide), forward and backward. The
-// output's d columns in simt_wide_col_tiles(d) tiles of equal width
-// rounded up to a 64-column multiple (192 or 256 above 256), a block a
-// tile, the last cut at d. The tiles of one (row tile, head, batch) run as
-// clusters of simt_wide_cluster(d) blocks (at most kSimtWideMaxCluster,
-// the portable cluster size; simt_wide_clusters(d) clusters, padded with
-// blocks past d that store nothing): block r of a cluster computes the
-// partial scores over slice r of d, simt_wide_slice_width(d) columns (a
-// multiple of kSimtWidePiece, half a staged piece; the last cut at d), and
-// every block sums the cluster's partials in rank order. The dK/dV
-// kernel's blocks take kSimtWideKvRows kv rows each (simt_wide_kv_tiles),
-// so that one kv head at a few hundred tokens fills the card.
+// fp32 above kSimtMaxDim, and bf16 above kTcWideMaxDim: the CUDA-core
+// tiles of flash_attention_simt_wide.cuh (route "wide"), forward and
+// backward; the CUDA-core kernels of flash_attention.cu serve the rest of
+// d up to kSimtMaxDim, in both dtypes.
+constexpr int kSimtMaxDim = 32;
+
+// The output's d columns in simt_wide_col_tiles(d) tiles of equal width
+// rounded up to a 64-column multiple (64-256; one tile up to 256, of 192 or
+// 256 above), a block a tile, the last cut at d. Above 256 the tiles of one
+// (row tile, head, batch) run as clusters of simt_wide_cluster(d) blocks
+// (at most kSimtWideMaxCluster, the portable cluster size;
+// simt_wide_clusters(d) clusters, padded with blocks past d that store
+// nothing): block r of a cluster computes the partial scores over slice r
+// of d, simt_wide_slice_width(d) columns (a multiple of kSimtWidePiece,
+// half a staged piece; the last cut at d), and every block sums the
+// cluster's partials in rank order. A block keeps its X rows over its slice
+// resident (simt_wide_resident) at one tile, and above it where its copies
+// are element copies (d % 4 != 0, where staging X with every piece is
+// dear) and the slice is no wider than a tile (up to 8 tiles); else X is
+// staged with every piece. The dK/dV kernel's blocks take kSimtWideKvRows
+// kv rows each (simt_wide_kv_tiles); where they are fewer than one wave
+// (kSimtWideWave, an SM of the H100 each), each splits its walk over the
+// group's q heads into simt_wide_kv_parts parts, a block each, enough for
+// kSimtWideFillBlocks blocks (two waves), whose fp32 sums are added in
+// part order after.
 constexpr int kSimtWideCols = 256;
 constexpr int kSimtWideMaxCluster = 8;
 constexpr int kSimtWidePiece = 32;
 constexpr int kSimtWideKvRows = 32;
+constexpr int kSimtWideWave = 132;
+constexpr int kSimtWideFillBlocks = 264;
 
 __host__ __device__ inline int simt_wide_col_tiles(int d) {
   return (d + kSimtWideCols - 1) / kSimtWideCols;
@@ -114,6 +128,22 @@ __host__ __device__ inline int simt_wide_slice_width(int d) {
 
 __host__ __device__ inline int simt_wide_kv_tiles(int skv) {
   return (skv + kSimtWideKvRows - 1) / kSimtWideKvRows;
+}
+
+__host__ __device__ inline bool simt_wide_resident(int d) {
+  return d % 4 != 0 && simt_wide_slice_width(d) <= simt_wide_tile_width(d)
+             ? 1 : simt_wide_col_tiles(d) == 1;
+}
+
+// Parts of the dK/dV walk, given the blocks one part takes and the group
+// g: enough for kSimtWideFillBlocks blocks, at most g.
+__host__ __device__ inline int simt_wide_kv_fill(int blocks, int g) {
+  return (kSimtWideFillBlocks + blocks - 1) / blocks < g
+             ? (kSimtWideFillBlocks + blocks - 1) / blocks : g;
+}
+
+__host__ __device__ inline int simt_wide_kv_parts(int blocks, int g) {
+  return blocks >= kSimtWideWave ? 1 : simt_wide_kv_fill(blocks, g);
 }
 
 // bf16 above 256 where the rows are whole 16-byte chunks (the TMA maps'
@@ -148,9 +178,9 @@ __host__ __device__ inline int tc_wide_fwd_col_tiles(int d) {
 }
 
 // bf16 from 33 to 256 where a row is not whole 16-byte chunks: the flash
-// backward's staged route (flash_attention.cu), which copies Q, K, V and dO
-// into rows of staged_ld(d) elements, the least multiple of 8 at or above d,
-// and runs the tensor-core kernels on them.
+// forward's and backward's staged route (flash_attention.cu), which copies
+// Q, K, V (and dO) into rows of staged_ld(d) elements, the least multiple
+// of 8 at or above d, and runs the tensor-core kernels on them.
 __host__ __device__ inline bool staged_route(int d) {
   return d > 32 && d <= 256 && d % 8 != 0;
 }
@@ -164,6 +194,11 @@ __host__ __device__ inline int staged_ld(int d) { return (d + 7) / 8 * 8; }
 // tc_wide_route's d.
 __host__ __device__ inline bool tc_wide_staged_route(int d) {
   return d > 256 && d <= kTcWideMaxDim && d % 8 != 0;
+}
+
+// Route "wide" (f32: 1 for fp32, 0 for bf16), forward and backward.
+__host__ __device__ inline bool simt_wide_route(int f32, int d) {
+  return f32 ? d > kSimtMaxDim : d > kTcWideMaxDim;
 }
 
 // bf16 decode at the padded head dim 256 where d is whole 16-byte chunks

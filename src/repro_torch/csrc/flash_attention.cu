@@ -5,21 +5,24 @@
 // (_fa_kernel), whose grid walks 128x128 q/kv tiles in order and carries the
 // running max, sum and accumulator in VMEM scratch across the kv axis.
 //
-// Any head dim d from 1 to 256 (the Pallas kernel takes any d): each call
-// runs at a padded D, the least of 16, 32, 64, 128, 160 and 256 at or
-// above d (padded_dim). Q and K columns d..D - 1 come in as zeros, so
-// Q.K^T is unchanged; V's give output columns that are never stored; the
-// scale is the caller's (1 / sqrt(d) of the real d). Above 256 (the
-// Pallas kernel takes any d), at the real d: bf16 up to kTcWideMaxDim on
-// the tensor-core column tiles of flash_attention_wide.cu, forward and
+// Any head dim d from 1 to 256 (the Pallas kernel takes any d): the
+// kernels of this file run at a padded D, the least of 16, 32, 64, 128, 160
+// and 256 at or above d (padded_dim). Q and K columns d..D - 1 come in as
+// zeros, so Q.K^T is unchanged; V's give output columns that are never
+// stored; the scale is the caller's (1 / sqrt(d) of the real d). Above 256
+// (the Pallas kernel takes any d), at the real d: bf16 up to kTcWideMaxDim
+// on the tensor-core column tiles of flash_attention_wide.cu, forward and
 // backward, on the caller's rows where tc_wide_route holds (d a multiple of
 // 8) and where tc_wide_staged_route holds (the other d) on copies in rows
 // of staged_ld(d) elements made by flash_stage_rows_kernel (namespace
-// stage, below); fp32, and bf16 above kTcWideMaxDim, on the CUDA-core
-// column tiles of flash_attention_simt_wide.cu.
+// stage, below). Where simt_wide_route holds (fp32 above kSimtMaxDim, 32,
+// and bf16 above kTcWideMaxDim), route "wide": the CUDA-core tiles of
+// flash_attention_simt_wide.cuh, one tile up to 256
+// (flash_attention_simt_tile.cu), column tiles as clusters above
+// (flash_attention_simt_wide.cu), at the real d.
 //
-// Up to 256, two hand-written kernels serve the forward, chosen by dtype
-// and head dim (the backward adds a staged route, below):
+// Up to 256 in bf16, and up to 32 in fp32, three routes serve the forward
+// and the backward alike, chosen by dtype and head dim:
 //
 // * flash_fwd_wgmma_kernel: bf16 where d is a multiple of 8 above 32
 //   (tc_route; the TMA maps' row stride must be a multiple of 16 bytes):
@@ -51,8 +54,12 @@
 //   the same one warpgroup: its 128 O accumulators beside the 32 of S and
 //   P's 16 packed registers fit one thread's 255; Q and the two-stage K/V
 //   ring take 161 KB.
-// * flash_fwd_simt_kernel: fp32 at every d (137 KB of shared memory at D
-//   160, 209 KB at 256), and bf16 where tc_route does not hold. fp32
+// * the same kernel in its kStaged instantiation: bf16 where staged_route
+//   holds (d from 33 to 256, not a multiple of 8: the rows are not whole
+//   16-byte chunks, so no TMA map can read them), on copies of Q, K and V
+//   in rows of staged_ld(d) elements made by flash_stage_rows_group_kernel
+//   (namespace stage), the output stored column by column at the real d.
+// * flash_fwd_simt_kernel: both dtypes at d up to 32 (D 16 and 32). fp32
 //   products on the CUDA cores: full fp32 products are what the fp32 path
 //   is checked for (1e-4), which TF32 tensor cores would not hold. One
 //   block of 256 threads per (q tile of 64 rows, q head, batch); it stages
@@ -77,8 +84,9 @@
 //   dQ = dS K * scale.
 // flash_bwd_preprocess_kernel writes delta (16-byte loads, up to 32 lanes
 // a row, delta_lanes; at a d below its D, flash_bwd_preprocess_rows_kernel,
-// a warp a row, sums over the real d), then one of three routes, chosen by
-// dtype and head dim, at the forward's padded D:
+// a warp a row, sums over the real d), then one of three routes, the
+// forward's, at its padded D (route "wide" after
+// flash_bwd_preprocess_rows_kernel):
 // * bf16 where tc_route holds (the training paths at d 64, 128 and 160):
 //   flash_bwd_dkdv_wgmma_kernel,
 //   one warpgroup a (kv tile of 64, kv head, batch), causal kv tile 0
@@ -108,7 +116,8 @@
 //   of shared memory.
 // * bf16 where staged_route holds (d from 33 to 256, not a multiple of 8:
 //   the rows are not whole 16-byte chunks, so no TMA map can read them):
-//   flash_bwd_stage_rows_kernel copies Q, K, V and dO into a scratch of
+//   flash_stage_rows_group_kernel (namespace stage; the forward's copy with
+//   dO) copies Q, K, V and dO into a scratch of
 //   rows staged_ld(d) elements long (the least multiple of 8), columns past
 //   d zero, in loads of the widest width the row alignment allows (8, 4 or
 //   2 bytes), and writes delta over the real d from the dO rows it copies
@@ -122,7 +131,7 @@
 //   The copy moves the four inputs twice more (26.8 MB at 8/8 heads, d
 //   100, b 8, s 256); the CUDA-core kernels it replaces there ran full
 //   fp32 products.
-// * fp32 at every d, and bf16 where neither route above holds (d <= 32):
+// * both dtypes at d up to 32 (D 16 and 32):
 //   flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, fp32 products on the
 //   CUDA cores, the same split: one block of 256 threads a (kv tile, kv
 //   head, batch) and a (q tile, q head, batch). Tiles are staged in
@@ -130,9 +139,7 @@
 //   conflicts; each thread owns a 4 x 4 patch of the score tile and a
 //   4-row, d / 16-column patch of its accumulators, as the forward's SIMT
 //   kernel. Full fp32 products are what the fp32
-//   path is checked for (1e-5), which TF32 would not hold. At D 256 the
-//   streamed tiles (q in the dK/dV kernel, kv in the dQ one) are 32 rows
-//   (stream_rows), so the fp32 tiles fit a block's shared memory.
+//   path is checked for (1e-5), which TF32 would not hold.
 // Bound: causal, the five products over the (query, key) pairs on or
 // below the diagonal: 5 x 2 x d flops a pair and head, 5.4 GFLOP at b 8,
 // s 256, 16 heads, d 128, against the bytes the call must move (q, k, v,
@@ -140,10 +147,9 @@
 // on the H100, at 0.0151 ms. The kernels run 7 products (S and dP twice)
 // over whole 64 x 64 tiles, 9.4 GFLOP.
 //
-// Above a head dim of 256, where neither tc_wide_route nor
-// tc_wide_staged_route holds (fp32, and bf16 above kTcWideMaxDim): the
-// CUDA-core column tiles of flash_attention_simt_wide.cu (namespace wide),
-// after flash_bwd_preprocess_rows_kernel for the backward's delta.
+// Where simt_wide_route holds (fp32 above 32, bf16 above kTcWideMaxDim):
+// route "wide" (namespace wide, flash_attention_simt_wide.cu), after
+// flash_bwd_preprocess_rows_kernel for the backward's delta.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -232,7 +238,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
+#pragma unroll 4  // 8 spilled 16 B at bf16, D 16, kPad
     for (int c = 0; c < D; ++c) {
       float qv[kRows], kv[kCols];
 #pragma unroll
@@ -320,28 +326,21 @@ int launch_simt_as(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Head dims the CUDA-core kernels took before any padding (fp32 at 16 to
-// 160, bf16 at 16 and 32): called at d == D, they keep their unpadded
-// instantiation; every other d runs the padded one.
-template <typename T, int D>
-constexpr bool unpadded_simt() {
-  return sizeof(T) == 4 ? D <= 160 : D <= 32;
-}
-
+// Called at d == D (16, 32) the unpadded instantiation, else the padded
+// one.
 template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 float* lse, int b, int sq, int skv, int hq, int hkv, int d,
                 float scale, int causal, cudaStream_t stream) {
-  if constexpr (unpadded_simt<T, D>()) {
-    if (d == D)
-      return launch_simt_as<T, D, false>(q, k, v, o, lse, b, sq, skv, hq,
-                                         hkv, d, scale, causal, stream);
-  }
+  if (d == D)
+    return launch_simt_as<T, D, false>(q, k, v, o, lse, b, sq, skv, hq, hkv,
+                                       d, scale, causal, stream);
   return launch_simt_as<T, D, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, d,
                                     scale, causal, stream);
 }
 
-// The CUDA-core forward at head dim d, instantiated at its padded D.
+// The CUDA-core forward at head dim d up to kSimtMaxDim, instantiated at
+// its padded D (16 or 32).
 template <typename T>
 int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
                   float* lse, int b, int sq, int skv, int hq, int hkv,
@@ -349,10 +348,6 @@ int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
   switch (padded_dim(d)) {
     case 16: return launch_simt<T, 16>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
     case 32: return launch_simt<T, 32>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 64: return launch_simt<T, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 128: return launch_simt<T, 128>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 160: return launch_simt<T, 160>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
-    case 256: return launch_simt<T, 256>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -439,9 +434,14 @@ __device__ __forceinline__ void mma_rb(float (&acc)[N / 2],
                 desc_sw128(b + kk * 16 * 64, kBox * sizeof(bf16), 1024));
 }
 
-// kPad: d below D (or D 256), read at run time for the stores; else d is
-// D, as before there was padding.
-template <int D, bool kPad>
+// kMode: kUnpadded, d is D, as before there was padding; kPadded, d below
+// D (or D 256), read at run time for the stores; kStaged (staged_route),
+// the maps read the staged rows and the output is stored column by column
+// at the real d (4-byte pairs where d is even, else 2-byte stores), since
+// an 8-column chunk past d would run into the next head.
+constexpr int kUnpadded = 0, kPadded = 1, kStaged = 2;
+
+template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -449,7 +449,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        bf16* __restrict__ o, float* __restrict__ lse, int b,
                        int sq, int skv, int hq, int hkv, int d_arg,
                        int n_qtiles, float scale_log2, int causal) {
-  const int d = kPad ? d_arg : D;
+  const int d = kMode != kUnpadded ? d_arg : D;
   constexpr int NB = boxes<D>();  // 64-column boxes per row
   constexpr int NP = 64 * NB;     // P.V's N: D, or 160 padded to 192
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -609,33 +609,49 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     bf16* orow = o + ((static_cast<size_t>(bb) * sq + row) * hq + h) * d;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
-      if (8 * jj >= d) break;   // d is a multiple of 8
-      *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
-          pack_bf16(acc[4 * jj + 2 * half] * inv,
-                    acc[4 * jj + 2 * half + 1] * inv);
+      if constexpr (kMode == kStaged) {
+        const int c = 8 * jj + col_t;
+        const float x0 = acc[4 * jj + 2 * half] * inv;
+        const float x1 = acc[4 * jj + 2 * half + 1] * inv;
+        if (d % 2 == 0) {
+          if (c < d)
+            *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(x0, x1);
+        } else {
+          if (c < d) orow[c] = __float2bfloat16(x0);
+          if (c + 1 < d) orow[c + 1] = __float2bfloat16(x1);
+        }
+      } else {
+        if (8 * jj >= d) break;   // d is a multiple of 8
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj + col_t) =
+            pack_bf16(acc[4 * jj + 2 * half] * inv,
+                      acc[4 * jj + 2 * half + 1] * inv);
+      }
     }
   }
 }
 
-template <int D, bool kPad>
+// q, k, v: the caller's tensors, or with kStaged their staged copies, rows
+// `ld` elements apart (d where ld is 0).
+template <int D, int kMode>
 int launch_as(const void* q, const void* k, const void* v, void* o,
               float* lse, int b, int sq, int skv, int hq, int hkv, int d,
-              float scale, int causal, cudaStream_t stream) {
+              float scale, int causal, cudaStream_t stream, int ld = 0) {
   // Encoded on every call: the maps hold the tensors' pointers, and as
   // __grid_constant__ parameters a CUDA graph records them by value. Their
   // rows are the real d: the boxes' columns past it come in as zeros.
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, b, sq, hq, d) || !make_map(&tk, k, b, skv, hkv, d) ||
-      !make_map(&tv, v, b, skv, hkv, d))
+  if (!make_map(&tq, q, b, sq, hq, d, ld) ||
+      !make_map(&tk, k, b, skv, hkv, d, ld) ||
+      !make_map(&tv, v, b, skv, hkv, d, ld))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D, kPad>,
+      flash_fwd_wgmma_kernel<D, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (sq + kBQ - 1) / kBQ;
   const dim3 grid(n_qtiles * hq * b);
-  flash_fwd_wgmma_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_wgmma_kernel<D, kMode><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, b, sq, skv, hq, hkv, d,
       n_qtiles, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
@@ -649,44 +665,33 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int causal, cudaStream_t stream) {
   if constexpr (D <= 160) {
     if (d == D)
-      return launch_as<D, false>(q, k, v, o, lse, b, sq, skv, hq, hkv, d,
-                                 scale, causal, stream);
+      return launch_as<D, kUnpadded>(q, k, v, o, lse, b, sq, skv, hq, hkv, d,
+                                     scale, causal, stream);
   }
-  return launch_as<D, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, scale,
-                            causal, stream);
+  return launch_as<D, kPadded>(q, k, v, o, lse, b, sq, skv, hq, hkv, d,
+                               scale, causal, stream);
 }
 
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Backward: CUDA-core kernels, fp32 products: fp32 at d 16 to 160, bf16
-// at 16 or 32.
+// Backward: CUDA-core kernels, fp32 products, at D 16 and 32 (both dtypes
+// up to kSimtMaxDim).
 // ---------------------------------------------------------------------------
 namespace bwd {
 
-constexpr int kB = 64;          // rows of a block's fixed tile
+constexpr int kB = 64;          // rows of a tile, fixed or streamed
 constexpr int kThreads = 256;   // 16 row groups x 16 lanes
 constexpr int kR = 4;           // tile rows a thread (kB / 16)
 
-// Rows of the tiles a block streams (q tiles in the dK/dV kernel, kv tiles
-// in the dQ kernel): 64 up to d 160, 32 at 256, where four 64-row fp32
-// tiles of 257 words a row (263 KB) would not fit a block's 227 KB; the
-// score tile is then 64 x 32, two columns a thread.
-template <int D>
-__host__ __device__ constexpr int stream_rows() {
-  return D > 160 ? 32 : 64;
-}
-
 template <int D>
 constexpr size_t dkdv_smem() {  // K, V, Q, dO tiles; P, dS; lse, delta
-  constexpr size_t S = stream_rows<D>();
-  return sizeof(float) * (2 * (kB + S) * (D + 1) + 2 * kB * (S + 1) + 2 * S);
+  return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB);
 }
 
 template <int D>
 constexpr size_t dq_smem() {    // Q, dO, K, V tiles; dS
-  constexpr size_t S = stream_rows<D>();
-  return sizeof(float) * (2 * (kB + S) * (D + 1) + kB * (S + 1));
+  return sizeof(float) * (4 * kB * (D + 1) + kB * (kB + 1));
 }
 
 // Rows r < R of a (batch, rows, heads, d) tensor from row0, head h, as
@@ -798,7 +803,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = kPad ? d_arg : D;   // as the forward's
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
-  constexpr int QB = stream_rows<D>();   // q rows a streamed tile
+  constexpr int QB = kB;                 // q rows a streamed tile
   constexpr int kC = QB / 16;            // score columns a thread
   constexpr int kLS = QB + 1;            // row stride of P and dS
   extern __shared__ float smem[];
@@ -938,7 +943,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = kPad ? d_arg : D;
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
-  constexpr int KB = stream_rows<D>();   // kv rows a streamed tile
+  constexpr int KB = kB;                 // kv rows a streamed tile
   constexpr int kC = KB / 16;            // score columns a thread
   constexpr int kLS = KB + 1;            // row stride of dS
   extern __shared__ float smem[];
@@ -1048,7 +1053,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// delta at any d, one warp a row (the routes above 256).
+// delta at any d, one warp a row (route "wide" and the wgmma routes above
+// 256).
 template <typename T>
 cudaError_t preprocess_rows(const void* o, const void* dout, float* delta,
                             int b, int sq, int hq, int d,
@@ -1117,52 +1123,329 @@ int launch_as(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The unpadded instantiation at the head dims it took before (as the
-// forward's launch_simt), the padded one at every other d.
+// The unpadded instantiation at d == D (as the forward's launch_simt), the
+// padded one at every other d.
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
            int d, float scale, int causal, cudaStream_t stream) {
-  if constexpr (unpadded_simt<T, D>()) {
-    if (d == D)
-      return launch_as<T, D, false>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    b, sq, skv, hq, hkv, d, scale, causal,
-                                    stream);
-  }
+  if (d == D)
+    return launch_as<T, D, false>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                  b, sq, skv, hq, hkv, d, scale, causal,
+                                  stream);
   return launch_as<T, D, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
                                sq, skv, hq, hkv, d, scale, causal, stream);
 }
 
-// fp32: every head dim at its padded D (at 160 the dK/dV kernel's tiles
-// take 194 KB of shared memory, the dQ kernel's 177 KB; at 256, 32-row
-// streamed tiles, 210 KB and 201 KB). bf16 only up to 32: above it every d
-// runs the wgmma kernels (tc_route, or staged_route's copies).
+// Both dtypes up to kSimtMaxDim, at the padded D 16 or 32: above it fp32
+// runs route "wide", bf16 the wgmma kernels (tc_route, or staged_route's
+// copies).
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* delta,
              void* dq, void* dk, void* dv, int b, int sq, int skv, int hq,
              int hkv, float scale, int causal, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) {
-    switch (padded_dim(d)) {
-      case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    switch (padded_dim(d)) {
-      case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      case 160: return launch<T, 160>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      case 256: return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  switch (padded_dim(d)) {
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// The staged routes' copies, forward and backward: up to 256
+// (staged_route) and above it (tc_wide_staged_route).
+// ---------------------------------------------------------------------------
+namespace stage {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;   // eight warps, a row each
+constexpr int kPer = 3;         // 16-byte chunks a lane holds in one pass
+
+// Rows of Q, K, V and, where the grid has a fourth y (the backward), dO
+// (blockIdx.y 0-3) into rows of ld elements of the scratch, in that order,
+// columns d..ld - 1 zero; ld is any multiple of 8 at or above d
+// (staged_ld(d) on the routes). With dO, also delta = rowsum(dO * O) over
+// the real d for each dO row into (b, hq, sq) float32, from the dO chunks
+// the copy reads and the same chunks of O. A row takes one warp, lane
+// j its chunks j, j + 32, j + 64 (ld / 8 chunks, up to kPer a lane in one
+// pass: a row of up to 768 elements; wider rows take more passes), each
+// stored whole, gathered from the source in W-element loads: 8 bytes where
+// d % 4 == 0, 4 where d is even, 2 where it is odd, the widest the source
+// rows' alignment allows (a row starts 2 d bytes after the last). A lane's
+// loads of a pass are independent, in flight together; the warp sums delta
+// with shuffles, so the mapping holds at any ld
+// (flash_stage_rows_group_kernel below 256 gives a row a group of up to 32
+// lanes, one chunk each).
+// Bound by bytes: each input read once (O's d columns too), its staged copy
+// and delta written once.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_stage_rows_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const bf16* __restrict__ o,
+                        float* __restrict__ delta,
+                        bf16* __restrict__ scratch, long long nq,
+                        long long nk, int sq, int hq, int d, int ld) {
+  const int which = blockIdx.y;
+  const long long rows = which == 0 || which == 3 ? nq : nk;
+  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
+  const long long first = which == 0 ? 0
+                          : which == 1 ? nq
+                          : which == 2 ? nq + nk
+                                       : nq + 2 * nk;
+  const long long r = (static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x) >> 5;
+  if (r >= rows) return;    // whole warps: a row's lanes leave together
+  const int lane = threadIdx.x & 31;
+  const int chunks = ld / 8;
+  const bool with_delta = which == 3;  // the whole warp alike
+  bf16* dst = scratch + (first + r) * ld;
+  float s = 0.f;    // zero past d: both chunks hold zeros there
+  for (int base = 0; base < chunks; base += 32 * kPer) {
+    __align__(16) unsigned short buf[kPer][8];
+    __align__(16) unsigned short obuf[kPer][8];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c0 = 8 * (base + 32 * i + lane);
+#pragma unroll
+      for (int e = 0; e < 8; e += W) {
+        // d is a multiple of W, so a W-element group lies wholly below d
+        // or not
+        const bool ok = c0 + e < d;
+        const long long at = r * d + c0 + e;
+        if constexpr (W == 4) {
+          const uint2 z = make_uint2(0, 0);
+          *reinterpret_cast<uint2*>(buf[i] + e) =
+              ok ? __ldg(reinterpret_cast<const uint2*>(src + at)) : z;
+          if (with_delta)
+            *reinterpret_cast<uint2*>(obuf[i] + e) =
+                ok ? __ldg(reinterpret_cast<const uint2*>(o + at)) : z;
+        } else if constexpr (W == 2) {
+          *reinterpret_cast<unsigned int*>(buf[i] + e) =
+              ok ? __ldg(reinterpret_cast<const unsigned int*>(src + at))
+                 : 0u;
+          if (with_delta)
+            *reinterpret_cast<unsigned int*>(obuf[i] + e) =
+                ok ? __ldg(reinterpret_cast<const unsigned int*>(o + at))
+                   : 0u;
+        } else {
+          const unsigned short z = 0;
+          buf[i][e] =
+              ok ? __ldg(reinterpret_cast<const unsigned short*>(src + at))
+                 : z;
+          if (with_delta)
+            obuf[i][e] =
+                ok ? __ldg(reinterpret_cast<const unsigned short*>(o + at))
+                   : z;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = base + 32 * i + lane;
+      if (c < chunks)
+        *reinterpret_cast<uint4*>(dst + 8 * c) =
+            *reinterpret_cast<const uint4*>(buf[i]);
+      if (with_delta)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          s = fmaf(to_f32(reinterpret_cast<const bf16*>(obuf[i])[e]),
+                   to_f32(reinterpret_cast<const bf16*>(buf[i])[e]), s);
+    }
+  }
+  if (!with_delta) return;
+  s = warp_sum(s);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % hq);
+    const long long bi = r / hq;
+    const int i = static_cast<int>(bi % sq);
+    delta[(bi / sq * hq + h) * sq + i] = s;
+  }
+}
+
+template <int W>
+cudaError_t copy_as(const void* q, const void* k, const void* v,
+                    const void* dout, const void* o, float* delta,
+                    bf16* scratch, long long nq, long long nk, int sq, int hq,
+                    int d, int ld, cudaStream_t stream) {
+  const long long threads = (nq > nk ? nq : nk) * 32;
+  const dim3 grid(
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+      dout != nullptr ? 4 : 3);
+  flash_stage_rows_kernel<W><<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(o), delta, scratch, nq, nk, sq, hq, d, ld);
+  return cudaGetLastError();
+}
+
+// q, k, v and, unless null, dout ((b, rows, heads, d) bf16; nq = b sq hq
+// and nk = b skv hkv rows) into `scratch` ((2 nq + 2 nk) ld bf16 with dout,
+// else (nq + 2 nk) ld), and with dout delta from it and o (dout's shape;
+// null without dout).
+cudaError_t copy(const void* q, const void* k, const void* v,
+                 const void* dout, const void* o, float* delta,
+                 bf16* scratch, long long nq, long long nk, int sq, int hq,
+                 int d, int ld, cudaStream_t stream) {
+  if (ld % 8 != 0 || ld < d || (o == nullptr) != (dout == nullptr))
+    return cudaErrorInvalidValue;
+  if (d % 4 == 0)
+    return copy_as<4>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                      ld, stream);
+  if (d % 2 == 0)
+    return copy_as<2>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                      ld, stream);
+  return copy_as<1>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d, ld,
+                    stream);
+}
+
+// The staged routes' copy up to 256 (staged_route), forward and backward:
+// rows of Q, K, V and, where the grid has a fourth y (the backward), dO
+// (blockIdx.y 0-3) into rows of ld = staged_ld(d) elements of the
+// scratch, in that order, columns d..ld - 1 zero; and with dO, for each dO
+// row delta = rowsum(dO * O) over the real d into (b, hq, sq) float32,
+// from the dO chunks the copy reads anyway and the same chunks of O (a
+// separate pass, flash_bwd_preprocess_rows_kernel, would read dO again and
+// cost a launch; PERF.md §6 has the times). A row takes a group of P threads (P
+// the least power of two at or above its ld / 8 16-byte chunks; 32 / P rows
+// a warp), thread j of the group chunk j, stored whole, gathered from the
+// source in W-element loads: 8 bytes where d % 4 == 0, 4 where d is even, 2
+// where it is odd, the widest the source rows' alignment allows (a row
+// starts 2 d bytes after the last). A thread's 8 / W loads are
+// independent, in flight together; the group sums delta with shuffles.
+// Bound by bytes: each input read once (O's d columns too), its staged copy
+// and delta written once.
+constexpr int kStageThreads = 256;
+
+template <int W>
+__global__ void __launch_bounds__(kStageThreads)
+flash_stage_rows_group_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const bf16* __restrict__ o,
+                              float* __restrict__ delta,
+                              bf16* __restrict__ scratch, long long nq,
+                              long long nk, int sq, int hq, int d, int ld,
+                              int log2p) {
+  const int which = blockIdx.y;
+  const long long rows = which == 0 || which == 3 ? nq : nk;
+  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
+  const long long first = which == 0 ? 0
+                          : which == 1 ? nq
+                          : which == 2 ? nq + nk
+                                       : nq + 2 * nk;
+  const int p = 1 << log2p, j = threadIdx.x & (p - 1);
+  const long long r = (static_cast<long long>(blockIdx.x) * kStageThreads +
+                       threadIdx.x) >> log2p;
+  if (r >= rows) return;    // whole groups: a row's threads leave together
+  const int c0 = 8 * j;
+  __align__(16) unsigned short buf[8];
+  __align__(16) unsigned short obuf[8];
+#pragma unroll
+  for (int e = 0; e < 8; e += W) {
+    // d is a multiple of W, so a W-element group lies wholly below d or not
+    const bool ok = c0 + e < d;
+    const long long at = r * d + c0 + e;
+    if constexpr (W == 4) {
+      const uint2 z = make_uint2(0, 0);
+      *reinterpret_cast<uint2*>(buf + e) =
+          ok ? __ldg(reinterpret_cast<const uint2*>(src + at)) : z;
+      if (which == 3)
+        *reinterpret_cast<uint2*>(obuf + e) =
+            ok ? __ldg(reinterpret_cast<const uint2*>(o + at)) : z;
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<unsigned int*>(buf + e) =
+          ok ? __ldg(reinterpret_cast<const unsigned int*>(src + at)) : 0u;
+      if (which == 3)
+        *reinterpret_cast<unsigned int*>(obuf + e) =
+            ok ? __ldg(reinterpret_cast<const unsigned int*>(o + at)) : 0u;
+    } else {
+      const unsigned short z = 0;
+      buf[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(src + at))
+                  : z;
+      if (which == 3)
+        obuf[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(o + at))
+                     : z;
+    }
+  }
+  if (c0 < ld)
+    *reinterpret_cast<uint4*>(scratch + (first + r) * ld + c0) =
+        *reinterpret_cast<const uint4*>(buf);
+  if (which != 3) return;
+  float s = 0.f;    // zero past d: both chunks hold zeros there
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    s = fmaf(to_f32(reinterpret_cast<const bf16*>(obuf)[e]),
+             to_f32(reinterpret_cast<const bf16*>(buf)[e]), s);
+  // The group's lanes only: at the tail a warp's later groups have left.
+  const int lane = threadIdx.x & 31;
+  const unsigned group =
+      p == 32 ? 0xffffffffu : ((1u << p) - 1) << (lane & ~(p - 1));
+  for (int off = 1; off < p; off <<= 1)
+    s += __shfl_xor_sync(group, s, off);
+  if (j == 0) {
+    const int h = static_cast<int>(r % hq);
+    const long long bi = r / hq;
+    const int i = static_cast<int>(bi % sq);
+    delta[(bi / sq * hq + h) * sq + i] = s;
+  }
+}
+
+template <int W>
+cudaError_t group_as(const void* q, const void* k, const void* v,
+                     const void* dout, const void* o, float* delta,
+                     bf16* scratch, long long nq, long long nk, int sq,
+                     int hq, int d, int ld, cudaStream_t stream) {
+  int log2p = 0;
+  while ((1 << log2p) < ld / 8) ++log2p;
+  const long long threads = (nq > nk ? nq : nk) << log2p;
+  const dim3 grid(
+      static_cast<unsigned>((threads + kStageThreads - 1) / kStageThreads),
+      dout != nullptr ? 4 : 3);
+  flash_stage_rows_group_kernel<W><<<grid, kStageThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(o), delta, scratch, nq, nk, sq, hq, d, ld,
+      log2p);
+  return cudaGetLastError();
+}
+
+// q, k, v and, unless null, dout (and with it o and delta), as copy()'s
+// arguments, at staged_route's d.
+cudaError_t copy_group(const void* q, const void* k, const void* v,
+                       const void* dout, const void* o, float* delta,
+                       bf16* scratch, long long nq, long long nk, int sq,
+                       int hq, int d, int ld, cudaStream_t stream) {
+  if (ld != staged_ld(d) || ld > 256 || (o == nullptr) != (dout == nullptr))
+    return cudaErrorInvalidValue;
+  if (d % 4 == 0)
+    return group_as<4>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                       ld, stream);
+  if (d % 2 == 0)
+    return group_as<2>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                       ld, stream);
+  return group_as<1>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d, ld,
+                     stream);
+}
+
+// The staged routes' copy up to 256 (staged_route), forward (dout null)
+// and backward: a lane group a row.
+cudaError_t copy_up_to_256(const void* q, const void* k, const void* v,
+                           const void* dout, const void* o, float* delta,
+                           bf16* scratch, long long nq, long long nk, int sq,
+                           int hq, int d, cudaStream_t stream) {
+  return copy_group(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
+                    staged_ld(d), stream);
+}
+
+}  // namespace stage
 
 // ---------------------------------------------------------------------------
 // Backward in bf16 on the tensor cores (wgmma + TMA), D = 64, 128, 160 or
@@ -1613,134 +1896,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   store_rows<D, kStaged>(dq, acc, scale, bb, row_a, sq, hq, h, col_t, d);
 }
 
-// The staged route's copy, with delta: rows of Q, K, V and dO (blockIdx.y
-// 0-3) into rows of ld = staged_ld(d) elements of the scratch, in that
-// order, columns d..ld - 1 zero; and for each dO row delta = rowsum(dO *
-// O) over the real d into (b, hq, sq) float32, from the dO chunks the copy
-// reads anyway and the same chunks of O (a separate pass,
-// flash_bwd_preprocess_rows_kernel, would read dO again and cost a launch;
-// PERF.md §6 has the times). A row takes a group of P threads (P
-// the least power of two at or above its ld / 8 16-byte chunks; 32 / P rows
-// a warp), thread j of the group chunk j, stored whole, gathered from the
-// source in W-element loads: 8 bytes where d % 4 == 0, 4 where d is even, 2
-// where it is odd, the widest the source rows' alignment allows (a row
-// starts 2 d bytes after the last). A thread's 8 / W loads are
-// independent, in flight together; the group sums delta with shuffles.
-// Bound by bytes: each input read once (O's d columns too), its staged copy
-// and delta written once.
-constexpr int kStageThreads = 256;
-
-template <int W>
-__global__ void __launch_bounds__(kStageThreads)
-flash_bwd_stage_rows_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
-                            const bf16* __restrict__ o,
-                            float* __restrict__ delta,
-                            bf16* __restrict__ scratch, long long nq,
-                            long long nk, int sq, int hq, int d, int ld,
-                            int log2p) {
-  const int which = blockIdx.y;
-  const long long rows = which == 0 || which == 3 ? nq : nk;
-  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
-  const long long first = which == 0 ? 0
-                          : which == 1 ? nq
-                          : which == 2 ? nq + nk
-                                       : nq + 2 * nk;
-  const int p = 1 << log2p, j = threadIdx.x & (p - 1);
-  const long long r = (static_cast<long long>(blockIdx.x) * kStageThreads +
-                       threadIdx.x) >> log2p;
-  if (r >= rows) return;    // whole groups: a row's threads leave together
-  const int c0 = 8 * j;
-  __align__(16) unsigned short buf[8];
-  __align__(16) unsigned short obuf[8];
-#pragma unroll
-  for (int e = 0; e < 8; e += W) {
-    // d is a multiple of W, so a W-element group lies wholly below d or not
-    const bool ok = c0 + e < d;
-    const long long at = r * d + c0 + e;
-    if constexpr (W == 4) {
-      const uint2 z = make_uint2(0, 0);
-      *reinterpret_cast<uint2*>(buf + e) =
-          ok ? __ldg(reinterpret_cast<const uint2*>(src + at)) : z;
-      if (which == 3)
-        *reinterpret_cast<uint2*>(obuf + e) =
-            ok ? __ldg(reinterpret_cast<const uint2*>(o + at)) : z;
-    } else if constexpr (W == 2) {
-      *reinterpret_cast<unsigned int*>(buf + e) =
-          ok ? __ldg(reinterpret_cast<const unsigned int*>(src + at)) : 0u;
-      if (which == 3)
-        *reinterpret_cast<unsigned int*>(obuf + e) =
-            ok ? __ldg(reinterpret_cast<const unsigned int*>(o + at)) : 0u;
-    } else {
-      const unsigned short z = 0;
-      buf[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(src + at))
-                  : z;
-      if (which == 3)
-        obuf[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(o + at))
-                     : z;
-    }
-  }
-  if (c0 < ld)
-    *reinterpret_cast<uint4*>(scratch + (first + r) * ld + c0) =
-        *reinterpret_cast<const uint4*>(buf);
-  if (which != 3) return;
-  float s = 0.f;    // zero past d: both chunks hold zeros there
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    s = fmaf(to_f32(reinterpret_cast<const bf16*>(obuf)[e]),
-             to_f32(reinterpret_cast<const bf16*>(buf)[e]), s);
-  // The group's lanes only: at the tail a warp's later groups have left.
-  const int lane = threadIdx.x & 31;
-  const unsigned group =
-      p == 32 ? 0xffffffffu : ((1u << p) - 1) << (lane & ~(p - 1));
-  for (int off = 1; off < p; off <<= 1)
-    s += __shfl_xor_sync(group, s, off);
-  if (j == 0) {
-    const int h = static_cast<int>(r % hq);
-    const long long bi = r / hq;
-    const int i = static_cast<int>(bi % sq);
-    delta[(bi / sq * hq + h) * sq + i] = s;
-  }
-}
-
-template <int W>
-cudaError_t stage_rows_as(const void* q, const void* k, const void* v,
-                          const void* dout, const void* o, float* delta,
-                          bf16* scratch, long long nq, long long nk, int sq,
-                          int hq, int d, int ld, cudaStream_t stream) {
-  int log2p = 0;
-  while ((1 << log2p) < ld / 8) ++log2p;
-  const long long threads = (nq > nk ? nq : nk) << log2p;
-  const dim3 grid(
-      static_cast<unsigned>((threads + kStageThreads - 1) / kStageThreads),
-      4);
-  flash_bwd_stage_rows_kernel<W><<<grid, kStageThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(o), delta, scratch, nq, nk, sq, hq, d, ld,
-      log2p);
-  return cudaGetLastError();
-}
-
-cudaError_t stage_rows(const void* q, const void* k, const void* v,
-                       const void* dout, const void* o, float* delta,
-                       bf16* scratch, long long nq, long long nk, int sq,
-                       int hq, int d, int ld, cudaStream_t stream) {
-  if (d % 4 == 0)
-    return stage_rows_as<4>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq,
-                            d, ld, stream);
-  if (d % 2 == 0)
-    return stage_rows_as<2>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq,
-                            d, ld, stream);
-  return stage_rows_as<1>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq,
-                          d, ld, stream);
-}
-
 // kStaged (staged_route): Q, K, V and dO are first copied into `scratch`
 // ((2 b sq hq + 2 b skv hkv) staged_ld(d) bf16) by
-// flash_bwd_stage_rows_kernel, which also writes delta, and the maps read
+// flash_stage_rows_group_kernel, which also writes delta, and the maps read
 // the copies (inner extent d, row stride staged_ld(d)); dQ, dK and dV are
 // written straight into the caller's tensors at the real d.
 template <int D, bool kStaged = false>
@@ -1759,8 +1917,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     const long long nq = static_cast<long long>(b) * sq * hq;
     const long long nk = static_cast<long long>(b) * skv * hkv;
     bf16* st = static_cast<bf16*>(scratch);
-    const cudaError_t err = stage_rows(q, k, v, dout, o, delta, st, nq, nk,
-                                       sq, hq, d, ld, stream);
+    const cudaError_t err = stage::copy_up_to_256(q, k, v, dout, o, delta,
+                                                  st, nq, nk, sq, hq, d,
+                                                  stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     mq = st;
     mk = st + nq * ld;
@@ -1808,156 +1967,6 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace bwd_tc
 
-// ---------------------------------------------------------------------------
-// The staged routes' copy above 256 (tc_wide_staged_route), forward and
-// backward.
-// ---------------------------------------------------------------------------
-namespace stage {
-
-using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;   // eight warps, a row each
-constexpr int kPer = 3;         // 16-byte chunks a lane holds in one pass
-
-// Rows of Q, K, V and, where the grid has a fourth y (the backward), dO
-// (blockIdx.y 0-3) into rows of ld elements of the scratch, in that order,
-// columns d..ld - 1 zero; ld is any multiple of 8 at or above d
-// (staged_ld(d) on the routes). With dO, also delta = rowsum(dO * O) over
-// the real d for each dO row into (b, hq, sq) float32, from the dO chunks
-// the copy reads and the same chunks of O. A row takes one warp, lane
-// j its chunks j, j + 32, j + 64 (ld / 8 chunks, up to kPer a lane in one
-// pass: a row of up to 768 elements; wider rows take more passes), each
-// stored whole, gathered from the source in W-element loads: 8 bytes where
-// d % 4 == 0, 4 where d is even, 2 where it is odd, the widest the source
-// rows' alignment allows (a row starts 2 d bytes after the last). A lane's
-// loads of a pass are independent, in flight together; the warp sums delta
-// with shuffles, so the mapping holds at any ld (flash_bwd_stage_rows_kernel
-// below 256 gives a row a group of up to 32 lanes, one chunk each).
-// Bound by bytes: each input read once (O's d columns too), its staged copy
-// and delta written once.
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-flash_stage_rows_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const bf16* __restrict__ o,
-                        float* __restrict__ delta,
-                        bf16* __restrict__ scratch, long long nq,
-                        long long nk, int sq, int hq, int d, int ld) {
-  const int which = blockIdx.y;
-  const long long rows = which == 0 || which == 3 ? nq : nk;
-  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
-  const long long first = which == 0 ? 0
-                          : which == 1 ? nq
-                          : which == 2 ? nq + nk
-                                       : nq + 2 * nk;
-  const long long r = (static_cast<long long>(blockIdx.x) * kThreads +
-                       threadIdx.x) >> 5;
-  if (r >= rows) return;    // whole warps: a row's lanes leave together
-  const int lane = threadIdx.x & 31;
-  const int chunks = ld / 8;
-  const bool with_delta = which == 3;  // the whole warp alike
-  bf16* dst = scratch + (first + r) * ld;
-  float s = 0.f;    // zero past d: both chunks hold zeros there
-  for (int base = 0; base < chunks; base += 32 * kPer) {
-    __align__(16) unsigned short buf[kPer][8];
-    __align__(16) unsigned short obuf[kPer][8];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c0 = 8 * (base + 32 * i + lane);
-#pragma unroll
-      for (int e = 0; e < 8; e += W) {
-        // d is a multiple of W, so a W-element group lies wholly below d
-        // or not
-        const bool ok = c0 + e < d;
-        const long long at = r * d + c0 + e;
-        if constexpr (W == 4) {
-          const uint2 z = make_uint2(0, 0);
-          *reinterpret_cast<uint2*>(buf[i] + e) =
-              ok ? __ldg(reinterpret_cast<const uint2*>(src + at)) : z;
-          if (with_delta)
-            *reinterpret_cast<uint2*>(obuf[i] + e) =
-                ok ? __ldg(reinterpret_cast<const uint2*>(o + at)) : z;
-        } else if constexpr (W == 2) {
-          *reinterpret_cast<unsigned int*>(buf[i] + e) =
-              ok ? __ldg(reinterpret_cast<const unsigned int*>(src + at))
-                 : 0u;
-          if (with_delta)
-            *reinterpret_cast<unsigned int*>(obuf[i] + e) =
-                ok ? __ldg(reinterpret_cast<const unsigned int*>(o + at))
-                   : 0u;
-        } else {
-          const unsigned short z = 0;
-          buf[i][e] =
-              ok ? __ldg(reinterpret_cast<const unsigned short*>(src + at))
-                 : z;
-          if (with_delta)
-            obuf[i][e] =
-                ok ? __ldg(reinterpret_cast<const unsigned short*>(o + at))
-                   : z;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = base + 32 * i + lane;
-      if (c < chunks)
-        *reinterpret_cast<uint4*>(dst + 8 * c) =
-            *reinterpret_cast<const uint4*>(buf[i]);
-      if (with_delta)
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          s = fmaf(to_f32(reinterpret_cast<const bf16*>(obuf[i])[e]),
-                   to_f32(reinterpret_cast<const bf16*>(buf[i])[e]), s);
-    }
-  }
-  if (!with_delta) return;
-  s = warp_sum(s);
-  if (lane == 0) {
-    const int h = static_cast<int>(r % hq);
-    const long long bi = r / hq;
-    const int i = static_cast<int>(bi % sq);
-    delta[(bi / sq * hq + h) * sq + i] = s;
-  }
-}
-
-template <int W>
-cudaError_t copy_as(const void* q, const void* k, const void* v,
-                    const void* dout, const void* o, float* delta,
-                    bf16* scratch, long long nq, long long nk, int sq, int hq,
-                    int d, int ld, cudaStream_t stream) {
-  const long long threads = (nq > nk ? nq : nk) * 32;
-  const dim3 grid(
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads),
-      dout != nullptr ? 4 : 3);
-  flash_stage_rows_kernel<W><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(o), delta, scratch, nq, nk, sq, hq, d, ld);
-  return cudaGetLastError();
-}
-
-// q, k, v and, unless null, dout ((b, rows, heads, d) bf16; nq = b sq hq
-// and nk = b skv hkv rows) into `scratch` ((2 nq + 2 nk) ld bf16 with dout,
-// else (nq + 2 nk) ld), and with dout delta from it and o (dout's shape;
-// null without dout).
-cudaError_t copy(const void* q, const void* k, const void* v,
-                 const void* dout, const void* o, float* delta,
-                 bf16* scratch, long long nq, long long nk, int sq, int hq,
-                 int d, int ld, cudaStream_t stream) {
-  if (ld % 8 != 0 || ld < d || (o == nullptr) != (dout == nullptr))
-    return cudaErrorInvalidValue;
-  if (d % 4 == 0)
-    return copy_as<4>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
-                      ld, stream);
-  if (d % 2 == 0)
-    return copy_as<2>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d,
-                      ld, stream);
-  return copy_as<1>(q, k, v, dout, o, delta, scratch, nq, nk, sq, hq, d, ld,
-                    stream);
-}
-
-}  // namespace stage
 
 
 }  // namespace
@@ -1975,26 +1984,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                float scale, int causal, cudaStream_t stream, int ld);
 }  // namespace wgmma_wide
 
-// fp32 (dtype kF32) at any d, and bf16 (kBF16) where no tensor-core route
-// holds: flash_attention_simt_wide.cu (the backward's delta comes first).
+// Where simt_wide_route holds (fp32 above kSimtMaxDim, bf16 above
+// kTcWideMaxDim): flash_attention_simt_wide.cu and, at one tile,
+// flash_attention_simt_tile.cu (the backward's delta comes first; scratch,
+// the dK/dV parts' partial sums where simt_wide_kv_parts plans more than
+// one).
 namespace wide {
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int b, int sq, int skv, int hq, int hkv, int d,
                float scale, int causal, int dtype, cudaStream_t stream);
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, int b, int sq, int skv, int hq, int hkv, int d,
-               float scale, int causal, int dtype, cudaStream_t stream);
+               void* dv, void* scratch, int b, int sq, int skv, int hq,
+               int hkv, int d, float scale, int causal, int dtype,
+               cudaStream_t stream);
 }  // namespace wide
 }  // namespace repro
 
 // lse: null, or (b, hq, sq) float32 that takes each row's log-sum-exp.
-// scratch: where tc_wide_staged_route holds for bf16, (b sq hq + 2 b skv
-// hkv) staged_ld(d) bf16 that flash_stage_rows_kernel fills with copies of
-// q, k and v, which the wgmma column-tile kernels of
-// flash_attention_wide.cu then read (a failed copy, TMA encode, attribute
-// or launch is returned, never served by another route); null on every
-// other route, where it is not read.
+// scratch: for bf16 where staged_route holds (d 33-256) or
+// tc_wide_staged_route does (above 256), (b sq hq + 2 b skv hkv)
+// staged_ld(d) bf16 that the staged routes' copy (namespace stage) fills
+// with copies of q, k and v, which the wgmma kernels then read (a failed
+// copy, TMA encode, attribute or launch is returned, never served by
+// another route); null on every other route, where it is not read.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      void* scratch, int b, int sq, int skv,
@@ -2003,34 +2016,31 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || d <= 0)
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || d <= 0 ||
+      (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d > 256) {
-    if (dtype == kBF16 && tc_wide_route(d))
-      return wgmma_wide::launch_fwd(q, k, v, o, l, b, sq, skv, hq, hkv, d,
-                                    scale, causal, s, 0);
-    if (dtype == kBF16 && tc_wide_staged_route(d)) {
-      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      const int ld = staged_ld(d);
-      const long long nq = static_cast<long long>(b) * sq * hq;
-      const long long nk = static_cast<long long>(b) * skv * hkv;
-      __nv_bfloat16* st = static_cast<__nv_bfloat16*>(scratch);
-      const cudaError_t err = stage::copy(q, k, v, nullptr, nullptr, nullptr,
-                                          st, nq, nk, sq, hq, d, ld, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      return wgmma_wide::launch_fwd(st, st + nq * ld, st + (nq + nk) * ld, o,
-                                    l, b, sq, skv, hq, hkv, d, scale, causal,
-                                    s, ld);
-    }
-    if (dtype != kF32 && dtype != kBF16)
-      return static_cast<int>(cudaErrorInvalidValue);
+  const long long nq = static_cast<long long>(b) * sq * hq;
+  const long long nk = static_cast<long long>(b) * skv * hkv;
+  __nv_bfloat16* st = static_cast<__nv_bfloat16*>(scratch);
+  if (dtype == kBF16 && tc_wide_route(d))
+    return wgmma_wide::launch_fwd(q, k, v, o, l, b, sq, skv, hq, hkv, d,
+                                  scale, causal, s, 0);
+  if (dtype == kBF16 && tc_wide_staged_route(d)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int ld = staged_ld(d);
+    const cudaError_t err = stage::copy(q, k, v, nullptr, nullptr, nullptr,
+                                        st, nq, nk, sq, hq, d, ld, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return wgmma_wide::launch_fwd(st, st + nq * ld, st + (nq + nk) * ld, o,
+                                  l, b, sq, skv, hq, hkv, d, scale, causal,
+                                  s, ld);
+  }
+  if (simt_wide_route(dtype == kF32, d))
     return wide::launch_fwd(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale,
                             causal, dtype, s);
-  }
   if (dtype == kF32)
     return dispatch_simt<float>(d, q, k, v, o, l, b, sq, skv, hq, hkv, scale,
                                 causal, s);
-  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   if (tc_route(d)) {
     switch (padded_dim(d)) {
       case 64: return tc::launch<64>(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale, causal, s);
@@ -2039,29 +2049,45 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       case 256: return tc::launch<256>(q, k, v, o, l, b, sq, skv, hq, hkv, d, scale, causal, s);
     }
   }
+  if (staged_route(d)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int ld = staged_ld(d);
+    const cudaError_t err = stage::copy_up_to_256(
+        q, k, v, nullptr, nullptr, nullptr, st, nq, nk, sq, hq, d, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const void *sk = st + nq * ld, *sv = st + (nq + nk) * ld;
+    switch (padded_dim(d)) {
+      case 64: return tc::launch_as<64, tc::kStaged>(st, sk, sv, o, l, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
+      case 128: return tc::launch_as<128, tc::kStaged>(st, sk, sv, o, l, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
+      case 160: return tc::launch_as<160, tc::kStaged>(st, sk, sv, o, l, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
+      case 256: return tc::launch_as<256, tc::kStaged>(st, sk, sv, o, l, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
+    }
+  }
   return dispatch_simt<__nv_bfloat16>(d, q, k, v, o, l, b, sq, skv, hq, hkv,
                                       scale, causal, s);
 }
 
 // Backward of repro_flash_attention: q, o, dout, dq (b, sq, hq, d); k, v,
 // dk, dv (b, skv, hkv, d), all contiguous in dtype; lse (b, hq, sq) float32
-// from the forward; delta (b, hq, sq) float32 scratch. Launches
-// flash_bwd_preprocess_kernel, then flash_bwd_dkdv_wgmma_kernel and
-// flash_bwd_dq_wgmma_kernel for bf16 where tc_route holds (a failed TMA encode,
-// attribute or launch is returned, never served by another route); for bf16
-// where staged_route holds, flash_bwd_stage_rows_kernel into `scratch`
-// ((2 b sq hq + 2 b skv hkv) staged_ld(d) bf16; null on every other route,
-// where it is not read) and delta, then the staged instantiations of the
-// two wgmma kernels (failures returned likewise); else (fp32, and bf16 at d
-// 32 and below) flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the
-// stream. Above
-// 256: flash_bwd_preprocess_rows_kernel, then the wgmma column-tile kernels
-// of flash_attention_wide.cu for bf16 where tc_wide_route holds (failures
-// returned likewise); for bf16 where tc_wide_staged_route holds,
-// flash_stage_rows_kernel into `scratch` (the size above) and delta, then
-// the staged instantiations of those kernels (failures returned likewise);
-// else the CUDA-core column tiles of flash_attention_simt_wide.cu (failures
-// returned likewise).
+// from the forward; delta (b, hq, sq) float32 scratch. On the forward's
+// route: bf16 where tc_route holds, flash_bwd_preprocess_kernel (delta),
+// then flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel (a failed
+// TMA encode, attribute or launch is returned, never served by another
+// route); bf16 where staged_route holds, the copy of q, k, v and dout into
+// `scratch` ((2 b sq hq + 2 b skv hkv) staged_ld(d) bf16), which writes
+// delta, then the staged instantiations of the two wgmma kernels (failures
+// returned likewise); where simt_wide_route holds (fp32 above 32, bf16
+// above kTcWideMaxDim), flash_bwd_preprocess_rows_kernel, then the
+// CUDA-core tiles of route "wide" (`scratch`: where simt_wide_kv_parts
+// plans more than one part, 2 parts b skv hkv d float32 for the dK/dV
+// parts' sums; failures returned likewise); both dtypes up to 32,
+// flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel and
+// flash_bwd_dq_kernel. Above 256 in bf16 up to kTcWideMaxDim:
+// flash_bwd_preprocess_rows_kernel, then the wgmma column-tile kernels of
+// flash_attention_wide.cu where tc_wide_route holds; where
+// tc_wide_staged_route holds, flash_stage_rows_kernel into `scratch` (the
+// size above) and delta, then the staged instantiations of those kernels
+// (failures returned likewise). All on the stream.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2069,46 +2095,44 @@ extern "C" int repro_flash_attention_bwd(
     float scale, int causal, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || d <= 0)
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 || d <= 0 ||
+      (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (d > 256) {
-    if (dtype == kBF16 && tc_wide_route(d)) {
-      const cudaError_t err = bwd::preprocess_rows<__nv_bfloat16>(
-          o, dout, dl, b, sq, hq, d, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      return wgmma_wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, b, sq,
-                                    skv, hq, hkv, d, scale, causal, s, 0);
-    }
-    if (dtype == kBF16 && tc_wide_staged_route(d)) {
-      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      const int ld = staged_ld(d);
-      const long long nq = static_cast<long long>(b) * sq * hq;
-      const long long nk = static_cast<long long>(b) * skv * hkv;
-      __nv_bfloat16* st = static_cast<__nv_bfloat16*>(scratch);
-      const cudaError_t err = stage::copy(q, k, v, dout, o, dl, st, nq, nk,
-                                          sq, hq, d, ld, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      return wgmma_wide::launch_bwd(
-          st, st + nq * ld, st + (nq + nk) * ld, st + (nq + 2 * nk) * ld, l,
-          dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
-    }
-    if (dtype != kF32 && dtype != kBF16)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBF16 && tc_wide_route(d)) {
+    const cudaError_t err = bwd::preprocess_rows<__nv_bfloat16>(
+        o, dout, dl, b, sq, hq, d, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return wgmma_wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, b, sq,
+                                  skv, hq, hkv, d, scale, causal, s, 0);
+  }
+  if (dtype == kBF16 && tc_wide_staged_route(d)) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int ld = staged_ld(d);
+    const long long nq = static_cast<long long>(b) * sq * hq;
+    const long long nk = static_cast<long long>(b) * skv * hkv;
+    __nv_bfloat16* st = static_cast<__nv_bfloat16*>(scratch);
+    const cudaError_t err = stage::copy(q, k, v, dout, o, dl, st, nq, nk,
+                                        sq, hq, d, ld, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return wgmma_wide::launch_bwd(
+        st, st + nq * ld, st + (nq + nk) * ld, st + (nq + 2 * nk) * ld, l,
+        dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s, ld);
+  }
+  if (simt_wide_route(dtype == kF32, d)) {
     const cudaError_t err =
         dtype == kF32
             ? bwd::preprocess_rows<float>(o, dout, dl, b, sq, hq, d, s)
             : bwd::preprocess_rows<__nv_bfloat16>(o, dout, dl, b, sq, hq, d,
                                                   s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, b, sq, skv, hq,
-                            hkv, d, scale, causal, dtype, s);
+    return wide::launch_bwd(q, k, v, dout, l, dl, dq, dk, dv, scratch, b, sq,
+                            skv, hq, hkv, d, scale, causal, dtype, s);
   }
   if (dtype == kF32)
     return bwd::dispatch<float>(d, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq,
                                 skv, hq, hkv, scale, causal, s);
-  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   if (tc_route(d)) {
     switch (padded_dim(d)) {
       case 64: return bwd_tc::launch<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, skv, hq, hkv, d, scale, causal, s);

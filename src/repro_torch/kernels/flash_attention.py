@@ -21,8 +21,16 @@ serve a CUDA tensor, one call of them counted as a launch of
   at 64, 128 and 160): ``flash_fwd_wgmma_kernel``, tensor cores (wgmma,
   fp32 accumulators, P rounded to bf16 for P.V) fed by TMA, 64-column
   boxes zero past d;
-* ``"simt"``, fp32 at any head_dim up to 256 and bf16 at the others:
-  ``flash_fwd_simt_kernel``, full fp32 products on the CUDA cores;
+* ``"wgmma_staged"``, bf16 at a head dim that is not whole 16-byte rows (d
+  not a multiple of 8) from 33 to 256: ``flash_stage_rows_group_kernel``
+  copies q, k and v into a scratch of rows :func:`staged_ld` (d) elements
+  long, columns past d zero, so the TMA maps' row stride is a multiple of
+  16 bytes; then ``flash_fwd_wgmma_kernel`` at the padded D reads the
+  copies (an instantiation of its own, which stores the output column by
+  column at the real d);
+* ``"simt"``, both dtypes at d up to ``SIMT_MAX_HEAD_DIM`` (32):
+  ``flash_fwd_simt_kernel`` at D 16 or 32, full fp32 products on the CUDA
+  cores;
 * ``"wgmma_wide"``, bf16 above 256 where d is a multiple of 8 up to
   ``TC_WIDE_MAX_HEAD_DIM`` (768): ``flash_fwd_wgmma_wide_kernel``, tensor
   cores fed by TMA, a block a (q tile, q head, batch, column tile of 192
@@ -38,24 +46,29 @@ serve a CUDA tensor, one call of them counted as a launch of
   bytes; then ``flash_fwd_wgmma_wide_kernel`` reads the copies, at the
   column tiles of d's ``"wgmma_wide"`` plan (an instantiation of its own,
   which stores the output column by column at the real d);
-* ``"wide"``, fp32 above 256 and bf16 above ``TC_WIDE_MAX_HEAD_DIM``:
-  ``flash_fwd_wide_kernel``, full fp32 products on the CUDA cores, a block
-  a (q tile, q head, batch, column tile of 192 or 256 output columns,
-  :func:`simt_wide_plan`), the column tiles of a row tile launched as a
-  thread-block cluster of up to 8: each block computes the partial scores
-  over its own slice of d, every block sums the cluster's partials in
-  rank order through distributed shared memory (so S, m and l are bitwise
-  equal across the tiles), then runs the online softmax and P.V over its
-  own columns; pieces staged by cp.async (bf16 converted to fp32 once in
-  shared memory) while the last is multiplied, register tiles fed by
-  128-bit shared loads.
+* ``"wide"``, fp32 above ``SIMT_MAX_HEAD_DIM`` and bf16 above
+  ``TC_WIDE_MAX_HEAD_DIM``: ``flash_fwd_wide_kernel``, full fp32 products
+  on the CUDA cores, a block a (q tile, q head, batch, column tile,
+  :func:`simt_wide_plan`). Up to 256 one tile of 64, 128, 192 or 256
+  columns holds the whole d; above it column tiles of 192 or 256, those of
+  a row tile launched as a thread-block cluster of up to 8: each block
+  computes the partial scores over its own slice of d, every block sums
+  the cluster's partials in rank order through distributed shared memory
+  (so S, m and l are bitwise equal across the tiles), then runs the online
+  softmax and P.V over its own columns. The Q rows of a block's slice stay
+  in shared memory for its whole walk (at one tile, and above it at d not
+  a multiple of 4 up to 2048); pieces of K and
+  chunks of V staged by cp.async (bf16 converted to fp32 once in shared
+  memory) while the last is multiplied, register tiles fed by 128-bit
+  shared loads.
 
 Where autograd records the call (grad mode on, an input that requires
 grad), it runs through :class:`FlashAttentionFunction`: the forward kernel
 also writes each row's log-sum-exp, and the backward is one call, counted
 as ``flash_attention_bwd``, of ``flash_bwd_preprocess_kernel`` (delta; the
-staged routes' copy kernels write it instead) and two kernels on the route
-:func:`bwd_design` names:
+staged routes' copy kernels write it instead, and route ``"wide"`` runs
+``flash_bwd_preprocess_rows_kernel``) and two kernels on the route
+:func:`bwd_design` names, which is the forward's at every shape:
 
 * ``"wgmma"``, as the forward's (the training paths at 64, 128 and 160):
   ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``,
@@ -63,17 +76,14 @@ staged routes' copy kernels write it instead) and two kernels on the route
   operands) fed by TMA, deterministic (no atomics); D 160 and 256 in
   three and four boxes as the forward's, the dK/dV kernel on two
   warpgroups;
-* ``"wgmma_staged"``, bf16 at a head dim that is not whole 16-byte rows
-  (d not a multiple of 8) from 33 to 256: ``flash_bwd_stage_rows_kernel``
-  copies q, k, v and dout into a scratch of rows :func:`staged_ld` (d)
-  elements long, columns past d zero, so the TMA maps' row stride is a
-  multiple of 16 bytes, and writes delta from the dout rows it copies;
+* ``"wgmma_staged"``, as the forward's: ``flash_stage_rows_group_kernel``
+  copies q, k, v and dout and writes delta from the dout rows it copies;
   then the ``"wgmma"`` kernels at the padded D read the copies
   (instantiations of their own, which store dq, dk and dv column by
   column at the real d);
-* ``"simt"``, fp32 at any head_dim up to 256 and bf16 at d 32 and below:
-  ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, full fp32
-  products on the CUDA cores;
+* ``"simt"``, both dtypes at d up to 32: ``flash_bwd_dkdv_kernel`` and
+  ``flash_bwd_dq_kernel`` at D 16 or 32, full fp32 products on the CUDA
+  cores;
 * ``"wgmma_wide"``, as the forward's: ``flash_bwd_dkdv_wgmma_wide_kernel``
   (a block a kv tile, kv head, batch, column tile and role: dV or dK) and
   ``flash_bwd_dq_wgmma_wide_kernel``, the forward's column tiles and ring
@@ -85,11 +95,16 @@ staged routes' copy kernels write it instead) and two kernels on the route
   their own, which store dq, dk and dv column by column at the real d);
 * ``"wide"``, the forward's: ``flash_bwd_dkdv_wide_kernel`` (a block a
   kv tile of ``SIMT_WIDE_KV_ROWS`` rows, kv head, batch and column tile,
-  walking the group's q heads and q tiles) and
-  ``flash_bwd_dq_wide_kernel``, the forward's column tiles and clusters
-  (S^T and dP^T, or S and dP, summed once per cluster from each block's
-  slice of d; each block writing its own columns of dK and dV, or dQ; no
-  atomics).
+  walking the group's q heads and q tiles, K and V resident as the
+  forward's Q; where those blocks are fewer than a wave, the walk over the
+  q heads in
+  :func:`simt_wide_kv_parts` parts, a block each, whose fp32 partial sums
+  go to a scratch that ``flash_bwd_parts_sum_kernel`` adds in part order)
+  and ``flash_bwd_dq_wide_kernel`` (Q and dO resident likewise), the
+  forward's
+  column tiles and clusters (S^T and dP^T, or S and dP, summed once per
+  cluster from each block's slice of d; each block writing its own columns
+  of dK and dV, or dQ; no atomics, bitwise repeatable).
 
 delta = rowsum(dO * O) is summed over the real d.
 
@@ -120,7 +135,27 @@ SIMT_WIDE_COLS = 256        # the C kSimtWideCols: output columns a tile
 SIMT_WIDE_MAX_CLUSTER = 8   # kSimtWideMaxCluster: blocks a cluster
 SIMT_WIDE_PIECE = 32        # kSimtWidePiece: columns of d a staged piece
 SIMT_WIDE_KV_ROWS = 32      # kSimtWideKvRows: kv rows a dK/dV block
-SIMT_WIDE_WIDTHS = (192, 256)   # the instantiated tile widths
+SIMT_WIDE_WAVE = 132            # kSimtWideWave: dK/dV blocks below which
+SIMT_WIDE_FILL_BLOCKS = 264     # the walk splits, into kSimtWideFillBlocks
+SIMT_MAX_HEAD_DIM = 32      # kSimtMaxDim: above it fp32 takes route "wide"
+# Route "wide"'s instantiations, (dtype, copy width VEC, tile width,
+# mode), modes as the C kStreamed (clusters, X staged with Y), kResident
+# (clusters, X resident: element copies, VEC 1, up to d 2048) and
+# kOneTile (d up to 256): fp32 at one tile of every width with 16-byte and
+# element copies; clusters of 192 and 256 resident at VEC 1 and streamed
+# at VEC 4, and streamed at 256 and VEC 1 (d above 2048, where every tile
+# is 256 wide); bf16 (above 768, where every tile is 256 wide) at 256 the
+# same.
+STREAMED, RESIDENT, ONE_TILE = 0, 1, 2
+SIMT_WIDE_KERNELS = tuple(
+    [(torch.float32, vec, w, ONE_TILE) for w in (64, 128, 192, 256)
+     for vec in (1, 4)] +
+    [(dt, vec, w, mode) for dt in (torch.float32, torch.bfloat16)
+     for vec, w, mode in ((1, 192, RESIDENT), (1, 256, RESIDENT),
+                          (4, 192, STREAMED), (4, 256, STREAMED),
+                          (1, 256, STREAMED))
+     if dt == torch.float32 or w == 256])
+SIMT_WIDE_WIDTHS = tuple(sorted({w for _, _, w, _ in SIMT_WIDE_KERNELS}))
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = register_kernel(
     "flash_attention", "repro_flash_attention",
@@ -153,26 +188,75 @@ def col_tiles(d: int) -> tuple[int, int]:
 
 
 def simt_wide_plan(d: int) -> dict:
-    """The CUDA-core column tiles' plan (route ``"wide"``; the C
-    ``simt_wide_*`` functions of ``common.cuh``): ``tiles`` of ``width``
-    output columns (ceil(d / 256) tiles of equal width rounded up to a
-    multiple of 64, the last cut at d), run as ``clusters`` clusters of
+    """The CUDA-core tiles' plan (route ``"wide"``; the C ``simt_wide_*``
+    functions of ``common.cuh``): ``tiles`` of ``width`` output columns
+    (ceil(d / 256) tiles of equal width rounded up to a multiple of 64, the
+    last cut at d; one tile up to 256), run as ``clusters`` clusters of
     ``cluster`` blocks (at most 8; blocks past the last tile store
     nothing), block r of a cluster summing the scores over slice r of d,
-    ``slice`` columns (whole 32-column pieces, the last slice cut at d)."""
+    ``slice`` columns (whole 32-column pieces, the last slice cut at d);
+    ``resident``: a block keeps its X rows over its slice in shared memory
+    (at one tile; above it with element copies, d % 4 != 0, where the
+    slice is no wider than a tile: up to d 2048)."""
     tiles = -(-d // SIMT_WIDE_COLS)
     width = -(-(-(-d // tiles)) // 64) * 64
     cluster = min(tiles, SIMT_WIDE_MAX_CLUSTER)
+    slice_ = -(-(-(-d // cluster)) // SIMT_WIDE_PIECE) * SIMT_WIDE_PIECE
     return {"tiles": tiles, "width": width, "cluster": cluster,
-            "clusters": -(-tiles // cluster),
-            "slice": -(-(-(-d // cluster)) // SIMT_WIDE_PIECE) *
-            SIMT_WIDE_PIECE}
+            "clusters": -(-tiles // cluster), "slice": slice_,
+            "resident": tiles == 1 or (d % 4 != 0 and slice_ <= width)}
+
+
+def simt_wide_mode(d: int) -> int:
+    """The instantiation mode route ``"wide"`` runs d at (``ONE_TILE``,
+    ``RESIDENT`` or ``STREAMED``)."""
+    plan = simt_wide_plan(d)
+    return ONE_TILE if plan["tiles"] == 1 else \
+        RESIDENT if plan["resident"] else STREAMED
 
 
 def simt_wide_kv_tiles(skv: int) -> int:
     """Blocks along the kv rows of the column tiles' dK/dV kernel (the C
     ``simt_wide_kv_tiles``): ``SIMT_WIDE_KV_ROWS`` rows each."""
     return -(-skv // SIMT_WIDE_KV_ROWS)
+
+
+def simt_wide_kv_parts(b: int, skv: int, hq: int, hkv: int, d: int) -> int:
+    """Parts of route ``"wide"``'s dK/dV walk over a kv head's q heads (the
+    C ``simt_wide_kv_parts`` of the blocks one part takes): one where the
+    blocks fill a wave (``SIMT_WIDE_WAVE``), else enough for
+    ``SIMT_WIDE_FILL_BLOCKS`` blocks, at most the group."""
+    plan = simt_wide_plan(d)
+    blocks = plan["cluster"] * plan["clusters"] * hkv * b * \
+        simt_wide_kv_tiles(skv)
+    if blocks >= SIMT_WIDE_WAVE:
+        return 1
+    return min(-(-SIMT_WIDE_FILL_BLOCKS // blocks), hq // hkv)
+
+
+def wide_parts_numel(b: int, skv: int, hq: int, hkv: int, d: int) -> int:
+    """float32 elements of route ``"wide"``'s dK/dV parts' scratch: the
+    partial dV and dK of each part (0 with one part)."""
+    parts = simt_wide_kv_parts(b, skv, hq, hkv, d)
+    return 0 if parts == 1 else 2 * parts * b * skv * hkv * d
+
+
+def simt_wide_smem(kernel: str, width: int, mode: int) -> int:
+    """Bytes of dynamic shared memory of route ``"wide"``'s kernel
+    (``"fwd"``, ``"dkdv"``, ``"dq"``) at a tile width and mode (the C
+    ``Tiles::smem`` of flash_attention_simt_wide.cuh): the resident X
+    rows, three staging buffers, W and, with a cluster, two partials."""
+    m, n, np_, nz, kc = {
+        "fwd": (64, 64, 1, 1, 32),
+        "dkdv": (SIMT_WIDE_KV_ROWS, 64, 2, 2, 16),
+        "dq": (64, 32, 2, 1, 16 if width == 256 and mode != STREAMED
+               else 32)}[kernel]
+    lp = 2 * SIMT_WIDE_PIECE + 4
+    res = mode != STREAMED
+    x = np_ * m * (width + 4) if res else 0
+    stage = max(np_ * ((0 if res else m) + n) * lp, nz * kc * width)
+    part = 256 * np_ * (m // 16) * (n // 16) if mode != ONE_TILE else 0
+    return 4 * (x + 3 * stage + nz * m * (n + 4) + 2 * part)
 
 
 def wgmma_col_tiles(d: int, forward: bool = False) -> tuple[int, int]:
@@ -192,34 +276,30 @@ def wgmma_col_tiles(d: int, forward: bool = False) -> tuple[int, int]:
 
 
 def fwd_design(dtype: torch.dtype, d: int) -> str:
-    """The forward's route on the card, as ``repro_flash_attention``
-    dispatches it (the C ``tc_route``, ``tc_wide_route`` and
-    ``tc_wide_staged_route``): above ``MAX_HEAD_DIM``, for bfloat16 up to
+    """The route on the card, as ``repro_flash_attention`` and
+    ``repro_flash_attention_bwd`` dispatch it (the C ``tc_wide_route``,
+    ``tc_wide_staged_route``, ``simt_wide_route``, ``tc_route`` and
+    ``staged_route``): for bfloat16 above ``MAX_HEAD_DIM`` up to
     ``TC_WIDE_MAX_HEAD_DIM`` ``"wgmma_wide"`` where d is a multiple of 8
-    and ``"wgmma_wide_staged"`` where it is not, else ``"wide"``; up to it,
-    ``"wgmma"`` for bfloat16 where d is a multiple of 8 above 32 (the TMA
-    maps' rows are whole 16-byte chunks); else ``"simt"``; a dtype or
-    head_dim no kernel takes raises."""
+    and ``"wgmma_wide_staged"`` where it is not, above that ``"wide"``; up
+    to it above ``SIMT_MAX_HEAD_DIM`` ``"wgmma"`` where d is a multiple of
+    8 (the TMA maps' rows are whole 16-byte chunks) and ``"wgmma_staged"``
+    where it is not; for float32 ``"wide"`` above ``SIMT_MAX_HEAD_DIM``;
+    else ``"simt"``. A dtype or head_dim no kernel takes raises."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
-    if padded_head_dim(d) > MAX_HEAD_DIM:
-        if dtype != torch.bfloat16 or d > TC_WIDE_MAX_HEAD_DIM:
-            return "wide"
-        return "wgmma_wide" if d % 8 == 0 else "wgmma_wide_staged"
-    return "wgmma" if dtype == torch.bfloat16 and d > 32 and d % 8 == 0 \
-        else "simt"
+    padded_head_dim(d)
+    if d <= SIMT_MAX_HEAD_DIM:
+        return "simt"
+    if dtype == torch.float32 or d > TC_WIDE_MAX_HEAD_DIM:
+        return "wide"
+    staged = "_staged" if d % 8 else ""
+    return ("wgmma_wide" if d > MAX_HEAD_DIM else "wgmma") + staged
 
 
-def bwd_design(dtype: torch.dtype, d: int) -> str:
-    """The backward's route on the card, as ``repro_flash_attention_bwd``
-    dispatches it: the forward's (:func:`fwd_design`), but
-    ``"wgmma_staged"`` for bfloat16 where d is not a multiple of 8 from 33
-    to 256 (the C ``staged_route``), where the forward takes ``"simt"``."""
-    design = fwd_design(dtype, d)
-    if dtype == torch.bfloat16 and 32 < d <= MAX_HEAD_DIM and d % 8:
-        return "wgmma_staged"
-    return design
+# The backward takes the forward's route at every shape.
+bwd_design = fwd_design
 
 
 def staged_ld(d: int) -> int:
@@ -359,11 +439,16 @@ def _kernel_backward(q, k, v, out, dout, lse, causal: bool, scale: float):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # The staged route's copies (on a fake tensor too, so the dry run's
-    # memory peak holds them).
-    scratch = (torch.empty(staged_scratch_numel(b, sq, skv, hq, hkv, d),
-                           dtype=q.dtype, device=q.device)
-               if bwd_design(q.dtype, d) in STAGED_DESIGNS else None)
+    # The staged route's copies, or route "wide"'s dK/dV parts (on a fake
+    # tensor too, so the dry run's memory peak holds them).
+    design = bwd_design(q.dtype, d)
+    scratch = None
+    if design in STAGED_DESIGNS:
+        scratch = torch.empty(staged_scratch_numel(b, sq, skv, hq, hkv, d),
+                              dtype=q.dtype, device=q.device)
+    elif design == "wide" and wide_parts_numel(b, skv, hq, hkv, d):
+        scratch = torch.empty(wide_parts_numel(b, skv, hq, hkv, d),
+                              dtype=torch.float32, device=q.device)
     if is_fake(q):
         KERNEL_BWD.fake_call(kernel_cost.flash_bwd(b, sq, skv, hq, hkv, d,
                                                    q.dtype, causal))

@@ -299,27 +299,29 @@ def test_flash_bwd_design_routes():
     """bf16 at d 64, 128, 160 and 256 (every instantiated d above 32)
     takes the wgmma kernels, bf16 at a d from 33 to 256 that is not a
     multiple of 8 the same kernels through staged rows ("wgmma_staged"),
-    where the forward stays on the CUDA cores; fp32, and bf16 at d 32 and
-    below, the CUDA-core ones; above 256 bf16 up to 768 takes the
-    tensor-core column tiles, on the caller's rows at a multiple of 8 and
-    through staged rows at any other d (forward and backward alike), fp32
-    and bf16 above 768 the CUDA-core ones; the backward takes every head
-    dim the forward does; what no kernel takes raises."""
+    the forward alike; fp32 above 32 the CUDA-core tiles of route "wide"
+    (one tile up to 256), both dtypes at 32 and below the CUDA-core
+    kernels ("simt"); above 256 bf16 up to 768 takes the tensor-core
+    column tiles, on the caller's rows at a multiple of 8 and through
+    staged rows at any other d (forward and backward alike), fp32 and bf16
+    above 768 the CUDA-core ones; the backward takes every head dim the
+    forward does, on the forward's route; what no kernel takes raises."""
     assert tflash.bwd_design(torch.bfloat16, 160) == "wgmma"
-    assert tflash.bwd_design(torch.float32, 160) == "simt"
+    assert tflash.bwd_design(torch.float32, 160) == "wide"
     for dtype in (torch.float32, torch.bfloat16):
         for d in tflash.HEAD_DIMS:
-            want = "wgmma" if dtype == torch.bfloat16 and \
-                d in (64, 128, 160, 256) else "simt"
+            want = "simt" if d <= 32 else \
+                "wgmma" if dtype == torch.bfloat16 else "wide"
             assert tflash.bwd_design(dtype, d) == want
     for d in (36, 76, 99, 100, 130, 250):
         assert tflash.bwd_design(torch.bfloat16, d) == "wgmma_staged"
-        assert tflash.fwd_design(torch.bfloat16, d) == "simt"
-        assert tflash.bwd_design(torch.float32, d) == "simt"
+        assert tflash.fwd_design(torch.bfloat16, d) == "wgmma_staged"
+        assert tflash.bwd_design(torch.float32, d) == "wide"
         assert tflash.staged_ld(d) % 8 == 0
         assert 0 < tflash.staged_ld(d) - d < 8
     for d in (1, 7, 17, 31, 32):
         assert tflash.bwd_design(torch.bfloat16, d) == "simt"
+        assert tflash.bwd_design(torch.float32, d) == "simt"
     for d in (40, 80, 96, 104, 136, 248):
         assert tflash.bwd_design(torch.bfloat16, d) == "wgmma"
         assert tflash.staged_ld(d) == d
@@ -343,45 +345,67 @@ def test_flash_bwd_design_routes():
 
 
 def test_flash_bwd_design_matches_the_kernel_dispatch():
-    """``bwd_design`` is ``repro_flash_attention_bwd``'s dispatch: bf16
-    where ``tc_route`` holds (evaluated from the source) launches
-    ``bwd_tc::launch`` at the padded head dims its cases list, bf16 where
-    ``common.cuh``'s ``staged_route`` holds its staged instantiations at
-    the same padded head dims, the rest (d 32 and below) ``bwd::dispatch``,
-    whose bf16 cases are 16 and 32; fp32 goes to ``bwd::dispatch<float>``,
-    whose cases are ``HEAD_DIMS``."""
+    """``bwd_design`` (and ``fwd_design``, the same function) is
+    ``repro_flash_attention_bwd``'s and ``repro_flash_attention``'s
+    dispatch: bf16 where ``tc_route`` holds (evaluated from the source)
+    launches ``bwd_tc::launch`` (``tc::launch``) at the padded head dims
+    its cases list, bf16 where ``common.cuh``'s ``staged_route`` holds the
+    staged instantiations at the same padded head dims, where
+    ``simt_wide_route`` holds (fp32 above 32) route "wide"; the rest (d 32
+    and below, both dtypes) ``bwd::dispatch`` (``dispatch_simt``), whose
+    cases are 16 and 32 in both dtypes: no CUDA-core instantiation above
+    32 is left."""
     csrc = Path(tflash.__file__).parents[1] / "csrc"
     src = (csrc / "flash_attention.cu").read_text()
+    common = (csrc / "common.cuh").read_text()
     entry = src[src.index('extern "C" int repro_flash_attention_bwd'):]
+    fwd_entry = src[src.index('extern "C" int repro_flash_attention('):
+                    src.index('extern "C" int repro_flash_attention_bwd')]
     tc_dims = {int(x) for x in
                re.findall(r"case (\d+): return bwd_tc::launch<\1>", entry)}
     staged_dims = {int(x) for x in re.findall(
         r"case (\d+): return bwd_tc::launch<\1, true>", entry)}
     assert staged_dims == tc_dims
-    simt = src[src.index("int dispatch(int d, const void* q"):]
-    bf16_part, f32_part = simt.split("default:")[:2]
-    simt_dims = [{int(x) for x in re.findall(
-        r"case (\d+): return launch<T, \1>", part)}
-        for part in (bf16_part, f32_part)]
-    assert "if constexpr (sizeof(T) == 2)" in bf16_part
-    assert simt_dims == [{16, 32}, set(tflash.HEAD_DIMS)]
+    assert {int(x) for x in re.findall(
+        r"case (\d+): return tc::launch<\1>", fwd_entry)} == tc_dims
+    assert {int(x) for x in re.findall(
+        r"case (\d+): return tc::launch_as<\1, tc::kStaged>",
+        fwd_entry)} == tc_dims
+    for fn in ("int dispatch(int d, const void* q",
+               "int dispatch_simt(int d, const void* q"):
+        simt = src[src.index(fn):]
+        simt = simt[:simt.index("default:")]
+        assert {int(x) for x in re.findall(
+            r"case (\d+): return launch(?:_simt)?<T, \1>", simt)} == \
+            {16, 32}
+    assert "flash_fwd_simt_kernel<T, D, kPad>" in src
     assert tc_dims == {d for d in tflash.HEAD_DIMS if d > 32}
     route = re.search(r"bool tc_route\(int d\) \{ return ([^;]+); \}",
                       src).group(1).replace("&&", "and")
     staged = re.search(r"bool staged_route\(int d\) \{\s*return ([^;]+);",
-                       (csrc / "common.cuh").read_text()).group(1)
+                       common).group(1)
     staged = staged.replace("&&", "and")
+    wide = re.search(r"bool simt_wide_route\(int f32, int d\) \{\s*"
+                     r"return f32 \? ([^:]+) : ([^;]+);", common)
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", common)}
     for d in range(1, tflash.MAX_HEAD_DIM + 1):
         want = "wgmma" if eval(route, {"d": d}) else "simt"
         assert not (eval(route, {"d": d}) and eval(staged, {"d": d}))
-        assert tflash.bwd_design(torch.bfloat16, d) == (
-            "wgmma_staged" if eval(staged, {"d": d}) else want), d
-        assert tflash.fwd_design(torch.bfloat16, d) == want, d
-        assert tflash.bwd_design(torch.float32, d) == "simt"
-    assert entry.index("if (tc_route(d))") < \
-        entry.index("if (staged_route(d))") < \
-        entry.index("return bwd::dispatch<__nv_bfloat16>(")
+        for design in (tflash.bwd_design, tflash.fwd_design):
+            assert design(torch.bfloat16, d) == (
+                "wgmma_staged" if eval(staged, {"d": d}) else want), d
+            assert design(torch.float32, d) == (
+                "wide" if eval(wide.group(1), {**consts, "d": d})
+                else "simt"), d
+        assert not eval(wide.group(2), {**consts, "d": d})
+    for body in (entry, fwd_entry):
+        assert body.index("simt_wide_route(dtype == kF32, d)") < \
+            body.index("if (tc_route(d))") < \
+            body.index("if (staged_route(d))")
     assert "if (dtype == kF32)\n    return bwd::dispatch<float>(" in entry
+    assert entry.index("simt_wide_route(dtype == kF32, d)") < \
+        entry.index("return bwd::dispatch<float>(")
 
 
 @pytest.mark.parametrize("causal", [True, False])

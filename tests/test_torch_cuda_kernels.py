@@ -1092,15 +1092,26 @@ WIDE_SIMT_CASES = [
         (torch.bfloat16, (1, 130, 77, 4, 2, 800)))
     for causal in (True, False)]
 WIDE_FLASH_CASES += WIDE_SIMT_CASES
+# Route "wide" at one tile (fp32 at d 33-256): every tile width (64, 128,
+# 192, 256), 16-byte and element copies, groups 1, 2, 4 and 8 at 8/1,
+# 8/2 and 32/8 heads, the dK/dV walk in one part and in several (8/1,
+# 8/2), sq above and below skv, causal and full.
+ONE_TILE_CASES = [
+    (torch.float32, *case) for case in (
+        (1, 130, 200, 8, 1, 33, False), (2, 65, 65, 8, 1, 33, True),
+        (1, 200, 65, 8, 2, 64, False), (2, 130, 130, 8, 2, 64, True),
+        (1, 77, 200, 32, 8, 96, False), (1, 200, 200, 32, 8, 96, True),
+        (2, 130, 130, 8, 2, 99, True), (1, 65, 130, 8, 2, 99, False),
+        (1, 333, 333, 8, 1, 100, True), (1, 130, 77, 8, 8, 100, False),
+        (1, 130, 130, 32, 8, 160, True), (1, 200, 130, 32, 8, 160, False),
+        (2, 256, 256, 8, 1, 256, True), (1, 65, 333, 8, 1, 256, False),
+        (1, 1, 1, 8, 2, 64, True), (8, 256, 256, 8, 1, 256, True))]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,causal", WIDE_FLASH_CASES)
-def test_flash_above_256_forward_and_backward_match_plain(
-        cuda, dtype, b, sq, skv, hq, hkv, d, causal):
-    """The column-tile kernels of both routes, forward with its lse and
-    backward, against the plain versions; one launch each; the backward
-    bitwise repeatable."""
+def _check_flash_against_plain(dtype, b, sq, skv, hq, hkv, d, causal,
+                               cuda):
+    """Forward with its lse and backward against the plain versions; one
+    launch each; the backward bitwise repeatable."""
     q, k, v, dout = _attn_inputs(cuda, dtype, b, sq, skv, hq, hkv, d)
     scale = d ** -0.5
     before = (tflash.KERNEL.launches, tflash.KERNEL_BWD.launches)
@@ -1124,17 +1135,41 @@ def test_flash_above_256_forward_and_backward_match_plain(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,causal", WIDE_FLASH_CASES)
+def test_flash_above_256_forward_and_backward_match_plain(
+        cuda, dtype, b, sq, skv, hq, hkv, d, causal):
+    """The column-tile kernels of both routes, forward with its lse and
+    backward, against the plain versions; one launch each; the backward
+    bitwise repeatable."""
+    _check_flash_against_plain(dtype, b, sq, skv, hq, hkv, d, causal, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,causal", ONE_TILE_CASES)
+def test_flash_wide_one_tile_matches_plain(cuda, dtype, b, sq, skv, hq, hkv,
+                                           d, causal):
+    """Route "wide" at one tile (fp32, d 33-256), forward with its lse and
+    backward, against the plain versions; one launch each; the backward
+    (in one part or several) bitwise repeatable."""
+    assert tflash.fwd_design(dtype, d) == "wide"
+    assert tflash.simt_wide_plan(d)["tiles"] == 1
+    _check_flash_against_plain(dtype, b, sq, skv, hq, hkv, d, causal, cuda)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,causal", [
-    c for c in WIDE_FLASH_CASES if tflash.fwd_design(c[0], c[6]) == "wide"])
+    c for c in WIDE_FLASH_CASES + ONE_TILE_CASES
+    if tflash.fwd_design(c[0], c[6]) == "wide"])
 def test_flash_wide_replays_in_a_cuda_graph_and_writes_nothing_past_d(
         cuda, dtype, b, sq, skv, hq, hkv, d, causal):
     """Route "wide": the profiler names its three column-tile kernels (and
-    delta's pass) and no other route's; o, dq, dk and dv carved from the
-    front of larger buffers that hold a canary keep it in each tail (a
-    store past d in the last row, or by a cluster's blocks past the last
-    tile, would land there) and equal the wrapper's own; forward and
-    backward captured once in a CUDA graph and replayed after the inputs
-    change in place equal eager calls on the new inputs bit for bit."""
+    delta's pass, and where the dK/dV walk runs in parts their sum) and no
+    other route's; o, dq, dk and dv carved from the front of larger
+    buffers that hold a canary keep it in each tail (a store past d in the
+    last row, or by a cluster's blocks past the last tile, would land
+    there) and equal the wrapper's own; forward and backward captured once
+    in a CUDA graph and replayed after the inputs change in place equal
+    eager calls on the new inputs bit for bit."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels._build import dtype_code, stream_handle
@@ -1153,6 +1188,8 @@ def test_flash_wide_replays_in_a_cuda_graph_and_writes_nothing_past_d(
         "flash_fwd_wide_kernel", "flash_bwd_dkdv_wide_kernel",
         "flash_bwd_dq_wide_kernel", "flash_bwd_preprocess_rows")), names
     assert "wgmma" not in names and "stage_rows" not in names, names
+    parts = tflash.simt_wide_kv_parts(b, skv, hq, hkv, d)
+    assert ("flash_bwd_parts_sum_kernel" in names) == (parts > 1), names
 
     def carve(t):
         buf = torch.full((t.numel() + 300,), -7.0, dtype=dtype, device=cuda)
@@ -1164,10 +1201,14 @@ def test_flash_wide_replays_in_a_cuda_graph_and_writes_nothing_past_d(
             stream_handle(q.device))
     tflash.KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
                   lse2.data_ptr(), None, *ints)
+    scratch = (torch.empty(tflash.wide_parts_numel(b, skv, hq, hkv, d),
+                           device=cuda) if parts > 1 else None)
     tflash.KERNEL_BWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), dq2.data_ptr(), dk2.data_ptr(),
-                      dv2.data_ptr(), None, *ints)
+                      dv2.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(),
+                      *ints)
     torch.cuda.synchronize()
     for buf, got, want in ((ob, o2, out), (qb, dq2, dq), (kb, dk2, dk),
                            (vb, dv2, dv)):
@@ -1234,6 +1275,59 @@ def test_flash_staged_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d,
                                leaves, dout)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b_) for a, b_ in zip(auto, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", STAGED_FLASH_CASES)
+def test_flash_staged_forward_matches_plain(cuda, b, sq, skv, hq, hkv, d,
+                                            causal):
+    """The staged route's forward (bf16, d 33-256 not a multiple of 8, at
+    d 99, 100 and 250 among others): the profiler names the copy and the
+    wgmma forward and no CUDA-core kernel; one launch a call, against the
+    plain forward at the bf16 tolerance, its lse against the plain one;
+    an output carved from the front of a larger buffer keeps a canary in
+    its tail (a store past d in the last row would land there) and equals
+    the wrapper's own; a CUDA graph's replay equals an eager call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels._build import dtype_code, stream_handle
+    bf16 = torch.bfloat16
+    assert tflash.fwd_design(bf16, d) == "wgmma_staged"
+    q, k, v, _ = _attn_inputs(cuda, bf16, b, sq, skv, hq, hkv, d)
+    scale = tflash._scale(q, None)
+    before = tflash.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = tflash._kernel_forward(q, k, v, causal, scale,
+                                          with_lse=True)
+        torch.cuda.synchronize()
+    assert tflash.KERNEL.launches == before + 1
+    names = " ".join(e.key for e in prof.key_averages())
+    assert "flash_fwd_wgmma_kernel" in names and \
+        "flash_stage_rows_group_kernel" in names, names
+    assert "simt" not in names and "wide" not in names, names
+    torch.testing.assert_close(
+        out.float(), tflash.plain(q, k, v, causal=causal,
+                                  scale=scale).float(), rtol=2e-2, atol=2e-2)
+    _rel_close(lse, attention_lse_ref(q, k, causal=causal, scale=scale),
+               LSE_TOL[bf16])
+    buf = torch.full((out.numel() + 300,), -7.0, dtype=bf16, device=cuda)
+    o2 = buf[:out.numel()].view(out.shape)
+    scratch = torch.empty(tflash.staged_scratch_numel(
+        b, sq, skv, hq, hkv, d, forward=True), dtype=bf16, device=cuda)
+    tflash.KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
+                  None, scratch.data_ptr(), b, sq, skv, hq, hkv, d, scale,
+                  int(causal), dtype_code(q), stream_handle(q.device))
+    torch.cuda.synchronize()
+    assert (buf[out.numel():] == -7.0).all() and torch.equal(o2, out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, _ = tflash._kernel_forward(q, k, v, causal, scale)
+    for t in (q, k, v):
+        t.copy_(_randn(t.shape, bf16, cuda, 9))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, tflash._kernel_forward(q, k, v, causal,
+                                                     scale)[0])
 
 
 # bf16 head dims above 256 that are not whole 16-byte rows: route
@@ -1501,8 +1595,9 @@ def test_flash_bwd_wgmma_is_bitwise_repeatable(cuda, d, hq):
 def test_flash_bwd_launches_the_kernels_of_its_design(cuda, dtype, d):
     """By the profiler's kernel names: bf16 at d 64/128/160 runs the wgmma
     kernels and never the CUDA-core ones; at d 100 and 99 the staging copy
-    (which writes delta) and the wgmma kernels; the rest the CUDA-core
-    ones."""
+    (which writes delta) and the wgmma kernels; fp32 above 32 route
+    "wide"'s tiles after delta's pass a warp a row; bf16 at 32 the
+    CUDA-core kernels."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v, dout = _attn_inputs(cuda, dtype, 2, 130, 130, 8, 4, d)
     scale = d ** -0.5
@@ -1514,12 +1609,16 @@ def test_flash_bwd_launches_the_kernels_of_its_design(cuda, dtype, d):
     names = " ".join(e.key for e in prof.key_averages())
     wgmma = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
     simt = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
-    want, never = (wgmma, simt) if tflash.bwd_design(dtype, d) == "wgmma" \
-        else (simt, wgmma)
-    if tflash.bwd_design(dtype, d) == "wgmma_staged":
-        want = wgmma + ("flash_bwd_stage_rows_kernel",)
-        never = simt + ("flash_bwd_preprocess",)
-    else:
+    wide = ("flash_bwd_dkdv_wide_kernel", "flash_bwd_dq_wide_kernel",
+            "flash_bwd_preprocess_rows_kernel")
+    design = tflash.bwd_design(dtype, d)
+    want, never = {"wgmma": (wgmma, simt + wide),
+                   "simt": (simt, wgmma + wide),
+                   "wide": (wide, wgmma + simt),
+                   "wgmma_staged": (wgmma + ("flash_stage_rows_group_kernel",),
+                                    simt + wide + ("flash_bwd_preprocess",))
+                   }[design]
+    if design in ("wgmma", "simt"):
         assert "flash_bwd_preprocess_kernel" in names
     assert all(n in names for n in want), names
     assert not any(n in names for n in never), names

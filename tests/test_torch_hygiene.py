@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
 ``src/repro_torch/``, ``chip_smoke.py``, the port's measurement tools
 ``tools/train_step_ab.py``, ``tools/attention_ab.py``,
-``tools/flash_variants_ab.py`` and ``tools/nvcc_times.py`` or its
+``tools/flash_variants_ab.py``, ``tools/nvcc_times.py`` and
+``tools/sass_diff.py`` or its
 examples ``examples/torch_*.py``; its copied configs equal the JAX package's, and
 so does every definition of its copies of the numpy layer; its entry
 points refuse a missing card instead of running on the CPU."""
@@ -23,7 +24,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "train_step_ab.py",
     REPO / "tools" / "attention_ab.py", REPO / "tools" / "nvcc_times.py",
-    REPO / "tools" / "flash_variants_ab.py"
+    REPO / "tools" / "flash_variants_ab.py", REPO / "tools" / "sass_diff.py"
 ] + sorted(
     (REPO / "examples").glob("torch_*.py"))
 
@@ -51,18 +52,19 @@ def test_port_has_the_three_kernel_sources():
     """One CUDA source for each of the JAX package's five Pallas kernels,
     the SSD scan's backward in one of its own, flash attention's
     tensor-core kernels above a head dim of 256 in another, its CUDA-core
-    ones above 256 in another and decode attention's tensor-core kernel in
-    a fifth (the name dates from the first slice, which had three)."""
+    ones above 256 in another and at one tile (d 33-256) in another, and
+    decode attention's tensor-core kernel in a sixth (the name dates from
+    the first slice, which had three)."""
     csrc = REPO / "src" / "repro_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "rmsnorm.cu", "flash_attention.cu", "flash_attention_wide.cu",
-        "flash_attention_simt_wide.cu", "decode_attention.cu",
-        "decode_attention_tc.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
-        "int8_matmul.cu"}
+        "flash_attention_simt_wide.cu", "flash_attention_simt_tile.cu",
+        "decode_attention.cu", "decode_attention_tc.cu", "ssd_scan.cu",
+        "ssd_scan_bwd.cu", "int8_matmul.cu"}
     pallas = {p.stem for p in (REPO / "src" / "repro" / "kernels").glob(
         "*.py") if "pl.pallas_call" in p.read_text()}
     assert {p.stem.removesuffix("_bwd").removesuffix("_wide")
-            .removesuffix("_tc").removesuffix("_simt")
+            .removesuffix("_tc").removesuffix("_tile").removesuffix("_simt")
             for p in csrc.glob("*.cu")} == pallas
 
 

@@ -165,7 +165,7 @@ COPY_PER = 3    # chunks a lane of flash_stage_rows_kernel holds in a pass
 
 def _copy_lanes(d: int) -> list:
     """(lane, chunk) of each 16-byte chunk a staged row's copy stores, in
-    the kernel's order. Up to 256 (``flash_bwd_stage_rows_kernel``) a row
+    the kernel's order. Up to 256 (``flash_stage_rows_group_kernel``) a row
     takes a group of p lanes, p the least power of two at or above its
     ``staged_ld(d) / 8`` chunks, lane j chunk j; above 256
     (``flash_stage_rows_kernel``) one warp, lane j its chunks j, j + 32, j
@@ -274,8 +274,8 @@ def test_flash_staged_backward_arithmetic(causal, hq, hkv, d, rng):
                                       (4, 4, 100)],
                          ids=["d257", "g2-d263", "g2-d300", "d100"])
 def test_flash_staged_forward_arithmetic(causal, hq, hkv, d, rng):
-    """The staged forward (``"wgmma_wide_staged"``; at d 100 the copy that
-    the forward below 256 would take) in fp32: q, k and v staged to rows
+    """The staged forward (``"wgmma_wide_staged"``; at d 100
+    ``"wgmma_staged"``) in fp32: q, k and v staged to rows
     of ``staged_ld(d)`` as the copy builds them, ``attention_ref`` at that
     width with the real d's scale (1 / sqrt(d), not 1 / sqrt(ld)) equals
     the result at d bit for bit in its first d columns (the zero columns
@@ -303,23 +303,159 @@ def test_flash_staged_forward_arithmetic(causal, hq, hkv, d, rng):
         assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
 
 
+LOG2E = 1.4426950408889634
+
+
+def _staged_wgmma_forward(q, k, v, causal, scale):
+    """The bf16 forward of route ``"wgmma_staged"`` (``flash_fwd_wgmma_kernel``
+    in its ``kStaged`` instantiation) tile for tile: q, k and v staged to
+    rows of ``staged_ld(d)`` as the copy builds them (zeros past d); per q
+    tile of 64 rows the kv tiles of 64 up to the diagonal, S = Q K^T in
+    fp32, the online softmax in log2 units (scale times log2 e; masked
+    scores -1e30), P rounded to bf16 as the P.V operand, fp32 sums; the
+    output divided by l (1 where l is 0), rounded to bf16 and cut at d."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qs, ks, vs = (_stage_rows(t).float() for t in (q, k, v))
+    bf = lambda t: t.to(torch.bfloat16).float()
+    out = torch.zeros(b, sq, hq, qs.shape[-1])
+    c = scale * LOG2E
+    for h in range(hq):
+        for q0 in range(0, sq, 64):
+            Q = qs[:, q0:q0 + 64, h]
+            rows = torch.arange(q0, q0 + Q.shape[1])[:, None]
+            m = torch.full((b, Q.shape[1]), -1e30)
+            l = torch.zeros(b, Q.shape[1])
+            acc = torch.zeros(b, Q.shape[1], qs.shape[-1])
+            kv_end = min(skv, q0 + 64) if causal else skv
+            for k0 in range(0, kv_end, 64):
+                K = ks[:, k0:k0 + 64, h // g]
+                V = vs[:, k0:k0 + 64, h // g]
+                cols = torch.arange(k0, k0 + K.shape[1])[None, :]
+                x = Q @ K.transpose(1, 2) * c
+                if causal:
+                    x = torch.where(cols > rows, torch.tensor(-1e30), x)
+                mn = torch.maximum(m, x.max(-1).values)
+                p = torch.exp2(x - mn[..., None])
+                alpha = torch.exp2(m - mn)
+                l = l * alpha + p.sum(-1)
+                m = mn
+                acc = acc * alpha[..., None] + bf(p) @ V
+            out[:, q0:q0 + 64, h] = acc / torch.where(l == 0, 1.0,
+                                                      l)[..., None]
+    assert not out[..., d:].any()
+    return out[..., :d].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 100), (4, 2, 99), (2, 1, 250)],
+                         ids=["d100", "g2-d99", "g2-d250"])
+def test_flash_staged_wgmma_forward_emulation_matches_pallas(causal, hq, hkv,
+                                                             d, rng):
+    """The bf16 staged forward (``_staged_wgmma_forward``: rows staged past
+    d as zeros, P rounded to bf16) on bf16 inputs against the Pallas kernel
+    in interpret mode on the same values, at the card's bf16 tolerance
+    (KERNEL_TOL, 2e-2), at two 64-row q and kv tiles."""
+    b, s = 1, 128
+    q, k, v = (jnp.asarray(rng.standard_normal(sh), jnp.bfloat16) for sh in
+               ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    tq, tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (q, k, v))
+    assert tflash.fwd_design(torch.bfloat16, d) == "wgmma_staged"
+    got = _staged_wgmma_forward(tq, tk, tv, causal, 1.0 / np.sqrt(d))
+    pallas = jflash(q, k, v, causal=causal, block_q=64, block_k=64,
+                    interpret=True)
+    _close(got, pallas.astype(jnp.float32), BF16_TOL)
+
+
+def _wide_parts_dkdv(q, k, v, out, dout, lse, causal, scale):
+    """dK and dV of route ``"wide"`` at one tile, as its dK/dV blocks and
+    ``flash_bwd_parts_sum_kernel`` compute them in fp32: the group's q
+    heads in ``simt_wide_kv_parts`` parts, each part's block summing its
+    heads' q tiles of 64 rows in walk order (head, then q tile), the parts'
+    sums added in part order, dK times the scale after the sum."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    parts = tflash.simt_wide_kv_parts(b, skv, hq, hkv, d)
+    qh, oh, dh = (_heads_first(t) for t in (q, out, dout))
+    kh, vh = _heads_first(k), _heads_first(v)
+    delta = (dh * oh).sum(-1)
+    ok = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        ok = torch.arange(skv)[None, :] <= torch.arange(sq)[:, None]
+    dk_parts, dv_parts = [], []
+    for part in range(parts):
+        dk = torch.zeros_like(kh)
+        dv = torch.zeros_like(vh)
+        for kvh in range(hkv):
+            for gi in range(part * g // parts, (part + 1) * g // parts):
+                h = kvh * g + gi
+                for q0 in range(0, sq, 64):
+                    Q, dO = qh[:, h, q0:q0 + 64], dh[:, h, q0:q0 + 64]
+                    okt = ok[q0:q0 + 64].T
+                    pt = torch.where(okt, torch.exp(
+                        kh[:, kvh] @ Q.transpose(1, 2) * scale -
+                        lse[:, h, None, q0:q0 + 64]), 0.0)
+                    dst = pt * (vh[:, kvh] @ dO.transpose(1, 2) -
+                                delta[:, h, None, q0:q0 + 64])
+                    dv[:, kvh] += pt @ dO
+                    dk[:, kvh] += dst @ Q
+        dk_parts.append(dk)
+        dv_parts.append(dv)
+    dk, dv = dk_parts[0], dv_parts[0]
+    for a, c in zip(dk_parts[1:], dv_parts[1:]):
+        dk, dv = dk + a, dv + c
+    return parts, (dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 100), (8, 2, 64), (6, 1, 256)],
+                         ids=["g8-d100", "g4-d64", "g6-d256"])
+def test_wide_dkdv_parts_arithmetic(causal, hq, hkv, d, rng):
+    """Route ``"wide"``'s dK and dV in parts (``_wide_parts_dkdv``: the
+    group's q heads split as the plan splits them, each part's fp32 sums
+    added in part order) match ``jax.vjp`` of
+    ``repro.kernels.ref.attention_ref`` within GRAD_TOL of max(1,
+    max-abs), on the plain forward's output and lse; the plan takes more
+    than one part at these shapes, uneven where it does not divide the
+    group."""
+    b, s = 1, 96
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)) for sh in ((b, s, hq, d), (b, s, hkv, d),
+                                (b, s, hkv, d), (b, s, hq, d)))
+    scale = d ** -0.5
+    out = tref.attention_ref(q, k, v, causal=causal)
+    lse = tref.attention_lse_ref(q, k, causal=causal)
+    parts, dk, dv = _wide_parts_dkdv(q, k, v, out, dout, lse, causal, scale)
+    assert parts > 1
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(a, b_, c,
+                                                         causal=causal),
+                     *(jnp.asarray(_np(t)) for t in (q, k, v)))
+    for g, w in zip((dk, dv), vjp(jnp.asarray(_np(dout)))[1:]):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        err = np.abs(_np(g) - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), err
+
+
 @pytest.mark.parametrize("d,dtype,design", [
     (96, torch.bfloat16, "wgmma"), (80, torch.bfloat16, "wgmma"),
     (256, torch.bfloat16, "wgmma"), (136, torch.bfloat16, "wgmma"),
-    (40, torch.bfloat16, "wgmma"), (100, torch.bfloat16, "simt"),
-    (250, torch.bfloat16, "simt"), (24, torch.bfloat16, "simt"),
-    (8, torch.bfloat16, "simt"), (256, torch.float32, "simt"),
-    (96, torch.float32, "simt"), (1, torch.float32, "simt")])
+    (40, torch.bfloat16, "wgmma"), (100, torch.bfloat16, "wgmma_staged"),
+    (250, torch.bfloat16, "wgmma_staged"), (24, torch.bfloat16, "simt"),
+    (8, torch.bfloat16, "simt"), (256, torch.float32, "wide"),
+    (96, torch.float32, "wide"), (1, torch.float32, "simt")])
 def test_flash_designs_name_the_route_at_new_head_dims(d, dtype, design):
-    """bf16 with d a multiple of 8 above 32 on the wgmma kernels (the TMA
-    maps need rows of whole 16-byte chunks), everything else on the CUDA
-    cores, forward and backward alike, at the padded head dim; but the
-    backward at bf16 d 100 and 250 (above 32, not whole 16-byte rows) on
-    the wgmma kernels through staged rows."""
-    assert tflash.fwd_design(dtype, d) == design
-    staged = dtype == torch.bfloat16 and d in (100, 250)
-    assert tflash.bwd_design(dtype, d) == (
-        "wgmma_staged" if staged else design)
+    """bf16 above 32 on the wgmma kernels, on the caller's rows where d is
+    a multiple of 8 (the TMA maps need rows of whole 16-byte chunks) and
+    through staged rows at the other d (100, 250); fp32 above 32 on the
+    CUDA-core tiles of route "wide" (one tile up to 256); both dtypes at
+    32 and below on the CUDA-core kernels at the padded head dim; forward
+    and backward alike."""
+    assert tflash.fwd_design(dtype, d) == tflash.bwd_design(dtype, d) == \
+        design
     padded = tflash.padded_head_dim(d)
     assert padded in tflash.HEAD_DIMS and padded >= d
     assert all(p < d for p in tflash.HEAD_DIMS if p < padded)
@@ -459,59 +595,169 @@ SIMT_WIDE_FNS = {"tiles": "simt_wide_col_tiles",
                  "width": "simt_wide_tile_width",
                  "cluster": "simt_wide_cluster",
                  "clusters": "simt_wide_clusters",
-                 "slice": "simt_wide_slice_width"}
+                 "slice": "simt_wide_slice_width",
+                 "resident": "simt_wide_resident"}
+MODES = {"kStreamed": tflash.STREAMED, "kResident": tflash.RESIDENT,
+         "kOneTile": tflash.ONE_TILE}
 
 
 def _check_simt_wide_plan(d, plan):
-    """The plan covers d: tiles of ``width`` (an instantiated width above
-    256) none empty, the last holding column d - 1; clusters of at most 8
-    that hold every tile; slices of whole 32-column pieces, none empty,
-    that cover d."""
+    """The plan covers d: tiles of ``width`` (64-256, one tile up to 256;
+    an instantiated width) none empty, the last holding column d - 1;
+    clusters of at most 8 that hold every tile; slices of whole 32-column
+    pieces, none empty, that cover d; X resident at one tile, and above it
+    exactly where the copies are element copies (d % 4 != 0) and a slice
+    is no wider than a tile, which holds up to 8 tiles (d 2048)."""
     n, w, c, sw = plan["tiles"], plan["width"], plan["cluster"], \
         plan["slice"]
     assert (n - 1) * w < d <= n * w and w % 64 == 0 and w <= 256
-    if d > tflash.MAX_HEAD_DIM:
-        assert w in tflash.SIMT_WIDE_WIDTHS
+    assert w in tflash.SIMT_WIDE_WIDTHS
+    assert (n == 1) == (d <= tflash.MAX_HEAD_DIM)
     assert 1 <= c <= tflash.SIMT_WIDE_MAX_CLUSTER and c <= n
     assert (plan["clusters"] - 1) * c < n <= plan["clusters"] * c
     assert sw % tflash.SIMT_WIDE_PIECE == 0
     assert (c - 1) * sw < d <= c * sw
+    assert bool(plan["resident"]) == (n == 1 or (d % 4 != 0 and sw <= w))
+    if d <= 2048:
+        assert sw <= w
 
 
-@pytest.mark.parametrize("lo", range(257, 4201, 493))
+def _simt_wide_instantiations():
+    """(dtype, copy width, tile width, mode) of every route "wide" kernel
+    the sources instantiate: the one-tile cases of
+    ``flash_attention_simt_tile.cu`` and the column tiles' of
+    ``flash_attention_simt_wide.cu``, forward and backward alike (the
+    column tiles' template takes width 192 only under ``if constexpr
+    (f32)``: bf16 is always 256 wide there)."""
+    fwd, bwd = set(), set()
+    for name in ("flash_attention_simt_tile.cu",
+                 "flash_attention_simt_wide.cu"):
+        src = (CSRC / name).read_text()
+        for launch, got in (("fwd_as", fwd), ("bwd_as", bwd)):
+            for t, vec, w, m in re.findall(
+                    rf"{launch}<(\w+), (\d), (\d+), (\w+)>", src):
+                for dt in ((torch.float32,) if t == "float" or w == "192"
+                           else (torch.float32, torch.bfloat16)):
+                    got.add((dt, int(vec), int(w), MODES[m]))
+    src = (CSRC / "flash_attention_simt_wide.cu").read_text()
+    assert src.count("if constexpr (f32)") == 4
+    assert fwd == bwd and fwd
+    return fwd
+
+
+@pytest.mark.parametrize("lo", [1] + list(range(257, 4201, 493)))
 def test_simt_wide_plan_follows_the_c_source(lo):
-    """``csrc/common.cuh``'s plan of the CUDA-core column tiles (route
-    ``"wide"``: ``simt_wide_col_tiles``, ``simt_wide_tile_width``,
+    """``csrc/common.cuh``'s plan of the CUDA-core tiles (route ``"wide"``:
+    ``simt_wide_col_tiles``, ``simt_wide_tile_width``,
     ``simt_wide_cluster``, ``simt_wide_clusters``,
-    ``simt_wide_slice_width``, ``simt_wide_kv_tiles``), evaluated from the
-    source, equals its Python twin (``simt_wide_plan``,
-    ``simt_wide_kv_tiles``) at every d from 257 to 4200 (this case's 493 of
-    them) and covers d (``_check_simt_wide_plan``);
-    ``flash_attention_simt_wide.cu`` instantiates the route's kernels at
-    exactly ``SIMT_WIDE_WIDTHS``,
-    forward and backward; decode's plan (``col_tiles``) is not this one's
-    and stays as it was."""
+    ``simt_wide_slice_width``, ``simt_wide_resident``,
+    ``simt_wide_kv_tiles``), evaluated from the source, equals its Python
+    twin (``simt_wide_plan``, ``simt_wide_kv_tiles``) at every d from 1 to
+    256 (case 1, with ``simt_wide_route`` against ``fwd_design`` in both
+    dtypes: fp32 from 33, never bf16) and from 257 to 4200 (this case's 493
+    of them) and covers d (``_check_simt_wide_plan``); every d the route
+    takes maps to an instantiation of the sources at its copy width, tile
+    width and mode (``SIMT_WIDE_KERNELS``: fp32 at one tile of 64-256,
+    clusters of 192 and 256); decode's plan (``col_tiles``) is not this
+    one's and stays as it was."""
     common = (CSRC / "common.cuh").read_text()
     fns = {k: _c_int_fn(common, name) for k, name in SIMT_WIDE_FNS.items()}
+    route = _c_int_fn(common, "simt_wide_route")
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
     assert (int(const["kSimtWideCols"]), int(const["kSimtWideMaxCluster"]),
-            int(const["kSimtWidePiece"]), int(const["kSimtWideKvRows"])) == (
+            int(const["kSimtWidePiece"]), int(const["kSimtWideKvRows"]),
+            int(const["kSimtMaxDim"])) == (
         tflash.SIMT_WIDE_COLS, tflash.SIMT_WIDE_MAX_CLUSTER,
-        tflash.SIMT_WIDE_PIECE, tflash.SIMT_WIDE_KV_ROWS)
-    for d in range(lo, min(lo + 493, 4201)):
+        tflash.SIMT_WIDE_PIECE, tflash.SIMT_WIDE_KV_ROWS,
+        tflash.SIMT_MAX_HEAD_DIM)
+    kernels = _simt_wide_instantiations()
+    assert kernels == set(tflash.SIMT_WIDE_KERNELS)
+    assert len(kernels) == len(tflash.SIMT_WIDE_KERNELS) == 16
+    hi = tflash.MAX_HEAD_DIM + 1 if lo == 1 else min(lo + 493, 4201)
+    for d in range(lo, hi):
         plan = tflash.simt_wide_plan(d)
         assert {k: fn(d) for k, fn in fns.items()} == plan
         _check_simt_wide_plan(d, plan)
-        assert tflash.col_tiles(d) == (
-            -(-d // 256), -(-(-(-d // -(-d // 256))) // 16) * 16)
-    src = (CSRC / "flash_attention_simt_wide.cu").read_text()
-    for launch in ("fwd_as", "bwd_as"):
-        cases = {int(x) for x in re.findall(
-            rf"case (\d+):\s+return v4 \? {launch}<T, 4, \1>", src)}
-        assert cases == set(tflash.SIMT_WIDE_WIDTHS)
+        for dtype, f32 in ((torch.float32, 1), (torch.bfloat16, 0)):
+            wide = tflash.fwd_design(dtype, d) == "wide"
+            assert bool(route(f32, d)) == wide == \
+                (tflash.bwd_design(dtype, d) == "wide")
+            if wide:
+                assert (dtype, 4 if d % 4 == 0 else 1, plan["width"],
+                        tflash.simt_wide_mode(d)) in kernels, d
+        if d <= tflash.MAX_HEAD_DIM:
+            assert tflash.fwd_design(torch.float32, d) == (
+                "wide" if d > 32 else "simt")
+            assert tflash.simt_wide_mode(d) == tflash.ONE_TILE
+        else:
+            assert tflash.col_tiles(d) == (
+                -(-d // 256), -(-(-(-d // -(-d // 256))) // 16) * 16)
     kv = _c_int_fn(common, "simt_wide_kv_tiles")
     for skv in (1, 31, 32, 33, 256, 333, 4096):
         assert kv(skv) == tflash.simt_wide_kv_tiles(skv) == -(-skv // 32)
+
+
+def test_simt_wide_shared_memory_fits_every_instantiation():
+    """Each route "wide" kernel's shared memory (``simt_wide_smem``, the
+    twin of ``Tiles::smem`` in ``flash_attention_simt_wide.cuh``: X
+    resident but with kStreamed, three staging buffers, W, two partials
+    with a cluster) at every instantiated width and mode is at most a
+    block's 227 KB (the header's ``kMaxSmem``, which its kernels'
+    static_asserts hold); dQ with Q and dO resident at width 256 needs K
+    in chunks of 16 rows (with 32 it would not fit); at one tile nothing
+    goes to the partials (the 32 KB of a cluster's)."""
+    hdr = (CSRC / "flash_attention_simt_wide.cuh").read_text()
+    max_smem = int(re.search(r"kMaxSmem = (\d+);", hdr).group(1))
+    assert max_smem == 232448
+    assert int(re.search(r"constexpr int kStages = (\d+);", hdr).group(1)) \
+        == 3
+    assert "TW == 256 && MODE != kStreamed ? 16 : 32" in hdr
+    assert hdr.count("static_assert(P::smem() <= kMaxSmem") == 3
+    for _, _, w, mode in tflash.SIMT_WIDE_KERNELS:
+        for kernel in ("fwd", "dkdv", "dq"):
+            assert tflash.simt_wide_smem(kernel, w, mode) <= max_smem, \
+                (kernel, w, mode)
+    # dQ at 256 with 32-row chunks of K: 240,640 bytes, past a block's
+    lp, x = 68, 2 * 64 * 260
+    assert 4 * (x + 3 * max(2 * 32 * lp, 32 * 256) + 64 * 36) > max_smem
+    for kernel in ("fwd", "dkdv", "dq"):
+        assert tflash.simt_wide_smem(kernel, 256, tflash.RESIDENT) - \
+            tflash.simt_wide_smem(kernel, 256, tflash.ONE_TILE) == 32768
+
+
+@pytest.mark.parametrize("b,skv,hq,hkv,d,parts", [
+    (8, 256, 8, 1, 256, 5), (8, 256, 32, 8, 160, 1), (8, 256, 8, 2, 99, 3),
+    (8, 256, 32, 32, 96, 1), (8, 256, 8, 8, 100, 1), (8, 256, 8, 1, 576, 1),
+    (8, 256, 8, 2, 288, 1), (1, 77, 4, 1, 64, 4), (2, 64, 8, 2, 257, 4)])
+def test_wide_dkdv_parts_follow_the_c_source(b, skv, hq, hkv, d, parts):
+    """Route "wide"'s dK/dV walk in parts (``simt_wide_kv_parts``, the C
+    function of the blocks one part takes and the group, evaluated from
+    ``common.cuh``): one where the blocks fill a wave of the H100 (132;
+    at 8/1 d 576 and 8/2 d 288 the 192 and 256 blocks), else enough parts
+    for ``SIMT_WIDE_FILL_BLOCKS`` blocks, at most the group's q heads; the
+    wrapper's scratch holds each part's fp32 dK and dV (none with one
+    part). At gemma-2b's 8/1 d 256, b 8, s 256 the 64 blocks of 32 kv rows
+    become 320, at least one an SM of the H100."""
+    common = (CSRC / "common.cuh").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", common))
+    assert int(const["kSimtWideFillBlocks"]) == tflash.SIMT_WIDE_FILL_BLOCKS
+    assert int(const["kSimtWideWave"]) == tflash.SIMT_WIDE_WAVE
+    c_parts = _c_int_fn(common, "simt_wide_kv_parts")
+    plan = tflash.simt_wide_plan(d)
+    blocks = plan["cluster"] * plan["clusters"] * hkv * b * \
+        tflash.simt_wide_kv_tiles(skv)
+    got = tflash.simt_wide_kv_parts(b, skv, hq, hkv, d)
+    assert got == c_parts(blocks, hq // hkv) == parts
+    assert 1 <= got <= hq // hkv
+    if blocks >= tflash.SIMT_WIDE_WAVE:
+        assert got == 1
+    else:
+        assert got == hq // hkv or \
+            blocks * got >= tflash.SIMT_WIDE_FILL_BLOCKS
+    assert tflash.wide_parts_numel(b, skv, hq, hkv, d) == (
+        0 if got == 1 else 2 * got * b * skv * hkv * d)
+    if (hq, hkv, d) == (8, 1, 256):
+        assert blocks == 64 and blocks * got >= 132
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS + [800, 2100, 4200])
@@ -1066,16 +1312,20 @@ def test_kernel_cost_counts_the_real_d_state():
 
 @pytest.mark.parametrize("d,dtype", [
     (100, torch.bfloat16), (99, torch.bfloat16), (104, torch.bfloat16),
-    (257, torch.bfloat16), (264, torch.bfloat16), (257, torch.float32)],
-    ids=["100", "99", "104", "257", "264", "257-f32"])
+    (257, torch.bfloat16), (264, torch.bfloat16), (257, torch.float32),
+    (100, torch.float32), (32, torch.float32)],
+    ids=["100", "99", "104", "257", "264", "257-f32", "100-f32", "32-f32"])
 def test_fake_staged_backward_holds_its_scratch(d, dtype):
-    """On fake CUDA tensors (the dry run) the backward at bf16 d 100 and
-    99 (route ``"wgmma_staged"``) and 257 (``"wgmma_wide_staged"``)
-    allocates the staged copies of q, k, v and dout, and the forward at
-    bf16 d 257 those of q, k and v, so the dry run's memory peak holds
-    them; each counts one call at ``kernel_cost``'s real d (the copy's
-    bytes are the design's, not the function's). At d 104 and 264
-    (``"wgmma"``, ``"wgmma_wide"``) and in fp32 there is no scratch."""
+    """On fake CUDA tensors (the dry run) the forward and the backward at
+    bf16 d 100 and 99 (route ``"wgmma_staged"``) and 257
+    (``"wgmma_wide_staged"``) allocate the staged copies of q, k and v (and
+    dout in the backward), and in fp32 at 257 and 100 (route ``"wide"``,
+    whose 8 dK/dV blocks here split the group of 4 into 4 parts) the
+    backward allocates the parts' fp32 partial dK and dV, so the dry run's
+    memory peak holds them; each counts one call at ``kernel_cost``'s real
+    d (the copy's bytes are the design's, not the function's). At d 104
+    and 264 (``"wgmma"``, ``"wgmma_wide"``) and at fp32 d 32 (``"simt"``)
+    there is no scratch."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.roofline.counter import Recorder
     with FakeTensorMode():
@@ -1091,21 +1341,28 @@ def test_fake_staged_backward_holds_its_scratch(d, dtype):
                                             d ** -0.5)
         _, live = rec.peak_storages(grads)
     bf16 = dtype == torch.bfloat16
-    staged = tflash.bwd_design(dtype, d) in tflash.STAGED_DESIGNS
-    staged_fwd = tflash.fwd_design(dtype, d) in tflash.STAGED_DESIGNS
+    design = tflash.bwd_design(dtype, d)
+    assert design == tflash.fwd_design(dtype, d)
+    staged = design in tflash.STAGED_DESIGNS
     assert staged == (bf16 and d in (100, 99, 257))
-    assert staged_fwd == (bf16 and d == 257)
     ld = tflash.staged_ld(d)
     scratch = 2 * tflash.staged_scratch_numel(2, 64, 64, 8, 2, d)
     assert scratch == 2 * (2 * 2 * 64 * 8 + 2 * 2 * 64 * 2) * ld
     scratch_fwd = 2 * tflash.staged_scratch_numel(2, 64, 64, 8, 2, d,
                                                   forward=True)
     assert scratch_fwd == 2 * (2 * 64 * 8 + 2 * 2 * 64 * 2) * ld
-    for got, n, on in ((live, scratch, staged),
-                       (live_fwd, scratch_fwd, staged_fwd)):
-        big = [x for x in got if x[0] >= 1024]  # beside the outputs at peak
-        assert big == ([(n, "aten.empty.memory_format", (n // 2,), dtype)]
-                       if on else [])
+    parts = (design == "wide") * 4 * tflash.wide_parts_numel(2, 64, 8, 2, d)
+    assert (parts > 0) == (not bf16 and d > 32)
+    if parts:
+        assert tflash.simt_wide_kv_parts(2, 64, 8, 2, d) == 4
+        assert parts == 4 * 2 * 4 * 2 * 64 * 2 * d
+    def alloc(n, dt):
+        return [(n, "aten.empty.memory_format", (n // dt.itemsize,), dt)]
+    want = alloc(scratch, dtype) if staged else \
+        alloc(parts, torch.float32) if parts else []
+    want_fwd = alloc(scratch_fwd, dtype) if staged else []
+    for got, w in ((live, want), (live_fwd, want_fwd)):
+        assert [x for x in got if x[0] >= 1024] == w  # beside the outputs
     assert fwd.kernel_calls() == {"flash_attention": 1}
     assert rec.kernel_calls() == {"flash_attention_bwd": 1}
     assert fwd.kernel_flops == kernel_cost.flash(2, 64, 64, 8, 2, d, dtype,

@@ -13,10 +13,15 @@ with ``--decode`` bf16 decode on route ``mma`` (8/1 and 16/16 at
 d 256, 4 slots, cache 740, plain and partial mode); with ``--wide-f32``
 flash on route ``wide`` (the CUDA-core column tiles) in fp32 at 8/8 d 257,
 8/2 d 288, 8/8 d 512 and 8/1 d 576 and in bf16 at 8/8 d 800, with each
-CUDA kernel's device time a call.
+CUDA kernel's device time a call; with ``--simt-tile`` flash below 257 at
+the shapes route ``wide`` at one tile and route ``wgmma_staged``'s
+forward took from the CUDA-core ``simt`` kernels (fp32 at 8/1 d 256 and
+32/8 d 160, where the dK/dV grid is short of blocks or not; bf16 at 8/8 d
+100 and 8/2 d 99, where the staged rows' copy is timed), with each CUDA
+kernel's device time a call.
 
     python3 tools/flash_variants_ab.py [--staged | --wide-staged | --decode
-        | --wide-f32] VARIANT_DIR ...
+        | --wide-f32 | --simt-tile] VARIANT_DIR ...
 
 Each VARIANT_DIR holds a copy of ``src/repro_torch/csrc``, edited as the
 variant wants. Runs a worker for each
@@ -53,6 +58,9 @@ WIDE_STAGED_SHAPES = [(8, 8, 257), (8, 2, 300), (8, 8, 264)]
 WIDE_F32_SHAPES = [(8, 8, 257, "float32"), (8, 2, 288, "float32"),
                    (8, 8, 512, "float32"), (8, 1, 576, "float32"),
                    (8, 8, 800, "bfloat16")]
+# route "wide" at one tile, and the staged bf16 forward
+SIMT_TILE_SHAPES = [(8, 1, 256, "float32"), (32, 8, 160, "float32"),
+                    (8, 8, 100, "bfloat16"), (8, 2, 99, "bfloat16")]
 
 
 def _follow_routes(kf, common: str) -> None:
@@ -121,8 +129,8 @@ def decode_worker(vdir: str) -> None:
     print(json.dumps(out), flush=True)
 
 
-def worker(vdir: str, staged: bool = False,
-           wide_staged: bool = False, wide_f32: bool = False) -> None:
+def worker(vdir: str, staged: bool = False, wide_staged: bool = False,
+           wide_f32: bool = False, simt_tile: bool = False) -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
@@ -140,7 +148,10 @@ def worker(vdir: str, staged: bool = False,
                     if ("wgmma_kernel<bf16,128" in p or "stage_rows" in p
                         if staged else
                         "wide_kernel" in p and "wgmma" not in p
-                        if wide_f32 else "wgmma_wide" in p or
+                        if wide_f32 else
+                        "stage_rows" in p or "wide_kernel<f32" in p and
+                        ",2>" in p or "flash_fwd_wgmma_kernel" in p
+                        if simt_tile else "wgmma_wide" in p or
                         wide_staged and "flash_stage_rows" in p)]}
 
     def rnd(shape, seed, dtype=torch.bfloat16):
@@ -149,7 +160,8 @@ def worker(vdir: str, staged: bool = False,
 
     shapes = STAGED_SHAPES if staged else \
         WIDE_STAGED_SHAPES if wide_staged else \
-        WIDE_F32_SHAPES if wide_f32 else SHAPES
+        WIDE_F32_SHAPES if wide_f32 else \
+        SIMT_TILE_SHAPES if simt_tile else SHAPES
     for hq, hkv, d, *dt in shapes:
         b, s = 8, 256
         dtype = getattr(torch, dt[0]) if dt else torch.bfloat16
@@ -171,7 +183,7 @@ def worker(vdir: str, staged: bool = False,
             "bwd_ms": cs.time_ms(lambda: kf._kernel_backward(
                 q, k, v, o, do, lse, True, sc), 5),
             "fwd_err": err, "bwd_rel": berr}
-        if wide_staged or wide_f32:
+        if wide_staged or wide_f32 or simt_tile:
             out[name].update(
                 design=kf.fwd_design(dtype, d),
                 fwd_kernel_us=cs.device_us(lambda: kf._kernel_forward(
@@ -184,20 +196,20 @@ def worker(vdir: str, staged: bool = False,
 def main() -> None:
     flags = [a for a in sys.argv[1:]
              if a in ("--staged", "--wide-staged", "--decode",
-                      "--wide-f32")]
+                      "--wide-f32", "--simt-tile")]
     args = [a for a in sys.argv[1:] if a not in flags]
     if args[0] == "--worker":
         if "--decode" in flags:
             decode_worker(args[1])
         else:
             worker(args[1], "--staged" in flags, "--wide-staged" in flags,
-                   "--wide-f32" in flags)
+                   "--wide-f32" in flags, "--simt-tile" in flags)
         return
     dirs = args
     for vdir in dirs + dirs[::-1]:
         r = subprocess.run([sys.executable, __file__, "--worker", vdir,
                             *flags],
-                           capture_output=True, text=True, timeout=600)
+                           capture_output=True, text=True, timeout=900)
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
         print(lines[-1] if lines else
               f"{vdir}: rc {r.returncode} {r.stderr[-2000:]}", flush=True)
